@@ -1,0 +1,405 @@
+// K3: one fused GNS message-passing step (forward), dense (N, K) layout.
+//
+// Replaces: lagrangebench_tpu/ops/fused_mp.py::_make_fused_kernel (math in
+// _mp_math), launched by _launch_fused. Per receiver, with F = 128:
+//
+//   [step 0]  e = LN(relu(raw @ enc_w1 + enc_b1) @ enc_w2 + enc_b2)  (ENC)
+//   first = e @ W_e + hs_gath + hr + b1
+//   msg   = LN(relu(first) @ W2 + b2)
+//   e'    = e + msg
+//   agg   = sum_K msg * mask
+//   h'    = h + LN(relu(h @ W_nh + agg @ W_na + bn1) @ W_n2 + bn2)
+//
+// with the TPU kernel's casts: products of compute-type (bf16) operands
+// accumulate in float32; relu(first) and agg are cast to the compute type
+// before their products; e' = T(e + msg); h' = T(h + LN(y)); LayerNorm in
+// float32 with eps 1e-5. A float32 instance (no tensor cores, CUDA-core
+// FMAs) exists to check the arithmetic against the plain version with TF32
+// off; the main path runs the bf16 instance.
+//
+// Bound on an H100: bytes. Per edge row it reads e and hs_gath (2 x 256 B
+// in bf16) and writes e' (256 B) for 2 x 128 x 128 x 2 = 65.5 kFLOP, about
+// 85 FLOP/B against the card's ~295 FLOP/B balance point for bf16.
+//
+// Design: one block of 8 warps per tile of 16 receivers. Edge rows stream
+// through shared memory 64 at a time, so the tile's e/hs/e' never hold more
+// than one chunk; the products are bf16 nvcuda::wmma 16x16x16 tiles with
+// float32 accumulators; LayerNorm takes one warp per row with shuffle
+// reductions; the K-sum runs in float32, row by row in k order (so it is
+// the same on every run). The edge-phase weights (W_e, W2, and enc_w2 on
+// step 0) sit in shared memory during the edge phase and are replaced by
+// the node-phase weights (W_nh, W_na, W_n2) afterwards: five 128x128 bf16
+// matrices never need to be resident at once. Simple first: no TMA, no
+// wgmma, one block per SM (177 KB of shared memory in the bf16 instance).
+#include <cuda_bf16.h>
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+constexpr int F = 128;       // latent width
+constexpr int TR = 16;       // receivers per block
+constexpr int M = 64;        // edge rows per chunk
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int LDF = F + 4;   // float row stride in shared memory
+constexpr float kEps = 1e-5f;
+
+template <typename T>
+struct Layout;
+template <>
+struct Layout<bf16> {
+  static constexpr int LDA = F + 8;  // bf16 row stride (wmma ldm % 8 == 0)
+  static constexpr bool kStageWeights = true;
+};
+template <>
+struct Layout<float> {
+  static constexpr int LDA = F + 4;
+  static constexpr bool kStageWeights = false;  // read from global (L1/L2)
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+struct Args {
+  const void* e;      // (N, K, F) T, or raw (N, K, fe) float32 with ENC
+  const void* hs;     // (N, K, F) T: gathered sender projections
+  const void* hr;     // (N, F) T: receiver projections
+  const void* h;      // (N, F) T: node latents
+  const float* mask;  // (N, K)
+  void* e_out;        // (N, K, F) T
+  void* h_out;        // (N, F) T
+  const void* w[5];   // W_e, W2, W_nh, W_na, W_n2: (F, F) T, row-major (in, out)
+  const float* vec[8];  // b1, b2, ln1 scale, ln1 bias, bn1, bn2, ln2 scale, ln2 bias
+  const void* enc_w1;   // (fe, F) T
+  const void* enc_w2;   // (F, F) T
+  const float* enc_vec[4];  // enc_b1, enc_b2, enc LN scale, enc LN bias
+  int n, k, fe;
+};
+
+template <typename T>
+struct Smem {
+  static constexpr int LDA = Layout<T>::LDA;
+  static constexpr int kW = Layout<T>::kStageWeights ? F * LDA * (int)sizeof(T) : 0;
+  static constexpr int kA = M * LDA * (int)sizeof(T);
+  static constexpr int kF = M * LDF * 4;
+  static constexpr int kAgg = TR * F * 4;
+  static constexpr int kBytes = 3 * kW + 2 * kA + kF + kAgg;
+};
+
+// Stage a (F, F) row-major weight into shared memory with row stride LDA.
+template <typename T>
+__device__ void stage_weight(T* dst, const void* src) {
+  constexpr int LDA = Layout<T>::LDA;
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
+  const int4* s = reinterpret_cast<const int4*>(src);
+  for (int i = threadIdx.x; i < F * F / V; i += THREADS) {
+    const int r = i / (F / V), c = (i % (F / V)) * V;
+    *reinterpret_cast<int4*>(dst + r * LDA + c) = s[i];
+  }
+}
+
+// C[rows, F] (+)= A[rows, F] @ W[F, F]; rows is a multiple of 16.
+template <typename T>
+__device__ void block_gemm(const T* A, const T* W, float* C, int rows, bool accumulate);
+
+template <>
+__device__ void block_gemm<bf16>(const bf16* A, const bf16* W, float* C, int rows,
+                                 bool accumulate) {
+  constexpr int LDA = Layout<bf16>::LDA;
+  const int warp = threadIdx.x / 32;
+  const int tiles = (rows / 16) * (F / 16);
+  for (int t = warp; t < tiles; t += WARPS) {
+    const int r0 = (t / (F / 16)) * 16, c0 = (t % (F / 16)) * 16;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
+    if (accumulate)
+      wmma::load_matrix_sync(fc, C + r0 * LDF + c0, LDF, wmma::mem_row_major);
+    else
+      wmma::fill_fragment(fc, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < F; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fa, A + r0 * LDA + kk, LDA);
+      wmma::load_matrix_sync(fb, W + kk * LDA + c0, LDA);
+      wmma::mma_sync(fc, fa, fb, fc);
+    }
+    wmma::store_matrix_sync(C + r0 * LDF + c0, fc, LDF, wmma::mem_row_major);
+  }
+}
+
+template <>
+__device__ void block_gemm<float>(const float* A, const float* W, float* C, int rows,
+                                  bool accumulate) {
+  constexpr int LDA = Layout<float>::LDA;
+  const int c = threadIdx.x % F;
+  for (int r0 = (threadIdx.x / F) * 8; r0 < rows; r0 += (THREADS / F) * 8) {
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = accumulate ? C[(r0 + i) * LDF + c] : 0.f;
+    for (int kk = 0; kk < F; ++kk) {
+      const float w = W[kk * F + c];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] += A[(r0 + i) * LDA + kk] * w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) C[(r0 + i) * LDF + c] = acc[i];
+  }
+}
+
+// LayerNorm of one F-wide float row held by a warp (4 values per lane).
+__device__ __forceinline__ void warp_layernorm(float (&x)[F / 32], const float* scale,
+                                               const float* bias, int lane) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < F / 32; ++i) s += x[i];
+  const float mean = lbt::warp_sum(s) * (1.f / F);
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < F / 32; ++i) {
+    const float d = x[i] - mean;
+    v += d * d;
+  }
+  const float inv = rsqrtf(lbt::warp_sum(v) * (1.f / F) + kEps);
+#pragma unroll
+  for (int i = 0; i < F / 32; ++i) {
+    const int c = lane + 32 * i;
+    x[i] = (x[i] - mean) * inv * scale[c] + bias[c];
+  }
+}
+
+template <typename T, bool ENC>
+__global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
+  constexpr int LDA = Layout<T>::LDA;
+  constexpr bool kStage = Layout<T>::kStageWeights;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sW0 = reinterpret_cast<T*>(smem);
+  T* sW1 = reinterpret_cast<T*>(smem + Smem<T>::kW);
+  T* sW2 = reinterpret_cast<T*>(smem + 2 * Smem<T>::kW);
+  T* sA = reinterpret_cast<T*>(smem + 3 * Smem<T>::kW);
+  T* sB = reinterpret_cast<T*>(smem + 3 * Smem<T>::kW + Smem<T>::kA);
+  float* sF = reinterpret_cast<float*>(smem + 3 * Smem<T>::kW + 2 * Smem<T>::kA);
+  float* sAgg = reinterpret_cast<float*>(smem + 3 * Smem<T>::kW + 2 * Smem<T>::kA +
+                                         Smem<T>::kF);
+
+  const int K = a.k;
+  const int node0 = blockIdx.x * TR;
+  const int nodes = min(TR, a.n - node0);
+  const int rows_tile = nodes * K;
+  const int64_t row0 = (int64_t)node0 * K;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  const T* hs = static_cast<const T*>(a.hs);
+  const T* hr = static_cast<const T*>(a.hr);
+  const T* h = static_cast<const T*>(a.h);
+  T* e_out = static_cast<T*>(a.e_out);
+
+  // edge-phase weights: W_e and W2 (+ enc_w2 on step 0)
+  const T* wE = static_cast<const T*>(a.w[0]);
+  const T* w2 = static_cast<const T*>(a.w[1]);
+  const T* wEnc2 = static_cast<const T*>(a.enc_w2);
+  if constexpr (kStage) {
+    stage_weight<T>(sW0, a.w[0]);
+    stage_weight<T>(sW1, a.w[1]);
+    if (ENC) stage_weight<T>(sW2, a.enc_w2);
+    wE = sW0;
+    w2 = sW1;
+    wEnc2 = sW2;
+  }
+  for (int i = threadIdx.x; i < TR * F; i += THREADS) sAgg[i] = 0.f;
+
+  for (int c0 = 0; c0 < rows_tile; c0 += M) {
+    const int rows = min(M, rows_tile - c0);
+    const int rows_pad = (rows + 15) / 16 * 16;
+    __syncthreads();  // previous chunk done with sA/sB/sF; weights staged
+
+    // (a) the chunk's edge latents e -> sA
+    if constexpr (ENC) {
+      const float* raw = static_cast<const float*>(a.e);
+      const T* w1 = static_cast<const T*>(a.enc_w1);
+      for (int i = threadIdx.x; i < rows_pad * F; i += THREADS) {
+        const int r = i / F, c = i % F;
+        float x = 0.f;
+        if (r < rows) {
+          const float* rr = raw + (row0 + c0 + r) * a.fe;
+          for (int j = 0; j < a.fe; ++j) x += to_f(from_f<T>(rr[j])) * to_f(w1[j * F + c]);
+          x = fmaxf(x + a.enc_vec[0][c], 0.f);
+        }
+        sB[r * LDA + c] = from_f<T>(x);
+      }
+      __syncthreads();
+      block_gemm<T>(sB, wEnc2, sF, rows_pad, false);
+      __syncthreads();
+      for (int r = warp; r < rows_pad; r += WARPS) {
+        float x[F / 32];
+#pragma unroll
+        for (int i = 0; i < F / 32; ++i) {
+          const int c = lane + 32 * i;
+          x[i] = sF[r * LDF + c] + a.enc_vec[1][c];
+        }
+        warp_layernorm(x, a.enc_vec[2], a.enc_vec[3], lane);
+#pragma unroll
+        for (int i = 0; i < F / 32; ++i) sA[r * LDA + lane + 32 * i] = from_f<T>(x[i]);
+      }
+    } else {
+      const T* e = static_cast<const T*>(a.e);
+      constexpr int V = 16 / sizeof(T);
+      for (int i = threadIdx.x; i < rows_pad * (F / V); i += THREADS) {
+        const int r = i / (F / V), c = (i % (F / V)) * V;
+        int4 v = make_int4(0, 0, 0, 0);
+        if (r < rows) v = *reinterpret_cast<const int4*>(e + (row0 + c0 + r) * F + c);
+        *reinterpret_cast<int4*>(sA + r * LDA + c) = v;
+      }
+    }
+    __syncthreads();
+
+    // (b) first = e @ W_e -> sF
+    block_gemm<T>(sA, wE, sF, rows_pad, false);
+    __syncthreads();
+
+    // (c) + hs + hr + b1, relu, cast -> sB
+    for (int i = threadIdx.x; i < rows_pad * F; i += THREADS) {
+      const int r = i / F, c = i % F;
+      float x = 0.f;
+      if (r < rows) {
+        const int64_t er = row0 + c0 + r;
+        const int64_t node = node0 + (c0 + r) / K;
+        x = sF[r * LDF + c] + to_f(hs[er * F + c]);
+        x = x + to_f(hr[node * F + c]) + a.vec[0][c];
+        x = fmaxf(x, 0.f);
+      }
+      sB[r * LDA + c] = from_f<T>(x);
+    }
+    __syncthreads();
+
+    // (d) relu(first) @ W2 -> sF
+    block_gemm<T>(sB, w2, sF, rows_pad, false);
+    __syncthreads();
+
+    // (e) msg = LN(. + b2); e' = T(e + msg); sF <- msg * mask
+    for (int r = warp; r < rows; r += WARPS) {
+      const int64_t er = row0 + c0 + r;
+      float x[F / 32];
+#pragma unroll
+      for (int i = 0; i < F / 32; ++i) {
+        const int c = lane + 32 * i;
+        x[i] = sF[r * LDF + c] + a.vec[1][c];
+      }
+      warp_layernorm(x, a.vec[2], a.vec[3], lane);
+      const float m = a.mask[er];
+#pragma unroll
+      for (int i = 0; i < F / 32; ++i) {
+        const int c = lane + 32 * i;
+        e_out[er * F + c] = from_f<T>(to_f(sA[r * LDA + c]) + x[i]);
+        sF[r * LDF + c] = x[i] * m;
+      }
+    }
+    __syncthreads();
+
+    // (f) agg += the chunk's masked messages, row by row in k order
+    if (threadIdx.x < F) {
+      const int c = threadIdx.x;
+      for (int r = 0; r < rows; ++r) sAgg[((c0 + r) / K) * F + c] += sF[r * LDF + c];
+    }
+  }
+  __syncthreads();
+
+  // node phase: weights W_nh, W_na, W_n2
+  const T* wNh = static_cast<const T*>(a.w[2]);
+  const T* wNa = static_cast<const T*>(a.w[3]);
+  const T* wN2 = static_cast<const T*>(a.w[4]);
+  if constexpr (kStage) {
+    stage_weight<T>(sW0, a.w[2]);
+    stage_weight<T>(sW1, a.w[3]);
+    stage_weight<T>(sW2, a.w[4]);
+    wNh = sW0;
+    wNa = sW1;
+    wN2 = sW2;
+  }
+  for (int i = threadIdx.x; i < TR * F; i += THREADS) {
+    const int r = i / F, c = i % F;
+    sA[r * LDA + c] = r < nodes ? h[(int64_t)(node0 + r) * F + c] : from_f<T>(0.f);
+    sB[r * LDA + c] = from_f<T>(sAgg[i]);
+  }
+  __syncthreads();
+  block_gemm<T>(sA, wNh, sF, TR, false);
+  __syncthreads();
+  block_gemm<T>(sB, wNa, sF, TR, true);
+  __syncthreads();
+  for (int i = threadIdx.x; i < TR * F; i += THREADS) {
+    const int r = i / F, c = i % F;
+    sB[r * LDA + c] = from_f<T>(fmaxf(sF[r * LDF + c] + a.vec[4][c], 0.f));
+  }
+  __syncthreads();
+  block_gemm<T>(sB, wN2, sF, TR, false);
+  __syncthreads();
+  T* h_out = static_cast<T*>(a.h_out);
+  for (int r = warp; r < nodes; r += WARPS) {
+    float x[F / 32];
+#pragma unroll
+    for (int i = 0; i < F / 32; ++i) {
+      const int c = lane + 32 * i;
+      x[i] = sF[r * LDF + c] + a.vec[5][c];
+    }
+    warp_layernorm(x, a.vec[6], a.vec[7], lane);
+#pragma unroll
+    for (int i = 0; i < F / 32; ++i) {
+      const int c = lane + 32 * i;
+      const int64_t at = (int64_t)(node0 + r) * F + c;
+      h_out[at] = from_f<T>(to_f(sA[r * LDA + c]) + x[i]);
+    }
+  }
+}
+
+template <typename T, bool ENC>
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr int smem = Smem<T>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mp<T, ENC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_mp<T, ENC><<<lbt::ceil_div(a.n, TR), THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs (host array of device pointers), in order:
+//   0 e | raw, 1 hs_gath, 2 hr, 3 h, 4 mask, 5 e_out, 6 h_out,
+//   7 W_e, 8 W2, 9 W_nh, 10 W_na, 11 W_n2,
+//   12 b1, 13 b2, 14 ln1_scale, 15 ln1_bias, 16 bn1, 17 bn2, 18 ln2_scale,
+//   19 ln2_bias,
+//   20 enc_w1, 21 enc_w2, 22 enc_b1, 23 enc_b2, 24 enc_ln_scale,
+//   25 enc_ln_bias (unused unless has_enc).
+LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int latent,
+                            int is_bf16, int has_enc, cudaStream_t stream) {
+  if (latent != F || n < 1 || k < 1 || (has_enc && (fe < 1 || fe > 16)))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.e = ptrs[0];
+  a.hs = ptrs[1];
+  a.hr = ptrs[2];
+  a.h = ptrs[3];
+  a.mask = static_cast<const float*>(ptrs[4]);
+  a.e_out = const_cast<void*>(ptrs[5]);
+  a.h_out = const_cast<void*>(ptrs[6]);
+  for (int i = 0; i < 5; ++i) a.w[i] = ptrs[7 + i];
+  for (int i = 0; i < 8; ++i) a.vec[i] = static_cast<const float*>(ptrs[12 + i]);
+  a.enc_w1 = ptrs[20];
+  a.enc_w2 = ptrs[21];
+  for (int i = 0; i < 4; ++i) a.enc_vec[i] = static_cast<const float*>(ptrs[22 + i]);
+  a.n = n;
+  a.k = k;
+  a.fe = fe;
+  if (is_bf16) return has_enc ? launch<bf16, true>(a, stream) : launch<bf16, false>(a, stream);
+  return has_enc ? launch<float, true>(a, stream) : launch<float, false>(a, stream);
+}

@@ -1,0 +1,14 @@
+"""Datasets, statistics and loading."""
+
+from .dataset import ArrayDataset, H5Dataset, TrajectoryDataset
+from .loader import DataLoader
+from .stats import get_dataset_stats, numpy_collate
+
+__all__ = [
+    "ArrayDataset",
+    "H5Dataset",
+    "TrajectoryDataset",
+    "DataLoader",
+    "get_dataset_stats",
+    "numpy_collate",
+]

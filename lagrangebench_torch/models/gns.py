@@ -1,0 +1,265 @@
+"""Graph Network-based Simulator (GNS) with the fused processor.
+
+Counterpart of ``lagrangebench_tpu/models/gns.py`` with
+``use_fused_processor=True`` (dense edges, 2-layer MLP blocks):
+
+    h = MLP_0(concat(node features, Embed_0(type mod num_types)))
+    for step i:  hs = h @ w_s, hr = h @ w_r
+                 e, h = K3(e, hs[senders], hr, h, mask; encoder on step 0)
+    acc = MLP_1(h)   (decoder, no LayerNorm), returned as float32
+
+The processor's parameters are flat per-step arrays named as in the JAX
+fused layout (``mp{i}_w_s`` ... ``mp{i}_ln2_bias``, ``enc_*``), kept as
+(in, out) matrices, the layout the kernel reads. The node encoder and the
+decoder are ``MLP`` modules of ``nn.Linear`` layers, (out, in).
+
+``load_jax_params`` carries a JAX parameter tree (numpy arrays) into the
+module, from the fused layout or from the standard auto-named layout
+(converted as ``fused_params_from_standard`` does); ``jax_params`` gives
+the fused-layout tree back, for ``checkpoint.save_checkpoint``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops import fused_mp
+from ..utils import NodeType
+from .base import concat_edge_features, concat_node_features
+from .utils import MLP, lecun_normal_, matmul
+
+
+def gns_input_sizes(metadata: Dict, input_seq_length: int,
+                    magnitude_features: bool = False,
+                    has_external_force: bool = False):
+    """(node feature width, edge feature width) of the case's FeatureDict."""
+    dim = int(metadata["dim"])
+    n_vel = input_seq_length - 1
+    node = n_vel * dim
+    if magnitude_features:
+        node += n_vel
+    if not any(metadata["periodic_boundary_conditions"]):
+        node += 2 * dim
+    if has_external_force:
+        node += dim
+    return node, dim + 1
+
+
+class GNS(nn.Module):
+    """GNS model, fused processor.
+
+    Args:
+        particle_dimension: spatial dimensionality (2 or 3).
+        node_in: node feature width (see :func:`gns_input_sizes`).
+        edge_in: edge feature width (dim + 1).
+        latent_size: latent width of node/edge states (128 on CUDA).
+        num_mp_steps: number of message-passing steps.
+        particle_type_embedding_size: width of the type embedding.
+        num_particle_types: number of particle type ids.
+        compute_dtype: "float32", "bfloat16" or "float64" (CPU only).
+        seed: seed of the initial weights (Flax's initializers).
+        device: "cuda" (default) or "cpu".
+    """
+
+    def __init__(
+        self,
+        particle_dimension: int,
+        node_in: int,
+        edge_in: int,
+        latent_size: int = 128,
+        num_mp_steps: int = 10,
+        particle_type_embedding_size: int = 16,
+        num_particle_types: int = NodeType.SIZE,
+        compute_dtype: str = "float32",
+        seed: int = 0,
+        device="cuda",
+    ):
+        from ..utils import resolve_device
+
+        super().__init__()
+        device = resolve_device(device)
+        self.particle_dimension = particle_dimension
+        self.latent_size = latent_size
+        self.num_mp_steps = num_mp_steps
+        self.num_particle_types = num_particle_types
+        self.compute_dtype = getattr(torch, compute_dtype)
+        gen = torch.Generator().manual_seed(seed)
+
+        emb = particle_type_embedding_size if num_particle_types > 1 else 0
+        if emb:
+            self.embedding = nn.Parameter(
+                torch.randn(num_particle_types, emb, generator=gen) / math.sqrt(emb)
+            )
+        self.node_encoder = MLP(node_in + emb, latent_size, latent_size, generator=gen)
+        self.edge_encoder = nn.ParameterDict(
+            {
+                name: nn.Parameter(self._init(name, edge_in, gen))
+                for name in fused_mp.ENC_PARAM_NAMES
+            }
+        )
+        self.mp_steps = nn.ModuleList(
+            nn.ParameterDict(
+                {
+                    name: nn.Parameter(self._init(name, latent_size, gen))
+                    for name in fused_mp.PARAM_NAMES
+                }
+            )
+            for _ in range(num_mp_steps)
+        )
+        self.decoder = MLP(latent_size, latent_size, particle_dimension,
+                           layer_norm=False, generator=gen)
+        self._cast_cache = None
+        self.to(device)
+
+    def _init(self, name: str, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+        f = self.latent_size
+        if name.startswith("w") or name.startswith("enc_w"):
+            rows = fan_in if name == "enc_w1" else f
+            w = torch.empty(rows, f)
+            lecun_normal_(w, rows, gen)
+            return w
+        return torch.ones(f) if "scale" in name else torch.zeros(f)
+
+    def _processor_params(self, cdt: torch.dtype):
+        """Per-step and encoder parameters in the kernel's layout, converted
+        once and reused until a parameter changes."""
+        version = tuple(p._version for p in self.parameters())
+        cache = self._cast_cache
+        if cache is None or cache[0] != (cdt, version):
+            with torch.no_grad():
+                steps = [fused_mp.kernel_params(dict(s), cdt) for s in self.mp_steps]
+                enc = fused_mp.kernel_params(dict(self.edge_encoder), cdt)
+            cache = ((cdt, version), steps, enc)
+            self._cast_cache = cache
+        return cache[1], cache[2]
+
+    def forward(self, features: Dict[str, torch.Tensor],
+                particle_type: torch.Tensor) -> Dict[str, torch.Tensor]:
+        cdt = self.compute_dtype
+        nodes = concat_node_features(features)
+        e = concat_edge_features(features).to(
+            torch.float64 if cdt == torch.float64 else torch.float32
+        )
+        senders = features["senders"]
+        n = nodes.shape[0]
+        if self.num_particle_types > 1:
+            emb = self.embedding[torch.remainder(particle_type.long(), self.num_particle_types)]
+            wide = torch.promote_types(nodes.dtype, emb.dtype)
+            nodes = torch.cat([nodes.to(wide), emb.to(wide)], dim=-1)
+        h = self.node_encoder(nodes, cdt)
+
+        steps, enc = self._processor_params(cdt)
+        mask = (senders < n).to(torch.float32)
+        # padded slots (fill n) gather the last row, as a JAX gather clamps
+        sidx = torch.clamp(senders, max=n - 1).long()
+        for i, p in enumerate(steps):
+            hs_proj = matmul(h, p["w_s"])
+            hr_proj = matmul(h, p["w_r"])
+            e, h = fused_mp.gns_mp_step(
+                e, hs_proj[sidx], hr_proj, h, mask, p, enc=enc if i == 0 else None
+            )
+        acc = self.decoder(h, cdt)
+        return {"acc": acc.to(torch.float32)}
+
+    # -- weights carried across from / to the JAX parameter tree -----------
+
+    def load_jax_params(self, params: Dict) -> None:
+        """Load a JAX GNS tree (numpy leaves), fused or standard layout."""
+        if not any(str(k).startswith("mp0_") for k in params):
+            params = fused_params_from_standard(params, self.num_mp_steps)
+        with torch.no_grad():
+            if self.num_particle_types > 1:
+                self.embedding.copy_(torch.as_tensor(params["Embed_0"]["embedding"]))
+            self.node_encoder.load_flax(params["MLP_0"])
+            self.decoder.load_flax(params["MLP_1"])
+            for name, p in self.edge_encoder.items():
+                p.copy_(torch.as_tensor(np.asarray(params[name])))
+            for i, step in enumerate(self.mp_steps):
+                for name, p in step.items():
+                    p.copy_(torch.as_tensor(np.asarray(params[f"mp{i}_{name}"])))
+
+    def jax_params(self) -> Dict:
+        """The parameters as a JAX fused-layout tree of numpy arrays."""
+        out = {"MLP_0": self.node_encoder.flax_tree(), "MLP_1": self.decoder.flax_tree()}
+        if self.num_particle_types > 1:
+            out["Embed_0"] = {"embedding": self.embedding.detach().cpu().numpy()}
+        for name, p in self.edge_encoder.items():
+            out[name] = p.detach().cpu().numpy()
+        for i, step in enumerate(self.mp_steps):
+            for name, p in step.items():
+                out[f"mp{i}_{name}"] = p.detach().cpu().numpy()
+        return out
+
+
+def fused_params_from_standard(params: Dict, num_mp_steps: int) -> Dict:
+    """Re-layout a standard (auto-named Flax) GNS tree for the fused
+    processor: a rename and split, the math is identical."""
+    out = {k: params[k] for k in ("Embed_0", "MLP_0") if k in params}
+    latent = np.asarray(params["MLP_0"]["Dense_1"]["kernel"]).shape[1]
+    enc_mlp = params["MLP_1"]
+    out.update(
+        {
+            "enc_w1": enc_mlp["Dense_0"]["kernel"],
+            "enc_b1": enc_mlp["Dense_0"]["bias"],
+            "enc_w2": enc_mlp["Dense_1"]["kernel"],
+            "enc_b2": enc_mlp["Dense_1"]["bias"],
+            "enc_ln_scale": enc_mlp["LayerNorm_0"]["scale"],
+            "enc_ln_bias": enc_mlp["LayerNorm_0"]["bias"],
+        }
+    )
+    for i in range(num_mp_steps):
+        d_hs = params[f"Dense_{3 * i}"]
+        d_hr = params[f"Dense_{3 * i + 1}"]
+        d_e = params[f"Dense_{3 * i + 2}"]
+        mlp_msg = params[f"MLP_{2 + 2 * i}"]
+        mlp_node = params[f"MLP_{3 + 2 * i}"]
+        wn = np.asarray(mlp_node["Dense_0"]["kernel"])  # (2*latent, latent)
+        out.update(
+            {
+                f"mp{i}_w_s": d_hs["kernel"],
+                f"mp{i}_w_r": d_hr["kernel"],
+                f"mp{i}_w_e": d_e["kernel"],
+                f"mp{i}_b1": d_e["bias"],
+                f"mp{i}_w2": mlp_msg["Dense_0"]["kernel"],
+                f"mp{i}_b2": mlp_msg["Dense_0"]["bias"],
+                f"mp{i}_ln1_scale": mlp_msg["LayerNorm_0"]["scale"],
+                f"mp{i}_ln1_bias": mlp_msg["LayerNorm_0"]["bias"],
+                f"mp{i}_w_nh": wn[:latent],
+                f"mp{i}_w_na": wn[latent:],
+                f"mp{i}_bn1": mlp_node["Dense_0"]["bias"],
+                f"mp{i}_wn2": mlp_node["Dense_1"]["kernel"],
+                f"mp{i}_bn2": mlp_node["Dense_1"]["bias"],
+                f"mp{i}_ln2_scale": mlp_node["LayerNorm_0"]["scale"],
+                f"mp{i}_ln2_bias": mlp_node["LayerNorm_0"]["bias"],
+            }
+        )
+    out["MLP_1"] = params[f"MLP_{2 + 2 * num_mp_steps}"]
+    return out
+
+
+def build_gns(cfg_model, metadata: Dict, input_seq_length: Optional[int] = None,
+              has_external_force: bool = False, seed: int = 0, device="cuda") -> GNS:
+    """A GNS from a model config section and dataset metadata."""
+    if not cfg_model.get("fused_processor", False):
+        raise NotImplementedError("only the fused GNS processor is ported")
+    if int(cfg_model.num_mlp_layers) != 2:
+        raise ValueError("the fused processor needs num_mlp_layers == 2")
+    isl = input_seq_length or int(cfg_model.input_seq_length)
+    node_in, edge_in = gns_input_sizes(
+        metadata, isl, bool(cfg_model.magnitude_features), has_external_force
+    )
+    return GNS(
+        particle_dimension=int(metadata["dim"]),
+        node_in=node_in,
+        edge_in=edge_in,
+        latent_size=int(cfg_model.latent_dim),
+        num_mp_steps=int(cfg_model.num_mp_steps),
+        compute_dtype=cfg_model.get("compute_dtype", "float32"),
+        seed=seed,
+        device=device,
+    )
