@@ -1,11 +1,12 @@
 """LagrangeBench on PyTorch and CUDA.
 
 The port of ``lagrangebench_tpu`` (JAX, the reference) to PyTorch with
-hand-written CUDA kernels for Hopper. This slice covers GNS rollout
-inference on the dense neighbor layout: datasets and stats, case setup,
-neighbor search (kernels K1 binning and K2 stencil scan), the GNS model
-with its fused message-passing step (kernel K3), checkpoints, rollouts and
-metrics.
+hand-written CUDA kernels for Hopper. It covers GNS training and rollout
+inference on the dense neighbor layout: datasets and stats, case setup with
+noise and targets, neighbor search (kernels K1 binning and K2 stencil
+scan), the GNS model with its fused message-passing step (kernel K3) and
+that step's backward (kernel K4), the trainer with AdamW and pushforward,
+checkpoints with optimizer state, rollouts and metrics.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.
@@ -16,5 +17,6 @@ from .data import ArrayDataset, H5Dataset
 from .defaults import defaults
 from .evaluate import infer
 from .models import GNS
+from .train import Trainer
 
-__all__ = ["case_builder", "ArrayDataset", "H5Dataset", "defaults", "infer", "GNS"]
+__all__ = ["case_builder", "ArrayDataset", "H5Dataset", "defaults", "infer", "GNS", "Trainer"]

@@ -1,18 +1,24 @@
-"""Case setup for evaluation: neighbor search, features and integration.
+"""Case setup: neighbor search, features, targets, noise and integration.
 
-Counterpart of the eval half of ``lagrangebench_tpu/case/case.py``: the
-case captures box, metadata and normalization once and returns functions.
+Counterpart of ``lagrangebench_tpu/case/case.py``: the case captures box,
+metadata and normalization once and returns functions.
 
-    * ``allocate_eval`` sizes the neighbor buffers on the host from one
-      sample, then runs ``preprocess_eval``;
-    * ``preprocess_eval`` updates the neighbor list and builds features;
-    * ``preprocess_eval_batched`` does the same for a batch of B samples as
-      ONE flat (B*N)-row super-graph (per-sample sender offsets; padded
-      slots map to B*N), with one launch of each neighbor kernel;
+    * ``allocate`` / ``allocate_eval`` size the neighbor buffers on the host
+      from one sample, then run ``preprocess`` / ``preprocess_eval``;
+    * ``preprocess`` (train) applies random-walk noise, updates the neighbor
+      list, builds features and the targets of the frame
+      ``input_seq_length - 1 + unroll_steps``; ``preprocess_eval`` does the
+      same without noise and targets;
+    * ``preprocess_batched`` and ``preprocess_eval_batched`` do the same for
+      a batch of B samples as ONE flat (B*N)-row super-graph (per-sample
+      sender offsets; padded slots map to B*N), with one launch of each
+      neighbor kernel;
     * ``integrate`` is semi-implicit Euler with dt = 1 folded into the
       normalization.
 
-The train preprocess and its random-walk noise are not ported yet.
+The train functions take a ``torch.Generator`` where the JAX package takes
+a key (the generator advances; nothing is returned for it), and an optional
+standard-normal ``draw`` that replaces the generator's numbers.
 """
 
 from __future__ import annotations
@@ -27,16 +33,22 @@ from ..data.stats import get_dataset_stats
 from ..defaults import defaults, resolve_backend
 from ..ops import neighbors as nb
 from ..ops import space
+from ..train.strats import add_gns_noise
 from ..utils import resolve_device
 from .features import physical_feature_builder
 
 
 class CaseSetupFn(NamedTuple):
-    """Bundle of case functions (eval half).
+    """Bundle of case functions.
 
     Attributes:
+        allocate: host-side sizing + train preprocess of one sample.
+        preprocess: train preprocess (noise, neighbor update, features,
+            targets) of one sample.
         allocate_eval: host-side sizing + eval preprocess of one sample.
         preprocess_eval: eval preprocess of one sample.
+        preprocess_batched: train preprocess of a batch, flat features and
+            targets.
         preprocess_eval_batched: eval preprocess of a batch, flat features.
         integrate: semi-implicit Euler step inverting output normalization.
         displacement: boundary-aware displacement function.
@@ -45,8 +57,11 @@ class CaseSetupFn(NamedTuple):
         device: the device the case's tensors live on.
     """
 
+    allocate: Callable
+    preprocess: Callable
     allocate_eval: Callable
     preprocess_eval: Callable
+    preprocess_batched: Callable
     preprocess_eval_batched: Callable
     integrate: Callable
     displacement: Callable
@@ -122,25 +137,51 @@ def case_builder(
     def _as(x, dt=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dt, device=device)
 
-    def preprocess_eval_fn(sample, neighbors: nb.NeighborList):
-        """sample = ((N, T, dim) positions, (N,) types) -> features, nbrs."""
-        pos_input = _as(sample[0], dtype)
-        particle_type = _as(sample[1])
+    def _compute_target(pos_triplet: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Normalized targets from three consecutive frames (N, 3, dim)."""
+        current_vel = displacement_fn(pos_triplet[:, 1], pos_triplet[:, 0])
+        next_vel = displacement_fn(pos_triplet[:, 2], pos_triplet[:, 1])
+        acc = next_vel - current_vel
+        acc_stats = normalization_stats["acceleration"]
+        vel_stats = normalization_stats["velocity"]
+        return {
+            "acc": (acc - acc_stats["mean"]) / acc_stats["std"],
+            "vel": (next_vel - vel_stats["mean"]) / vel_stats["std"],
+            "pos": pos_triplet[:, -1],
+        }
+
+    def _noised(generator, pos_input, particle_type, noise_std_, draw):
+        if pos_input.shape[-2] <= 1:
+            return pos_input
+        return add_gns_noise(pos_input, particle_type, input_seq_length, noise_std_,
+                             shift_fn, generator=generator, draw=draw)
+
+    def _targets(pos, unroll_steps: int):
+        # the 2nd finite difference around frame isl - 1 + unroll_steps
+        begin = input_seq_length - 2 + unroll_steps
+        return _compute_target(pos[:, begin : begin + 3])
+
+    def _preprocess(pos_input, particle_type, neighbors: nb.NeighborList):
         most_recent = pos_input[:, input_seq_length - 1]
         num_particles = (particle_type != -1).sum()
         neighbors = neighbors.update(most_recent, num_particles=num_particles)
-        features = feature_transform(pos_input[:, :input_seq_length], neighbors)
-        return features, neighbors
+        return feature_transform(pos_input[:, :input_seq_length], neighbors), neighbors
 
-    def preprocess_eval_batched_fn(sample, neighbors: nb.NeighborList):
-        """sample = ((B, N, T, dim), (B, N)) -> flat features, batched nbrs.
-
-        The neighbor update is per sample (one batched launch); the feature
-        transform runs once on the (B*N)-row disjoint super-graph. The
-        returned NeighborList stays batched for capacity/overflow.
-        """
-        pos_input = _as(sample[0], dtype)
+    def preprocess_fn(generator, sample, noise_std_, neighbors: nb.NeighborList,
+                      unroll_steps: int = 0, draw=None):
+        """Train preprocess of one sample ((N, T, dim), (N,)): noise, then
+        the neighbor update, features and targets. Returns (features,
+        targets, neighbors)."""
         particle_type = _as(sample[1])
+        pos_input = _noised(generator, _as(sample[0], dtype), particle_type, noise_std_, draw)
+        features, neighbors = _preprocess(pos_input, particle_type, neighbors)
+        return features, _targets(pos_input, unroll_steps), neighbors
+
+    def preprocess_eval_fn(sample, neighbors: nb.NeighborList):
+        """sample = ((N, T, dim) positions, (N,) types) -> features, nbrs."""
+        return _preprocess(_as(sample[0], dtype), _as(sample[1]), neighbors)
+
+    def _preprocess_batched(pos_input, particle_type, neighbors: nb.NeighborList):
         b, n = particle_type.shape
         most_recent = pos_input[:, :, input_seq_length - 1]
         num_particles = (particle_type != -1).sum(dim=1)
@@ -156,11 +197,35 @@ def case_builder(
         )
         pos_flat = pos_input.reshape((b * n,) + pos_input.shape[2:])
         features = feature_transform(pos_flat[:, :input_seq_length], flat_nbrs)
+        return features, neighbors, pos_flat
+
+    def preprocess_batched_fn(generator, sample, noise_std_, neighbors: nb.NeighborList,
+                              unroll_steps: int = 0, draw=None):
+        """Train preprocess of a batch ((B, N, T, dim), (B, N)): per-sample
+        noise (``draw``: (B, N, input_seq_length - 1, dim)) and neighbor
+        update, then features and targets on the flat (B*N)-row
+        super-graph. Returns (flat features, flat targets, batched nbrs)."""
+        particle_type = _as(sample[1])
+        pos_input = _noised(generator, _as(sample[0], dtype), particle_type, noise_std_, draw)
+        features, neighbors, pos_flat = _preprocess_batched(pos_input, particle_type,
+                                                            neighbors)
+        return features, _targets(pos_flat, unroll_steps), neighbors
+
+    def preprocess_eval_batched_fn(sample, neighbors: nb.NeighborList):
+        """sample = ((B, N, T, dim), (B, N)) -> flat features, batched nbrs.
+
+        The neighbor update is per sample (one batched launch); the feature
+        transform runs once on the (B*N)-row disjoint super-graph. The
+        returned NeighborList stays batched for capacity/overflow.
+        """
+        features, neighbors, _ = _preprocess_batched(_as(sample[0], dtype),
+                                                     _as(sample[1]), neighbors)
         return features, neighbors
 
-    def allocate_eval_fn(sample, capacity_boost: float = 1.0):
-        """Size the neighbor buffers on the host from the raw sample, then
-        preprocess it (no noise, no targets)."""
+    def _allocate_shell(sample, capacity_boost: float = 1.0) -> nb.NeighborList:
+        """Neighbor buffers sized on the host from the un-noised most recent
+        position of the raw sample (the capacity multiplier absorbs the
+        training noise)."""
         pos_np = np.asarray(
             sample[0].cpu() if isinstance(sample[0], torch.Tensor) else sample[0]
         )
@@ -168,11 +233,22 @@ def case_builder(
             sample[1].cpu() if isinstance(sample[1], torch.Tensor) else sample[1]
         )
         npart = int((ptype_np != -1).sum())
-        shell = neighbor_fn.allocate_shell(
+        return neighbor_fn.allocate_shell(
             pos_np[:, input_seq_length - 1], num_particles=npart,
             capacity_boost=capacity_boost, device=device,
         )
-        return preprocess_eval_fn(sample, shell)
+
+    def allocate_fn(generator, sample, noise_std_=noise_std, unroll_steps: int = 0,
+                    capacity_boost: float = 1.0, draw=None):
+        """Size the neighbor buffers from the raw sample, then run the train
+        preprocess on it."""
+        shell = _allocate_shell(sample, capacity_boost)
+        return preprocess_fn(generator, sample, noise_std_, shell, unroll_steps, draw)
+
+    def allocate_eval_fn(sample, capacity_boost: float = 1.0):
+        """Size the neighbor buffers on the host from the raw sample, then
+        preprocess it (no noise, no targets)."""
+        return preprocess_eval_fn(sample, _allocate_shell(sample, capacity_boost))
 
     def integrate_fn(normalized_in: Dict[str, torch.Tensor], position_sequence):
         """Next position from a model output dict (dt = 1: the stats absorb
@@ -193,8 +269,11 @@ def case_builder(
         return shift_fn(most_recent, new_velocity)
 
     return CaseSetupFn(
+        allocate=allocate_fn,
+        preprocess=preprocess_fn,
         allocate_eval=allocate_eval_fn,
         preprocess_eval=preprocess_eval_fn,
+        preprocess_batched=preprocess_batched_fn,
         preprocess_eval_batched=preprocess_eval_batched_fn,
         integrate=integrate_fn,
         displacement=displacement_fn,

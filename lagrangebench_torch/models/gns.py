@@ -22,16 +22,17 @@ the fused-layout tree back, for ``checkpoint.save_checkpoint``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..checkpoint import flatten_tree, unflatten_tree
 from ..ops import fused_mp
 from ..utils import NodeType
 from .base import concat_edge_features, concat_node_features
-from .utils import MLP, lecun_normal_, matmul
+from .utils import MLP, gather_rows, lecun_normal_, matmul
 
 
 def gns_input_sizes(metadata: Dict, input_seq_length: int,
@@ -127,7 +128,7 @@ class GNS(nn.Module):
 
     def _processor_params(self, cdt: torch.dtype):
         """Per-step and encoder parameters in the kernel's layout, converted
-        once and reused until a parameter changes."""
+        once and reused until a parameter changes (inference: detached)."""
         version = tuple(p._version for p in self.parameters())
         cache = self._cast_cache
         if cache is None or cache[0] != (cdt, version):
@@ -153,15 +154,26 @@ class GNS(nn.Module):
             nodes = torch.cat([nodes.to(wide), emb.to(wide)], dim=-1)
         h = self.node_encoder(nodes, cdt)
 
-        steps, enc = self._processor_params(cdt)
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            # training: the stored parameters enter the autograd Function,
+            # which casts them itself and returns gradients in their dtype
+            steps = [dict(s) for s in self.mp_steps]
+            enc = dict(self.edge_encoder)
+            step_fn = fused_mp.gns_mp_step_autograd
+        else:
+            steps, enc = self._processor_params(cdt)
+            step_fn = fused_mp.gns_mp_step
         mask = (senders < n).to(torch.float32)
-        # padded slots (fill n) gather the last row, as a JAX gather clamps
+        # padded slots (fill n) gather the last row, as a JAX gather clamps;
+        # their messages are masked out, so that row gets no gradient from
+        # them. The gather's backward sums in float32 (``gather_rows``).
         sidx = torch.clamp(senders, max=n - 1).long()
         for i, p in enumerate(steps):
-            hs_proj = matmul(h, p["w_s"])
-            hr_proj = matmul(h, p["w_r"])
-            e, h = fused_mp.gns_mp_step(
-                e, hs_proj[sidx], hr_proj, h, mask, p, enc=enc if i == 0 else None
+            hs_proj = matmul(h, p["w_s"].to(cdt))
+            hr_proj = matmul(h, p["w_r"].to(cdt))
+            e, h = step_fn(
+                e, gather_rows(hs_proj, sidx), hr_proj, h, mask, p,
+                enc=enc if i == 0 else None,
             )
         acc = self.decoder(h, cdt)
         return {"acc": acc.to(torch.float32)}
@@ -172,28 +184,38 @@ class GNS(nn.Module):
         """Load a JAX GNS tree (numpy leaves), fused or standard layout."""
         if not any(str(k).startswith("mp0_") for k in params):
             params = fused_params_from_standard(params, self.num_mp_steps)
+        flat = flatten_tree(params)
         with torch.no_grad():
-            if self.num_particle_types > 1:
-                self.embedding.copy_(torch.as_tensor(params["Embed_0"]["embedding"]))
-            self.node_encoder.load_flax(params["MLP_0"])
-            self.decoder.load_flax(params["MLP_1"])
-            for name, p in self.edge_encoder.items():
-                p.copy_(torch.as_tensor(np.asarray(params[name])))
-            for i, step in enumerate(self.mp_steps):
-                for name, p in step.items():
-                    p.copy_(torch.as_tensor(np.asarray(params[f"mp{i}_{name}"])))
+            for path, p, transposed in self.jax_leaves():
+                value = torch.as_tensor(flat[path])
+                p.copy_(value.t() if transposed else value)
 
     def jax_params(self) -> Dict:
         """The parameters as a JAX fused-layout tree of numpy arrays."""
-        out = {"MLP_0": self.node_encoder.flax_tree(), "MLP_1": self.decoder.flax_tree()}
+        return unflatten_tree({
+            path: (p.detach().t() if transposed else p.detach()).cpu().numpy()
+            for path, p, transposed in self.jax_leaves()
+        })
+
+    def jax_leaves(self) -> List[Tuple[str, nn.Parameter, bool]]:
+        """Every parameter as (JAX tree path, parameter, transposed), in the
+        order JAX flattens the fused-layout tree (dict keys sorted at every
+        level). ``transposed`` marks ``nn.Linear`` weights, stored (out, in)
+        against the Flax kernel's (in, out)."""
+        out = []
         if self.num_particle_types > 1:
-            out["Embed_0"] = {"embedding": self.embedding.detach().cpu().numpy()}
-        for name, p in self.edge_encoder.items():
-            out[name] = p.detach().cpu().numpy()
+            out.append(("Embed_0/embedding", self.embedding, False))
+        for tree, mlp in (("MLP_0", self.node_encoder), ("MLP_1", self.decoder)):
+            for i, layer in enumerate(mlp.layers):
+                out.append((f"{tree}/Dense_{i}/kernel", layer.weight, True))
+                out.append((f"{tree}/Dense_{i}/bias", layer.bias, False))
+            if mlp.norm is not None:
+                out.append((f"{tree}/LayerNorm_0/scale", mlp.norm.scale, False))
+                out.append((f"{tree}/LayerNorm_0/bias", mlp.norm.bias, False))
+        out += [(name, p, False) for name, p in self.edge_encoder.items()]
         for i, step in enumerate(self.mp_steps):
-            for name, p in step.items():
-                out[f"mp{i}_{name}"] = p.detach().cpu().numpy()
-        return out
+            out += [(f"mp{i}_{name}", p, False) for name, p in step.items()]
+        return sorted(out, key=lambda leaf: leaf[0].split("/"))
 
 
 def fused_params_from_standard(params: Dict, num_mp_steps: int) -> Dict:

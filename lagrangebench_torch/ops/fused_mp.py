@@ -22,6 +22,12 @@ are cast to the compute dtype before their products, LayerNorm runs in the
 accumulation dtype with eps 1e-5.
 
 Weights are (in, out) matrices, as in the JAX parameter tree.
+
+Training goes through ``gns_mp_step_autograd``: a ``torch.autograd.Function``
+whose forward is K3 and whose backward is K4 (``csrc/fused_mp_bwd.cu``,
+``gns_mp_step_bwd``; ``gns_mp_step_bwd_plain`` on CPU tensors), with the
+forward rematerialized from the saved inputs, as the JAX package's
+``_gns_mp_step_vjp``.
 """
 
 from __future__ import annotations
@@ -194,8 +200,275 @@ def _checked(t: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
 
 def kernel_params(p: Dict[str, torch.Tensor], cdt: torch.dtype) -> Dict[str, torch.Tensor]:
     """A parameter dict in the layout the kernel takes: matrices in the
-    compute dtype, vectors in float32, all contiguous."""
+    compute dtype, vectors in float32 (float64 when the compute dtype is
+    float64), all contiguous."""
+    acc = _acc_dtype(cdt)
     return {
-        name: (v.to(cdt) if v.dim() == 2 else v.to(torch.float32)).detach().contiguous()
+        name: (v.to(cdt) if v.dim() == 2 else v.to(acc)).detach().contiguous()
         for name, v in p.items()
     }
+
+
+# ---------------------------------------------------------------------------
+# backward (K4) and the autograd Function
+# ---------------------------------------------------------------------------
+
+# weight-gradient order of the backward kernel, as the JAX package's
+# _BWD_PARAM_ORDER; also the order of the Function's parameter inputs
+BWD_PARAM_ORDER = (
+    "w_e", "b1", "w2", "b2", "ln1_scale", "ln1_bias",
+    "w_nh", "w_na", "bn1", "wn2", "bn2", "ln2_scale", "ln2_bias",
+)
+_BWD_GRAD_SLOTS = _KERNEL_WEIGHTS + _KERNEL_VECTORS  # the kernel's output layout
+
+_BWD_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+FUSED_MP_BWD = Kernel(
+    "fused_mp_bwd", "fused_mp_bwd", "lbt_fused_mp_bwd", _BWD_ARGTYPES,
+    replaces="lagrangebench_tpu/ops/fused_mp.py:443",
+)
+_BWD_REDUCE = Kernel(
+    "fused_mp_bwd_reduce", "fused_mp_bwd", "lbt_fused_mp_bwd_reduce",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    replaces="lagrangebench_tpu/ops/fused_mp.py:443",
+)
+_BWD_TILE = 16  # receivers per tile of the backward kernel
+
+
+def _ln_bwd(dy, xhat, inv, scale):
+    """LayerNorm input gradient from the normalized activations."""
+    dxhat = dy * scale
+    mean1 = dxhat.mean(dim=-1, keepdim=True)
+    mean2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    return inv * (dxhat - mean1 - xhat * mean2)
+
+
+def _dot_t(a, w, acc):
+    """a @ w.T of compute-dtype operands, summed in ``acc``."""
+    return a.to(acc) @ w.to(acc).t()
+
+
+def _dot_g(a, b, acc):
+    """a.T @ b over the rows (a weight gradient), summed in ``acc``."""
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    return a2.to(acc).t() @ b2.to(acc)
+
+
+def gns_mp_step_bwd_plain(
+    e: torch.Tensor,
+    hs_gath: torch.Tensor,
+    hr_proj: torch.Tensor,
+    h: torch.Tensor,
+    mask: torch.Tensor,
+    p: Dict[str, torch.Tensor],
+    ge: torch.Tensor,
+    gh: torch.Tensor,
+):
+    """Plain PyTorch version of K4: the backward of one (non-encoder) step.
+
+    Rematerializes the forward from the inputs, then runs the node-path
+    backward and the edge-path backward with the casts of the JAX
+    package's ``_fused_bwd_kernel``: relu(first), relu(node_first), agg,
+    dy1, dnf, dx1 and dfirst are rounded to the compute dtype before their
+    products, which sum in float32 (float64 for a float64 compute dtype);
+    LayerNorm and its backward run in that accumulation dtype.
+
+    ``ge`` (N, K, F) and ``gh`` (N, F) are the cotangents of e' and h'.
+    Returns (de, dhs, dhr, dh, dp): de and dhs (N, K, F), dhr and dh (N, F)
+    in the compute dtype, and ``dp`` the 13 parameter gradients of
+    ``BWD_PARAM_ORDER`` in the accumulation dtype.
+    """
+    cdt = e.dtype
+    acc = _acc_dtype(cdt)
+    eps = 1e-5
+
+    def vec(name):
+        return p[name].to(acc)
+
+    # forward rematerialization
+    first = _dot(e, p["w_e"], cdt) + hs_gath.to(acc)
+    first = first + hr_proj.to(acc)[:, None, :] + vec("b1")
+    r1 = torch.relu(first)
+    r1c = r1.to(cdt)
+    x1 = _dot(r1c, p["w2"], cdt) + vec("b2")
+    mu1 = x1.mean(dim=-1, keepdim=True)
+    inv1 = torch.rsqrt(((x1 - mu1) ** 2).mean(dim=-1, keepdim=True) + eps)
+    xhat1 = (x1 - mu1) * inv1
+    m = xhat1 * vec("ln1_scale") + vec("ln1_bias")
+    maskf = mask.to(acc)[..., None]
+    aggc = torch.sum(m * maskf, dim=1).to(cdt)
+
+    nf = _dot(h, p["w_nh"], cdt) + _dot(aggc, p["w_na"], cdt) + vec("bn1")
+    r2 = torch.relu(nf)
+    r2c = r2.to(cdt)
+    y1 = _dot(r2c, p["wn2"], cdt) + vec("bn2")
+    mu2 = y1.mean(dim=-1, keepdim=True)
+    inv2 = torch.rsqrt(((y1 - mu2) ** 2).mean(dim=-1, keepdim=True) + eps)
+    xhat2 = (y1 - mu2) * inv2
+
+    dp = {}
+    # node-path backward
+    ghf = gh.to(acc)
+    dp["ln2_scale"] = torch.sum(ghf * xhat2, dim=0)
+    dp["ln2_bias"] = torch.sum(ghf, dim=0)
+    dy1 = _ln_bwd(ghf, xhat2, inv2, vec("ln2_scale"))
+    dy1c = dy1.to(cdt)
+    dp["wn2"] = _dot_g(r2c, dy1c, acc)
+    dp["bn2"] = torch.sum(dy1, dim=0)
+    dnf = _dot_t(dy1c, p["wn2"].to(cdt), acc) * (r2 > 0)
+    dnfc = dnf.to(cdt)
+    dp["w_nh"] = _dot_g(h.to(cdt), dnfc, acc)
+    dp["w_na"] = _dot_g(aggc, dnfc, acc)
+    dp["bn1"] = torch.sum(dnf, dim=0)
+    dh = (ghf + _dot_t(dnfc, p["w_nh"].to(cdt), acc)).to(h.dtype)
+    dagg = _dot_t(dnfc, p["w_na"].to(cdt), acc)
+
+    # edge-path backward
+    dm = ge.to(acc) + dagg[:, None, :] * maskf
+    dp["ln1_scale"] = torch.sum(dm * xhat1, dim=(0, 1))
+    dp["ln1_bias"] = torch.sum(dm, dim=(0, 1))
+    dx1 = _ln_bwd(dm, xhat1, inv1, vec("ln1_scale"))
+    dx1c = dx1.to(cdt)
+    dp["w2"] = _dot_g(r1c, dx1c, acc)
+    dp["b2"] = torch.sum(dx1, dim=(0, 1))
+    dfirst = _dot_t(dx1c, p["w2"].to(cdt), acc) * (r1 > 0)
+    dfirstc = dfirst.to(cdt)
+    dp["w_e"] = _dot_g(e, dfirstc, acc)
+    dp["b1"] = torch.sum(dfirst, dim=(0, 1))
+    de = (ge.to(acc) + _dot_t(dfirstc, p["w_e"].to(cdt), acc)).to(cdt)
+    dhr = torch.sum(dfirst, dim=1).to(hr_proj.dtype)
+    return de, dfirstc.to(hs_gath.dtype), dhr, dh, dp
+
+
+def gns_mp_step_bwd(
+    e: torch.Tensor,
+    hs_gath: torch.Tensor,
+    hr_proj: torch.Tensor,
+    h: torch.Tensor,
+    mask: torch.Tensor,
+    p: Dict[str, torch.Tensor],
+    ge: torch.Tensor,
+    gh: torch.Tensor,
+):
+    """K4: the backward kernel on CUDA tensors, else the plain version. See
+    :func:`gns_mp_step_bwd_plain` for shapes and returns.
+
+    On CUDA the compute dtype (of e, hs_gath, hr_proj, h, ge, gh) is
+    bfloat16 or float32, the latent width 128, and ``p`` is in the kernel's
+    layout (``kernel_params``). The weight gradients are summed without
+    atomics: each block of a persistent grid adds its receiver tiles into
+    its own float32 partials, and a second launch sums the partials in
+    block order, so two calls on the same inputs give the same bits.
+    """
+    if not e.is_cuda:
+        return gns_mp_step_bwd_plain(e, hs_gath, hr_proj, h, mask, p, ge, gh)
+    cdt = e.dtype
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_mp_bwd kernel: compute dtype {cdt} not supported")
+    n, k, f = e.shape
+    if f != LATENT:
+        raise ValueError(f"fused_mp_bwd kernel: latent width {f} != {LATENT}")
+    if hs_gath.shape != (n, k, f) or ge.shape != (n, k, f) or mask.shape != (n, k):
+        raise ValueError("fused_mp_bwd kernel: inconsistent edge shapes")
+    if hr_proj.shape != (n, f) or h.shape != (n, f) or gh.shape != (n, f):
+        raise ValueError("fused_mp_bwd kernel: inconsistent node shapes")
+    mask = mask if mask.dtype == torch.float32 else mask.to(torch.float32)
+    tensors = [e, hs_gath, hr_proj, h, mask, ge, gh]
+    if any(t.dtype != cdt for t in tensors if t is not mask):
+        raise ValueError("fused_mp_bwd kernel: e, hs, hr, h, ge, gh must share a dtype")
+    if any(not t.is_cuda or not t.is_contiguous() for t in tensors):
+        raise ValueError("fused_mp_bwd kernel: inputs must be contiguous CUDA tensors")
+
+    de = torch.empty_like(e)
+    dhs = torch.empty_like(e)
+    dhr = torch.empty_like(hr_proj)
+    dh = torch.empty_like(h)
+    params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
+    params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
+    tiles = -(-n // _BWD_TILE)
+    sms = torch.cuda.get_device_properties(e.device).multi_processor_count
+    grid = min(tiles, sms)
+    per_block = len(_KERNEL_WEIGHTS) * f * f + len(_KERNEL_VECTORS) * f
+    partials = torch.empty((grid, per_block), dtype=torch.float32, device=e.device)
+    grads = torch.empty((per_block,), dtype=torch.float32, device=e.device)
+    ptrs = [t.data_ptr() for t in tensors + [de, dhs, dhr, dh] + params + [partials]]
+    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, int(cdt == torch.bfloat16),
+                 grid, stream())
+    _BWD_REDUCE(ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(grads.data_ptr()),
+                grid, per_block, stream())
+    dp, at = {}, 0
+    for name in _BWD_GRAD_SLOTS:
+        size = f * f if name in _KERNEL_WEIGHTS else f
+        dp[name] = grads[at:at + size].view(p[name].shape)
+        at += size
+    return de, dhs, dhr, dh, dp
+
+
+class _MPStepFunction(torch.autograd.Function):
+    """K3 forward and K4 backward of one step, as the JAX package's
+    ``_gns_mp_step_vjp``.
+
+    Inputs: ``has_enc``, e (or raw edge features with the encoder),
+    hs_gath, hr_proj, h, mask, then the 13 parameters of
+    ``BWD_PARAM_ORDER`` (and the 6 of ``ENC_PARAM_NAMES`` with the
+    encoder) as stored, e.g. float32. They are cast to the kernel's layout
+    here, inside the Function, so their gradients come back in their own
+    dtype without passing through the compute dtype. The residuals are
+    the inputs; the backward rematerializes the forward. The mask gets no
+    gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, has_enc, e, hs_gath, hr_proj, h, mask, *params):
+        cdt = hs_gath.dtype
+        p = kernel_params(dict(zip(BWD_PARAM_ORDER, params)), cdt)
+        enc = kernel_params(dict(zip(ENC_PARAM_NAMES, params[13:])), cdt) if has_enc else None
+        ctx.has_enc = has_enc
+        ctx.save_for_backward(e, hs_gath, hr_proj, h, mask, *params)
+        return gns_mp_step(e, hs_gath, hr_proj, h, mask, p, enc)
+
+    @staticmethod
+    def backward(ctx, ge, gh):
+        e, hs_gath, hr_proj, h, mask, *params = ctx.saved_tensors
+        cdt = hs_gath.dtype
+        p = kernel_params(dict(zip(BWD_PARAM_ORDER, params)), cdt)
+        ge, gh = ge.contiguous(), gh.contiguous()
+        enc_grads = []
+        if ctx.has_enc:
+            # the encoder backprops through its plain version, rerun here to
+            # rematerialize the encoded edges (JAX: jax.vjp of the mirror)
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in params[13:]]
+                raw = e.detach().requires_grad_(ctx.needs_input_grad[1])
+                e_enc = encode_edges_plain(raw, dict(zip(ENC_PARAM_NAMES, leaves)), cdt)
+            de, dhs, dhr, dh, dp = gns_mp_step_bwd(
+                e_enc.detach().contiguous(), hs_gath, hr_proj, h, mask, p, ge, gh
+            )
+            inputs = leaves + ([raw] if raw.requires_grad else [])
+            grads = torch.autograd.grad(e_enc, inputs, de.to(e_enc.dtype))
+            enc_grads = list(grads[:len(leaves)])
+            de = grads[len(leaves)] if raw.requires_grad else None
+        else:
+            de, dhs, dhr, dh, dp = gns_mp_step_bwd(e, hs_gath, hr_proj, h, mask, p, ge, gh)
+        pgrads = [dp[name].to(t.dtype) for name, t in zip(BWD_PARAM_ORDER, params)]
+        return (None, de, dhs, dhr, dh, None, *pgrads, *enc_grads)
+
+
+def gns_mp_step_autograd(
+    e: torch.Tensor,
+    hs_gath: torch.Tensor,
+    hr_proj: torch.Tensor,
+    h: torch.Tensor,
+    mask: torch.Tensor,
+    p: Dict[str, torch.Tensor],
+    enc: Optional[Dict[str, torch.Tensor]] = None,
+):
+    """The fused step, differentiable: K3 forward, K4 backward (the plain
+    versions on CPU tensors). ``p`` and ``enc`` hold the parameters as
+    stored (any of ``PARAM_NAMES``; ``w_s``/``w_r`` are applied outside and
+    ignored here). Returns (e', h') as :func:`gns_mp_step` does."""
+    params = [p[name] for name in BWD_PARAM_ORDER]
+    if enc is not None:
+        params += [enc[name] for name in ENC_PARAM_NAMES]
+    mask = mask if mask.dtype == torch.float32 else mask.to(torch.float32)
+    return _MPStepFunction.apply(enc is not None, e, hs_gath, hr_proj, h, mask, *params)

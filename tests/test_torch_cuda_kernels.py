@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K3 against their plain versions, on the card.
+"""CUDA kernels K1-K4 against their plain versions, on the card.
 
 Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is false and
 run on a machine with a card (``python -m pytest --noconftest -m gpu
@@ -80,3 +80,81 @@ def test_fused_mp_kernel(cuda, dtype, tol, use_enc):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+def _bwd_case(cuda, dtype, use_enc, n=333, k=24):
+    g = torch.Generator().manual_seed(1)
+    f = fused_mp.LATENT
+    p = {name: (torch.randn(f, f, generator=g) / f**0.5 if name.startswith("w")
+                else 0.1 * torch.randn(f, generator=g) + (1.0 if "scale" in name else 0.0))
+         for name in fused_mp.PARAM_NAMES}
+    enc = {"enc_w1": torch.randn(4, f, generator=g), "enc_w2": torch.randn(f, f, generator=g) / f**0.5,
+           "enc_b1": torch.zeros(f), "enc_b2": torch.zeros(f),
+           "enc_ln_scale": torch.ones(f), "enc_ln_bias": torch.zeros(f)}
+    e = torch.randn(n, k, 4 if use_enc else f, generator=g)
+    t = {"e": e if use_enc else e.to(dtype)}
+    for name, shape in (("hs", (n, k, f)), ("hr", (n, f)), ("h", (n, f)), ("ge", (n, k, f)),
+                        ("gh", (n, f))):
+        t[name] = torch.randn(*shape, generator=g).to(dtype)
+    t["mask"] = (torch.rand(n, k, generator=g) < 0.7).to(torch.float32)
+    t = {name: v.to(cuda) for name, v in t.items()}
+    p = {name: v.to(cuda) for name, v in p.items()}
+    enc = {name: v.to(cuda) for name, v in enc.items()} if use_enc else None
+    return t, p, enc
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("use_enc", [False, True])
+def test_fused_mp_bwd_kernel(cuda, monkeypatch, dtype, tol, use_enc):
+    """K4 through the autograd Function against the same Function with the
+    plain backward: max error relative to the largest magnitude within 1e-4
+    (float32, TF32 off) or 1e-2 (bf16 outputs); the float32 weight
+    gradients of the step within 1e-4 (float32) or 1e-3 (bf16 operands).
+    The encoder's weight gradients come from its plain backward, which
+    rounds them through bf16 as the JAX mirror does: the bf16 tolerance."""
+    t, p, enc = _bwd_case(cuda, dtype, use_enc)
+
+    def grads():
+        leaves = {name: v.clone().requires_grad_() for name, v in p.items()}
+        eleaves = {name: v.clone().requires_grad_() for name, v in enc.items()} if enc else None
+        ins = {name: t[name].clone().requires_grad_() for name in ("hs", "hr", "h")}
+        e_out, h_out = fused_mp.gns_mp_step_autograd(
+            t["e"], ins["hs"], ins["hr"], ins["h"], t["mask"], leaves, eleaves)
+        torch.autograd.backward([e_out, h_out], [t["ge"], t["gh"]])
+        outs = {name: v.grad for name, v in ins.items()}
+        weights = {name: v.grad for name, v in leaves.items() if v.grad is not None}
+        if eleaves:
+            weights.update({name: v.grad for name, v in eleaves.items()})
+        return outs, weights
+
+    before = fused_mp.FUSED_MP_BWD.launches
+    got = grads()
+    assert fused_mp.FUSED_MP_BWD.launches == before + 1
+    monkeypatch.setattr(fused_mp, "gns_mp_step_bwd", fused_mp.gns_mp_step_bwd_plain)
+    want = grads()
+    for name in got[0]:
+        assert got[0][name].dtype == dtype
+        assert _rel_err(got[0][name], want[0][name]) <= tol, name
+    for name in want[1]:
+        wtol = tol if name.startswith("enc_") else (1e-4 if dtype == torch.float32 else 1e-3)
+        assert got[1][name].dtype == torch.float32
+        assert _rel_err(got[1][name], want[1][name]) <= wtol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mp_bwd_kernel_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give bit-identical outputs and
+    weight gradients (no float atomics decide a summation order)."""
+    t, p, _ = _bwd_case(cuda, dtype, False, n=2000, k=40)
+    kp = fused_mp.kernel_params(p, dtype)
+    args = (t["e"], t["hs"], t["hr"], t["h"], t["mask"], kp, t["ge"], t["gh"])
+    a = fused_mp.gns_mp_step_bwd(*args)
+    b = fused_mp.gns_mp_step_bwd(*args)
+    for x, y in zip(a[:4], b[:4]):
+        assert torch.equal(x, y)
+    for name in fused_mp.BWD_PARAM_ORDER:
+        assert torch.equal(a[4][name], b[4][name]), name

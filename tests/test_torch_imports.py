@@ -102,3 +102,26 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     slots, occ = neighbors_cuda.binning(torch.tensor([0, 1, 1, 2], dtype=torch.int32), 2, 4)
     assert slots.tolist() == [0, 4, 5, 8] and occ.tolist() == [2]
     assert (neighbors_cuda.BINNING.launches, fused_mp.FUSED_MP.launches) == before
+
+
+def test_trainer_needs_cuda_unless_asked(no_cuda):
+    from lagrangebench_torch.case import case_builder
+    from lagrangebench_torch.data import ArrayDataset
+    from lagrangebench_torch.models import GNS
+    from lagrangebench_torch.train import Trainer
+
+    meta = _metadata()
+    traj = np.random.default_rng(0).uniform(0, 1, size=(8, 27, 3))
+    train = ArrayDataset("train", [traj], [np.zeros(27, np.int64)], meta,
+                         input_seq_length=3, extra_seq_length=1)
+    valid = ArrayDataset("valid", [traj], [np.zeros(27, np.int64)], meta,
+                         input_seq_length=3, extra_seq_length=2)
+    case = case_builder([1.0] * 3, meta, 3, device="cpu")
+    model = GNS(3, node_in=6, edge_in=4, latent_size=16, num_mp_steps=1, device="cpu")
+    cfg = dict(cfg_train={"batch_size": 1}, cfg_eval={"n_rollout_steps": 2,
+               "train": {"n_trajs": 1}}, input_seq_length=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(model, case, train, valid, **cfg)
+    trainer = Trainer(model, case, train, valid, device="cpu", **cfg)
+    _, _, opt = trainer.train(step_max=1)
+    assert opt.count == 2
