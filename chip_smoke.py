@@ -28,8 +28,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    new trainer from it for one step; prints ms per train step and a
    torch.profiler split of one unroll step; and holds a 3-step float32
    training run on the card against the same run on the CPU.
-4. Prints one ``{"kernels": [...]}`` line (launch counts from the training
-   run), the card line, and last ``{"ok": true, "device": {...}}``.
+4. PaiNN (slice 3). Runs K6 (the message block) and K5 (the fused layer)
+   against their plain versions on inputs captured from one PaiNN-5-128
+   forward of each layout (8,000 particles in 3D, batch 2): float32 with
+   TF32 off and bf16, timed. Then drives ``runner.train_or_infer`` with the
+   shipped ``configs/rpf_3d/painn.yaml`` (``PAINN_CONFIG``) on synthetic
+   RPF-3D-scale splits: ``mode=all`` (10 training steps, then 20-step infer
+   with mse, e_kin and Sinkhorn) in the standard layout, K6 counted at 5
+   launches per forward pass and K5 at none; then ``mode=infer`` with
+   ``model.fused_processor=true`` from that checkpoint (converted by
+   ``ensure_fused_params``), K5 counted at 5 x 20 per attempt and K6 at
+   none, held to the standard layout; 3 training steps of the fused model.
+   Prints ms per train step and per rollout step, profiles a rollout step of
+   each layout and a train step, and holds a small float32 PaiNN (1,000
+   particles, 2 layers, both layouts) on the card against the CPU: a
+   3-step rollout and 3 training steps.
+5. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+   training run for K1-K4, from the PaiNN runs for K6 and K5), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository. Needs one card and no network.
@@ -350,7 +366,7 @@ def main_path(device):
     return rows, ok, min(step_ms)
 
 
-def profile_steps(model, case, pos, ptype, nbrs, steps=3):
+def profile_steps(model, case, pos, ptype, nbrs, steps=3, isl=ISL, label="profile"):
     """Device time per rollout step by kernel group, and the device's idle
     share of the window, from torch.profiler (CUPTI)."""
     import torch
@@ -358,21 +374,24 @@ def profile_steps(model, case, pos, ptype, nbrs, steps=3):
 
     from lagrangebench_torch.evaluate.rollout import rollout_batch
 
-    groups = {"fused_mp": "K3 fused_mp", "neighbor_scan": "K2 neighbor_scan",
+    groups = {"fused_mp": "K3 fused_mp", "painn_msg": "K6 painn_msg",
+              "painn_layer": "K5 painn_layer", "neighbor_scan": "K2 neighbor_scan",
               "bin_": "K1 binning", "gemm": "GEMM (torch.matmul)",
-              "nvjet": "GEMM (torch.matmul)", "index": "gather/scatter (torch index ops)",
+              "nvjet": "GEMM (torch.matmul)", "cutlass": "GEMM (torch.matmul)",
+              "index": "gather/scatter (torch index ops)",
               "scatter": "gather/scatter (torch index ops)",
               "gather": "gather/scatter (torch index ops)"}
+    rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs, pos[:, :, isl:isl + 1])  # warm
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rollout_batch(model, case, pos[:, :, :ISL], ptype, nbrs,
-                          pos[:, :, ISL:ISL + steps])
+            rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs,
+                          pos[:, :, isl:isl + steps])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     except RuntimeError as e:  # the profiler is a report, not a gate
-        log(f"profile: not measured (profiler failed: {e})")
+        log(f"{label}: not measured (profiler failed: {e})")
         return
     per = {}
     for ev in prof.key_averages():
@@ -386,11 +405,11 @@ def profile_steps(model, case, pos, ptype, nbrs, steps=3):
         per[group] = per.get(group, 0.0) + dev / 1e3 / steps
     busy = sum(per.values()) * steps * 1e3
     if busy <= 0:
-        log("profile: no device time in the trace (not measured)")
+        log(f"{label}: no device time in the trace (not measured)")
         return
-    log("profile (ms of device time per rollout step): " + json.dumps(
+    log(f"{label} (ms of device time per rollout step): " + json.dumps(
         {k: round(v, 4) for k, v in sorted(per.items(), key=lambda kv: -kv[1])}))
-    log(f"profile: window {wall_us / 1e3 / steps:.3f} ms per step on the host clock, "
+    log(f"{label}: window {wall_us / 1e3 / steps:.3f} ms per step on the host clock, "
         f"device busy {busy / wall_us:.1%}, idle {1 - busy / wall_us:.1%}")
 
 
@@ -619,31 +638,33 @@ def train_path(device):
     return row, ok, counts
 
 
-def profile_train_step(trainer, raw, nbrs):
-    """Device time of one unroll training step by kernel group, and the
-    device's idle share, from torch.profiler (a report, not a gate)."""
+def profile_train_step(trainer, raw, nbrs, batch=BATCH, unroll=1, label="train profile"):
+    """Device time of one training step (``unroll`` pushforward unrolls) by
+    kernel group, and the device's idle share, from torch.profiler (a
+    report, not a gate)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     groups = [("fused_mp_bwd", "K4 fused_mp_bwd"), ("reduce_partials", "K4 fused_mp_bwd"),
-              ("fused_mp", "K3 fused_mp"), ("neighbor_scan", "K2 neighbor_scan"),
+              ("fused_mp", "K3 fused_mp"), ("painn_msg", "K6 painn_msg"),
+              ("painn_layer", "K5 painn_layer"), ("neighbor_scan", "K2 neighbor_scan"),
               ("bin_", "K1 binning"), ("gemm", "GEMM (torch.matmul)"),
               ("nvjet", "GEMM (torch.matmul)"), ("cutlass", "GEMM (torch.matmul)"),
               ("foreach", "AdamW (foreach ops)"), ("multi_tensor", "AdamW (foreach ops)"),
               ("index", "gather/scatter (torch index ops)"),
               ("scatter", "gather/scatter (torch index ops)"),
               ("gather", "gather/scatter (torch index ops)")]
-    nbrs_b = nbrs.broadcast(BATCH)
-    trainer.train_step(raw, nbrs_b, 3e-4, 1)  # warm
+    nbrs_b = nbrs.broadcast(batch)
+    trainer.train_step(raw, nbrs_b, 3e-4, unroll)  # warm
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            trainer.train_step(raw, nbrs_b, 3e-4, 1)
+            trainer.train_step(raw, nbrs_b, 3e-4, unroll)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     except RuntimeError as e:
-        log(f"train profile: not measured (profiler failed: {e})")
+        log(f"{label}: not measured (profiler failed: {e})")
         return
     per = {}
     for ev in prof.key_averages():
@@ -657,11 +678,11 @@ def profile_train_step(trainer, raw, nbrs):
         per[group] = per.get(group, 0.0) + dev / 1e3
     busy = sum(per.values()) * 1e3
     if busy <= 0:
-        log("train profile: no device time in the trace (not measured)")
+        log(f"{label}: no device time in the trace (not measured)")
         return
-    log("train profile (ms of device time, one step with one unroll): " + json.dumps(
+    log(f"{label} (ms of device time, one step with {unroll} unroll): " + json.dumps(
         {k: round(v, 4) for k, v in sorted(per.items(), key=lambda kv: -kv[1])}))
-    log(f"train profile: {wall_us / 1e3:.3f} ms on the host clock, device busy "
+    log(f"{label}: {wall_us / 1e3:.3f} ms on the host clock, device busy "
         f"{busy / wall_us:.1%}, idle {1 - busy / wall_us:.1%}")
 
 
@@ -697,6 +718,524 @@ def train_reference_check(device):
     return len(losses[0]) == 3 and loss_err <= 1e-5 and par_err <= 1e-5
 
 
+# ---------------------------------------------------------------------------
+# slice 3: PaiNN-5-128 through the runner (K6 standard layout, K5 fused)
+# ---------------------------------------------------------------------------
+
+# configs/rpf_3d/base.yaml and configs/rpf_3d/painn.yaml, resolved (this
+# machine need not have PyYAML); tests/test_torch_runner.py holds it equal to
+# load_with_extends("configs/rpf_3d/painn.yaml") over the defaults
+PAINN_CONFIG = {
+    "dataset": {"src": "datasets/3D_RPF_8000_10kevery100"},
+    "logging": {"wandb_project": "rpf_3d"},
+    "model": {"name": "painn", "num_mp_steps": 5, "latent_dim": 128, "isotropic_norm": True,
+              "magnitude_features": True},
+    "train": {"optimizer": {"lr_start": 1.0e-4}},
+}
+PAINN_STEP_MAX, PAINN_ROLLOUT = 10, 20
+# K6 and K5 against their plain versions. float32 (TF32 off): max |kernel -
+# plain| <= 1e-4 x max |plain| (both sum in float32, in other orders). bf16:
+# relative 2-norm over each output, max-norm printed. K6's bf16 inputs are
+# widened to float32 on both sides, which then differ only in summation
+# order: 1e-5. K5 rounds s1, v1_d, ts and z to bf16 before their products
+# and its outputs to bf16; a sum in another order that lands on the other
+# side of a rounding boundary moves a value by one bf16 ulp (2^-8 of it), a
+# rare event that reads ~1.5e-5 here. A kernel that skipped one of those
+# roundings would move every value it feeds by up to half an ulp, ~1e-3:
+# 1e-4 lies between. The phase also prints what the plain version reads
+# with none of those roundings (float32 arithmetic on the same bf16 values),
+# and requires it above the limit.
+PAINN_TOL = {"float32": 1e-4, "painn_msg_bf16": 1e-5, "painn_layer_bf16": 1e-4}
+# The fused layout against the standard layout, from the same checkpoint:
+# the same function in float32 with the filters and K-sums summed in other
+# orders. One forward on the same inputs: max |fused - standard| <= 1e-4 x
+# max |standard| (acc); the first rollout step's MSE (val/mse1): 1e-4
+# relative. Later steps are printed, not gated: float32 differences grow
+# step by step along the rollout. The phase prints that growth for the
+# fused model through K5 against the same model through the plain version:
+# a kernel that is right drifts from its plain version as the two layouts
+# drift from each other.
+PAINN_FUSED_RTOL = 1e-4
+
+
+def painn_cfg(**overrides):
+    """The port's defaults, the shipped PaiNN config, then ``overrides``
+    (dotted keys)."""
+    from lagrangebench_torch.config import Config, from_dotlist, merge
+    from lagrangebench_torch.defaults import defaults
+
+    dots = [f"{k}={v}" for k, v in overrides.items()]
+    cli = from_dotlist(dots) if dots else Config()
+    return merge(defaults, Config(PAINN_CONFIG), cli)
+
+
+def painn_data(cfg, n_particles=N_PARTICLES, n_trajs=BATCH):
+    """Synthetic RPF-3D-scale (train, valid, test) splits windowed as the
+    runner's ``setup_data`` windows the H5 splits."""
+    import numpy as np
+
+    from lagrangebench_torch.data import ArrayDataset
+    from lagrangebench_torch.data.synthetic import make_synthetic_arrays
+
+    isl = int(cfg.model.input_seq_length)
+    steps = max(int(cfg.eval.n_rollout_steps), 1)
+    side = round(n_particles ** (1 / DIM))
+    splits, metadata = make_synthetic_arrays(
+        n_particles=n_particles, dim=DIM, box=BOX, dx=BOX / side, seq_len_train=12,
+        seq_len_eval=isl + steps, n_trajs=n_trajs, name="RPF",
+    )
+    types = [np.zeros(n_particles, np.int64)] * n_trajs
+    extra = {"train": max(cfg.train.pushforward.unrolls), "valid": steps, "test": steps}
+    return tuple(ArrayDataset(split, splits[split], types, metadata, input_seq_length=isl,
+                              extra_seq_length=extra[split])
+                 for split in ("train", "valid", "test"))
+
+
+def painn_case_model(cfg, metadata, device, seed=0):
+    from lagrangebench_torch.case import case_builder
+    from lagrangebench_torch.models import setup_model
+
+    case = case_builder([BOX] * DIM, metadata, cfg.model.input_seq_length,
+                        cfg_neighbors=cfg.neighbors, cfg_model=cfg.model,
+                        noise_std=cfg.train.noise_std, device=device)
+    return case, setup_model(cfg.model, metadata, seed=seed, device=device)
+
+
+def capture_painn_inputs(device):
+    """K6's and K5's inputs from one PaiNN-5-128 forward of each layout at
+    the slice's shapes (batch 2 x 8,000 particles, 3D, float32), the fused
+    model carrying the standard one's weights; run on the plain versions."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.ops import painn_msg
+
+    cfg = painn_cfg()
+    _, _, test = painn_data(cfg)
+    case, std = painn_case_model(cfg, test.metadata, device)
+    _, fused = painn_case_model(painn_cfg(**{"model.fused_processor": True}), test.metadata,
+                                device)
+    fused.load_jax_params(std.jax_params())
+    isl = int(cfg.model.input_seq_length)
+    batch = [test[i] for i in range(BATCH)]
+    pos = torch.as_tensor(np.stack([b[0] for b in batch]), device=device)
+    ptype = torch.as_tensor(np.stack([b[1] for b in batch]), device=device)
+    _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+    seen = {}
+    real = painn_msg.painn_message, painn_msg.painn_layer
+
+    def rec_msg(g, wij, nd, h):
+        seen.setdefault("painn_msg", (g.clone(), wij.clone(), nd.clone(), h))
+        return painn_msg.painn_message_plain(g, wij, nd, h)
+
+    def rec_layer(g, phi, nd, s, v, p):
+        kp = painn_msg.layer_kernel_params(p, s.dtype)
+        seen.setdefault("painn_layer", tuple(t.clone() for t in (g, phi, nd, s, v)) + (kp,))
+        return painn_msg.painn_layer_plain(g, phi, nd, s, v, p)
+
+    painn_msg.painn_message, painn_msg.painn_layer = rec_msg, rec_layer
+    try:
+        with torch.no_grad():
+            feats, _ = case.preprocess_eval_batched((pos[:, :, :isl], ptype), nbrs.broadcast(BATCH))
+            std(feats, ptype.reshape(-1))
+            fused(feats, ptype.reshape(-1))
+    finally:
+        painn_msg.painn_message, painn_msg.painn_layer = real
+    return seen
+
+
+def painn_bound(name, args):
+    """(bound_ms, bound_by) of K6 / K5 on these inputs: each input and
+    output moved once at 3.35 TB/s, the FLOPs they need at 67 TFLOP/s
+    (CUDA-core float32)."""
+    import torch
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+    if name == "painn_msg":
+        g, wij, nd, h = args
+        n, k, dim = nd.shape
+        edges = n * k
+        byts = nbytes(g, wij, nd) + n * (1 + dim) * h * 4
+        ops = edges * (4 + 4 * dim) * h  # ds: 2H; msg1, msg2: 2H; dv: 4H per axis
+    else:
+        g, phi, nd, s, v, p = args
+        n, k, dim = nd.shape
+        h, r = s.shape[-1], phi.shape[-1] - 1
+        edges = n * k
+        byts = nbytes(g, phi, nd, s, v) + nbytes(*p.values()) + nbytes(s, v)
+        edge_ops = 2 * r * 3 * h + 2 * 3 * h + 3 * h + (1 + 4 * dim) * h
+        node_ops = dim * 2 * h * 2 * h + 2 * 2 * h * h + 2 * h * 3 * h + 20 * dim * h
+        ops = edges * edge_ops + n * node_ops
+    t_bytes, t_ops = byts / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_painn_kernels(seen):
+    """K6 and K5 against their plain versions (float32 and bf16), timed at
+    the path's float32 shapes."""
+    import torch
+
+    from lagrangebench_torch.ops import painn_msg
+
+    rows, ok = {}, True
+    funcs = {"painn_msg": (painn_msg.painn_message_kernel, painn_msg.painn_message_plain,
+                           painn_msg.PAINN_MSG),
+             "painn_layer": (painn_msg.painn_layer_kernel, painn_msg.painn_layer_plain,
+                             painn_msg.PAINN_LAYER)}
+    for name, (kern, plain, handle) in funcs.items():
+        args = seen[name]
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        rel = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want))
+        passed = rel <= PAINN_TOL["float32"]
+        if name == "painn_msg":
+            bf = tuple(t.to(torch.bfloat16) for t in args[:3]) + (args[3],)
+        else:
+            bf = tuple(t.to(torch.bfloat16) for t in args[:5]) + (
+                painn_msg.layer_kernel_params(args[5], torch.bfloat16),)
+        gb, wb = kern(*bf), plain(*bf)
+        torch.cuda.synchronize()
+
+        def l2_of(outs):
+            return max(float((a.float() - b.float()).norm() / b.float().norm())
+                       for a, b in zip(outs, wb))
+
+        l2 = l2_of(gb)
+        mx = max(float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+                 for a, b in zip(gb, wb))
+        passed &= l2 <= PAINN_TOL[f"{name}_bf16"]
+        unrounded = ""
+        if name == "painn_layer":
+            # the plain version with none of its inner bf16 roundings
+            wide = plain(*(t.float() for t in bf[:5]), {k: v.float() for k, v in bf[5].items()})
+            l2_wide = l2_of([t.to(torch.bfloat16) for t in wide])
+            passed &= l2_wide > PAINN_TOL[f"{name}_bf16"]
+            unrounded = f"; without the inner bf16 roundings it reads {l2_wide:.3g}"
+        ok &= passed
+        log(f"{name}: float32 (TF32 off) max|kernel-plain| {err:.3g}, {rel:.3g} of the largest "
+            f"(tol {PAINN_TOL['float32']}); bf16 relative 2-norm {l2:.3g} (tol "
+            f"{PAINN_TOL[name + '_bf16']}), max-norm {mx:.3g}{unrounded}"
+            f"{'' if passed else '  FAIL'}")
+        ms = cuda_time(lambda: kern(*args))
+        plain_ms = cuda_time(lambda: plain(*args), iters=5, warmup=1)
+        bms, by = painn_bound(name, args)
+        n, k, _ = args[0].shape
+        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by}) at "
+            f"N = {n}, K = {k}, float32")
+        rows[name] = {"name": name, "route": "cuda", "source": handle.source_path,
+                      "replaces": handle.replaces, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return rows, ok
+
+
+class _Recorder:
+    """Wraps the runner's case_builder, setup_model and Trainer to keep what
+    they made, and counts PaiNN forward passes."""
+
+    def __init__(self):
+        import lagrangebench_torch.runner as runner
+        from lagrangebench_torch.models.painn import PaiNN
+
+        self.runner, self.painn = runner, PaiNN
+        self.cases, self.models, self.trainers, self.losses = [], [], [], []
+        self.forwards = 0
+
+    def __enter__(self):
+        runner, rec = self.runner, self
+        self.saved = (runner.case_builder, runner.setup_model, runner.Trainer,
+                      self.painn.forward)
+        real_case, real_model, real_trainer, real_forward = self.saved
+
+        def case_builder(*a, **k):
+            rec.cases.append(real_case(*a, **k))
+            return rec.cases[-1]
+
+        def setup_model(*a, **k):
+            rec.models.append(real_model(*a, **k))
+            return rec.models[-1]
+
+        class Trainer(real_trainer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                rec.trainers.append(self)
+                step = self.train_step
+
+                def train_step(*args):
+                    out = step(*args)
+                    rec.losses.append(float(out[0]))
+                    return out
+
+                self.train_step = train_step
+
+        def forward(model, *a, **k):
+            rec.forwards += 1
+            return real_forward(model, *a, **k)
+
+        runner.case_builder, runner.setup_model, runner.Trainer = case_builder, setup_model, Trainer
+        self.painn.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        runner = self.runner
+        runner.case_builder, runner.setup_model, runner.Trainer, self.painn.forward = self.saved
+
+
+def _metrics_ok(metrics, label):
+    import numpy as np
+
+    finite = bool(metrics) and all(np.isfinite(v) for v in metrics.values())
+    keys = {"val/loss", "val/e_kin", "val/sinkhorn"}
+    if not finite or not keys <= set(metrics):
+        log(f"FAIL: {label} metrics missing or not finite: {metrics}")
+        return False
+    return True
+
+
+def painn_forward_diff(std_model, fused_model, case, test):
+    """max |acc_fused - acc_std| / max |acc_std| on the test batch's first
+    window (both layouts through their kernels)."""
+    import numpy as np
+    import torch
+
+    isl = test.input_seq_length
+    batch = [test[i] for i in range(BATCH)]
+    pos = torch.as_tensor(np.stack([b[0] for b in batch]), device=case.device)[:, :, :isl]
+    ptype = torch.as_tensor(np.stack([b[1] for b in batch]), device=case.device)
+    _, nbrs = case.allocate_eval((pos[0], ptype[0]))
+    with torch.no_grad():
+        feats, _ = case.preprocess_eval_batched((pos, ptype), nbrs.broadcast(BATCH))
+        a = std_model(feats, ptype.reshape(-1))["acc"]
+        b = fused_model(feats, ptype.reshape(-1))["acc"]
+    return float((b - a).abs().max() / a.abs().max())
+
+
+def painn_path(device):
+    """Slice 3: K6/K5 checks, then PaiNN-5-128 through runner.train_or_infer:
+    the standard layout trains and infers (mode=all), the fused layout
+    infers from its checkpoint (mode=infer) and trains 3 steps; launch
+    counts, metrics, timings and profiles."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch import runner
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+    from lagrangebench_torch.ops import painn_msg
+    from lagrangebench_torch.train import Trainer
+
+    seen = capture_painn_inputs(device)
+    n, k, _ = seen["painn_msg"][0].shape
+    log(f"PaiNN slice shapes: B*N = {n}, K = {k}, H = {seen['painn_msg'][3]}")
+    rows, ok = compare_painn_kernels(seen)
+    del seen
+
+    kernels = (painn_msg.PAINN_MSG, painn_msg.PAINN_LAYER)
+    layers = int(PAINN_CONFIG["model"]["num_mp_steps"])
+    with tempfile.TemporaryDirectory() as tmp:
+        # the trainer checkpoints at eval steps (as the JAX trainer does), so
+        # the one in-training eval is the last step; eval.train.n_trajs must
+        # fit the 2 synthetic validation trajectories
+        common = {"eval.n_rollout_steps": PAINN_ROLLOUT, "eval.infer.n_trajs": BATCH,
+                  "eval.train.n_trajs": 1, "eval.rollout_dir": f"{tmp}/rollouts",
+                  "logging.ckp_dir": f"{tmp}/ckp", "logging.eval_steps": PAINN_STEP_MAX}
+        if str(device) == "cpu":  # a rehearsal on the CPU; the card is the runner's default
+            common["gpu"] = -1
+        cfg = painn_cfg(mode="all", **{"train.step_max": PAINN_STEP_MAX}, **common)
+        data = painn_data(cfg)
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _Recorder() as rec:
+            metrics = runner.train_or_infer(cfg, data=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {kern.name: kern.launches for kern in kernels}
+        log(f"painn standard (mode=all): {wall:.1f} s wall, {rec.forwards} forward passes, "
+            f"launches {counts}; losses {[round(x, 5) for x in rec.losses]}")
+        log(f"painn standard metrics: {metrics}")
+        rows["painn_msg"]["launches"] = counts["painn_msg"]
+        if counts != {"painn_msg": layers * rec.forwards, "painn_layer": 0} or rec.forwards < 1:
+            log(f"FAIL: launch counts {counts}, expected K6 = {layers} x {rec.forwards}, K5 = 0")
+            ok = False
+        if len(rec.losses) != PAINN_STEP_MAX + 1 or not np.all(np.isfinite(rec.losses)):
+            log("FAIL: the standard run did not take finite training steps")
+            ok = False
+        ok &= _metrics_ok(metrics, "standard")
+        d = np.asarray(rec.trainers[0].timer.durations) * 1e3
+        log(f"painn train: ms per step (host clock, synchronized) median {np.median(d):.2f} "
+            f"(all {np.round(d, 2).tolist()}) [batch 1 x {N_PARTICLES} particles, "
+            f"PaiNN-{layers}-128 float32, standard layout]")
+        std_model, case = rec.models[0], rec.cases[0]
+        trainer = rec.trainers[0]
+        run_dir = os.path.join(cfg.logging.ckp_dir, cfg.logging.run_name)
+
+        cfg2 = painn_cfg(mode="infer", load_ckp=run_dir,
+                         **{"model.fused_processor": True}, **common)
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        with _Recorder() as rec2:
+            metrics2 = runner.train_or_infer(cfg2, data=data)
+        torch.cuda.synchronize()
+        counts2 = {kern.name: kern.launches for kern in kernels}
+        attempts = rec2.forwards // PAINN_ROLLOUT
+        log(f"painn fused (mode=infer from the standard checkpoint): {rec2.forwards} forward "
+            f"passes, launches {counts2}")
+        log(f"painn fused metrics: {metrics2}")
+        rows["painn_layer"]["launches"] = counts2["painn_layer"]
+        if attempts < 1 or counts2 != {"painn_msg": 0,
+                                       "painn_layer": layers * PAINN_ROLLOUT * attempts}:
+            log(f"FAIL: launch counts {counts2}, expected K5 = {layers} x {PAINN_ROLLOUT} x "
+                f"{attempts}, K6 = 0")
+            ok = False
+        ok &= _metrics_ok(metrics2, "fused")
+        fused_model = rec2.models[0]
+        rel = {key: abs(metrics2[key] - metrics[key]) / max(abs(metrics[key]), 1e-30)
+               for key in metrics}
+        log("painn fused vs standard metrics, relative difference: "
+            + json.dumps({k: float(f"{v:.3g}") for k, v in rel.items()}))
+        acc_err = painn_forward_diff(std_model, fused_model, rec.cases[0], data[2])
+        log(f"painn fused vs standard: one forward max|acc diff| {acc_err:.3g} of the largest, "
+            f"val/mse1 {rel['val/mse1']:.3g} (tol {PAINN_FUSED_RTOL} each)")
+        ok &= acc_err <= PAINN_FUSED_RTOL and rel["val/mse1"] <= PAINN_FUSED_RTOL
+
+        # how float32 differences grow along a rollout of the same weights:
+        # the fused model against the standard one, and the fused model
+        # through K5 against itself through the plain layer (a report, not a
+        # gate); differences are taken across the periodic box
+        test = data[2]
+        isl = int(cfg.model.input_seq_length)
+        batch = [test[i] for i in range(BATCH)]
+        pos = torch.as_tensor(np.stack([b[0] for b in batch]), device=device)
+        ptype = torch.as_tensor(np.stack([b[1] for b in batch]), device=device)
+        _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+        nbrs = nbrs.broadcast(BATCH)
+        preds = {}
+        for label, model in (("standard", std_model), ("fused", fused_model),
+                             ("fused plain", fused_model)):
+            real_layer = painn_msg.painn_layer
+            if label == "fused plain":
+                painn_msg.painn_layer = painn_msg.painn_layer_plain
+            try:
+                preds[label], _, _ = rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs,
+                                                   pos[:, :, isl:])
+            finally:
+                painn_msg.painn_layer = real_layer
+
+        def drift(a, b):
+            d = torch.remainder(a - b + BOX / 2, BOX) - BOX / 2
+            return [float(f"{x:.3g}") for x in d.abs().amax(dim=(0, 2, 3)).tolist()]
+
+        log(f"painn rollout drift, max |position difference| per step: fused (K5) vs standard "
+            f"{drift(preds['fused'], preds['standard'])}; fused (K5) vs fused (plain layer) "
+            f"{drift(preds['fused'], preds['fused plain'])}")
+        del preds
+
+        # three training steps on the fused model
+        _, valid, _ = data
+        train_cfg = painn_cfg(**common)
+        tr = Trainer(fused_model, case, data[0], valid, cfg_train=train_cfg.train,
+                     cfg_eval=train_cfg.eval, cfg_logging={"log_steps": 1, "eval_steps": 10**9},
+                     input_seq_length=int(train_cfg.model.input_seq_length), device=device)
+        steps, _ = record_steps(tr)
+        before = [p.detach().clone() for p in fused_model.parameters()]
+        for kern in kernels:
+            kern.launches = 0
+        with _Recorder() as rec3:
+            tr.train(step_max=2)
+        passes = rec3.forwards
+        counts3 = {kern.name: kern.launches for kern in kernels}
+        changed = sum(not torch.equal(a, b) for a, b in zip(before, fused_model.parameters()))
+        losses = [loss for _, loss in steps]
+        log(f"painn fused training: losses {losses}, {changed} of {len(before)} parameter "
+            f"tensors changed, {passes} forward passes, launches {counts3}")
+        if (len(losses) != 3 or not np.all(np.isfinite(losses)) or changed != len(before)
+                or counts3 != {"painn_msg": 0, "painn_layer": layers * passes}):
+            log("FAIL: fused training steps")
+            ok = False
+
+        # ms per rollout step and the profiles
+        step_ms = {}
+        for label, model in (("standard", std_model), ("fused", fused_model)):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                preds, _, _ = rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs,
+                                            pos[:, :, isl:])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3 / PAINN_ROLLOUT)
+            step_ms[label] = min(times)
+            log(f"painn rollout ({label}): {[round(t, 3) for t in times]} ms per step (batch "
+                f"{BATCH} x {N_PARTICLES} particles, PaiNN-{layers}-128 float32)")
+            if not torch.isfinite(preds).all():
+                log(f"FAIL: {label} rollout predictions are not finite")
+                ok = False
+        for label, model in (("standard", std_model), ("fused", fused_model)):
+            profile_steps(model, case, pos, ptype, nbrs, steps=1, isl=isl,
+                          label=f"painn {label} rollout")
+        pos_t, ptype_t = next(iter(trainer.loader_train))
+        raw = trainer._batch((pos_t, ptype_t))
+        _, _, tnbrs = trainer.case.allocate(trainer.generator, (pos_t[0], ptype_t[0]))
+        profile_train_step(trainer, raw, tnbrs, batch=1, unroll=0,
+                           label="painn standard train")
+    return rows, ok, step_ms
+
+
+def painn_reference_check(device):
+    """A small float32 PaiNN (1,000 particles, 2 layers, H = 128) on the
+    card against the CPU (TF32 off), both layouts: a 3-step rollout
+    (positions 1e-5 absolute) and 3 training steps fed the same host-drawn
+    noise (losses 1e-5 relative, parameters 1e-5 absolute)."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+    from lagrangebench_torch.train import Trainer
+
+    ok = True
+    for fused in (False, True):
+        cfg = painn_cfg(**{"model.num_mp_steps": 2, "model.fused_processor": fused,
+                           "eval.n_rollout_steps": 3, "eval.train.n_trajs": 1,
+                           "train.batch_size": 2})
+        train, valid, test = painn_data(cfg, n_particles=1000)
+        isl = int(cfg.model.input_seq_length)
+        preds, losses, params = [], [], []
+        for dev in (device, "cpu"):
+            case, model = painn_case_model(cfg, test.metadata, dev)
+            batch = [test[i] for i in range(BATCH)]
+            pos = torch.as_tensor(np.stack([b[0] for b in batch]), device=case.device)
+            ptype = torch.as_tensor(np.stack([b[1] for b in batch]), device=case.device)
+            _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+            p, _, _ = rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs.broadcast(BATCH),
+                                    pos[:, :, isl:isl + 3])
+            preds.append(p.cpu())
+            tr = Trainer(model, case, train, valid, cfg_train=cfg.train, cfg_eval=cfg.eval,
+                         cfg_logging={"log_steps": 1, "eval_steps": 10**9},
+                         input_seq_length=isl, device=dev)
+            steps, _ = record_steps(tr)
+            tr.train(step_max=2)
+            losses.append(np.asarray([loss for _, loss in steps]))
+            params.append(checkpoint.flatten_tree(model.jax_params()))
+        pos_err = float((preds[0] - preds[1]).abs().max())
+        loss_err = float(np.max(np.abs(losses[0] - losses[1]) / np.abs(losses[1])))
+        par_err, worst = max((float(np.max(np.abs(params[0][k] - params[1][k]))), k)
+                             for k in params[1])
+        passed = (pos_err <= 1e-5 and len(losses[0]) == 3 and loss_err <= 1e-5
+                  and par_err <= 1e-5)
+        ok &= passed
+        log(f"painn reference ({'fused' if fused else 'standard'}), cuda vs cpu float32: "
+            f"positions after 3 steps {pos_err:.3g} (tol 1e-5); 3 training steps, losses "
+            f"{losses[0].tolist()} vs {losses[1].tolist()}, max rel diff {loss_err:.3g} (tol "
+            f"1e-5); parameters max abs diff {par_err:.3g} at {worst} (tol 1e-5)"
+            f"{'' if passed else '  FAIL'}")
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -721,7 +1260,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, TF32 matmul off")
     t0 = time.perf_counter()
-    times = build.build(["binning", "neighbor_scan", "fused_mp", "fused_mp_bwd"])
+    times = build.build(["binning", "neighbor_scan", "fused_mp", "fused_mp_bwd", "painn_msg",
+                         "painn_layer"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall, per source {times}")
 
     with torch.no_grad():
@@ -734,6 +1274,12 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = counts[name]
     rows["fused_mp_bwd"] = bwd_row
+    painn_rows, painn_ok, painn_ms = painn_path("cuda")
+    ok &= painn_ok
+    ok &= painn_reference_check("cuda")
+    log(f"PaiNN inference path: {painn_ms['standard']:.3f} ms per rollout step (standard, K6), "
+        f"{painn_ms['fused']:.3f} (fused, K5)")
+    rows.update(painn_rows)
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     if not ok:

@@ -167,3 +167,21 @@ def load_with_extends(path: str, defaults: Config) -> Config:
     chain.append(defaults)
     return merge(*reversed(chain))
 
+
+def check_subset(superset: Config, subset: Config, prefix: str = "") -> None:
+    """Raise ValueError for a key of ``subset`` that ``superset`` lacks (a
+    mistyped CLI argument)."""
+    for k, v in subset.items():
+        full = f"{prefix}{k}"
+        if k not in superset:
+            raise ValueError(f"Unknown config key: {full}")
+        if isinstance(v, Config) and isinstance(superset[k], Config):
+            check_subset(superset[k], v, prefix=full + ".")
+
+
+def save_yaml(cfg: Config, path: str) -> None:
+    """Write a Config to a YAML file (keys in their order)."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f, default_flow_style=False, sort_keys=False)

@@ -1,7 +1,8 @@
-"""Evaluation: rollouts and metrics."""
+"""Evaluation: rollouts, metrics and VTK export."""
 
 from .metrics import MetricsComputer, MetricsDict, averaged_metrics
 from .rollout import eval_rollout, infer, rollout_batch
+from .utils import pkl2vtk, write_vtk
 
 __all__ = [
     "MetricsComputer",
@@ -10,4 +11,6 @@ __all__ = [
     "eval_rollout",
     "infer",
     "rollout_batch",
+    "pkl2vtk",
+    "write_vtk",
 ]

@@ -28,6 +28,7 @@ from ..data import DataLoader
 from ..defaults import defaults
 from ..utils import get_kinematic_mask, resolve_device
 from .metrics import MetricsComputer
+from .utils import write_vtk
 
 
 def _to_numpy(tree):
@@ -121,11 +122,13 @@ def eval_rollout(
 ) -> Dict[str, Dict]:
     """Evaluate rollouts over a loader; returns metrics (numpy) per trajectory.
 
-    With ``rollout_dir`` and ``out_type="pkl"`` each rollout is pickled as
-    ``rollout_<i>.pkl`` and the metrics as ``metrics<timestamp>.pkl``.
+    With ``rollout_dir``, ``out_type="pkl"`` pickles each rollout as
+    ``rollout_<i>.pkl``, ``out_type="vtk"`` writes its frames as
+    ``rollout_<i>_<t>.vtk`` (predicted) and ``rollout_<i>_ref_<t>.vtk``
+    (ground truth); the metrics go to ``metrics<timestamp>.pkl``.
     """
-    if out_type not in ("none", "pkl"):
-        raise NotImplementedError(f"rollout output {out_type!r} is not ported")
+    if out_type not in ("none", "pkl", "vtk"):
+        raise ValueError(f"unknown rollout output {out_type!r}")
     batch_size = loader_eval.batch_size
     t_window = loader_eval.dataset.input_seq_length
     eval_metrics: Dict[str, Dict] = {}
@@ -149,7 +152,7 @@ def eval_rollout(
         for j, m in enumerate(metrics):
             eval_metrics[f"rollout_{i * batch_size + j}"] = _to_numpy(m)
 
-        if rollout_dir is not None and out_type == "pkl":
+        if rollout_dir is not None and out_type != "none":
             preds = predictions.cpu().numpy()
             for j in range(pos_np.shape[0]):
                 truth = pos_np[j].transpose(1, 0, 2)  # (T, N, dim)
@@ -158,9 +161,14 @@ def eval_rollout(
                     "ground_truth_rollout": truth,
                     "particle_type": ptype_np[j],
                 }
-                path = os.path.join(rollout_dir, f"rollout_{i * batch_size + j}.pkl")
-                with open(path, "wb") as f:
-                    pickle.dump(example, f)
+                prefix = os.path.join(rollout_dir, f"rollout_{i * batch_size + j}")
+                if out_type == "vtk":
+                    for name, frames in (("", example["predicted_rollout"]), ("ref_", truth)):
+                        for k, frame in enumerate(frames):
+                            write_vtk({"r": frame, "tag": ptype_np[j]}, f"{prefix}_{name}{k}.vtk")
+                else:
+                    with open(f"{prefix}.pkl", "wb") as f:
+                        pickle.dump(example, f)
 
     if rollout_dir is not None:
         stamp = time.strftime("%Y_%m_%d_%H_%M_%S", time.localtime())

@@ -1,4 +1,4 @@
-"""Model building blocks: Flax-equivalent Dense, LayerNorm and MLP.
+"""Model building blocks: Flax-equivalent Dense, LinearXav, LayerNorm, MLP.
 
 The JAX models run ``flax.linen.Dense(dtype=cdt)`` and
 ``LayerNorm(dtype=cdt)`` with float32 parameters. The modules here keep the
@@ -70,19 +70,39 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` with the numerics of ``flax.linen.Dense(dtype=cdt)``."""
+    """``nn.Linear`` with the numerics of ``flax.linen.Dense(dtype=cdt)``
+    (lecun-normal weights, zero bias)."""
 
-    def __init__(self, in_features: int, out_features: int, generator=None):
-        super().__init__(in_features, out_features)
+    def __init__(self, in_features: int, out_features: int, generator=None,
+                 use_bias: bool = True):
+        super().__init__(in_features, out_features, bias=use_bias)
         gen = generator if generator is not None else torch.Generator()
-        lecun_normal_(self.weight, in_features, gen)
-        with torch.no_grad():
-            self.bias.zero_()
+        self.init_weight(gen)
+        if use_bias:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def init_weight(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.in_features, generator)
 
     def forward(self, x: torch.Tensor, cdt: Optional[torch.dtype] = None) -> torch.Tensor:
         cdt = cdt or x.dtype
         y = matmul(x.to(cdt), self.weight.to(cdt).t())
-        return y + self.bias.to(cdt)
+        return y if self.bias is None else y + self.bias.to(cdt)
+
+
+class LinearXav(Dense):
+    """The JAX package's ``LinearXav``: a Dense layer with Flax's
+    ``xavier_uniform`` weights (uniform in +-sqrt(6 / (fan_in + fan_out)))."""
+
+    def init_weight(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            nn.init.xavier_uniform_(self.weight, generator=generator)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """Flax's ``nn.silu``: x * sigmoid(x)."""
+    return x * torch.sigmoid(x)
 
 
 class LayerNorm(nn.Module):

@@ -1,0 +1,317 @@
+"""PaiNN message block (K6) and fused PaiNN layer (K5), dense (N, K) layout.
+
+Counterpart of ``lagrangebench_tpu/ops/painn_msg.py``.
+
+K6, ``painn_message``, per receiver over its K slots:
+
+    msg  = wij * g[..., :3H]          (filters pre-masked: padded slots 0)
+    ds   = sum_K msg[:H]
+    dv_d = sum_K (nd_d * msg[H:2H] + g[..., (3+d)H:(4+d)H] * msg[2H:3H])
+
+with g the packed sender gather [x (3H), v (dim*H)] and nd the
+receiver->sender direction; ds (N, H) and dv (N, dim*H) come out in float32.
+
+K5, ``painn_layer``, runs everything of a PaiNN layer after the interaction
+context net in one call: the filters ``W = (phi[:R] @ filt_w + filt_b) *
+phi[R]`` from the raw radial basis (the per-edge scale, cutoff x padding
+mask, in the last column), the edge message and its K-sum, the clipped
+residuals, the per-axis ``v1_d @ vmix_w``, the norm gate, the mixing net
+``silu(ts @ mix_w1 + mix_b1) @ mix_w2 + mix_b2`` and the updates. g packs
+[x1, x2, u_d = v_d * x3] ((2 + dim) * H wide); outputs are in the compute
+dtype of ``s``.
+
+Products and sums run in float32 (float64 when the inputs are float64,
+which only the CPU takes). The plain versions round to the compute dtype
+where the JAX package does: s1 and v1_d before their products, ts and the
+silu output before theirs, and the outputs.
+
+``painn_message`` and ``painn_layer`` are ``torch.autograd.Function``s.
+Their forward runs the CUDA kernel on CUDA tensors (``csrc/painn_msg.cu``,
+``csrc/painn_layer.cu``) and the plain version on CPU tensors. Their
+backward recomputes the plain version under ``torch.enable_grad()`` and
+returns ``torch.autograd.grad`` of it: the reference's own design
+(``_painn_message_vjp_bwd`` and ``_painn_layer_vjp_bwd`` rematerialize
+through the pure-JAX mirror), not a fallback. Neither TPU kernel has a
+backward kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from .build import Kernel, stream
+
+HIDDEN = 128  # the kernels' compiled channel width
+N_RBF = 20  # K5's compiled radial-basis width (``build_painn``'s 20)
+
+LAYER_PARAM_NAMES = ("filt_w", "filt_b", "vmix_w", "mix_w1", "mix_b1",
+                     "mix_w2", "mix_b2")
+_LAYER_MATRICES = ("filt_w", "vmix_w", "mix_w1", "mix_w2")
+
+PAINN_MSG = Kernel(
+    "painn_msg", "painn_msg", "lbt_painn_msg",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    replaces="lagrangebench_tpu/ops/painn_msg.py:57",
+)
+PAINN_LAYER = Kernel(
+    "painn_layer", "painn_layer", "lbt_painn_layer",
+    [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    replaces="lagrangebench_tpu/ops/painn_msg.py:252",
+)
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """a @ w with operands rounded to ``cdt`` and the sum in float32/64."""
+    acc = _acc_dtype(cdt)
+    return a.to(cdt).to(acc) @ w.to(cdt).to(acc)
+
+
+def _clip(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, -1e2, 1e2)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def painn_message_plain(g: torch.Tensor, wij: torch.Tensor, neg_dir: torch.Tensor,
+                        h: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6.
+
+    g (N, K, 3H + dim*H) packed gather [x, v]; wij (N, K, 3H) pre-masked
+    filters; neg_dir (N, K, dim). Returns (ds (N, H), dv (N, dim*H)) in
+    float32 (float64 for float64 inputs).
+    """
+    acc = _acc_dtype(g.dtype)
+    dim = neg_dir.shape[-1]
+    msg = wij.to(acc) * g[..., : 3 * h].to(acc)
+    ds = torch.sum(msg[..., :h], dim=1)
+    msg1 = msg[..., h: 2 * h]
+    msg2 = msg[..., 2 * h: 3 * h]
+    dvs = []
+    for d in range(dim):
+        vg = g[..., (3 + d) * h: (4 + d) * h].to(acc)
+        nd = neg_dir[..., d: d + 1].to(acc)
+        dvs.append(torch.sum(nd * msg1 + vg * msg2, dim=1))
+    return ds, torch.cat(dvs, dim=-1)
+
+
+def painn_layer_plain(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor,
+                      s: torch.Tensor, v_flat: torch.Tensor, p: Dict[str, torch.Tensor],
+                      eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5.
+
+    g (N, K, (2 + dim) * H) packed gather [x1, x2, u]; phi (N, K, R + 1)
+    radial basis with the per-edge scale last; neg_dir (N, K, dim); s
+    (N, H) and v_flat (N, dim*H) the node state in the compute dtype; ``p``
+    the ``LAYER_PARAM_NAMES`` arrays ((in, out) matrices). Returns (s_out,
+    v_out) in the compute dtype.
+    """
+    cdt = s.dtype
+    acc = _acc_dtype(cdt)
+    h = s.shape[-1]
+    dim = neg_dir.shape[-1]
+    r = phi.shape[-1] - 1
+
+    wij = _dot(phi[..., :r], p["filt_w"], cdt)
+    wij = (wij + p["filt_b"].to(acc)) * phi[..., r:].to(acc)
+
+    ds = torch.sum(wij[..., :h] * g[..., :h].to(acc), dim=1)
+    msg1 = wij[..., h: 2 * h] * g[..., h: 2 * h].to(acc)
+    w3 = wij[..., 2 * h:]
+    s1 = (s.to(acc) + _clip(ds)).to(cdt)
+
+    vls, vrs, v1s = [], [], []
+    for d in range(dim):
+        u_d = g[..., (2 + d) * h: (3 + d) * h].to(acc)
+        nd = neg_dir[..., d: d + 1].to(acc)
+        dv_d = torch.sum(nd * msg1 + w3 * u_d, dim=1)
+        v1_d = (v_flat[..., d * h: (d + 1) * h].to(acc) + _clip(dv_d)).to(cdt)
+        v1s.append(v1_d)
+        vm = _dot(v1_d, p["vmix_w"], cdt)
+        vls.append(vm[..., :h])
+        vrs.append(vm[..., h:])
+
+    v_norm = torch.sqrt(sum(vr * vr for vr in vrs) + eps)
+    ts = torch.cat([s1.to(acc), v_norm], dim=-1).to(cdt)
+    z = _dot(ts, p["mix_w1"], cdt) + p["mix_b1"].to(acc)
+    z = (z * torch.sigmoid(z)).to(cdt)
+    m = _dot(z, p["mix_w2"], cdt) + p["mix_b2"].to(acc)
+    ds2 = m[..., :h]
+    dv2 = m[..., h: 2 * h]
+    dsv = m[..., 2 * h:] * sum(vr * vl for vr, vl in zip(vrs, vls))
+    s_out = (s1.to(acc) + _clip(ds2 + dsv)).to(cdt)
+    v_out = torch.cat(
+        [(v1s[d].to(acc) + _clip(vls[d] * dv2)).to(cdt) for d in range(dim)], dim=-1
+    )
+    return s_out, v_out
+
+
+# ---------------------------------------------------------------------------
+# kernel launches (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int],
+           vec: int = 1) -> torch.Tensor:
+    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and shape
+    whose start is aligned for loads of ``vec`` elements at once."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected {tuple(shape)} {dtype}")
+    align = vec * t.element_size()
+    if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name}: must be a contiguous, {align}-byte aligned CUDA tensor")
+    return t
+
+
+def _cuda_dtype(cdt: torch.dtype, kernel: str) -> torch.dtype:
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{kernel} kernel: compute dtype {cdt} not supported")
+    return cdt
+
+
+def painn_message_kernel(g: torch.Tensor, wij: torch.Tensor, neg_dir: torch.Tensor,
+                         h: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K6 on CUDA tensors (no autograd); see :func:`painn_message_plain`.
+
+    g, wij and neg_dir share the compute dtype (bfloat16 or float32); H is
+    128 and dim 2 or 3.
+    """
+    cdt = _cuda_dtype(g.dtype, "painn_msg")
+    n, k, gw = g.shape
+    dim = neg_dir.shape[-1]
+    if h != HIDDEN or dim not in (2, 3):
+        raise ValueError(f"painn_msg kernel: H {h} (needs {HIDDEN}), dim {dim} (needs 2 or 3)")
+    _check("painn_msg g", g, cdt, (n, k, (3 + dim) * h), vec=4)
+    _check("painn_msg wij", wij, cdt, (n, k, 3 * h), vec=4)
+    _check("painn_msg neg_dir", neg_dir, cdt, (n, k, dim))
+    ds = torch.empty((n, h), dtype=torch.float32, device=g.device)
+    dv = torch.empty((n, dim * h), dtype=torch.float32, device=g.device)
+    PAINN_MSG(*(ctypes.c_void_p(t.data_ptr()) for t in (g, wij, neg_dir, ds, dv)),
+              n, k, h, dim, int(cdt == torch.bfloat16), stream())
+    return ds, dv
+
+
+def layer_kernel_params(p: Dict[str, torch.Tensor], cdt: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The layer's parameters as K5 takes them: matrices in the compute
+    dtype, vectors in float32 (float64 for a float64 compute dtype)."""
+    acc = _acc_dtype(cdt)
+    return {name: p[name].detach().to(cdt if name in _LAYER_MATRICES else acc).contiguous()
+            for name in LAYER_PARAM_NAMES}
+
+
+def painn_layer_kernel(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor,
+                       s: torch.Tensor, v_flat: torch.Tensor,
+                       p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5 on CUDA tensors (no autograd); see :func:`painn_layer_plain`.
+
+    All activations share the compute dtype of ``s`` (bfloat16 or float32);
+    H is 128, R (the basis width, ``phi``'s last axis minus one) 20 and dim
+    2 or 3. ``p`` is in any dtype and is converted with
+    :func:`layer_kernel_params`.
+    """
+    cdt = _cuda_dtype(s.dtype, "painn_layer")
+    n, k, _ = g.shape
+    h = s.shape[-1]
+    dim = neg_dir.shape[-1]
+    r = phi.shape[-1] - 1
+    if h != HIDDEN or r != N_RBF or dim not in (2, 3):
+        raise ValueError(f"painn_layer kernel: H {h} (needs {HIDDEN}), R {r} (needs "
+                         f"{N_RBF}), dim {dim} (needs 2 or 3)")
+    _check("painn_layer g", g, cdt, (n, k, (2 + dim) * h))
+    _check("painn_layer phi", phi, cdt, (n, k, r + 1))
+    _check("painn_layer neg_dir", neg_dir, cdt, (n, k, dim))
+    _check("painn_layer s", s, cdt, (n, h))
+    _check("painn_layer v", v_flat, cdt, (n, dim * h))
+    kp = layer_kernel_params(p, cdt)
+    acc = _acc_dtype(cdt)
+    shapes = {"filt_w": (r, 3 * h), "filt_b": (3 * h,), "vmix_w": (h, 2 * h),
+              "mix_w1": (2 * h, h), "mix_b1": (h,), "mix_w2": (h, 3 * h), "mix_b2": (3 * h,)}
+    for name in LAYER_PARAM_NAMES:
+        _check(f"painn_layer {name}", kp[name], cdt if name in _LAYER_MATRICES else acc,
+               shapes[name])
+    s_out = torch.empty_like(s)
+    v_out = torch.empty_like(v_flat)
+    tensors = [g, phi, neg_dir, s, v_flat] + [kp[name] for name in LAYER_PARAM_NAMES]
+    ptrs = [t.data_ptr() for t in tensors + [s_out, v_out]]
+    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    PAINN_LAYER(ctypes.cast(arr, ctypes.c_void_p), n, k, h, r, dim,
+                int(cdt == torch.bfloat16), stream())
+    return s_out, v_out
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions: kernel (or plain) forward, rematerialized plain backward
+# ---------------------------------------------------------------------------
+
+def _plain_vjp(fn, inputs, needs, cotangents):
+    """Gradients of ``fn(*inputs)`` for the inputs flagged in ``needs``,
+    rematerialized through ``fn`` (None for the others)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(bool(need)) for x, need in zip(inputs, needs)]
+        outs = fn(*leaves)
+        wrt = [x for x in leaves if x.requires_grad]
+        grads = iter(torch.autograd.grad(outs, wrt, cotangents, allow_unused=True)) if wrt else None
+    return [next(grads) if need else None for need in needs]
+
+
+class _MessageFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, wij, neg_dir, h):
+        ctx.h = h
+        ctx.save_for_backward(g, wij, neg_dir)
+        if g.is_cuda:
+            return painn_message_kernel(g, wij, neg_dir, h)
+        return painn_message_plain(g, wij, neg_dir, h)
+
+    @staticmethod
+    def backward(ctx, gds, gdv):
+        h = ctx.h
+        grads = _plain_vjp(lambda *xs: painn_message_plain(*xs, h), ctx.saved_tensors,
+                           ctx.needs_input_grad[:3], (gds, gdv))
+        return (*grads, None)
+
+
+class _LayerFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, phi, neg_dir, s, v_flat, *params):
+        ctx.save_for_backward(g, phi, neg_dir, s, v_flat, *params)
+        p = dict(zip(LAYER_PARAM_NAMES, params))
+        if s.is_cuda:
+            return painn_layer_kernel(g, phi, neg_dir, s, v_flat, p)
+        return painn_layer_plain(g, phi, neg_dir, s, v_flat, p)
+
+    @staticmethod
+    def backward(ctx, gs, gv):
+        def plain(g, phi, neg_dir, s, v_flat, *params):
+            return painn_layer_plain(g, phi, neg_dir, s, v_flat,
+                                     dict(zip(LAYER_PARAM_NAMES, params)))
+
+        return tuple(_plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad, (gs, gv)))
+
+
+def painn_message(g: torch.Tensor, wij: torch.Tensor, neg_dir: torch.Tensor,
+                  h: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6, differentiable: the CUDA kernel forward on CUDA tensors (the
+    plain version on CPU tensors), the backward rematerialized through
+    :func:`painn_message_plain`. Counts a launch only where the kernel
+    runs (``PAINN_MSG.launches``)."""
+    return _MessageFunction.apply(g, wij, neg_dir, h)
+
+
+def painn_layer(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor,
+                s: torch.Tensor, v_flat: torch.Tensor,
+                p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5, differentiable: the CUDA kernel forward on CUDA tensors (the
+    plain version on CPU tensors), the backward rematerialized through
+    :func:`painn_layer_plain`. ``p`` holds the parameters as stored; their
+    gradients come back in their own dtype. Counts a launch only where the
+    kernel runs (``PAINN_LAYER.launches``)."""
+    return _LayerFunction.apply(g, phi, neg_dir, s, v_flat,
+                                *(p[name] for name in LAYER_PARAM_NAMES))

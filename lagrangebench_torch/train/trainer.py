@@ -8,20 +8,24 @@ Counterpart of ``lagrangebench_tpu/train/trainer.py`` (single device):
   backward runs K4), and AdamW (``weight_decay=1e-8``) on an exponential
   learning-rate decay clamped at ``lr_final``, evaluated at the step count
   before it increments (``optax.adamw(optax.exponential_decay(...))``);
-* neighbor-buffer overflow is read once per step, after the backward and
-  before the update: a step that overflowed changes no parameter, moment,
-  step count or noise stream (the noise generator's state is restored, as
-  the JAX trainer keeps its old keys), the buffers are reallocated from the
-  first overflowing sample with a capacity boost of x1.5, and the step is
-  retried, at most 5 times;
+* every step commits its update on the device only where no neighbor
+  buffer overflowed (``AdamW.step(skip=...)``), and the flag is sticky, so
+  every step after an overflow is a no-op until the flag is read. The host
+  reads it every ``train.overflow_sync_every`` steps (every step by
+  default; also at log and eval steps and on a retry): a read that finds an
+  overflow restores the step count and the noise generator of the first
+  skipped step (the JAX trainer keeps its old keys), reallocates the
+  buffers from the first overflowing sample with a capacity boost of x1.5
+  and retries the current batch, at most 5 times. The batches in between
+  are skipped, never half-applied. Deferring the read saves no time here:
+  the loop synchronizes every step for its ``StepTimer``;
 * every ``eval_steps`` an in-training rollout (neighbors sized from a
   validation sample; a failed rollout records ``val/loss=inf``), then a
   checkpoint with the optimizer state.
 
 Noise is drawn on the host from a seeded ``torch.Generator`` and copied to
 the device, so a run on the card and one on the CPU see the same noise.
-The deferred overflow read (``train.overflow_sync_every > 1``), the
-profiler hook and data parallelism are not ported.
+The profiler hook and data parallelism are not ported.
 """
 
 from __future__ import annotations
@@ -123,21 +127,32 @@ class AdamW:
             p.grad = None
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, skip: Optional[torch.Tensor] = None) -> None:
+        """One update. With ``skip``, a boolean scalar tensor that is not
+        read on the host, parameters and moments keep their values where it
+        is set; the count advances either way (the caller that reads the
+        flag later sets it back)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         lr = self.schedule(self.count)
         self.count += 1
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-        denom = torch._foreach_div(self.nu, 1.0 - self.b2**self.count)
+        mu = torch._foreach_mul(self.mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        nu = torch._foreach_mul(self.nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        new = torch._foreach_add(self.params, self._update(mu, nu), alpha=-lr)
+        for dst, src in ((self.mu, mu), (self.nu, nu), (self.params, new)):
+            for t, x in zip(dst, src):
+                t.copy_(x if skip is None else torch.where(skip, t, x))
+
+    def _update(self, mu, nu):
+        """The bias-corrected Adam direction plus weight decay, per leaf."""
+        denom = torch._foreach_div(nu, 1.0 - self.b2**self.count)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(self.mu, 1.0 - self.b1**self.count)
+        upd = torch._foreach_div(mu, 1.0 - self.b1**self.count)
         torch._foreach_div_(upd, denom)
         torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
+        return upd
 
     def state_leaves(self) -> List[np.ndarray]:
         """The state as the JAX ``optax.adamw`` leaves: adam count, mu
@@ -210,8 +225,6 @@ class Trainer:
         self.cfg_train = merge(defaults.train, cfg_train or {})
         self.cfg_eval = merge(defaults.eval, cfg_eval or {})
         self.cfg_logging = merge(defaults.logging, cfg_logging or {})
-        if int(self.cfg_train.get("overflow_sync_every", 1)) > 1:
-            raise NotImplementedError("train.overflow_sync_every > 1 is not ported")
 
         available = data_valid.subseq_length - input_seq_length
         if self.cfg_eval.n_rollout_steps > available:
@@ -253,12 +266,13 @@ class Trainer:
         return tuple(torch.as_tensor(x, device=self.device) for x in raw)
 
     def train_step(self, raw_batch, neighbors_batch, noise_std: float, unroll_steps: int):
-        """One step on a device batch: loss, backward, and the update unless
-        a neighbor buffer overflowed. Returns (loss, neighbors, overflowed);
-        on overflow nothing changed (parameters, moments, step count, and
-        the noise generator's state)."""
+        """One step on a device batch: preprocess, pushforward, loss,
+        backward, and the update committed on the device only where no
+        neighbor buffer overflowed; the flag is not read. Returns (loss,
+        neighbors, overflow as a device bool). The step count and the noise
+        generator advance either way: the caller that reads the flag sets
+        them back (:meth:`_read_overflow`)."""
         isl = self.input_seq_length
-        noise_state = self.generator.get_state()
         self.optimizer.zero_grad()
         features, targets, nbrs_b = self.case.preprocess_batched(
             self.generator, raw_batch, noise_std, neighbors_batch, unroll_steps
@@ -279,13 +293,9 @@ class Trainer:
         loss_sum = flat_mse_loss(self.model, features, ptype.reshape(b * n), targets,
                                  node_weight, self.loss_weight)
         loss_sum.backward()
-        loss = loss_sum.detach() / self.batch_size
-        if bool(overflow):
-            self.optimizer.zero_grad()
-            self.generator.set_state(noise_state)
-            return loss, nbrs_b, True
-        self.optimizer.step()
-        return loss, nbrs_b, False
+        self.optimizer.step(skip=overflow)
+        self.optimizer.zero_grad()
+        return loss_sum.detach() / self.batch_size, nbrs_b, overflow
 
     def train(
         self,
@@ -322,6 +332,10 @@ class Trainer:
         neighbors_batch = neighbors.broadcast(self.batch_size)
         timer = self.timer
         particles_per_step = first_batch[0].shape[1] * self.batch_size
+        sync_every = int(self.cfg_train.get("overflow_sync_every", 1))
+        # steps whose overflow flag is not read yet: (flag, noise state and
+        # step count before the step)
+        unread: List[Tuple[torch.Tensor, torch.Tensor, int]] = []
         self.model.train()
 
         while step < step_max + 1:
@@ -330,9 +344,15 @@ class Trainer:
                 unroll_steps = push_forward_sample_steps(self.rng, step, pushforward)
                 boost, max_retries = 1.0, 5
                 for attempt in range(max_retries + 1):
-                    loss, nbrs_b, overflowed = self.train_step(
+                    before = (self.generator.get_state(), self.optimizer.count)
+                    loss, nbrs_b, flag = self.train_step(
                         raw_batch, neighbors_batch, noise_std, unroll_steps
                     )
+                    unread.append((flag, *before))
+                    need_read = (attempt > 0 or step % sync_every == 0
+                                 or step % cfg_logging.log_steps == 0
+                                 or (step % cfg_logging.eval_steps == 0 and step > 0))
+                    overflowed = need_read and self._read_overflow(unread)
                     if not overflowed:
                         neighbors_batch = nbrs_b
                         break
@@ -388,9 +408,24 @@ class Trainer:
                 if step == step_max + 1:
                     break
 
+        if unread:
+            self._read_overflow(unread)  # the count of the last unread steps
         if wandb_run is not None:
             wandb_run.finish()
         return self.model, {}, self.optimizer
+
+    def _read_overflow(self, unread) -> bool:
+        """Read the flags of the unread steps at once. The flag is sticky, so
+        the steps that committed are a prefix; from the first that did not,
+        the step count and the noise generator go back to their values
+        before it. Returns whether any step overflowed; empties ``unread``."""
+        flags = torch.stack([flag for flag, _, _ in unread]).cpu().tolist()
+        if any(flags):
+            _, noise_state, count = unread[flags.index(True)]
+            self.generator.set_state(noise_state)
+            self.optimizer.count = count
+        unread.clear()
+        return any(flags)
 
     def _eval(self, step: int) -> Dict[str, float]:
         """In-training rollout metrics; ``val/loss=inf`` if the rollout fails."""

@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K4 against their plain versions, on the card.
+"""CUDA kernels K1-K6 against their plain versions, on the card.
 
 Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is false and
 run on a machine with a card (``python -m pytest --noconftest -m gpu
@@ -158,3 +158,98 @@ def test_fused_mp_bwd_kernel_is_deterministic(cuda, dtype):
         assert torch.equal(x, y)
     for name in fused_mp.BWD_PARAM_ORDER:
         assert torch.equal(a[4][name], b[4][name]), name
+
+
+def _painn_case(cuda, dtype, dim, n=203, k=24, fused=False):
+    """Random K5 / K6 inputs at H = 128 (R = 20 for K5) with padded slots."""
+    from lagrangebench_torch.ops import painn_msg
+
+    g = torch.Generator().manual_seed(dim + 10 * fused)
+    h = painn_msg.HIDDEN
+    mask = (torch.rand(n, k, generator=g) < 0.8).to(torch.float32)
+    nd = torch.randn(n, k, dim, generator=g)
+    if fused:
+        r = painn_msg.N_RBF
+        phi = torch.cat([torch.rand(n, k, r, generator=g),
+                         torch.rand(n, k, 1, generator=g) * mask[..., None]], dim=-1)
+        t = {"g": torch.randn(n, k, (2 + dim) * h, generator=g), "phi": phi, "nd": nd,
+             "s": torch.randn(n, h, generator=g), "v": torch.randn(n, dim * h, generator=g)}
+        p = {"filt_w": torch.randn(r, 3 * h, generator=g) / r**0.5,
+             "filt_b": 0.1 * torch.randn(3 * h, generator=g),
+             "vmix_w": torch.randn(h, 2 * h, generator=g) / h**0.5,
+             "mix_w1": torch.randn(2 * h, h, generator=g) / (2 * h) ** 0.5,
+             "mix_b1": 0.1 * torch.randn(h, generator=g),
+             "mix_w2": torch.randn(h, 3 * h, generator=g) / h**0.5,
+             "mix_b2": 0.1 * torch.randn(3 * h, generator=g)}
+        p = {name: v.to(cuda) for name, v in p.items()}
+    else:
+        t = {"g": torch.randn(n, k, (3 + dim) * h, generator=g),
+             "wij": torch.randn(n, k, 3 * h, generator=g) * mask[..., None], "nd": nd}
+        p = None
+    return {name: v.to(dtype).to(cuda) for name, v in t.items()}, p
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_painn_msg_kernel(cuda, dtype, tol, dim):
+    """K6 against its plain version: float32 outputs from the same inputs,
+    max error relative to the largest magnitude within 1e-5 (both sum in
+    float32, in other orders)."""
+    from lagrangebench_torch.ops import painn_msg
+
+    t, _ = _painn_case(cuda, dtype, dim)
+    before = painn_msg.PAINN_MSG.launches
+    got = painn_msg.painn_message(t["g"], t["wij"], t["nd"], painn_msg.HIDDEN)
+    assert painn_msg.PAINN_MSG.launches == before + 1
+    want = painn_msg.painn_message_plain(t["g"], t["wij"], t["nd"], painn_msg.HIDDEN)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        assert _rel(a, b) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_painn_layer_kernel(cuda, dtype, tol, dim):
+    """K5 against its plain version, max error relative to the largest
+    magnitude: 1e-4 in float32 (TF32 off), 2e-2 in bf16 (outputs rounded
+    to bf16, whose ulp is 2^-8 of a value; a sum in another order can move
+    s1, v1_d, ts or z across a rounding boundary before the next product).
+    The relative 2-norm within 1e-3 in both: such moves are rare (these
+    random inputs read up to ~3e-4 in bf16), while a kernel that skipped one
+    of those roundings would move every value it feeds by up to half an
+    ulp. chip_smoke.py holds K5 to 1e-4 on the model's own inputs."""
+    from lagrangebench_torch.ops import painn_msg
+
+    t, p = _painn_case(cuda, dtype, dim, fused=True)
+    args = (t["g"], t["phi"], t["nd"], t["s"], t["v"], p)
+    before = painn_msg.PAINN_LAYER.launches
+    got = painn_msg.painn_layer(*args)
+    assert painn_msg.PAINN_LAYER.launches == before + 1
+    want = painn_msg.painn_layer_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert _rel(a, b) <= tol
+        assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
+
+
+def test_painn_layer_kernel_gradients(cuda):
+    """The autograd Function around K5: gradients (rematerialized through
+    the plain version) equal those of the plain version itself."""
+    from lagrangebench_torch.ops import painn_msg
+
+    t, p = _painn_case(cuda, torch.float32, 3, fused=True)
+    leaves = {name: v.clone().requires_grad_() for name, v in p.items()}
+    ins = {name: t[name].clone().requires_grad_() for name in ("g", "phi", "s", "v")}
+    out = painn_msg.painn_layer(ins["g"], ins["phi"], t["nd"], ins["s"], ins["v"], leaves)
+    grads = torch.autograd.grad(sum(o.sum() for o in out), [*ins.values(), *leaves.values()])
+    ins2 = {name: t[name].clone().requires_grad_() for name in ("g", "phi", "s", "v")}
+    leaves2 = {name: v.clone().requires_grad_() for name, v in p.items()}
+    out2 = painn_msg.painn_layer_plain(ins2["g"], ins2["phi"], t["nd"], ins2["s"], ins2["v"],
+                                       leaves2)
+    want = torch.autograd.grad(sum(o.sum() for o in out2), [*ins2.values(), *leaves2.values()])
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

@@ -69,7 +69,7 @@ def test_entry_points_need_cuda_unless_asked(no_cuda):
     from lagrangebench_torch.case import case_builder
     from lagrangebench_torch.data import ArrayDataset
     from lagrangebench_torch.evaluate import infer
-    from lagrangebench_torch.models import GNS
+    from lagrangebench_torch.models import GNS, PaiNN
     from lagrangebench_torch.utils import resolve_device
 
     meta = _metadata()
@@ -79,6 +79,8 @@ def test_entry_points_need_cuda_unless_asked(no_cuda):
         case_builder([1.0] * 3, meta, 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         GNS(3, node_in=6, edge_in=4, latent_size=16, num_mp_steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PaiNN(16, 1, 5, 0.45, 2)
 
     case = case_builder([1.0] * 3, meta, 3, device="cpu")
     model = GNS(3, node_in=6, edge_in=4, latent_size=16, num_mp_steps=1, device="cpu")

@@ -335,8 +335,9 @@ def _trainer(tmp_path=None, **cfg_train):
 
 
 def test_overflowed_step_changes_nothing():
-    """A step whose neighbor buffers overflowed leaves parameters, moments,
-    the step count and the noise generator exactly as they were."""
+    """A step whose neighbor buffers overflowed commits nothing (parameters,
+    moments, gradients), and reading its flag restores the step count and
+    the noise generator."""
     tr = _trainer()
     pos, ptype = next(iter(tr.loader_train))
     raw = tr._batch((pos, ptype))
@@ -346,15 +347,15 @@ def test_overflowed_step_changes_nothing():
               tr.generator.get_state())
     bad = nbrs.broadcast(2)
     bad.did_buffer_overflow[1] = True  # sticky: the update keeps it set
-    _, _, overflowed = tr.train_step(raw, bad, 3e-4, 1)
-    assert overflowed
+    _, _, flag = tr.train_step(raw, bad, 3e-4, 1)
+    assert tr._read_overflow([(flag, before[3], before[2])])
     assert all(torch.equal(a, b) for a, b in zip(before[0], tr.optimizer.params))
     assert all(torch.equal(a, b) for a, b in zip(before[1], tr.optimizer.mu))
     assert tr.optimizer.count == before[2]
     assert torch.equal(tr.generator.get_state(), before[3])
     assert all(p.grad is None for p in tr.optimizer.params)
-    loss, _, overflowed = tr.train_step(raw, nbrs.broadcast(2), 3e-4, 1)
-    assert not overflowed and torch.isfinite(loss) and tr.optimizer.count == 1
+    loss, _, flag = tr.train_step(raw, nbrs.broadcast(2), 3e-4, 1)
+    assert not bool(flag) and torch.isfinite(loss) and tr.optimizer.count == 1
     assert not all(torch.equal(a, b) for a, b in zip(before[0], tr.optimizer.params))
 
 
@@ -405,3 +406,79 @@ def test_failed_eval_records_inf_and_training_continues(tmp_path, monkeypatch):
     with open(os.path.join(ckp, "metadata_ckp.json")) as f:
         meta = json.load(f)
     assert meta["step"] == 2 and meta["loss"] == float("inf")
+
+
+def test_adamw_skip_commits_only_where_the_flag_is_clear():
+    """AdamW.step(skip=flag): a clear flag gives the plain step's bits; a
+    set flag leaves parameters and moments as they were (the count
+    advances; the trainer sets it back when it reads the flag)."""
+    def opt_with_grads():
+        model = _port_model("float32")
+        opt = AdamW(model.jax_leaves(), exponential_decay(1e-3, 10.0, 0.1))
+        g = torch.Generator().manual_seed(8)
+        for p in opt.params:
+            p.grad = torch.randn(p.shape, generator=g)
+        return opt
+
+    plain, kept, skipped = opt_with_grads(), opt_with_grads(), opt_with_grads()
+    before = [p.detach().clone() for p in skipped.params]
+    plain.step()
+    kept.step(skip=torch.tensor(False))
+    skipped.step(skip=torch.tensor(True))
+    for a, b in zip(plain.params + plain.mu + plain.nu, kept.params + kept.mu + kept.nu):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(before, skipped.params))
+    assert all(torch.count_nonzero(m) == 0 for m in skipped.mu + skipped.nu)
+
+
+def test_deferred_step_with_forced_overflow_commits_nothing():
+    """train_step with an overflowing neighbor buffer and a deferred read:
+    nothing is committed, and the overflow comes back as a device flag,
+    unread."""
+    tr = _trainer(overflow_sync_every=4)
+    pos, ptype = next(iter(tr.loader_train))
+    raw = tr._batch((pos, ptype))
+    _, _, nbrs = tr.case.allocate(tr.generator, (pos[0], ptype[0]))
+    before = [p.detach().clone() for p in tr.optimizer.params]
+    bad = nbrs.broadcast(2)
+    bad.did_buffer_overflow[0] = True
+    _, nbrs_b, flag = tr.train_step(raw, bad, 3e-4, 0)
+    assert isinstance(flag, torch.Tensor) and bool(flag) and bool(nbrs_b.did_buffer_overflow[0])
+    assert all(torch.equal(a, b) for a, b in zip(before, tr.optimizer.params))
+    assert all(torch.count_nonzero(m) == 0 for m in tr.optimizer.mu)
+    _, _, flag = tr.train_step(raw, nbrs.broadcast(2), 3e-4, 0)
+    assert not bool(flag)
+    assert not all(torch.equal(a, b) for a, b in zip(before, tr.optimizer.params))
+
+
+def test_overflow_sync_every_skips_until_the_next_read(monkeypatch, capsys):
+    """overflow_sync_every=3: an overflow at step 1 is not read until step
+    3; steps 1 and 2 are skipped (sticky flag), step 3 restores the count
+    and noise stream of step 1, reallocates with boost x1.5 and retries;
+    steps 0, 3, 4 and 5 commit."""
+    tr = _trainer(overflow_sync_every=3)
+    tr.cfg_logging.log_steps = tr.cfg_logging.eval_steps = 100  # reads at sync steps only
+    real = tr.case.preprocess_batched
+    calls, states = [], []
+
+    def flaky(generator, *args, **kw):
+        states.append(generator.get_state().clone())
+        feats, targets, nbrs = real(generator, *args, **kw)
+        calls.append(1)
+        if len(calls) == 2:  # step 1
+            nbrs.did_buffer_overflow[:] = True
+        return feats, targets, nbrs
+
+    monkeypatch.setattr(tr, "case", tr.case._replace(preprocess_batched=flaky))
+    reads = []
+    real_read = tr._read_overflow
+    monkeypatch.setattr(tr, "_read_overflow", lambda unread: reads.append(len(unread))
+                        or real_read(unread))
+    _, _, opt = tr.train(step_max=5)
+    out = capsys.readouterr().out
+    assert out.count("Reallocate neighbors list at step 3 (boost x1.50)") == 1
+    assert len(calls) == 7  # steps 0-5 and the retry of step 3
+    assert reads == [1, 3, 1, 2]  # steps 0, 3 (three unread), the retry, end of run
+    assert opt.count == 4
+    assert torch.equal(states[4], states[1])  # the retry draws step 1's noise
+    assert all(torch.isfinite(p).all() for p in tr.model.parameters())
