@@ -43,9 +43,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    each layout and a train step, and holds a small float32 PaiNN (1,000
    particles, 2 layers, both layouts) on the card against the CPU: a
    3-step rollout and 3 training steps.
-5. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
-   training run for K1-K4, from the PaiNN runs for K6 and K5), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+5. Slot layout and in-kernel geometry (slice 4). Runs K7 (the slot scan),
+   K9 (the geometry-emitting scan) and K8 (the slot MP step, plain and
+   encoder-folded, bf16 and float32) against their plain versions on the
+   inputs of one slot preprocess and forward of GNS-10-128 (8,000
+   particles in 3D, batch 1; K9 at batch 2), timed, and the whole slot
+   update (K1, K7, the maps) on the card against the CPU. Then drives
+   ``runner.train_or_infer`` with the shipped ``configs/rpf_3d/gns.yaml``
+   (``GNS_CONFIG``) from a checkpoint of seeded bf16 weights: ``mode=infer``
+   with ``neighbors.format=slot`` at batch 1 (path A: K7 once per step and
+   allocation, K8 ten times per forward, K2 and K3 none) and with
+   ``neighbors.emit_geometry=true`` at batch 2 (path C: K9 in K2's place);
+   holds the slot layout to the dense one and geometry on to off in float32
+   from the same weights; takes 3 slot training steps (path B); prints ms
+   per rollout step of slot and dense at batch 1 and of geometry on and off
+   at batch 2, and a profile of a slot rollout step; and holds a small
+   float32 slot rollout on the card against the CPU.
+6. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+   training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
+   and C for K7, K8 and K9), the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository. Needs one card and no network.
@@ -192,9 +209,24 @@ def capture_kernel_inputs(case, model, data):
     return seen, nb_b.capacity
 
 
+def scan_pairs(pos, bases, n_cols):
+    """(receiver, candidate) pairs a column-stencil scan must test on these
+    inputs: binned receivers of each column times the binned particles of
+    its stencil columns (empty slots hold no particle and need no test)."""
+    import torch
+
+    occ = (pos[:, :, 0] < 1e8).sum(dim=1)  # binned particles per table row
+    q = bases.shape[0]
+    recv_rows = torch.arange(q, device=pos.device)
+    recv_rows = recv_rows // n_cols * (n_cols + 1) + recv_rows % n_cols
+    return int((occ[recv_rows] * occ[bases.long()].sum(dim=1)).sum())
+
+
 def bound(name, args, kw):
     """(bound_ms, bound_by) from the bytes each input/output moves once and
-    the operations these inputs need, at H100 peaks."""
+    the operations these inputs need, at H100 peaks. The scans' work is
+    their candidate pairs (``scan_pairs``); ``kw["hits"]`` adds the
+    geometry of K9's and K7's hits."""
     import torch
 
     def nbytes(*ts):
@@ -203,14 +235,29 @@ def bound(name, args, kw):
     if name == "binning":
         cid = args[0]
         byts, ops, peak = nbytes(cid) * 2 + 4, cid.numel() * 4, PEAK_FP32
-    elif name == "neighbor_scan":
+    elif name in ("neighbor_scan", "neighbor_scan_geometry", "slot_scan"):
         pos, idx, bases = args
         q, s = bases.shape
         cap, dim, k = pos.shape[1], pos.shape[2], kw["k_cap"]
-        receivers = int((pos[:, :, 0] < 1e8).sum())  # binned particles
         per_cand = 2 * dim + (dim - 1) + 5 * sum(map(bool, kw["pbc"])) + 1
-        byts = nbytes(pos, idx, bases) + q * cap * k * 4 + q * 4
-        ops, peak = receivers * s * cap * per_cand, PEAK_FP32
+        ops, peak = scan_pairs(pos, bases, kw["n_cols"]) * per_cand, PEAK_FP32
+        rows = q * cap + (cap if name == "slot_scan" else 0)  # K7: + the sentinel rows
+        per_slot = 1 + (dim + 1 if name != "neighbor_scan" else 0)  # id (+ geometry)
+        byts = nbytes(pos, idx, bases) + rows * k * per_slot * 4 + q * 4
+        ops += kw.get("hits", 0) * (dim + 2)  # dim products, a sqrt and a product
+    elif name in ("fused_mp_slot", "fused_mp_slot_enc"):
+        e, cand, bases, hs, hr, h, p, enc = args
+        n, k = cand.shape
+        f = hs.shape[1]
+        rows = n * k
+        ops = rows * 2 * (2 * f * f) + n * 3 * (2 * f * f)
+        if enc is not None:
+            ops += rows * 2 * (e.shape[-1] * f + f * f)
+        weights = sum(v.numel() * v.element_size() for v in p.values())
+        weights += sum(v.numel() * v.element_size() for v in (enc or {}).values())
+        byts = nbytes(e, cand, bases, hs, hr, h) + rows * f * hs.element_size() \
+            + nbytes(h) + weights
+        peak = PEAK_BF16
     elif name == "fused_mp_bwd":
         e, hs, hr, h, mask, p, ge, gh = args
         n, k, f = e.shape
@@ -366,9 +413,11 @@ def main_path(device):
     return rows, ok, min(step_ms)
 
 
-def profile_steps(model, case, pos, ptype, nbrs, steps=3, isl=ISL, label="profile"):
+def profile_steps(model, case, pos, ptype, nbrs, steps=3, isl=ISL, label="profile",
+                  rename=None):
     """Device time per rollout step by kernel group, and the device's idle
-    share of the window, from torch.profiler (CUPTI)."""
+    share of the window, from torch.profiler (CUPTI). ``rename`` relabels
+    groups (K7 and K8 share K2's and K3's sources and names)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -381,6 +430,7 @@ def profile_steps(model, case, pos, ptype, nbrs, steps=3, isl=ISL, label="profil
               "index": "gather/scatter (torch index ops)",
               "scatter": "gather/scatter (torch index ops)",
               "gather": "gather/scatter (torch index ops)"}
+    groups.update(rename or {})
     rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs, pos[:, :, isl:isl + 1])  # warm
     torch.cuda.synchronize()
     try:
@@ -758,18 +808,22 @@ PAINN_TOL = {"float32": 1e-4, "painn_msg_bf16": 1e-5, "painn_layer_bf16": 1e-4}
 PAINN_FUSED_RTOL = 1e-4
 
 
-def painn_cfg(**overrides):
-    """The port's defaults, the shipped PaiNN config, then ``overrides``
-    (dotted keys)."""
+def shipped_cfg(config, **overrides):
+    """The port's defaults, a shipped config, then ``overrides`` (dotted
+    keys), as the CLI merges them."""
     from lagrangebench_torch.config import Config, from_dotlist, merge
     from lagrangebench_torch.defaults import defaults
 
     dots = [f"{k}={v}" for k, v in overrides.items()]
     cli = from_dotlist(dots) if dots else Config()
-    return merge(defaults, Config(PAINN_CONFIG), cli)
+    return merge(defaults, Config(config), cli)
 
 
-def painn_data(cfg, n_particles=N_PARTICLES, n_trajs=BATCH):
+def painn_cfg(**overrides):
+    return shipped_cfg(PAINN_CONFIG, **overrides)
+
+
+def runner_data(cfg, n_particles=N_PARTICLES, n_trajs=BATCH):
     """Synthetic RPF-3D-scale (train, valid, test) splits windowed as the
     runner's ``setup_data`` windows the H5 splits."""
     import numpy as np
@@ -811,7 +865,7 @@ def capture_painn_inputs(device):
     from lagrangebench_torch.ops import painn_msg
 
     cfg = painn_cfg()
-    _, _, test = painn_data(cfg)
+    _, _, test = runner_data(cfg)
     case, std = painn_case_model(cfg, test.metadata, device)
     _, fused = painn_case_model(painn_cfg(**{"model.fused_processor": True}), test.metadata,
                                 device)
@@ -933,24 +987,34 @@ def compare_painn_kernels(seen):
 
 class _Recorder:
     """Wraps the runner's case_builder, setup_model and Trainer to keep what
-    they made, and counts PaiNN forward passes."""
+    they made, and counts model forward passes (PaiNN and GNS) and neighbor
+    allocations of the cases it made."""
 
     def __init__(self):
         import lagrangebench_torch.runner as runner
+        from lagrangebench_torch.models.gns import GNS
         from lagrangebench_torch.models.painn import PaiNN
 
-        self.runner, self.painn = runner, PaiNN
+        self.runner, self.model_classes = runner, (PaiNN, GNS)
         self.cases, self.models, self.trainers, self.losses = [], [], [], []
-        self.forwards = 0
+        self.forwards = self.allocations = 0
 
     def __enter__(self):
         runner, rec = self.runner, self
-        self.saved = (runner.case_builder, runner.setup_model, runner.Trainer,
-                      self.painn.forward)
-        real_case, real_model, real_trainer, real_forward = self.saved
+        self.saved = (runner.case_builder, runner.setup_model, runner.Trainer)
+        self.saved_forwards = [cls.forward for cls in self.model_classes]
+        real_case, real_model, real_trainer = self.saved
+
+        def counted(fn):
+            def call(*a, **k):
+                rec.allocations += 1
+                return fn(*a, **k)
+            return call
 
         def case_builder(*a, **k):
-            rec.cases.append(real_case(*a, **k))
+            case = real_case(*a, **k)
+            rec.cases.append(case._replace(allocate=counted(case.allocate),
+                                           allocate_eval=counted(case.allocate_eval)))
             return rec.cases[-1]
 
         def setup_model(*a, **k):
@@ -970,17 +1034,22 @@ class _Recorder:
 
                 self.train_step = train_step
 
-        def forward(model, *a, **k):
-            rec.forwards += 1
-            return real_forward(model, *a, **k)
+        def counting(real_forward):
+            def forward(model, *a, **k):
+                rec.forwards += 1
+                return real_forward(model, *a, **k)
+            return forward
 
         runner.case_builder, runner.setup_model, runner.Trainer = case_builder, setup_model, Trainer
-        self.painn.forward = forward
+        for cls, real_forward in zip(self.model_classes, self.saved_forwards):
+            cls.forward = counting(real_forward)
         return self
 
     def __exit__(self, *exc):
         runner = self.runner
-        runner.case_builder, runner.setup_model, runner.Trainer, self.painn.forward = self.saved
+        runner.case_builder, runner.setup_model, runner.Trainer = self.saved
+        for cls, real_forward in zip(self.model_classes, self.saved_forwards):
+            cls.forward = real_forward
 
 
 def _metrics_ok(metrics, label):
@@ -1043,7 +1112,7 @@ def painn_path(device):
         if str(device) == "cpu":  # a rehearsal on the CPU; the card is the runner's default
             common["gpu"] = -1
         cfg = painn_cfg(mode="all", **{"train.step_max": PAINN_STEP_MAX}, **common)
-        data = painn_data(cfg)
+        data = runner_data(cfg)
         for kern in kernels:
             kern.launches = 0
         torch.cuda.synchronize()
@@ -1202,7 +1271,7 @@ def painn_reference_check(device):
         cfg = painn_cfg(**{"model.num_mp_steps": 2, "model.fused_processor": fused,
                            "eval.n_rollout_steps": 3, "eval.train.n_trajs": 1,
                            "train.batch_size": 2})
-        train, valid, test = painn_data(cfg, n_particles=1000)
+        train, valid, test = runner_data(cfg, n_particles=1000)
         isl = int(cfg.model.input_seq_length)
         preds, losses, params = [], [], []
         for dev in (device, "cpu"):
@@ -1234,6 +1303,414 @@ def painn_reference_check(device):
             f"1e-5); parameters max abs diff {par_err:.3g} at {worst} (tol 1e-5)"
             f"{'' if passed else '  FAIL'}")
     return ok
+
+
+# ---------------------------------------------------------------------------
+# slice 4: GNS-10-128 in the slot layout (K7, K8) and with in-kernel edge
+# geometry (K9), through the runner
+# ---------------------------------------------------------------------------
+
+# configs/rpf_3d/base.yaml and configs/rpf_3d/gns.yaml, resolved;
+# tests/test_torch_slot.py holds it equal to the YAML over the defaults
+GNS_CONFIG = {
+    "dataset": {"src": "datasets/3D_RPF_8000_10kevery100"},
+    "logging": {"wandb_project": "rpf_3d"},
+    "model": {"name": "gns", "fused_processor": True, "compute_dtype": "bfloat16",
+              "num_mp_steps": 10, "latent_dim": 128},
+    "train": {"optimizer": {"lr_start": 5.0e-4}},
+    "neighbors": {"backend": "auto"},
+}
+SLOT_ROLLOUT = 20
+# K7 and K9 against their plain versions: ids, maps and row counts exactly;
+# the geometry within 1e-6 (both round alike, no FMA contraction and a
+# correctly rounded sqrt, so a right kernel reads 0). K8: K3's limits.
+GEOM_TOL = 1e-6
+# Slot vs dense and geometry on vs off, from the same weights in float32
+# (TF32 off): one forward, max |acc diff| <= 1e-4 x max |acc|; slot vs
+# dense also the first rollout step's MSE, 1e-4 relative. The layouts sum
+# in other orders (the K-sum over other slot orders, products over other
+# row counts); later rollout steps are printed, not gated.
+LAYOUT_RTOL = 1e-4
+
+
+def gns_cfg(**overrides):
+    return shipped_cfg(GNS_CONFIG, **overrides)
+
+
+def gns_case(cfg, metadata, device):
+    from lagrangebench_torch.case import case_builder
+
+    return case_builder([BOX] * DIM, metadata, cfg.model.input_seq_length,
+                        cfg_neighbors=cfg.neighbors, cfg_model=cfg.model,
+                        noise_std=cfg.train.noise_std, device=device)
+
+
+def gns_case_model(cfg, metadata, device, seed=0):
+    from lagrangebench_torch.models import setup_model
+
+    return gns_case(cfg, metadata, device), setup_model(cfg.model, metadata, seed=seed,
+                                                        device=device)
+
+
+def test_batch(test, device, bsz):
+    import numpy as np
+    import torch
+
+    batch = [test[i] for i in range(bsz)]
+    pos = torch.as_tensor(np.stack([b[0] for b in batch]), device=device)
+    ptype = torch.as_tensor(np.stack([b[1] for b in batch]), device=device)
+    return pos, ptype
+
+
+def capture_slot_inputs(device):
+    """K7's and K8's inputs from one slot preprocess and one bf16 forward
+    of path A (8,000 particles, 3D, batch 1), K9's from one dense
+    preprocess with in-kernel geometry at batch 2; run on the plain
+    versions. Also returns the slot list of that preprocess and its
+    positions, for the maps check."""
+    import torch
+
+    from lagrangebench_torch.ops import fused_mp
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+
+    cfg = gns_cfg(**{"neighbors.format": "slot"})
+    _, _, test = runner_data(cfg)
+    case, model = gns_case_model(cfg, test.metadata, device)
+    geo_case = gns_case(gns_cfg(**{"neighbors.emit_geometry": True}), test.metadata, device)
+    isl = int(cfg.model.input_seq_length)
+    pos, ptype = test_batch(test, device, BATCH)
+    seen = {}
+    real = nlc.slot_scan, nlc.neighbor_scan_geometry, fused_mp.gns_mp_step_slot
+
+    def rec_slot(p, idx, bases, **kw):
+        seen.setdefault("slot_scan", ((p.clone(), idx.clone(), bases.clone()), kw))
+        return nlc.slot_scan_plain(p, idx, bases, **kw)
+
+    def rec_geom(p, idx, bases, **kw):
+        seen.setdefault("neighbor_scan_geometry", ((p.clone(), idx.clone(), bases.clone()), kw))
+        return nlc.neighbor_scan_geometry_plain(p, idx, bases, **kw)
+
+    def rec_mp(e, cand, bases, hs, hr, h, p, enc=None):
+        key = "fused_mp_slot_enc" if enc is not None else "fused_mp_slot"
+        args = tuple(t.clone() for t in (e, cand, bases, hs, hr, h))
+        seen.setdefault(key, (args + (p, enc), {}))
+        return fused_mp.gns_mp_step_slot_plain(e, cand, bases, hs, hr, h, p, enc)
+
+    nlc.slot_scan, nlc.neighbor_scan_geometry, fused_mp.gns_mp_step_slot = (
+        rec_slot, rec_geom, rec_mp)
+    try:
+        with torch.no_grad():
+            _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+            feats, nbrs = case.preprocess_eval_batched((pos[:1, :, :isl], ptype[:1]),
+                                                       nbrs.broadcast(1))
+            model(feats, ptype[:1].reshape(-1))
+            _, gnbrs = geo_case.allocate_eval((pos[0, :, :isl], ptype[0]))
+            seen.pop("neighbor_scan_geometry")  # K9's inputs at batch 2, below
+            geo_case.preprocess_eval_batched((pos[:, :, :isl], ptype), gnbrs.broadcast(BATCH))
+    finally:
+        nlc.slot_scan, nlc.neighbor_scan_geometry, fused_mp.gns_mp_step_slot = real
+    return seen, nbrs.select(0), pos[0, :, isl - 1]
+
+
+def compare_slot_kernels(seen, nbrs, position):
+    """K7, K9 and K8 against their plain versions on the captured inputs,
+    timed; and the whole slot update (K1, K7 and the maps) on the card
+    against the same update on the CPU."""
+    import torch
+
+    from lagrangebench_torch.ops import fused_mp
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+
+    funcs = {
+        "slot_scan": (nlc.slot_scan, nlc.slot_scan_plain, nlc.SLOT_SCAN, (0, 3)),
+        "neighbor_scan_geometry": (nlc.neighbor_scan_geometry, nlc.neighbor_scan_geometry_plain,
+                                   nlc.NEIGHBOR_SCAN_GEOMETRY, (0, 2)),
+        "fused_mp_slot": (fused_mp.gns_mp_step_slot, fused_mp.gns_mp_step_slot_plain,
+                          fused_mp.FUSED_MP_SLOT, None),
+        "fused_mp_slot_enc": (fused_mp.gns_mp_step_slot, fused_mp.gns_mp_step_slot_plain,
+                              fused_mp.FUSED_MP_SLOT_ENC, None),
+    }
+    rows, ok = {}, True
+    for name, (kern, plain, handle, int_outs) in funcs.items():
+        args, kw = seen[name]
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        bkw = dict(kw)
+        if int_outs is not None:
+            ids = max(int((got[i].long() - want[i].long()).abs().max()) for i in int_outs)
+            err = max(float((a - b).abs().max()) for i, (a, b) in enumerate(zip(got, want))
+                      if i not in int_outs)
+            passed = ids == 0 and err <= GEOM_TOL
+            bkw["hits"] = int((want[0] < (args[2].shape[1] * args[0].shape[1]
+                                          if name == "slot_scan" else kw["n"])).sum())
+            log(f"{name}: ids and row counts max|kernel-plain| {ids} (must be 0), geometry "
+                f"{err:.3g} (tol {GEOM_TOL}){'' if passed else '  FAIL'}")
+        else:
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+            a32 = [t.float() if t.is_floating_point() else t for t in args[:6]]
+            p32 = fused_mp.kernel_params(args[6], torch.float32)
+            e32 = fused_mp.kernel_params(args[7], torch.float32) if args[7] else None
+            g32, w32 = kern(*a32, p32, e32), plain(*a32, p32, e32)
+            torch.cuda.synchronize()
+            err32 = max(float((a - b).abs().max()) for a, b in zip(g32, w32))
+            passed = err <= K3_TOL["bfloat16"] and err32 <= K3_TOL["float32"]
+            log(f"{name}: bf16 max|kernel-plain| {err:.4g} (tol {K3_TOL['bfloat16']}), float32 "
+                f"(TF32 off) {err32:.3g} (tol {K3_TOL['float32']}){'' if passed else '  FAIL'}")
+        ok &= passed
+        ms = cuda_time(lambda: kern(*args, **kw))
+        plain_ms = cuda_time(lambda: plain(*args, **kw), iters=5, warmup=1)
+        bms, by = bound(name, args, bkw)
+        rows[name] = {
+            "name": name, "route": "cuda", "source": handle.source_path,
+            "replaces": handle.replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+        }
+        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by})")
+
+    # the slot update end to end (K1, K7 and the maps) on the card vs the CPU
+    got, want = nbrs.update(position), nbrs.update(position.cpu())
+    same = torch.equal(got.idx.cpu(), want.idx) and all(
+        torch.equal(got.aux[key].cpu(), want.aux[key])
+        for key in ("slot_to_particle", "particle_to_slot", "bases"))
+    geo = max(float((got.aux[key].cpu() - want.aux[key]).abs().max())
+              for key in ("rel_disp", "rel_dist"))
+    log(f"slot update, card vs CPU: cand and maps equal {same}, geometry {geo:.3g} (tol "
+        f"{GEOM_TOL})")
+    ok &= same and geo <= GEOM_TOL
+    return rows, ok
+
+
+def layout_checks(ckp, data, device):
+    """The float32 gates of the same weights (TF32 off): slot vs dense at
+    batch 1 (one forward; the first rollout step's MSE, later steps
+    printed) and dense with in-kernel geometry vs without at batch 2 (one
+    forward)."""
+    import torch
+
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+
+    test = data[2]
+    params = checkpoint.load_checkpoint(ckp)[0]
+    cfg = gns_cfg(**{"model.compute_dtype": "float32"})
+    _, model = gns_case_model(cfg, test.metadata, device)
+    model.load_jax_params(params)
+    cases = {label: gns_case(gns_cfg(**dots), test.metadata, device)
+             for label, dots in (("dense", {}), ("slot", {"neighbors.format": "slot"}),
+                                 ("geometry", {"neighbors.emit_geometry": True}))}
+    isl = test.input_seq_length
+    pos, ptype = test_batch(test, device, BATCH)
+
+    def forward(label, bsz):
+        case = cases[label]
+        _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+        with torch.no_grad():
+            feats, nbrs = case.preprocess_eval_batched((pos[:bsz, :, :isl], ptype[:bsz]),
+                                                       nbrs.broadcast(bsz))
+            return model(feats, ptype[:bsz].reshape(-1))["acc"], nbrs
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    acc_slot, nb_slot = forward("slot", 1)
+    acc_dense, nb_dense = forward("dense", 1)
+    slot_err = rel(acc_slot, acc_dense)
+    acc_geo, _ = forward("geometry", BATCH)
+    acc_gather, _ = forward("dense", BATCH)
+    geo_err = rel(acc_geo, acc_gather)
+    mse = {}
+    for label, nbrs in (("slot", nb_slot), ("dense", nb_dense)):
+        preds, _, _ = rollout_batch(model, cases[label], pos[:1, :, :isl], ptype[:1], nbrs,
+                                    pos[:1, :, isl:])
+        d = torch.remainder(preds[0] - pos[0, :, isl:].permute(1, 0, 2) + BOX / 2, BOX) - BOX / 2
+        mse[label] = (d ** 2).sum(-1).mean(-1)  # per step
+    mse_rel = ((mse["slot"] - mse["dense"]).abs() / mse["dense"]).tolist()
+    log(f"slot vs dense (float32, batch 1): one forward max|acc diff| {slot_err:.3g} of the "
+        f"largest, first step MSE {mse_rel[0]:.3g} relative (tol {LAYOUT_RTOL} each); MSE "
+        f"relative difference per step {[float(f'{x:.3g}') for x in mse_rel]}")
+    log(f"geometry on vs off (float32, batch 2): one forward max|acc diff| {geo_err:.3g} of the "
+        f"largest (tol {LAYOUT_RTOL})")
+    passed = max(slot_err, mse_rel[0], geo_err) <= LAYOUT_RTOL
+    if not passed:
+        log("FAIL: slot vs dense or geometry on vs off")
+    return passed
+
+
+def slot_path(device):
+    """Slice 4: K7, K9 and K8 checks; path A (slot rollout, batch 1) and
+    path C (dense with in-kernel geometry, batch 2) through
+    runner.train_or_infer from a checkpoint of seeded bf16 weights; the
+    float32 layout gates; path B (3 slot training steps); timings and a
+    profile of a slot rollout step."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch import checkpoint, runner
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+    from lagrangebench_torch.ops import fused_mp
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+    from lagrangebench_torch.train import Trainer
+
+    seen, nbrs, position = capture_slot_inputs(device)
+    n_ext, k = seen["fused_mp_slot"][0][1].shape
+    n_cols = seen["slot_scan"][1]["n_cols"]
+    log(f"slot shapes: N = {N_PARTICLES}, n_cols = {n_cols}, C = {n_ext // (n_cols + 1)}, "
+        f"n_ext = {n_ext}, K = {k}; geometry scan table "
+        f"{tuple(seen['neighbor_scan_geometry'][0][0].shape)}")
+    rows, ok = compare_slot_kernels(seen, nbrs, position)
+    del seen, nbrs
+
+    kernels = (nlc.BINNING, nlc.NEIGHBOR_SCAN, nlc.NEIGHBOR_SCAN_GEOMETRY, nlc.SLOT_SCAN,
+               fused_mp.FUSED_MP, fused_mp.FUSED_MP_ENC, fused_mp.FUSED_MP_SLOT,
+               fused_mp.FUSED_MP_SLOT_ENC)
+    mp = int(GNS_CONFIG["model"]["num_mp_steps"])
+
+    def run(label, cfg, data, expect):
+        """One runner call with the counters zeroed around it; ``expect``
+        maps (forwards, allocations) to the launch counts."""
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _Recorder() as rec:
+            metrics = runner.train_or_infer(cfg, data=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {kern.name: kern.launches for kern in kernels}
+        want = {kern.name: 0 for kern in kernels}
+        want.update(expect(rec.forwards, rec.allocations))
+        log(f"{label}: {wall:.1f} s wall, {rec.forwards} forward passes, {rec.allocations} "
+            f"allocations, launches {counts}")
+        log(f"{label} metrics: {metrics}")
+        passed = counts == want and rec.forwards >= SLOT_ROLLOUT and _metrics_ok(metrics, label)
+        if counts != want:
+            log(f"FAIL: {label} launch counts, expected {want}")
+        return passed, counts, rec, metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = {"eval.n_rollout_steps": SLOT_ROLLOUT, "eval.infer.n_trajs": BATCH,
+                  "eval.rollout_dir": f"{tmp}/rollouts"}
+        if str(device) == "cpu":  # a rehearsal on the CPU; the card is the runner's default
+            common["gpu"] = -1
+        cfg = gns_cfg(**common)
+        data = runner_data(cfg)
+        _, seeded = gns_case_model(cfg, data[0].metadata, device, seed=0)
+        ckp = f"{tmp}/ckp"
+        checkpoint.save_checkpoint(ckp, seeded.jax_params(), {}, {"step": 0, "loss": None})
+        del seeded
+
+        # path A: the slot rollout at batch 1 through the runner
+        cfg_a = gns_cfg(mode="infer", load_ckp=ckp, **{"neighbors.format": "slot",
+                                                       "eval.infer.batch_size": 1}, **common)
+        passed, counts_a, rec_a, metrics_a = run(
+            "path A (slot, batch 1)", cfg_a, data,
+            lambda fw, al: {"binning": fw + al, "slot_scan": fw + al,
+                            "fused_mp_slot": (mp - 1) * fw, "fused_mp_slot_enc": fw})
+        ok &= passed
+        rows["slot_scan"]["launches"] = counts_a["slot_scan"]
+        rows["fused_mp_slot"]["launches"] = counts_a["fused_mp_slot"]
+        rows["fused_mp_slot_enc"]["launches"] = counts_a["fused_mp_slot_enc"]
+        slot_case, model = rec_a.cases[0], rec_a.models[0]
+
+        # path C: dense with in-kernel geometry at batch 2 through the runner
+        cfg_c = gns_cfg(mode="infer", load_ckp=ckp, **{"neighbors.emit_geometry": True},
+                        **common)
+        passed, counts_c, rec_c, metrics_c = run(
+            "path C (dense + geometry, batch 2)", cfg_c, data,
+            lambda fw, al: {"binning": fw + al, "neighbor_scan_geometry": fw + al,
+                            "fused_mp": (mp - 1) * fw, "fused_mp_enc": fw})
+        ok &= passed
+        rows["neighbor_scan_geometry"]["launches"] = counts_c["neighbor_scan_geometry"]
+        geo_case = rec_c.cases[0]
+        rel = {key: abs(metrics_a[key] - metrics_c[key]) / max(abs(metrics_c[key]), 1e-30)
+               for key in metrics_c}
+        log("bf16 slot (batch 1) vs dense + geometry (batch 2) metrics, relative difference "
+            "(printed, not gated): " + json.dumps({k: float(f"{v:.3g}") for k, v in rel.items()}))
+
+        ok &= layout_checks(ckp, data, device)
+
+        # path B: three slot training steps at batch 1
+        cfg_b = gns_cfg(**{"neighbors.format": "slot", "eval.train.n_trajs": 1}, **common)
+        isl = int(cfg_b.model.input_seq_length)
+        tr = Trainer(model, slot_case, data[0], data[1], cfg_train=cfg_b.train,
+                     cfg_eval=cfg_b.eval, cfg_logging={"log_steps": 1, "eval_steps": 10**9},
+                     input_seq_length=isl, device=device)
+        steps, allocs = record_steps(tr)
+        before = [p.detach().clone() for p in model.parameters()]
+        for kern in kernels:
+            kern.launches = 0
+        with _Recorder() as rec_b:
+            tr.train(step_max=2)
+        counts_b = {kern.name: kern.launches for kern in kernels}
+        fw = rec_b.forwards
+        want_b = {kern.name: 0 for kern in kernels}
+        want_b.update({"binning": fw + allocs[0], "slot_scan": fw + allocs[0],
+                       "fused_mp_slot": (mp - 1) * fw, "fused_mp_slot_enc": fw})
+        changed = sum(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+        losses = [loss for _, loss in steps]
+        log(f"path B (slot training, batch 1): losses {losses}, {changed} of {len(before)} "
+            f"parameter tensors changed, {fw} forward passes, launches {counts_b}")
+        if (len(losses) != 3 or not np.all(np.isfinite(losses)) or changed != len(before)
+                or counts_b != want_b):
+            log(f"FAIL: slot training steps (expected launches {want_b})")
+            ok = False
+        del tr, before
+
+        # ms per rollout step, in turns: slot and dense at batch 1, geometry
+        # on and off at batch 2 (the same bf16 weights and data)
+        model.eval()
+        dense_case = gns_case(cfg, data[0].metadata, device)
+        pos, ptype = test_batch(data[2], device, BATCH)
+        runs = {"slot b1": (slot_case, 1), "dense b1": (dense_case, 1),
+                "geometry b2": (geo_case, BATCH), "dense b2": (dense_case, BATCH)}
+        lists = {}
+        for label, (case, bsz) in runs.items():
+            _, nb = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+            lists[label] = nb.broadcast(bsz)
+        times = {label: [] for label in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for label in order:
+                case, bsz = runs[label]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                preds, _, _ = rollout_batch(model, case, pos[:bsz, :, :isl], ptype[:bsz],
+                                            lists[label], pos[:bsz, :, isl:])
+                torch.cuda.synchronize()
+                times[label].append((time.perf_counter() - t0) * 1e3 / SLOT_ROLLOUT)
+                if not torch.isfinite(preds).all():
+                    log(f"FAIL: {label} rollout predictions are not finite")
+                    ok = False
+        for label, ts in times.items():
+            log(f"rollout ({label}): {[round(t, 3) for t in ts]} ms per step ({N_PARTICLES} "
+                f"particles per sample, GNS-{mp}-128 bf16)")
+        profile_steps(model, slot_case, pos[:1], ptype[:1], lists["slot b1"], steps=1, isl=isl,
+                      label="slot rollout",
+                      rename={"fused_mp": "K8 fused_mp_slot", "neighbor_scan": "K7 slot_scan"})
+    step_ms = {label: min(ts) for label, ts in times.items()}
+    return rows, ok, step_ms
+
+
+def slot_reference_check(device):
+    """A small float32 slot GNS (1,000 particles, 2 MP steps, latent 128,
+    batch 1) on the card against the CPU (TF32 off): a 3-step rollout,
+    positions within 1e-5."""
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+
+    cfg = gns_cfg(**{"model.num_mp_steps": 2, "model.compute_dtype": "float32",
+                     "neighbors.format": "slot"})
+    _, _, test = runner_data(cfg, n_particles=1000)
+    isl = int(cfg.model.input_seq_length)
+    preds = []
+    for dev in (device, "cpu"):
+        case, model = gns_case_model(cfg, test.metadata, dev)
+        pos, ptype = test_batch(test, dev, 1)
+        _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+        p, _, _ = rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs.broadcast(1),
+                                pos[:, :, isl:isl + 3])
+        preds.append(p.cpu())
+    err = float((preds[0] - preds[1]).abs().max())
+    log(f"slot reference: max |cuda - cpu| position after 3 steps {err:.3g} (tol 1e-5)")
+    return err <= 1e-5
 
 
 def main() -> int:
@@ -1280,6 +1757,12 @@ def main() -> int:
     log(f"PaiNN inference path: {painn_ms['standard']:.3f} ms per rollout step (standard, K6), "
         f"{painn_ms['fused']:.3f} (fused, K5)")
     rows.update(painn_rows)
+    slot_rows, slot_ok, slot_ms = slot_path("cuda")
+    ok &= slot_ok
+    ok &= slot_reference_check("cuda")
+    log("slot and geometry paths (ms per rollout step): " + json.dumps(
+        {k: round(v, 3) for k, v in slot_ms.items()}))
+    rows.update(slot_rows)
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     if not ok:

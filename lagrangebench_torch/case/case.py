@@ -12,7 +12,8 @@ metadata and normalization once and returns functions.
     * ``preprocess_batched`` and ``preprocess_eval_batched`` do the same for
       a batch of B samples as ONE flat (B*N)-row super-graph (per-sample
       sender offsets; padded slots map to B*N), with one launch of each
-      neighbor kernel;
+      neighbor kernel. The slot neighbor layout is single-sample: it takes
+      batch 1 (the sample's own slot features) and raises above;
     * ``integrate`` is semi-implicit Euler with dt = 1 folded into the
       normalization.
 
@@ -87,7 +88,8 @@ def case_builder(
         box: box side lengths (dim,).
         metadata: dataset metadata dict.
         input_seq_length: number of input positions (velocity history + 1).
-        cfg_neighbors: neighbor-search config subset (backend, multiplier).
+        cfg_neighbors: neighbor-search config subset (backend, multiplier,
+            format, emit_geometry).
         cfg_model: model config subset (isotropic_norm, magnitude_features).
         noise_std: GNS noise std folded into normalization stats.
         external_force_fn: per-position external force.
@@ -122,6 +124,7 @@ def case_builder(
         num_particles_max=metadata["num_particles_max"],
         pbc=pbc,
         format=cfg_neighbors.get("format", "dense"),
+        emit_geometry=bool(cfg_neighbors.get("emit_geometry", False)),
     )
 
     feature_transform = physical_feature_builder(
@@ -183,19 +186,35 @@ def case_builder(
 
     def _preprocess_batched(pos_input, particle_type, neighbors: nb.NeighborList):
         b, n = particle_type.shape
+        if neighbors.format == "slot" and b != 1:
+            raise ValueError(
+                f"the slot neighbor layout runs one sample at a time (batch {b} asked): "
+                "the JAX package's slot layout is single-sample, and its batched "
+                "preprocess fails above batch 1; use batch size 1"
+            )
         most_recent = pos_input[:, :, input_seq_length - 1]
         num_particles = (particle_type != -1).sum(dim=1)
         neighbors = neighbors.update(most_recent, num_particles=num_particles)
+        pos_flat = pos_input.reshape((b * n,) + pos_input.shape[2:])
+        if neighbors.format == "slot":
+            # batch 1: the sample's own slot graph, unchanged (its candidate
+            # ids are not particle ids and take no offset)
+            features = feature_transform(pos_input[0, :, :input_seq_length],
+                                         neighbors.select(0))
+            return features, neighbors, pos_flat
 
         idx = neighbors.idx
         off = (torch.arange(b, dtype=idx.dtype, device=device) * n).view(b, 1, 1)
         idx_flat = torch.where(idx < n, idx + off, b * n).reshape(b * n, idx.shape[-1])
+        # in-kernel geometry is per-sample rows: flatten it beside the index
+        aux = neighbors.aux
         flat_nbrs = nb.NeighborList(
             idx=idx_flat,
             did_buffer_overflow=neighbors.did_buffer_overflow.any(),
             update_fn=neighbors.update_fn,
+            aux=None if aux is None else {k: v.reshape((b * n,) + v.shape[2:])
+                                          for k, v in aux.items()},
         )
-        pos_flat = pos_input.reshape((b * n,) + pos_input.shape[2:])
         features = feature_transform(pos_flat[:, :input_seq_length], flat_nbrs)
         return features, neighbors, pos_flat
 

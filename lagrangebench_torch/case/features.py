@@ -11,6 +11,14 @@ The FeatureDict contract of the JAX package, dense layout:
     - "receivers" (N, K)        row index of each slot
     - "rel_disp"  (N, K, dim)   receiver - sender displacement / radius
     - "rel_dist"  (N, K, 1)     norm of rel_disp
+
+A dense list with in-kernel geometry (``aux``) supplies rel_disp/rel_dist
+itself: the sender-position gather and min-image are skipped. In the slot
+layout (a slot-format list) the node features (not "abs_pos") are gathered
+into column-slot order, (n_ext, ...), "senders" is the (n_ext, K)
+stencil-candidate matrix, the geometry comes from the list, and
+"slot_bases", "slot_to_particle" and "particle_to_slot" are added for the
+model.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ def physical_feature_builder(
     has_pbc = any(pbc)
 
     def feature_transform(pos_input: torch.Tensor, nbrs) -> FeatureDict:
-        """pos_input: (N, T, dim) position window; nbrs: dense NeighborList."""
+        """pos_input: (N, T, dim) position window; nbrs: a NeighborList."""
         features = {}
         n = pos_input.shape[0]
         most_recent = pos_input[:, -1]
@@ -68,20 +76,41 @@ def physical_feature_builder(
         if external_force_fn is not None:
             features["force"] = external_force_fn(most_recent)
 
+        senders = nbrs.idx
+        receivers = torch.arange(senders.shape[0], dtype=senders.dtype, device=senders.device)
+        features["receivers"] = receivers[:, None].expand(senders.shape)
+        features["senders"] = senders
+        if nbrs.format == "slot":
+            # column-slot order: the geometry comes from the scan kernel
+            # (K7); node features are gathered into slot order, and the
+            # model maps its output back with "particle_to_slot"
+            aux = nbrs.aux
+            s2p = torch.clamp(aux["slot_to_particle"], max=n - 1).long()
+            for key in ("vel_hist", "vel_mag", "bound", "force"):
+                if key in features:
+                    features[key] = features[key][s2p]
+            features["rel_disp"] = aux["rel_disp"]
+            features["rel_dist"] = aux["rel_dist"]
+            features["slot_bases"] = aux["bases"]
+            features["slot_to_particle"] = aux["slot_to_particle"]
+            features["particle_to_slot"] = aux["particle_to_slot"]
+            return features
+        if nbrs.aux is not None:
+            # in-kernel geometry (K9): min-imaged and cutoff-normalized by
+            # the scan, no sender-position gather here
+            features["rel_disp"] = nbrs.aux["rel_disp"]
+            features["rel_dist"] = nbrs.aux["rel_dist"]
+            return features
+
         # dense (N, K): row i is receiver i. Senders fill with N; the
         # gather clamps them to N-1 (what an out-of-range JAX gather does)
         # and their slots are zeroed below.
-        senders = nbrs.idx
-        receivers = torch.arange(n, dtype=senders.dtype, device=senders.device)
-        receivers = receivers[:, None].expand(senders.shape)
         send_pos = most_recent[torch.clamp(senders, max=n - 1).long()]
         edge_disp = displacement_fn(most_recent[:, None, :], send_pos)
         valid = (senders < n)[..., None]
         rel_disp = torch.where(
             valid, edge_disp / connectivity_radius, torch.zeros_like(edge_disp)
         )
-        features["receivers"] = receivers
-        features["senders"] = senders
         features["rel_disp"] = rel_disp
         features["rel_dist"] = space.distance(rel_disp)[..., None]
         return features

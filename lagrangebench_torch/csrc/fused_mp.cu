@@ -1,7 +1,9 @@
-// K3: one fused GNS message-passing step (forward), dense (N, K) layout.
+// K3: one fused GNS message-passing step (forward), dense (N, K) layout,
+// and K8: the same step in column-slot order.
 //
 // Replaces: lagrangebench_tpu/ops/fused_mp.py::_make_fused_kernel (math in
-// _mp_math), launched by _launch_fused. Per receiver, with F = 128:
+// _mp_math), launched by _launch_fused (K3), and ::_make_slot_kernel,
+// launched by _launch_fused_slot (K8). Per receiver, with F = 128:
 //
 //   [step 0]  e = LN(relu(raw @ enc_w1 + enc_b1) @ enc_w2 + enc_b2)  (ENC)
 //   first = e @ W_e + hs_gath + hr + b1
@@ -20,6 +22,17 @@
 // Bound on an H100: bytes. Per edge row it reads e and hs_gath (2 x 256 B
 // in bf16) and writes e' (256 B) for 2 x 128 x 128 x 2 = 65.5 kFLOP, about
 // 85 FLOP/B against the card's ~295 FLOP/B balance point for bf16.
+//
+// K8 (SLOT) computes the same step on the slot layout's n_ext rows, with
+// the sender term of each edge read in-kernel instead of from a gathered
+// (N, K, F) tensor: receiver row r lies in column t = r / C, and its
+// candidate c = cand[r, k] is, when c < S*C, the sender in slot
+// bases_ext[t, c / C] * C + c % C, whose row of hs_ext (the (n_ext, F)
+// sender projection, ~3 MB in bf16 at 8k particles, resident in the 50 MB
+// L2) is read from global memory; otherwise the term and the mask are 0.
+// The TPU kernel selects these rows with a one-hot MXU contraction over the
+// S*C stencil candidates (Mosaic has no row gather); a row read is the
+// Hopper form of the same select.
 //
 // Design: one block of 8 warps per tile of 16 receivers. Edge rows stream
 // through shared memory 64 at a time, so the tile's e/hs/e' never hold more
@@ -51,7 +64,10 @@ struct Args {
   const void* enc_w1;   // (fe, F) T
   const void* enc_w2;   // (F, F) T
   const float* enc_vec[4];  // enc_b1, enc_b2, enc LN scale, enc LN bias
+  const int32_t* cand;       // K8: (n_ext, K) stencil-candidate ids, fill S*C
+  const int32_t* bases_ext;  // K8: (n_cols+1, S) stencil table (+ sentinel row)
   int n, k, fe;
+  int C, S;  // K8: column capacity, stencil columns
 };
 
 template <typename T>
@@ -64,7 +80,7 @@ struct Smem {
   static constexpr int kBytes = 3 * kW + 2 * kA + kF + kAgg;
 };
 
-template <typename T, bool ENC>
+template <typename T, bool ENC, bool SLOT>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
   constexpr int LDA = Layout<T>::LDA;
   constexpr bool kStage = Layout<T>::kStageWeights;
@@ -77,6 +93,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
   float* sF = reinterpret_cast<float*>(smem + 3 * Smem<T>::kW + 2 * Smem<T>::kA);
   float* sAgg = reinterpret_cast<float*>(smem + 3 * Smem<T>::kW + 2 * Smem<T>::kA +
                                          Smem<T>::kF);
+  __shared__ int sSrc[SLOT ? M : 1];  // K8: the chunk's sender rows, -1 if padded
 
   const int K = a.k;
   const int node0 = blockIdx.x * TR;
@@ -108,6 +125,15 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
     const int rows = min(M, rows_tile - c0);
     const int rows_pad = (rows + 15) / 16 * 16;
     __syncthreads();  // previous chunk done with sA/sB/sF; weights staged
+    if constexpr (SLOT) {
+      const int cw = a.S * a.C;
+      for (int r = threadIdx.x; r < rows; r += THREADS) {
+        const int64_t er = row0 + c0 + r;
+        const int t = (node0 + (c0 + r) / K) / a.C;
+        const int c = a.cand[er];
+        sSrc[r] = c < cw ? a.bases_ext[t * a.S + c / a.C] * a.C + c % a.C : -1;
+      }
+    }  // read after the __syncthreads that ends (a)
 
     // (a) the chunk's edge latents e -> sA
     if constexpr (ENC) {
@@ -160,7 +186,12 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
       if (r < rows) {
         const int64_t er = row0 + c0 + r;
         const int64_t node = node0 + (c0 + r) / K;
-        x = sF[r * LDF + c] + to_f(hs[er * F + c]);
+        if constexpr (SLOT) {
+          const int src = sSrc[r];
+          x = sF[r * LDF + c] + (src >= 0 ? to_f(hs[(int64_t)src * F + c]) : 0.f);
+        } else {
+          x = sF[r * LDF + c] + to_f(hs[er * F + c]);
+        }
         x = x + to_f(hr[node * F + c]) + a.vec[0][c];
         x = fmaxf(x, 0.f);
       }
@@ -182,7 +213,9 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
         x[i] = sF[r * LDF + c] + a.vec[1][c];
       }
       warp_layernorm(x, a.vec[2], a.vec[3], lane);
-      const float m = a.mask[er];
+      float m;
+      if constexpr (SLOT) m = sSrc[r] >= 0 ? 1.f : 0.f;
+      else m = a.mask[er];
 #pragma unroll
       for (int i = 0; i < F / 32; ++i) {
         const int c = lane + 32 * i;
@@ -247,14 +280,45 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
   }
 }
 
-template <typename T, bool ENC>
+template <typename T, bool ENC, bool SLOT>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = Smem<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mp<T, ENC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_mp<T, ENC, SLOT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_mp<T, ENC><<<lbt::ceil_div(a.n, TR), THREADS, smem, stream>>>(a);
+  fused_mp<T, ENC, SLOT><<<lbt::ceil_div(a.n, TR), THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool SLOT>
+int dispatch(const Args& a, int is_bf16, int has_enc, cudaStream_t stream) {
+  if (is_bf16)
+    return has_enc ? launch<bf16, true, SLOT>(a, stream) : launch<bf16, false, SLOT>(a, stream);
+  return has_enc ? launch<float, true, SLOT>(a, stream) : launch<float, false, SLOT>(a, stream);
+}
+
+Args make_args(const void* const* ptrs, int n, int k, int fe) {
+  Args a;
+  a.e = ptrs[0];
+  a.hs = ptrs[1];
+  a.hr = ptrs[2];
+  a.h = ptrs[3];
+  a.mask = static_cast<const float*>(ptrs[4]);
+  a.e_out = const_cast<void*>(ptrs[5]);
+  a.h_out = const_cast<void*>(ptrs[6]);
+  for (int i = 0; i < 5; ++i) a.w[i] = ptrs[7 + i];
+  for (int i = 0; i < 8; ++i) a.vec[i] = static_cast<const float*>(ptrs[12 + i]);
+  a.enc_w1 = ptrs[20];
+  a.enc_w2 = ptrs[21];
+  for (int i = 0; i < 4; ++i) a.enc_vec[i] = static_cast<const float*>(ptrs[22 + i]);
+  a.cand = nullptr;
+  a.bases_ext = nullptr;
+  a.n = n;
+  a.k = k;
+  a.fe = fe;
+  a.C = 0;
+  a.S = 0;
+  return a;
 }
 
 }  // namespace
@@ -270,22 +334,22 @@ LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int l
                             int is_bf16, int has_enc, cudaStream_t stream) {
   if (latent != F || n < 1 || k < 1 || (has_enc && (fe < 1 || fe > 16)))
     return (int)cudaErrorInvalidValue;
-  Args a;
-  a.e = ptrs[0];
-  a.hs = ptrs[1];
-  a.hr = ptrs[2];
-  a.h = ptrs[3];
-  a.mask = static_cast<const float*>(ptrs[4]);
-  a.e_out = const_cast<void*>(ptrs[5]);
-  a.h_out = const_cast<void*>(ptrs[6]);
-  for (int i = 0; i < 5; ++i) a.w[i] = ptrs[7 + i];
-  for (int i = 0; i < 8; ++i) a.vec[i] = static_cast<const float*>(ptrs[12 + i]);
-  a.enc_w1 = ptrs[20];
-  a.enc_w2 = ptrs[21];
-  for (int i = 0; i < 4; ++i) a.enc_vec[i] = static_cast<const float*>(ptrs[22 + i]);
-  a.n = n;
-  a.k = k;
-  a.fe = fe;
-  if (is_bf16) return has_enc ? launch<bf16, true>(a, stream) : launch<bf16, false>(a, stream);
-  return has_enc ? launch<float, true>(a, stream) : launch<float, false>(a, stream);
+  return dispatch<false>(make_args(ptrs, n, k, fe), is_bf16, has_enc, stream);
+}
+
+// K8: ptrs as lbt_fused_mp's, with 1 = hs_ext (n_ext, F), 4 unused, and
+//   26 cand (n_ext, K) int32, 27 bases_ext (n_cols+1, S) int32;
+// n = n_ext = (n_cols+1) * C.
+LBT_EXPORT int lbt_fused_mp_slot(const void* const* ptrs, int n, int k, int fe, int latent,
+                                 int is_bf16, int has_enc, int C, int S,
+                                 cudaStream_t stream) {
+  if (latent != F || n < 1 || k < 1 || C < 1 || S < 1 || n % C ||
+      (has_enc && (fe < 1 || fe > 16)))
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(ptrs, n, k, fe);
+  a.cand = static_cast<const int32_t*>(ptrs[26]);
+  a.bases_ext = static_cast<const int32_t*>(ptrs[27]);
+  a.C = C;
+  a.S = S;
+  return dispatch<true>(a, is_bf16, has_enc, stream);
 }

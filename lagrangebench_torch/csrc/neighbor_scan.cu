@@ -1,8 +1,16 @@
-// K2: column-stencil radius search, packed into K sender slots per receiver.
+// K2, K7, K9: column-stencil radius search, packed into K slots per receiver.
 //
-// Replaces: lagrangebench_tpu/ops/neighbors_pallas.py::_scan_kernel
-// (emit="senders") and ::_scan_kernel_streamed, both launched from
-// make_edges_fn._edges_impl. One kernel covers both of their regimes.
+// Replaces: lagrangebench_tpu/ops/neighbors_pallas.py::_scan_kernel and
+// ::_scan_kernel_streamed. One kernel covers both of their regimes, and
+// each of the TPU kernel's payloads is a compile-time instance:
+//   K2 (emit="senders", make_edges_fn): sender particle ids, fill n;
+//   K9 (emit="geometry", make_edges_fn(emit_geometry=True)): K2 plus one
+//      interleaved (K*(dim+1)) float32 plane per receiver of the
+//      cutoff-normalized [rel_disp, rel_dist], zeros in unfilled slots;
+//   K7 (emit="slot", make_slot_edges_fn): the stencil-candidate index
+//      j*C + c in [0, S*C) (fill S*C) with rel_disp (dim planes) and
+//      rel_dist written straight into the (n_ext, K) column-slot outputs,
+//      the sentinel column's C rows included (fill, zero geometry).
 //
 // What it computes, per (sample, receiver column): every candidate of the
 // 3^(dim-1) stencil columns (wrapped ids from the base table; a sentinel
@@ -10,16 +18,19 @@
 // against each receiver of the column. Periodic axes are min-imaged with
 // d - box*floor(d/box + 0.5); a candidate is a hit when dist^2 <= cutoff^2
 // and its id < n. Hits are packed into K slots per receiver in candidate
-// order (stencil step first, then rank within the column), the rest filled
-// with n; receivers holding the sentinel position (x >= 1e8) keep no hits.
+// order (stencil step first, then rank within the column), the rest
+// filled; receivers holding the sentinel position (x >= 1e8) keep no hits.
 // The largest row count of the column is written for the overflow flag.
+// The geometry is the min-imaged per-axis difference of the distance test
+// times 1/cutoff, and sqrt(dist^2)/cutoff, rounded as the plain version
+// rounds them (__f*_rn: no FMA contraction).
 //
 // Bound on an H100: operations, at these sizes. Each receiver tests S*C
 // candidates (~20 float operations each in 3D) while the bytes are one
-// read of the column table and one write of the (C, K) slots; the distance
-// tests are the work. They run on the CUDA cores in float32, since the
-// test must round exactly as the plain version does (no FMA contraction:
-// the __f*_rn intrinsics below), and a tensor-core form would not.
+// read of the column table and one write of the (C, K) slots (and of the
+// K (dim+1) geometry values); the distance tests are the work. They run on
+// the CUDA cores in float32, since the test must round exactly as the plain
+// version does, and a tensor-core form would not.
 //
 // Design: one block per (sample, receiver column), one warp per receiver
 // at a time. The stencil columns' positions and ids are staged in shared
@@ -28,7 +39,7 @@
 // __ballot_sync / __popc prefix over 32 candidates at a time, which keeps
 // candidate order and so gives the same slots as the TPU kernel's
 // triangular-matmul prefix. Each receiver's running count lives in shared
-// memory across chunks.
+// memory across chunks. A hit's lane writes its own payload and geometry.
 #include "common.cuh"
 
 namespace {
@@ -36,18 +47,24 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// the packed payload (a template argument: one instance each)
+enum Emit : int { kSenders = 0, kGeometry = 1, kSlot = 2 };
+
 struct ScanArgs {
   const float* pos;      // (B*(n_cols+1), C, dim) column-table positions
   const int32_t* idx;    // (B*(n_cols+1), C) local particle ids, fill n
   const int32_t* bases;  // (B*n_cols, S) flat table row per stencil step
-  int32_t* out;          // (B*n_cols, C, K) packed sender ids
-  int32_t* row_max;      // (B*n_cols,) largest row count of the column
+  int32_t* out;          // (blocks, C, K) packed sender ids / candidate ids
+  int32_t* row_max;      // (blocks,) largest row count of the column
+  float* geom;           // kGeometry: (blocks, C, K*(dim+1)); kSlot: (n_ext, K, dim)
+  float* dist;           // kSlot: (n_ext, K)
   int n_cols, C, S, dim, K, n, chunk;  // chunk: stencil columns per stage
-  float cutoff2;
+  float cutoff2, inv_cutoff;
   float box[3], inv_box[3];
   int pbc[3];
 };
 
+template <int EMIT>
 __global__ void __launch_bounds__(kThreads) neighbor_scan(const ScanArgs a) {
   extern __shared__ float smem[];
   const int C = a.C, K = a.K, dim = a.dim;
@@ -58,15 +75,20 @@ __global__ void __launch_bounds__(kThreads) neighbor_scan(const ScanArgs a) {
   __shared__ int s_max;
 
   const int q = blockIdx.x;  // sample * n_cols + receiver column
-  const int recv_row = (q / a.n_cols) * (a.n_cols + 1) + q % a.n_cols;
+  // K7 is single-sample, and its block n_cols is the sentinel column,
+  // whose rows are only filled
+  const int recv_row = EMIT == kSlot ? q : (q / a.n_cols) * (a.n_cols + 1) + q % a.n_cols;
+  const int n_steps = (EMIT == kSlot && q >= a.n_cols) ? 0 : a.S;
+  const int fill = EMIT == kSlot ? a.S * C : a.n;
+  const int gw = dim + 1;  // geometry values per slot (kGeometry)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const unsigned lt_mask = (1u << lane) - 1u;
 
   for (int r = threadIdx.x; r < C; r += kThreads) scount[r] = 0;
   if (threadIdx.x == 0) s_max = 0;
 
-  for (int j0 = 0; j0 < a.S; j0 += a.chunk) {
-    const int nj = min(a.chunk, a.S - j0);
+  for (int j0 = 0; j0 < n_steps; j0 += a.chunk) {
+    const int nj = min(a.chunk, n_steps - j0);
     __syncthreads();
     for (int e = threadIdx.x; e < nj * C; e += kThreads) {
       const int row = a.bases[(int64_t)q * a.S + j0 + e / C];
@@ -78,32 +100,58 @@ __global__ void __launch_bounds__(kThreads) neighbor_scan(const ScanArgs a) {
     for (int r = warp; r < C; r += kWarps) {
       const float* rp = a.pos + ((int64_t)recv_row * C + r) * dim;
       float rx[3];
-      for (int d = 0; d < dim; ++d) rx[d] = rp[d];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) rx[d] = d < dim ? rp[d] : 0.f;
       if (!(rx[0] < 1e8f)) continue;  // empty slot: sentinel position
       int cnt = scount[r];
-      int32_t* orow = a.out + ((int64_t)q * C + r) * K;
+      const int64_t orow_at = ((int64_t)q * C + r) * K;
+      int32_t* orow = a.out + orow_at;
       for (int base = 0; base < nj * C; base += 32) {
         const int e = base + lane;
         bool hit = false;
         int32_t sid = 0;
+        float df[3] = {0.f, 0.f, 0.f};
+        float dist2 = 0.f;
         if (e < nj * C) {
           sid = sidx[e];
-          float dist2 = 0.f;
-          for (int d = 0; d < dim; ++d) {
-            float df = __fsub_rn(rx[d], spos[d * stage + e]);
-            if (a.pbc[d]) {
-              const float w = floorf(__fadd_rn(__fmul_rn(df, a.inv_box[d]), 0.5f));
-              df = __fsub_rn(df, __fmul_rn(a.box[d], w));
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            if (d < dim) {
+              float v = __fsub_rn(rx[d], spos[d * stage + e]);
+              if (a.pbc[d]) {
+                const float w = floorf(__fadd_rn(__fmul_rn(v, a.inv_box[d]), 0.5f));
+                v = __fsub_rn(v, __fmul_rn(a.box[d], w));
+              }
+              df[d] = v;
+              const float sq = __fmul_rn(v, v);
+              dist2 = d == 0 ? sq : __fadd_rn(dist2, sq);
             }
-            const float sq = __fmul_rn(df, df);
-            dist2 = d == 0 ? sq : __fadd_rn(dist2, sq);
           }
           hit = (dist2 <= a.cutoff2) && (sid < a.n);
         }
         const unsigned ballot = __ballot_sync(lbt::kFullMask, hit);
         if (hit) {
           const int p = cnt + __popc(ballot & lt_mask);
-          if (p < K) orow[p] = sid;
+          if (p < K) {
+            orow[p] = EMIT == kSlot ? j0 * C + e : sid;
+            if constexpr (EMIT != kSenders) {
+              const float inv = a.inv_cutoff;
+              const float rd = __fmul_rn(__fsqrt_rn(dist2), inv);
+              if constexpr (EMIT == kGeometry) {
+                float* g = a.geom + (orow_at + p) * gw;
+#pragma unroll
+                for (int d = 0; d < 3; ++d)
+                  if (d < dim) g[d] = __fmul_rn(df[d], inv);
+                g[dim] = rd;
+              } else {
+                float* g = a.geom + (orow_at + p) * dim;
+#pragma unroll
+                for (int d = 0; d < 3; ++d)
+                  if (d < dim) g[d] = __fmul_rn(df[d], inv);
+                a.dist[orow_at + p] = rd;
+              }
+            }
+          }
         }
         cnt += __popc(ballot);
       }
@@ -116,8 +164,16 @@ __global__ void __launch_bounds__(kThreads) neighbor_scan(const ScanArgs a) {
   for (int r = warp; r < C; r += kWarps) {
     const int cnt = scount[r];
     wmax = max(wmax, cnt);
-    int32_t* orow = a.out + ((int64_t)q * C + r) * K;
-    for (int k = min(cnt, K) + lane; k < K; k += 32) orow[k] = a.n;
+    const int64_t orow_at = ((int64_t)q * C + r) * K;
+    for (int k = min(cnt, K) + lane; k < K; k += 32) {
+      a.out[orow_at + k] = fill;
+      if constexpr (EMIT == kGeometry) {
+        for (int c = 0; c < gw; ++c) a.geom[(orow_at + k) * gw + c] = 0.f;
+      } else if constexpr (EMIT == kSlot) {
+        for (int d = 0; d < dim; ++d) a.geom[(orow_at + k) * dim + d] = 0.f;
+        a.dist[orow_at + k] = 0.f;
+      }
+    }
   }
   if (lane == 0) atomicMax(&s_max, wmax);
   __syncthreads();
@@ -130,20 +186,28 @@ int scan_smem_bytes(int C, int dim, int chunk) {
   return (dim * chunk * C + chunk * C + C) * 4;
 }
 
-}  // namespace
+template <int EMIT>
+int launch(const ScanArgs& a, int n_blocks, cudaStream_t stream) {
+  const int smem = scan_smem_bytes(a.C, a.dim, a.chunk);
+  cudaError_t err = cudaFuncSetAttribute(
+      neighbor_scan<EMIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  neighbor_scan<EMIT><<<n_blocks, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
-LBT_EXPORT int lbt_neighbor_scan(const float* pos, const int32_t* idx, const int32_t* bases,
-                                 int32_t* out, int32_t* row_max, int n_blocks, int n_cols,
-                                 int C, int S, int dim, int K, int n, int chunk,
-                                 float cutoff2, const float* box, const float* inv_box,
-                                 const int32_t* pbc, cudaStream_t stream) {
-  if (dim < 2 || dim > 3 || chunk < 1 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+ScanArgs make_args(const float* pos, const int32_t* idx, const int32_t* bases, int32_t* out,
+                   int32_t* row_max, int n_cols, int C, int S, int dim, int K, int n,
+                   int chunk, float cutoff2, const float* box, const float* inv_box,
+                   const int32_t* pbc) {
   ScanArgs a;
   a.pos = pos;
   a.idx = idx;
   a.bases = bases;
   a.out = out;
   a.row_max = row_max;
+  a.geom = nullptr;
+  a.dist = nullptr;
   a.n_cols = n_cols;
   a.C = C;
   a.S = S;
@@ -152,15 +216,48 @@ LBT_EXPORT int lbt_neighbor_scan(const float* pos, const int32_t* idx, const int
   a.n = n;
   a.chunk = chunk;
   a.cutoff2 = cutoff2;
+  a.inv_cutoff = 0.f;
   for (int d = 0; d < 3; ++d) {
     a.box[d] = d < dim ? box[d] : 1.f;
     a.inv_box[d] = d < dim ? inv_box[d] : 1.f;
     a.pbc[d] = d < dim ? pbc[d] : 0;
   }
-  const int smem = scan_smem_bytes(C, dim, chunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      neighbor_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  neighbor_scan<<<n_blocks, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  return a;
+}
+
+}  // namespace
+
+// K2: sender ids only.
+LBT_EXPORT int lbt_neighbor_scan(const float* pos, const int32_t* idx, const int32_t* bases,
+                                 int32_t* out, int32_t* row_max, int n_blocks, int n_cols,
+                                 int C, int S, int dim, int K, int n, int chunk,
+                                 float cutoff2, const float* box, const float* inv_box,
+                                 const int32_t* pbc, cudaStream_t stream) {
+  if (dim < 2 || dim > 3 || chunk < 1 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+  const ScanArgs a = make_args(pos, idx, bases, out, row_max, n_cols, C, S, dim, K, n, chunk,
+                               cutoff2, box, inv_box, pbc);
+  return launch<kSenders>(a, n_blocks, stream);
+}
+
+// K9 (emit == 1: geom is the interleaved (blocks, C, K*(dim+1)) plane, dist
+// unused; n_blocks = B*n_cols) and K7 (emit == 2: geom is rel_disp (n_ext,
+// K, dim), dist rel_dist (n_ext, K); n_blocks = n_cols + 1, one sample).
+LBT_EXPORT int lbt_neighbor_scan_emit(int emit, const float* pos, const int32_t* idx,
+                                      const int32_t* bases, int32_t* out, int32_t* row_max,
+                                      float* geom, float* dist, int n_blocks, int n_cols,
+                                      int C, int S, int dim, int K, int n, int chunk,
+                                      float cutoff2, float inv_cutoff, const float* box,
+                                      const float* inv_box, const int32_t* pbc,
+                                      cudaStream_t stream) {
+  if (dim < 2 || dim > 3 || chunk < 1 || n_blocks < 1 || geom == nullptr)
+    return (int)cudaErrorInvalidValue;
+  ScanArgs a = make_args(pos, idx, bases, out, row_max, n_cols, C, S, dim, K, n, chunk,
+                         cutoff2, box, inv_box, pbc);
+  a.geom = geom;
+  a.dist = dist;
+  a.inv_cutoff = inv_cutoff;
+  if (emit == kGeometry) return launch<kGeometry>(a, n_blocks, stream);
+  if (emit == kSlot && dist != nullptr && n_blocks == n_cols + 1)
+    return launch<kSlot>(a, n_blocks, stream);
+  return (int)cudaErrorInvalidValue;
 }

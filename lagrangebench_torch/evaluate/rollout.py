@@ -2,9 +2,12 @@
 
 Counterpart of ``lagrangebench_tpu/evaluate/rollout.py`` (single device).
 A trajectory batch of B samples rolls out as one flat (B*N)-particle
-super-graph per step, in a Python loop: neighbor update (K1, K2), features,
-the model (ten K3 launches for GNS-10), integration, then kinematic
-particles are reset to the ground truth and the input window shifts.
+super-graph per step, in a Python loop: neighbor update (K1, then K2, or K9
+with ``emit_geometry``), features, the model (ten K3 launches for GNS-10),
+integration, then kinematic particles are reset to the ground truth and the
+input window shifts. The slot layout rolls out one sample at a time (B = 1:
+K1, K7, then ten K8 launches); its list, with the geometry and maps in
+``aux``, goes through ``broadcast``/``select`` like a dense one.
 
 The neighbor-overflow flag stays on the device through the loop and is
 read once per batch; on overflow the batch is rerun with the capacities of

@@ -8,6 +8,14 @@ Counterpart of ``lagrangebench_tpu/models/gns.py`` with
                  e, h = K3(e, hs[senders], hr, h, mask; encoder on step 0)
     acc = MLP_1(h)   (decoder, no LayerNorm), returned as float32
 
+In the slot layout (features of a slot-format neighbor list, marked by
+"slot_bases") the node state lives in column-slot order, (n_ext, F): the
+particle types are gathered through ``slot_to_particle``, the encoder and
+the processor run on the n_ext rows, each step is K8 (the sender rows read
+in-kernel through the candidate ids and the stencil table, no gather), and
+the decoder's output is read back through ``particle_to_slot``. Both
+layouts share one parameter tree.
+
 The processor's parameters are flat per-step arrays named as in the JAX
 fused layout (``mp{i}_w_s`` ... ``mp{i}_ln2_bias``, ``enc_*``), kept as
 (in, out) matrices, the layout the kernel reads. The node encoder and the
@@ -148,21 +156,35 @@ class GNS(nn.Module):
         )
         senders = features["senders"]
         n = nodes.shape[0]
+        slot = "slot_bases" in features
+        if slot:
+            s2p = torch.clamp(features["slot_to_particle"], max=particle_type.shape[0] - 1)
+            particle_type = particle_type[s2p.long()]
         if self.num_particle_types > 1:
             emb = self.embedding[torch.remainder(particle_type.long(), self.num_particle_types)]
             wide = torch.promote_types(nodes.dtype, emb.dtype)
             nodes = torch.cat([nodes.to(wide), emb.to(wide)], dim=-1)
         h = self.node_encoder(nodes, cdt)
 
-        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+        training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        if training:
             # training: the stored parameters enter the autograd Function,
             # which casts them itself and returns gradients in their dtype
             steps = [dict(s) for s in self.mp_steps]
             enc = dict(self.edge_encoder)
-            step_fn = fused_mp.gns_mp_step_autograd
         else:
             steps, enc = self._processor_params(cdt)
-            step_fn = fused_mp.gns_mp_step
+        if slot:
+            step_fn = (fused_mp.gns_mp_step_slot_autograd if training
+                       else fused_mp.gns_mp_step_slot)
+            for i, p in enumerate(steps):
+                hs_proj = matmul(h, p["w_s"].to(cdt))
+                hr_proj = matmul(h, p["w_r"].to(cdt))
+                e, h = step_fn(e, senders, features["slot_bases"], hs_proj, hr_proj, h, p,
+                               enc=enc if i == 0 else None)
+            acc = self.decoder(h, cdt)[features["particle_to_slot"].long()]
+            return {"acc": acc.to(torch.float32)}
+        step_fn = fused_mp.gns_mp_step_autograd if training else fused_mp.gns_mp_step
         mask = (senders < n).to(torch.float32)
         # padded slots (fill n) gather the last row, as a JAX gather clamps;
         # their messages are masked out, so that row gets no gradient from

@@ -472,3 +472,191 @@ def gns_mp_step_autograd(
         params += [enc[name] for name in ENC_PARAM_NAMES]
     mask = mask if mask.dtype == torch.float32 else mask.to(torch.float32)
     return _MPStepFunction.apply(enc is not None, e, hs_gath, hr_proj, h, mask, *params)
+
+
+# ---------------------------------------------------------------------------
+# K8: the fused step in column-slot order
+# ---------------------------------------------------------------------------
+
+_SLOT_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+FUSED_MP_SLOT = Kernel(
+    "fused_mp_slot", "fused_mp", "lbt_fused_mp_slot", _SLOT_ARGTYPES,
+    replaces="lagrangebench_tpu/ops/fused_mp.py:708",
+)
+FUSED_MP_SLOT_ENC = Kernel(
+    "fused_mp_slot_enc", "fused_mp", "lbt_fused_mp_slot", _SLOT_ARGTYPES,
+    replaces="lagrangebench_tpu/ops/fused_mp.py:708",
+)
+
+
+def _bases_ext(bases: torch.Tensor) -> torch.Tensor:
+    """The stencil table with a row for the sentinel column's tile, which
+    points at that column itself (its candidates are all fill, so no row
+    is read through it)."""
+    n_cols, s = bases.shape
+    return torch.cat([bases, bases.new_full((1, s), n_cols)])
+
+
+def slot_sender_rows(cand: torch.Tensor, bases: torch.Tensor):
+    """The sender slot of every slot-layout edge -> (rows (n_ext, K) int64,
+    mask (n_ext, K) bool).
+
+    Receiver row r lies in column t = r // C; its candidate c < S*C is the
+    sender in slot ``bases[t, c // C] * C + c % C``. A padded slot
+    (c == S*C) gets row 0 and mask False.
+    """
+    n_cols, s = bases.shape
+    n_ext, k = cand.shape
+    c = n_ext // (n_cols + 1)
+    cand = cand.long()
+    mask = cand < s * c
+    bases_ext = _bases_ext(bases).long()
+    t = torch.arange(n_ext, device=cand.device)[:, None] // c
+    safe = torch.where(mask, cand, 0)
+    rows = bases_ext[t, safe // c] * c + safe % c
+    return torch.where(mask, rows, 0), mask
+
+
+def slot_gather_plain(hs_ext: torch.Tensor, cand: torch.Tensor, bases: torch.Tensor):
+    """The gathered (n_ext, K, F) sender rows of the slot layout, zeros on
+    padded slots: what K8 reads in-kernel (``slot_gather_reference``)."""
+    rows, mask = slot_sender_rows(cand, bases)
+    return torch.where(mask[..., None], hs_ext[rows], 0).to(hs_ext.dtype)
+
+
+def gns_mp_step_slot_plain(e, cand, bases, hs_ext, hr, h, p, enc=None):
+    """Plain PyTorch version of K8: the fused step with the sender rows
+    selected through the stencil table and the mask ``cand < S*C``
+    (``gns_mp_step_slot_reference``)."""
+    mask = slot_sender_rows(cand, bases)[1]
+    return gns_mp_step_plain(e, slot_gather_plain(hs_ext, cand, bases), hr, h, mask, p, enc)
+
+
+def gns_mp_step_slot(
+    e: torch.Tensor,
+    cand: torch.Tensor,
+    bases: torch.Tensor,
+    hs_ext: torch.Tensor,
+    hr: torch.Tensor,
+    h: torch.Tensor,
+    p: Dict[str, torch.Tensor],
+    enc: Optional[Dict[str, torch.Tensor]] = None,
+):
+    """K8: the fused step in column-slot order; the CUDA kernel on CUDA
+    tensors, else the plain version.
+
+    e (n_ext, K, F) edge latents (raw (n_ext, K, Fe) float32 with ``enc``),
+    cand (n_ext, K) int32 stencil-candidate ids (fill S*C), bases (n_cols,
+    S) int32, hs_ext / hr / h (n_ext, F) with n_ext = (n_cols+1)*C. The
+    kernel reads each edge's sender row of ``hs_ext`` itself: no (n_ext, K,
+    F) gathered tensor exists. On CUDA the dtypes and parameters are those
+    of :func:`gns_mp_step`.
+    """
+    if not hs_ext.is_cuda:
+        return gns_mp_step_slot_plain(e, cand, bases, hs_ext, hr, h, p, enc)
+    cdt = hs_ext.dtype
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_mp_slot kernel: compute dtype {cdt} not supported")
+    n, f = hs_ext.shape
+    k = cand.shape[-1]
+    n_cols, s = bases.shape
+    if f != LATENT:
+        raise ValueError(f"fused_mp_slot kernel: latent width {f} != {LATENT}")
+    if n % (n_cols + 1) or cand.shape != (n, k) or hr.shape != (n, f) or h.shape != (n, f):
+        raise ValueError("fused_mp_slot kernel: inconsistent shapes")
+    if cand.dtype != torch.int32 or bases.dtype != torch.int32:
+        raise ValueError("fused_mp_slot kernel: cand and bases must be int32")
+    if hr.dtype != cdt or h.dtype != cdt:
+        raise ValueError("fused_mp_slot kernel: hs_ext, hr and h must share a dtype")
+    if enc is None:
+        if e.shape != (n, k, f) or e.dtype != cdt:
+            raise ValueError("fused_mp_slot kernel: e must be (n_ext, K, F) in the compute dtype")
+    elif e.shape[:2] != (n, k) or e.dtype != torch.float32:
+        raise ValueError("fused_mp_slot kernel: raw edge features must be (n_ext, K, Fe) float32")
+    c = n // (n_cols + 1)
+    bases_ext = _bases_ext(bases)
+    tensors = [e, hs_ext, hr, h, cand, bases_ext]
+    if any(not t.is_cuda or not t.is_contiguous() for t in tensors):
+        raise ValueError("fused_mp_slot kernel: inputs must be contiguous CUDA tensors")
+
+    e_out = torch.empty((n, k, f), dtype=cdt, device=h.device)
+    h_out = torch.empty_like(h)
+    params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
+    params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
+    fe = 0
+    if enc is not None:
+        fe = e.shape[-1]
+        params += [
+            _checked(enc["enc_w1"], cdt, (fe, f)),
+            _checked(enc["enc_w2"], cdt, (f, f)),
+        ] + [
+            _checked(enc[name], torch.float32, (f,))
+            for name in ("enc_b1", "enc_b2", "enc_ln_scale", "enc_ln_bias")
+        ]
+    ptrs = [t.data_ptr() for t in (e, hs_ext, hr, h)] + [0]  # slot 4 (mask) unused
+    ptrs += [e_out.data_ptr(), h_out.data_ptr()] + [t.data_ptr() for t in params]
+    ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), bases_ext.data_ptr()]
+    arr = (ctypes.c_void_p * 28)(*ptrs)
+    kernel = FUSED_MP_SLOT_ENC if enc is not None else FUSED_MP_SLOT
+    kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, f, int(cdt == torch.bfloat16),
+           int(enc is not None), c, s, stream())
+    return e_out, h_out
+
+
+class _SlotStepFunction(torch.autograd.Function):
+    """K8 forward; the backward differentiates the plain version,
+    rematerialized from the saved inputs, as the JAX package's
+    ``_gns_mp_slot_vjp`` differentiates ``gns_mp_step_slot_reference`` (no
+    backward kernel: the JAX package has none for this step).
+
+    Inputs: ``has_enc``, e (or raw edge features), cand, bases, hs_ext, hr,
+    h, then the parameters as in ``_MPStepFunction``, cast to the kernel's
+    layout inside. In the backward the products sum in float32 (float64 in
+    float64), and the sender rows' gradient is summed in float32 by
+    ``models.utils.gather_rows`` (PyTorch's bf16 ``index_put_`` backward is
+    orders of magnitude slower on CUDA).
+    """
+
+    @staticmethod
+    def forward(ctx, has_enc, e, cand, bases, hs_ext, hr, h, *params):
+        cdt = hs_ext.dtype
+        p = kernel_params(dict(zip(BWD_PARAM_ORDER, params)), cdt)
+        enc = kernel_params(dict(zip(ENC_PARAM_NAMES, params[13:])), cdt) if has_enc else None
+        ctx.has_enc = has_enc
+        ctx.save_for_backward(e, cand, bases, hs_ext, hr, h, *params)
+        return gns_mp_step_slot(e, cand, bases, hs_ext, hr, h, p, enc)
+
+    @staticmethod
+    def backward(ctx, ge, gh):
+        from ..models.utils import gather_rows
+
+        e, cand, bases, hs_ext, hr, h, *params = ctx.saved_tensors
+        cdt = hs_ext.dtype
+        acc = _acc_dtype(cdt)
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            e_, hs_, hr_, h_ = (t.detach().requires_grad_(needs[i])
+                                for i, t in ((1, e), (4, hs_ext), (5, hr), (6, h)))
+            leaves = [t.detach().requires_grad_() for t in params]
+            cast = [v.to(cdt) if v.dim() == 2 else v.to(acc) for v in leaves]
+            p = dict(zip(BWD_PARAM_ORDER, cast))
+            enc = dict(zip(ENC_PARAM_NAMES, cast[13:])) if ctx.has_enc else None
+            rows, mask = slot_sender_rows(cand, bases)
+            hs_gath = torch.where(mask[..., None], gather_rows(hs_, rows), 0).to(cdt)
+            outs = gns_mp_step_plain(e_, hs_gath, hr_, h_, mask, p, enc)
+            inputs = [t for t in (e_, hs_, hr_, h_) if t.requires_grad] + leaves
+            grads = list(torch.autograd.grad(outs, inputs, (ge, gh), allow_unused=True))
+        node = [grads.pop(0) if t.requires_grad else None for t in (e_, hs_, hr_, h_)]
+        pgrads = [torch.zeros_like(t) if g is None else g.to(t.dtype)
+                  for g, t in zip(grads, params)]
+        return (None, node[0], None, None, node[1], node[2], node[3], *pgrads)
+
+
+def gns_mp_step_slot_autograd(e, cand, bases, hs_ext, hr, h, p, enc=None):
+    """K8, differentiable (the backward through the plain version); ``p``
+    and ``enc`` as :func:`gns_mp_step_autograd` takes them. Returns (e', h')
+    as :func:`gns_mp_step_slot` does."""
+    params = [p[name] for name in BWD_PARAM_ORDER]
+    if enc is not None:
+        params += [enc[name] for name in ENC_PARAM_NAMES]
+    return _SlotStepFunction.apply(enc is not None, e, cand, bases, hs_ext, hr, h, *params)

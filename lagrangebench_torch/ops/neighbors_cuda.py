@@ -1,17 +1,18 @@
-"""Wrappers of the neighbor-search kernels K1 (binning) and K2 (scan).
+"""Wrappers of the neighbor-search kernels: K1 (binning) and the column-stencil
+scan with its three payloads, K2 (sender ids), K9 (sender ids and the edge
+geometry) and K7 (the slot-space graph).
 
-Counterpart of ``lagrangebench_tpu/ops/neighbors_pallas.py`` (dense format).
-Each wrapper launches its CUDA kernel (``csrc/binning.cu``,
-``csrc/neighbor_scan.cu``) for CUDA tensors and runs the plain PyTorch
-version beside it for CPU tensors; there is no other fallback. The plain
-versions compute the same function with the same float32 rounding, so the
-two agree exactly.
+Counterpart of ``lagrangebench_tpu/ops/neighbors_pallas.py``. Each wrapper
+launches its CUDA kernel (``csrc/binning.cu``, ``csrc/neighbor_scan.cu``)
+for CUDA tensors and runs the plain PyTorch version beside it for CPU
+tensors; there is no other fallback. The plain versions compute the same
+function with the same float32 rounding, so the two agree exactly.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +33,19 @@ NEIGHBOR_SCAN = Kernel(
        ctypes.c_void_p],
     replaces="lagrangebench_tpu/ops/neighbors_pallas.py:65",
 )
+_EMIT_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4
+)
+NEIGHBOR_SCAN_GEOMETRY = Kernel(
+    "neighbor_scan_geometry", "neighbor_scan", "lbt_neighbor_scan_emit", _EMIT_ARGTYPES,
+    replaces="lagrangebench_tpu/ops/neighbors_pallas.py:65",
+)
+SLOT_SCAN = Kernel(
+    "slot_scan", "neighbor_scan", "lbt_neighbor_scan_emit", _EMIT_ARGTYPES,
+    replaces="lagrangebench_tpu/ops/neighbors_pallas.py:65",
+)
+_EMIT_GEOMETRY, _EMIT_SLOT = 1, 2  # the kernel's Emit values
 
 #: shared memory one scan block may use for its stencil stage: all S
 #: columns when they fit, else as many whole columns as fit
@@ -129,6 +143,24 @@ def neighbor_scan_plain(
     pos (B*(n_cols+1), C, dim) float32, idx (B*(n_cols+1), C) int32,
     bases (B*n_cols, S) int32 flat table rows per stencil step; Q = B*n_cols.
     """
+    hits = _scan_hits(pos, idx, bases, n_cols, n, cutoff, box, pbc)
+    out = _pack(hits, hits.cand_idx[:, None, :], k_cap, n)
+    return out, hits.row_max
+
+
+class _Hits(NamedTuple):
+    """Every (receiver, candidate) pair of the stencils, in candidate order."""
+
+    diffs: list  # dim x (Q, C, S*C) min-imaged receiver - candidate
+    dist2: torch.Tensor  # (Q, C, S*C)
+    cand_idx: torch.Tensor  # (Q, S*C) candidate particle ids
+    slot: torch.Tensor  # (Q, C, S*C) output slot of each hit, K where dropped
+    row_max: torch.Tensor  # (Q,) int32 largest row count of the column
+
+
+def _scan_hits(pos, idx, bases, n_cols, n, cutoff, box, pbc) -> _Hits:
+    """The distance tests of the scan, with the kernels' float32 rounding,
+    and the packed slot of each hit (K where it is dropped)."""
     rows, cap, dim = pos.shape
     bsz = rows // (n_cols + 1)
     q = bsz * n_cols
@@ -139,25 +171,51 @@ def neighbor_scan_plain(
     cand = pos[flat].view(q, s * cap, dim)
     cand_idx = idx[flat].view(q, s * cap)
 
-    dist2 = None
+    dist2, diffs = None, []
     for d in range(dim):
         diff = recv[:, :, None, d] - cand[:, None, :, d]  # (Q, C, S*C)
         if pbc[d]:
             diff = diff - box32[d] * torch.floor(diff * inv32[d] + 0.5)
+        diffs.append(diff)
         sq = diff * diff
         dist2 = sq if dist2 is None else dist2 + sq
     recv_valid = recv[:, :, 0] < 1e8  # (Q, C)
     mask = (dist2 <= cutoff2) & (cand_idx < n)[:, None, :] & recv_valid[..., None]
-    slot = torch.cumsum(mask.to(torch.int32), dim=-1) - 1
-    counts = mask.sum(-1)
-    keep = mask & (slot < k_cap)
+    return _Hits(diffs, dist2, cand_idx, _slots(mask), mask.sum(-1).max(dim=1).values.to(torch.int32))
 
-    out = torch.full((q, cap, k_cap + 1), n, dtype=torch.int32, device=pos.device)
-    src = cand_idx[:, None, :].expand(q, cap, s * cap)
-    out.scatter_(2, torch.where(keep, slot, k_cap).long(), src.to(torch.int32))
-    out = out[..., :k_cap].contiguous()
-    row_max = counts.max(dim=1).values.to(torch.int32)
-    return out, row_max
+
+def _slots(mask: torch.Tensor) -> torch.Tensor:
+    """Rank of each hit among its row's hits, in candidate order; -1 for a
+    pair that is not a hit."""
+    return torch.where(mask, torch.cumsum(mask.to(torch.int32), dim=-1) - 1, -1)
+
+
+def _pack(hits: _Hits, payload: torch.Tensor, k_cap: int, fill) -> torch.Tensor:
+    """(Q, C, K) of ``payload`` (broadcast to (Q, C, S*C)) at each hit's
+    slot, ``fill`` elsewhere; a trailing axis of ``payload`` is kept."""
+    slot = hits.slot
+    dest = torch.where((slot >= 0) & (slot < k_cap), slot, k_cap).long()
+    extra = tuple(payload.shape[3:])
+    q, cap, cw = slot.shape
+    src = payload.expand((q, cap, cw) + extra)
+    out = torch.full((q, cap, k_cap + 1) + extra, fill, dtype=payload.dtype, device=slot.device)
+    index = dest.view(dest.shape + (1,) * len(extra)).expand(src.shape)
+    out.scatter_(2, index, src)
+    return out[:, :, :k_cap].contiguous()
+
+
+def _geometry(hits: _Hits, cutoff: float) -> torch.Tensor:
+    """(Q, C, S*C, dim+1) cutoff-normalized [rel_disp, rel_dist] of every
+    pair, rounded as the kernels round them."""
+    inv = _inv_cutoff(cutoff)
+    planes = [d * inv for d in hits.diffs] + [torch.sqrt(hits.dist2) * inv]
+    return torch.stack(planes, dim=-1)
+
+
+def _inv_cutoff(cutoff: float) -> float:
+    """1/cutoff as the TPU kernel takes it (from the double cutoff**2), in
+    float32."""
+    return float(np.float32(1.0 / (float(cutoff) ** 2) ** 0.5))
 
 
 def neighbor_scan(
@@ -173,37 +231,140 @@ def neighbor_scan(
     pbc: Sequence[bool],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2. See :func:`neighbor_scan_plain` for the function computed."""
-    if pos.dtype != torch.float32 or pos.dim() != 3 or not pos.is_contiguous():
-        raise ValueError("neighbor_scan: pos must be contiguous float32 (rows, C, dim)")
-    rows, cap, dim = pos.shape
-    if idx.shape != (rows, cap) or idx.dtype != torch.int32 or not idx.is_contiguous():
-        raise ValueError("neighbor_scan: idx must be contiguous int32 (rows, C)")
-    if rows % (n_cols + 1) or bases.dtype != torch.int32 or not bases.is_contiguous():
-        raise ValueError("neighbor_scan: bad bases or table row count")
-    if bases.shape[0] != rows // (n_cols + 1) * n_cols:
-        raise ValueError("neighbor_scan: bases must have B*n_cols rows")
+    _check_scan("neighbor_scan", pos, idx, bases, n_cols)
     kw = dict(n_cols=n_cols, k_cap=k_cap, n=n, cutoff=cutoff, box=box, pbc=pbc)
     if not pos.is_cuda:
         return neighbor_scan_plain(pos, idx, bases, **kw)
-    if not (idx.is_cuda and bases.is_cuda):
-        raise ValueError("neighbor_scan: all inputs must be on one CUDA device")
-    s = bases.shape[1]
-    chunk = scan_chunk(cap, dim, s)
-    if chunk == 0:
-        raise ValueError(
-            f"neighbor_scan: column capacity {cap} exceeds one block's shared memory"
-        )
-    q = bases.shape[0]
+    chunk, consts = _launch_consts("neighbor_scan", pos, idx, bases, cutoff, box, pbc)
+    q, (_, cap, dim), s = bases.shape[0], pos.shape, bases.shape[1]
     out = torch.empty((q, cap, k_cap), dtype=torch.int32, device=pos.device)
     row_max = torch.empty(q, dtype=torch.int32, device=pos.device)
-    cutoff2, box32, inv32 = _scan_consts(cutoff, box)
-    box_c = (ctypes.c_float * dim)(*box32)
-    inv_c = (ctypes.c_float * dim)(*inv32)
-    pbc_c = (ctypes.c_int32 * dim)(*[int(bool(p)) for p in pbc])
+    cutoff2, box_c, inv_c, pbc_c = consts
     NEIGHBOR_SCAN(
         ptr(pos), ptr(idx), ptr(bases), ptr(out), ptr(row_max),
-        q, n_cols, cap, s, dim, k_cap, n, chunk, cutoff2,
-        ctypes.cast(box_c, ctypes.c_void_p), ctypes.cast(inv_c, ctypes.c_void_p),
-        ctypes.cast(pbc_c, ctypes.c_void_p), stream(),
+        q, n_cols, cap, s, dim, k_cap, n, chunk, cutoff2, box_c, inv_c, pbc_c, stream(),
     )
     return out, row_max
+
+
+def _check_scan(name, pos, idx, bases, n_cols, single=False) -> None:
+    """Raise on inputs a scan kernel does not take."""
+    if pos.dtype != torch.float32 or pos.dim() != 3 or not pos.is_contiguous():
+        raise ValueError(f"{name}: pos must be contiguous float32 (rows, C, dim)")
+    rows, cap, _ = pos.shape
+    if idx.shape != (rows, cap) or idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError(f"{name}: idx must be contiguous int32 (rows, C)")
+    if rows % (n_cols + 1) or bases.dtype != torch.int32 or not bases.is_contiguous():
+        raise ValueError(f"{name}: bad bases or table row count")
+    if bases.shape[0] != rows // (n_cols + 1) * n_cols:
+        raise ValueError(f"{name}: bases must have B*n_cols rows")
+    if single and rows != n_cols + 1:
+        raise ValueError(f"{name}: one sample's column table (n_cols + 1 rows) expected")
+
+
+def _launch_consts(name, pos, idx, bases, cutoff, box, pbc):
+    """(chunk, (cutoff2, box, 1/box, pbc as C arguments)) of a CUDA launch."""
+    if not (idx.is_cuda and bases.is_cuda):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    _, cap, dim = pos.shape
+    chunk = scan_chunk(cap, dim, bases.shape[1])
+    if chunk == 0:
+        raise ValueError(f"{name}: column capacity {cap} exceeds one block's shared memory")
+    cutoff2, box32, inv32 = _scan_consts(cutoff, box)
+    arrays = [(ctypes.c_float * dim)(*box32), (ctypes.c_float * dim)(*inv32),
+              (ctypes.c_int32 * dim)(*[int(bool(p)) for p in pbc])]
+    # the arrays stay alive through the call: ctypes.cast keeps a reference
+    return chunk, (cutoff2, *[ctypes.cast(a, ctypes.c_void_p) for a in arrays])
+
+
+# ---------------------------------------------------------------------------
+# K9: neighbor scan with the edge geometry
+# ---------------------------------------------------------------------------
+
+
+def neighbor_scan_geometry_plain(pos, idx, bases, *, n_cols, k_cap, n, cutoff, box, pbc):
+    """K2 plus the geometry -> (out (Q, C, K), geom (Q, C, K*(dim+1)),
+    row_max (Q,)).
+
+    ``geom`` interleaves, per slot, the cutoff-normalized min-imaged
+    receiver - sender displacement (dim values) and its norm, zeros in
+    unfilled slots: the layout of ``concat(rel_disp, rel_dist)``.
+    """
+    hits = _scan_hits(pos, idx, bases, n_cols, n, cutoff, box, pbc)
+    out = _pack(hits, hits.cand_idx[:, None, :], k_cap, n)
+    geom = _pack(hits, _geometry(hits, cutoff), k_cap, 0.0)
+    return out, geom.flatten(2), hits.row_max
+
+
+def neighbor_scan_geometry(pos, idx, bases, *, n_cols, k_cap, n, cutoff, box, pbc):
+    """K9. See :func:`neighbor_scan_geometry_plain` for the function computed."""
+    _check_scan("neighbor_scan_geometry", pos, idx, bases, n_cols)
+    kw = dict(n_cols=n_cols, k_cap=k_cap, n=n, cutoff=cutoff, box=box, pbc=pbc)
+    if not pos.is_cuda:
+        return neighbor_scan_geometry_plain(pos, idx, bases, **kw)
+    chunk, consts = _launch_consts("neighbor_scan_geometry", pos, idx, bases, cutoff, box, pbc)
+    q, (_, cap, dim), s = bases.shape[0], pos.shape, bases.shape[1]
+    out = torch.empty((q, cap, k_cap), dtype=torch.int32, device=pos.device)
+    geom = torch.empty((q, cap, k_cap * (dim + 1)), dtype=torch.float32, device=pos.device)
+    row_max = torch.empty(q, dtype=torch.int32, device=pos.device)
+    cutoff2, box_c, inv_c, pbc_c = consts
+    NEIGHBOR_SCAN_GEOMETRY(
+        _EMIT_GEOMETRY, ptr(pos), ptr(idx), ptr(bases), ptr(out), ptr(row_max), ptr(geom),
+        None, q, n_cols, cap, s, dim, k_cap, n, chunk, cutoff2, _inv_cutoff(cutoff),
+        box_c, inv_c, pbc_c, stream(),
+    )
+    return out, geom, row_max
+
+
+# ---------------------------------------------------------------------------
+# K7: slot-space scan
+# ---------------------------------------------------------------------------
+
+
+def slot_scan_plain(pos, idx, bases, *, n_cols, k_cap, n, cutoff, box, pbc):
+    """The slot-space graph of one sample, in column-slot order.
+
+    pos (n_cols+1, C, dim) float32 and idx (n_cols+1, C) int32: one column
+    table with its sentinel column last; bases (n_cols, S) int32. Returns
+
+    * cand (n_ext, K) int32: the stencil-candidate index j*C + c of each
+      hit (stencil step j, rank c in that column), fill S*C;
+    * rel_disp (n_ext, K, dim) and rel_dist (n_ext, K, 1) float32: the
+      cutoff-normalized receiver - sender geometry, zeros in unfilled slots;
+    * row_max (n_cols,) int32,
+
+    with n_ext = (n_cols+1)*C: the sentinel column's C rows are appended
+    (fill, zero geometry). The sender of row r's candidate c sits in slot
+    ``bases[r // C, c // C] * C + c % C``.
+    """
+    cap, dim = pos.shape[1], pos.shape[2]
+    cw = bases.shape[1] * cap
+    hits = _scan_hits(pos, idx, bases, n_cols, n, cutoff, box, pbc)
+    payload = torch.arange(cw, dtype=torch.int32, device=pos.device)[None, None, :]
+    cand = _pack(hits, payload, k_cap, cw).view(n_cols * cap, k_cap)
+    geom = _pack(hits, _geometry(hits, cutoff), k_cap, 0.0).view(n_cols * cap, k_cap, dim + 1)
+    cand = torch.cat([cand, cand.new_full((cap, k_cap), cw)])
+    geom = torch.cat([geom, geom.new_zeros((cap, k_cap, dim + 1))])
+    return cand, geom[..., :dim].contiguous(), geom[..., dim:].contiguous(), hits.row_max
+
+
+def slot_scan(pos, idx, bases, *, n_cols, k_cap, n, cutoff, box, pbc):
+    """K7. See :func:`slot_scan_plain` for the function computed."""
+    _check_scan("slot_scan", pos, idx, bases, n_cols, single=True)
+    kw = dict(n_cols=n_cols, k_cap=k_cap, n=n, cutoff=cutoff, box=box, pbc=pbc)
+    if not pos.is_cuda:
+        return slot_scan_plain(pos, idx, bases, **kw)
+    chunk, consts = _launch_consts("slot_scan", pos, idx, bases, cutoff, box, pbc)
+    (_, cap, dim), s = pos.shape, bases.shape[1]
+    n_ext = (n_cols + 1) * cap
+    cand = torch.empty((n_ext, k_cap), dtype=torch.int32, device=pos.device)
+    rel_disp = torch.empty((n_ext, k_cap, dim), dtype=torch.float32, device=pos.device)
+    rel_dist = torch.empty((n_ext, k_cap, 1), dtype=torch.float32, device=pos.device)
+    row_max = torch.empty(n_cols + 1, dtype=torch.int32, device=pos.device)
+    cutoff2, box_c, inv_c, pbc_c = consts
+    SLOT_SCAN(
+        _EMIT_SLOT, ptr(pos), ptr(idx), ptr(bases), ptr(cand), ptr(row_max), ptr(rel_disp),
+        ptr(rel_dist), n_cols + 1, n_cols, cap, s, dim, k_cap, n, chunk, cutoff2,
+        _inv_cutoff(cutoff), box_c, inv_c, pbc_c, stream(),
+    )
+    return cand, rel_disp, rel_dist, row_max[:n_cols]

@@ -9,9 +9,13 @@ k ``cuda:k``. ``mode=train`` and ``mode=all`` train with ``Trainer`` into
 asks for it; then ``infer`` runs on the test split and the averaged metrics
 are printed and returned.
 
+Neighbor formats: dense (with or without ``neighbors.emit_geometry``) and
+slot (the fused GNS, with batch size 1 in every stage the mode runs; other
+settings raise ValueError saying why).
+
 Not ported (each raises NotImplementedError naming its ROADMAP.md §1 item):
 data or spatial parallelism over several devices, the import of the
-reference's Haiku checkpoints, and neighbor formats other than dense.
+reference's Haiku checkpoints, and the sparse neighbor format.
 """
 
 from __future__ import annotations
@@ -67,11 +71,31 @@ def _check_ported(cfg: Config) -> None:
             "parallel.data > 1 and parallel.spatial > 1 are not ported to "
             "lagrangebench_torch (ROADMAP.md §1 item 7); use parallel.data=-1 or 1"
         )
-    if cfg.neighbors.format != "dense":
+    fmt = cfg.neighbors.format
+    if fmt == "sparse":
         raise NotImplementedError(
-            f"neighbors.format={cfg.neighbors.format!r} is not ported to "
-            "lagrangebench_torch (ROADMAP.md §1 item 6); use dense"
+            "neighbors.format='sparse' is not ported to lagrangebench_torch "
+            "(ROADMAP.md §1 item 6); use dense or slot"
         )
+    if fmt == "slot":
+        if cfg.model.name.lower() != "gns" or not cfg.model.get("fused_processor", False):
+            raise ValueError(
+                "neighbors.format=slot runs the fused GNS processor only (model.name=gns, "
+                "model.fused_processor=true), as in the JAX package"
+            )
+        # the batch sizes of the stages this mode runs
+        sizes = {}
+        if cfg.mode in ("train", "all"):
+            sizes["train.batch_size"] = int(cfg.train.batch_size)
+            sizes["eval.train.batch_size"] = int(cfg.eval.train.batch_size)
+        if cfg.mode in ("infer", "all"):
+            sizes["eval.infer.batch_size"] = int(cfg.eval.infer.batch_size)
+        if any(v != 1 for v in sizes.values()):
+            raise ValueError(
+                f"neighbors.format=slot is single-sample: every batch size of mode="
+                f"{cfg.mode} must be 1 ({sizes}); the JAX package's batched slot "
+                "preprocess fails above batch 1"
+            )
 
 
 def train_or_infer(cfg: Config, data: Optional[Sequence] = None):

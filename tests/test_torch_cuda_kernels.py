@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K6 against their plain versions, on the card.
+"""CUDA kernels K1-K9 against their plain versions, on the card.
 
 Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is false and
 run on a machine with a card (``python -m pytest --noconftest -m gpu
@@ -253,3 +253,104 @@ def test_painn_layer_kernel_gradients(cuda):
     want = torch.autograd.grad(sum(o.sum() for o in out2), [*ins2.values(), *leaves2.values()])
     for a, b in zip(grads, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("pbc", [True, False])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_neighbor_scan_geometry_kernel(cuda, dim, pbc):
+    """K9 through a batched update: senders and flags equal the plain
+    version's exactly, the geometry within 1e-6 (both round alike: no FMA
+    contraction, correctly rounded sqrt)."""
+    rng = np.random.default_rng(dim + 7)
+    pos = torch.as_tensor(rng.uniform(0, 1, size=(2, 400, dim)), device=cuda)
+    nl = neighbor_list(None, [1.0] * dim, 0.12, pbc=[pbc] * dim, emit_geometry=True)
+    shell = nl.allocate_shell(pos[0].cpu().numpy(), capacity_boost=1.5)
+    before = neighbors_cuda.NEIGHBOR_SCAN_GEOMETRY.launches
+    got = shell.broadcast(2).update(pos, num_particles=torch.tensor([400, 350]))
+    assert neighbors_cuda.NEIGHBOR_SCAN_GEOMETRY.launches == before + 1
+    want = shell.broadcast(2).update(pos.cpu(), num_particles=torch.tensor([400, 350]))
+    assert torch.equal(got.idx.cpu(), want.idx)
+    assert torch.equal(got.did_buffer_overflow.cpu(), want.did_buffer_overflow)
+    for key in ("rel_disp", "rel_dist"):
+        assert float((got.aux[key].cpu() - want.aux[key]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("pbc", [True, False])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_slot_scan_kernel(cuda, dim, pbc):
+    """K7 through a slot update: the candidate matrix, the maps and the flag
+    equal the plain version's exactly, the geometry within 1e-6."""
+    rng = np.random.default_rng(dim + 11)
+    pos = torch.as_tensor(rng.uniform(0, 1, size=(500, dim)), device=cuda)
+    nl = neighbor_list(None, [1.0] * dim, 0.12, pbc=[pbc] * dim, format="slot")
+    shell = nl.allocate_shell(pos.cpu().numpy(), capacity_boost=1.5)
+    before = neighbors_cuda.SLOT_SCAN.launches
+    got = shell.update(pos, num_particles=470)
+    assert neighbors_cuda.SLOT_SCAN.launches == before + 1
+    want = shell.update(pos.cpu(), num_particles=470)
+    assert torch.equal(got.idx.cpu(), want.idx)
+    assert torch.equal(got.did_buffer_overflow.cpu(), want.did_buffer_overflow)
+    for key in ("slot_to_particle", "particle_to_slot", "bases"):
+        assert torch.equal(got.aux[key].cpu(), want.aux[key]), key
+    for key in ("rel_disp", "rel_dist"):
+        assert float((got.aux[key].cpu() - want.aux[key]).abs().max()) <= 1e-6
+
+
+def _slot_case(cuda, dtype, use_enc, seed=0):
+    """A 3D slot graph (600 particles) and seeded K8 inputs on the card."""
+    g = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    nl = neighbor_list(None, [1.0] * 3, 0.15, format="slot").allocate(
+        torch.as_tensor(rng.uniform(0, 1, size=(600, 3))))
+    cand, bases = nl.idx.to(cuda), nl.aux["bases"].to(cuda)
+    n, k = cand.shape
+    f = fused_mp.LATENT
+    p = fused_mp.kernel_params(
+        {name: (torch.randn(f, f, generator=g) / f**0.5 if name.startswith("w")
+                else 0.1 * torch.randn(f, generator=g)) for name in fused_mp.PARAM_NAMES},
+        dtype,
+    )
+    enc = fused_mp.kernel_params({
+        "enc_w1": torch.randn(4, f, generator=g), "enc_w2": torch.randn(f, f, generator=g) / f**0.5,
+        "enc_b1": torch.zeros(f), "enc_b2": torch.zeros(f),
+        "enc_ln_scale": torch.ones(f), "enc_ln_bias": torch.zeros(f),
+    }, dtype) if use_enc else None
+    p = {name: v.to(cuda) for name, v in p.items()}
+    enc = {name: v.to(cuda) for name, v in enc.items()} if enc else None
+    e = torch.randn(n, k, 4 if use_enc else f, generator=g)
+    e = (e if use_enc else e.to(dtype)).to(cuda)
+    hs, hr, h = (torch.randn(n, f, generator=g).to(dtype).to(cuda) for _ in range(3))
+    return e, cand, bases, hs, hr, h, p, enc
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
+@pytest.mark.parametrize("use_enc", [False, True])
+def test_fused_mp_slot_kernel(cuda, dtype, tol, use_enc):
+    """K8 vs its plain version: max |kernel - plain| within K3's limits,
+    1e-4 (float32) and 0.125 (bf16)."""
+    args = _slot_case(cuda, dtype, use_enc)
+    handle = fused_mp.FUSED_MP_SLOT_ENC if use_enc else fused_mp.FUSED_MP_SLOT
+    before = handle.launches
+    got = fused_mp.gns_mp_step_slot(*args)
+    assert handle.launches == before + 1
+    want = fused_mp.gns_mp_step_slot_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+def test_fused_mp_slot_kernel_gradients(cuda):
+    """The autograd Function around K8: gradients (rematerialized through
+    the plain version) equal those of the plain version itself, float32."""
+    e, cand, bases, hs, hr, h, p, _ = _slot_case(cuda, torch.float32, False, seed=1)
+    ins = [t.clone().requires_grad_() for t in (e, hs, hr, h)]
+    used = {name: p[name] for name in fused_mp.BWD_PARAM_ORDER}  # not w_s, w_r
+    leaves = {name: v.clone().requires_grad_() for name, v in used.items()}
+    out = fused_mp.gns_mp_step_slot_autograd(ins[0], cand, bases, *ins[1:], leaves)
+    grads = torch.autograd.grad(sum(o.sum() for o in out), [*ins, *leaves.values()])
+    ins2 = [t.clone().requires_grad_() for t in (e, hs, hr, h)]
+    leaves2 = {name: v.clone().requires_grad_() for name, v in used.items()}
+    out2 = fused_mp.gns_mp_step_slot_plain(ins2[0], cand, bases, *ins2[1:], leaves2)
+    want = torch.autograd.grad(sum(o.sum() for o in out2), [*ins2, *leaves2.values()])
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
