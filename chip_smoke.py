@@ -59,10 +59,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    per rollout step of slot and dense at batch 1 and of geometry on and off
    at batch 2, and a profile of a slot rollout step; and holds a small
    float32 slot rollout on the card against the CPU.
-6. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+6. The experiments (slice 5). Runs E1 (the row gather) against its plain
+   version, equal, in every form at the probe's shape (h 8192 x 128, idx
+   8192 x 24; bf16 and float32; (R, K), transposed (K, R) and flat
+   indices; the gather and the float32 sum of 24) and on the real neighbor
+   indices of an 8,000-particle 3D case; and E2 (the windowed-select MP
+   step) against its plain version (K3's limits, bf16 and float32) on the
+   probe's 8,000-particle structure, printing E2 against K3 on the decoded
+   gather; times both, E1 beside ``torch.index_select``. Then runs
+   ``window_select.main`` and ``gather_variants.main`` (all six variants)
+   with the counters zeroed around them: E1 must launch, E2 50 times per
+   timed loop plus its one check; prints ms per MP step of (b) ``hs[ext_idx]``
+   + E2 and (a) ``hs[senders]`` + K3, and the gather times.
+7. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
-   and C for K7, K8 and K9), the card line, and last ``{"ok": true,
-   "device": {...}}``.
+   and C for K7, K8 and K9, from the experiments for E1 and E2), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository. Needs one card and no network.
@@ -112,19 +124,12 @@ def card_line() -> str:
 
 
 def cuda_time(fn, iters=20, warmup=3):
-    """Mean ms of fn() on the current stream, by CUDA events."""
-    import torch
+    """Mean ms of device time per fn() call on the current stream, by CUDA
+    events with the queue filled ahead, so that a short kernel's time is
+    not its host launch overhead (``lagrangebench_torch.profiling.device_ms``)."""
+    from lagrangebench_torch.profiling import device_ms
 
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return device_ms(fn, iters, warmup)
 
 
 def make_data(n_particles, seq_len, n_trajs=BATCH, split="test"):
@@ -258,6 +263,18 @@ def bound(name, args, kw):
         byts = nbytes(e, cand, bases, hs, hr, h) + rows * f * hs.element_size() \
             + nbytes(h) + weights
         peak = PEAK_BF16
+    elif name == "row_gather":  # E1: kw["reps"] float32 additions per element
+        h, idx = args
+        rows, f, reps = idx.numel(), h.shape[1], kw.get("reps", 1)
+        byts = nbytes(idx) + rows * f * h.element_size() + nbytes(h)
+        ops, peak = (rows * f * reps if reps > 1 else 0), PEAK_FP32
+    elif name == "fused_mp_window":
+        e, cand, w0s, _, hs, hr, h, p = args
+        n, k, f = e.shape
+        weights = sum(v.numel() * v.element_size() for name_, v in p.items()
+                      if name_ not in ("w_s", "w_r"))
+        byts = nbytes(e, cand, w0s, hs, hr, h) + nbytes(e, h) + weights
+        ops, peak = (n * k * 2 + n * 3) * 2 * f * f, PEAK_BF16
     elif name == "fused_mp_bwd":
         e, hs, hr, h, mask, p, ge, gh = args
         n, k, f = e.shape
@@ -1713,6 +1730,170 @@ def slot_reference_check(device):
     return err <= 1e-5
 
 
+# ---------------------------------------------------------------------------
+# slice 5: the experiments path, the row gather (E1) and the windowed
+# select (E2)
+# ---------------------------------------------------------------------------
+
+E1_REPS = 24  # the repeated-gather form (E1g) at its largest count
+
+
+def compare_row_gather(device):
+    """E1 against its plain version, equal, in every form at variant 1's
+    shape (h 8192 x 128, idx 8192 x 24: bf16 and float32, the (R, K), the
+    transposed (K, R) and a flat (R,) index, the gather and the sum of 24)
+    and on the real neighbor indices of the 8,000-particle 3D case; timed
+    at variant 1's form with ``torch.index_select`` beside it."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.experiments import gather_variants as gv
+    from lagrangebench_torch.experiments._setup import real_neighbor_indices
+    from lagrangebench_torch.ops import row_gather as rg
+
+    rng = np.random.default_rng(0)
+    hb = torch.as_tensor(rng.normal(size=(gv.N, gv.F)), dtype=torch.bfloat16, device=device)
+    idx = torch.as_tensor(rng.integers(0, gv.N, size=(gv.N, gv.K)), dtype=torch.int32,
+                          device=device)
+    real = real_neighbor_indices(gv.N_REAL, DIM, gv.ISL, device=device)
+    hr = torch.as_tensor(rng.normal(size=(gv.N_REAL, gv.F)), dtype=torch.bfloat16, device=device)
+    ok, forms, worst = True, [], 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        cases = [("(R, K)", hb, idx, False), ("(K, R)", hb, idx.t().contiguous(), True),
+                 ("flat (R,)", hb, idx[:, 0].contiguous(), False), ("real (N, K)", hr, real, False)]
+        for label, h, ix, tr in cases:
+            for reps in (1, E1_REPS):
+                got = rg.row_gather(h.to(dt), ix, transposed=tr, reps=reps)
+                want = rg.row_gather_plain(h.to(dt), ix, transposed=tr, reps=reps)
+                same = got.shape == want.shape and torch.equal(got, want)
+                if got.shape == want.shape:
+                    worst = max(worst, float((got.float() - want.float()).abs().max()))
+                ok &= same
+                forms.append(f"{str(dt)[6:]} {label} x{reps}: {'equal' if same else 'DIFFERENT'}")
+    torch.cuda.synchronize()
+    log("row_gather vs plain: " + "; ".join(forms) + ("" if ok else "  FAIL"))
+    flat = idx.reshape(-1)
+    ms = cuda_time(lambda: rg.row_gather(hb, idx))
+    plain_ms = cuda_time(lambda: rg.row_gather_plain(hb, idx), iters=5, warmup=1)
+    library_ms = cuda_time(lambda: torch.index_select(hb, 0, flat))
+    bms, by = bound("row_gather", (hb, idx), {})
+    log(f"row_gather: {ms:.4f} ms (plain {plain_ms:.4f} ms, index_select {library_ms:.4f} ms, "
+        f"bound {bms:.4f} ms by {by}) at h {tuple(hb.shape)} bf16, idx {tuple(idx.shape)}")
+    row = {"name": "row_gather", "route": "cuda", "source": rg.ROW_GATHER.source_path,
+           "replaces": rg.ROW_GATHER.replaces, "max_abs_err": worst,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "library_ms": library_ms}
+    return row, ok
+
+
+def window_inputs(structure, dtype, device):
+    """E2's inputs on the probe's structure: seeded e, h, hr, hs (as the
+    probe's main makes them), hs_ext = hs[ext_idx], the weights of
+    ``window_select.init_step_params`` (seed 0) in the kernel's layout."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.experiments import window_select as ws
+    from lagrangebench_torch.ops import fused_mp
+
+    n_rows, _, ext_idx, cand, w0s, _, wsub = structure
+    rng = np.random.default_rng(1)
+    e, h, hr, hs = (torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=device)
+                    for shape in ((n_rows, ws.K, ws.F), (n_rows, ws.F), (n_rows, ws.F),
+                                  (n_rows, ws.F)))
+    p = fused_mp.kernel_params(ws.init_step_params(ws.F, torch.Generator().manual_seed(0)), dtype)
+    p = {name: v.to(device) for name, v in p.items()}
+    hs_ext = hs[torch.as_tensor(ext_idx, device=device)]
+    return (e, torch.as_tensor(cand, device=device), torch.as_tensor(w0s, device=device),
+            int(wsub), hs_ext, hr, h, p)
+
+
+def compare_window(structure, device):
+    """E2 against its plain version (K3's limits, bf16 and float32 with TF32
+    off) on the probe's 8,000-particle structure, and against K3 on the
+    decoded, masked gather (printed); timed in bf16."""
+    import torch
+
+    from lagrangebench_torch.ops import fused_mp
+
+    ok, errs = True, {}
+    for dt, tol in ((torch.bfloat16, K3_TOL["bfloat16"]), (torch.float32, K3_TOL["float32"])):
+        args = window_inputs(structure, dt, device)
+        e, cand, w0s, wsub, hs_ext, hr, h, p = args
+        got = fused_mp.gns_mp_step_window(*args)
+        want = fused_mp.gns_mp_step_window_plain(*args)
+        rows, mask = fused_mp.window_sender_rows(cand, w0s, wsub)
+        hs_g = torch.where(mask[..., None], hs_ext[rows], 0).to(dt).contiguous()
+        k3 = fused_mp.gns_mp_step(e, hs_g, hr, h, mask.to(torch.float32), p)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        vs_k3 = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, k3))
+        passed = err <= tol
+        ok &= passed
+        errs[str(dt)[6:]] = err
+        log(f"fused_mp_window ({str(dt)[6:]}): max|kernel-plain| {err:.4g} (tol {tol}); "
+            f"max|E2 - K3 on the decoded gather| {vs_k3:.4g} (expected 0: the same kernel "
+            f"code reads the same rows){'' if passed else '  FAIL'}")
+    args = window_inputs(structure, torch.bfloat16, device)
+    ms = cuda_time(lambda: fused_mp.gns_mp_step_window(*args))
+    plain_ms = cuda_time(lambda: fused_mp.gns_mp_step_window_plain(*args), iters=5, warmup=1)
+    bms, by = bound("fused_mp_window", args, {})
+    n_rows, k = args[1].shape
+    log(f"fused_mp_window: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by}) "
+        f"at n_rows = {n_rows}, K = {k}, n_ext = {args[4].shape[0]}, WSUB = {args[3]}, bf16; "
+        f"{ms * 1e3 / n_rows:.4f} us per receiver row")
+    row = {"name": "fused_mp_window", "route": "cuda",
+           "source": fused_mp.FUSED_MP_WINDOW.source_path,
+           "replaces": fused_mp.FUSED_MP_WINDOW.replaces, "max_abs_err": errs["bfloat16"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return row, ok
+
+
+def experiments_path(device):
+    """Slice 5: E1 and E2 against their plain versions, then
+    ``window_select.main`` and the six ``gather_variants`` on the card with
+    the launch counters zeroed around them."""
+    import torch
+
+    from lagrangebench_torch.experiments import gather_variants, window_select
+    from lagrangebench_torch.ops import fused_mp
+    from lagrangebench_torch.ops import row_gather as rg
+
+    e1_row, ok = compare_row_gather(device)
+    w = window_select
+    e2_row, e2_ok = compare_window(w.build_structure(w.N, w.DIM, w.K, w.CUTOFF, w.T, w.SUB),
+                                   device)
+    ok &= e2_ok
+
+    kernels = (rg.ROW_GATHER, fused_mp.FUSED_MP_WINDOW)
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ws = window_select.main([], device=device)
+    gv = gather_variants.main([], device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {kern.name: kern.launches for kern in kernels}
+    want_e2 = ws["loops"] * ws["steps"] + ws["check_launches"]
+    log(f"experiments: window_select.main and gather_variants 1-6 in {wall:.1f} s wall, "
+        f"launches {counts} (E2 expected {ws['loops']} loops x {ws['steps']} steps + "
+        f"{ws['check_launches']} check = {want_e2}, E1 > 0)")
+    if counts["row_gather"] < 1 or counts["fused_mp_window"] != want_e2:
+        log("FAIL: experiments launch counts")
+        ok = False
+    if ws["max_abs_err"] > K3_TOL["bfloat16"]:
+        log(f"FAIL: window_select's check, max |E2 - plain| {ws['max_abs_err']}")
+        ok = False
+    log(f"window_select (ms per MP step, {ws['steps']}-step loops, bf16, {ws['n_rows']} rows): (b) "
+        f"hs[ext_idx] + E2 {ws['window_ms']:.4f}, (a) hs[senders] + K3 {ws['gather_ms']:.4f}")
+    log("gather_variants (ms per call): " + json.dumps(
+        {v: {name: round(t, 5) for name, t in times.items()} for v, times in gv.items()}))
+    e1_row["launches"] = counts["row_gather"]
+    e2_row["launches"] = counts["fused_mp_window"]
+    return {"row_gather": e1_row, "fused_mp_window": e2_row}, ok
+
+
 def main() -> int:
     try:
         import torch
@@ -1738,7 +1919,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}, TF32 matmul off")
     t0 = time.perf_counter()
     times = build.build(["binning", "neighbor_scan", "fused_mp", "fused_mp_bwd", "painn_msg",
-                         "painn_layer"])
+                         "painn_layer", "row_gather"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall, per source {times}")
 
     with torch.no_grad():
@@ -1763,6 +1944,9 @@ def main() -> int:
     log("slot and geometry paths (ms per rollout step): " + json.dumps(
         {k: round(v, 3) for k, v in slot_ms.items()}))
     rows.update(slot_rows)
+    exp_rows, exp_ok = experiments_path("cuda")
+    ok &= exp_ok
+    rows.update(exp_rows)
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     if not ok:

@@ -9,6 +9,8 @@ K3) and that step's backward (kernel K4), PaiNN with its message block
 (kernel K6) or its fused layer (kernel K5), the trainer with AdamW and
 pushforward, checkpoints with optimizer state, rollouts, metrics and VTK
 output, and the runner and CLI (``python -m lagrangebench_torch``).
+``experiments`` holds the probes of the row gather (kernel E1) and of the
+windowed-select MP step (kernel E2).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.

@@ -1,9 +1,11 @@
-// K3: one fused GNS message-passing step (forward), dense (N, K) layout,
-// and K8: the same step in column-slot order.
+// K3: one fused GNS message-passing step (forward), dense (N, K) layout;
+// K8: the same step in column-slot order; E2: the same step with each
+// edge's sender row selected from per-sub-tile windows.
 //
 // Replaces: lagrangebench_tpu/ops/fused_mp.py::_make_fused_kernel (math in
-// _mp_math), launched by _launch_fused (K3), and ::_make_slot_kernel,
-// launched by _launch_fused_slot (K8). Per receiver, with F = 128:
+// _mp_math), launched by _launch_fused (K3), ::_make_slot_kernel, launched
+// by _launch_fused_slot (K8), and scripts/experiments/window_select.py::
+// make_window_kernel (E2). Per receiver, with F = 128:
 //
 //   [step 0]  e = LN(relu(raw @ enc_w1 + enc_b1) @ enc_w2 + enc_b2)  (ENC)
 //   first = e @ W_e + hs_gath + hr + b1
@@ -33,6 +35,19 @@
 // The TPU kernel selects these rows with a one-hot MXU contraction over the
 // S*C stencil candidates (Mosaic has no row gather); a row read is the
 // Hopper form of the same select.
+//
+// E2 (WINDOW) keeps compact, cell-sorted receiver rows and reads each
+// sender row of hs_ext (the ghost-extended (n_ext, F) sender projection,
+// ~2-3 MB in bf16 at 8k particles, L2-resident) the same way: for edge row
+// r of receiver i = r / K, tile t = i / T and sub-tile u = (i % T) / SUB,
+// its candidate c = cand[r] is, when c < 3*WSUB, the row
+// w0s[t, u, c / WSUB] * 8 + c % WSUB; otherwise the term and the mask are
+// 0. The TPU kernel DMAs the three windows of each sub-tile into VMEM and
+// selects with a one-hot MXU contraction, exact in bf16 (one nonzero
+// product per sum), so a row read computes the same values. Staging the
+// windows in shared memory (3 * WSUB * F * 2 B per sub-tile, WSUB a few
+// hundred rows) is left out: it would not fit beside the 177 KB of the bf16
+// instance.
 //
 // Design: one block of 8 warps per tile of 16 receivers. Edge rows stream
 // through shared memory 64 at a time, so the tile's e/hs/e' never hold more
@@ -64,11 +79,18 @@ struct Args {
   const void* enc_w1;   // (fe, F) T
   const void* enc_w2;   // (F, F) T
   const float* enc_vec[4];  // enc_b1, enc_b2, enc LN scale, enc LN bias
-  const int32_t* cand;       // K8: (n_ext, K) stencil-candidate ids, fill S*C
+  const int32_t* cand;       // K8: (n_ext, K) stencil-candidate ids, fill S*C;
+                             // E2: (n_rows, K) window-candidate ids, fill 3*WSUB
   const int32_t* bases_ext;  // K8: (n_cols+1, S) stencil table (+ sentinel row)
+  const int32_t* w0s;        // E2: (n_rows/T, T/SUB, 3) window starts, 8-row units
   int n, k, fe;
   int C, S;  // K8: column capacity, stencil columns
+  int T, SUB, WSUB;  // E2: rows per tile and sub-tile, window rows
 };
+
+// Where a step's sender rows come from: a gathered (N, K, F) tensor (K3),
+// the slot layout's stencil table (K8) or the sub-tile windows (E2).
+enum class Src { kGathered, kSlot, kWindow };
 
 template <typename T>
 struct Smem {
@@ -80,8 +102,9 @@ struct Smem {
   static constexpr int kBytes = 3 * kW + 2 * kA + kF + kAgg;
 };
 
-template <typename T, bool ENC, bool SLOT>
+template <typename T, bool ENC, Src SRC>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
+  constexpr bool kSelect = SRC != Src::kGathered;  // sender rows read in-kernel
   constexpr int LDA = Layout<T>::LDA;
   constexpr bool kStage = Layout<T>::kStageWeights;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -93,7 +116,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
   float* sF = reinterpret_cast<float*>(smem + 3 * Smem<T>::kW + 2 * Smem<T>::kA);
   float* sAgg = reinterpret_cast<float*>(smem + 3 * Smem<T>::kW + 2 * Smem<T>::kA +
                                          Smem<T>::kF);
-  __shared__ int sSrc[SLOT ? M : 1];  // K8: the chunk's sender rows, -1 if padded
+  __shared__ int sSrc[kSelect ? M : 1];  // K8, E2: the chunk's sender rows, -1 if padded
 
   const int K = a.k;
   const int node0 = blockIdx.x * TR;
@@ -125,13 +148,22 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
     const int rows = min(M, rows_tile - c0);
     const int rows_pad = (rows + 15) / 16 * 16;
     __syncthreads();  // previous chunk done with sA/sB/sF; weights staged
-    if constexpr (SLOT) {
+    if constexpr (SRC == Src::kSlot) {
       const int cw = a.S * a.C;
       for (int r = threadIdx.x; r < rows; r += THREADS) {
         const int64_t er = row0 + c0 + r;
         const int t = (node0 + (c0 + r) / K) / a.C;
         const int c = a.cand[er];
         sSrc[r] = c < cw ? a.bases_ext[t * a.S + c / a.C] * a.C + c % a.C : -1;
+      }
+    } else if constexpr (SRC == Src::kWindow) {
+      const int cw = 3 * a.WSUB;
+      for (int r = threadIdx.x; r < rows; r += THREADS) {
+        const int64_t er = row0 + c0 + r;
+        const int i = node0 + (c0 + r) / K;
+        const int64_t win = ((int64_t)(i / a.T) * (a.T / a.SUB) + (i % a.T) / a.SUB) * 3;
+        const int c = a.cand[er];
+        sSrc[r] = c < cw ? a.w0s[win + c / a.WSUB] * 8 + c % a.WSUB : -1;
       }
     }  // read after the __syncthreads that ends (a)
 
@@ -186,7 +218,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
       if (r < rows) {
         const int64_t er = row0 + c0 + r;
         const int64_t node = node0 + (c0 + r) / K;
-        if constexpr (SLOT) {
+        if constexpr (kSelect) {
           const int src = sSrc[r];
           x = sF[r * LDF + c] + (src >= 0 ? to_f(hs[(int64_t)src * F + c]) : 0.f);
         } else {
@@ -214,7 +246,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
       }
       warp_layernorm(x, a.vec[2], a.vec[3], lane);
       float m;
-      if constexpr (SLOT) m = sSrc[r] >= 0 ? 1.f : 0.f;
+      if constexpr (kSelect) m = sSrc[r] >= 0 ? 1.f : 0.f;
       else m = a.mask[er];
 #pragma unroll
       for (int i = 0; i < F / 32; ++i) {
@@ -280,21 +312,21 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
   }
 }
 
-template <typename T, bool ENC, bool SLOT>
+template <typename T, bool ENC, Src SRC>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int smem = Smem<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mp<T, ENC, SLOT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_mp<T, ENC, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_mp<T, ENC, SLOT><<<lbt::ceil_div(a.n, TR), THREADS, smem, stream>>>(a);
+  fused_mp<T, ENC, SRC><<<lbt::ceil_div(a.n, TR), THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool SLOT>
+template <Src SRC>
 int dispatch(const Args& a, int is_bf16, int has_enc, cudaStream_t stream) {
   if (is_bf16)
-    return has_enc ? launch<bf16, true, SLOT>(a, stream) : launch<bf16, false, SLOT>(a, stream);
-  return has_enc ? launch<float, true, SLOT>(a, stream) : launch<float, false, SLOT>(a, stream);
+    return has_enc ? launch<bf16, true, SRC>(a, stream) : launch<bf16, false, SRC>(a, stream);
+  return has_enc ? launch<float, true, SRC>(a, stream) : launch<float, false, SRC>(a, stream);
 }
 
 Args make_args(const void* const* ptrs, int n, int k, int fe) {
@@ -313,11 +345,15 @@ Args make_args(const void* const* ptrs, int n, int k, int fe) {
   for (int i = 0; i < 4; ++i) a.enc_vec[i] = static_cast<const float*>(ptrs[22 + i]);
   a.cand = nullptr;
   a.bases_ext = nullptr;
+  a.w0s = nullptr;
   a.n = n;
   a.k = k;
   a.fe = fe;
   a.C = 0;
   a.S = 0;
+  a.T = 0;
+  a.SUB = 0;
+  a.WSUB = 0;
   return a;
 }
 
@@ -334,7 +370,7 @@ LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int l
                             int is_bf16, int has_enc, cudaStream_t stream) {
   if (latent != F || n < 1 || k < 1 || (has_enc && (fe < 1 || fe > 16)))
     return (int)cudaErrorInvalidValue;
-  return dispatch<false>(make_args(ptrs, n, k, fe), is_bf16, has_enc, stream);
+  return dispatch<Src::kGathered>(make_args(ptrs, n, k, fe), is_bf16, has_enc, stream);
 }
 
 // K8: ptrs as lbt_fused_mp's, with 1 = hs_ext (n_ext, F), 4 unused, and
@@ -351,5 +387,22 @@ LBT_EXPORT int lbt_fused_mp_slot(const void* const* ptrs, int n, int k, int fe, 
   a.bases_ext = static_cast<const int32_t*>(ptrs[27]);
   a.C = C;
   a.S = S;
-  return dispatch<true>(a, is_bf16, has_enc, stream);
+  return dispatch<Src::kSlot>(a, is_bf16, has_enc, stream);
+}
+
+// E2: ptrs as lbt_fused_mp's (no encoder), with 1 = hs_ext (n_ext, F), 4
+//   unused, 26 cand (n, K) int32, 27 w0s (n/T, T/SUB, 3) int32; n % T == 0.
+LBT_EXPORT int lbt_fused_mp_window(const void* const* ptrs, int n, int k, int latent,
+                                   int is_bf16, int T, int SUB, int WSUB,
+                                   cudaStream_t stream) {
+  if (latent != F || n < 1 || k < 1 || T < 1 || SUB < 1 || T % SUB || n % T || WSUB < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(ptrs, n, k, 0);
+  a.cand = static_cast<const int32_t*>(ptrs[26]);
+  a.w0s = static_cast<const int32_t*>(ptrs[27]);
+  a.T = T;
+  a.SUB = SUB;
+  a.WSUB = WSUB;
+  return is_bf16 ? launch<bf16, false, Src::kWindow>(a, stream)
+                 : launch<float, false, Src::kWindow>(a, stream);
 }

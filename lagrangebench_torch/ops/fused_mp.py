@@ -28,6 +28,12 @@ whose forward is K3 and whose backward is K4 (``csrc/fused_mp_bwd.cu``,
 ``gns_mp_step_bwd``; ``gns_mp_step_bwd_plain`` on CPU tensors), with the
 forward rematerialized from the saved inputs, as the JAX package's
 ``_gns_mp_step_vjp``.
+
+The same kernel, in other instances, reads each edge's sender row itself:
+K8 (``gns_mp_step_slot``) through the slot layout's stencil table, and E2
+(``gns_mp_step_window``, the probe of ``scripts/experiments/
+window_select.py``) through three windows per 32-row sub-tile of compact,
+cell-sorted rows.
 """
 
 from __future__ import annotations
@@ -660,3 +666,99 @@ def gns_mp_step_slot_autograd(e, cand, bases, hs_ext, hr, h, p, enc=None):
     if enc is not None:
         params += [enc[name] for name in ENC_PARAM_NAMES]
     return _SlotStepFunction.apply(enc is not None, e, cand, bases, hs_ext, hr, h, *params)
+
+
+# ---------------------------------------------------------------------------
+# E2: the fused step with windowed sender selects
+# ---------------------------------------------------------------------------
+
+WINDOW_TILE, WINDOW_SUB = 128, 32  # receiver rows per tile and per sub-tile
+_WINDOW_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+FUSED_MP_WINDOW = Kernel(
+    "fused_mp_window", "fused_mp", "lbt_fused_mp_window", _WINDOW_ARGTYPES,
+    replaces="scripts/experiments/window_select.py:221",
+)
+
+
+def window_sender_rows(cand: torch.Tensor, w0s: torch.Tensor, wsub: int,
+                       t: int = WINDOW_TILE, sub: int = WINDOW_SUB):
+    """The ``hs_ext`` row of every edge of the windowed layout -> (rows
+    (n_rows, K) int64, mask (n_rows, K) bool).
+
+    Receiver row i lies in tile i // t and sub-tile (i % t) // sub; its
+    candidate c < 3 wsub is row ``w0s[tile, sub-tile, c // wsub] * 8 + c %
+    wsub`` (``w0s`` in 8-row units). A padded slot (c == 3 wsub) gets row 0
+    and mask False.
+    """
+    n_rows, _ = cand.shape
+    cand = cand.long()
+    mask = cand < 3 * wsub
+    i = torch.arange(n_rows, device=cand.device)[:, None]
+    safe = torch.where(mask, cand, 0)
+    rows = w0s.long()[i // t, (i % t) // sub, safe // wsub] * 8 + safe % wsub
+    return torch.where(mask, rows, 0), mask
+
+
+def gns_mp_step_window_plain(e, cand, w0s, wsub, hs_ext, hr, h, p):
+    """Plain PyTorch version of E2: the sender rows of ``hs_ext`` decoded
+    through the windows (zeros on padded slots), then the fused step with
+    the mask ``cand < 3 wsub``."""
+    rows, mask = window_sender_rows(cand, w0s, wsub)
+    hs_gath = torch.where(mask[..., None], hs_ext[rows], 0).to(hs_ext.dtype)
+    return gns_mp_step_plain(e, hs_gath, hr, h, mask, p)
+
+
+def gns_mp_step_window(
+    e: torch.Tensor,
+    cand: torch.Tensor,
+    w0s: torch.Tensor,
+    wsub: int,
+    hs_ext: torch.Tensor,
+    hr: torch.Tensor,
+    h: torch.Tensor,
+    p: Dict[str, torch.Tensor],
+):
+    """E2: the fused step with each edge's sender row selected through the
+    sub-tile windows; the CUDA kernel on CUDA tensors, else the plain
+    version.
+
+    e (n_rows, K, F) edge latents, cand (n_rows, K) int32 window-candidate
+    ids (fill 3 wsub), w0s (n_rows // 128, 4, 3) int32 window starts in
+    8-row units of the 32-row sub-tiles of 128-row tiles, hs_ext (n_ext, F) the ghost-extended sender projection, hr
+    and h (n_rows, F). The kernel reads each edge's sender row of
+    ``hs_ext`` itself. On CUDA the dtypes and parameters are those of
+    :func:`gns_mp_step`; there is no encoder-folded instance.
+    """
+    if not hs_ext.is_cuda:
+        return gns_mp_step_window_plain(e, cand, w0s, wsub, hs_ext, hr, h, p)
+    cdt = hs_ext.dtype
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_mp_window kernel: compute dtype {cdt} not supported")
+    n, k = cand.shape
+    f = hs_ext.shape[1]
+    if f != LATENT:
+        raise ValueError(f"fused_mp_window kernel: latent width {f} != {LATENT}")
+    t, sub = WINDOW_TILE, WINDOW_SUB
+    if n % t or w0s.shape != (n // t, t // sub, 3):
+        raise ValueError("fused_mp_window kernel: inconsistent tiles or window table")
+    if e.shape != (n, k, f) or hr.shape != (n, f) or h.shape != (n, f):
+        raise ValueError("fused_mp_window kernel: inconsistent shapes")
+    if cand.dtype != torch.int32 or w0s.dtype != torch.int32:
+        raise ValueError("fused_mp_window kernel: cand and w0s must be int32")
+    if e.dtype != cdt or hr.dtype != cdt or h.dtype != cdt:
+        raise ValueError("fused_mp_window kernel: e, hs_ext, hr and h must share a dtype")
+    tensors = [e, hs_ext, hr, h, cand, w0s]
+    if any(not x.is_cuda or not x.is_contiguous() for x in tensors):
+        raise ValueError("fused_mp_window kernel: inputs must be contiguous CUDA tensors")
+
+    e_out = torch.empty_like(e)
+    h_out = torch.empty_like(h)
+    params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
+    params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
+    ptrs = [x.data_ptr() for x in (e, hs_ext, hr, h)] + [0]  # slot 4 (mask) unused
+    ptrs += [e_out.data_ptr(), h_out.data_ptr()] + [x.data_ptr() for x in params]
+    ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), w0s.data_ptr()]
+    arr = (ctypes.c_void_p * 28)(*ptrs)
+    FUSED_MP_WINDOW(ctypes.cast(arr, ctypes.c_void_p), n, k, f, int(cdt == torch.bfloat16),
+                    t, sub, int(wsub), stream())
+    return e_out, h_out

@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K9 against their plain versions, on the card.
+"""CUDA kernels K1-K9, E1 and E2 against their plain versions, on the card.
 
 Marked ``gpu``: they skip where ``torch.cuda.is_available()`` is false and
 run on a machine with a card (``python -m pytest --noconftest -m gpu
@@ -354,3 +354,78 @@ def test_fused_mp_slot_kernel_gradients(cuda):
     want = torch.autograd.grad(sum(o.sum() for o in out2), [*ins2, *leaves2.values()])
     for a, b in zip(grads, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_kernel(cuda, dtype, transposed, reps):
+    """E1 vs its plain version, equal in every form: dtype, (R, K) or
+    transposed (K, R) index, the gather or the float32 sum of ``reps``."""
+    from lagrangebench_torch.ops import row_gather
+
+    rng = np.random.default_rng(reps)
+    h = torch.as_tensor(rng.normal(size=(300, 128)), dtype=dtype, device=cuda)
+    idx = rng.integers(0, 300, size=(257, 24)).astype(np.int32)
+    idx = torch.as_tensor(idx.T.copy() if transposed else idx, device=cuda)
+    before = row_gather.ROW_GATHER.launches
+    got = row_gather.row_gather(h, idx, transposed=transposed, reps=reps)
+    assert row_gather.ROW_GATHER.launches == before + 1
+    want = row_gather.row_gather_plain(h, idx, transposed=transposed, reps=reps)
+    assert got.shape == want.shape == (257, 24, 128) and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,dtype", [((64,), torch.float32), ((500, 7), torch.float32),
+                                         ((500, 7), torch.bfloat16)])
+@pytest.mark.parametrize("width", [8, 256, 1024])
+def test_row_gather_kernel_shapes(cuda, shape, dtype, width):
+    """E1 on a flat index and on rows narrower and wider than a warp's 32
+    vectors of 16 bytes, equal to the plain version."""
+    from lagrangebench_torch.ops import row_gather
+
+    rng = np.random.default_rng(width)
+    h = torch.as_tensor(rng.normal(size=(100, width)), dtype=dtype, device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 100, size=shape).astype(np.int32), device=cuda)
+    for reps in (1, 24):
+        got = row_gather.row_gather(h, idx, reps=reps)
+        assert torch.equal(got, row_gather.row_gather_plain(h, idx, reps=reps))
+
+
+def _window_case(cuda, dtype, seed=0):
+    """A reduced windowed structure (1,000 particles in 3D) and seeded E2
+    inputs on the card."""
+    from lagrangebench_torch.experiments import window_select
+
+    n_rows, n_ext, ext_idx, cand, w0s, _, wsub = window_select.build_structure(
+        1000, 3, 24, 1.45 * 0.1, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    f = fused_mp.LATENT
+    p = fused_mp.kernel_params(window_select.init_step_params(f, g), dtype)
+    p = {name: v.to(cuda) for name, v in p.items()}
+    e = torch.randn(n_rows, 24, f, generator=g).to(dtype).to(cuda)
+    hr, h, hs = (torch.randn(n_rows, f, generator=g).to(dtype).to(cuda) for _ in range(3))
+    hs_ext = hs[torch.as_tensor(ext_idx, device=cuda)]
+    return (e, torch.as_tensor(cand, device=cuda), torch.as_tensor(w0s, device=cuda), wsub,
+            hs_ext, hr, h, p)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
+def test_fused_mp_window_kernel(cuda, dtype, tol):
+    """E2 vs its plain version: max |kernel - plain| within K3's limits,
+    1e-4 (float32) and 0.125 (bf16); and E2 equal to K3 on the decoded,
+    masked gather (the same arithmetic row for row)."""
+    args = _window_case(cuda, dtype)
+    e, cand, w0s, wsub, hs_ext, hr, h, p = args
+    before = fused_mp.FUSED_MP_WINDOW.launches
+    got = fused_mp.gns_mp_step_window(*args)
+    assert fused_mp.FUSED_MP_WINDOW.launches == before + 1
+    want = fused_mp.gns_mp_step_window_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    rows, mask = fused_mp.window_sender_rows(cand, w0s, wsub)
+    hs_g = torch.where(mask[..., None], hs_ext[rows], 0).to(dtype).contiguous()
+    k3 = fused_mp.gns_mp_step(e, hs_g, hr, h, mask.to(torch.float32), p)
+    for a, b in zip(got, k3):
+        assert torch.equal(a, b)
