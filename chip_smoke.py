@@ -5,7 +5,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds every CUDA kernel of the port from ``csrc/`` (one
-   nvcc per source, all at once).
+   nvcc per source, all at once); prints the registers and spills of the
+   fused GNS kernels from nvcc's report.
 2. Inference (slice 1). Runs K1, K2 and K3 against their plain PyTorch
    versions on the card, on the inputs the path gives them (captured from
    one preprocess and one model forward at the slice's shapes: GNS-10-128,
@@ -102,8 +103,14 @@ K3_TOL = {"bfloat16": 0.125, "float32": 1e-4}  # max |kernel - plain|
 # is within an ulp of 0, and a flip changes all K rows of that receiver by
 # O(1) (the count of elements off by more than 1e-2 of the largest
 # magnitude is printed). float32 weight gradients and every output of the
-# float32 instance (TF32 off): max |kernel - plain| / max |plain|.
+# float32 instance (TF32 off): max |kernel - plain| / max |plain|. The same
+# flip happens in float32 where node_first is within float32 rounding of 0
+# (the kernel adds h @ W_nh and agg @ W_na in one sum, the plain version
+# rounds each): a receiver with |node_first| <= NF_TIE x its largest
+# magnitude (in float64) passes if it matches the plain version with that
+# relu resolved either way.
 K4_TOL = {"bf16_out": 1e-2, "bf16_grads": 1e-4, "float32": 1e-4}
+NF_TIE = 1e-6
 TRAIN_STEPS, UNROLL_FROM = 12, 4  # steps 0-3 unroll 0, steps 4-11 unroll 1
 
 
@@ -130,6 +137,29 @@ def cuda_time(fn, iters=20, warmup=3):
     from lagrangebench_torch.profiling import device_ms
 
     return device_ms(fn, iters, warmup)
+
+
+def ptxas_report(build, names=("fused_mp", "fused_mp_bwd")):
+    """Each kernel's registers, spills and stack from nvcc's -Xptxas -v
+    report (the ``.log`` beside each built library), one line per kernel,
+    named by its mangled identifier and template arguments."""
+    import re
+
+    for name in names:
+        with open(build._lib_path(name) + ".log") as f:
+            text = f.read()
+        for block in text.split("Compiling entry function ")[1:]:
+            mangled = block.split("'")[1]
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)  # after the anonymous namespace
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", block)
+            if m and regs and spill:
+                ident = mangled[m.end():m.end() + int(m.group(1))]
+                targs = re.match(r"I\w*?EE", mangled[m.end() + len(ident):])
+                log(f"ptxas {name}.cu {ident}{targs.group(0) if targs else ''}: "
+                    f"{regs.group(1)} registers, stack {spill.group(1)} B, spill stores "
+                    f"{spill.group(2)} B, loads {spill.group(3)} B")
 
 
 def make_data(n_particles, seq_len, n_trajs=BATCH, split="test"):
@@ -575,6 +605,59 @@ def capture_bwd_inputs(trainer):
     return {"plain step": calls[1], "encoder step": calls[-1]}, (raw, nbrs)
 
 
+def node_first64(args, p):
+    """node_first = h @ W_nh + agg @ W_na + bn1 of K4's inputs in float64:
+    the plain step's node pre-activation without its roundings."""
+    import torch
+
+    e, hs, hr, h, mask = (t.double() for t in args[:5])
+    p = {name: v.double() for name, v in p.items()}
+    x1 = torch.relu(e @ p["w_e"] + hs + hr[:, None] + p["b1"]) @ p["w2"] + p["b2"]
+    del e, hs
+    xhat = (x1 - x1.mean(-1, keepdim=True)) * torch.rsqrt(
+        x1.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    agg = ((xhat * p["ln1_scale"] + p["ln1_bias"]) * mask[..., None]).sum(1)
+    return h @ p["w_nh"] + agg @ p["w_na"] + p["bn1"]
+
+
+def float32_out_err(args, p, grads, got, want):
+    """K4's float32 outputs against the plain version: max |kernel - plain| /
+    max |plain| over de, dhs, dhr, dh, where a receiver with a float32 tie
+    of relu(node_first) (``NF_TIE``) takes the smallest error over the plain
+    version as it is and with bn1 moved so that each tie, or all of them,
+    lies at +band or at -band (on that receiver alone: its outputs depend on
+    no other receiver). Returns the error and the ties as (receiver,
+    feature, node_first)."""
+    import itertools
+
+    import torch
+
+    from lagrangebench_torch.ops import fused_mp
+
+    tops = [float(y.abs().max()) for y in want[:4]]
+    per = torch.stack([(x - y).abs().reshape(x.shape[0], -1).amax(1) / top
+                       for x, y, top in zip(got[:4], want[:4], tops)]).amax(0)
+    nf = node_first64(args, p)
+    band = NF_TIE * float(nf.abs().max())
+    at = torch.nonzero(nf.abs() <= band).tolist()
+    ties = [(i, j, float(nf[i, j])) for i, j in at]
+    for i in sorted({i for i, _ in at}):
+        feats = [j for r, j in at if r == i]
+        sub = [t[i:i + 1] for t in args[:5]]
+        best = float(per[i])
+        flips = [[j] for j in feats] + ([feats] if len(feats) > 1 else [])
+        for flip, side in itertools.product(flips, (band, -band)):
+            q = dict(p)
+            q["bn1"] = p["bn1"].clone()
+            for j in flip:  # node_first of this receiver moves to +-band
+                q["bn1"][j] += side - float(nf[i, j])
+            outs = fused_mp.gns_mp_step_bwd_plain(*sub, q, *(t[i:i + 1] for t in grads))
+            best = min(best, max(float((x[i] - y[0]).abs().max()) / top
+                                 for x, y, top in zip(got[:4], outs[:4], tops)))
+        per[i] = best
+    return float(per.max()), ties
+
+
 def compare_bwd(sets):
     """K4 against its plain version (bf16 and float32), bit-identical weight
     gradients over two launches, and its time."""
@@ -608,13 +691,18 @@ def compare_bwd(sets):
                 passed = out_l2 <= K4_TOL["bf16_out"] and grad_err <= K4_TOL["bf16_grads"]
                 worst = max(worst, float(max((x.float() - y.float()).abs().max()
                                              for x, y in zip(got[:4], want[:4]))))
+                tied = ""
             else:
-                passed = max(out_err, grad_err) <= K4_TOL["float32"]
+                tie_err, ties = float32_out_err(a, p, g, got, want)
+                passed = max(tie_err, grad_err) <= K4_TOL["float32"]
+                listed = [(i, j, f"{v:.3g}") for i, j, v in ties]
+                tied = (f"; relu(node_first) float32 ties {listed}, outputs max-norm with "
+                        f"the ties resolved either way {tie_err:.3g}")
             passed &= same
             ok &= passed
             log(f"fused_mp_bwd ({label}, {str(dt)[6:]}): outputs rel err 2-norm {out_l2:.3g}, "
                 f"max-norm {out_err:.3g} ({off} of {size} elements beyond 1e-2); weight grads "
-                f"max-norm {grad_err:.3g}; two launches "
+                f"max-norm {grad_err:.3g}{tied}; two launches "
                 f"bit-identical: {same}{'' if passed else '  FAIL'}")
     args = sets["plain step"]
     p = fused_mp.kernel_params(args[5], torch.bfloat16)
@@ -712,11 +800,11 @@ def profile_train_step(trainer, raw, nbrs, batch=BATCH, unroll=1, label="train p
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    groups = [("fused_mp_bwd", "K4 fused_mp_bwd"), ("reduce_partials", "K4 fused_mp_bwd"),
-              ("fused_mp", "K3 fused_mp"), ("painn_msg", "K6 painn_msg"),
-              ("painn_layer", "K5 painn_layer"), ("neighbor_scan", "K2 neighbor_scan"),
-              ("bin_", "K1 binning"), ("gemm", "GEMM (torch.matmul)"),
-              ("nvjet", "GEMM (torch.matmul)"), ("cutlass", "GEMM (torch.matmul)"),
+    groups = [("fused_mp_bwd", "K4 fused_mp_bwd"), ("fused_mp", "K3 fused_mp"),
+              ("painn_msg", "K6 painn_msg"), ("painn_layer", "K5 painn_layer"),
+              ("neighbor_scan", "K2 neighbor_scan"), ("bin_", "K1 binning"),
+              ("gemm", "GEMM (torch.matmul)"), ("nvjet", "GEMM (torch.matmul)"),
+              ("cutlass", "GEMM (torch.matmul)"),
               ("foreach", "AdamW (foreach ops)"), ("multi_tensor", "AdamW (foreach ops)"),
               ("index", "gather/scatter (torch index ops)"),
               ("scatter", "gather/scatter (torch index ops)"),
@@ -1921,6 +2009,7 @@ def main() -> int:
     times = build.build(["binning", "neighbor_scan", "fused_mp", "fused_mp_bwd", "painn_msg",
                          "painn_layer", "row_gather"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall, per source {times}")
+    ptxas_report(build)
 
     with torch.no_grad():
         rows, ok, step_ms = main_path("cuda")

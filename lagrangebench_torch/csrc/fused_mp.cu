@@ -46,20 +46,43 @@
 // selects with a one-hot MXU contraction, exact in bf16 (one nonzero
 // product per sum), so a row read computes the same values. Staging the
 // windows in shared memory (3 * WSUB * F * 2 B per sub-tile, WSUB a few
-// hundred rows) is left out: it would not fit beside the 177 KB of the bf16
-// instance.
+// hundred rows) is left out: it would not fit beside the edge kernel's
+// resident weights and rings.
 //
-// Design: one block of 8 warps per tile of 16 receivers. Edge rows stream
-// through shared memory 64 at a time, so the tile's e/hs/e' never hold more
-// than one chunk; the products are bf16 nvcuda::wmma 16x16x16 tiles with
-// float32 accumulators; LayerNorm takes one warp per row with shuffle
-// reductions; the K-sum runs in float32, row by row in k order (so it is
-// the same on every run). The edge-phase weights (W_e, W2, and enc_w2 on
-// step 0) sit in shared memory during the edge phase and are replaced by
-// the node-phase weights (W_nh, W_na, W_n2) afterwards: five 128x128 bf16
-// matrices never need to be resident at once. Simple first: no TMA, no
-// wgmma, one block per SM (177 KB of shared memory in the bf16 instance).
-#include "mp_common.cuh"
+// Design, bf16 (the main path): two hand-written kernels per step.
+//   fused_mp_edge (edge_fwd, mp_warp.cuh): a persistent grid of one 8-warp
+//     block per SM; the block stages W_e and W2 (and enc_w1, enc_w2 on step
+//     0) once per launch with cp.async into swizzled shared memory, where
+//     they stay.
+//     Each warp owns an even share of the receivers and walks its edge rows
+//     in 16-row slices through a 2-stage cp.async ring (e and the sender
+//     rows: contiguous for K3, indexed rows of hs_ext resolved per slice for
+//     K8 and E2, zero-filled where the edge is padded). The whole chain runs
+//     in registers on mma.sync m16n8k16 (bf16 in, float32 accumulators):
+//     first's accumulators take hs, hr and b1, ReLU and the bf16 cast, and
+//     become the A operand of @ W2 register for register; LayerNorm reduces
+//     each row among the four lanes that hold it. e' goes out through the
+//     consumed hs slot as 16-byte stores; agg is summed per receiver by
+//     shuffles over the slice's rows, in row order, by the one warp that
+//     owns the receiver, and written once as float32 to a scratch (N, F)
+//     (8 MB at 16,000 receivers).
+//   fused_mp_node (below): 8 warps per block, W_nh, W_na, W_n2 staged once
+//     per block; each warp takes 16 nodes: h by cp.async, agg from the scratch,
+//     the node MLP and LayerNorm in registers, h' out as 16-byte stores.
+// Shared memory: edge 196 KB (2 x 32 KB weights, 4 KB vectors, 8 warps x 2
+// stages x 8 KB), 168 KB on step 0 (+ enc_w2, enc_w1; the raw features are
+// loaded into registers, so the ring holds hs only); node 130 KB. Why
+// mma.sync and not wgmma: each warp owns whole rows through the chain
+// (LayerNorm by quad shuffles, the register A operand), which is
+// mma.sync's layout; the products are not the bound (the chain's two
+// products take ~0.04 ms at the rollout shape at the bf16 peak, against
+// 0.15 ms of bytes).
+//
+// The float32 instance keeps the first, simple design: one block of 8
+// warps per tile of 16 receivers, rows streamed through shared memory 64 at
+// a time, weights read from global memory (L1/L2), CUDA-core FMAs, the
+// K-sum row by row in k order.
+#include "mp_warp.cuh"
 
 namespace {
 
@@ -88,34 +111,24 @@ struct Args {
   int T, SUB, WSUB;  // E2: rows per tile and sub-tile, window rows
 };
 
-// Where a step's sender rows come from: a gathered (N, K, F) tensor (K3),
-// the slot layout's stencil table (K8) or the sub-tile windows (E2).
-enum class Src { kGathered, kSlot, kWindow };
-
 template <typename T>
 struct Smem {
   static constexpr int LDA = Layout<T>::LDA;
-  static constexpr int kW = Layout<T>::kStageWeights ? F * LDA * (int)sizeof(T) : 0;
   static constexpr int kA = M * LDA * (int)sizeof(T);
   static constexpr int kF = M * LDF * 4;
   static constexpr int kAgg = TR * F * 4;
-  static constexpr int kBytes = 3 * kW + 2 * kA + kF + kAgg;
+  static constexpr int kBytes = 2 * kA + kF + kAgg;
 };
 
 template <typename T, bool ENC, Src SRC>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
   constexpr bool kSelect = SRC != Src::kGathered;  // sender rows read in-kernel
   constexpr int LDA = Layout<T>::LDA;
-  constexpr bool kStage = Layout<T>::kStageWeights;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sW0 = reinterpret_cast<T*>(smem);
-  T* sW1 = reinterpret_cast<T*>(smem + Smem<T>::kW);
-  T* sW2 = reinterpret_cast<T*>(smem + 2 * Smem<T>::kW);
-  T* sA = reinterpret_cast<T*>(smem + 3 * Smem<T>::kW);
-  T* sB = reinterpret_cast<T*>(smem + 3 * Smem<T>::kW + Smem<T>::kA);
-  float* sF = reinterpret_cast<float*>(smem + 3 * Smem<T>::kW + 2 * Smem<T>::kA);
-  float* sAgg = reinterpret_cast<float*>(smem + 3 * Smem<T>::kW + 2 * Smem<T>::kA +
-                                         Smem<T>::kF);
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = reinterpret_cast<T*>(smem + Smem<T>::kA);
+  float* sF = reinterpret_cast<float*>(smem + 2 * Smem<T>::kA);
+  float* sAgg = reinterpret_cast<float*>(smem + 2 * Smem<T>::kA + Smem<T>::kF);
   __shared__ int sSrc[kSelect ? M : 1];  // K8, E2: the chunk's sender rows, -1 if padded
 
   const int K = a.k;
@@ -130,24 +143,17 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
   const T* h = static_cast<const T*>(a.h);
   T* e_out = static_cast<T*>(a.e_out);
 
-  // edge-phase weights: W_e and W2 (+ enc_w2 on step 0)
+  // edge-phase weights, read from global memory (L1/L2): W_e and W2 (+
+  // enc_w2 on step 0)
   const T* wE = static_cast<const T*>(a.w[0]);
   const T* w2 = static_cast<const T*>(a.w[1]);
   const T* wEnc2 = static_cast<const T*>(a.enc_w2);
-  if constexpr (kStage) {
-    stage_weight<T>(sW0, a.w[0]);
-    stage_weight<T>(sW1, a.w[1]);
-    if (ENC) stage_weight<T>(sW2, a.enc_w2);
-    wE = sW0;
-    w2 = sW1;
-    wEnc2 = sW2;
-  }
   for (int i = threadIdx.x; i < TR * F; i += THREADS) sAgg[i] = 0.f;
 
   for (int c0 = 0; c0 < rows_tile; c0 += M) {
     const int rows = min(M, rows_tile - c0);
     const int rows_pad = (rows + 15) / 16 * 16;
-    __syncthreads();  // previous chunk done with sA/sB/sF; weights staged
+    __syncthreads();  // previous chunk done with sA/sB/sF
     if constexpr (SRC == Src::kSlot) {
       const int cw = a.S * a.C;
       for (int r = threadIdx.x; r < rows; r += THREADS) {
@@ -269,14 +275,6 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
   const T* wNh = static_cast<const T*>(a.w[2]);
   const T* wNa = static_cast<const T*>(a.w[3]);
   const T* wN2 = static_cast<const T*>(a.w[4]);
-  if constexpr (kStage) {
-    stage_weight<T>(sW0, a.w[2]);
-    stage_weight<T>(sW1, a.w[3]);
-    stage_weight<T>(sW2, a.w[4]);
-    wNh = sW0;
-    wNa = sW1;
-    wN2 = sW2;
-  }
   for (int i = threadIdx.x; i < TR * F; i += THREADS) {
     const int r = i / F, c = i % F;
     sA[r * LDA + c] = r < nodes ? h[(int64_t)(node0 + r) * F + c] : from_f<T>(0.f);
@@ -322,11 +320,156 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- bf16: fused_mp_edge (edge_fwd, mp_warp.cuh), then fused_mp_node -------
+
+template <bool ENC, Src SRC>
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_edge(const EdgeArgs a) {
+  edge_fwd<ENC, SRC>(a);
+}
+
+struct NodeArgs {
+  const bf16* h;       // (n, F)
+  const float* agg;    // (n, F)
+  bf16* h_out;         // (n, F)
+  const bf16* w[3];    // W_nh, W_na, W_n2
+  const float* vec[4]; // bn1, bn2, ln2 scale, ln2 bias
+  int n;
+};
+
+struct NodeSmem {
+  static constexpr int kVec = 3 * WEIGHT_BYTES;
+  static constexpr int kTiles = kVec + 4 * F * 4;
+  static constexpr int kBytes = kTiles + WARPS * SLICE_BYTES;
+  static_assert(kBytes <= kSmemMax, "node kernel shared memory");
+};
+
+// h' = T(h + LN2(relu(h @ W_nh + T(agg) @ W_na + bn1) @ W_n2 + bn2)), 16
+// nodes per warp, the weights staged once per block.
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_node(const NodeArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const u32 sb = smem_addr(smem);
+  for (int i = 0; i < 3; ++i) stage_rows(sb + i * WEIGHT_BYTES, a.w[i], F, F);
+  cp_commit();
+  float* vec = reinterpret_cast<float*>(smem + NodeSmem::kVec);
+  for (int i = threadIdx.x; i < 4 * F; i += THREADS) vec[i] = a.vec[i / F][i % F];
+  cp_wait<0>();
+  __syncthreads();
+  const float* bn1 = vec;
+
+  const u32 tile = NodeSmem::kTiles + warp * SLICE_BYTES;
+  const int slices = (a.n + SR - 1) / SR;
+  for (int sl = blockIdx.x * WARPS + warp; sl < slices; sl += gridDim.x * WARPS) {
+    const int64_t r0 = (int64_t)sl * SR;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = (lane >> 4) + 2 * i, c = lane & 15;
+      const bool v = r0 + r < a.n;
+      cp_async16(sb + tile + swz(r, c), v ? a.h + (r0 + r) * F + c * 8 : a.h, v);
+    }
+    cp_commit();
+    cp_wait<0>();
+    __syncwarp();
+    u32 ha[8][4], ga[8][4];
+    load_a(ha, sb + tile, lane);
+    const bool vg = r0 + g < a.n, vg8 = r0 + g + 8 < a.n;
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+      const int c = nb * 8 + 2 * t;
+      const float2 x = vg ? *reinterpret_cast<const float2*>(a.agg + (r0 + g) * F + c)
+                          : make_float2(0.f, 0.f);
+      const float2 x8 = vg8 ? *reinterpret_cast<const float2*>(a.agg + (r0 + g + 8) * F + c)
+                            : make_float2(0.f, 0.f);
+      ga[nb >> 1][(nb & 1) * 2] = pack(x.x, x.y);
+      ga[nb >> 1][(nb & 1) * 2 + 1] = pack(x8.x, x8.y);
+    }
+    float acc[16][4];
+    zero(acc);
+    gemm(acc, ha, sb, lane);
+    gemm(acc, ga, sb + WEIGHT_BYTES, lane);
+    u32 ra[8][4];
+    to_frag(ra, acc,
+            [&](float x, int nb, int j) { return fmaxf(x + bn1[nb * 8 + 2 * t + j], 0.f); });
+    zero(acc);
+    gemm(acc, ra, sb + 2 * WEIGHT_BYTES, lane);
+    add_bias(acc, vec + F, t);
+    float inv0, inv1;
+    row_normalize(acc, inv0, inv1);
+    scale_shift(acc, vec + 2 * F, vec + 3 * F, t);
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+      const int c = nb * 8 + 2 * t;
+      const float2 hg = unpack(frag_pair(ha, nb, 0)), hg8 = unpack(frag_pair(ha, nb, 1));
+      sts32(smem, tile + swz_pair(g, c), pack(hg.x + acc[nb][0], hg.y + acc[nb][1]));
+      sts32(smem, tile + swz_pair(g + 8, c), pack(hg8.x + acc[nb][2], hg8.y + acc[nb][3]));
+    }
+    __syncwarp();
+    store_slice(a.h_out, r0, a.n, smem, tile, lane);
+    __syncwarp();
+  }
+}
+
 template <Src SRC>
-int dispatch(const Args& a, int is_bf16, int has_enc, cudaStream_t stream) {
-  if (is_bf16)
-    return has_enc ? launch<bf16, true, SRC>(a, stream) : launch<bf16, false, SRC>(a, stream);
-  return has_enc ? launch<float, true, SRC>(a, stream) : launch<float, false, SRC>(a, stream);
+int run_bf16(const Args& a, bool has_enc, const int* grids, float* agg, cudaStream_t stream) {
+  EdgeArgs ea;
+  ea.e = a.e;
+  ea.hs = static_cast<const bf16*>(a.hs);
+  ea.hr = static_cast<const bf16*>(a.hr);
+  ea.mask = a.mask;
+  ea.cand = a.cand;
+  ea.bases_ext = a.bases_ext;
+  ea.w0s = a.w0s;
+  ea.w_e = static_cast<const bf16*>(a.w[0]);
+  ea.w2 = static_cast<const bf16*>(a.w[1]);
+  ea.enc_w1 = static_cast<const bf16*>(a.enc_w1);
+  ea.enc_w2 = static_cast<const bf16*>(a.enc_w2);
+  for (int i = 0; i < 4; ++i) {
+    ea.vec[i] = a.vec[i];
+    ea.enc_vec[i] = a.enc_vec[i];
+  }
+  ea.e_out = static_cast<bf16*>(a.e_out);
+  ea.agg = agg;
+  ea.n = a.n;
+  ea.k = a.k;
+  ea.fe = a.fe;
+  ea.C = a.C;
+  ea.S = a.S;
+  ea.T = a.T;
+  ea.SUB = a.SUB;
+  ea.WSUB = a.WSUB;
+  const auto plain = [&] {
+    return launch_kernel(fused_mp_edge<false, SRC>, grids[0], THREADS, EdgeSmem<false>::kBytes,
+                         ea, stream);
+  };
+  int err;
+  if constexpr (SRC == Src::kWindow) {
+    err = plain();
+  } else {
+    err = has_enc ? launch_kernel(fused_mp_edge<true, SRC>, grids[0], THREADS,
+                                  EdgeSmem<true>::kBytes, ea, stream)
+                  : plain();
+  }
+  if (err != 0) return err;
+  NodeArgs na;
+  na.h = static_cast<const bf16*>(a.h);
+  na.agg = agg;
+  na.h_out = static_cast<bf16*>(a.h_out);
+  for (int i = 0; i < 3; ++i) na.w[i] = static_cast<const bf16*>(a.w[2 + i]);
+  for (int i = 0; i < 4; ++i) na.vec[i] = a.vec[4 + i];
+  na.n = a.n;
+  return launch_kernel(fused_mp_node, grids[1], THREADS, NodeSmem::kBytes, na, stream);
+}
+
+template <Src SRC>
+int dispatch(const Args& a, int is_bf16, int has_enc, const void* const* ptrs, const int* grids,
+             cudaStream_t stream) {
+  if (is_bf16) {
+    if (grids[0] < 1 || grids[1] < 1) return (int)cudaErrorInvalidValue;
+    return run_bf16<SRC>(a, has_enc, grids, static_cast<float*>(const_cast<void*>(ptrs[28])),
+                         stream);
+  }
+  if constexpr (SRC == Src::kWindow) return launch<float, false, SRC>(a, stream);
+  else return has_enc ? launch<float, true, SRC>(a, stream) : launch<float, false, SRC>(a, stream);
 }
 
 Args make_args(const void* const* ptrs, int n, int k, int fe) {
@@ -365,19 +508,22 @@ Args make_args(const void* const* ptrs, int n, int k, int fe) {
 //   12 b1, 13 b2, 14 ln1_scale, 15 ln1_bias, 16 bn1, 17 bn2, 18 ln2_scale,
 //   19 ln2_bias,
 //   20 enc_w1, 21 enc_w2, 22 enc_b1, 23 enc_b2, 24 enc_ln_scale,
-//   25 enc_ln_bias (unused unless has_enc).
+//   25 enc_ln_bias (unused unless has_enc), 26, 27 (K8, E2 below),
+//   28 agg scratch (n, F) float32 (bf16 only).
+// grids: the bf16 instance's edge and node grids (unused in float32).
 LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int latent,
-                            int is_bf16, int has_enc, cudaStream_t stream) {
+                            int is_bf16, int has_enc, const int* grids, cudaStream_t stream) {
   if (latent != F || n < 1 || k < 1 || (has_enc && (fe < 1 || fe > 16)))
     return (int)cudaErrorInvalidValue;
-  return dispatch<Src::kGathered>(make_args(ptrs, n, k, fe), is_bf16, has_enc, stream);
+  return dispatch<Src::kGathered>(make_args(ptrs, n, k, fe), is_bf16, has_enc, ptrs, grids,
+                                  stream);
 }
 
 // K8: ptrs as lbt_fused_mp's, with 1 = hs_ext (n_ext, F), 4 unused, and
 //   26 cand (n_ext, K) int32, 27 bases_ext (n_cols+1, S) int32;
 // n = n_ext = (n_cols+1) * C.
 LBT_EXPORT int lbt_fused_mp_slot(const void* const* ptrs, int n, int k, int fe, int latent,
-                                 int is_bf16, int has_enc, int C, int S,
+                                 int is_bf16, int has_enc, int C, int S, const int* grids,
                                  cudaStream_t stream) {
   if (latent != F || n < 1 || k < 1 || C < 1 || S < 1 || n % C ||
       (has_enc && (fe < 1 || fe > 16)))
@@ -387,13 +533,13 @@ LBT_EXPORT int lbt_fused_mp_slot(const void* const* ptrs, int n, int k, int fe, 
   a.bases_ext = static_cast<const int32_t*>(ptrs[27]);
   a.C = C;
   a.S = S;
-  return dispatch<Src::kSlot>(a, is_bf16, has_enc, stream);
+  return dispatch<Src::kSlot>(a, is_bf16, has_enc, ptrs, grids, stream);
 }
 
 // E2: ptrs as lbt_fused_mp's (no encoder), with 1 = hs_ext (n_ext, F), 4
 //   unused, 26 cand (n, K) int32, 27 w0s (n/T, T/SUB, 3) int32; n % T == 0.
 LBT_EXPORT int lbt_fused_mp_window(const void* const* ptrs, int n, int k, int latent,
-                                   int is_bf16, int T, int SUB, int WSUB,
+                                   int is_bf16, int T, int SUB, int WSUB, const int* grids,
                                    cudaStream_t stream) {
   if (latent != F || n < 1 || k < 1 || T < 1 || SUB < 1 || T % SUB || n % T || WSUB < 1)
     return (int)cudaErrorInvalidValue;
@@ -403,6 +549,5 @@ LBT_EXPORT int lbt_fused_mp_window(const void* const* ptrs, int n, int k, int la
   a.T = T;
   a.SUB = SUB;
   a.WSUB = WSUB;
-  return is_bf16 ? launch<bf16, false, Src::kWindow>(a, stream)
-                 : launch<float, false, Src::kWindow>(a, stream);
+  return dispatch<Src::kWindow>(a, is_bf16, 0, ptrs, grids, stream);
 }

@@ -21,25 +21,54 @@
 // dhs (5 x 256 B in bf16) against 6 x 2 x 128 x 128 FLOP of edge products
 // that the function needs (the forward rematerialization adds 4 more).
 //
-// Design: a persistent grid of about one block per SM; each block of 8
-// warps walks receiver tiles of 16. The node path needs agg, which needs
-// every edge of the tile, and the tile's float32 LayerNorm activations do
-// not fit in shared memory (16 x 40 rows x 128 x 4 B = 320 KB), so the
-// tile's edges stream through shared memory twice, 64 rows at a time:
+// Design, bf16 (the main path): four hand-written kernels and a sum, on
+// the forward's machinery (mp_warp.cuh: warp-owned 16-row slices, cp.async
+// rings, mma.sync m16n8k16 with register accumulators and register A
+// operands, transposed products by ldmatrix without .trans on the same
+// swizzled weight tiles). The node path needs agg, which needs every edge
+// of a receiver, and dagg flows back into every edge row, so the step
+// rematerializes its edges twice, as the TPU kernel does:
+//   1. fused_mp_bwd_agg (K3's edge body, agg only): agg to a float32 scratch.
+//   2. fused_mp_bwd_node: 4 warps x 16 nodes per block, W_nh, W_na, W_n2 staged once;
+//      the node forward and its backward in registers; dh out, dagg to a
+//      float32 scratch; the block's h, T(agg), T(r2), T(dy1), T(dnf) slices
+//      stay in shared memory for its three weight gradients, which it
+//      writes once to its own partials.
+//   3. fused_mp_bwd_edge_a: persistent, 8 warps, W_e and W2 resident; the warps own
+//      even shares of the block's receivers and step through their slices
+//      in lockstep: each rematerializes first and x1, runs LN1's backward
+//      (dm = ge + dagg * mask) into dx1, then dfirst = T(dx1) @ W2^T * (first
+//      > 0) -> dhs (= T(dfirst)) and dhr (summed per receiver by its warp,
+//      in row order). T(relu(first)) and T(dx1) go back into the slice's
+//      ring slots, and after a block barrier each warp adds its 16 rows of
+//      dW2 += T(r1)^T T(dx1) over the 8 slices, in a register accumulator it
+//      keeps for the whole launch.
+//   4. fused_mp_bwd_edge_b: persistent, W_e resident, the same lockstep: de = ge +
+//      dhs @ W_e^T, and dW_e += e^T dhs in registers for the whole launch.
+//   5. fused_mp_bwd_reduce: each gradient summed over its kernel's blocks in
+//      block order.
+// No atomics: every sum has a fixed order, so the weight gradients are the
+// same bits on every launch. The vector gradients are summed per warp by
+// shuffles over each slice's rows (owner lanes keep them in registers),
+// then over the warps in order. Shared memory: the node kernel 186 KB, edge
+// kernel a 226 KB (2 weights, 8 warps x 2 stages x (e, hs), 8 warps x one ge slice),
+// edge kernel b 224 KB (W_e, 8 warps x 2 stages x (e, dhs, ge)).
+//
+// The float32 instance keeps the first, simple design: a persistent grid
+// of about one block per SM; each block of 8 warps walks receiver tiles of
+// 16. The tile's float32 LayerNorm activations do not fit in shared memory
+// (16 x 40 rows x 128 x 4 B = 320 KB), so the tile's edges stream through
+// shared memory twice, 64 rows at a time:
 //   pass 1: rematerialize to agg; then the node-path backward, which
 //           leaves dagg in shared memory;
 //   pass 2: rematerialize again; then the edge-path backward with dagg.
-// Products are bf16 nvcuda::wmma 16x16x16 tiles with float32 accumulators
-// (the transposed operands load as col_major fragments). The weights take
-// turns in three shared-memory slots: W_e, W2 for the edge passes, W_nh,
-// W_na, W_n2 for the node path; in pass 2 the free third slot holds the
-// bf16 dx1 / dfirst chunk. Weight gradients are deterministic: no atomics.
+// Products are CUDA-core FMAs with the weights read from global memory.
 // Each block accumulates its own float32 partials (the five matrix
-// gradients in device memory, owned by one warp per 16x16 tile; the eight
+// gradients in device memory, owned by one thread per element; the eight
 // vector gradients in registers, row by row, then summed over the warps in
-// order), and a second launch sums the partials in block order. dhr sums a
-// receiver's K rows in k order. Simple first: no TMA, no wgmma.
-#include "mp_common.cuh"
+// order), and the sum adds the partials in block order. dhr sums a
+// receiver's K rows in k order.
+#include "mp_warp.cuh"
 
 namespace {
 
@@ -67,47 +96,24 @@ struct Args {
   void* dh;           // (N, F) T
   const void* w[5];   // W_e, W2, W_nh, W_na, W_n2: (F, F) T, row-major (in, out)
   const float* vec[8];  // b1, b2, ln1 scale, ln1 bias, bn1, bn2, ln2 scale, ln2 bias
-  float* partials;    // (gridDim.x, GRADS)
+  float* partials;    // float32: (gridDim.x, GRADS); bf16: see lbt_fused_mp_bwd
+  float* agg;         // bf16: (N, F) float32 scratch
+  float* dagg;        // bf16: (N, F) float32 scratch
   int n, k;
 };
 
 template <typename T>
 struct Smem {
-  static constexpr bool kStage = Layout<T>::kStageWeights;
   static constexpr int LDA = Layout<T>::LDA;
-  static constexpr int kW = kStage ? F * LDA * (int)sizeof(T) : 0;
   static constexpr int kA = M * LDA * (int)sizeof(T);
-  static constexpr int kC = kStage ? 0 : kA;  // bf16: in the third weight slot
   static constexpr int kF = M * LDF * 4;
   static constexpr int kNode = TR * F * 4;
-  static constexpr int kBytes = 3 * kW + 2 * kA + kC + 2 * kF + 2 * kNode;
+  static constexpr int kBytes = 3 * kA + 2 * kF + 2 * kNode;
 };
 
 // C[rows, F] = A[rows, F] @ W^T, W (F, F) row-major (in, out); rows % 16 == 0.
 template <typename T>
 __device__ void block_gemm_nt(const T* A, const T* W, float* C, int rows);
-
-template <>
-__device__ void block_gemm_nt<bf16>(const bf16* A, const bf16* W, float* C, int rows) {
-  constexpr int LDA = Layout<bf16>::LDA;
-  const int warp = threadIdx.x / 32;
-  const int tiles = (rows / 16) * (F / 16);
-  for (int t = warp; t < tiles; t += WARPS) {
-    const int r0 = (t / (F / 16)) * 16, c0 = (t % (F / 16)) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-    wmma::fill_fragment(fc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < F; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, A + r0 * LDA + kk, LDA);
-      // W^T[kk.., c0..]: element (k, n) at W[(c0 + n) * LDA + kk + k]
-      wmma::load_matrix_sync(fb, W + c0 * LDA + kk, LDA);
-      wmma::mma_sync(fc, fa, fb, fc);
-    }
-    wmma::store_matrix_sync(C + r0 * LDF + c0, fc, LDF, wmma::mem_row_major);
-  }
-}
 
 template <>
 __device__ void block_gemm_nt<float>(const float* A, const float* W, float* C, int rows) {
@@ -131,26 +137,6 @@ __device__ void block_gemm_nt<float>(const float* A, const float* W, float* C, i
 // (row stride F) that this block alone writes; rows % 16 == 0.
 template <typename T>
 __device__ void block_gemm_tn(const T* A, const T* B, float* G, int rows);
-
-template <>
-__device__ void block_gemm_tn<bf16>(const bf16* A, const bf16* B, float* G, int rows) {
-  constexpr int LDA = Layout<bf16>::LDA;
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (F / 16) * (F / 16); t += WARPS) {
-    const int i0 = (t / (F / 16)) * 16, j0 = (t % (F / 16)) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-    wmma::load_matrix_sync(fc, G + i0 * F + j0, F, wmma::mem_row_major);
-    for (int kk = 0; kk < rows; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      // A^T[i0.., kk..]: element (i, r) at A[(kk + r) * LDA + i0 + i]
-      wmma::load_matrix_sync(fa, A + kk * LDA + i0, LDA);
-      wmma::load_matrix_sync(fb, B + kk * LDA + j0, LDA);
-      wmma::mma_sync(fc, fa, fb, fc);
-    }
-    wmma::store_matrix_sync(G + i0 * F + j0, fc, F, wmma::mem_row_major);
-  }
-}
 
 template <>
 __device__ void block_gemm_tn<float>(const float* A, const float* B, float* G, int rows) {
@@ -241,16 +227,11 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
   using S = Smem<T>;
   constexpr int LDA = Layout<T>::LDA;
-  constexpr bool kStage = S::kStage;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sW0 = reinterpret_cast<T*>(smem);
-  T* sW1 = reinterpret_cast<T*>(smem + S::kW);
-  T* sW2 = reinterpret_cast<T*>(smem + 2 * S::kW);
-  unsigned char* p = smem + 3 * S::kW;
-  T* sA = reinterpret_cast<T*>(p);
-  T* sB = reinterpret_cast<T*>(p + S::kA);
-  T* sC = kStage ? sW2 : reinterpret_cast<T*>(p + 2 * S::kA);
-  p += 2 * S::kA + S::kC;
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = reinterpret_cast<T*>(smem + S::kA);
+  T* sC = reinterpret_cast<T*>(smem + 2 * S::kA);
+  unsigned char* p = smem + 3 * S::kA;
   float* sF = reinterpret_cast<float*>(p);
   float* sG = reinterpret_cast<float*>(p + S::kF);
   float* sNode = reinterpret_cast<float*>(p + 2 * S::kF);  // agg, then dagg
@@ -264,21 +245,12 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
   const T* gh = static_cast<const T*>(a.gh);
   const T* h = static_cast<const T*>(a.h);
 
-  // the weights in use: staged in shared memory (bf16) or read from global
+  // the weights, read from global memory (L1/L2)
   const T* wE = static_cast<const T*>(a.w[0]);
   const T* w2 = static_cast<const T*>(a.w[1]);
   const T* wNh = static_cast<const T*>(a.w[2]);
   const T* wNa = static_cast<const T*>(a.w[3]);
   const T* wN2 = static_cast<const T*>(a.w[4]);
-  if constexpr (kStage) {
-    stage_weight<T>(sW0, a.w[0]);
-    stage_weight<T>(sW1, a.w[1]);
-  }
-  const T* wE_s = kStage ? sW0 : wE;
-  const T* w2_s = kStage ? sW1 : w2;
-  const T* wNh_s = kStage ? sW0 : wNh;
-  const T* wNa_s = kStage ? sW1 : wNa;
-  const T* wN2_s = kStage ? sW2 : wN2;
 
   for (int i = threadIdx.x; i < 5 * F * F; i += THREADS) part[i] = 0.f;
   float vacc[NV][F / 32];  // this thread's vector-gradient sums (row per warp)
@@ -292,7 +264,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
     const int nodes = min(TR, a.n - node0);
     const int rows_tile = nodes * K;
     const int64_t row0 = (int64_t)node0 * K;
-    __syncthreads();  // previous tile done; edge weights staged
+    __syncthreads();  // previous tile done
     for (int i = threadIdx.x; i < TR * F; i += THREADS) {
       sNode[i] = 0.f;
       sDhr[i] = 0.f;
@@ -303,7 +275,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       const int rows = min(M, rows_tile - c0);
       const int rows_pad = (rows + 15) / 16 * 16;
       __syncthreads();
-      remat_chunk<T>(a, wE_s, w2_s, sA, sB, sF, row0, node0, c0, rows, rows_pad);
+      remat_chunk<T>(a, wE, w2, sA, sB, sF, row0, node0, c0, rows, rows_pad);
       for (int r = warp; r < rows; r += WARPS) {
         float x[F / 32];
 #pragma unroll
@@ -325,11 +297,6 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
     __syncthreads();
 
     // ---- node-path backward (TR rows; rows past `nodes` are zero) --------
-    if constexpr (kStage) {
-      stage_weight<T>(sW0, a.w[2]);
-      stage_weight<T>(sW1, a.w[3]);
-      stage_weight<T>(sW2, a.w[4]);
-    }
     T* nH = sA;
     T* nAggc = sA + TR * LDA;
     T* nR2c = sA + 2 * TR * LDA;
@@ -346,9 +313,9 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       nAggc[r * LDA + c] = from_f<T>(sNode[i]);
     }
     __syncthreads();
-    block_gemm<T>(nH, wNh_s, nR2, TR, false);
+    block_gemm<T>(nH, wNh, nR2, TR, false);
     __syncthreads();
-    block_gemm<T>(nAggc, wNa_s, nR2, TR, true);
+    block_gemm<T>(nAggc, wNa, nR2, TR, true);
     __syncthreads();
     for (int i = threadIdx.x; i < TR * F; i += THREADS) {
       const int r = i / F, c = i % F;
@@ -357,7 +324,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       nR2c[r * LDA + c] = from_f<T>(r2);
     }
     __syncthreads();
-    block_gemm<T>(nR2c, wN2_s, nY, TR, false);
+    block_gemm<T>(nR2c, wN2, nY, TR, false);
     __syncthreads();
     for (int r = warp; r < TR; r += WARPS) {
       float x[F / 32], g[F / 32];
@@ -382,7 +349,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
     }
     __syncthreads();
     block_gemm_tn<T>(nR2c, nDy1c, part + G_WN2 * F * F, TR);
-    block_gemm_nt<T>(nDy1c, wN2_s, nDnf, TR);
+    block_gemm_nt<T>(nDy1c, wN2, nDnf, TR);
     __syncthreads();
     for (int r = warp; r < TR; r += WARPS) {
 #pragma unroll
@@ -396,8 +363,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
     __syncthreads();
     block_gemm_tn<T>(nH, nDnfc, part + G_WNH * F * F, TR);
     block_gemm_tn<T>(nAggc, nDnfc, part + G_WNA * F * F, TR);
-    block_gemm_nt<T>(nDnfc, wNh_s, nDh, TR);
-    block_gemm_nt<T>(nDnfc, wNa_s, nDagg, TR);
+    block_gemm_nt<T>(nDnfc, wNh, nDh, TR);
+    block_gemm_nt<T>(nDnfc, wNa, nDagg, TR);
     __syncthreads();
     {
       T* dh = static_cast<T*>(a.dh);
@@ -413,17 +380,13 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
     __syncthreads();
 
     // ---- pass 2: rematerialize again, then the edge-path backward ---------
-    if constexpr (kStage) {
-      stage_weight<T>(sW0, a.w[0]);
-      stage_weight<T>(sW1, a.w[1]);
-    }
     T* de = static_cast<T*>(a.de);
     T* dhs = static_cast<T*>(a.dhs);
     for (int c0 = 0; c0 < rows_tile; c0 += M) {
       const int rows = min(M, rows_tile - c0);
       const int rows_pad = (rows + 15) / 16 * 16;
       __syncthreads();
-      remat_chunk<T>(a, wE_s, w2_s, sA, sB, sF, row0, node0, c0, rows, rows_pad);
+      remat_chunk<T>(a, wE, w2, sA, sB, sF, row0, node0, c0, rows, rows_pad);
       // LN1 and its backward: dm = ge + dagg * mask -> dx1 -> sC
       for (int r = warp; r < rows_pad; r += WARPS) {
         if (r >= rows) {
@@ -454,7 +417,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       }
       __syncthreads();
       block_gemm_tn<T>(sB, sC, part + G_W2 * F * F, rows_pad);  // dW2 += T(r1)^T dx1c
-      block_gemm_nt<T>(sC, w2_s, sG, rows_pad);                // dx1c @ W2^T
+      block_gemm_nt<T>(sC, w2, sG, rows_pad);                // dx1c @ W2^T
       __syncthreads();
       // dfirst = (dx1c @ W2^T) * (first > 0) -> sG (float), sC (T), dhs
       for (int r = warp; r < rows_pad; r += WARPS) {
@@ -477,7 +440,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
         for (int r = 0; r < rows; ++r) sDhr[((c0 + r) / K) * F + c] += sG[r * LDF + c];
       }
       block_gemm_tn<T>(sA, sC, part + G_WE * F * F, rows_pad);  // dW_e += e^T dfirstc
-      block_gemm_nt<T>(sC, wE_s, sF, rows_pad);                // dfirstc @ W_e^T
+      block_gemm_nt<T>(sC, wE, sF, rows_pad);                // dfirstc @ W_e^T
       __syncthreads();
       for (int i = threadIdx.x; i < rows * F; i += THREADS) {
         const int r = i / F, c = i % F;
@@ -508,13 +471,613 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
   for (int i = threadIdx.x; i < NV * F; i += THREADS) part[5 * F * F + i] = sVec[i];
 }
 
-// out[j] = sum over blocks b, in order, of partials[b][j]
-__global__ void reduce_partials(const float* partials, float* out, int blocks, int per_block) {
+// ---- bf16 ---------------------------------------------------------------
+
+constexpr int NB_WARPS = 4;              // fused_mp_bwd_node: warps per block
+constexpr int NB_ROWS = NB_WARPS * SR;   // fused_mp_bwd_node: nodes per block
+constexpr int P_NODE = 3 * F * F + 4 * F;  // node kernel: dW_nh, dW_na, dW_n2, bn1..ln2 bias
+constexpr int P_EA = F * F + 4 * F;        // edge kernel a: dW2, b1, b2, ln1 scale, ln1 bias
+constexpr int P_EB = F * F;                // edge kernel b: dW_e
+
+struct NodeBwdSmem {
+  static constexpr int kVec = 3 * WEIGHT_BYTES;  // bn1, bn2, ln2 scale, ln2 bias
+  static constexpr int kTiles = kVec + 4 * F * 4;
+  static constexpr int kTile = NB_WARPS * SLICE_BYTES;  // H, AGGC, R2C, DY1C, DNFC
+  static constexpr int kOwn = kTiles + 5 * kTile;        // warps x 4 vector sums
+  static constexpr int kBytes = kOwn + NB_WARPS * 4 * F * 4;
+  static_assert(kBytes <= kSmemMax, "node kernel shared memory");
+};
+
+// a warp's receiver range: the block's even share of n, split evenly
+__device__ __forceinline__ void block_warp_range(int n, int blk, int blocks, int w, int64_t& lo,
+                                                 int64_t& hi) {
+  const int64_t b0 = (int64_t)n * blk / blocks, b1 = (int64_t)n * (blk + 1) / blocks;
+  lo = b0 + (b1 - b0) * w / WARPS;
+  hi = b0 + (b1 - b0) * (w + 1) / WARPS;
+}
+
+// the warps' slice counts of this block
+__device__ __forceinline__ void block_slices(const Args& a, int* cnt) {
+  for (int w = 0; w < WARPS; ++w) {
+    int64_t lo, hi;
+    block_warp_range(a.n, blockIdx.x, gridDim.x, w, lo, hi);
+    cnt[w] = (int)(((hi - lo) * a.k + SR - 1) / SR);
+  }
+}
+
+// K3's edge body with no e' out: the step's agg, rematerialized.
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_agg(const EdgeArgs a) {
+  edge_fwd<false, Src::kGathered>(a);
+}
+
+// The node path's forward and backward, 16 nodes per warp.
+__global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args a) {
+  using S = NodeBwdSmem;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const u32 sb = smem_addr(smem);
+  for (int i = 0; i < 3; ++i)
+    stage_rows(sb + i * WEIGHT_BYTES, static_cast<const bf16*>(a.w[2 + i]), F, F);
+  const int64_t r0 = (int64_t)blockIdx.x * NB_ROWS + warp * SR;
+  const bf16* h = static_cast<const bf16*>(a.h);
+  auto tile = [&](int which, int w) {
+    return (u32)(S::kTiles + which * S::kTile + w * SLICE_BYTES);
+  };
+  enum { H = 0, AGGC, R2C, DY1C, DNFC };
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = (lane >> 4) + 2 * i, c = lane & 15;
+    const bool v = r0 + r < a.n;
+    cp_async16(sb + tile(H, warp) + swz(r, c), v ? h + (r0 + r) * F + c * 8 : h, v);
+  }
+  cp_commit();
+  float* vec = reinterpret_cast<float*>(smem + S::kVec);
+  for (int i = threadIdx.x; i < 4 * F; i += blockDim.x) vec[i] = a.vec[V_BN1 + i / F][i % F];
+  cp_wait<0>();
+  __syncthreads();
+  const float *bn1 = vec, *bn2 = vec + F, *s2 = vec + 2 * F;
+  const u32 wNh = sb, wNa = sb + WEIGHT_BYTES, wN2 = sb + 2 * WEIGHT_BYTES;
+
+  const bool vg = r0 + g < a.n, vg8 = r0 + g + 8 < a.n;
+  float own[4][2][2] = {};  // bn1, bn2, ln2 scale, ln2 bias
+  u32 ha[8][4], ga[8][4], ra[8][4];
+  load_a(ha, sb + tile(H, warp), lane);
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t;
+    const float2 x = vg ? *reinterpret_cast<const float2*>(a.agg + (r0 + g) * F + c)
+                        : make_float2(0.f, 0.f);
+    const float2 x8 = vg8 ? *reinterpret_cast<const float2*>(a.agg + (r0 + g + 8) * F + c)
+                          : make_float2(0.f, 0.f);
+    ga[nb >> 1][(nb & 1) * 2] = pack(x.x, x.y);
+    ga[nb >> 1][(nb & 1) * 2 + 1] = pack(x8.x, x8.y);
+    sts32(smem, tile(AGGC, warp) + swz_pair(g, c), frag_pair(ga, nb, 0));
+    sts32(smem, tile(AGGC, warp) + swz_pair(g + 8, c), frag_pair(ga, nb, 1));
+  }
+  float acc[16][4];
+  zero(acc);
+  gemm(acc, ha, wNh, lane);
+  gemm(acc, ga, wNa, lane);
+  to_frag(ra, acc, [&](float x, int nb, int j) { return fmaxf(x + bn1[nb * 8 + 2 * t + j], 0.f); });
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t;
+    sts32(smem, tile(R2C, warp) + swz_pair(g, c), frag_pair(ra, nb, 0));
+    sts32(smem, tile(R2C, warp) + swz_pair(g + 8, c), frag_pair(ra, nb, 1));
+  }
+  zero(acc);
+  gemm(acc, ra, wN2, lane);
+  add_bias(acc, bn2, t);
+  float inv0, inv1;
+  row_normalize(acc, inv0, inv1);  // acc = xhat2
+
+  // LN2 backward with gh: dy1 = inv (gh s - mean(gh s) - xhat mean(gh s xhat))
+  const bf16* gh = static_cast<const bf16*>(a.gh);
+  u32 ghp[16][2];
+  float p1[2] = {0.f, 0.f}, p2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t;
+    ghp[nb][0] = vg ? ldg32(gh + (r0 + g) * F + c) : 0u;
+    ghp[nb][1] = vg8 ? ldg32(gh + (r0 + g + 8) * F + c) : 0u;
+    const float2 d = unpack(ghp[nb][0]), d8 = unpack(ghp[nb][1]);
+    const float dv[4] = {d.x, d.y, d8.x, d8.y};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      colsum_add(own[2], dv[j] * acc[nb][j] + dv[2 + j] * acc[nb][2 + j], nb, j, g);
+      colsum_add(own[3], dv[j] + dv[2 + j], nb, j, g);
+#pragma unroll
+      for (int r8 = 0; r8 < 2; ++r8) {
+        const float dx = dv[2 * r8 + j] * s2[c + j];
+        p1[r8] += dx;
+        p2[r8] += dx * acc[nb][2 * r8 + j];
+      }
+    }
+  }
+  const float inv[2] = {inv0, inv1};
+  float m1[2], m2[2];
+#pragma unroll
+  for (int r8 = 0; r8 < 2; ++r8) {
+    m1[r8] = quad_sum(p1[r8]) * (1.f / F);
+    m2[r8] = quad_sum(p2[r8]) * (1.f / F);
+  }
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t;
+    const float2 d = unpack(ghp[nb][0]), d8 = unpack(ghp[nb][1]);
+    const float dv[4] = {d.x, d.y, d8.x, d8.y};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r8 = i >> 1, j = i & 1;
+      acc[nb][i] = inv[r8] * (dv[i] * s2[c + j] - m1[r8] - acc[nb][i] * m2[r8]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) colsum_add(own[1], acc[nb][j] + acc[nb][2 + j], nb, j, g);
+  }
+  u32 da[8][4];  // T(dy1), then T(dnf)
+  to_frag(da, acc, [](float x, int, int) { return x; });
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t;
+    sts32(smem, tile(DY1C, warp) + swz_pair(g, c), frag_pair(da, nb, 0));
+    sts32(smem, tile(DY1C, warp) + swz_pair(g + 8, c), frag_pair(da, nb, 1));
+  }
+  zero(acc);
+  gemm_t(acc, da, wN2, lane);
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {  // dnf = (T(dy1) @ W_n2^T) * (nf > 0)
+    const float2 r = unpack(frag_pair(ra, nb, 0)), r8 = unpack(frag_pair(ra, nb, 1));
+    acc[nb][0] = r.x > 0.f ? acc[nb][0] : 0.f;
+    acc[nb][1] = r.y > 0.f ? acc[nb][1] : 0.f;
+    acc[nb][2] = r8.x > 0.f ? acc[nb][2] : 0.f;
+    acc[nb][3] = r8.y > 0.f ? acc[nb][3] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) colsum_add(own[0], acc[nb][j] + acc[nb][2 + j], nb, j, g);
+  }
+  to_frag(da, acc, [](float x, int, int) { return x; });
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t;
+    sts32(smem, tile(DNFC, warp) + swz_pair(g, c), frag_pair(da, nb, 0));
+    sts32(smem, tile(DNFC, warp) + swz_pair(g + 8, c), frag_pair(da, nb, 1));
+  }
+  zero(acc);
+  gemm_t(acc, da, wNh, lane);  // dh = gh + T(dnf) @ W_nh^T
+  bf16* dh = static_cast<bf16*>(a.dh);
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t;
+    const float2 d = unpack(ghp[nb][0]), d8 = unpack(ghp[nb][1]);
+    if (vg)
+      *reinterpret_cast<u32*>(dh + (r0 + g) * F + c) = pack(d.x + acc[nb][0], d.y + acc[nb][1]);
+    if (vg8)
+      *reinterpret_cast<u32*>(dh + (r0 + g + 8) * F + c) =
+          pack(d8.x + acc[nb][2], d8.y + acc[nb][3]);
+  }
+  zero(acc);
+  gemm_t(acc, da, wNa, lane);  // dagg = T(dnf) @ W_na^T
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t;
+    if (vg)
+      *reinterpret_cast<float2*>(a.dagg + (r0 + g) * F + c) = make_float2(acc[nb][0], acc[nb][1]);
+    if (vg8)
+      *reinterpret_cast<float2*>(a.dagg + (r0 + g + 8) * F + c) =
+          make_float2(acc[nb][2], acc[nb][3]);
+  }
+  float* own_s = reinterpret_cast<float*>(smem + S::kOwn);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) store_own(own_s + (warp * 4 + v) * F, own[v], g, t);
+  __syncthreads();
+
+  // the block's weight gradients: warp w owns rows [32w, 32w + 32) of each
+  float* part = a.partials + (int64_t)blockIdx.x * P_NODE;
+  const int xs[3] = {H, AGGC, R2C}, ys[3] = {DNFC, DNFC, DY1C};  // dW_nh, dW_na, dW_n2
+#pragma unroll 1
+  for (int gi = 0; gi < 3; ++gi) {
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i0 = warp * 32 + hf * 16;
+      zero(acc);
+      for (int w = 0; w < NB_WARPS; ++w)
+        gemm_tn(acc, sb + tile(xs[gi], w), sb + tile(ys[gi], w), i0, lane);
+      float* dst = part + gi * F * F;
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        const int c = nb * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dst + (i0 + g) * F + c) = make_float2(acc[nb][0], acc[nb][1]);
+        *reinterpret_cast<float2*>(dst + (i0 + g + 8) * F + c) =
+            make_float2(acc[nb][2], acc[nb][3]);
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < 4 * F; i += blockDim.x) {  // warps in order
+    float sum = 0.f;
+    for (int w = 0; w < NB_WARPS; ++w) sum += own_s[w * 4 * F + i];
+    part[3 * F * F + i] = sum;
+  }
+}
+
+struct EdgeBwdASmem {
+  static constexpr int kVec = 2 * WEIGHT_BYTES;  // W_e, W2; then b1, b2, ln1 scale, ln1 bias
+  static constexpr int kRing = kVec + 4 * F * 4;
+  static constexpr int kStage = 2 * SLICE_BYTES;  // e (then T(r1)), hs (then T(dx1))
+  static constexpr int kGe = kRing + WARPS * 2 * kStage;
+  static constexpr int kBytes = kGe + WARPS * SLICE_BYTES;
+  static_assert(kBytes + WARPS * 4 <= kSmemMax, "edge kernel a shared memory");
+};
+
+// Rematerialization and the edge-path backward up to dfirst: dhs, dhr,
+// dW2 and the vector gradients b1, b2, ln1 scale, ln1 bias.
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) {
+  using S = EdgeBwdASmem;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int cnt[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const u32 sb = smem_addr(smem);
+  stage_rows(sb, static_cast<const bf16*>(a.w[0]), F, F);
+  stage_rows(sb + WEIGHT_BYTES, static_cast<const bf16*>(a.w[1]), F, F);
+  cp_commit();
+  float* vec = reinterpret_cast<float*>(smem + S::kVec);
+  for (int i = threadIdx.x; i < 4 * F; i += THREADS) vec[i] = a.vec[i / F][i % F];
+  if (threadIdx.x == 0) block_slices(a, cnt);
+  cp_wait<0>();
+  __syncthreads();
+  int iters = 0;
+  for (int w = 0; w < WARPS; ++w) iters = max(iters, cnt[w]);
+  const float *b1 = vec, *b2 = vec + F, *s1 = vec + 2 * F;
+  const u32 wE = sb, w2 = sb + WEIGHT_BYTES;
+
+  const int K = a.k;
+  int64_t rc0, rc1;
+  block_warp_range(a.n, blockIdx.x, gridDim.x, warp, rc0, rc1);
+  const int64_t r_lo = rc0 * K, r_hi = rc1 * K;
+  const int mine = cnt[warp];
+  const u32 ring = S::kRing + warp * 2 * S::kStage;
+  const u32 ge_slot = S::kGe + warp * SLICE_BYTES;
+  const bf16 *e = static_cast<const bf16*>(a.e), *hs = static_cast<const bf16*>(a.hs);
+  const bf16 *ge = static_cast<const bf16*>(a.ge), *hr = static_cast<const bf16*>(a.hr);
+
+  auto copy_slice = [&](u32 dst, const bf16* src, int64_t s0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = (lane >> 4) + 2 * i, c = lane & 15;
+      const bool v = s0 + r < r_hi;
+      cp_async16(sb + dst + swz(r, c), v ? src + (s0 + r) * F + c * 8 : src, v);
+    }
+  };
+  float m_next = 0.f;
+  auto issue = [&](int j) {
+    const int64_t s0 = r_lo + (int64_t)j * SR;
+    const u32 st = ring + (j & 1) * S::kStage;
+    copy_slice(st, e, s0);
+    copy_slice(st + SLICE_BYTES, hs, s0);
+    const int64_t rr = s0 + (lane & 15);
+    m_next = rr < r_hi ? a.mask[rr] : 0.f;
+    cp_commit();
+  };
+
+  float gw2[16][4];  // rows [16 warp, 16 warp + 16) of dW2, for the whole launch
+  zero(gw2);
+  float own[4][2][2] = {};  // b1, b2, ln1 scale, ln1 bias
+  int64_t cur = -1;         // the receiver whose dhr `dhr_own` holds
+  float dhr_own[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  bf16* dhr = static_cast<bf16*>(a.dhr);
+  auto flush = [&]() {
+    if (cur < 0) return;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<u32*>(dhr + cur * F + (g + 8 * hh) * 8 + 2 * t) =
+          pack(dhr_own[hh][0], dhr_own[hh][1]);
+  };
+
+  if (mine > 0) issue(0);
+  for (int j = 0; j < iters; ++j) {
+    const bool active = j < mine;
+    const int64_t s0 = r_lo + (int64_t)j * SR;
+    const u32 st = ring + (j & 1) * S::kStage, st_hs = st + SLICE_BYTES;
+    const float m_row = m_next;
+    u32 dxa[8][4];  // T(dx1), kept across the block's dW2 step
+    float acc[16][4];
+    if (active) {
+      copy_slice(ge_slot, ge, s0);
+      cp_commit();
+      const bool next = j + 1 < mine;
+      if (next) issue(j + 1);
+      if (next) cp_wait<2>(); else cp_wait<1>();
+      __syncwarp();
+
+      const bool vg = s0 + g < r_hi, vg8 = s0 + g + 8 < r_hi;
+      const int64_t ig = vg ? (s0 + g) / K : 0, ig8 = vg8 ? (s0 + g + 8) / K : 0;
+      const float mg = __shfl_sync(lbt::kFullMask, m_row, g);
+      const float mg8 = __shfl_sync(lbt::kFullMask, m_row, g + 8);
+      {  // first = e @ W_e + hs + hr + b1 -> T(relu(first)), into the e slot
+        u32 ea[8][4];
+        load_a(ea, sb + st, lane);
+        zero(acc);
+        gemm(acc, ea, wE, lane);
+      }
+      u32 ra[8][4];
+#pragma unroll
+      for (int kb = 0; kb < 8; ++kb) {
+        u32 h4[4];
+        ldsm(h4, sb + st_hs + swz(lane & 15, kb * 2 + (lane >> 4)));
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int nb = 2 * kb + hf, c = nb * 8 + 2 * t;
+          const float2 s_g = unpack(h4[2 * hf]), s_g8 = unpack(h4[2 * hf + 1]);
+          const float2 r_g = unpack(vg ? ldg32(hr + ig * F + c) : 0u);
+          const float2 r_g8 = unpack(vg8 ? ldg32(hr + ig8 * F + c) : 0u);
+          ra[kb][2 * hf] = vg ? pack(fmaxf(acc[nb][0] + s_g.x + r_g.x + b1[c], 0.f),
+                                     fmaxf(acc[nb][1] + s_g.y + r_g.y + b1[c + 1], 0.f))
+                              : 0u;
+          ra[kb][2 * hf + 1] = vg8 ? pack(fmaxf(acc[nb][2] + s_g8.x + r_g8.x + b1[c], 0.f),
+                                          fmaxf(acc[nb][3] + s_g8.y + r_g8.y + b1[c + 1], 0.f))
+                                   : 0u;
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        const int c = nb * 8 + 2 * t;
+        sts32(smem, st + swz_pair(g, c), frag_pair(ra, nb, 0));
+        sts32(smem, st + swz_pair(g + 8, c), frag_pair(ra, nb, 1));
+      }
+      zero(acc);
+      gemm(acc, ra, w2, lane);
+      add_bias(acc, b2, t);
+      float inv[2];
+      row_normalize(acc, inv[0], inv[1]);  // acc = xhat1
+      if (next) cp_wait<1>(); else cp_wait<0>();  // this slice's ge
+      __syncwarp();
+
+      // LN1 backward: dm = ge + dagg * mask; dx1 = inv (dm s - mean(dm s) -
+      // xhat mean(dm s xhat)); dm is formed twice rather than kept
+      auto dm_of = [&](int nb, float (&dv)[4]) {
+        const int c = nb * 8 + 2 * t;
+        const float2 q = unpack(lds32(smem, ge_slot + swz_pair(g, c)));
+        const float2 q8 = unpack(lds32(smem, ge_slot + swz_pair(g + 8, c)));
+        const float2 d = vg ? *reinterpret_cast<const float2*>(a.dagg + ig * F + c)
+                            : make_float2(0.f, 0.f);
+        const float2 d8 = vg8 ? *reinterpret_cast<const float2*>(a.dagg + ig8 * F + c)
+                              : make_float2(0.f, 0.f);
+        dv[0] = q.x + d.x * mg;
+        dv[1] = q.y + d.y * mg;
+        dv[2] = q8.x + d8.x * mg8;
+        dv[3] = q8.y + d8.y * mg8;
+      };
+      float p1[2] = {0.f, 0.f}, p2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        const int c = nb * 8 + 2 * t;
+        float dv[4];
+        dm_of(nb, dv);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          colsum_add(own[2], dv[jj] * acc[nb][jj] + dv[2 + jj] * acc[nb][2 + jj], nb, jj, g);
+          colsum_add(own[3], dv[jj] + dv[2 + jj], nb, jj, g);
+#pragma unroll
+          for (int r8 = 0; r8 < 2; ++r8) {
+            const float dx = dv[2 * r8 + jj] * s1[c + jj];
+            p1[r8] += dx;
+            p2[r8] += dx * acc[nb][2 * r8 + jj];
+          }
+        }
+      }
+      float m1[2], m2[2];
+#pragma unroll
+      for (int r8 = 0; r8 < 2; ++r8) {
+        m1[r8] = quad_sum(p1[r8]) * (1.f / F);
+        m2[r8] = quad_sum(p2[r8]) * (1.f / F);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {
+        const int c = nb * 8 + 2 * t;
+        float dv[4];
+        dm_of(nb, dv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r8 = i >> 1, jj = i & 1;
+          acc[nb][i] = inv[r8] * (dv[i] * s1[c + jj] - m1[r8] - acc[nb][i] * m2[r8]);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) colsum_add(own[1], acc[nb][jj] + acc[nb][2 + jj], nb, jj, g);
+      }
+      to_frag(dxa, acc, [](float x, int, int) { return x; });
+      if (!vg || !vg8) {
+#pragma unroll
+        for (int kb = 0; kb < 8; ++kb) {
+          if (!vg) dxa[kb][0] = dxa[kb][2] = 0u;
+          if (!vg8) dxa[kb][1] = dxa[kb][3] = 0u;
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {  // T(dx1) into the hs slot
+        const int c = nb * 8 + 2 * t;
+        sts32(smem, st_hs + swz_pair(g, c), frag_pair(dxa, nb, 0));
+        sts32(smem, st_hs + swz_pair(g + 8, c), frag_pair(dxa, nb, 1));
+      }
+    }
+    __syncthreads();
+    // dW2 += T(r1)^T T(dx1) over the block's slices, in warp order
+    for (int w = 0; w < WARPS; ++w)
+      if (j < cnt[w]) {
+        const u32 sw = S::kRing + w * 2 * S::kStage + (j & 1) * S::kStage;
+        gemm_tn(gw2, sb + sw, sb + sw + SLICE_BYTES, warp * 16, lane);
+      }
+    __syncthreads();
+    if (!active) continue;
+
+    // dfirst = (T(dx1) @ W2^T) * (first > 0)
+    zero(acc);
+    gemm_t(acc, dxa, w2, lane);
+    const bool vg = s0 + g < r_hi, vg8 = s0 + g + 8 < r_hi;
+    const int64_t ig = vg ? (s0 + g) / K : 0, ig8 = vg8 ? (s0 + g + 8) / K : 0;
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+      const int c = nb * 8 + 2 * t;
+      const float2 r = unpack(lds32(smem, st + swz_pair(g, c)));
+      const float2 r8 = unpack(lds32(smem, st + swz_pair(g + 8, c)));
+      acc[nb][0] = r.x > 0.f ? acc[nb][0] : 0.f;
+      acc[nb][1] = r.y > 0.f ? acc[nb][1] : 0.f;
+      acc[nb][2] = r8.x > 0.f ? acc[nb][2] : 0.f;
+      acc[nb][3] = r8.y > 0.f ? acc[nb][3] : 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) colsum_add(own[0], acc[nb][jj] + acc[nb][2 + jj], nb, jj, g);
+      sts32(smem, st + swz_pair(g, c), pack(acc[nb][0], acc[nb][1]));
+      sts32(smem, st + swz_pair(g + 8, c), pack(acc[nb][2], acc[nb][3]));
+    }
+    __syncwarp();
+    store_slice(static_cast<bf16*>(a.dhs), s0, r_hi, smem, st, lane);
+    __syncwarp();
+    // dhr: dfirst summed per receiver, in row order
+    const int64_t first = s0 / K, last = ((s0 + SR < r_hi ? s0 + SR : r_hi) - 1) / K;
+    for (int64_t i = first; i <= last; ++i) {
+      if (i != cur) {
+        flush();
+        cur = i;
+        dhr_own[0][0] = dhr_own[0][1] = dhr_own[1][0] = dhr_own[1][1] = 0.f;
+      }
+      const bool in_g = vg && ig == i, in_g8 = vg8 && ig8 == i;
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          colsum_add(dhr_own, (in_g ? acc[nb][jj] : 0.f) + (in_g8 ? acc[nb][2 + jj] : 0.f), nb,
+                     jj, g);
+    }
+  }
+  flush();
+
+  float* part = a.partials + (int64_t)blockIdx.x * P_EA;
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t, i0 = warp * 16;
+    *reinterpret_cast<float2*>(part + (i0 + g) * F + c) = make_float2(gw2[nb][0], gw2[nb][1]);
+    *reinterpret_cast<float2*>(part + (i0 + g + 8) * F + c) = make_float2(gw2[nb][2], gw2[nb][3]);
+  }
+  __syncthreads();  // the rings are free: the warps' vector sums go there
+  float* own_s = reinterpret_cast<float*>(smem + S::kRing);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) store_own(own_s + (warp * 4 + v) * F, own[v], g, t);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 4 * F; i += THREADS) {
+    float sum = 0.f;
+    for (int w = 0; w < WARPS; ++w) sum += own_s[w * 4 * F + i];
+    part[F * F + i] = sum;
+  }
+}
+
+struct EdgeBwdBSmem {
+  static constexpr int kRing = WEIGHT_BYTES;        // after W_e
+  static constexpr int kStage = 3 * SLICE_BYTES;    // e, dhs, ge (then de)
+  static constexpr int kBytes = kRing + WARPS * 2 * kStage;
+  static_assert(kBytes + WARPS * 4 <= kSmemMax, "edge kernel b shared memory");
+};
+
+// de = ge + dhs @ W_e^T and dW_e = e^T dhs.
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_b(const Args a) {
+  using S = EdgeBwdBSmem;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int cnt[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const u32 sb = smem_addr(smem);
+  stage_rows(sb, static_cast<const bf16*>(a.w[0]), F, F);
+  cp_commit();
+  if (threadIdx.x == 0) block_slices(a, cnt);
+  cp_wait<0>();
+  __syncthreads();
+  int iters = 0;
+  for (int w = 0; w < WARPS; ++w) iters = max(iters, cnt[w]);
+
+  int64_t rc0, rc1;
+  block_warp_range(a.n, blockIdx.x, gridDim.x, warp, rc0, rc1);
+  const int64_t r_lo = rc0 * a.k, r_hi = rc1 * a.k;
+  const int mine = cnt[warp];
+  const u32 ring = S::kRing + warp * 2 * S::kStage;
+  const bf16 *e = static_cast<const bf16*>(a.e), *ge = static_cast<const bf16*>(a.ge);
+  const bf16* dhs = static_cast<const bf16*>(a.dhs);
+  auto issue = [&](int j) {
+    const int64_t s0 = r_lo + (int64_t)j * SR;
+    const u32 st = ring + (j & 1) * S::kStage;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = (lane >> 4) + 2 * i, c = lane & 15;
+      const bool v = s0 + r < r_hi;
+      const int64_t at = v ? (s0 + r) * F + c * 8 : 0;
+      cp_async16(sb + st + swz(r, c), e + at, v);
+      cp_async16(sb + st + SLICE_BYTES + swz(r, c), dhs + at, v);
+      cp_async16(sb + st + 2 * SLICE_BYTES + swz(r, c), ge + at, v);
+    }
+    cp_commit();
+  };
+
+  float gwe[16][4];  // rows [16 warp, 16 warp + 16) of dW_e, for the whole launch
+  zero(gwe);
+  if (mine > 0) issue(0);
+  for (int j = 0; j < iters; ++j) {
+    const bool active = j < mine;
+    const int64_t s0 = r_lo + (int64_t)j * SR;
+    const u32 st = ring + (j & 1) * S::kStage, st_ge = st + 2 * SLICE_BYTES;
+    if (active) {
+      if (j + 1 < mine) {
+        issue(j + 1);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncwarp();
+      u32 da[8][4];
+      load_a(da, sb + st + SLICE_BYTES, lane);
+      float acc[16][4];
+      zero(acc);
+      gemm_t(acc, da, sb, lane);
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb) {  // de = T(ge + T(dfirst) @ W_e^T), into the ge slot
+        const int c = nb * 8 + 2 * t;
+        const float2 q = unpack(lds32(smem, st_ge + swz_pair(g, c)));
+        const float2 q8 = unpack(lds32(smem, st_ge + swz_pair(g + 8, c)));
+        sts32(smem, st_ge + swz_pair(g, c), pack(q.x + acc[nb][0], q.y + acc[nb][1]));
+        sts32(smem, st_ge + swz_pair(g + 8, c), pack(q8.x + acc[nb][2], q8.y + acc[nb][3]));
+      }
+      __syncwarp();
+      store_slice(static_cast<bf16*>(a.de), s0, r_hi, smem, st_ge, lane);
+    }
+    __syncthreads();
+    for (int w = 0; w < WARPS; ++w)
+      if (j < cnt[w]) {
+        const u32 sw = S::kRing + w * 2 * S::kStage + (j & 1) * S::kStage;
+        gemm_tn(gwe, sb + sw, sb + sw + SLICE_BYTES, warp * 16, lane);
+      }
+    __syncthreads();
+  }
+  float* part = a.partials + (int64_t)blockIdx.x * P_EB;
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    const int c = nb * 8 + 2 * t, i0 = warp * 16;
+    *reinterpret_cast<float2*>(part + (i0 + g) * F + c) = make_float2(gwe[nb][0], gwe[nb][1]);
+    *reinterpret_cast<float2*>(part + (i0 + g + 8) * F + c) = make_float2(gwe[nb][2], gwe[nb][3]);
+  }
+}
+
+// out[seg.out + j] = sum over blocks b, in order, of seg.src[b * seg.stride + j]
+struct Seg {
+  const float* src;
+  int blocks, stride, len, out;
+};
+struct Segs {
+  Seg s[5];
+  int count;
+};
+
+__global__ void fused_mp_bwd_reduce(const Segs segs, float* out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= per_block) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partials[(int64_t)b * per_block + j];
-  out[j] = s;
+  for (int i = 0; i < segs.count; ++i) {
+    const Seg& sg = segs.s[i];
+    if (j < sg.out || j >= sg.out + sg.len) continue;
+    float s = 0.f;
+    for (int b = 0; b < sg.blocks; ++b) s += sg.src[(int64_t)b * sg.stride + (j - sg.out)];
+    out[j] = s;
+  }
 }
 
 template <typename T>
@@ -527,16 +1090,56 @@ int launch(const Args& a, int grid, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+int node_blocks(int n) { return lbt::ceil_div(n, NB_ROWS); }
+
+// the three partial buffers of the bf16 instance, in one allocation
+void bf16_partials(float* base, int grid, int n, float** node, float** ea, float** eb) {
+  *node = base;
+  *ea = *node + (int64_t)node_blocks(n) * P_NODE;
+  *eb = *ea + (int64_t)grid * P_EA;
+}
+
+int run_bf16(Args a, int grid, cudaStream_t stream) {
+  float *p_node, *p_ea, *p_eb;
+  bf16_partials(a.partials, grid, a.n, &p_node, &p_ea, &p_eb);
+  EdgeArgs f{};
+  f.e = a.e;
+  f.hs = static_cast<const bf16*>(a.hs);
+  f.hr = static_cast<const bf16*>(a.hr);
+  f.mask = a.mask;
+  f.w_e = static_cast<const bf16*>(a.w[0]);
+  f.w2 = static_cast<const bf16*>(a.w[1]);
+  for (int i = 0; i < 4; ++i) f.vec[i] = a.vec[i];
+  f.e_out = nullptr;
+  f.agg = a.agg;
+  f.n = a.n;
+  f.k = a.k;
+  int err = launch_kernel(fused_mp_bwd_agg, grid, THREADS, EdgeSmem<false>::kBytes, f, stream);
+  if (err != 0) return err;
+  a.partials = p_node;
+  err = launch_kernel(fused_mp_bwd_node, node_blocks(a.n), NB_WARPS * 32, NodeBwdSmem::kBytes, a,
+                      stream);
+  if (err != 0) return err;
+  a.partials = p_ea;
+  err = launch_kernel(fused_mp_bwd_edge_a, grid, THREADS, EdgeBwdASmem::kBytes, a, stream);
+  if (err != 0) return err;
+  a.partials = p_eb;
+  return launch_kernel(fused_mp_bwd_edge_b, grid, THREADS, EdgeBwdBSmem::kBytes, a, stream);
+}
+
 }  // namespace
 
 // ptrs (host array of device pointers), in order:
 //   0 e, 1 hs_gath, 2 hr, 3 h, 4 mask, 5 ge, 6 gh, 7 de, 8 dhs, 9 dhr, 10 dh,
 //   11 W_e, 12 W2, 13 W_nh, 14 W_na, 15 W_n2,
 //   16 b1, 17 b2, 18 ln1_scale, 19 ln1_bias, 20 bn1, 21 bn2, 22 ln2_scale,
-//   23 ln2_bias, 24 partials ((grid, 5 F^2 + 8 F) float32).
+//   23 ln2_bias, 24 partials (float32: (grid, 5 F^2 + 8 F); bf16:
+//   ceil(n / 64) x (3 F^2 + 4 F) for the node kernel, then grid x (F^2 +
+//   4 F) for edge kernel a and grid x F^2 for edge kernel b), 25 scratch (bf16: (2 n, F)
+//   float32, agg then dagg).
 LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int is_bf16, int grid,
                                 cudaStream_t stream) {
-  if (n < 1 || k < 1 || grid < 1 || grid > lbt::ceil_div(n, TR))
+  if (n < 1 || k < 1 || grid < 1 || (!is_bf16 && grid > lbt::ceil_div(n, TR)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.e = ptrs[0];
@@ -553,15 +1156,36 @@ LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int is_bf
   for (int i = 0; i < 5; ++i) a.w[i] = ptrs[11 + i];
   for (int i = 0; i < 8; ++i) a.vec[i] = static_cast<const float*>(ptrs[16 + i]);
   a.partials = static_cast<float*>(const_cast<void*>(ptrs[24]));
+  a.agg = nullptr;
+  a.dagg = nullptr;
   a.n = n;
   a.k = k;
-  return is_bf16 ? launch<bf16>(a, grid, stream) : launch<float>(a, grid, stream);
+  if (!is_bf16) return launch<float>(a, grid, stream);
+  a.agg = static_cast<float*>(const_cast<void*>(ptrs[25]));
+  a.dagg = a.agg + (int64_t)n * F;
+  return run_bf16(a, grid, stream);
 }
 
-LBT_EXPORT int lbt_fused_mp_bwd_reduce(const float* partials, float* out, int blocks,
-                                       int per_block, cudaStream_t stream) {
-  if (blocks < 1 || per_block != GRADS) return (int)cudaErrorInvalidValue;
-  reduce_partials<<<lbt::ceil_div(per_block, 256), 256, 0, stream>>>(partials, out, blocks,
-                                                                      per_block);
+// grads (5 F^2 + 8 F, the order of Args::w then Args::vec) from the
+// partials of lbt_fused_mp_bwd, each summed over its blocks in block order
+LBT_EXPORT int lbt_fused_mp_bwd_reduce(const float* partials, float* out, int n, int is_bf16,
+                                       int grid, cudaStream_t stream) {
+  if (n < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  Segs segs{};
+  if (!is_bf16) {
+    segs.s[0] = Seg{partials, grid, GRADS, GRADS, 0};
+    segs.count = 1;
+  } else {
+    float *p_node, *p_ea, *p_eb;
+    bf16_partials(const_cast<float*>(partials), grid, n, &p_node, &p_ea, &p_eb);
+    const int nb = node_blocks(n);
+    segs.s[0] = Seg{p_eb, grid, P_EB, F * F, G_WE * F * F};
+    segs.s[1] = Seg{p_ea, grid, P_EA, F * F, G_W2 * F * F};
+    segs.s[2] = Seg{p_node, nb, P_NODE, 3 * F * F, G_WNH * F * F};
+    segs.s[3] = Seg{p_ea + F * F, grid, P_EA, 4 * F, 5 * F * F + V_B1 * F};
+    segs.s[4] = Seg{p_node + 3 * F * F, nb, P_NODE, 4 * F, 5 * F * F + V_BN1 * F};
+    segs.count = 5;
+  }
+  fused_mp_bwd_reduce<<<lbt::ceil_div(GRADS, 256), 256, 0, stream>>>(segs, out);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-_HEADERS = ("common.cuh", "mp_common.cuh")
+_HEADERS = ("common.cuh", "mp_common.cuh", "mp_warp.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
@@ -135,14 +135,19 @@ class Kernel:
     def source_path(self) -> str:
         return os.path.join("lagrangebench_torch", "csrc", f"{self.source}.cu")
 
-    def __call__(self, *args) -> None:
-        """Launch through the C entry; raises on a nonzero CUDA error."""
+    def __call__(self, *args, device) -> None:
+        """Launch through the C entry on ``device``: with that card current
+        and on its current stream, passed as the entry's last argument.
+        Raises on a nonzero CUDA error."""
+        import torch
+
         if self._fn is None:
             fn = getattr(load(self.source), self.symbol)
             fn.restype = ctypes.c_int
             fn.argtypes = self.argtypes
             self._fn = fn
-        err = self._fn(*args)
+        with torch.cuda.device(device):
+            err = self._fn(*args, stream(device))
         if err != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError {err}"
@@ -154,7 +159,9 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
+def stream(device) -> ctypes.c_void_p:
+    """The current stream of ``device`` (a CUDA ``torch.device``), not of
+    the current card."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -39,11 +39,12 @@ cell-sorted rows.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from .build import Kernel, stream
+from .build import Kernel
 
 PARAM_NAMES = (
     "w_s", "w_r",  # node-level sender/receiver projections (applied outside)
@@ -58,7 +59,7 @@ _KERNEL_VECTORS = ("b1", "b2", "ln1_scale", "ln1_bias", "bn1", "bn2",
                    "ln2_scale", "ln2_bias")
 LATENT = 128  # the kernel's compiled width
 
-_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
 FUSED_MP = Kernel(
     "fused_mp", "fused_mp", "lbt_fused_mp", _ARGTYPES,
     replaces="lagrangebench_tpu/ops/fused_mp.py:177",
@@ -67,6 +68,45 @@ FUSED_MP_ENC = Kernel(
     "fused_mp_enc", "fused_mp", "lbt_fused_mp", _ARGTYPES,
     replaces="lagrangebench_tpu/ops/fused_mp.py:177",
 )
+
+
+# the bf16 kernels: warps per block, rows per warp slice, nodes per block of
+# the backward's node kernel
+_WARPS, _SLICE, _NODE_BWD_ROWS = 8, 16, 64
+_N_PTRS = 29  # the forward entries' pointer array (csrc/fused_mp.cu)
+
+
+def mp_grids(n: int, k: int, sms: int) -> Tuple[int, int]:
+    """(edge, node) grids of the bf16 kernels for n receivers of k edge rows
+    on a card of ``sms`` SMs: the persistent edge kernel takes one block per
+    SM, fewer when its 8 warps would not get a 16-row slice each; the node
+    kernel one block per 8 slices of 16 nodes, at most one per SM."""
+    edge = -(-n * k // (_SLICE * _WARPS))
+    node = -(-n // (_SLICE * _WARPS))
+    return max(1, min(sms, edge)), max(1, min(sms, node))
+
+
+def bwd_partials_floats(n: int, grid: int, bf16: bool, f: int = LATENT) -> int:
+    """Floats of K4's per-block partials: float32, ``grid`` blocks of the 13
+    gradients; bf16, the node kernel's blocks (64 nodes each) of the three
+    node matrices and four node vectors, then ``grid`` blocks of dW2 and the
+    four edge vectors, then ``grid`` blocks of dW_e."""
+    if not bf16:
+        return grid * (5 * f * f + 8 * f)
+    return -(-n // _NODE_BWD_ROWS) * (3 * f * f + 4 * f) + grid * (2 * f * f + 4 * f)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device: torch.device) -> int:
+    return _sms_of(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def _grid_array(device: torch.device, n: int, k: int):
+    return (ctypes.c_int * 2)(*mp_grids(n, k, _sms(device)))
 
 
 def _acc_dtype(cdt: torch.dtype) -> torch.dtype:
@@ -184,13 +224,22 @@ def gns_mp_step(
         ]
     else:
         fe = 0
+    agg = _agg_scratch(n, cdt, h.device)
     ptrs = [t.data_ptr() for t in tensors + [e_out, h_out] + params]
-    ptrs += [0] * (26 - len(ptrs))
-    arr = (ctypes.c_void_p * 26)(*ptrs)
+    ptrs += [0] * (28 - len(ptrs)) + [agg.data_ptr() if agg is not None else 0]
+    arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     kernel = FUSED_MP_ENC if enc is not None else FUSED_MP
-    kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, f,
-           int(cdt == torch.bfloat16), int(enc is not None), stream())
+    kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, f, int(cdt == torch.bfloat16),
+           int(enc is not None), _grid_array(h.device, n, k), device=h.device)
     return e_out, h_out
+
+
+def _agg_scratch(n: int, cdt: torch.dtype, device) -> Optional[torch.Tensor]:
+    """The bf16 kernels' float32 (n, F) agg, handed from the edge kernel to
+    the node kernel; the float32 instance needs none."""
+    if cdt != torch.bfloat16:
+        return None
+    return torch.empty((n, LATENT), dtype=torch.float32, device=device)
 
 
 def _checked(t: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
@@ -234,10 +283,10 @@ FUSED_MP_BWD = Kernel(
 )
 _BWD_REDUCE = Kernel(
     "fused_mp_bwd_reduce", "fused_mp_bwd", "lbt_fused_mp_bwd_reduce",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     replaces="lagrangebench_tpu/ops/fused_mp.py:443",
 )
-_BWD_TILE = 16  # receivers per tile of the backward kernel
+_BWD_TILE = 16  # receivers per tile of the float32 backward kernel
 
 
 def _ln_bwd(dy, xhat, inv, scale):
@@ -361,9 +410,9 @@ def gns_mp_step_bwd(
     On CUDA the compute dtype (of e, hs_gath, hr_proj, h, ge, gh) is
     bfloat16 or float32, the latent width 128, and ``p`` is in the kernel's
     layout (``kernel_params``). The weight gradients are summed without
-    atomics: each block of a persistent grid adds its receiver tiles into
-    its own float32 partials, and a second launch sums the partials in
-    block order, so two calls on the same inputs give the same bits.
+    atomics: each block adds its rows into its own float32 partials, once
+    per launch, and a last launch sums the partials in block order, so two
+    calls on the same inputs give the same bits.
     """
     if not e.is_cuda:
         return gns_mp_step_bwd_plain(e, hs_gath, hr_proj, h, mask, p, ge, gh)
@@ -390,18 +439,19 @@ def gns_mp_step_bwd(
     dh = torch.empty_like(h)
     params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
     params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
-    tiles = -(-n // _BWD_TILE)
-    sms = torch.cuda.get_device_properties(e.device).multi_processor_count
-    grid = min(tiles, sms)
+    bf16 = cdt == torch.bfloat16
+    sms = _sms(e.device)
+    grid = mp_grids(n, k, sms)[0] if bf16 else min(-(-n // _BWD_TILE), sms)
     per_block = len(_KERNEL_WEIGHTS) * f * f + len(_KERNEL_VECTORS) * f
-    partials = torch.empty((grid, per_block), dtype=torch.float32, device=e.device)
+    partials = torch.empty((bwd_partials_floats(n, grid, bf16, f),), dtype=torch.float32,
+                           device=e.device)
+    scratch = torch.empty((2 * n if bf16 else 1, f), dtype=torch.float32, device=e.device)
     grads = torch.empty((per_block,), dtype=torch.float32, device=e.device)
-    ptrs = [t.data_ptr() for t in tensors + [de, dhs, dhr, dh] + params + [partials]]
+    ptrs = [t.data_ptr() for t in tensors + [de, dhs, dhr, dh] + params + [partials, scratch]]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, int(cdt == torch.bfloat16),
-                 grid, stream())
+    FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, int(bf16), grid, device=e.device)
     _BWD_REDUCE(ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(grads.data_ptr()),
-                grid, per_block, stream())
+                n, int(bf16), grid, device=e.device)
     dp, at = {}, 0
     for name in _BWD_GRAD_SLOTS:
         size = f * f if name in _KERNEL_WEIGHTS else f
@@ -484,7 +534,7 @@ def gns_mp_step_autograd(
 # K8: the fused step in column-slot order
 # ---------------------------------------------------------------------------
 
-_SLOT_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SLOT_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
 FUSED_MP_SLOT = Kernel(
     "fused_mp_slot", "fused_mp", "lbt_fused_mp_slot", _SLOT_ARGTYPES,
     replaces="lagrangebench_tpu/ops/fused_mp.py:708",
@@ -601,11 +651,13 @@ def gns_mp_step_slot(
         ]
     ptrs = [t.data_ptr() for t in (e, hs_ext, hr, h)] + [0]  # slot 4 (mask) unused
     ptrs += [e_out.data_ptr(), h_out.data_ptr()] + [t.data_ptr() for t in params]
+    agg = _agg_scratch(n, cdt, h.device)
     ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), bases_ext.data_ptr()]
-    arr = (ctypes.c_void_p * 28)(*ptrs)
+    ptrs += [agg.data_ptr() if agg is not None else 0]
+    arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     kernel = FUSED_MP_SLOT_ENC if enc is not None else FUSED_MP_SLOT
     kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, f, int(cdt == torch.bfloat16),
-           int(enc is not None), c, s, stream())
+           int(enc is not None), c, s, _grid_array(h.device, n, k), device=h.device)
     return e_out, h_out
 
 
@@ -673,7 +725,7 @@ def gns_mp_step_slot_autograd(e, cand, bases, hs_ext, hr, h, p, enc=None):
 # ---------------------------------------------------------------------------
 
 WINDOW_TILE, WINDOW_SUB = 128, 32  # receiver rows per tile and per sub-tile
-_WINDOW_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_WINDOW_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
 FUSED_MP_WINDOW = Kernel(
     "fused_mp_window", "fused_mp", "lbt_fused_mp_window", _WINDOW_ARGTYPES,
     replaces="scripts/experiments/window_select.py:221",
@@ -757,8 +809,10 @@ def gns_mp_step_window(
     params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
     ptrs = [x.data_ptr() for x in (e, hs_ext, hr, h)] + [0]  # slot 4 (mask) unused
     ptrs += [e_out.data_ptr(), h_out.data_ptr()] + [x.data_ptr() for x in params]
+    agg = _agg_scratch(n, cdt, h.device)
     ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), w0s.data_ptr()]
-    arr = (ctypes.c_void_p * 28)(*ptrs)
+    ptrs += [agg.data_ptr() if agg is not None else 0]
+    arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     FUSED_MP_WINDOW(ctypes.cast(arr, ctypes.c_void_p), n, k, f, int(cdt == torch.bfloat16),
-                    t, sub, int(wsub), stream())
+                    t, sub, int(wsub), _grid_array(h.device, n, k), device=h.device)
     return e_out, h_out

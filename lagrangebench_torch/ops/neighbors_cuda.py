@@ -17,7 +17,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from .build import Kernel, ptr, stream
+from .build import Kernel, ptr
 
 BINNING = Kernel(
     "binning", "binning", "lbt_binning",
@@ -109,7 +109,7 @@ def binning(cid: torch.Tensor, num_cells: int, cap: int):
     tile_counts = torch.zeros(n_tiles * num_cells, dtype=torch.int32, device=cid.device)
     max_occ = torch.zeros(1, dtype=torch.int32, device=cid.device)
     BINNING(ptr(cid), m, num_cells, cap, ptr(slots), ptr(tile_counts),
-            ptr(max_occ), stream())
+            ptr(max_occ), device=cid.device)
     return slots, max_occ
 
 
@@ -242,7 +242,8 @@ def neighbor_scan(
     cutoff2, box_c, inv_c, pbc_c = consts
     NEIGHBOR_SCAN(
         ptr(pos), ptr(idx), ptr(bases), ptr(out), ptr(row_max),
-        q, n_cols, cap, s, dim, k_cap, n, chunk, cutoff2, box_c, inv_c, pbc_c, stream(),
+        q, n_cols, cap, s, dim, k_cap, n, chunk, cutoff2, box_c, inv_c, pbc_c,
+        device=pos.device,
     )
     return out, row_max
 
@@ -311,7 +312,7 @@ def neighbor_scan_geometry(pos, idx, bases, *, n_cols, k_cap, n, cutoff, box, pb
     NEIGHBOR_SCAN_GEOMETRY(
         _EMIT_GEOMETRY, ptr(pos), ptr(idx), ptr(bases), ptr(out), ptr(row_max), ptr(geom),
         None, q, n_cols, cap, s, dim, k_cap, n, chunk, cutoff2, _inv_cutoff(cutoff),
-        box_c, inv_c, pbc_c, stream(),
+        box_c, inv_c, pbc_c, device=pos.device,
     )
     return out, geom, row_max
 
@@ -365,6 +366,6 @@ def slot_scan(pos, idx, bases, *, n_cols, k_cap, n, cutoff, box, pbc):
     SLOT_SCAN(
         _EMIT_SLOT, ptr(pos), ptr(idx), ptr(bases), ptr(cand), ptr(row_max), ptr(rel_disp),
         ptr(rel_dist), n_cols + 1, n_cols, cap, s, dim, k_cap, n, chunk, cutoff2,
-        _inv_cutoff(cutoff), box_c, inv_c, pbc_c, stream(),
+        _inv_cutoff(cutoff), box_c, inv_c, pbc_c, device=pos.device,
     )
     return cand, rel_disp, rel_dist, row_max[:n_cols]

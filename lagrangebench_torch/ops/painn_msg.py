@@ -42,7 +42,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from .build import Kernel, stream
+from .build import Kernel
 
 HIDDEN = 128  # the kernels' compiled channel width
 N_RBF = 20  # K5's compiled radial-basis width (``build_painn``'s 20)
@@ -194,7 +194,7 @@ def painn_message_kernel(g: torch.Tensor, wij: torch.Tensor, neg_dir: torch.Tens
     ds = torch.empty((n, h), dtype=torch.float32, device=g.device)
     dv = torch.empty((n, dim * h), dtype=torch.float32, device=g.device)
     PAINN_MSG(*(ctypes.c_void_p(t.data_ptr()) for t in (g, wij, neg_dir, ds, dv)),
-              n, k, h, dim, int(cdt == torch.bfloat16), stream())
+              n, k, h, dim, int(cdt == torch.bfloat16), device=g.device)
     return ds, dv
 
 
@@ -242,7 +242,7 @@ def painn_layer_kernel(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor
     ptrs = [t.data_ptr() for t in tensors + [s_out, v_out]]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     PAINN_LAYER(ctypes.cast(arr, ctypes.c_void_p), n, k, h, r, dim,
-                int(cdt == torch.bfloat16), stream())
+                int(cdt == torch.bfloat16), device=s_out.device)
     return s_out, v_out
 
 

@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from .build import Kernel, stream
+from .build import Kernel
 
 ROW_GATHER = Kernel(
     "row_gather", "row_gather", "lbt_row_gather",
@@ -82,5 +82,5 @@ def row_gather(h: torch.Tensor, idx: torch.Tensor, *, transposed: bool = False,
     out = torch.empty(shape, dtype=h.dtype, device=h.device)
     ROW_GATHER(ctypes.c_void_p(h.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
                ctypes.c_void_p(out.data_ptr()), n, r, k, f, int(transposed), reps,
-               int(h.dtype == torch.bfloat16), stream())
+               int(h.dtype == torch.bfloat16), device=h.device)
     return out

@@ -2,7 +2,7 @@
 
 Counterpart of ``lagrangebench_tpu/runner.py`` on one device. The device
 comes from ``cfg.gpu`` as in the reference: None means ``cuda``, -1 the CPU,
-k ``cuda:k``. ``mode=train`` and ``mode=all`` train with ``Trainer`` into
+k ``cuda:k``, which is made the current card before anything is built. ``mode=train`` and ``mode=all`` train with ``Trainer`` into
 ``<logging.ckp_dir>/<run_name>`` (``config.yaml``, ``params.npz``,
 ``opt_state.npz``, ``best/``); ``mode=infer`` loads ``<load_ckp>/best`` (or
 ``load_ckp`` itself), re-laid out for the fused processor where the config
@@ -15,7 +15,8 @@ settings raise ValueError saying why).
 
 Not ported (each raises NotImplementedError naming its ROADMAP.md §1 item):
 data or spatial parallelism over several devices, the import of the
-reference's Haiku checkpoints, and the sparse neighbor format.
+reference's Haiku checkpoints, the sparse neighbor format and the profiler
+hook (``logging.profile_dir``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from .defaults import check_cfg
 from .evaluate import averaged_metrics, infer
 from .models import ensure_fused_params, setup_model
 from .train import Trainer
+from .train.trainer import check_profile_dir
 
 
 def device_from_gpu(gpu: Optional[int]) -> torch.device:
@@ -107,7 +109,10 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
     """
     check_cfg(cfg)
     _check_ported(cfg)
+    check_profile_dir(cfg.logging)
     device = device_from_gpu(cfg.get("gpu"))
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)  # the kernels launch on the current card
     if device.type == "cuda" and torch.cuda.device_count() > 1 and cfg.parallel.data != 1:
         print(f"{torch.cuda.device_count()} CUDA devices visible; lagrangebench_torch "
               f"runs on one ({device})")

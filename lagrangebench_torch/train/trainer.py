@@ -25,7 +25,8 @@ Counterpart of ``lagrangebench_tpu/train/trainer.py`` (single device):
 
 Noise is drawn on the host from a seeded ``torch.Generator`` and copied to
 the device, so a run on the card and one on the CPU see the same noise.
-The profiler hook and data parallelism are not ported.
+The profiler hook and data parallelism are not ported: a set
+``logging.profile_dir`` raises NotImplementedError (``check_profile_dir``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,18 @@ from ..evaluate import MetricsComputer, averaged_metrics, eval_rollout
 from ..profiling import StepTimer
 from ..utils import get_kinematic_mask, resolve_device
 from .strats import push_forward_batched_build, push_forward_sample_steps
+
+
+def check_profile_dir(cfg_logging) -> None:
+    """Raise NotImplementedError when ``logging.profile_dir`` is set: the
+    JAX trainer's ``ProfilerHook`` is not ported, and a trace that was asked
+    for must not be silently left out."""
+    if cfg_logging.get("profile_dir"):
+        raise NotImplementedError(
+            f"logging.profile_dir={cfg_logging.get('profile_dir')!r}: the profiler hook "
+            "is not ported to lagrangebench_torch (ROADMAP.md §1 item 8); leave "
+            "logging.profile_dir unset"
+        )
 
 
 def _weighted_sq_error(pred, target, loss_weight) -> torch.Tensor:
@@ -225,6 +238,7 @@ class Trainer:
         self.cfg_train = merge(defaults.train, cfg_train or {})
         self.cfg_eval = merge(defaults.eval, cfg_eval or {})
         self.cfg_logging = merge(defaults.logging, cfg_logging or {})
+        check_profile_dir(self.cfg_logging)
 
         available = data_valid.subseq_length - input_seq_length
         if self.cfg_eval.n_rollout_steps > available:

@@ -50,13 +50,9 @@ def test_neighbor_scan_kernel(cuda, dim, pbc):
     assert torch.equal(got.did_buffer_overflow.cpu(), want.did_buffer_overflow)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
-@pytest.mark.parametrize("use_enc", [False, True])
-def test_fused_mp_kernel(cuda, dtype, tol, use_enc):
-    """max |kernel - plain| within 1e-4 (float32) or 0.125 (bf16: outputs of
-    a few units, where one bf16 ulp is 1/64..1/32)."""
+def _fwd_case(cuda, dtype, use_enc, n, k):
     g = torch.Generator().manual_seed(0)
-    n, k, f = 333, 24, fused_mp.LATENT
+    f = fused_mp.LATENT
     p = fused_mp.kernel_params(
         {name: (torch.randn(f, f, generator=g) / f**0.5 if name.startswith("w")
                 else 0.1 * torch.randn(f, generator=g)) for name in fused_mp.PARAM_NAMES},
@@ -75,11 +71,40 @@ def test_fused_mp_kernel(cuda, dtype, tol, use_enc):
     hr = torch.randn(n, f, generator=g).to(dtype).to(cuda)
     h = torch.randn(n, f, generator=g).to(dtype).to(cuda)
     mask = (torch.rand(n, k, generator=g) < 0.7).to(torch.float32).to(cuda)
-    got = fused_mp.gns_mp_step(e, hs, hr, h, mask, p, enc)
-    want = fused_mp.gns_mp_step_plain(e, hs, hr, h, mask, p, enc)
+    return e, hs, hr, h, mask, p, enc
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
+@pytest.mark.parametrize("use_enc", [False, True])
+def test_fused_mp_kernel(cuda, dtype, tol, use_enc):
+    """max |kernel - plain| within 1e-4 (float32) or 0.125 (bf16: outputs of
+    a few units, where one bf16 ulp is 1/64..1/32)."""
+    args = _fwd_case(cuda, dtype, use_enc, 333, 24)
+    got = fused_mp.gns_mp_step(*args)
+    want = fused_mp.gns_mp_step_plain(*args)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+# receivers not a multiple of a slice, a block's slices or the SM count;
+# edge rows per receiver that leave slices ragged; fewer slices than warps
+RAGGED = [(n, k) for n in (1, 17, 1000, 16000) for k in (1, 7, 24, 40)]
+
+
+@pytest.mark.parametrize("n,k", RAGGED)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
+@pytest.mark.parametrize("use_enc", [False, True])
+def test_fused_mp_kernel_ragged(cuda, n, k, dtype, tol, use_enc):
+    """K3 at ragged shapes, K3's limits; two launches give the same bits."""
+    args = _fwd_case(cuda, dtype, use_enc, n, k)
+    got = fused_mp.gns_mp_step(*args)
+    again = fused_mp.gns_mp_step(*args)
+    want = fused_mp.gns_mp_step_plain(*args)
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= tol
+        assert torch.equal(a, c)
 
 
 def _bwd_case(cuda, dtype, use_enc, n=333, k=24):
@@ -158,6 +183,40 @@ def test_fused_mp_bwd_kernel_is_deterministic(cuda, dtype):
         assert torch.equal(x, y)
     for name in fused_mp.BWD_PARAM_ORDER:
         assert torch.equal(a[4][name], b[4][name]), name
+
+
+@pytest.mark.parametrize("n,k", RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mp_bwd_kernel_ragged(cuda, n, k, dtype):
+    """K4 at ragged shapes (so at every grid from 1 block to one per SM)
+    against its plain version: outputs within 1e-4 of the largest magnitude
+    (float32) or 1e-2 in the 2-norm (bf16, see chip_smoke.K4_TOL), weight
+    gradients within 1e-4 of the largest magnitude (float32) or 5e-3 in the
+    2-norm (bf16: the two versions sum agg, dx1 and dfirst in other orders,
+    and where a bf16 rounding of T(agg), T(dx1) or T(dfirst) falls on the
+    other side of a tie, a term moves by a bf16 ulp or a ReLU of the node
+    path flips; one flip moves a node weight's gradient by ~1 / sqrt(N F)
+    in the 2-norm, and the H100 read up to 1.3e-3 at N = 1 and 16,000); and
+    two launches give the same bits."""
+    t, p, _ = _bwd_case(cuda, dtype, False, n=n, k=k)
+    kp = fused_mp.kernel_params(p, dtype)
+    args = (t["e"], t["hs"], t["hr"], t["h"], t["mask"], kp, t["ge"], t["gh"])
+    got = fused_mp.gns_mp_step_bwd(*args)
+    again = fused_mp.gns_mp_step_bwd(*args)
+    want = fused_mp.gns_mp_step_bwd_plain(*args)
+    for x, y, z in zip(got[:4], want[:4], again[:4]):
+        assert x.dtype == dtype and x.shape == y.shape and torch.equal(x, z)
+        if dtype == torch.float32:
+            assert _rel_err(x, y) <= 1e-4
+        else:
+            assert float((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)) <= 1e-2
+    for name in fused_mp.BWD_PARAM_ORDER:
+        assert torch.equal(got[4][name], again[4][name]), name
+        x, y = got[4][name], want[4][name]
+        if dtype == torch.float32:
+            assert _rel_err(x, y) <= 1e-4, name
+        else:
+            assert float((x - y).norm() / y.norm().clamp_min(1e-30)) <= 5e-3, name
 
 
 def _painn_case(cuda, dtype, dim, n=203, k=24, fused=False):
@@ -296,12 +355,12 @@ def test_slot_scan_kernel(cuda, dim, pbc):
         assert float((got.aux[key].cpu() - want.aux[key]).abs().max()) <= 1e-6
 
 
-def _slot_case(cuda, dtype, use_enc, seed=0):
-    """A 3D slot graph (600 particles) and seeded K8 inputs on the card."""
+def _slot_case(cuda, dtype, use_enc, seed=0, particles=600):
+    """A 3D slot graph and seeded K8 inputs on the card."""
     g = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
     nl = neighbor_list(None, [1.0] * 3, 0.15, format="slot").allocate(
-        torch.as_tensor(rng.uniform(0, 1, size=(600, 3))))
+        torch.as_tensor(rng.uniform(0, 1, size=(particles, 3))))
     cand, bases = nl.idx.to(cuda), nl.aux["bases"].to(cuda)
     n, k = cand.shape
     f = fused_mp.LATENT
@@ -323,12 +382,14 @@ def _slot_case(cuda, dtype, use_enc, seed=0):
     return e, cand, bases, hs, hr, h, p, enc
 
 
+@pytest.mark.parametrize("particles", [600, 37, 5000])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
 @pytest.mark.parametrize("use_enc", [False, True])
-def test_fused_mp_slot_kernel(cuda, dtype, tol, use_enc):
+def test_fused_mp_slot_kernel(cuda, dtype, tol, use_enc, particles):
     """K8 vs its plain version: max |kernel - plain| within K3's limits,
-    1e-4 (float32) and 0.125 (bf16)."""
-    args = _slot_case(cuda, dtype, use_enc)
+    1e-4 (float32) and 0.125 (bf16), on slot graphs of 37 to 5,000
+    particles."""
+    args = _slot_case(cuda, dtype, use_enc, particles=particles)
     handle = fused_mp.FUSED_MP_SLOT_ENC if use_enc else fused_mp.FUSED_MP_SLOT
     before = handle.launches
     got = fused_mp.gns_mp_step_slot(*args)
@@ -392,13 +453,12 @@ def test_row_gather_kernel_shapes(cuda, shape, dtype, width):
         assert torch.equal(got, row_gather.row_gather_plain(h, idx, reps=reps))
 
 
-def _window_case(cuda, dtype, seed=0):
-    """A reduced windowed structure (1,000 particles in 3D) and seeded E2
-    inputs on the card."""
+def _window_case(cuda, dtype, seed=0, particles=1000):
+    """A reduced windowed structure in 3D and seeded E2 inputs on the card."""
     from lagrangebench_torch.experiments import window_select
 
     n_rows, n_ext, ext_idx, cand, w0s, _, wsub = window_select.build_structure(
-        1000, 3, 24, 1.45 * 0.1, seed=seed)
+        particles, 3, 24, 1.45 * 0.1, seed=seed)
     g = torch.Generator().manual_seed(seed)
     f = fused_mp.LATENT
     p = fused_mp.kernel_params(window_select.init_step_params(f, g), dtype)
@@ -410,12 +470,13 @@ def _window_case(cuda, dtype, seed=0):
             hs_ext, hr, h, p)
 
 
+@pytest.mark.parametrize("particles", [1000, 200])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
-def test_fused_mp_window_kernel(cuda, dtype, tol):
+def test_fused_mp_window_kernel(cuda, dtype, tol, particles):
     """E2 vs its plain version: max |kernel - plain| within K3's limits,
     1e-4 (float32) and 0.125 (bf16); and E2 equal to K3 on the decoded,
     masked gather (the same arithmetic row for row)."""
-    args = _window_case(cuda, dtype)
+    args = _window_case(cuda, dtype, particles=particles)
     e, cand, w0s, wsub, hs_ext, hr, h, p = args
     before = fused_mp.FUSED_MP_WINDOW.launches
     got = fused_mp.gns_mp_step_window(*args)

@@ -24,7 +24,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from lagrangebench_torch.experiments import gather_variants, window_select
+from lagrangebench_torch.experiments import gather_variants, mp_times, window_select
 from lagrangebench_torch.ops import fused_mp, row_gather
 from lagrangebench_tpu.ops import fused_mp as jfused_mp
 
@@ -238,3 +238,28 @@ def test_gather_variants_main_on_cpu(no_cuda, monkeypatch):
     assert "row_gather" in out[1] and "loop_24x_gather_N8" in out[5]
     assert "row_gather_real_bf16" in out[6] and "index_select_sorted_f32" in out[6]
     assert all(ms > 0 for times in out.values() for ms in times.values())
+
+
+def test_mp_times_needs_a_card(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mp_times.main([])
+
+
+def test_mp_times_inputs(monkeypatch):
+    """The timed inputs, at a reduced size on the CPU: bf16 edge and node
+    tensors, a float32 0/1 mask, the step's and the encoder's parameters in
+    the kernel layout; the same seed gives the same inputs."""
+    monkeypatch.setattr(mp_times, "N", 5)
+    monkeypatch.setattr(mp_times, "K", 3)
+    t, p, enc = mp_times._inputs(fused_mp, torch, torch.device("cpu"))
+    f = fused_mp.LATENT
+    for name in ("e", "hs", "ge"):
+        assert t[name].shape == (5, 3, f) and t[name].dtype == torch.bfloat16
+    for name in ("hr", "h", "gh"):
+        assert t[name].shape == (5, f) and t[name].dtype == torch.bfloat16
+    assert t["raw"].shape == (5, 3, 4) and t["mask"].dtype == torch.float32
+    assert set(t["mask"].unique().tolist()) <= {0.0, 1.0}
+    assert set(p) == set(fused_mp.PARAM_NAMES) and p["w_e"].dtype == torch.bfloat16
+    assert p["b1"].dtype == torch.float32 and enc["enc_w1"].shape == (4, f)
+    again = mp_times._inputs(fused_mp, torch, torch.device("cpu"))[0]
+    assert all(torch.equal(t[name], again[name]) for name in t)

@@ -109,3 +109,47 @@ def test_padded_rows_keep_their_edge_latents_finite():
     )
     _, h_ref = _run_port(arrs, p, enc, use_enc=False)
     np.testing.assert_allclose(h_ref[-3:], h_nomsg.numpy()[-3:], rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,k,sms,want", [
+    (16000, 40, 132, (132, 125)),  # the rollout shape: one block per SM; 1,000 node slices
+    (14960, 40, 132, (132, 117)),  # the slot layout's rows at batch 1
+    (1, 1, 132, (1, 1)),
+    (17, 7, 132, (1, 1)),          # 8 edge slices, 2 node slices: one block each
+    (1000, 24, 132, (132, 8)),
+    (1000, 1, 132, (8, 8)),
+    (16000, 40, 1, (1, 1)),
+])
+def test_mp_grids(n, k, sms, want):
+    """The bf16 kernels' grids: at most one block per SM, and no block whose
+    8 warps would not get a 16-row slice each (edge rows for the edge
+    kernel, nodes for the node kernel)."""
+    assert fmp.mp_grids(n, k, sms) == want
+
+
+@pytest.mark.parametrize("n", [1, 17, 1000, 16000])
+@pytest.mark.parametrize("k", [1, 7, 40])
+def test_mp_grids_cover_every_slice(n, k):
+    """Each block of the edge grid has work for all 8 warps, or is the
+    only block; the node grid likewise; neither exceeds the SMs."""
+    for sms in (1, 7, 132):
+        edge, node = fmp.mp_grids(n, k, sms)
+        edge_slices, node_slices = -(-n * k // 16), -(-n // 16)
+        assert 1 <= edge <= sms and 1 <= node <= sms
+        assert edge == 1 or (edge - 1) * 8 < edge_slices
+        assert node == 1 or (node - 1) * 8 < node_slices
+
+
+@pytest.mark.parametrize("n,grid", [(1, 1), (16000, 132), (1000, 63)])
+def test_bwd_partials_floats(n, grid):
+    """K4's partials: float32, grid x the 13 gradients; bf16, the node
+    kernel's 64-node blocks of 3 matrices and 4 vectors, then the edge
+    kernels' blocks of dW2 with 4 vectors and of dW_e, which together hold
+    each of the 13 gradients once per block of its kernel."""
+    f = fmp.LATENT
+    per_block = 5 * f * f + 8 * f
+    assert fmp.bwd_partials_floats(n, grid, False) == grid * per_block
+    node_blocks = -(-n // 64)
+    got = fmp.bwd_partials_floats(n, grid, True)
+    assert got == node_blocks * (3 * f * f + 4 * f) + grid * (f * f + 4 * f) + grid * f * f
+    assert (3 * f * f + 4 * f) + (f * f + 4 * f) + f * f == per_block
