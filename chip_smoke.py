@@ -6,7 +6,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and builds every CUDA kernel of the port from ``csrc/`` (one
    nvcc per source, all at once); prints the registers and spills of the
-   fused GNS kernels from nvcc's report.
+   fused GNS kernels, K5 and the scans from nvcc's report.
 2. Inference (slice 1). Runs K1, K2 and K3 against their plain PyTorch
    versions on the card, on the inputs the path gives them (captured from
    one preprocess and one model forward at the slice's shapes: GNS-10-128,
@@ -39,7 +39,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    launches per forward pass and K5 at none; then ``mode=infer`` with
    ``model.fused_processor=true`` from that checkpoint (converted by
    ``ensure_fused_params``), K5 counted at 5 x 20 per attempt and K6 at
-   none, held to the standard layout; 3 training steps of the fused model.
+   none, held to the standard layout, with no sender ``gather_rows`` and
+   no (N, K, (2 + dim) H) tensor made on the fused forward (K5 gathers the
+   sender rows itself); 3 training steps of the fused model, timed.
    Prints ms per train step and per rollout step, profiles a rollout step of
    each layout and a train step, and holds a small float32 PaiNN (1,000
    particles, 2 layers, both layouts) on the card against the CPU: a
@@ -987,10 +989,11 @@ def capture_painn_inputs(device):
         seen.setdefault("painn_msg", (g.clone(), wij.clone(), nd.clone(), h))
         return painn_msg.painn_message_plain(g, wij, nd, h)
 
-    def rec_layer(g, phi, nd, s, v, p):
+    def rec_layer(packed, sidx, phi, nd, s, v, p):
         kp = painn_msg.layer_kernel_params(p, s.dtype)
-        seen.setdefault("painn_layer", tuple(t.clone() for t in (g, phi, nd, s, v)) + (kp,))
-        return painn_msg.painn_layer_plain(g, phi, nd, s, v, p)
+        seen.setdefault("painn_layer",
+                        tuple(t.clone() for t in (packed, sidx, phi, nd, s, v)) + (kp,))
+        return painn_msg.painn_layer_plain(packed, sidx, phi, nd, s, v, p)
 
     painn_msg.painn_message, painn_msg.painn_layer = rec_msg, rec_layer
     try:
@@ -1005,8 +1008,10 @@ def capture_painn_inputs(device):
 
 def painn_bound(name, args):
     """(bound_ms, bound_by) of K6 / K5 on these inputs: each input and
-    output moved once at 3.35 TB/s, the FLOPs they need at 67 TFLOP/s
-    (CUDA-core float32)."""
+    output moved once at 3.35 TB/s (K5's inputs are the node rows
+    ``packed`` and the sender index: it gathers the rows itself), the FLOPs
+    they need at 67 TFLOP/s (CUDA-core float32, the unit both kernels run
+    their products on)."""
     import torch
 
     def nbytes(*ts):
@@ -1019,11 +1024,11 @@ def painn_bound(name, args):
         byts = nbytes(g, wij, nd) + n * (1 + dim) * h * 4
         ops = edges * (4 + 4 * dim) * h  # ds: 2H; msg1, msg2: 2H; dv: 4H per axis
     else:
-        g, phi, nd, s, v, p = args
+        packed, sidx, phi, nd, s, v, p = args
         n, k, dim = nd.shape
         h, r = s.shape[-1], phi.shape[-1] - 1
         edges = n * k
-        byts = nbytes(g, phi, nd, s, v) + nbytes(*p.values()) + nbytes(s, v)
+        byts = nbytes(packed, sidx, phi, nd, s, v) + nbytes(*p.values()) + nbytes(s, v)
         edge_ops = 2 * r * 3 * h + 2 * 3 * h + 3 * h + (1 + 4 * dim) * h
         node_ops = dim * 2 * h * 2 * h + 2 * 2 * h * h + 2 * h * 3 * h + 20 * dim * h
         ops = edges * edge_ops + n * node_ops
@@ -1053,8 +1058,9 @@ def compare_painn_kernels(seen):
         if name == "painn_msg":
             bf = tuple(t.to(torch.bfloat16) for t in args[:3]) + (args[3],)
         else:
-            bf = tuple(t.to(torch.bfloat16) for t in args[:5]) + (
-                painn_msg.layer_kernel_params(args[5], torch.bfloat16),)
+            bf = tuple(t.to(torch.bfloat16) if t.is_floating_point() else t
+                       for t in args[:6]) + (
+                painn_msg.layer_kernel_params(args[6], torch.bfloat16),)
         gb, wb = kern(*bf), plain(*bf)
         torch.cuda.synchronize()
 
@@ -1069,7 +1075,8 @@ def compare_painn_kernels(seen):
         unrounded = ""
         if name == "painn_layer":
             # the plain version with none of its inner bf16 roundings
-            wide = plain(*(t.float() for t in bf[:5]), {k: v.float() for k, v in bf[5].items()})
+            wide = plain(*(t.float() if t.is_floating_point() else t for t in bf[:6]),
+                         {k: v.float() for k, v in bf[6].items()})
             l2_wide = l2_of([t.to(torch.bfloat16) for t in wide])
             passed &= l2_wide > PAINN_TOL[f"{name}_bf16"]
             unrounded = f"; without the inner bf16 roundings it reads {l2_wide:.3g}"
@@ -1081,9 +1088,9 @@ def compare_painn_kernels(seen):
         ms = cuda_time(lambda: kern(*args))
         plain_ms = cuda_time(lambda: plain(*args), iters=5, warmup=1)
         bms, by = painn_bound(name, args)
-        n, k, _ = args[0].shape
-        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by}) at "
-            f"N = {n}, K = {k}, float32")
+        n, k, _ = args[0 if name == "painn_msg" else 2].shape
+        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by}, "
+            f"CUDA-core float32 peak) at N = {n}, K = {k}, float32")
         rows[name] = {"name": name, "route": "cuda", "source": handle.source_path,
                       "replaces": handle.replaces, "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
@@ -1168,9 +1175,8 @@ def _metrics_ok(metrics, label):
     return True
 
 
-def painn_forward_diff(std_model, fused_model, case, test):
-    """max |acc_fused - acc_std| / max |acc_std| on the test batch's first
-    window (both layouts through their kernels)."""
+def first_window(case, test):
+    """Features and flat particle types of the test batch's first window."""
     import numpy as np
     import torch
 
@@ -1181,9 +1187,65 @@ def painn_forward_diff(std_model, fused_model, case, test):
     _, nbrs = case.allocate_eval((pos[0], ptype[0]))
     with torch.no_grad():
         feats, _ = case.preprocess_eval_batched((pos, ptype), nbrs.broadcast(BATCH))
-        a = std_model(feats, ptype.reshape(-1))["acc"]
-        b = fused_model(feats, ptype.reshape(-1))["acc"]
+    return feats, ptype.reshape(-1)
+
+
+def painn_forward_diff(std_model, fused_model, case, test):
+    """max |acc_fused - acc_std| / max |acc_std| on the test batch's first
+    window (both layouts through their kernels)."""
+    import torch
+
+    feats, ptype = first_window(case, test)
+    with torch.no_grad():
+        a = std_model(feats, ptype)["acc"]
+        b = fused_model(feats, ptype)["acc"]
     return float((b - a).abs().max() / a.abs().max())
+
+
+class SenderGathers:
+    """Records the row width of every ``gather_rows`` call the PaiNN
+    model's forward makes (``models.painn.gather_rows``); the fused layout
+    must make none at K5's (2 + dim) H: K5 gathers the sender rows itself."""
+
+    def __enter__(self):
+        from lagrangebench_torch.models import painn
+
+        self.module, self.real, self.widths = painn, painn.gather_rows, []
+
+        def gather(src, idx):
+            self.widths.append(src.shape[-1])
+            return self.real(src, idx)
+
+        painn.gather_rows = gather
+        return self
+
+    def __exit__(self, *exc):
+        self.module.gather_rows = self.real
+
+    def k5_rows(self) -> int:
+        return self.widths.count((2 + DIM) * LATENT)
+
+
+def made_tensor_shapes(fn) -> set:
+    """The shape of every tensor an aten operation returns while fn() runs
+    (a TorchDispatchMode over the call; the kernels' own launches allocate
+    through torch.empty and show up too)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    shapes = set()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor):
+                    shapes.add(tuple(t.shape))
+            return out
+
+    with Record():
+        fn()
+    return shapes
 
 
 def painn_path(device):
@@ -1251,13 +1313,17 @@ def painn_path(device):
         for kern in kernels:
             kern.launches = 0
         torch.cuda.synchronize()
-        with _Recorder() as rec2:
+        with _Recorder() as rec2, SenderGathers() as gathers2:
             metrics2 = runner.train_or_infer(cfg2, data=data)
         torch.cuda.synchronize()
         counts2 = {kern.name: kern.launches for kern in kernels}
         attempts = rec2.forwards // PAINN_ROLLOUT
         log(f"painn fused (mode=infer from the standard checkpoint): {rec2.forwards} forward "
-            f"passes, launches {counts2}")
+            f"passes, launches {counts2}, sender gather_rows at K5's width "
+            f"{gathers2.k5_rows()} (must be 0)")
+        if gathers2.k5_rows():
+            log("FAIL: the fused forward gathered the sender rows outside K5")
+            ok = False
         log(f"painn fused metrics: {metrics2}")
         rows["painn_layer"]["launches"] = counts2["painn_layer"]
         if attempts < 1 or counts2 != {"painn_msg": 0,
@@ -1275,6 +1341,16 @@ def painn_path(device):
         log(f"painn fused vs standard: one forward max|acc diff| {acc_err:.3g} of the largest, "
             f"val/mse1 {rel['val/mse1']:.3g} (tol {PAINN_FUSED_RTOL} each)")
         ok &= acc_err <= PAINN_FUSED_RTOL and rel["val/mse1"] <= PAINN_FUSED_RTOL
+        feats, flat_ptype = first_window(rec.cases[0], data[2])
+        n_rows, k_cap = feats["senders"].shape
+        gathered = (n_rows, k_cap, (2 + DIM) * LATENT)
+        with torch.no_grad():
+            shapes = made_tensor_shapes(lambda: fused_model(feats, flat_ptype))
+        log(f"painn fused forward: a {gathered} tensor made {gathered in shapes} (must be False)")
+        if gathered in shapes:
+            log("FAIL: the fused forward made the gathered sender rows")
+            ok = False
+        del feats
 
         # how float32 differences grow along a rollout of the same weights:
         # the fused model against the standard one, and the fused model
@@ -1318,16 +1394,21 @@ def painn_path(device):
         before = [p.detach().clone() for p in fused_model.parameters()]
         for kern in kernels:
             kern.launches = 0
-        with _Recorder() as rec3:
+        with _Recorder() as rec3, SenderGathers() as gathers3:
             tr.train(step_max=2)
         passes = rec3.forwards
         counts3 = {kern.name: kern.launches for kern in kernels}
         changed = sum(not torch.equal(a, b) for a, b in zip(before, fused_model.parameters()))
         losses = [loss for _, loss in steps]
+        d = np.asarray(tr.timer.durations) * 1e3
         log(f"painn fused training: losses {losses}, {changed} of {len(before)} parameter "
-            f"tensors changed, {passes} forward passes, launches {counts3}")
+            f"tensors changed, {passes} forward passes, launches {counts3}, forward sender "
+            f"gather_rows at K5's width {gathers3.k5_rows()} (must be 0); ms per step (host "
+            f"clock, synchronized, steps 1-2) {np.round(d, 2).tolist()} [batch 1 x "
+            f"{N_PARTICLES} particles, PaiNN-{layers}-128 float32, fused layout]")
         if (len(losses) != 3 or not np.all(np.isfinite(losses)) or changed != len(before)
-                or counts3 != {"painn_msg": 0, "painn_layer": layers * passes}):
+                or counts3 != {"painn_msg": 0, "painn_layer": layers * passes}
+                or gathers3.k5_rows()):
             log("FAIL: fused training steps")
             ok = False
 
@@ -2009,7 +2090,7 @@ def main() -> int:
     times = build.build(["binning", "neighbor_scan", "fused_mp", "fused_mp_bwd", "painn_msg",
                          "painn_layer", "row_gather"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall, per source {times}")
-    ptxas_report(build)
+    ptxas_report(build, ("fused_mp", "fused_mp_bwd", "painn_layer", "neighbor_scan"))
 
     with torch.no_grad():
         rows, ok, step_ms = main_path("cuda")

@@ -1,9 +1,12 @@
 // K5: one fused PaiNN layer (everything after the interaction context net),
-// dense (N, K) layout.
+// dense (N, K) layout, with the sender gather inside.
 //
 // Replaces: lagrangebench_tpu/ops/painn_msg.py::_layer_kernel, launched by
-// _painn_layer_pallas. Per receiver, with H = 128 channels, R = 20 radial
-// basis functions and d over the dim axes:
+// _painn_layer_pallas, and the gather `packed[senders]` in front of it
+// (lagrangebench_tpu/models/painn.py), which the TPU kernel takes outside
+// because Mosaic has no row gather. Per receiver, with H = 128 channels,
+// R = 20 radial basis functions, g_k = packed[sidx[k]] the k-th sender's
+// row [x1, x2, u_d] and d over the dim axes:
 //
 //   W      = (phi[:, :R] @ filt_w + filt_b) * phi[:, R]     (K, 3H) filters
 //   ds     = sum_K W[:H] * g[:H]
@@ -19,26 +22,43 @@
 // with clip to +-100 and T the compute type (float32 or bf16) of every
 // activation input and output; products of T operands are summed in float32,
 // as the TPU kernel's jnp.dot(..., preferred_element_type=float32) does.
+// Indices outside [0, N) are clamped, as a JAX gather clamps them.
 //
-// Bound on an H100: bytes. The edge rows (g, (2 + dim) H wide, and phi,
-// R + 1 wide) dominate: ~2.8 KB per edge in float32 against ~16 kFLOP (the
-// filter product 2 R 3H plus the messages), ~6 FLOP per byte, below the
-// ~20 FLOP per byte at which the card's CUDA-core float32 rate (67 TFLOP/s)
-// would bind instead.
+// Bound on an H100: operations. With the gather inside, the bytes are one
+// read of packed, phi, nd, sidx, s and v and one write of the outputs
+// (~0.05 ms at the rollout shape, 16,000 x 40, float32), while the filter
+// product alone is 2 R 3H FLOP per edge and the node products ~360 kFLOP
+// per receiver: ~17.5 GFLOP, ~0.26 ms at the CUDA cores' 67 TFLOP/s.
 //
-// Design: one block of 128 threads per tile of 8 receivers; thread c owns
-// channel c. Edge phase: each thread keeps its three filter columns
-// (3 x 20 values of filt_w) and biases in registers for the whole tile, so a
-// filter costs 60 register FMAs; the receiver's K basis rows (padded to 24)
-// and directions are staged in shared memory and read as broadcasts; the
-// K-sums run in registers, slot by slot in k order. Node phase: the tile's
-// s1, v1_d, ts, z and m live in shared memory as float32 rows; the three
-// products (vmix, mix_w1, mix_w2) are the kernel's own CUDA-core FMA loops
-// over the tile's rows, each thread one output column with the rows'
-// accumulators in registers, weights read from global memory through L1/L2
-// (vmix_w, mix_w1 and mix_w2 take 448 KB in float32, more than a block's
-// 227 KB of shared memory; each tile reads each weight once, coalesced).
-// No tensor cores, TMA or wgmma: a simple, right kernel first.
+// Design: the products stay on the CUDA cores in float32. The filter
+// product is (K x 20) @ (20 x 3H) per receiver, too shallow for TF32
+// tensor-core tiles to pay for the three passes a float32-accurate 3xTF32
+// split needs, and plain TF32 would break the float32 gate; bf16 runs the
+// same body on bf16 loads. One block of 128 threads per tile of 16
+// receivers, thread c owning channel c, three blocks per SM.
+// - Edge phase: each thread keeps its three filter columns (60 values) in
+//   registers. A receiver's K basis rows (padded to 24 for float4 reads),
+//   directions and sender indices are staged in shared memory, double
+//   buffered: the next receiver's values are loaded into registers while
+//   the current one computes, so there is one barrier per receiver. Each
+//   edge reads its sender's five channel values straight from packed
+//   (coalesced 128-byte rows per warp, through L1), issued one edge ahead.
+//   K-sums run in registers in k order.
+// - Node phase: the tile's v1_d rows (48 in 3D) and ts, z rows live in
+//   shared memory as float32. Each product is the threads' own FMA loop,
+//   thread c computing its channel's output columns for all 16 (or 48)
+//   rows at once, so that each weight fetched from L1/L2 feeds 16-96 FMAs:
+//   vmix_w, mix_w1 and mix_w2 (448 KB in float32) are read once per 16
+//   receivers. vl_d and sum_d vr_d vl_d stay in registers from the vmix
+//   product to the output, since thread c owns channel c in all of them.
+// On an H100 (700 W) this takes ~0.73 ms at the rollout shape, ~2.8x its
+// operations bound: the edge phase is ~0.6 ms of it, with 168 registers
+// allowing 12 warps per SM and each float4 of basis values broadcast from
+// shared memory feeding only 12 FMAs. Variants that loaded the gathered
+// rows three edges ahead, prefetched the node weights a k-step ahead, or
+// split the edge and node phases into two kernels to fit more warps per
+// SM ran 0.77-0.98 ms (experiments/mp_times.py --tree on scratch copies):
+// each spilled or lost more to registers than it gained.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -49,8 +69,9 @@ using bf16 = __nv_bfloat16;
 constexpr int H = 128;
 constexpr int R = 20;       // radial basis functions (build_painn)
 constexpr int RP = 24;      // padded basis row in shared memory (float4 reads)
-constexpr int TR = 8;       // receivers per block
+constexpr int TR = 16;      // receivers per block
 constexpr int THREADS = H;  // thread c owns channel c
+constexpr int PF = 8;       // staged words a thread loads ahead (covers K <= 48)
 constexpr float kClip = 100.f;
 constexpr float kEps = 1e-8f;
 
@@ -67,92 +88,95 @@ __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); 
 __device__ __forceinline__ float clip(float v) { return fminf(fmaxf(v, -kClip), kClip); }
 
 struct Args {
-  const void* g;      // (N, K, (2 + dim) H) T
-  const void* phi;    // (N, K, R + 1) T
-  const void* nd;     // (N, K, dim) T
-  const void* s;      // (N, H) T
-  const void* v;      // (N, dim H) T
-  const void* filt_w;  // (R, 3H) T
+  const void* packed;   // (N, (2 + dim) H) T: per node [x1, x2, u_d]
+  const int32_t* sidx;  // (N, K) sender rows
+  const void* phi;      // (N, K, R + 1) T
+  const void* nd;       // (N, K, dim) T
+  const void* s;        // (N, H) T
+  const void* v;        // (N, dim H) T
+  const void* filt_w;   // (R, 3H) T
   const float* filt_b;  // (3H)
-  const void* vmix_w;  // (H, 2H) T
-  const void* mix_w1;  // (2H, H) T
+  const void* vmix_w;   // (H, 2H) T
+  const void* mix_w1;   // (2H, H) T
   const float* mix_b1;  // (H)
-  const void* mix_w2;  // (H, 3H) T
+  const void* mix_w2;   // (H, 3H) T
   const float* mix_b2;  // (3H)
-  void* s_out;        // (N, H) T
-  void* v_out;        // (N, dim H) T
+  void* s_out;          // (N, H) T
+  void* v_out;          // (N, dim H) T
   int n, k;
 };
 
-// Shared-memory layout (float32), fixed part; the K basis rows and
-// directions of the current receiver follow it.
+// Shared memory (float32 words): the node phase's rows, then two receiver
+// stages of K basis rows (RP), K directions (4) and K sender rows (1).
 template <int DIM>
 struct Smem {
-  static constexpr int kS1 = 0;
-  static constexpr int kV1 = kS1 + TR * H;
-  static constexpr int kVM = kV1 + TR * DIM * H;
-  static constexpr int kTS = kVM + TR * DIM * 2 * H;
-  static constexpr int kZ = kTS + TR * 2 * H;
-  static constexpr int kDot = kZ + TR * H;
-  static constexpr int kM = kDot + TR * H;
-  static constexpr int kPhi = kM + TR * 3 * H;
-  static int bytes(int k) { return (kPhi + k * (RP + 4)) * 4; }
+  static constexpr int kV1 = 0;                  // (TR DIM, H)  v1_d, row i * DIM + d
+  static constexpr int kTS = kV1 + TR * DIM * H;  // (TR, 2H)     ts = [s1, |vr|]
+  static constexpr int kZ = kTS + TR * 2 * H;     // (TR, H)      z
+  static constexpr int kStage = kZ + TR * H;
+  // rounded up to whole float4s, so that both stages are 16-byte aligned
+  __host__ __device__ static int stage_words(int k) { return (k * (RP + 4 + 1) + 3) / 4 * 4; }
+  static int bytes(int k) { return (kStage + 2 * stage_words(k)) * 4; }
 };
 
-// C[ROWS, cols] = A[ROWS, kd] @ W[kd, cols] (+ bias). A: float32 rows in
-// shared memory (row stride lda, a multiple of 4); W: row-major T in global
-// memory; each thread computes whole output columns, ROWS accumulators in
-// registers, the sum over kd in order.
-template <typename T, int ROWS>
-__device__ void tile_gemm(const float* A, int lda, const T* __restrict__ W, int kd, int cols,
-                          const float* __restrict__ bias, float* C, int ldc) {
-  for (int c = threadIdx.x; c < cols; c += THREADS) {
-    float acc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-    for (int kk = 0; kk < kd; kk += 4) {
-      float w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = to_f(W[(int64_t)(kk + q) * cols + c]);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(A + r * lda + kk);
-        acc[r] = fmaf(a.x, w[0], acc[r]);
-        acc[r] = fmaf(a.y, w[1], acc[r]);
-        acc[r] = fmaf(a.z, w[2], acc[r]);
-        acc[r] = fmaf(a.w, w[3], acc[r]);
-      }
-    }
-    const float b = bias != nullptr ? bias[c] : 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) C[r * ldc + c] = acc[r] + b;
+// Word e of a receiver's stage: its basis values, then its directions, then
+// its sender rows, in the order they lie in device memory.
+template <typename T, int DIM>
+struct Stage {
+  const T* phi;
+  const T* nd;
+  const int32_t* sidx;
+  int k, words;
+
+  __device__ float fetch(int64_t node, int e) const {
+    const int np = k * (R + 1), nn = k * DIM;
+    if (e < np) return to_f(phi[node * np + e]);
+    if (e < np + nn) return to_f(nd[node * nn + e - np]);
+    return __int_as_float(sidx[node * k + e - np - nn]);
   }
+
+  __device__ void put(float* buf, int e, float val) const {
+    const int np = k * (R + 1), nn = k * DIM;
+    if (e < np) {
+      buf[(e / (R + 1)) * RP + e % (R + 1)] = val;
+    } else if (e < np + nn) {
+      e -= np;
+      buf[k * RP + (e / DIM) * 4 + e % DIM] = val;
+    } else {
+      buf[k * (RP + 4) + e - np - nn] = val;
+    }
+  }
+};
+
+// One sender's five (four in 2D) channel-c values: x1, x2, u_d.
+template <typename T, int DIM>
+__device__ __forceinline__ void load_sender(const T* __restrict__ packed, int row, int n, int c,
+                                            float (&g)[2 + DIM]) {
+  row = min(max(row, 0), n - 1);
+  const T* gr = packed + (int64_t)row * (2 + DIM) * H + c;
+#pragma unroll
+  for (int q = 0; q < 2 + DIM; ++q) g[q] = to_f(__ldg(gr + q * H));
 }
 
 template <typename T, int DIM>
 __global__ void __launch_bounds__(THREADS, 3) painn_layer(const Args a) {
   using L = Smem<DIM>;
-  constexpr int GW = (2 + DIM) * H;
+  constexpr int ROWS = TR * DIM;
   extern __shared__ __align__(16) float smem[];
-  float* sS1 = smem + L::kS1;   // (TR, H)        s1
-  float* sV1 = smem + L::kV1;   // (TR DIM, H)    v1_d, row i * DIM + d
-  float* sVM = smem + L::kVM;   // (TR DIM, 2H)   [vl_d, vr_d]
-  float* sTS = smem + L::kTS;   // (TR, 2H)       ts
-  float* sZ = smem + L::kZ;     // (TR, H)        z
-  float* sDot = smem + L::kDot;  // (TR, H)       sum_d vr_d vl_d
-  float* sM = smem + L::kM;     // (TR, 3H)       m
-  float* sPhi = smem + L::kPhi;  // (K, RP)       basis rows of one receiver
-  float* sNd = sPhi + a.k * RP;  // (K, 4)        its directions
+  float* sV1 = smem + L::kV1;
+  float* sTS = smem + L::kTS;
+  float* sZ = smem + L::kZ;
 
   const int K = a.k;
   const int c = threadIdx.x;
   const int node0 = blockIdx.x * TR;
   const int nodes = min(TR, a.n - node0);
-  const T* g = static_cast<const T*>(a.g);
-  const T* phi = static_cast<const T*>(a.phi);
-  const T* nd = static_cast<const T*>(a.nd);
+  const T* packed = static_cast<const T*>(a.packed);
   const T* s = static_cast<const T*>(a.s);
   const T* v = static_cast<const T*>(a.v);
+  const Stage<T, DIM> stage{static_cast<const T*>(a.phi), static_cast<const T*>(a.nd), a.sidx,
+                             K, K * (R + 1 + DIM + 1)};
+  const int sw = L::stage_words(K);
 
   // this channel's three filter columns and biases, for the whole tile
   const T* fw = static_cast<const T*>(a.filt_w);
@@ -165,98 +189,203 @@ __global__ void __launch_bounds__(THREADS, 3) painn_layer(const Args a) {
   }
   const float b0 = a.filt_b[c], b1 = a.filt_b[H + c], b2 = a.filt_b[2 * H + c];
 
-  // ---- edge phase: filters, messages, K-sums, clipped residuals
-  for (int i = 0; i < TR; ++i) {
+  // ---- edge phase: gathers, filters, messages, K-sums, clipped residuals
+  float pf[PF];  // the next receiver's stage words, loaded ahead
+#pragma unroll
+  for (int u = 0; u < PF; ++u) {
+    const int e = c + u * THREADS;
+    if (e < stage.words) pf[u] = stage.fetch(node0, e);
+  }
+  for (int i = 0; i < nodes; ++i) {  // uniform over the block
+    const int64_t node = node0 + i;
+    float* st = smem + L::kStage + (i & 1) * sw;
+#pragma unroll
+    for (int u = 0; u < PF; ++u) {
+      const int e = c + u * THREADS;
+      if (e < stage.words) stage.put(st, e, pf[u]);
+    }
+    for (int e = c + PF * THREADS; e < stage.words; e += THREADS)
+      stage.put(st, e, stage.fetch(node, e));
+    // the stage is complete, and the buffer written next was last read
+    // before the previous barrier
+    __syncthreads();
+    if (i + 1 < nodes) {
+#pragma unroll
+      for (int u = 0; u < PF; ++u) {
+        const int e = c + u * THREADS;
+        if (e < stage.words) pf[u] = stage.fetch(node + 1, e);
+      }
+    }
+
+    const float* sPhi = st;
+    const float* sNd = st + K * RP;
+    const int* sSid = reinterpret_cast<const int*>(st + K * (RP + 4));
     float ds = 0.f, dv[DIM];
 #pragma unroll
     for (int d = 0; d < DIM; ++d) dv[d] = 0.f;
-    const int64_t node = node0 + i;
-    if (i < nodes) {  // uniform over the block
-      const int64_t row0 = node * K;
-      __syncthreads();  // the previous receiver is done with sPhi / sNd
-      for (int e = c; e < K * (R + 1); e += THREADS)
-        sPhi[(e / (R + 1)) * RP + e % (R + 1)] = to_f(phi[row0 * (R + 1) + e]);
-      for (int e = c; e < K * DIM; e += THREADS) sNd[(e / DIM) * 4 + e % DIM] = to_f(nd[row0 * DIM + e]);
-      __syncthreads();
+    float gn[2 + DIM];
+    load_sender<T, DIM>(packed, sSid[0], a.n, c, gn);
 #pragma unroll 2
-      for (int j = 0; j < K; ++j) {
-        const float* ph = sPhi + j * RP;
-        float w0 = 0.f, w1 = 0.f, w2 = 0.f;
+    for (int j = 0; j < K; ++j) {
+      float g[2 + DIM];
 #pragma unroll
-        for (int q = 0; q < R; q += 4) {
-          const float4 p4 = *reinterpret_cast<const float4*>(ph + q);
-          w0 = fmaf(p4.x, f0[q], w0);
-          w1 = fmaf(p4.x, f1[q], w1);
-          w2 = fmaf(p4.x, f2[q], w2);
-          w0 = fmaf(p4.y, f0[q + 1], w0);
-          w1 = fmaf(p4.y, f1[q + 1], w1);
-          w2 = fmaf(p4.y, f2[q + 1], w2);
-          w0 = fmaf(p4.z, f0[q + 2], w0);
-          w1 = fmaf(p4.z, f1[q + 2], w1);
-          w2 = fmaf(p4.z, f2[q + 2], w2);
-          w0 = fmaf(p4.w, f0[q + 3], w0);
-          w1 = fmaf(p4.w, f1[q + 3], w1);
-          w2 = fmaf(p4.w, f2[q + 3], w2);
-        }
-        const float scale = ph[R];
-        w0 = (w0 + b0) * scale;
-        w1 = (w1 + b1) * scale;
-        w2 = (w2 + b2) * scale;
-        const T* gr = g + (row0 + j) * GW;
-        ds += w0 * to_f(gr[c]);
-        const float m1 = w1 * to_f(gr[H + c]);
+      for (int q = 0; q < 2 + DIM; ++q) g[q] = gn[q];
+      load_sender<T, DIM>(packed, sSid[min(j + 1, K - 1)], a.n, c, gn);
+      const float* ph = sPhi + j * RP;
+      float w0 = 0.f, w1 = 0.f, w2 = 0.f;
 #pragma unroll
-        for (int d = 0; d < DIM; ++d)
-          dv[d] += sNd[j * 4 + d] * m1 + w2 * to_f(gr[(2 + d) * H + c]);
+      for (int q = 0; q < R; q += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(ph + q);
+        w0 = fmaf(p4.x, f0[q], w0);
+        w1 = fmaf(p4.x, f1[q], w1);
+        w2 = fmaf(p4.x, f2[q], w2);
+        w0 = fmaf(p4.y, f0[q + 1], w0);
+        w1 = fmaf(p4.y, f1[q + 1], w1);
+        w2 = fmaf(p4.y, f2[q + 1], w2);
+        w0 = fmaf(p4.z, f0[q + 2], w0);
+        w1 = fmaf(p4.z, f1[q + 2], w1);
+        w2 = fmaf(p4.z, f2[q + 2], w2);
+        w0 = fmaf(p4.w, f0[q + 3], w0);
+        w1 = fmaf(p4.w, f1[q + 3], w1);
+        w2 = fmaf(p4.w, f2[q + 3], w2);
       }
+      const float scale = ph[R];
+      w0 = (w0 + b0) * scale;
+      w1 = (w1 + b1) * scale;
+      w2 = (w2 + b2) * scale;
+      const float4 n4 = *reinterpret_cast<const float4*>(sNd + j * 4);
+      const float ndj[3] = {n4.x, n4.y, n4.z};
+      ds += w0 * g[0];
+      const float m1 = w1 * g[1];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) dv[d] += ndj[d] * m1 + w2 * g[2 + d];
     }
-    // rows past the last receiver stay 0 through the node phase
-    sS1[i * H + c] = i < nodes ? round_to<T>(to_f(s[node * H + c]) + clip(ds)) : 0.f;
+    sTS[i * 2 * H + c] = round_to<T>(to_f(s[node * H + c]) + clip(ds));
 #pragma unroll
     for (int d = 0; d < DIM; ++d)
-      sV1[(i * DIM + d) * H + c] =
-          i < nodes ? round_to<T>(to_f(v[node * DIM * H + d * H + c]) + clip(dv[d])) : 0.f;
+      sV1[(i * DIM + d) * H + c] = round_to<T>(to_f(v[node * DIM * H + d * H + c]) + clip(dv[d]));
+  }
+  // rows past the last receiver stay 0 through the node phase
+  for (int i = nodes; i < TR; ++i) {
+    sTS[i * 2 * H + c] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) sV1[(i * DIM + d) * H + c] = 0.f;
   }
   __syncthreads();
 
-  // ---- node phase
-  tile_gemm<T, TR * DIM>(sV1, H, static_cast<const T*>(a.vmix_w), H, 2 * H, nullptr, sVM, 2 * H);
-  __syncthreads();
-  for (int i = 0; i < TR; ++i) {
-    float nrm = 0.f, dot = 0.f;
+  // ---- node phase. vm = v1 @ vmix_w: thread c computes vl (column c) and
+  // vr (column H + c) of every row
+  float vl[ROWS], dot[TR];
+  {
+    const T* W = static_cast<const T*>(a.vmix_w);
+    float vr[ROWS];
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      const float vl = sVM[(i * DIM + d) * 2 * H + c];
-      const float vr = sVM[(i * DIM + d) * 2 * H + H + c];
-      nrm += vr * vr;
-      dot += vr * vl;
+    for (int r = 0; r < ROWS; ++r) vl[r] = vr[r] = 0.f;
+    for (int kk = 0; kk < H; kk += 4) {
+      float wl[4], wr[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        wl[q] = to_f(__ldg(W + (kk + q) * 2 * H + c));
+        wr[q] = to_f(__ldg(W + (kk + q) * 2 * H + H + c));
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float4 x = *reinterpret_cast<const float4*>(sV1 + r * H + kk);
+        vl[r] = fmaf(x.x, wl[0], vl[r]);
+        vr[r] = fmaf(x.x, wr[0], vr[r]);
+        vl[r] = fmaf(x.y, wl[1], vl[r]);
+        vr[r] = fmaf(x.y, wr[1], vr[r]);
+        vl[r] = fmaf(x.z, wl[2], vl[r]);
+        vr[r] = fmaf(x.z, wr[2], vr[r]);
+        vl[r] = fmaf(x.w, wl[3], vl[r]);
+        vr[r] = fmaf(x.w, wr[3], vr[r]);
+      }
     }
-    sTS[i * 2 * H + c] = sS1[i * H + c];
-    sTS[i * 2 * H + H + c] = round_to<T>(sqrtf(nrm + kEps));
-    sDot[i * H + c] = dot;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float nrm = 0.f, dt = 0.f;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        nrm += vr[i * DIM + d] * vr[i * DIM + d];
+        dt += vr[i * DIM + d] * vl[i * DIM + d];
+      }
+      dot[i] = dt;
+      sTS[i * 2 * H + H + c] = round_to<T>(sqrtf(nrm + kEps));
+    }
   }
-  __syncthreads();
-  tile_gemm<T, TR>(sTS, 2 * H, static_cast<const T*>(a.mix_w1), 2 * H, H, a.mix_b1, sZ, H);
-  __syncthreads();
-  for (int i = 0; i < TR; ++i) {
-    const float z = sZ[i * H + c];
-    sZ[i * H + c] = round_to<T>(z * (1.f / (1.f + expf(-z))));
-  }
-  __syncthreads();
-  tile_gemm<T, TR>(sZ, H, static_cast<const T*>(a.mix_w2), H, 3 * H, a.mix_b2, sM, 3 * H);
   __syncthreads();
 
-  T* s_out = static_cast<T*>(a.s_out);
-  T* v_out = static_cast<T*>(a.v_out);
-  for (int i = 0; i < nodes; ++i) {
-    const int64_t node = node0 + i;
-    const float* m = sM + i * 3 * H;
-    s_out[node * H + c] = from_f<T>(sS1[i * H + c] + clip(m[c] + m[2 * H + c] * sDot[i * H + c]));
-    const float dv2 = m[H + c];
+  // z = silu(ts @ mix_w1 + mix_b1)
+  {
+    const T* W = static_cast<const T*>(a.mix_w1);
+    float z[TR];
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      const float vl = sVM[(i * DIM + d) * 2 * H + c];
-      v_out[node * DIM * H + d * H + c] = from_f<T>(sV1[(i * DIM + d) * H + c] + clip(vl * dv2));
+    for (int i = 0; i < TR; ++i) z[i] = 0.f;
+    for (int kk = 0; kk < 2 * H; kk += 4) {
+      float w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[q] = to_f(__ldg(W + (kk + q) * H + c));
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(sTS + i * 2 * H + kk);
+        z[i] = fmaf(x.x, w[0], z[i]);
+        z[i] = fmaf(x.y, w[1], z[i]);
+        z[i] = fmaf(x.z, w[2], z[i]);
+        z[i] = fmaf(x.w, w[3], z[i]);
+      }
+    }
+    const float b = a.mix_b1[c];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const float zi = z[i] + b;
+      sZ[i * H + c] = round_to<T>(zi * (1.f / (1.f + expf(-zi))));
+    }
+  }
+  __syncthreads();
+
+  // m = z @ mix_w2 + mix_b2: thread c computes columns c, H + c, 2H + c,
+  // then the outputs of channel c
+  {
+    const T* W = static_cast<const T*>(a.mix_w2);
+    float m0[TR], m1[TR], m2[TR];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) m0[i] = m1[i] = m2[i] = 0.f;
+    for (int kk = 0; kk < H; kk += 4) {
+      float w0[4], w1[4], w2[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const T* wr = W + (kk + q) * 3 * H + c;
+        w0[q] = to_f(__ldg(wr));
+        w1[q] = to_f(__ldg(wr + H));
+        w2[q] = to_f(__ldg(wr + 2 * H));
+      }
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(sZ + i * H + kk);
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          m0[i] = fmaf(xs[q], w0[q], m0[i]);
+          m1[i] = fmaf(xs[q], w1[q], m1[i]);
+          m2[i] = fmaf(xs[q], w2[q], m2[i]);
+        }
+      }
+    }
+    const float bs = a.mix_b2[c], bv = a.mix_b2[H + c], bd = a.mix_b2[2 * H + c];
+    T* s_out = static_cast<T*>(a.s_out);
+    T* v_out = static_cast<T*>(a.v_out);
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      if (i < nodes) {
+        const int64_t node = node0 + i;
+        s_out[node * H + c] =
+            from_f<T>(sTS[i * 2 * H + c] + clip((m0[i] + bs) + (m2[i] + bd) * dot[i]));
+        const float dv2 = m1[i] + bv;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d)
+          v_out[node * DIM * H + d * H + c] =
+              from_f<T>(sV1[(i * DIM + d) * H + c] + clip(vl[i * DIM + d] * dv2));
+      }
     }
   }
 }
@@ -275,8 +404,8 @@ int launch(const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // ptrs (host array of device pointers), in order:
-//   0 g, 1 phi, 2 nd, 3 s, 4 v, 5 filt_w, 6 filt_b, 7 vmix_w, 8 mix_w1,
-//   9 mix_b1, 10 mix_w2, 11 mix_b2, 12 s_out, 13 v_out.
+//   0 packed, 1 sidx (int32), 2 phi, 3 nd, 4 s, 5 v, 6 filt_w, 7 filt_b,
+//   8 vmix_w, 9 mix_w1, 10 mix_b1, 11 mix_w2, 12 mix_b2, 13 s_out, 14 v_out.
 // Matrices and activations in the compute type (is_bf16 ? bf16 : float32),
 // biases float32.
 LBT_EXPORT int lbt_painn_layer(const void* const* ptrs, int n, int k, int h, int r, int dim,
@@ -284,20 +413,21 @@ LBT_EXPORT int lbt_painn_layer(const void* const* ptrs, int n, int k, int h, int
   if (h != H || r != R || n < 1 || k < 1 || (dim != 2 && dim != 3))
     return (int)cudaErrorInvalidValue;
   Args a;
-  a.g = ptrs[0];
-  a.phi = ptrs[1];
-  a.nd = ptrs[2];
-  a.s = ptrs[3];
-  a.v = ptrs[4];
-  a.filt_w = ptrs[5];
-  a.filt_b = static_cast<const float*>(ptrs[6]);
-  a.vmix_w = ptrs[7];
-  a.mix_w1 = ptrs[8];
-  a.mix_b1 = static_cast<const float*>(ptrs[9]);
-  a.mix_w2 = ptrs[10];
-  a.mix_b2 = static_cast<const float*>(ptrs[11]);
-  a.s_out = const_cast<void*>(ptrs[12]);
-  a.v_out = const_cast<void*>(ptrs[13]);
+  a.packed = ptrs[0];
+  a.sidx = static_cast<const int32_t*>(ptrs[1]);
+  a.phi = ptrs[2];
+  a.nd = ptrs[3];
+  a.s = ptrs[4];
+  a.v = ptrs[5];
+  a.filt_w = ptrs[6];
+  a.filt_b = static_cast<const float*>(ptrs[7]);
+  a.vmix_w = ptrs[8];
+  a.mix_w1 = ptrs[9];
+  a.mix_b1 = static_cast<const float*>(ptrs[10]);
+  a.mix_w2 = ptrs[11];
+  a.mix_b2 = static_cast<const float*>(ptrs[12]);
+  a.s_out = const_cast<void*>(ptrs[13]);
+  a.v_out = const_cast<void*>(ptrs[14]);
   a.n = n;
   a.k = k;
   if (is_bf16) return dim == 3 ? launch<bf16, 3>(a, stream) : launch<bf16, 2>(a, stream);

@@ -14,10 +14,11 @@ Per layer, the interaction context net ``x = LinearXav_1(silu(LinearXav_0(s)))``
   ``filter_net_i(phi) * cutoff * mask``, followed by the clipped residuals,
   the vector mix (``LinearXav_2``) and the mixing net (``LinearXav_3/4``) as
   PyTorch ops;
-* fused layout (``fused_processor``): the gather [x1, x2, v_d * x3] goes
-  through K5 (``ops.painn_msg.painn_layer``), which computes the filters
-  from the raw basis and runs the rest of the layer in one launch, with the
-  flat per-layer parameters ``filt_w`` ... ``mix_b2``.
+* fused layout (``fused_processor``): the node rows [x1, x2, v_d * x3] and
+  the sender index go to K5 (``ops.painn_msg.painn_layer``), which gathers
+  the sender rows itself, computes the filters from the raw basis and runs
+  the rest of the layer in one launch, with the flat per-layer parameters
+  ``filt_w`` ... ``mix_b2``.
 
 Parameters keep the JAX tree's names; ``nn.Linear`` weights are stored
 (out, in) against Flax's (in, out) kernels. ``load_jax_params`` takes a tree
@@ -119,7 +120,8 @@ class PaiNNLayer(nn.Module):
         """s (N, H); v (N, dim, H), flat (N, dim*H) when fused; dir_ij
         (N, K, dim) in cdt; wij the layer's (N, K, 3H) filters, or the
         (N, K, R+1) basis with the scale column when fused; sidx (N, K)
-        clamped sender rows; mask (N, K) in cdt."""
+        clamped sender rows (int64, or K5's int32 when fused); mask (N, K)
+        in cdt."""
         h = self.hidden_size
         n = s.shape[0]
         x = self.context(s, cdt)  # (N, 3H)
@@ -130,8 +132,9 @@ class PaiNNLayer(nn.Module):
                 [x[..., :h], x[..., h: 2 * h]] + [v[..., d * h: (d + 1) * h] * x3 for d in range(dim)],
                 dim=-1,
             )
-            g = gather_rows(packed, sidx)  # (N, K, (2 + dim) H); padded slots scale 0
-            return painn_msg.painn_layer(g, wij, (-dir_ij).to(x.dtype), s, v, dict(self.p))
+            # K5 gathers the sender rows; padded slots carry scale 0
+            return painn_msg.painn_layer(packed, sidx, wij, (-dir_ij).to(x.dtype), s, v,
+                                         dict(self.p))
 
         dim = v.shape[1]
         packed = torch.cat([x, v.reshape(n, dim * h)], dim=-1)
@@ -222,7 +225,10 @@ class PaiNN(nn.Module):
         mask = (senders < n).to(cdt)
         # padded slots (fill n) gather the last row, as a JAX gather clamps;
         # their filters are zero, so that row gets no gradient from them
-        sidx = torch.clamp(senders, max=n - 1).long()
+        if self.fused:
+            sidx = painn_msg.sender_index(senders, n)  # K5's int32, once per forward
+        else:
+            sidx = torch.clamp(senders, max=n - 1).long()
         dir_c = dir_ij.to(cdt)
 
         s = self.embed_s(features["vel_mag"], cdt)  # (N, H)

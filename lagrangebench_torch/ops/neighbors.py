@@ -440,7 +440,7 @@ def neighbor_list(
             occ = np.bincount(cid, minlength=n_bins)
             max_occ = int(occ.max()) if occ.size else 1
             cap = max(_round_up(max_occ * mult, 8), 8)
-            if nlc.scan_chunk(cap, dim, 3 ** (dim - 1)) == 0:
+            if nlc.scan_chunk(cap, 3 ** (dim - 1)) == 0:
                 continue
             cost = n_bins * cap * cap
             if best is None or cost < best[0]:

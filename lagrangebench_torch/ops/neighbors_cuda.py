@@ -48,24 +48,27 @@ SLOT_SCAN = Kernel(
 _EMIT_GEOMETRY, _EMIT_SLOT = 1, 2  # the kernel's Emit values
 
 #: shared memory one scan block may use for its stencil stage: all S
-#: columns when they fit, else as many whole columns as fit
-SCAN_SMEM_TARGET = 96 * 1024
+#: columns when they fit (9 columns of up to 330 slots in 3D), else as many
+#: whole columns as fit; four 512-thread blocks of this size share an SM
+SCAN_SMEM_TARGET = 48 * 1024
 #: the card's per-block limit (H100: 227 KB)
 SCAN_SMEM_MAX = 227 * 1024
 _BIN_TILE = 256
 
 
-def scan_smem_bytes(cap: int, dim: int, chunk: int) -> int:
-    """Shared memory of one scan block (the sum csrc/neighbor_scan.cu uses)."""
-    return (dim * chunk * cap + chunk * cap + cap) * 4
+def scan_smem_bytes(cap: int, chunk: int) -> int:
+    """Shared memory of one scan block (the sum csrc/neighbor_scan.cu uses):
+    a 16-byte record per staged candidate, a count per receiver and per
+    staged stencil column."""
+    return 16 * chunk * cap + 4 * cap + 4 * chunk
 
 
-def scan_chunk(cap: int, dim: int, n_steps: int) -> int:
+def scan_chunk(cap: int, n_steps: int) -> int:
     """Stencil columns staged at once; 0 when even one does not fit."""
-    if scan_smem_bytes(cap, dim, 1) > SCAN_SMEM_MAX:
+    if scan_smem_bytes(cap, 1) > SCAN_SMEM_MAX:
         return 0
     for chunk in range(n_steps, 0, -1):
-        if scan_smem_bytes(cap, dim, chunk) <= SCAN_SMEM_TARGET:
+        if scan_smem_bytes(cap, chunk) <= SCAN_SMEM_TARGET:
             return chunk
     return 1
 
@@ -238,7 +241,7 @@ def neighbor_scan(
     chunk, consts = _launch_consts("neighbor_scan", pos, idx, bases, cutoff, box, pbc)
     q, (_, cap, dim), s = bases.shape[0], pos.shape, bases.shape[1]
     out = torch.empty((q, cap, k_cap), dtype=torch.int32, device=pos.device)
-    row_max = torch.empty(q, dtype=torch.int32, device=pos.device)
+    row_max = torch.zeros(q, dtype=torch.int32, device=pos.device)
     cutoff2, box_c, inv_c, pbc_c = consts
     NEIGHBOR_SCAN(
         ptr(pos), ptr(idx), ptr(bases), ptr(out), ptr(row_max),
@@ -268,7 +271,7 @@ def _launch_consts(name, pos, idx, bases, cutoff, box, pbc):
     if not (idx.is_cuda and bases.is_cuda):
         raise ValueError(f"{name}: all inputs must be on one CUDA device")
     _, cap, dim = pos.shape
-    chunk = scan_chunk(cap, dim, bases.shape[1])
+    chunk = scan_chunk(cap, bases.shape[1])
     if chunk == 0:
         raise ValueError(f"{name}: column capacity {cap} exceeds one block's shared memory")
     cutoff2, box32, inv32 = _scan_consts(cutoff, box)
@@ -307,7 +310,7 @@ def neighbor_scan_geometry(pos, idx, bases, *, n_cols, k_cap, n, cutoff, box, pb
     q, (_, cap, dim), s = bases.shape[0], pos.shape, bases.shape[1]
     out = torch.empty((q, cap, k_cap), dtype=torch.int32, device=pos.device)
     geom = torch.empty((q, cap, k_cap * (dim + 1)), dtype=torch.float32, device=pos.device)
-    row_max = torch.empty(q, dtype=torch.int32, device=pos.device)
+    row_max = torch.zeros(q, dtype=torch.int32, device=pos.device)
     cutoff2, box_c, inv_c, pbc_c = consts
     NEIGHBOR_SCAN_GEOMETRY(
         _EMIT_GEOMETRY, ptr(pos), ptr(idx), ptr(bases), ptr(out), ptr(row_max), ptr(geom),
@@ -361,7 +364,7 @@ def slot_scan(pos, idx, bases, *, n_cols, k_cap, n, cutoff, box, pbc):
     cand = torch.empty((n_ext, k_cap), dtype=torch.int32, device=pos.device)
     rel_disp = torch.empty((n_ext, k_cap, dim), dtype=torch.float32, device=pos.device)
     rel_dist = torch.empty((n_ext, k_cap, 1), dtype=torch.float32, device=pos.device)
-    row_max = torch.empty(n_cols + 1, dtype=torch.int32, device=pos.device)
+    row_max = torch.zeros(n_cols + 1, dtype=torch.int32, device=pos.device)
     cutoff2, box_c, inv_c, pbc_c = consts
     SLOT_SCAN(
         _EMIT_SLOT, ptr(pos), ptr(idx), ptr(bases), ptr(cand), ptr(row_max), ptr(rel_disp),

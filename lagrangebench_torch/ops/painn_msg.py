@@ -12,13 +12,16 @@ with g the packed sender gather [x (3H), v (dim*H)] and nd the
 receiver->sender direction; ds (N, H) and dv (N, dim*H) come out in float32.
 
 K5, ``painn_layer``, runs everything of a PaiNN layer after the interaction
-context net in one call: the filters ``W = (phi[:R] @ filt_w + filt_b) *
-phi[R]`` from the raw radial basis (the per-edge scale, cutoff x padding
-mask, in the last column), the edge message and its K-sum, the clipped
-residuals, the per-axis ``v1_d @ vmix_w``, the norm gate, the mixing net
-``silu(ts @ mix_w1 + mix_b1) @ mix_w2 + mix_b2`` and the updates. g packs
-[x1, x2, u_d = v_d * x3] ((2 + dim) * H wide); outputs are in the compute
-dtype of ``s``.
+context net in one call: the sender gather ``g = packed[sidx]`` of the rows
+[x1, x2, u_d = v_d * x3] ((2 + dim) * H wide), the filters ``W =
+(phi[:R] @ filt_w + filt_b) * phi[R]`` from the raw radial basis (the
+per-edge scale, cutoff x padding mask, in the last column), the edge
+message and its K-sum, the clipped residuals, the per-axis ``v1_d @
+vmix_w``, the norm gate, the mixing net ``silu(ts @ mix_w1 + mix_b1) @
+mix_w2 + mix_b2`` and the updates; outputs are in the compute dtype of
+``s``. The kernel reads each sender row itself, so the (N, K, (2 + dim) *
+H) gathered tensor that the TPU kernel takes (``painn_layer_gathered_plain``
+computes from it) is never made on the forward.
 
 Products and sums run in float32 (float64 when the inputs are float64,
 which only the CPU takes). The plain versions round to the compute dtype
@@ -31,8 +34,9 @@ Their forward runs the CUDA kernel on CUDA tensors (``csrc/painn_msg.cu``,
 backward recomputes the plain version under ``torch.enable_grad()`` and
 returns ``torch.autograd.grad`` of it: the reference's own design
 (``_painn_message_vjp_bwd`` and ``_painn_layer_vjp_bwd`` rematerialize
-through the pure-JAX mirror), not a fallback. Neither TPU kernel has a
-backward kernel.
+through the pure-JAX mirror), not a fallback; K5's carries the gradient of
+``packed`` through the gather with ``models.utils.gather_rows`` (a float32
+``index_add_``). Neither TPU kernel has a backward kernel.
 """
 
 from __future__ import annotations
@@ -103,12 +107,14 @@ def painn_message_plain(g: torch.Tensor, wij: torch.Tensor, neg_dir: torch.Tenso
     return ds, torch.cat(dvs, dim=-1)
 
 
-def painn_layer_plain(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor,
-                      s: torch.Tensor, v_flat: torch.Tensor, p: Dict[str, torch.Tensor],
-                      eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K5.
+def painn_layer_gathered_plain(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor,
+                               s: torch.Tensor, v_flat: torch.Tensor,
+                               p: Dict[str, torch.Tensor],
+                               eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused PaiNN layer on gathered sender rows (what the TPU kernel
+    takes; ``painn_layer_reference`` of the JAX package).
 
-    g (N, K, (2 + dim) * H) packed gather [x1, x2, u]; phi (N, K, R + 1)
+    g (N, K, (2 + dim) * H) the gathered rows [x1, x2, u]; phi (N, K, R + 1)
     radial basis with the per-edge scale last; neg_dir (N, K, dim); s
     (N, H) and v_flat (N, dim*H) the node state in the compute dtype; ``p``
     the ``LAYER_PARAM_NAMES`` arrays ((in, out) matrices). Returns (s_out,
@@ -152,6 +158,20 @@ def painn_layer_plain(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor,
         [(v1s[d].to(acc) + _clip(vls[d] * dv2)).to(cdt) for d in range(dim)], dim=-1
     )
     return s_out, v_out
+
+
+def painn_layer_plain(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tensor,
+                      neg_dir: torch.Tensor, s: torch.Tensor, v_flat: torch.Tensor,
+                      p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5: :func:`painn_layer_gathered_plain` of
+    ``packed[sidx]``, the rows (N, (2 + dim) * H) of every node gathered by
+    the (N, K) sender index, clamped to [0, N) as a JAX gather clamps."""
+    rows = _sender_rows(sidx, packed.shape[0])
+    return painn_layer_gathered_plain(packed[rows], phi, neg_dir, s, v_flat, p)
+
+
+def _sender_rows(sidx: torch.Tensor, n: int) -> torch.Tensor:
+    return sidx.long().clamp(0, n - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -206,25 +226,26 @@ def layer_kernel_params(p: Dict[str, torch.Tensor], cdt: torch.dtype) -> Dict[st
             for name in LAYER_PARAM_NAMES}
 
 
-def painn_layer_kernel(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor,
-                       s: torch.Tensor, v_flat: torch.Tensor,
+def painn_layer_kernel(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tensor,
+                       neg_dir: torch.Tensor, s: torch.Tensor, v_flat: torch.Tensor,
                        p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K5 on CUDA tensors (no autograd); see :func:`painn_layer_plain`.
 
-    All activations share the compute dtype of ``s`` (bfloat16 or float32);
-    H is 128, R (the basis width, ``phi``'s last axis minus one) 20 and dim
-    2 or 3. ``p`` is in any dtype and is converted with
-    :func:`layer_kernel_params`.
+    All activations share the compute dtype of ``s`` (bfloat16 or float32),
+    ``sidx`` is int32 (:func:`sender_index`); H is 128, R (the basis width,
+    ``phi``'s last axis minus one) 20 and dim 2 or 3. ``p`` is in any dtype
+    and is converted with :func:`layer_kernel_params`.
     """
     cdt = _cuda_dtype(s.dtype, "painn_layer")
-    n, k, _ = g.shape
+    n, k, _ = phi.shape
     h = s.shape[-1]
     dim = neg_dir.shape[-1]
     r = phi.shape[-1] - 1
     if h != HIDDEN or r != N_RBF or dim not in (2, 3):
         raise ValueError(f"painn_layer kernel: H {h} (needs {HIDDEN}), R {r} (needs "
                          f"{N_RBF}), dim {dim} (needs 2 or 3)")
-    _check("painn_layer g", g, cdt, (n, k, (2 + dim) * h))
+    _check("painn_layer packed", packed, cdt, (n, (2 + dim) * h))
+    _check("painn_layer sidx", sidx, torch.int32, (n, k))
     _check("painn_layer phi", phi, cdt, (n, k, r + 1))
     _check("painn_layer neg_dir", neg_dir, cdt, (n, k, dim))
     _check("painn_layer s", s, cdt, (n, h))
@@ -238,12 +259,18 @@ def painn_layer_kernel(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor
                shapes[name])
     s_out = torch.empty_like(s)
     v_out = torch.empty_like(v_flat)
-    tensors = [g, phi, neg_dir, s, v_flat] + [kp[name] for name in LAYER_PARAM_NAMES]
+    tensors = [packed, sidx, phi, neg_dir, s, v_flat] + [kp[name] for name in LAYER_PARAM_NAMES]
     ptrs = [t.data_ptr() for t in tensors + [s_out, v_out]]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     PAINN_LAYER(ctypes.cast(arr, ctypes.c_void_p), n, k, h, r, dim,
                 int(cdt == torch.bfloat16), device=s_out.device)
     return s_out, v_out
+
+
+def sender_index(senders: torch.Tensor, n: int) -> torch.Tensor:
+    """The (N, K) sender rows as K5 takes them: int32, contiguous, padded
+    slots (fill ``n``) clamped to row n - 1, as a JAX gather clamps."""
+    return torch.clamp(senders, max=n - 1).to(torch.int32).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -280,20 +307,27 @@ class _MessageFunction(torch.autograd.Function):
 
 class _LayerFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, g, phi, neg_dir, s, v_flat, *params):
-        ctx.save_for_backward(g, phi, neg_dir, s, v_flat, *params)
+    def forward(ctx, packed, sidx, phi, neg_dir, s, v_flat, *params):
+        ctx.save_for_backward(packed, sidx, phi, neg_dir, s, v_flat, *params)
         p = dict(zip(LAYER_PARAM_NAMES, params))
         if s.is_cuda:
-            return painn_layer_kernel(g, phi, neg_dir, s, v_flat, p)
-        return painn_layer_plain(g, phi, neg_dir, s, v_flat, p)
+            return painn_layer_kernel(packed, sidx, phi, neg_dir, s, v_flat, p)
+        return painn_layer_plain(packed, sidx, phi, neg_dir, s, v_flat, p)
 
     @staticmethod
     def backward(ctx, gs, gv):
-        def plain(g, phi, neg_dir, s, v_flat, *params):
-            return painn_layer_plain(g, phi, neg_dir, s, v_flat,
-                                     dict(zip(LAYER_PARAM_NAMES, params)))
+        from ..models.utils import gather_rows  # here: models imports this module
 
-        return tuple(_plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad, (gs, gv)))
+        packed, sidx, *rest = ctx.saved_tensors
+        rows = _sender_rows(sidx, packed.shape[0])
+
+        def plain(packed, phi, neg_dir, s, v_flat, *params):
+            return painn_layer_gathered_plain(gather_rows(packed, rows), phi, neg_dir, s, v_flat,
+                                              dict(zip(LAYER_PARAM_NAMES, params)))
+
+        needs = ctx.needs_input_grad
+        grads = _plain_vjp(plain, [packed, *rest], (needs[0],) + needs[2:], (gs, gv))
+        return (grads[0], None, *grads[1:])
 
 
 def painn_message(g: torch.Tensor, wij: torch.Tensor, neg_dir: torch.Tensor,
@@ -305,13 +339,15 @@ def painn_message(g: torch.Tensor, wij: torch.Tensor, neg_dir: torch.Tensor,
     return _MessageFunction.apply(g, wij, neg_dir, h)
 
 
-def painn_layer(g: torch.Tensor, phi: torch.Tensor, neg_dir: torch.Tensor,
-                s: torch.Tensor, v_flat: torch.Tensor,
+def painn_layer(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tensor,
+                neg_dir: torch.Tensor, s: torch.Tensor, v_flat: torch.Tensor,
                 p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5, differentiable: the CUDA kernel forward on CUDA tensors (the
     plain version on CPU tensors), the backward rematerialized through
-    :func:`painn_layer_plain`. ``p`` holds the parameters as stored; their
-    gradients come back in their own dtype. Counts a launch only where the
-    kernel runs (``PAINN_LAYER.launches``)."""
-    return _LayerFunction.apply(g, phi, neg_dir, s, v_flat,
+    :func:`painn_layer_plain`. ``packed`` (N, (2 + dim) * H) holds every
+    node's [x1, x2, u] row, ``sidx`` (N, K) the sender rows (int32 on the
+    card, :func:`sender_index`); ``p`` holds the parameters as stored, and
+    their gradients come back in their own dtype. Counts a launch only
+    where the kernel runs (``PAINN_LAYER.launches``)."""
+    return _LayerFunction.apply(packed, sidx, phi, neg_dir, s, v_flat,
                                 *(p[name] for name in LAYER_PARAM_NAMES))

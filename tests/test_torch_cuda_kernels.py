@@ -219,19 +219,24 @@ def test_fused_mp_bwd_kernel_ragged(cuda, n, k, dtype):
             assert float((x - y).norm() / y.norm().clamp_min(1e-30)) <= 5e-3, name
 
 
-def _painn_case(cuda, dtype, dim, n=203, k=24, fused=False):
-    """Random K5 / K6 inputs at H = 128 (R = 20 for K5) with padded slots."""
+def _painn_case(cuda, dtype, dim, n=203, k=24, fused=False, seed=None):
+    """Random K5 / K6 inputs at H = 128 (R = 20 for K5) with padded slots.
+    K5's: packed (n, (2 + dim) H) node rows and an int32 (n, k) sender
+    index that repeats rows and points padded slots (scale 0) at row n - 1."""
     from lagrangebench_torch.ops import painn_msg
 
-    g = torch.Generator().manual_seed(dim + 10 * fused)
+    g = torch.Generator().manual_seed(dim + 10 * fused if seed is None else seed)
     h = painn_msg.HIDDEN
     mask = (torch.rand(n, k, generator=g) < 0.8).to(torch.float32)
     nd = torch.randn(n, k, dim, generator=g)
     if fused:
         r = painn_msg.N_RBF
+        senders = torch.randint(0, n, (n, k), generator=g)
+        senders[:, k // 2] = senders[:, 0]  # a repeated sender row
+        senders = torch.where(mask > 0, senders, n)
         phi = torch.cat([torch.rand(n, k, r, generator=g),
                          torch.rand(n, k, 1, generator=g) * mask[..., None]], dim=-1)
-        t = {"g": torch.randn(n, k, (2 + dim) * h, generator=g), "phi": phi, "nd": nd,
+        t = {"packed": torch.randn(n, (2 + dim) * h, generator=g), "phi": phi, "nd": nd,
              "s": torch.randn(n, h, generator=g), "v": torch.randn(n, dim * h, generator=g)}
         p = {"filt_w": torch.randn(r, 3 * h, generator=g) / r**0.5,
              "filt_b": 0.1 * torch.randn(3 * h, generator=g),
@@ -241,11 +246,18 @@ def _painn_case(cuda, dtype, dim, n=203, k=24, fused=False):
              "mix_w2": torch.randn(h, 3 * h, generator=g) / h**0.5,
              "mix_b2": 0.1 * torch.randn(3 * h, generator=g)}
         p = {name: v.to(cuda) for name, v in p.items()}
+        p["sidx"] = painn_msg.sender_index(senders, n).to(cuda)
     else:
         t = {"g": torch.randn(n, k, (3 + dim) * h, generator=g),
              "wij": torch.randn(n, k, 3 * h, generator=g) * mask[..., None], "nd": nd}
         p = None
     return {name: v.to(dtype).to(cuda) for name, v in t.items()}, p
+
+
+def _layer_args(t, p):
+    """(packed, sidx, phi, nd, s, v, params) of K5 from :func:`_painn_case`."""
+    params = {name: v for name, v in p.items() if name != "sidx"}
+    return (t["packed"], p["sidx"], t["phi"], t["nd"], t["s"], t["v"], params)
 
 
 def _rel(got, want):
@@ -284,7 +296,7 @@ def test_painn_layer_kernel(cuda, dtype, tol, dim):
     from lagrangebench_torch.ops import painn_msg
 
     t, p = _painn_case(cuda, dtype, dim, fused=True)
-    args = (t["g"], t["phi"], t["nd"], t["s"], t["v"], p)
+    args = _layer_args(t, p)
     before = painn_msg.PAINN_LAYER.launches
     got = painn_msg.painn_layer(*args)
     assert painn_msg.PAINN_LAYER.launches == before + 1
@@ -295,22 +307,59 @@ def test_painn_layer_kernel(cuda, dtype, tol, dim):
         assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
 
 
+K5_RAGGED = [(n, k) for n in (1, 37, 16000) for k in (1, 40)]
+
+
+@pytest.mark.parametrize("n,k", K5_RAGGED)
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_painn_layer_kernel_ragged(cuda, n, k, dim, dtype):
+    """K5 with the gather inside at ragged shapes (a last tile of 1-15
+    receivers, one slot, the rollout's 16,000 x 40) against its plain
+    version: float32 (TF32 off) within 1e-4 of the largest magnitude; bf16
+    as test_painn_layer_kernel holds these random inputs, within 1e-3 in
+    the relative 2-norm and 2e-2 of the largest magnitude. On them a sum in
+    another order moves a rounded s1, v1_d, ts or z across a bf16 rounding
+    boundary often enough to read ~2e-4 in the 2-norm at 16,000 receivers;
+    chip_smoke.py holds K5 to 1e-4 on the model's own inputs."""
+    from lagrangebench_torch.ops import painn_msg
+
+    t, p = _painn_case(cuda, dtype, dim, n=n, k=k, fused=True, seed=n + k + dim)
+    args = _layer_args(t, p)
+    got = painn_msg.painn_layer_kernel(*args)
+    want = painn_msg.painn_layer_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        if dtype == torch.float32:
+            assert _rel(a, b) <= 1e-4
+        else:
+            assert _rel(a, b) <= 2e-2
+            assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
+
+
 def test_painn_layer_kernel_gradients(cuda):
     """The autograd Function around K5: gradients (rematerialized through
-    the plain version) equal those of the plain version itself."""
+    the plain version, packed's through the gather) equal those of the
+    plain version itself. packed's gradient sums the rows of every slot
+    that gathered it, in float32 with atomics in either backward, in other
+    orders: within 1e-5 of its largest magnitude."""
     from lagrangebench_torch.ops import painn_msg
 
     t, p = _painn_case(cuda, torch.float32, 3, fused=True)
-    leaves = {name: v.clone().requires_grad_() for name, v in p.items()}
-    ins = {name: t[name].clone().requires_grad_() for name in ("g", "phi", "s", "v")}
-    out = painn_msg.painn_layer(ins["g"], ins["phi"], t["nd"], ins["s"], ins["v"], leaves)
+    packed, sidx, _, nd, _, _, params = _layer_args(t, p)
+    names = ("packed", "phi", "s", "v")
+    ins = {name: t[name].clone().requires_grad_() for name in names}
+    leaves = {name: v.clone().requires_grad_() for name, v in params.items()}
+    out = painn_msg.painn_layer(ins["packed"], sidx, ins["phi"], nd, ins["s"], ins["v"], leaves)
     grads = torch.autograd.grad(sum(o.sum() for o in out), [*ins.values(), *leaves.values()])
-    ins2 = {name: t[name].clone().requires_grad_() for name in ("g", "phi", "s", "v")}
-    leaves2 = {name: v.clone().requires_grad_() for name, v in p.items()}
-    out2 = painn_msg.painn_layer_plain(ins2["g"], ins2["phi"], t["nd"], ins2["s"], ins2["v"],
-                                       leaves2)
+    ins2 = {name: t[name].clone().requires_grad_() for name in names}
+    leaves2 = {name: v.clone().requires_grad_() for name, v in params.items()}
+    out2 = painn_msg.painn_layer_plain(ins2["packed"], sidx, ins2["phi"], nd, ins2["s"],
+                                       ins2["v"], leaves2)
     want = torch.autograd.grad(sum(o.sum() for o in out2), [*ins2.values(), *leaves2.values()])
-    for a, b in zip(grads, want):
+    assert _rel(grads[0], want[0]) <= 1e-5
+    for a, b in zip(grads[1:], want[1:]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
@@ -353,6 +402,63 @@ def test_slot_scan_kernel(cuda, dim, pbc):
         assert torch.equal(got.aux[key].cpu(), want.aux[key]), key
     for key in ("rel_disp", "rel_dist"):
         assert float((got.aux[key].cpu() - want.aux[key]).abs().max()) <= 1e-6
+
+
+SCAN_CASES = ["chunked", "empty_columns", "single"]
+_SCAN_HANDLES = {"senders": "NEIGHBOR_SCAN", "geometry": "NEIGHBOR_SCAN_GEOMETRY",
+                 "slot": "SLOT_SCAN"}
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("emit", ["senders", "geometry", "slot"])
+@pytest.mark.parametrize("pbc", [True, False])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_scan_kernels_edge_cases(cuda, monkeypatch, dim, pbc, emit, case):
+    """K2, K9 and K7 through an update against the plain versions: ids,
+    maps and flags exactly, the geometry within 1e-6. ``chunked`` cuts the
+    stage budget so that one stencil column is staged at a time (chunk 1 <
+    S, the path of a column capacity past the budget); ``empty_columns``
+    packs the particles into a corner of the box; ``single`` is one
+    particle."""
+    rng = np.random.default_rng(dim + 2 * pbc + 5 * SCAN_CASES.index(case))
+    if case == "single":
+        pos_np = rng.uniform(0, 1, size=(1, dim))
+    else:
+        pos_np = rng.uniform(0, 0.4 if case == "empty_columns" else 1.0, size=(300, dim))
+    n = len(pos_np)
+    chunks = []
+    real_chunk = neighbors_cuda.scan_chunk
+
+    def scan_chunk(cap, n_steps):
+        chunks.append((real_chunk(cap, n_steps), n_steps))
+        return chunks[-1][0]
+
+    monkeypatch.setattr(neighbors_cuda, "scan_chunk", scan_chunk)
+    if case == "chunked":
+        monkeypatch.setattr(neighbors_cuda, "SCAN_SMEM_TARGET", 1)
+    kw = {"geometry": {"emit_geometry": True}, "slot": {"format": "slot"}}.get(emit, {})
+    nl = neighbor_list(None, [1.0] * dim, 0.12, pbc=[pbc] * dim, **kw)
+    shell = nl.allocate_shell(pos_np, capacity_boost=1.5)
+    if emit == "slot":
+        pos, npart = torch.as_tensor(pos_np), max(n - 20, 1)
+    else:
+        shell = shell.broadcast(2)
+        pos = torch.as_tensor(np.stack([pos_np, pos_np[::-1].copy()]))
+        npart = torch.tensor([n, max(n - n // 3, 1)])
+    handle = getattr(neighbors_cuda, _SCAN_HANDLES[emit])
+    before = handle.launches
+    got = shell.update(pos.to(cuda), num_particles=npart)
+    assert handle.launches == before + 1
+    if case == "chunked":
+        assert chunks[-1][0] < chunks[-1][1]
+    want = shell.update(pos, num_particles=npart)
+    assert torch.equal(got.idx.cpu(), want.idx)
+    assert torch.equal(got.did_buffer_overflow.cpu(), want.did_buffer_overflow)
+    for key, value in (want.aux or {}).items():
+        if key in ("rel_disp", "rel_dist"):
+            assert float((got.aux[key].cpu() - value).abs().max()) <= 1e-6, key
+        else:
+            assert torch.equal(got.aux[key].cpu(), value), key
 
 
 def _slot_case(cuda, dtype, use_enc, seed=0, particles=600):

@@ -116,32 +116,42 @@ def test_painn_message_matches_jax(request, dtype, dim):
 
 
 def _layer_inputs(dim, dtype, seed=2):
+    """K5's inputs: packed (N, (2 + dim) H) node rows and an (N, K) sender
+    index with repeated rows and padded slots (fill N, basis scale 0), as
+    the model builds them; the parameters in float32."""
     rng = np.random.default_rng(seed)
-    phi = np.concatenate([rng.normal(size=(N, K, R)), rng.uniform(size=(N, K, 1))], axis=-1)
-    arrays = (rng.normal(size=(N, K, (2 + dim) * H)), phi, rng.normal(size=(N, K, dim)),
+    senders = rng.integers(0, N, size=(N, K))
+    senders[:, 1] = senders[:, 0]  # a sender twice in one row
+    senders[rng.uniform(size=(N, K)) < 0.25] = N  # padded slots
+    scale = rng.uniform(size=(N, K, 1)) * (senders < N)[..., None]
+    phi = np.concatenate([rng.normal(size=(N, K, R)), scale], axis=-1)
+    arrays = (rng.normal(size=(N, (2 + dim) * H)), phi, rng.normal(size=(N, K, dim)),
               rng.normal(size=(N, H)), rng.normal(size=(N, dim * H)))
     p = {"filt_w": rng.normal(size=(R, 3 * H)) * 0.3, "filt_b": rng.normal(size=(3 * H,)) * 0.1,
          "vmix_w": rng.normal(size=(H, 2 * H)) * 0.3, "mix_w1": rng.normal(size=(2 * H, H)) * 0.2,
          "mix_b1": rng.normal(size=(H,)) * 0.1, "mix_w2": rng.normal(size=(H, 3 * H)) * 0.3,
          "mix_b2": rng.normal(size=(3 * H,)) * 0.1}
-    return ([x.astype(dtype) for x in arrays],
+    return ([x.astype(dtype) for x in arrays], senders.astype(np.int32),
             {k: v.astype(np.float32) for k, v in p.items()})
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_painn_layer_matches_jax(request, dtype, dim):
-    """Values of painn_layer_plain and gradients (inputs and the seven
-    parameters) through painn_layer's autograd Function against JAX
-    painn_layer (Pallas interpret mode, custom VJP)."""
+    """Values of painn_layer_plain (the gather inside) and gradients (packed
+    through the gather, the other inputs and the seven parameters) through
+    painn_layer's autograd Function against JAX painn_layer(packed[senders],
+    ...) (Pallas interpret mode, custom VJP; the JAX gather clamps the
+    padded slots' fill N to row N - 1)."""
     if dtype == "float64":
         request.getfixturevalue("wide_jax")
-    arrays, p = _layer_inputs(dim, dtype)
+    arrays, senders, p = _layer_inputs(dim, dtype)
     rng = np.random.default_rng(3)
     cs, cv = rng.normal(size=(N, H)), rng.normal(size=(N, dim * H))
 
-    def jloss(g_, phi_, n_, s_, v_, p_):
-        s_out, v_out = jax_painn_msg.painn_layer(g_, phi_, n_, s_, v_, p_, interpret=True)
+    def jloss(packed_, phi_, n_, s_, v_, p_):
+        s_out, v_out = jax_painn_msg.painn_layer(packed_[jnp.asarray(senders)], phi_, n_, s_, v_,
+                                                 p_, interpret=True)
         return jnp.sum(s_out * cs) + jnp.sum(v_out * cv), (s_out, v_out)
 
     jargs = [jnp.asarray(x) for x in arrays] + [{k: jnp.asarray(v) for k, v in p.items()}]
@@ -149,9 +159,10 @@ def test_painn_layer_matches_jax(request, dtype, dim):
         jloss, argnums=tuple(range(6)), has_aux=True)(*jargs)
 
     ins = [torch.tensor(x, requires_grad=True) for x in arrays]
+    sidx = torch.as_tensor(senders)
     tp = {k: torch.tensor(v, requires_grad=True) for k, v in p.items()}
-    s_out, v_out = painn_msg.painn_layer(*ins, tp)
-    plain = painn_msg.painn_layer_plain(*[x.detach() for x in ins],
+    s_out, v_out = painn_msg.painn_layer(ins[0], sidx, *ins[1:], tp)
+    plain = painn_msg.painn_layer_plain(ins[0].detach(), sidx, *[x.detach() for x in ins[1:]],
                                         {k: v.detach() for k, v in tp.items()})
     assert s_out.dtype == getattr(torch, dtype)
     for got, want in ((s_out, s_ref), (v_out, v_ref), (plain[0], s_ref), (plain[1], v_ref)):
@@ -170,8 +181,9 @@ def test_cpu_tensors_launch_nothing():
     before = (painn_msg.PAINN_MSG.launches, painn_msg.PAINN_LAYER.launches)
     g, wij, nd = (torch.as_tensor(x) for x in _msg_inputs(3, "float32"))
     painn_msg.painn_message(g, wij, nd, H)
-    arrays, p = _layer_inputs(3, "float32")
-    painn_msg.painn_layer(*(torch.as_tensor(x) for x in arrays),
+    arrays, senders, p = _layer_inputs(3, "float32")
+    ins = [torch.as_tensor(x) for x in arrays]
+    painn_msg.painn_layer(ins[0], painn_msg.sender_index(torch.as_tensor(senders), N), *ins[1:],
                           {k: torch.as_tensor(v) for k, v in p.items()})
     assert (painn_msg.PAINN_MSG.launches, painn_msg.PAINN_LAYER.launches) == before
 
