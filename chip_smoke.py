@@ -7,17 +7,21 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    versions, and builds every CUDA kernel of the port from ``csrc/`` (one
    nvcc per source, all at once); prints the registers and spills of the
    fused GNS kernels, K5 and the scans from nvcc's report.
-2. Inference (slice 1). Runs K1, K2 and K3 against their plain PyTorch
-   versions on the card, on the inputs the path gives them (captured from
-   one preprocess and one model forward at the slice's shapes: GNS-10-128,
-   8,000 particles in 3D, batch 2): K1 and K2 must match exactly; K3 within
-   stated tolerances in bf16 and in float32 with TF32 off. Times each with
-   CUDA events. Then drives ``infer`` (seeded bf16 weights saved to and
+2. Inference (slice 1). Runs K1 (the column table), K2 and K3 against
+   their plain PyTorch versions on the card, on the inputs the path gives
+   them (captured from one preprocess and one model forward at the slice's
+   shapes: GNS-10-128, 8,000 particles in 3D, batch 2): K1 and K2 must
+   match exactly (K1 also on the first sample alone, with half the
+   capacity so that columns overflow, and on float64 positions on column
+   boundaries; timed beside its bound and the launch floor of an empty
+   kernel); K3 within stated tolerances in bf16 and in float32 with TF32
+   off. Times each with CUDA events. Then drives ``infer`` (seeded bf16 weights saved to and
    reloaded from ``params.npz``, synthetic RPF-3D-scale trajectories, batch
    2, 20 rollout steps, metrics mse, e_kin and Sinkhorn) with the launch
    counters zeroed just before and read just after, times a rollout (ms
    per step), profiles three steps by kernel group, and holds a small
-   float32 rollout on the card against the plain path on the CPU.
+   float32 rollout on the card against the plain path on the CPU, and
+   prints the device kernels of one dense neighbor update.
 3. Training (slice 2). Runs K4 (the fused step's backward) against its
    plain version on inputs captured from one training backward at the same
    shapes (a plain step and the encoder step), in bf16 and in float32, checks
@@ -74,7 +78,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    with the counters zeroed around them: E1 must launch, E2 50 times per
    timed loop plus its one check; prints ms per MP step of (b) ``hs[ext_idx]``
    + E2 and (a) ``hs[senders]`` + K3, and the gather times.
-7. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+7. EGNN, the standard GNS processor and Linear (slice 8). Drives
+   ``runner.train_or_infer`` with the shipped ``configs/rpf_3d/egnn.yaml``
+   (``EGNN_CONFIG``, EGNN-5-128 float32) on the synthetic splits:
+   ``mode=all``, 10 training steps and a 20-step infer (mse, e_kin,
+   Sinkhorn), K1 and K2 counted once per neighbor update and K3 at none;
+   checks finite losses and changed parameters, prints ms per train and
+   rollout step and profiles a rollout step; holds a small float32 EGNN
+   (1,000 particles, 2 layers) on the card against the CPU (a 3-step
+   rollout, 3 training steps). Then ``configs/rpf_3d/gns.yaml`` with
+   ``model.fused_processor=false`` (``mode=infer``, batch 2, from a
+   checkpoint of seeded weights in the standard layout), held to the
+   fused processor from the same weights in float32 (1e-4), with ms per
+   rollout step of both processors; then Linear (``mode=all``, 3 steps).
+8. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
    and C for K7, K8 and K9, from the experiments for E1 and E2), the card
    line, and last ``{"ok": true, "device": {...}}``.
@@ -213,11 +230,12 @@ def capture_kernel_inputs(case, model, data):
     from lagrangebench_torch.ops import fused_mp, neighbors_cuda
 
     seen = {}
-    real = (neighbors_cuda.binning, neighbors_cuda.neighbor_scan, fused_mp.gns_mp_step)
+    real = (neighbors_cuda.column_table, neighbors_cuda.neighbor_scan, fused_mp.gns_mp_step)
 
-    def rec_bin(cid, num_cells, cap):
-        seen.setdefault("binning", ((cid.clone(), num_cells, cap), {}))
-        return neighbors_cuda.binning_plain(cid, num_cells, cap)
+    def rec_table(position, num_particles, grid, col_cap):
+        seen.setdefault("column_table",
+                        ((position.clone(), num_particles.clone(), grid, col_cap), {}))
+        return neighbors_cuda.column_table_plain(position, num_particles, grid, col_cap)
 
     def rec_scan(pos, idx, bases, **kw):
         seen.setdefault("neighbor_scan", ((pos.clone(), idx.clone(), bases.clone()), kw))
@@ -234,15 +252,15 @@ def capture_kernel_inputs(case, model, data):
     batch = [data[i] for i in range(BATCH)]
     pos_b = torch.as_tensor(np.stack([b[0] for b in batch]), device=case.device)
     ptype_b = torch.as_tensor(np.stack([b[1] for b in batch]), device=case.device)
-    neighbors_cuda.binning, neighbors_cuda.neighbor_scan, fused_mp.gns_mp_step = (
-        rec_bin, rec_scan, rec_mp)
+    neighbors_cuda.column_table, neighbors_cuda.neighbor_scan, fused_mp.gns_mp_step = (
+        rec_table, rec_scan, rec_mp)
     try:
         with torch.no_grad():
             feats, nb_b = case.preprocess_eval_batched(
                 (pos_b[:, :, :ISL], ptype_b), nbrs.broadcast(BATCH))
             model(feats, ptype_b.reshape(-1))
     finally:
-        neighbors_cuda.binning, neighbors_cuda.neighbor_scan, fused_mp.gns_mp_step = real
+        neighbors_cuda.column_table, neighbors_cuda.neighbor_scan, fused_mp.gns_mp_step = real
     return seen, nb_b.capacity
 
 
@@ -269,9 +287,14 @@ def bound(name, args, kw):
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
-    if name == "binning":
-        cid = args[0]
-        byts, ops, peak = nbytes(cid) * 2 + 4, cid.numel() * 4, PEAK_FP32
+    if name == "column_table":
+        # positions and counts in; slots, the table (ids and float32
+        # positions, sentinel columns included) and the flags out
+        position, npart, grid, cap = args
+        bsz, n, dim = position.shape
+        table = bsz * (grid.n_cols + 1) * cap * (4 + 4 * dim)
+        byts = nbytes(position) + 4 * bsz + 4 * bsz * n + table + bsz
+        ops, peak = 0, PEAK_FP32
     elif name in ("neighbor_scan", "neighbor_scan_geometry", "slot_scan"):
         pos, idx, bases = args
         q, s = bases.shape
@@ -339,7 +362,6 @@ def compare_kernels(seen):
     from lagrangebench_torch.ops import fused_mp, neighbors_cuda
 
     funcs = {
-        "binning": (neighbors_cuda.binning, neighbors_cuda.binning_plain, neighbors_cuda.BINNING),
         "neighbor_scan": (neighbors_cuda.neighbor_scan, neighbors_cuda.neighbor_scan_plain,
                           neighbors_cuda.NEIGHBOR_SCAN),
         "fused_mp": (fused_mp.gns_mp_step, fused_mp.gns_mp_step_plain, fused_mp.FUSED_MP),
@@ -383,6 +405,60 @@ def compare_kernels(seen):
     return rows, ok
 
 
+def compare_column_table(seen):
+    """K1 (the column table) against its plain version on the card, every
+    output exactly equal (slots, ids, positions, the flag): on the captured
+    inputs at batch 2 (B*N = 16,000) and their first sample (batch 1, the
+    slot path's shape), with half the capacity (columns overflow), and on
+    float64 positions, a third of them on column boundaries (twice the
+    capacity, so that every particle lands in the table). Timed at both
+    batch sizes beside its bound and the launch floor (an empty kernel)."""
+    import torch
+
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+    from lagrangebench_torch.profiling import launch_floor_ms
+
+    (position, npart, grid, cap), _ = seen
+    on_edge = position.double()
+    idx = torch.arange(position.shape[1], device=position.device)[::3]
+    for d, (cps, size) in enumerate(zip(grid.cols_per_side, grid.col_size)):
+        on_edge[:, idx, d] = (idx // (cps + 1) ** d % (cps + 1)).double()[None] * size
+    cases = {"batch 2": (position, npart, cap), "batch 1": (position[:1], npart[:1], cap),
+             "overflow (cap / 2)": (position, npart, cap // 2),
+             "float64 on column boundaries (cap x 2)": (on_edge, npart, 2 * cap)}
+    ok, flags, err = True, {}, 0.0
+    for label, (pos, n, c) in cases.items():
+        got = nlc.column_table(pos, n, grid, c)
+        want = nlc.column_table_plain(pos, n, grid, c)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        err = max([err] + [float((a.double() - b.double()).abs().max())
+                           for a, b in zip(got, want)])
+        flags[label] = bool(want[3])
+        log(f"column_table {label} ({tuple(pos.shape)}, {pos.dtype}, cap {c}): slots, ids, "
+            f"positions, flag equal {same}; flag {bool(got[3])}"
+            f"{'' if all(same) else '  FAIL'}")
+        ok &= all(same)
+    if flags != {label: label.startswith("overflow") for label in cases}:
+        log(f"FAIL: only the overflow case may overflow: {flags}")
+        ok = False
+    args = (position, npart, grid, cap)
+    ms = cuda_time(lambda: nlc.column_table(*args), iters=200, warmup=10)
+    ms1 = cuda_time(lambda: nlc.column_table(position[:1], npart[:1], grid, cap), iters=200,
+                    warmup=10)
+    plain_ms = cuda_time(lambda: nlc.column_table_plain(*args), iters=20, warmup=2)
+    floor = launch_floor_ms()
+    bms, by = bound("column_table", args, {})
+    bms1, _ = bound("column_table", (position[:1], npart[:1], grid, cap), {})
+    log(f"column_table: {ms:.5f} ms at batch 2, {ms1:.5f} at batch 1 (plain {plain_ms:.4f} ms; "
+        f"bound {bms:.6f} / {bms1:.6f} ms by {by}; launch floor, an empty kernel, "
+        f"{floor:.5f} ms)")
+    row = {"name": "column_table", "route": "cuda", "source": nlc.COLUMN_TABLE.source_path,
+           "replaces": nlc.COLUMN_TABLE.replaces, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return row, ok
+
+
 def main_path(device):
     """Phase 3: infer() through params.npz with the counters zeroed."""
     import numpy as np
@@ -391,16 +467,19 @@ def main_path(device):
     from lagrangebench_torch import checkpoint
     from lagrangebench_torch.evaluate import infer
     from lagrangebench_torch.evaluate.rollout import rollout_batch
+    from lagrangebench_torch.experiments.mp_times import update_kernels
     from lagrangebench_torch.ops import fused_mp, neighbors_cuda
 
-    kernels = [neighbors_cuda.BINNING, neighbors_cuda.NEIGHBOR_SCAN,
+    kernels = [neighbors_cuda.COLUMN_TABLE, neighbors_cuda.NEIGHBOR_SCAN,
                fused_mp.FUSED_MP, fused_mp.FUSED_MP_ENC]
     data, metadata = make_data(N_PARTICLES, ISL + N_STEPS)
     case, model = build_case_model(metadata, device)
     seen, k_cap = capture_kernel_inputs(case, model, data)
     log(f"slice shapes: B*N = {BATCH * N_PARTICLES}, K = {k_cap}, "
         f"column table {tuple(seen['neighbor_scan'][0][0].shape)}")
-    rows, ok = compare_kernels(seen)
+    k1_row, ok = compare_column_table(seen.pop("column_table"))
+    rows, passed = compare_kernels(seen)
+    rows, ok = {"column_table": k1_row, **rows}, ok & passed
 
     with tempfile.TemporaryDirectory() as ckp:
         checkpoint.save_checkpoint(ckp, model.jax_params(), {}, {"step": 0, "loss": None})
@@ -422,7 +501,8 @@ def main_path(device):
         rows[kern.name]["launches"] = kern.launches
 
     attempts = counts["fused_mp_enc"] // N_STEPS
-    expect = {"binning": attempts * (N_STEPS + 1), "neighbor_scan": attempts * (N_STEPS + 1),
+    expect = {"column_table": attempts * (N_STEPS + 1),
+              "neighbor_scan": attempts * (N_STEPS + 1),
               "fused_mp": attempts * N_STEPS * (MP_STEPS - 1),
               "fused_mp_enc": attempts * N_STEPS}
     if attempts < 1 or counts != expect:
@@ -459,6 +539,9 @@ def main_path(device):
         log("FAIL: rollout predictions have the wrong shape or are not finite")
         ok = False
     profile_steps(fresh, case, pos, ptype, nbrs)
+    most_recent, npart = pos[:, :, ISL - 1], (ptype != -1).sum(dim=1)
+    names = update_kernels(torch, lambda: nbrs.update(most_recent, num_particles=npart))
+    log(f"one dense neighbor update at batch {BATCH}: {len(names)} device kernels {names}")
     return rows, ok, min(step_ms)
 
 
@@ -474,7 +557,7 @@ def profile_steps(model, case, pos, ptype, nbrs, steps=3, isl=ISL, label="profil
 
     groups = {"fused_mp": "K3 fused_mp", "painn_msg": "K6 painn_msg",
               "painn_layer": "K5 painn_layer", "neighbor_scan": "K2 neighbor_scan",
-              "bin_": "K1 binning", "gemm": "GEMM (torch.matmul)",
+              "bin_": "K1 column_table", "gemm": "GEMM (torch.matmul)",
               "nvjet": "GEMM (torch.matmul)", "cutlass": "GEMM (torch.matmul)",
               "index": "gather/scatter (torch index ops)",
               "scatter": "gather/scatter (torch index ops)",
@@ -731,7 +814,7 @@ def train_path(device):
     from lagrangebench_torch import checkpoint
     from lagrangebench_torch.ops import fused_mp, neighbors_cuda
 
-    kernels = [neighbors_cuda.BINNING, neighbors_cuda.NEIGHBOR_SCAN, fused_mp.FUSED_MP,
+    kernels = [neighbors_cuda.COLUMN_TABLE, neighbors_cuda.NEIGHBOR_SCAN, fused_mp.FUSED_MP,
                fused_mp.FUSED_MP_ENC, fused_mp.FUSED_MP_BWD]
     trainer, _, _ = train_setup(device)
     sets, (raw, nbrs) = capture_bwd_inputs(trainer)
@@ -752,7 +835,7 @@ def train_path(device):
     log(f"train: {TRAIN_STEPS} steps in {wall:.2f} s wall (allocation included); "
         f"launches {counts}")
     passes = sum(1 + u for u, _ in steps)
-    expect = {"binning": passes + allocs[0], "neighbor_scan": passes + allocs[0],
+    expect = {"column_table": passes + allocs[0], "neighbor_scan": passes + allocs[0],
               "fused_mp": (MP_STEPS - 1) * passes, "fused_mp_enc": passes,
               "fused_mp_bwd": MP_STEPS * len(steps)}
     unrolls = [u for u, _ in steps]
@@ -804,7 +887,7 @@ def profile_train_step(trainer, raw, nbrs, batch=BATCH, unroll=1, label="train p
 
     groups = [("fused_mp_bwd", "K4 fused_mp_bwd"), ("fused_mp", "K3 fused_mp"),
               ("painn_msg", "K6 painn_msg"), ("painn_layer", "K5 painn_layer"),
-              ("neighbor_scan", "K2 neighbor_scan"), ("bin_", "K1 binning"),
+              ("neighbor_scan", "K2 neighbor_scan"), ("bin_", "K1 column_table"),
               ("gemm", "GEMM (torch.matmul)"), ("nvjet", "GEMM (torch.matmul)"),
               ("cutlass", "GEMM (torch.matmul)"),
               ("foreach", "AdamW (foreach ops)"), ("multi_tensor", "AdamW (foreach ops)"),
@@ -1099,15 +1182,14 @@ def compare_painn_kernels(seen):
 
 class _Recorder:
     """Wraps the runner's case_builder, setup_model and Trainer to keep what
-    they made, and counts model forward passes (PaiNN and GNS) and neighbor
-    allocations of the cases it made."""
+    they made, and counts model forward passes (every model class) and
+    neighbor allocations of the cases it made."""
 
     def __init__(self):
         import lagrangebench_torch.runner as runner
-        from lagrangebench_torch.models.gns import GNS
-        from lagrangebench_torch.models.painn import PaiNN
+        from lagrangebench_torch.models import EGNN, GNS, GNSStandard, Linear, PaiNN
 
-        self.runner, self.model_classes = runner, (PaiNN, GNS)
+        self.runner, self.model_classes = runner, (PaiNN, GNS, GNSStandard, EGNN, Linear)
         self.cases, self.models, self.trainers, self.losses = [], [], [], []
         self.forwards = self.allocations = 0
 
@@ -1746,7 +1828,7 @@ def slot_path(device):
     rows, ok = compare_slot_kernels(seen, nbrs, position)
     del seen, nbrs
 
-    kernels = (nlc.BINNING, nlc.NEIGHBOR_SCAN, nlc.NEIGHBOR_SCAN_GEOMETRY, nlc.SLOT_SCAN,
+    kernels = (nlc.COLUMN_TABLE, nlc.NEIGHBOR_SCAN, nlc.NEIGHBOR_SCAN_GEOMETRY, nlc.SLOT_SCAN,
                fused_mp.FUSED_MP, fused_mp.FUSED_MP_ENC, fused_mp.FUSED_MP_SLOT,
                fused_mp.FUSED_MP_SLOT_ENC)
     mp = int(GNS_CONFIG["model"]["num_mp_steps"])
@@ -1790,7 +1872,7 @@ def slot_path(device):
                                                        "eval.infer.batch_size": 1}, **common)
         passed, counts_a, rec_a, metrics_a = run(
             "path A (slot, batch 1)", cfg_a, data,
-            lambda fw, al: {"binning": fw + al, "slot_scan": fw + al,
+            lambda fw, al: {"column_table": fw + al, "slot_scan": fw + al,
                             "fused_mp_slot": (mp - 1) * fw, "fused_mp_slot_enc": fw})
         ok &= passed
         rows["slot_scan"]["launches"] = counts_a["slot_scan"]
@@ -1803,7 +1885,7 @@ def slot_path(device):
                         **common)
         passed, counts_c, rec_c, metrics_c = run(
             "path C (dense + geometry, batch 2)", cfg_c, data,
-            lambda fw, al: {"binning": fw + al, "neighbor_scan_geometry": fw + al,
+            lambda fw, al: {"column_table": fw + al, "neighbor_scan_geometry": fw + al,
                             "fused_mp": (mp - 1) * fw, "fused_mp_enc": fw})
         ok &= passed
         rows["neighbor_scan_geometry"]["launches"] = counts_c["neighbor_scan_geometry"]
@@ -1830,7 +1912,7 @@ def slot_path(device):
         counts_b = {kern.name: kern.launches for kern in kernels}
         fw = rec_b.forwards
         want_b = {kern.name: 0 for kern in kernels}
-        want_b.update({"binning": fw + allocs[0], "slot_scan": fw + allocs[0],
+        want_b.update({"column_table": fw + allocs[0], "slot_scan": fw + allocs[0],
                        "fused_mp_slot": (mp - 1) * fw, "fused_mp_slot_enc": fw})
         changed = sum(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
         losses = [loss for _, loss in steps]
@@ -2063,6 +2145,276 @@ def experiments_path(device):
     return {"row_gather": e1_row, "fused_mp_window": e2_row}, ok
 
 
+# ---------------------------------------------------------------------------
+# slice 8: EGNN-5-128, the standard GNS processor and Linear through the
+# runner (K1 and K2 on every neighbor update; the models' products are
+# torch.matmul, as the JAX package leaves them to XLA)
+# ---------------------------------------------------------------------------
+
+# configs/rpf_3d/base.yaml and configs/rpf_3d/egnn.yaml, resolved;
+# tests/test_torch_egnn.py holds it equal to the YAML over the defaults
+EGNN_CONFIG = {
+    "dataset": {"src": "datasets/3D_RPF_8000_10kevery100"},
+    "logging": {"wandb_project": "rpf_3d"},
+    "model": {"name": "egnn", "num_mp_steps": 5, "latent_dim": 128, "isotropic_norm": True,
+              "magnitude_features": True},
+    "train": {"optimizer": {"lr_start": 5.0e-4},
+              "loss_weight": {"pos": 1.0, "vel": 0.0, "acc": 0.0}},
+}
+EGNN_STEP_MAX, EGNN_ROLLOUT = 9, 20  # training steps 0-9, then a 20-step infer
+# The standard GNS processor against the fused one from the same weights in
+# float32 (TF32 off): one forward, max |acc diff| <= 1e-4 x max |acc|, as
+# PaiNN's two layouts are held (the same function, sums in other orders).
+STANDARD_RTOL = 1e-4
+
+
+def egnn_cfg(**overrides):
+    return shipped_cfg(EGNN_CONFIG, **overrides)
+
+
+def _runner_call(label, cfg, data, kernels):
+    """runner.train_or_infer with the counters zeroed just before and read
+    just after; (metrics, counts, recorder, ok). K1 and K2 must launch once
+    per neighbor update (a forward or an allocation), every other kernel of
+    ``kernels`` never."""
+    import torch
+
+    from lagrangebench_torch import runner
+
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Recorder() as rec:
+        metrics = runner.train_or_infer(cfg, data=data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {kern.name: kern.launches for kern in kernels}
+    updates = rec.forwards + rec.allocations
+    want = {kern.name: 0 for kern in kernels}
+    want.update({"column_table": updates, "neighbor_scan": updates})
+    log(f"{label}: {wall:.1f} s wall, {rec.forwards} forward passes, {rec.allocations} "
+        f"allocations, launches {counts}")
+    log(f"{label} metrics: {metrics}")
+    ok = counts == want and rec.forwards >= 1 and _metrics_ok(metrics, label)
+    if counts != want:
+        log(f"FAIL: {label} launch counts, expected {want}")
+    return metrics, counts, rec, ok
+
+
+def _rollout_ms(model, case, test, isl, steps, label, bsz=BATCH, runs=3):
+    """ms per rollout step (host clock around ``steps`` synchronized steps),
+    ``runs`` times; checks the predictions are finite."""
+    import torch
+
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+
+    pos, ptype = test_batch(test, case.device, bsz)
+    _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+    nbrs = nbrs.broadcast(bsz)
+    times, finite = [], True
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds, _, _ = rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs,
+                                    pos[:, :, isl:isl + steps])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+        finite &= bool(torch.isfinite(preds).all())
+    log(f"rollout ({label}): {[round(t, 3) for t in times]} ms per step (batch {bsz} x "
+        f"{N_PARTICLES} particles)")
+    if not finite:
+        log(f"FAIL: {label} rollout predictions are not finite")
+    return times, finite, (pos, ptype, nbrs)
+
+
+def egnn_path(device):
+    """EGNN-5-128 (configs/rpf_3d/egnn.yaml) through runner.train_or_infer
+    with mode=all: 10 training steps, then a 20-step infer (mse, e_kin,
+    Sinkhorn); launch counts, finite losses, changed parameters, ms per
+    train and rollout step, a profile of one rollout step."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.models import setup_model
+    from lagrangebench_torch.ops import fused_mp
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+
+    kernels = (nlc.COLUMN_TABLE, nlc.NEIGHBOR_SCAN, fused_mp.FUSED_MP, fused_mp.FUSED_MP_ENC)
+    ok, step_ms = True, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = {"eval.n_rollout_steps": EGNN_ROLLOUT, "eval.infer.n_trajs": BATCH,
+                  "eval.train.n_trajs": 1, "eval.rollout_dir": f"{tmp}/rollouts",
+                  "logging.ckp_dir": f"{tmp}/ckp", "logging.eval_steps": EGNN_STEP_MAX}
+        if str(device) == "cpu":  # a rehearsal on the CPU; the card is the runner's default
+            common["gpu"] = -1
+        cfg = egnn_cfg(mode="all", **{"train.step_max": EGNN_STEP_MAX}, **common)
+        data = runner_data(cfg)
+        metrics, counts, rec, ok = _runner_call("egnn (mode=all)", cfg, data, kernels)
+        model, case = rec.models[0], rec.cases[0]
+        fresh = setup_model(cfg.model, data[0].metadata, seed=cfg.seed, device=device,
+                            normalization_stats=case.normalization_stats)
+        changed = sum(not torch.equal(a, b)
+                      for a, b in zip(fresh.parameters(), model.parameters()))
+        n_params = len(list(model.parameters()))
+        log(f"egnn: losses {[round(x, 6) for x in rec.losses]}; {changed} of {n_params} "
+            f"parameter tensors changed")
+        if (len(rec.losses) != EGNN_STEP_MAX + 1 or not np.all(np.isfinite(rec.losses))
+                or changed != n_params):
+            log("FAIL: egnn training steps (count, finite losses, changed parameters)")
+            ok = False
+        d = np.asarray(rec.trainers[0].timer.durations) * 1e3
+        step_ms["egnn train"] = float(np.median(d))
+        log(f"egnn train: ms per step (host clock, synchronized) median {np.median(d):.2f} "
+            f"(all {np.round(d, 2).tolist()}) [batch {cfg.train.batch_size} x {N_PARTICLES} "
+            f"particles, EGNN-5-128 float32]")
+        model.eval()
+        isl = int(cfg.model.input_seq_length)
+        times, finite, (pos, ptype, nbrs) = _rollout_ms(model, case, data[2], isl,
+                                                        EGNN_ROLLOUT, "egnn, EGNN-5-128 float32")
+        ok &= finite
+        step_ms["egnn rollout"] = min(times)
+        profile_steps(model, case, pos, ptype, nbrs, steps=1, isl=isl, label="egnn rollout")
+    return ok, step_ms
+
+
+def standard_gns_path(device):
+    """GNS-10-128 (configs/rpf_3d/gns.yaml) with model.fused_processor=false
+    through runner.train_or_infer, mode=infer at batch 2, from a checkpoint
+    of seeded weights in the standard layout; held to the fused processor
+    from the same weights in float32; ms per rollout step of both (bf16)."""
+    import torch
+
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.models import ensure_fused_params
+    from lagrangebench_torch.ops import fused_mp
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+
+    kernels = (nlc.COLUMN_TABLE, nlc.NEIGHBOR_SCAN, fused_mp.FUSED_MP, fused_mp.FUSED_MP_ENC)
+    step_ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = {"eval.n_rollout_steps": SLOT_ROLLOUT, "eval.infer.n_trajs": BATCH,
+                  "eval.rollout_dir": f"{tmp}/rollouts", "model.fused_processor": False}
+        if str(device) == "cpu":
+            common["gpu"] = -1
+        cfg = gns_cfg(**common)
+        data = runner_data(cfg)
+        metadata = data[0].metadata
+        _, seeded = gns_case_model(cfg, metadata, device, seed=0)
+        ckp = f"{tmp}/ckp"
+        checkpoint.save_checkpoint(ckp, seeded.jax_params(), {}, {"step": 0, "loss": None})
+        del seeded
+        cfg_i = gns_cfg(mode="infer", load_ckp=ckp, **common)
+        _, counts, rec, ok = _runner_call("standard GNS (mode=infer, batch 2)", cfg_i, data,
+                                          kernels)
+        std_bf16, case = rec.models[0], rec.cases[0]
+
+        # float32 gate: the standard processor against the fused one
+        params = checkpoint.load_checkpoint(ckp)[0]
+        f32 = {"model.compute_dtype": "float32"}
+        models = {}
+        for label, fused in (("standard", False), ("fused", True)):
+            c = gns_cfg(**{**common, **f32, "model.fused_processor": fused})
+            _, models[label] = gns_case_model(c, metadata, device)
+            models[label].load_jax_params(ensure_fused_params(params, c.model))
+        feats, ptype = first_window(case, data[2])
+        with torch.no_grad():
+            a = models["standard"](feats, ptype)["acc"]
+            b = models["fused"](feats, ptype)["acc"]
+        err = float((b - a).abs().max() / a.abs().max())
+        log(f"standard vs fused GNS (float32, batch 2, one forward): max|acc diff| {err:.3g} of "
+            f"the largest (tol {STANDARD_RTOL})")
+        if not err <= STANDARD_RTOL:
+            log("FAIL: standard vs fused GNS")
+            ok = False
+        del feats, models
+
+        # ms per rollout step, bf16 as the config: standard, fused, fused, standard
+        fused_cfg = gns_cfg(**{**common, "model.fused_processor": True})
+        _, fused_bf16 = gns_case_model(fused_cfg, metadata, device)
+        fused_bf16.load_jax_params(ensure_fused_params(params, fused_cfg.model))
+        isl = int(cfg.model.input_seq_length)
+        times = {"standard": [], "fused": []}
+        for label in ("standard", "fused", "fused", "standard"):
+            model = std_bf16 if label == "standard" else fused_bf16
+            t, finite, _ = _rollout_ms(model, case, data[2], isl, SLOT_ROLLOUT,
+                                       f"GNS-10-128 bf16, {label} processor", runs=1)
+            times[label] += t
+            ok &= finite
+        step_ms = {f"gns {k} rollout": min(v) for k, v in times.items()}
+    return ok, step_ms
+
+
+def linear_path(device):
+    """Linear through runner.train_or_infer, mode=all: 3 training steps and
+    a 5-step infer; launch counts and finite metrics."""
+    import numpy as np
+
+    from lagrangebench_torch.ops import fused_mp
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+
+    kernels = (nlc.COLUMN_TABLE, nlc.NEIGHBOR_SCAN, fused_mp.FUSED_MP, fused_mp.FUSED_MP_ENC)
+    with tempfile.TemporaryDirectory() as tmp:
+        common = {"eval.n_rollout_steps": 5, "eval.infer.n_trajs": BATCH,
+                  "eval.train.n_trajs": 1, "eval.rollout_dir": f"{tmp}/rollouts",
+                  "logging.ckp_dir": f"{tmp}/ckp", "logging.eval_steps": 2}
+        if str(device) == "cpu":
+            common["gpu"] = -1
+        cfg = shipped_cfg({"dataset": EGNN_CONFIG["dataset"], "model": {"name": "linear"}},
+                          mode="all", **{"train.step_max": 2}, **common)
+        metrics, _, rec, ok = _runner_call("linear (mode=all)", cfg, runner_data(cfg), kernels)
+    if len(rec.losses) != 3 or not np.all(np.isfinite(rec.losses)):
+        log(f"FAIL: linear training losses {rec.losses}")
+        ok = False
+    return ok
+
+
+def egnn_reference_check(device):
+    """A small float32 EGNN (1,000 particles, 2 layers, latent 128) on the
+    card against the CPU (TF32 off): a 3-step rollout (positions 1e-5
+    absolute) and 3 training steps fed the same host-drawn noise (losses
+    1e-5 relative, parameters 1e-5 absolute)."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+    from lagrangebench_torch.models import setup_model
+    from lagrangebench_torch.train import Trainer
+
+    cfg = egnn_cfg(**{"model.num_mp_steps": 2, "eval.n_rollout_steps": 3,
+                      "eval.train.n_trajs": 1, "train.batch_size": 2})
+    train, valid, test = runner_data(cfg, n_particles=1000)
+    isl = int(cfg.model.input_seq_length)
+    preds, losses, params = [], [], []
+    for dev in (device, "cpu"):
+        case = gns_case(cfg, test.metadata, dev)
+        model = setup_model(cfg.model, test.metadata, device=dev,
+                            normalization_stats=case.normalization_stats)
+        pos, ptype = test_batch(test, dev, BATCH)
+        _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+        p, _, _ = rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs.broadcast(BATCH),
+                                pos[:, :, isl:isl + 3])
+        preds.append(p.cpu())
+        tr = Trainer(model, case, train, valid, cfg_train=cfg.train, cfg_eval=cfg.eval,
+                     cfg_logging={"log_steps": 1, "eval_steps": 10**9},
+                     input_seq_length=isl, device=dev)
+        steps, _ = record_steps(tr)
+        tr.train(step_max=2)
+        losses.append(np.asarray([loss for _, loss in steps]))
+        params.append(checkpoint.flatten_tree(model.jax_params()))
+    pos_err = float((preds[0] - preds[1]).abs().max())
+    loss_err = float(np.max(np.abs(losses[0] - losses[1]) / np.abs(losses[1])))
+    par_err, worst = max((float(np.max(np.abs(params[0][k] - params[1][k]))), k)
+                         for k in params[1])
+    passed = pos_err <= 1e-5 and len(losses[0]) == 3 and loss_err <= 1e-5 and par_err <= 1e-5
+    log(f"egnn reference, cuda vs cpu float32: positions after 3 steps {pos_err:.3g} (tol "
+        f"1e-5); 3 training steps, losses {losses[0].tolist()} vs {losses[1].tolist()}, max "
+        f"rel diff {loss_err:.3g} (tol 1e-5); parameters max abs diff {par_err:.3g} at {worst} "
+        f"(tol 1e-5){'' if passed else '  FAIL'}")
+    return passed
+
+
 def main() -> int:
     try:
         import torch
@@ -2114,6 +2466,14 @@ def main() -> int:
     log("slot and geometry paths (ms per rollout step): " + json.dumps(
         {k: round(v, 3) for k, v in slot_ms.items()}))
     rows.update(slot_rows)
+    egnn_ok, egnn_ms = egnn_path("cuda")
+    ok &= egnn_ok
+    ok &= egnn_reference_check("cuda")
+    std_ok, std_ms = standard_gns_path("cuda")
+    ok &= std_ok
+    ok &= linear_path("cuda")
+    log("EGNN and standard GNS paths (ms per step): " + json.dumps(
+        {k: round(v, 3) for k, v in {**egnn_ms, **std_ms}.items()}))
     exp_rows, exp_ok = experiments_path("cuda")
     ok &= exp_ok
     rows.update(exp_rows)

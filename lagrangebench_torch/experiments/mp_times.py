@@ -20,6 +20,15 @@ for this checkout or another one.
   gives them on the port's own grid positions (``experiments/_setup.py``,
   8,000 particles in 3D, the second sample the first reversed): dense at
   batch 2, dense with the geometry at batch 2, the slot layout at batch 1.
+- K1 with what builds the column table around it, at batch 2 and batch 1 of
+  the synthetic RPF-3D-scale data: in a tree with ``column_table`` the
+  kernel; in an older one its ``_column_table`` (the three-pass K1 and the
+  PyTorch ops around it) and ``_with_sentinel``. Also the device time of a
+  whole dense neighbor update at batch 2 and the device kernels it
+  launches, counted in a torch.profiler trace.
+- The GNS-10-128 bf16 dense rollout at batch 2 of the same data, seeded
+  weights: ms per step on the host clock (20 steps, three runs after one
+  that warms up), the path every rollout's neighbor update runs.
 
 Each is timed with CUDA events with the card's queue filled ahead
 (``profiling.device_ms``) and checked against its plain version. ``--tree
@@ -220,8 +229,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=None, help="checkout whose lagrangebench_torch is timed")
     ap.add_argument("--label", default=None)
-    ap.add_argument("--only", default="gns,painn,scan",
-                    help="comma-separated groups: gns (K3, K4), painn (K5), scan (K2, K7, K9)")
+    ap.add_argument("--only", default="gns,painn,scan,k1,rollout",
+                    help="comma-separated groups: gns (K3, K4), painn (K5), scan (K2, K7, K9), "
+                         "k1 (K1 and the table build, the neighbor update), rollout (the "
+                         "GNS-10-128 dense rollout)")
     args = ap.parse_args(argv)
     groups = set(args.only.split(","))
     root = os.path.abspath(args.tree or os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -243,6 +254,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         _time_painn(torch, device, out)
     if "scan" in groups:
         _time_scans(torch, device, out)
+    if "k1" in groups:
+        _time_k1(torch, device, out)
+    if "rollout" in groups:
+        _time_rollout(torch, device, out)
     print(json.dumps(out))
     return out
 
@@ -280,6 +295,135 @@ def _time_scans(torch, device, out):
         out[f"{key}_max_abs_err"] = max(float((a.double() - b.double()).abs().max())
                                         for a, b in zip(got, want))
         out[f"{key}_ms"] = device_ms(lambda: fn(pos, idx, bases, **kw), 50, 5)
+
+
+def _rpf_batch(torch, device, frames=ISL, cfg_model=None):
+    """A dense case on the synthetic RPF-3D-scale data (8,000 particles in
+    3D, ``data.synthetic``), the test split's first ``frames`` frames at
+    batch 2, and the metadata."""
+    import numpy as np
+
+    from lagrangebench_torch.case import case_builder
+    from lagrangebench_torch.data.synthetic import make_synthetic_arrays
+
+    splits, metadata = make_synthetic_arrays(
+        n_particles=N_SAMPLE, dim=DIM, box=1.0, dx=1.0 / round(N_SAMPLE ** (1 / DIM)),
+        seq_len_train=12, seq_len_eval=frames + 1, n_trajs=2, name="RPF")
+    pos = np.stack([t.transpose(1, 0, 2)[:, :frames] for t in splits["test"]])
+    pos = torch.as_tensor(pos, dtype=torch.float32, device=device)
+    ptype = torch.zeros(pos.shape[:2], dtype=torch.int64, device=device)
+    case = case_builder([1.0] * DIM, metadata, ISL, cfg_neighbors={"backend": "auto"},
+                        cfg_model=cfg_model, device=device)
+    return case, pos, ptype, metadata
+
+
+def _time_rollout(torch, device, out, steps=20, runs=3):
+    """ms per step (host clock, synchronized) of a GNS-10-128 bf16 rollout
+    on the dense layout at batch 2, seeded weights: the path every neighbor
+    update of the rollout runs."""
+    import time
+
+    from lagrangebench_torch.config import Config
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+    from lagrangebench_torch.models import build_gns
+
+    cfg = Config({"name": "gns", "fused_processor": True, "compute_dtype": "bfloat16",
+                  "num_mp_steps": 10, "latent_dim": 128, "num_mlp_layers": 2,
+                  "input_seq_length": ISL, "magnitude_features": False,
+                  "isotropic_norm": False})
+    case, pos, ptype, metadata = _rpf_batch(torch, device, ISL + steps, cfg)
+    model = build_gns(cfg, metadata, ISL, seed=0, device=device)
+    _, nbrs = case.allocate_eval((pos[0, :, :ISL], ptype[0]))
+    nbrs = nbrs.broadcast(2)
+    times = []
+    for _ in range(runs + 1):  # the first run warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout_batch(model, case, pos[:, :, :ISL], ptype, nbrs, pos[:, :, ISL:])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+    out["gns_rollout_b2_ms_per_step"] = times[1:]
+
+
+def _device_events(torch, fn, calls=1):
+    """The device events (kernels, memsets, copies) of ``calls`` calls of
+    ``fn``, in order, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.events()
+              if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return sorted(events, key=lambda ev: ev.time_range.start)
+
+
+def update_kernels(torch, update) -> list:
+    """Names of the device kernels (and memsets and copies) one call of
+    ``update`` launches, in order."""
+    return [ev.name for ev in _device_events(torch, update)]
+
+
+def kernel_us(torch, fn, key, calls=50) -> float:
+    """Mean duration (us) of the device kernels whose name holds ``key``,
+    per call of ``fn``, from a torch.profiler trace: the kernel's own time,
+    without the gaps between launches."""
+    events = _device_events(torch, fn, calls)
+    return sum(ev.time_range.elapsed_us() for ev in events if key in ev.name) / calls
+
+
+def _time_k1(torch, device, out):
+    """K1 with the table build around it at batch 2 and 1 (the inputs of one
+    eval preprocess each, recorded), and one dense neighbor update at batch
+    2: its device time and its device kernels."""
+    from lagrangebench_torch.ops import neighbors as nb
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+    from lagrangebench_torch.profiling import device_ms
+
+    case, pos, ptype, _ = _rpf_batch(torch, device)
+    new = hasattr(nlc, "column_table")
+    owner, name = (nlc, "column_table") if new else (nb, "_column_table")
+    real, seen = getattr(owner, name), []
+
+    def record(*args):
+        seen.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return real(*args)
+
+    _, nbrs = case.allocate_eval((pos[0], ptype[0]))
+    setattr(owner, name, record)
+    try:
+        with torch.no_grad():
+            for bsz in (2, 1):
+                seen.clear()
+                case.preprocess_eval_batched((pos[:bsz], ptype[:bsz]), nbrs.broadcast(bsz))
+                args = seen[0]
+                if new:
+                    def build():
+                        return nlc.column_table(*args)
+                else:
+                    def build():
+                        _, _, table, table_pos = nb._column_table(*args)
+                        return nb._with_sentinel(table, table_pos, args[2].shape[1])
+                out[f"k1_b{bsz}_form"] = "column_table" if new else "_column_table + _with_sentinel"
+                out[f"k1_b{bsz}_ms"] = device_ms(build, 100, 10)
+                out[f"k1_b{bsz}_kernel_us"] = kernel_us(torch, build, "bin_")
+    finally:
+        setattr(owner, name, real)
+
+    nbrs_b = nbrs.broadcast(2)
+    most_recent, npart = pos[:, :, ISL - 1], (ptype != -1).sum(dim=1)
+
+    def update():
+        return nbrs_b.update(most_recent, num_particles=npart)
+
+    with torch.no_grad():
+        names = update_kernels(torch, update)
+        out["update_b2_ms"] = device_ms(update, 100, 5)
+    out["update_b2_device_kernels"] = len(names)
+    out["update_b2_kernel_names"] = names
 
 
 if __name__ == "__main__":

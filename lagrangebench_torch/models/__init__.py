@@ -1,12 +1,15 @@
-"""Models (GNS with the fused processor, PaiNN) and the factory."""
+"""Models (GNS with the fused or the standard processor, PaiNN, EGNN,
+Linear) and the factory."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 from torch import nn
 
-from .gns import GNS, build_gns, fused_params_from_standard, gns_input_sizes
+from .egnn import EGNN, build_egnn
+from .gns import GNS, GNSStandard, build_gns, fused_params_from_standard, gns_input_sizes
+from .linear import Linear, build_linear
 from .painn import (
     PaiNN,
     build_painn,
@@ -15,9 +18,14 @@ from .painn import (
 )
 
 __all__ = [
+    "EGNN",
     "GNS",
+    "GNSStandard",
+    "Linear",
     "PaiNN",
+    "build_egnn",
     "build_gns",
+    "build_linear",
     "build_painn",
     "ensure_fused_params",
     "fused_params_from_standard",
@@ -28,7 +36,7 @@ __all__ = [
 ]
 
 # models of the JAX package not ported yet, with their ROADMAP.md §1 item
-_NOT_PORTED = {"linear": 2, "egnn": 4, "segnn": 5}
+_NOT_PORTED = {"segnn": 5}
 
 
 def ensure_fused_params(params: Dict, cfg_model) -> Dict:
@@ -46,16 +54,21 @@ def ensure_fused_params(params: Dict, cfg_model) -> Dict:
 
 
 def setup_model(cfg_model, metadata: Dict, has_external_force: bool = False, seed: int = 0,
-                device="cuda") -> nn.Module:
+                device="cuda", normalization_stats: Optional[Dict] = None) -> nn.Module:
     """The model a config section names, built for the dataset's metadata
-    (the JAX package's ``setup_model``), with seeded weights on ``device``."""
+    (the JAX package's ``setup_model``), with seeded weights on ``device``.
+    EGNN takes the velocity stats of ``normalization_stats`` (the case's)."""
     name = cfg_model.name.lower()
+    kw = dict(has_external_force=has_external_force, seed=seed, device=device)
     if name == "gns":
-        return build_gns(cfg_model, metadata, has_external_force=has_external_force, seed=seed,
-                         device=device)
+        return build_gns(cfg_model, metadata, **kw)
     if name == "painn":
-        return build_painn(cfg_model, metadata, has_external_force=has_external_force,
-                           seed=seed, device=device)
+        return build_painn(cfg_model, metadata, **kw)
+    if name == "linear":
+        return build_linear(cfg_model, metadata, **kw)
+    if name == "egnn":
+        vel = normalization_stats["velocity"] if normalization_stats else None
+        return build_egnn(cfg_model, metadata, velocity_stats=vel, **kw)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported to lagrangebench_torch yet "

@@ -1,6 +1,9 @@
-"""Graph Network-based Simulator (GNS) with the fused processor.
+"""Graph Network-based Simulator (GNS): the fused processor (``GNS``) and
+the standard one (``GNSStandard``).
 
-Counterpart of ``lagrangebench_tpu/models/gns.py`` with
+Counterpart of ``lagrangebench_tpu/models/gns.py``. ``GNSStandard`` is its
+default processor (``use_fused_processor=False``; any ``blocks_per_step``,
+any latent width, dense edges). ``GNS`` is the one with
 ``use_fused_processor=True`` (dense edges, 2-layer MLP blocks):
 
     h = MLP_0(concat(node features, Embed_0(type mod num_types)))
@@ -21,10 +24,11 @@ fused layout (``mp{i}_w_s`` ... ``mp{i}_ln2_bias``, ``enc_*``), kept as
 (in, out) matrices, the layout the kernel reads. The node encoder and the
 decoder are ``MLP`` modules of ``nn.Linear`` layers, (out, in).
 
-``load_jax_params`` carries a JAX parameter tree (numpy arrays) into the
-module, from the fused layout or from the standard auto-named layout
+``GNS.load_jax_params`` carries a JAX parameter tree (numpy arrays) into
+the module, from the fused layout or from the standard auto-named layout
 (converted as ``fused_params_from_standard`` does); ``jax_params`` gives
 the fused-layout tree back, for ``checkpoint.save_checkpoint``.
+``GNSStandard`` reads and gives the standard layout.
 """
 
 from __future__ import annotations
@@ -36,11 +40,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..checkpoint import flatten_tree, unflatten_tree
 from ..ops import fused_mp
+from ..ops.scatter import aggregate_to_receivers
 from ..utils import NodeType
-from .base import concat_edge_features, concat_node_features
-from .utils import MLP, gather_rows, lecun_normal_, matmul
+from .base import JaxTree, concat_edge_features, concat_node_features, sorted_leaves
+from .utils import MLP, Dense, dense_leaves, gather_rows, lecun_normal_, matmul, mlp_leaves
 
 
 def gns_input_sizes(metadata: Dict, input_seq_length: int,
@@ -59,7 +63,7 @@ def gns_input_sizes(metadata: Dict, input_seq_length: int,
     return node, dim + 1
 
 
-class GNS(nn.Module):
+class GNS(JaxTree, nn.Module):
     """GNS model, fused processor.
 
     Args:
@@ -206,38 +210,138 @@ class GNS(nn.Module):
         """Load a JAX GNS tree (numpy leaves), fused or standard layout."""
         if not any(str(k).startswith("mp0_") for k in params):
             params = fused_params_from_standard(params, self.num_mp_steps)
-        flat = flatten_tree(params)
-        with torch.no_grad():
-            for path, p, transposed in self.jax_leaves():
-                value = torch.as_tensor(flat[path])
-                p.copy_(value.t() if transposed else value)
-
-    def jax_params(self) -> Dict:
-        """The parameters as a JAX fused-layout tree of numpy arrays."""
-        return unflatten_tree({
-            path: (p.detach().t() if transposed else p.detach()).cpu().numpy()
-            for path, p, transposed in self.jax_leaves()
-        })
+        super().load_jax_params(params)
 
     def jax_leaves(self) -> List[Tuple[str, nn.Parameter, bool]]:
-        """Every parameter as (JAX tree path, parameter, transposed), in the
-        order JAX flattens the fused-layout tree (dict keys sorted at every
-        level). ``transposed`` marks ``nn.Linear`` weights, stored (out, in)
-        against the Flax kernel's (in, out)."""
-        out = []
+        """The fused-layout tree's leaves (see ``base.JaxTree``)."""
+        out = mlp_leaves("MLP_0", self.node_encoder) + mlp_leaves("MLP_1", self.decoder)
         if self.num_particle_types > 1:
             out.append(("Embed_0/embedding", self.embedding, False))
-        for tree, mlp in (("MLP_0", self.node_encoder), ("MLP_1", self.decoder)):
-            for i, layer in enumerate(mlp.layers):
-                out.append((f"{tree}/Dense_{i}/kernel", layer.weight, True))
-                out.append((f"{tree}/Dense_{i}/bias", layer.bias, False))
-            if mlp.norm is not None:
-                out.append((f"{tree}/LayerNorm_0/scale", mlp.norm.scale, False))
-                out.append((f"{tree}/LayerNorm_0/bias", mlp.norm.bias, False))
         out += [(name, p, False) for name, p in self.edge_encoder.items()]
         for i, step in enumerate(self.mp_steps):
             out += [(f"mp{i}_{name}", p, False) for name, p in step.items()]
-        return sorted(out, key=lambda leaf: leaf[0].split("/"))
+        return sorted_leaves(out)
+
+
+class GNSStandard(JaxTree, nn.Module):
+    """GNS model, standard processor: the JAX package's default
+    (``use_fused_processor=False``, ``lagrangebench_tpu/models/gns.py``).
+
+    Each MLP has ``blocks_per_step`` layers. Per step, with a fresh edge and
+    node MLP and residuals on both: for ``blocks_per_step > 1`` the first
+    edge layer over concat(h[senders], h[receivers], e) is decomposed at node
+    level, ``relu(e @ W_e + b + (h @ W_s)[senders] + (h @ W_r)[receivers])``,
+    followed by the remaining ``blocks_per_step - 1`` layers; one layer
+    takes the concatenation itself. Messages are summed over each receiver's
+    valid slots (dense layout). The products are ``torch.matmul`` in
+    ``compute_dtype``, at any latent width. Parameters keep the JAX
+    standard layout's auto names (``MLP_0`` node encoder, ``MLP_1`` edge
+    encoder, per step i ``Dense_{3i..3i+2}`` and ``MLP_{2+2i}``,
+    ``MLP_{3+2i}``, the decoder ``MLP_{2+2S}``); the fused layout is
+    ``GNS``.
+    """
+
+    def __init__(
+        self,
+        particle_dimension: int,
+        node_in: int,
+        edge_in: int,
+        latent_size: int = 128,
+        blocks_per_step: int = 2,
+        num_mp_steps: int = 10,
+        particle_type_embedding_size: int = 16,
+        num_particle_types: int = NodeType.SIZE,
+        compute_dtype: str = "float32",
+        seed: int = 0,
+        device="cuda",
+    ):
+        from ..utils import resolve_device
+
+        super().__init__()
+        device = resolve_device(device)
+        f = latent_size
+        self.blocks_per_step = blocks_per_step
+        self.num_mp_steps = num_mp_steps
+        self.num_particle_types = num_particle_types
+        self.compute_dtype = getattr(torch, compute_dtype)
+        gen = torch.Generator().manual_seed(seed)
+
+        def mlp(in_size, out_size, layers=blocks_per_step, layer_norm=True):
+            return MLP(in_size, f, out_size, layers, layer_norm, generator=gen)
+
+        emb = particle_type_embedding_size if num_particle_types > 1 else 0
+        if emb:
+            self.embedding = nn.Parameter(
+                torch.randn(num_particle_types, emb, generator=gen) / math.sqrt(emb)
+            )
+        self.node_encoder = mlp(node_in + emb, f)
+        self.edge_encoder = mlp(edge_in, f)
+        self.steps = nn.ModuleList()
+        for _ in range(num_mp_steps):
+            if blocks_per_step > 1:
+                step = nn.ModuleDict({
+                    "w_s": Dense(f, f, gen, use_bias=False),
+                    "w_r": Dense(f, f, gen, use_bias=False),
+                    "w_e": Dense(f, f, gen),
+                    "msg": mlp(f, f, layers=blocks_per_step - 1),
+                })
+            else:
+                step = nn.ModuleDict({"msg": mlp(3 * f, f)})
+            step["node"] = mlp(2 * f, f)
+            self.steps.append(step)
+        self.decoder = mlp(f, particle_dimension, layer_norm=False)
+        self.to(device)
+
+    def forward(self, features: Dict[str, torch.Tensor],
+                particle_type: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if "slot_bases" in features:
+            raise ValueError("the slot neighbor layout needs the fused processor")
+        cdt = self.compute_dtype
+        nodes = concat_node_features(features)
+        senders, receivers = features["senders"], features["receivers"]
+        n = nodes.shape[0]
+        if self.num_particle_types > 1:
+            emb = self.embedding[torch.remainder(particle_type.long(), self.num_particle_types)]
+            wide = torch.promote_types(nodes.dtype, emb.dtype)
+            nodes = torch.cat([nodes.to(wide), emb.to(wide)], dim=-1)
+        h = self.node_encoder(nodes, cdt)
+        e = self.edge_encoder(concat_edge_features(features), cdt)
+        # padded slots (fill n) gather the last row, as a JAX gather clamps;
+        # their messages drop out of the aggregation
+        sidx = torch.clamp(senders, max=n - 1).long()
+        for step in self.steps:
+            if self.blocks_per_step > 1:
+                first = (step["w_e"](e, cdt) + gather_rows(step["w_s"](h, cdt), sidx)
+                         + step["w_r"](h, cdt)[:, None, :])
+                messages = step["msg"](torch.relu(first), cdt)
+            else:  # row i is receiver i: h[receivers] is a broadcast
+                msg_in = torch.cat([gather_rows(h, sidx), h[:, None, :].expand_as(e), e], dim=-1)
+                messages = step["msg"](msg_in, cdt)
+            agg = aggregate_to_receivers(messages, receivers, senders, n)
+            h = h + step["node"](torch.cat([h, agg], dim=-1), cdt)
+            e = e + messages
+        return {"acc": self.decoder(h, cdt).to(torch.float32)}
+
+    def load_jax_params(self, params: Dict) -> None:
+        """Load a JAX standard-layout GNS tree (numpy leaves)."""
+        if any(str(k).startswith("mp0_") for k in params):
+            raise ValueError("a fused-layout GNS tree: the standard processor reads the "
+                             "standard layout (set model.fused_processor=true for this tree)")
+        super().load_jax_params(params)
+
+    def jax_leaves(self) -> List[Tuple[str, nn.Parameter, bool]]:
+        """The standard-layout tree's leaves (see ``base.JaxTree``)."""
+        out = mlp_leaves("MLP_0", self.node_encoder) + mlp_leaves("MLP_1", self.edge_encoder)
+        if self.num_particle_types > 1:
+            out.append(("Embed_0/embedding", self.embedding, False))
+        for i, step in enumerate(self.steps):
+            if self.blocks_per_step > 1:
+                for j, name in enumerate(("w_s", "w_r", "w_e")):
+                    out += dense_leaves(f"Dense_{3 * i + j}", step[name])
+            out += mlp_leaves(f"MLP_{2 + 2 * i}", step["msg"])
+            out += mlp_leaves(f"MLP_{3 + 2 * i}", step["node"])
+        out += mlp_leaves(f"MLP_{2 + 2 * self.num_mp_steps}", self.decoder)
+        return sorted_leaves(out)
 
 
 def fused_params_from_standard(params: Dict, num_mp_steps: int) -> Dict:
@@ -287,23 +391,19 @@ def fused_params_from_standard(params: Dict, num_mp_steps: int) -> Dict:
 
 
 def build_gns(cfg_model, metadata: Dict, input_seq_length: Optional[int] = None,
-              has_external_force: bool = False, seed: int = 0, device="cuda") -> GNS:
-    """A GNS from a model config section and dataset metadata."""
-    if not cfg_model.get("fused_processor", False):
-        raise NotImplementedError("only the fused GNS processor is ported")
-    if int(cfg_model.num_mlp_layers) != 2:
+              has_external_force: bool = False, seed: int = 0, device="cuda") -> nn.Module:
+    """A GNS from a model config section and dataset metadata: ``GNS``
+    (``fused_processor``, 2-layer MLPs) or ``GNSStandard``."""
+    fused = bool(cfg_model.get("fused_processor", False))
+    layers = int(cfg_model.num_mlp_layers)
+    if fused and layers != 2:
         raise ValueError("the fused processor needs num_mlp_layers == 2")
     isl = input_seq_length or int(cfg_model.input_seq_length)
     node_in, edge_in = gns_input_sizes(
         metadata, isl, bool(cfg_model.magnitude_features), has_external_force
     )
-    return GNS(
-        particle_dimension=int(metadata["dim"]),
-        node_in=node_in,
-        edge_in=edge_in,
-        latent_size=int(cfg_model.latent_dim),
-        num_mp_steps=int(cfg_model.num_mp_steps),
-        compute_dtype=cfg_model.get("compute_dtype", "float32"),
-        seed=seed,
-        device=device,
-    )
+    kw = dict(particle_dimension=int(metadata["dim"]), node_in=node_in, edge_in=edge_in,
+              latent_size=int(cfg_model.latent_dim), num_mp_steps=int(cfg_model.num_mp_steps),
+              compute_dtype=cfg_model.get("compute_dtype", "float32"), seed=seed,
+              device=device)
+    return GNS(**kw) if fused else GNSStandard(blocks_per_step=layers, **kw)

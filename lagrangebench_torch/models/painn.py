@@ -35,9 +35,9 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from ..checkpoint import flatten_tree, unflatten_tree
 from ..ops import painn_msg
-from .utils import LinearXav, gather_rows, silu
+from .base import JaxTree, sorted_leaves
+from .utils import LinearXav, dense_leaves, gather_rows, silu
 
 EPS = 1e-8  # in the edge norms, directions and vector norms, as the JAX model
 
@@ -156,7 +156,7 @@ class PaiNNLayer(nn.Module):
         return s, v
 
 
-class PaiNN(nn.Module):
+class PaiNN(JaxTree, nn.Module):
     """PaiNN over the LagrangeBench feature contract (dense layout).
 
     Args:
@@ -256,23 +256,10 @@ class PaiNN(nn.Module):
             params = painn_standard_params_from_fused(params, self.num_mp_steps)
         elif self.fused and not fused_tree:
             params = painn_fused_params_from_standard(params, self.num_mp_steps)
-        flat = flatten_tree(params)
-        with torch.no_grad():
-            for path, p, transposed in self.jax_leaves():
-                value = torch.as_tensor(flat[path])
-                p.copy_(value.t() if transposed else value)
-
-    def jax_params(self) -> Dict:
-        """The parameters as a JAX tree of numpy arrays, in the module's layout."""
-        return unflatten_tree({
-            path: (p.detach().t() if transposed else p.detach()).cpu().numpy()
-            for path, p, transposed in self.jax_leaves()
-        })
+        super().load_jax_params(params)
 
     def jax_leaves(self) -> List[Tuple[str, nn.Parameter, bool]]:
-        """Every parameter as (JAX tree path, parameter, transposed), in the
-        order JAX flattens the module's tree (dict keys sorted at every
-        level); ``transposed`` marks ``nn.Linear`` weights."""
+        """The tree's leaves in the module's layout (see ``base.JaxTree``)."""
         linears = [("LinearXav_0", self.embed_s), ("LinearXav_1", self.embed_v)]
         out = [("GaussianRBF_0/offset", self.rbf.offset, False),
                ("GaussianRBF_0/widths", self.rbf.widths, False)]
@@ -288,10 +275,8 @@ class PaiNN(nn.Module):
                             for j, lin in ((2, layer.vmix), (3, layer.mix1), (4, layer.mix2))]
                 linears.append((f"filter_net_{i}", self.filter_nets[i]))
         for prefix, lin in linears:
-            out.append((f"{prefix}/Dense_0/kernel", lin.weight, True))
-            if lin.bias is not None:
-                out.append((f"{prefix}/Dense_0/bias", lin.bias, False))
-        return sorted(out, key=lambda leaf: leaf[0].split("/"))
+            out += dense_leaves(f"{prefix}/Dense_0", lin)
+        return sorted_leaves(out)
 
 
 def painn_fused_params_from_standard(params: Dict, num_mp_steps: int) -> Dict:

@@ -1,4 +1,5 @@
-"""Model building blocks: Flax-equivalent Dense, LinearXav, LayerNorm, MLP.
+"""Model building blocks: Flax-equivalent Dense, LinearXav, LayerNorm, MLP,
+MLPXav, and the leaves of their JAX parameter trees.
 
 The JAX models run ``flax.linen.Dense(dtype=cdt)`` and
 ``LayerNorm(dtype=cdt)`` with float32 parameters. The modules here keep the
@@ -105,6 +106,29 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+class MLPXav(nn.Module):
+    """The JAX package's ``MLPXav``: ``LinearXav`` layers of
+    ``output_sizes`` with SiLU between them (and after the last one with
+    ``activate_final``)."""
+
+    def __init__(self, in_size: int, output_sizes, activate_final: bool = False,
+                 generator=None):
+        super().__init__()
+        sizes = [in_size] + list(output_sizes)
+        self.layers = nn.ModuleList(
+            LinearXav(sizes[i], sizes[i + 1], generator=generator)
+            for i in range(len(output_sizes))
+        )
+        self.activate_final = activate_final
+
+    def forward(self, x: torch.Tensor, cdt: Optional[torch.dtype] = None) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x, cdt)
+            if i < len(self.layers) - 1 or self.activate_final:
+                x = silu(x)
+        return x
+
+
 class LayerNorm(nn.Module):
     """``flax.linen.LayerNorm(epsilon=1e-5, dtype=cdt)`` numerics."""
 
@@ -149,3 +173,23 @@ class MLP(nn.Module):
         if self.norm is not None:
             x = self.norm(x, cdt)
         return x
+
+
+def dense_leaves(prefix: str, layer: Dense):
+    """(JAX path, parameter, transposed) of a Dense layer's kernel and bias."""
+    out = [(f"{prefix}/kernel", layer.weight, True)]
+    if layer.bias is not None:
+        out.append((f"{prefix}/bias", layer.bias, False))
+    return out
+
+
+def mlp_leaves(prefix: str, mlp: nn.Module):
+    """The leaves of an ``MLP`` or ``MLPXav``: Dense_0, Dense_1, ... and
+    the LayerNorm an ``MLP`` ends with."""
+    out = []
+    for i, layer in enumerate(mlp.layers):
+        out += dense_leaves(f"{prefix}/Dense_{i}", layer)
+    if getattr(mlp, "norm", None) is not None:
+        out += [(f"{prefix}/LayerNorm_0/scale", mlp.norm.scale, False),
+                (f"{prefix}/LayerNorm_0/bias", mlp.norm.bias, False)]
+    return out

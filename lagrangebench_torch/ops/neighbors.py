@@ -15,12 +15,15 @@ backend:
   caller reallocates (``capacity_boost`` scales the capacities of that
   reallocation).
 
-``format="dense"``: K1 bins particles into a column table, K2 scans each
-column's stencil and packs K senders per receiver, and torch index ops
-scatter the rows back to particle order. Rows are receivers; senders fill
-with N; self-edges are kept; padded particles (index >= num_particles) are
+``format="dense"``: K1 builds the column table in one launch (the columns,
+ranks and slots of the particles, the table of ids and positions with its
+sentinel columns, the column-overflow flags), K2 scans each column's
+stencil and packs K senders per receiver, and torch index ops scatter the
+rows back to particle order. Rows are receivers; senders fill with N;
+self-edges are kept; padded particles (index >= num_particles) are
 excluded. A batch of B samples shares one launch of each kernel, and a
-column overflow in any sample flags every sample. With ``emit_geometry``
+column overflow in any sample flags every sample, as in the JAX package's
+batched edge builder. With ``emit_geometry``
 K9 takes K2's place and also emits the cutoff-normalized edge geometry,
 scattered back with the senders in one scatter; the list carries it as
 ``aux["rel_disp"]`` (N, K, dim) and ``aux["rel_dist"]`` (N, K, 1).
@@ -166,52 +169,6 @@ def _has_stencil_grid(box: np.ndarray, cutoff: float, pbc: Sequence[bool]) -> bo
     return not all(c < 3 for c in cps)
 
 
-def _column_table(grid: ColumnGrid, col_cap: int, position: torch.Tensor,
-                  num_particles: torch.Tensor):
-    """K1 binning of a batch (B, N, dim) into one shared column table.
-
-    Sample b's columns are offset by b*n_cols; unbinned particles (padded,
-    or past a column's capacity) keep K1's sentinel slot B*n_cols*cap.
-    Returns (slots (B*N,) int32, column overflow (bool tensor), table ids
-    (B, n_cols, cap) fill N, table positions (B, n_cols, cap, dim) float32
-    far away where empty).
-    """
-    bsz, n, dim = position.shape
-    dev = position.device
-    cps = grid.cols_per_side
-    col_size = torch.tensor(grid.col_size, dtype=position.dtype, device=dev)
-    coords = torch.floor(position[..., :-1] / col_size).to(torch.int32)
-    cid = coords[..., 0].clamp(0, cps[0] - 1)
-    for d in range(1, dim - 1):
-        cid = cid * cps[d] + coords[..., d].clamp(0, cps[d] - 1)
-    ids = torch.arange(n, dtype=torch.int32, device=dev)
-    valid = ids[None, :] < num_particles.to(torch.int32)[:, None]
-    offs = torch.arange(bsz, dtype=torch.int32, device=dev)[:, None] * grid.n_cols
-    cid_flat = torch.where(valid, cid + offs, bsz * grid.n_cols).reshape(-1)
-
-    slots, max_occ = nlc.binning(cid_flat.contiguous(), bsz * grid.n_cols, col_cap)
-
-    # table fill: unbinned particles land in a dropped extra slot
-    size = bsz * grid.n_cols * col_cap
-    dest = torch.clamp(slots.long(), max=size)
-    table = torch.full((size + 1,), n, dtype=torch.int32, device=dev)
-    table[dest] = ids.repeat(bsz)
-    table_pos = torch.full((size + 1, dim), 1e9, dtype=torch.float32, device=dev)
-    table_pos[dest] = position.reshape(bsz * n, dim).to(torch.float32)
-    table = table[:size].view(bsz, grid.n_cols, col_cap)
-    table_pos = table_pos[:size].view(bsz, grid.n_cols, col_cap, dim)
-    return slots, max_occ[0] > col_cap, table, table_pos
-
-
-def _with_sentinel(table: torch.Tensor, table_pos: torch.Tensor, n: int):
-    """One sentinel column per sample (ids n, far positions) after its
-    columns -> (B*(n_cols+1), cap) ids and (B*(n_cols+1), cap, dim)."""
-    bsz, n_cols, cap, dim = table_pos.shape
-    idx_f = torch.cat([table, table.new_full((bsz, 1, cap), n)], dim=1)
-    pos_f = torch.cat([table_pos, table_pos.new_full((bsz, 1, cap, dim), 1e9)], dim=1)
-    return idx_f.reshape(bsz * (n_cols + 1), cap), pos_f.reshape(bsz * (n_cols + 1), cap, dim)
-
-
 def make_edges_fn(
     grid: ColumnGrid,
     k_cap: int,
@@ -224,8 +181,8 @@ def make_edges_fn(
 
     Returns ``edges(position (B, N, dim), num_particles (B,)) ->
     (senders (B, N, K) int32, overflow (B,) bool)``: K1 bins every sample
-    into one shared column table (sample b's columns offset by b*n_cols),
-    K2 scans it, and the rows scatter back to particle order. With
+    into one shared column table (sample b's columns offset by b*n_cols,
+    its sentinel column after them), K2 scans it, and the rows scatter back to particle order. With
     ``emit_geometry``, K9 scans instead and the function returns
     ``(senders, geometry (B, N, K, dim+1) float32, overflow)``: the
     cutoff-normalized [rel_disp, rel_dist] of each slot, zeros in padded
@@ -254,9 +211,8 @@ def make_edges_fn(
         """position (B, N, dim), num_particles (B,) -> senders[, geometry], overflow."""
         bsz, n, _ = position.shape
         dev = position.device
-        _, col_overflow, table, table_pos = _column_table(grid, col_cap, position,
-                                                          num_particles)
-        idx_f, pos_f = _with_sentinel(table, table_pos, n)
+        _, idx_f, pos_f, col_overflow = nlc.column_table(position, num_particles, grid,
+                                                         col_cap)
         kw = dict(n_cols=n_cols, k_cap=k_cap, n=n, cutoff=cutoff, box=box, pbc=pbc)
         if emit_geometry:
             rows, geom, row_max = nlc.neighbor_scan_geometry(
@@ -265,7 +221,7 @@ def make_edges_fn(
             rows, row_max = nlc.neighbor_scan(pos_f, idx_f, batch_bases(bsz, dev), **kw)
 
         # rows back to per-sample particle order; empty slots dropped
-        local = table.reshape(bsz, n_cols * col_cap).long()
+        local = idx_f.view(bsz, n_cols + 1, col_cap)[:, :n_cols].long().reshape(bsz, -1)
         boffs = torch.arange(bsz, device=dev)[:, None] * n
         back = torch.where(local < n, local + boffs, bsz * n).reshape(-1)
         overflow = (row_max.view(bsz, n_cols).max(dim=1).values > k_cap) | col_overflow
@@ -326,9 +282,8 @@ def make_slot_edges_fn(
             cache[str(dev)] = torch.as_tensor(bases_np, device=dev).contiguous()
         bases = cache[str(dev)]
         npart = torch.as_tensor(num_particles, device=dev).reshape(1)
-        slots, col_overflow, table, table_pos = _column_table(grid, col_cap, position[None],
-                                                              npart)
-        idx_f, pos_f = _with_sentinel(table, table_pos, n)
+        slots, idx_f, pos_f, col_overflow = nlc.column_table(position[None], npart, grid,
+                                                             col_cap)
         cand, rel_disp, rel_dist, row_max = nlc.slot_scan(
             pos_f, idx_f, bases, n_cols=n_cols, k_cap=k_cap, n=n, cutoff=cutoff, box=box,
             pbc=pbc,
@@ -422,6 +377,7 @@ def neighbor_list(
         # side >= cutoff is valid); keep the one with the least scan work
         # among those whose column fits a scan block (the one limit of K2,
         # K7 and K9; K8 reads sender rows from device memory and has none)
+        # and whose column count K1's shared memory holds
         best = None
         base_nc = [max(int(math.floor(float(b) / cutoff)), 1) for b in box[:-1]]
         for f in (1.0, 0.75, 0.6, 0.5, 0.4, 0.33):
@@ -440,7 +396,7 @@ def neighbor_list(
             occ = np.bincount(cid, minlength=n_bins)
             max_occ = int(occ.max()) if occ.size else 1
             cap = max(_round_up(max_occ * mult, 8), 8)
-            if nlc.scan_chunk(cap, 3 ** (dim - 1)) == 0:
+            if nlc.scan_chunk(cap, 3 ** (dim - 1)) == 0 or not nlc.column_table_fits(n_bins):
                 continue
             cost = n_bins * cap * cap
             if best is None or cost < best[0]:
@@ -498,7 +454,7 @@ def neighbor_list(
                 npart = torch.full((bsz,), n, dtype=torch.int32, device=pos_b.device)
             else:
                 npart = torch.as_tensor(num_particles, device=pos_b.device)
-                npart = npart.to(torch.int32).reshape(-1).expand(bsz)
+                npart = npart.reshape(-1).expand(bsz)
             out = edges(pos_b, npart)
             senders, overflow = out[0], out[-1]
             aux = None

@@ -1,6 +1,6 @@
-"""Wrappers of the neighbor-search kernels: K1 (binning) and the column-stencil
-scan with its three payloads, K2 (sender ids), K9 (sender ids and the edge
-geometry) and K7 (the slot-space graph).
+"""Wrappers of the neighbor-search kernels: K1 (the column table) and the
+column-stencil scan with its three payloads, K2 (sender ids), K9 (sender ids
+and the edge geometry) and K7 (the slot-space graph).
 
 Counterpart of ``lagrangebench_tpu/ops/neighbors_pallas.py``. Each wrapper
 launches its CUDA kernel (``csrc/binning.cu``, ``csrc/neighbor_scan.cu``)
@@ -19,10 +19,11 @@ import torch
 
 from .build import Kernel, ptr
 
-BINNING = Kernel(
-    "binning", "binning", "lbt_binning",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+COLUMN_TABLE = Kernel(
+    "column_table", "binning", "lbt_column_table",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    + [ctypes.c_int] * 7 + [ctypes.c_double, ctypes.c_double, ctypes.c_int]
+    + [ctypes.c_void_p] * 5,
     replaces="lagrangebench_tpu/ops/neighbors_pallas.py:333",
 )
 NEIGHBOR_SCAN = Kernel(
@@ -53,7 +54,6 @@ _EMIT_GEOMETRY, _EMIT_SLOT = 1, 2  # the kernel's Emit values
 SCAN_SMEM_TARGET = 48 * 1024
 #: the card's per-block limit (H100: 227 KB)
 SCAN_SMEM_MAX = 227 * 1024
-_BIN_TILE = 256
 
 
 def scan_smem_bytes(cap: int, chunk: int) -> int:
@@ -74,16 +74,27 @@ def scan_chunk(cap: int, n_steps: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1: binning
+# K1: the column table
 # ---------------------------------------------------------------------------
 
 
+def column_table_smem_bytes(n_cols: int) -> int:
+    """Shared memory of one K1 block: a count per column and warp (32), the
+    block's count, the lower blocks' prefix and the sample's total."""
+    return 4 * (32 + 3) * n_cols
+
+
+def column_table_fits(n_cols: int) -> bool:
+    """Whether K1 takes a grid of ``n_cols`` columns per sample."""
+    return column_table_smem_bytes(n_cols) + 1024 <= SCAN_SMEM_MAX
+
+
 def binning_plain(cid: torch.Tensor, num_cells: int, cap: int):
-    """Stable rank of each id among earlier equal ids -> (slots, max_occ).
+    """Stable rank of each id among earlier equal ids -> (slots, counts).
 
     ``cid`` (m,) int32 in [0, num_cells]; ``num_cells`` marks "not binned".
     slot = cid*cap + rank, or num_cells*cap past capacity / when not binned.
-    max_occ (1,) int32 is the largest count of any id below num_cells.
+    counts (num_cells,) is the number of particles of each id.
     """
     cid = cid.long()
     valid = (cid >= 0) & (cid < num_cells)
@@ -96,24 +107,93 @@ def binning_plain(cid: torch.Tensor, num_cells: int, cap: int):
     rank[order] = torch.arange(cid.numel(), device=cid.device) - starts[ks]
     sentinel = num_cells * cap
     slots = torch.where(valid & (rank < cap), key * cap + rank, sentinel)
-    max_occ = counts[:num_cells].max().reshape(1) if num_cells else counts[:1] * 0
-    return slots.to(torch.int32), max_occ.to(torch.int32)
+    return slots.to(torch.int32), counts[:num_cells]
 
 
-def binning(cid: torch.Tensor, num_cells: int, cap: int):
-    """K1. See :func:`binning_plain` for the function computed."""
-    if cid.dtype != torch.int32 or cid.dim() != 1 or not cid.is_contiguous():
-        raise ValueError("binning: cid must be a contiguous 1-D int32 tensor")
-    if not cid.is_cuda:
-        return binning_plain(cid, num_cells, cap)
-    m = cid.numel()
-    n_tiles = -(-m // _BIN_TILE)
-    slots = torch.empty(m, dtype=torch.int32, device=cid.device)
-    tile_counts = torch.zeros(n_tiles * num_cells, dtype=torch.int32, device=cid.device)
-    max_occ = torch.zeros(1, dtype=torch.int32, device=cid.device)
-    BINNING(ptr(cid), m, num_cells, cap, ptr(slots), ptr(tile_counts),
-            ptr(max_occ), device=cid.device)
-    return slots, max_occ
+def column_table_plain(position: torch.Tensor, num_particles: torch.Tensor, grid, col_cap: int):
+    """The column table of a batch: what K1 computes, in PyTorch ops.
+
+    ``position`` (B, N, dim) float32 or float64; ``num_particles`` (B,) (or
+    one count for all); ``grid`` an ``ops.neighbors.ColumnGrid``. Each
+    particle's column is ``floor(position / col_size)`` in the position's
+    dtype over the first dim-1 axes, clamped to the grid; sample b's
+    columns are numbered from b*n_cols. Returns
+
+    * slots (B*N,) int32: column*cap + rank (stable in particle order), or
+      the sentinel B*n_cols*cap for a padded particle or one past the
+      column's capacity;
+    * idx_f (B*(n_cols+1), cap) int32: the particle id of each slot, fill N;
+      row b*(n_cols+1) + c is sample b's column c, row b*(n_cols+1) +
+      n_cols its sentinel column (empty);
+    * pos_f (B*(n_cols+1), cap, dim) float32: the positions, fill 1e9;
+    * overflow () bool: a column of any sample holds more than cap (one
+      flag for the batch, as the JAX package's batched edge builder gives it).
+    """
+    bsz, n, dim = position.shape
+    dev = position.device
+    cps, n_cols = grid.cols_per_side, grid.n_cols
+    col_size = torch.tensor(grid.col_size, dtype=position.dtype, device=dev)
+    coords = torch.floor(position[..., :-1] / col_size).to(torch.int32)
+    cid = coords[..., 0].clamp(0, cps[0] - 1)
+    for d in range(1, dim - 1):
+        cid = cid * cps[d] + coords[..., d].clamp(0, cps[d] - 1)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    npart = num_particles.to(device=dev, dtype=torch.int32).reshape(-1, 1)
+    offs = torch.arange(bsz, dtype=torch.int32, device=dev)[:, None] * n_cols
+    cid_flat = torch.where(ids[None, :] < npart, cid + offs, bsz * n_cols).reshape(-1)
+
+    slots, counts = binning_plain(cid_flat, bsz * n_cols, col_cap)
+
+    # table rows b*(n_cols+1) + c; unbinned particles land in a dropped slot
+    size = bsz * (n_cols + 1) * col_cap
+    col = slots.long() // col_cap
+    dest = torch.where(slots < bsz * n_cols * col_cap,
+                       slots.long() + col // n_cols * col_cap, size)
+    idx_f = torch.full((size + 1,), n, dtype=torch.int32, device=dev)
+    idx_f[dest] = ids.repeat(bsz)
+    pos_f = torch.full((size + 1, dim), 1e9, dtype=torch.float32, device=dev)
+    pos_f[dest] = position.reshape(bsz * n, dim).to(torch.float32)
+    overflow = counts.max() > col_cap
+    rows = bsz * (n_cols + 1)
+    return slots, idx_f[:size].view(rows, col_cap), pos_f[:size].view(rows, col_cap, dim), overflow
+
+
+def column_table(position: torch.Tensor, num_particles: torch.Tensor, grid, col_cap: int):
+    """K1. See :func:`column_table_plain` for the function computed."""
+    if position.dim() != 3 or position.dtype not in (torch.float32, torch.float64):
+        raise ValueError("column_table: position must be float32 or float64 (B, N, dim)")
+    bsz, n, dim = position.shape
+    if len(grid.cols_per_side) != dim - 1 or dim not in (2, 3) or n == 0:
+        raise ValueError("column_table: a 2D or 3D batch and a grid of dim-1 axes expected")
+    npart = num_particles.reshape(-1)
+    if npart.dtype not in (torch.int32, torch.int64):
+        npart = npart.to(torch.int32)
+    if npart.numel() not in (1, bsz):
+        raise ValueError("column_table: num_particles must hold one count or one per sample")
+    if not position.is_cuda:
+        return column_table_plain(position, npart, grid, col_cap)
+    if not npart.is_cuda:
+        raise ValueError("column_table: num_particles must be on the positions' card")
+    if not column_table_fits(grid.n_cols):
+        raise ValueError(f"column_table: {grid.n_cols} columns per sample exceed one block's "
+                         "shared memory")
+    if position.stride(-1) != 1:
+        position = position.contiguous()
+    rows, dev = bsz * (grid.n_cols + 1), position.device
+    slots = torch.empty(bsz * n, dtype=torch.int32, device=dev)
+    idx_f = torch.empty((rows, col_cap), dtype=torch.int32, device=dev)
+    pos_f = torch.empty((rows, col_cap, dim), dtype=torch.float32, device=dev)
+    flags = torch.empty(bsz, dtype=torch.bool, device=dev)
+    cps, cs = grid.cols_per_side, grid.col_size
+    COLUMN_TABLE(
+        ptr(position), int(position.dtype == torch.float64), position.stride(0),
+        position.stride(1), ptr(npart), int(npart.dtype == torch.int64),
+        npart.stride(0) if npart.numel() > 1 else 0, bsz, n, dim, cps[0],
+        cps[1] if dim == 3 else 1, cs[0], cs[-1], col_cap, ptr(slots), ptr(idx_f), ptr(pos_f),
+        ptr(flags), device=dev,
+    )
+    # the kernel flags each sample (one cluster per sample)
+    return slots, idx_f, pos_f, flags.any() if bsz > 1 else flags[0]
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ a duration is the step's time on the host clock, device work included.
 
 ``call_ms`` times a call on the card with CUDA events, the queue filled
 ahead so that the host's launch overhead does not stand in for the card's
-time (on the CPU: the host clock).
+time (on the CPU: the host clock). ``launch_floor_ms`` is the device time
+of an empty kernel, the floor under any kernel's time.
 """
 
 from __future__ import annotations
@@ -104,3 +105,17 @@ def call_ms(fn: Callable, device, iters: int = 20, warmup: int = 2) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def launch_floor_ms(device="cuda", iters: int = 200) -> float:
+    """Device time (ms) of one launch of an empty kernel (one block of 32
+    threads, ``lbt_empty`` in ``csrc/binning.cu``), by :func:`device_ms`."""
+    import ctypes
+
+    import torch
+
+    from .ops.build import Kernel
+
+    empty = Kernel("empty", "binning", "lbt_empty", [ctypes.c_void_p], replaces="")
+    dev = torch.device(device)
+    return device_ms(lambda: empty(device=dev), iters, 5)

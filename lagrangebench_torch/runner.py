@@ -135,7 +135,8 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
     )
     model = setup_model(cfg.model, metadata,
                         has_external_force=data_train.external_force_fn is not None,
-                        seed=cfg.seed, device=device)
+                        seed=cfg.seed, device=device,
+                        normalization_stats=case.normalization_stats)
 
     trained = False
     if mode in ("train", "all"):

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from lagrangebench_torch.ops import fused_mp, neighbors_cuda
-from lagrangebench_torch.ops.neighbors import neighbor_list
+from lagrangebench_torch.ops.neighbors import ColumnGrid, neighbor_list
 
 pytestmark = pytest.mark.gpu
 
@@ -28,11 +28,14 @@ def cuda():
 
 @pytest.mark.parametrize("cap", [3, 16])
 def test_binning_kernel(cuda, cap):
+    """K1 (the column table) against its plain version: every output equal."""
     rng = np.random.default_rng(cap)
-    cid = torch.as_tensor(rng.integers(0, 51, size=3000).astype(np.int32), device=cuda)
-    got = neighbors_cuda.binning(cid, 50, cap)
-    want = neighbors_cuda.binning_plain(cid, 50, cap)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    grid = ColumnGrid((10, 5), (0.1, 0.2), 50, (True, True, True))
+    pos = torch.as_tensor(rng.uniform(0, 1, size=(2, 1500, 3)).astype(np.float32), device=cuda)
+    npart = torch.tensor([1500, 1200], dtype=torch.int32, device=cuda)
+    got = neighbors_cuda.column_table(pos, npart, grid, cap)
+    want = neighbors_cuda.column_table_plain(pos, npart, grid, cap)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("pbc", [True, False])

@@ -99,11 +99,15 @@ def test_entry_points_need_cuda_unless_asked(no_cuda):
 def test_cpu_tensors_take_the_plain_versions_without_counting():
     """The wrappers count launches only where a kernel launches."""
     from lagrangebench_torch.ops import fused_mp, neighbors_cuda
+    from lagrangebench_torch.ops.neighbors import ColumnGrid
 
-    before = (neighbors_cuda.BINNING.launches, fused_mp.FUSED_MP.launches)
-    slots, occ = neighbors_cuda.binning(torch.tensor([0, 1, 1, 2], dtype=torch.int32), 2, 4)
-    assert slots.tolist() == [0, 4, 5, 8] and occ.tolist() == [2]
-    assert (neighbors_cuda.BINNING.launches, fused_mp.FUSED_MP.launches) == before
+    before = (neighbors_cuda.COLUMN_TABLE.launches, fused_mp.FUSED_MP.launches)
+    grid = ColumnGrid((2,), (0.5,), 2, (True, True))
+    pos = torch.tensor([[[0.1, 0.0], [0.6, 0.0], [0.7, 0.0], [0.2, 0.0]]])  # columns 0, 1, 1
+    slots, idx_f, _, ovf = neighbors_cuda.column_table(pos, torch.tensor([3]), grid, 4)
+    assert slots.tolist() == [0, 4, 5, 8] and not ovf
+    assert idx_f.tolist() == [[0, 4, 4, 4], [1, 2, 4, 4], [4, 4, 4, 4]]
+    assert (neighbors_cuda.COLUMN_TABLE.launches, fused_mp.FUSED_MP.launches) == before
 
 
 def test_trainer_needs_cuda_unless_asked(no_cuda):

@@ -27,8 +27,9 @@ from lagrangebench_torch.ops.neighbors import (
 
 @pytest.mark.parametrize("cap", [3, 16])
 def test_binning_plain_matches_pallas(cap):
-    """K1 plain version vs _table_from_cid(interpret=True): slots and the
-    overflow flag are equal (cap=3 overflows some cells)."""
+    """K1's plain rank (``binning_plain``, inside ``column_table_plain``) vs
+    _table_from_cid(interpret=True): slots and the overflow flag are equal
+    (cap=3 overflows some cells)."""
     rng = np.random.default_rng(0)
     num_cells, m = 37, 700
     cid = rng.integers(0, num_cells + 1, size=m).astype(np.int32)  # some unbinned
@@ -36,9 +37,9 @@ def test_binning_plain_matches_pallas(cap):
     _, _, overflow, slots = _table_from_cid(
         jnp.asarray(cid), jnp.asarray(pos), num_cells, cap, tile=128, interpret=True
     )
-    got_slots, max_occ = nlc.binning(torch.as_tensor(cid), num_cells, cap)
+    got_slots, counts = nlc.binning_plain(torch.as_tensor(cid), num_cells, cap)
     np.testing.assert_array_equal(got_slots.numpy(), np.asarray(slots))
-    assert bool(max_occ[0] > cap) == bool(overflow)
+    assert bool(counts.max() > cap) == bool(overflow)
 
 
 def _grids(dim, box, cutoff, pbc, f=1.0):
