@@ -91,7 +91,19 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    checkpoint of seeded weights in the standard layout), held to the
    fused processor from the same weights in float32 (1e-4), with ms per
    rollout step of both processors; then Linear (``mode=all``, 3 steps).
-8. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+8. SEGNN (slice 9). Drives ``runner.train_or_infer`` with the shipped
+   ``configs/rpf_3d/segnn.yaml`` (``SEGNN_CONFIG``, SEGNN-10-64 float32) on
+   the synthetic splits: ``mode=all``, 10 training steps at batch 1 and a
+   20-step infer at batch 2 (mse, e_kin, Sinkhorn), K1 and K2 counted once
+   per neighbor update and every other kernel at none; checks finite
+   losses and changed parameters, prints ms per train and rollout step, the
+   peak memory of a training step (``torch.cuda.max_memory_allocated``) and
+   profiles of a training step and a rollout step by kernel group. Then
+   holds small SEGNNs (2 layers, about 1,000 particles) on the card against
+   the CPU: 3D periodic, and 2D with walls, two particle types and lmax 2,
+   each a 3-step float32 rollout and 3 float32 training steps; and one bf16
+   forward and backward.
+9. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
    and C for K7, K8 and K9, from the experiments for E1 and E2), the card
    line, and last ``{"ok": true, "device": {...}}``.
@@ -878,9 +890,11 @@ def train_path(device):
     return row, ok, counts
 
 
-def profile_train_step(trainer, raw, nbrs, batch=BATCH, unroll=1, label="train profile"):
+def profile_train_step(trainer, raw, nbrs, batch=BATCH, unroll=1, label="train profile",
+                       extra=None):
     """Device time of one training step (``unroll`` pushforward unrolls) by
-    kernel group, and the device's idle share, from torch.profiler (a
+    kernel group (``extra``: more (substring, group) pairs, matched after
+    the others), and the device's idle share, from torch.profiler (a
     report, not a gate)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -893,7 +907,7 @@ def profile_train_step(trainer, raw, nbrs, batch=BATCH, unroll=1, label="train p
               ("foreach", "AdamW (foreach ops)"), ("multi_tensor", "AdamW (foreach ops)"),
               ("index", "gather/scatter (torch index ops)"),
               ("scatter", "gather/scatter (torch index ops)"),
-              ("gather", "gather/scatter (torch index ops)")]
+              ("gather", "gather/scatter (torch index ops)")] + list((extra or {}).items())
     nbrs_b = nbrs.broadcast(batch)
     trainer.train_step(raw, nbrs_b, 3e-4, unroll)  # warm
     torch.cuda.synchronize()
@@ -1187,9 +1201,9 @@ class _Recorder:
 
     def __init__(self):
         import lagrangebench_torch.runner as runner
-        from lagrangebench_torch.models import EGNN, GNS, GNSStandard, Linear, PaiNN
+        from lagrangebench_torch.models import EGNN, GNS, SEGNN, GNSStandard, Linear, PaiNN
 
-        self.runner, self.model_classes = runner, (PaiNN, GNS, GNSStandard, EGNN, Linear)
+        self.runner, self.model_classes = runner, (PaiNN, GNS, GNSStandard, EGNN, Linear, SEGNN)
         self.cases, self.models, self.trainers, self.losses = [], [], [], []
         self.forwards = self.allocations = 0
 
@@ -2415,6 +2429,222 @@ def egnn_reference_check(device):
     return passed
 
 
+# ---------------------------------------------------------------------------
+# slice 9: SEGNN-10-64 through the runner (K1 and K2 on every neighbor
+# update; the tensor products are torch ops, as the JAX package leaves them
+# to XLA)
+# ---------------------------------------------------------------------------
+
+# configs/rpf_3d/base.yaml and configs/rpf_3d/segnn.yaml, resolved;
+# tests/test_torch_segnn_runner.py holds it equal to the YAML over the
+# defaults
+SEGNN_CONFIG = {
+    "dataset": {"src": "datasets/3D_RPF_8000_10kevery100"},
+    "logging": {"wandb_project": "rpf_3d"},
+    "model": {"name": "segnn", "num_mp_steps": 10, "latent_dim": 64, "isotropic_norm": True},
+    "train": {"optimizer": {"lr_start": 1.0e-3}},
+}
+SEGNN_STEP_MAX, SEGNN_ROLLOUT = 9, 20  # training steps 0-9, then a 20-step infer
+# A small SEGNN on the card against the CPU, float32 (TF32 off): the same
+# function summed in other orders. Positions after a 3-step rollout 1e-5
+# absolute; 3 training steps, losses 1e-5 relative, parameters 1e-5
+# absolute (as EGNN is held). bf16 compute, one forward and backward: the
+# card's bf16 GEMM sums its float32 products in another order than the
+# CPU's, and a sum that lands on the other side of a bf16 rounding
+# boundary of the next product's input moves it by an ulp (2^-8): acc and
+# every gradient within 2e-2 of their largest value.
+SEGNN_REF_TOL = {"pos": 1e-5, "loss": 1e-5, "params": 1e-5, "bf16": 2e-2}
+# the profiles' kernel groups of the tensor products' torch ops, by name
+SEGNN_GROUPS = {"catarray": "torch.cat copies", "reduce_kernel": "reductions (sums over K, means)",
+                "mulfunctor": "elementwise multiply", "functor_add": "elementwise add",
+                "sigmoid": "sigmoid (gates, SiLU)", "direct_copy": "copies and casts"}
+
+
+def segnn_cfg(**overrides):
+    return shipped_cfg(SEGNN_CONFIG, **overrides)
+
+
+def segnn_path(device):
+    """SEGNN-10-64 (configs/rpf_3d/segnn.yaml) through runner.train_or_infer
+    with mode=all: 10 training steps at batch 1, then a 20-step infer at
+    batch 2 (mse, e_kin, Sinkhorn); K1 and K2 once per neighbor update and
+    no other kernel; finite losses, changed parameters, ms per train and
+    rollout step, the peak memory of a train step, profiles of a rollout
+    step and a train step."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.models import setup_model
+    from lagrangebench_torch.ops import fused_mp, painn_msg, row_gather
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+
+    # every kernel wrapper of the port (K1-K9, E1, E2)
+    kernels = (nlc.COLUMN_TABLE, nlc.NEIGHBOR_SCAN, nlc.NEIGHBOR_SCAN_GEOMETRY, nlc.SLOT_SCAN,
+               fused_mp.FUSED_MP, fused_mp.FUSED_MP_ENC, fused_mp.FUSED_MP_BWD,
+               fused_mp.FUSED_MP_SLOT, fused_mp.FUSED_MP_SLOT_ENC, fused_mp.FUSED_MP_WINDOW,
+               painn_msg.PAINN_MSG, painn_msg.PAINN_LAYER, row_gather.ROW_GATHER)
+    ok, step_ms = True, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = {"eval.n_rollout_steps": SEGNN_ROLLOUT, "eval.infer.n_trajs": BATCH,
+                  "eval.train.n_trajs": 1, "eval.rollout_dir": f"{tmp}/rollouts",
+                  "logging.ckp_dir": f"{tmp}/ckp", "logging.eval_steps": SEGNN_STEP_MAX}
+        if str(device) == "cpu":  # a rehearsal on the CPU; the card is the runner's default
+            common["gpu"] = -1
+        cfg = segnn_cfg(mode="all", **{"train.step_max": SEGNN_STEP_MAX}, **common)
+        data = runner_data(cfg)
+        metrics, counts, rec, ok = _runner_call("segnn (mode=all)", cfg, data, kernels)
+        model, case, trainer = rec.models[0], rec.cases[0], rec.trainers[0]
+        fresh = setup_model(cfg.model, data[0].metadata, seed=cfg.seed, device=device)
+        changed = sum(not torch.equal(a, b)
+                      for a, b in zip(fresh.parameters(), model.parameters()))
+        n_params = len(list(model.parameters()))
+        log(f"segnn: hidden irreps {model.hidden_irreps}, "
+            f"{sum(p.numel() for p in model.parameters())} parameters; losses "
+            f"{[round(x, 6) for x in rec.losses]}; {changed} of {n_params} parameter tensors "
+            f"changed")
+        if (len(rec.losses) != SEGNN_STEP_MAX + 1 or not np.all(np.isfinite(rec.losses))
+                or changed != n_params):
+            log("FAIL: segnn training steps (count, finite losses, changed parameters)")
+            ok = False
+        d = np.asarray(trainer.timer.durations) * 1e3
+        step_ms["segnn train"] = float(np.median(d))
+        log(f"segnn train: ms per step (host clock, synchronized) median {np.median(d):.2f} "
+            f"(all {np.round(d, 2).tolist()}) [batch {cfg.train.batch_size} x {N_PARTICLES} "
+            f"particles, SEGNN-10-64 float32]")
+
+        # the peak memory of one training step at batch 1, then its profile
+        pos_t, ptype_t = next(iter(trainer.loader_train))
+        raw = trainer._batch((pos_t, ptype_t))
+        _, _, tnbrs = trainer.case.allocate(trainer.generator, (pos_t[0], ptype_t[0]))
+        if str(device).startswith("cuda"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            trainer.train_step(raw, tnbrs.broadcast(1), 3e-4, 0)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"segnn train step peak memory: {peak / 2**30:.2f} GiB allocated "
+                f"(torch.cuda.max_memory_allocated; {before / 2**30:.2f} GiB before the step) "
+                f"[batch 1 x {N_PARTICLES} particles]")
+        profile_train_step(trainer, raw, tnbrs, batch=1, unroll=0, label="segnn train",
+                           extra=SEGNN_GROUPS)
+
+        model.eval()
+        isl = int(cfg.model.input_seq_length)
+        times, finite, (pos, ptype, nbrs) = _rollout_ms(model, case, data[2], isl,
+                                                        SEGNN_ROLLOUT, "segnn, SEGNN-10-64 float32")
+        ok &= finite
+        step_ms["segnn rollout"] = min(times)
+        profile_steps(model, case, pos, ptype, nbrs, steps=1, isl=isl, label="segnn rollout",
+                      rename=SEGNN_GROUPS)
+    return ok, step_ms
+
+
+def segnn_ref_data(cfg, dim, walls, n_particles=1000):
+    """Synthetic (train, valid, test) splits for the card-vs-CPU checks:
+    periodic, or in a box with walls (each coordinate mapped smoothly into
+    [0.1, 0.9], so that no trajectory wraps) where a quarter of the
+    particles are walls."""
+    import numpy as np
+
+    from lagrangebench_torch.data import ArrayDataset
+    from lagrangebench_torch.data.synthetic import _stats, make_synthetic_arrays
+
+    isl = int(cfg.model.input_seq_length)
+    side = round(n_particles ** (1 / dim))
+    splits, metadata = make_synthetic_arrays(
+        n_particles=side**dim, dim=dim, box=BOX, dx=BOX / side, seq_len_train=12,
+        seq_len_eval=isl + 3, n_trajs=BATCH, name="REF")
+    types = np.zeros(side**dim, np.int64)
+    if walls:
+        splits = {k: [0.5 + 0.4 * np.sin(2 * np.pi * p / BOX) for p in v]
+                  for k, v in splits.items()}
+        metadata.update(_stats(splits["train"], BOX, dim))
+        metadata["periodic_boundary_conditions"] = [False] * dim
+        types[: side**dim // 4] = 1  # NodeType.SOLID_WALL
+    extra = {"train": max(cfg.train.pushforward.unrolls), "valid": 3, "test": 3}
+    return tuple(ArrayDataset(split, splits[split], [types] * BATCH, metadata,
+                              input_seq_length=isl, extra_seq_length=extra[split])
+                 for split in ("train", "valid", "test"))
+
+
+def segnn_reference_check(device):
+    """Small SEGNNs on the card against the CPU (TF32 off): 2 layers, latent
+    64, about 1,000 particles, 3D periodic and 2D with walls, two particle
+    types and lmax 2; a 3-step rollout and 3 training steps each in
+    float32, and one bf16 forward and backward of the 3D model."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.case import case_builder
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+    from lagrangebench_torch.models import setup_model
+    from lagrangebench_torch.train import Trainer
+
+    tol, passed = SEGNN_REF_TOL, True
+    variants = {"3d": ({}, 3, False),
+                "2d_walls_lmax2": ({"model.lmax_attributes": 2, "model.lmax_hidden": 2}, 2, True)}
+    for label, (over, dim, walls) in variants.items():
+        cfg = segnn_cfg(**{"model.num_mp_steps": 2, "eval.n_rollout_steps": 3,
+                           "eval.train.n_trajs": 1, "train.batch_size": 2, **over})
+        train, valid, test = segnn_ref_data(cfg, dim, walls)
+        meta = test.metadata
+        isl = int(cfg.model.input_seq_length)
+        preds, losses, params, feats_out = [], [], [], []
+        for dev in (device, "cpu"):
+            bounds = np.asarray(meta["bounds"])
+            case = case_builder((bounds[:, 1] - bounds[:, 0]).tolist(), meta, isl,
+                                cfg_neighbors=cfg.neighbors, cfg_model=cfg.model,
+                                noise_std=cfg.train.noise_std, device=dev)
+            model = setup_model(cfg.model, meta, device=dev, homogeneous_particles=not walls)
+            pos, ptype = test_batch(test, dev, BATCH)
+            _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+            p, _, _ = rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs.broadcast(BATCH),
+                                    pos[:, :, isl:isl + 3])
+            preds.append(p.cpu())
+            tr = Trainer(model, case, train, valid, cfg_train=cfg.train, cfg_eval=cfg.eval,
+                         cfg_logging={"log_steps": 1, "eval_steps": 10**9},
+                         input_seq_length=isl, device=dev)
+            steps, _ = record_steps(tr)
+            tr.train(step_max=2)
+            losses.append(np.asarray([loss for _, loss in steps]))
+            params.append(checkpoint.flatten_tree(model.jax_params()))
+        pos_err = float((preds[0] - preds[1]).abs().max())
+        loss_err = float(np.max(np.abs(losses[0] - losses[1]) / np.abs(losses[1])))
+        par_err, worst = max((float(np.max(np.abs(params[0][k] - params[1][k]))), k)
+                             for k in params[1])
+        ok = (pos_err <= tol["pos"] and len(losses[0]) == 3 and loss_err <= tol["loss"]
+              and par_err <= tol["params"])
+        log(f"segnn reference ({label}), cuda vs cpu float32: positions after 3 steps "
+            f"{pos_err:.3g} (tol {tol['pos']}); 3 training steps, losses {losses[0].tolist()} vs "
+            f"{losses[1].tolist()}, max rel diff {loss_err:.3g} (tol {tol['loss']}); parameters "
+            f"max abs diff {par_err:.3g} at {worst} (tol {tol['params']})"
+            f"{'' if ok else '  FAIL'}")
+        passed &= ok
+
+    # bf16 compute: one forward and backward from the same weights
+    cfg = segnn_cfg(**{"model.num_mp_steps": 2, "model.compute_dtype": "bfloat16"})
+    _, _, test = segnn_ref_data(cfg, 3, False)
+    outs, weights = [], None
+    for dev in (device, "cpu"):
+        case = gns_case(cfg, test.metadata, dev)
+        model = setup_model(cfg.model, test.metadata, device=dev)
+        if weights is None:
+            weights = model.jax_params()
+        model.load_jax_params(weights)
+        feats, ptype = first_window(case, test)
+        acc = model(feats, ptype)["acc"]
+        acc.square().mean().backward()
+        outs.append([acc.detach().cpu()] + [p.grad.cpu() for _, p, _ in model.jax_leaves()])
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(*outs)]
+    ok = max(errs) <= tol["bf16"]
+    log(f"segnn reference, cuda vs cpu bf16 compute: acc {errs[0]:.3g} of the largest, "
+        f"parameter gradients up to {max(errs[1:]):.3g} (tol {tol['bf16']})"
+        f"{'' if ok else '  FAIL'}")
+    return passed and ok
+
+
 def main() -> int:
     try:
         import torch
@@ -2474,6 +2704,10 @@ def main() -> int:
     ok &= linear_path("cuda")
     log("EGNN and standard GNS paths (ms per step): " + json.dumps(
         {k: round(v, 3) for k, v in {**egnn_ms, **std_ms}.items()}))
+    segnn_ok, segnn_ms = segnn_path("cuda")
+    ok &= segnn_ok
+    ok &= segnn_reference_check("cuda")
+    log("SEGNN path (ms per step): " + json.dumps({k: round(v, 3) for k, v in segnn_ms.items()}))
     exp_rows, exp_ok = experiments_path("cuda")
     ok &= exp_ok
     rows.update(exp_rows)

@@ -2,7 +2,7 @@
 for this checkout or another one.
 
     python lagrangebench_torch/experiments/mp_times.py [--tree DIR] [--label NAME]
-        [--only gns,painn,scan]
+        [--only gns,painn,scan,k1,rollout[,segnn]]
 
 - K3 and K4 (the fused GNS message-passing step and its backward): seeded
   random inputs at the GNS rollout shape (16,000 receivers x K = 40, F =
@@ -29,6 +29,11 @@ for this checkout or another one.
 - The GNS-10-128 bf16 dense rollout at batch 2 of the same data, seeded
   weights: ms per step on the host clock (20 steps, three runs after one
   that warms up), the path every rollout's neighbor update runs.
+- SEGNN-10-64 float32 (the model of ``configs/rpf_3d/segnn.yaml``) on the
+  same data, seeded weights: ms per rollout step at batch 2 on the host
+  clock (as the GNS rollout), and the device time, peak memory and twelve
+  longest kernels (summed by name) of one forward and backward at batch 1
+  (a training step without the optimizer).
 
 Each is timed with CUDA events with the card's queue filled ahead
 (``profiling.device_ms``) and checked against its plain version. ``--tree
@@ -232,7 +237,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--only", default="gns,painn,scan,k1,rollout",
                     help="comma-separated groups: gns (K3, K4), painn (K5), scan (K2, K7, K9), "
                          "k1 (K1 and the table build, the neighbor update), rollout (the "
-                         "GNS-10-128 dense rollout)")
+                         "GNS-10-128 dense rollout), segnn (SEGNN-10-64's rollout and "
+                         "training forward and backward; not by default: a tree older than "
+                         "slice 9 has no SEGNN)")
     args = ap.parse_args(argv)
     groups = set(args.only.split(","))
     root = os.path.abspath(args.tree or os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -258,6 +265,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         _time_k1(torch, device, out)
     if "rollout" in groups:
         _time_rollout(torch, device, out)
+    if "segnn" in groups:
+        _time_segnn(torch, device, out)
     print(json.dumps(out))
     return out
 
@@ -343,6 +352,56 @@ def _time_rollout(torch, device, out, steps=20, runs=3):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / steps)
     out["gns_rollout_b2_ms_per_step"] = times[1:]
+
+
+def _time_segnn(torch, device, out, steps=20, runs=3):
+    """SEGNN-10-64 float32 on the dense layout, seeded weights: ms per
+    rollout step at batch 2 (host clock, synchronized), and one forward and
+    backward of the acceleration's mean square at batch 1: device ms
+    (``profiling.device_ms``), peak memory (GiB allocated) and the twelve
+    kernels of longest device time, summed by name."""
+    import time
+
+    from lagrangebench_torch.config import Config
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+    from lagrangebench_torch.models import setup_model
+    from lagrangebench_torch.profiling import device_ms
+
+    cfg = Config({"name": "segnn", "num_mp_steps": 10, "latent_dim": 64, "num_mlp_layers": 2,
+                  "input_seq_length": ISL, "magnitude_features": False, "isotropic_norm": True,
+                  "compute_dtype": "float32", "lmax_attributes": 1, "lmax_hidden": 1,
+                  "segnn_norm": "none", "velocity_aggregate": "avg"})
+    case, pos, ptype, metadata = _rpf_batch(torch, device, ISL + steps, cfg)
+    model = setup_model(cfg, metadata, seed=0, device=device)
+    _, nbrs = case.allocate_eval((pos[0, :, :ISL], ptype[0]))
+    times = []
+    with torch.no_grad():
+        for _ in range(runs + 1):  # the first run warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rollout_batch(model, case, pos[:, :, :ISL], ptype, nbrs.broadcast(2),
+                          pos[:, :, ISL:])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / steps)
+    out["segnn_rollout_b2_ms_per_step"] = times[1:]
+    with torch.no_grad():
+        feats, _ = case.preprocess_eval_batched((pos[:1, :, :ISL], ptype[:1]), nbrs)
+    flat_ptype = ptype[:1].reshape(-1)
+
+    def fwd_bwd():
+        model(feats, flat_ptype)["acc"].square().mean().backward()
+
+    out["segnn_fwd_bwd_b1_ms"] = device_ms(fwd_bwd, iters=5, warmup=1)
+    per = {}
+    for ev in _device_events(torch, fwd_bwd):
+        key = ev.name[:70]
+        per[key] = per.get(key, 0.0) + ev.time_range.elapsed_us() / 1e3
+    out["segnn_fwd_bwd_b1_top_kernels_ms"] = dict(sorted(per.items(), key=lambda kv: -kv[1])[:12])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    out["segnn_fwd_bwd_b1_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
 
 
 def _device_events(torch, fn, calls=1):

@@ -1,5 +1,5 @@
 """Models (GNS with the fused or the standard processor, PaiNN, EGNN,
-Linear) and the factory."""
+SEGNN, Linear) and the factory."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from .painn import (
     painn_fused_params_from_standard,
     painn_standard_params_from_fused,
 )
+from .segnn import SEGNN, build_segnn
 
 __all__ = [
     "EGNN",
@@ -23,10 +24,12 @@ __all__ = [
     "GNSStandard",
     "Linear",
     "PaiNN",
+    "SEGNN",
     "build_egnn",
     "build_gns",
     "build_linear",
     "build_painn",
+    "build_segnn",
     "ensure_fused_params",
     "fused_params_from_standard",
     "gns_input_sizes",
@@ -34,10 +37,6 @@ __all__ = [
     "painn_standard_params_from_fused",
     "setup_model",
 ]
-
-# models of the JAX package not ported yet, with their ROADMAP.md §1 item
-_NOT_PORTED = {"segnn": 5}
-
 
 def ensure_fused_params(params: Dict, cfg_model) -> Dict:
     """Re-layout a standard-layout tree for the fused processor (a rename
@@ -54,10 +53,12 @@ def ensure_fused_params(params: Dict, cfg_model) -> Dict:
 
 
 def setup_model(cfg_model, metadata: Dict, has_external_force: bool = False, seed: int = 0,
-                device="cuda", normalization_stats: Optional[Dict] = None) -> nn.Module:
+                device="cuda", normalization_stats: Optional[Dict] = None,
+                homogeneous_particles: bool = True) -> nn.Module:
     """The model a config section names, built for the dataset's metadata
     (the JAX package's ``setup_model``), with seeded weights on ``device``.
-    EGNN takes the velocity stats of ``normalization_stats`` (the case's)."""
+    EGNN takes the velocity stats of ``normalization_stats`` (the case's);
+    SEGNN adds a particle-type one-hot unless ``homogeneous_particles``."""
     name = cfg_model.name.lower()
     kw = dict(has_external_force=has_external_force, seed=seed, device=device)
     if name == "gns":
@@ -69,9 +70,7 @@ def setup_model(cfg_model, metadata: Dict, has_external_force: bool = False, see
     if name == "egnn":
         vel = normalization_stats["velocity"] if normalization_stats else None
         return build_egnn(cfg_model, metadata, velocity_stats=vel, **kw)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to lagrangebench_torch yet "
-            f"(ROADMAP.md §1 item {_NOT_PORTED[name]})"
-        )
+    if name == "segnn":
+        return build_segnn(cfg_model, metadata, homogeneous_particles=homogeneous_particles,
+                           **kw)
     raise ValueError(f"Unknown model {name!r}")

@@ -1,5 +1,6 @@
 """Model building blocks: Flax-equivalent Dense, LinearXav, LayerNorm, MLP,
-MLPXav, and the leaves of their JAX parameter trees.
+MLPXav, the leaves of their JAX parameter trees, and the 2D-to-3D lift of
+the features (SEGNN).
 
 The JAX models run ``flax.linen.Dense(dtype=cdt)`` and
 ``LayerNorm(dtype=cdt)`` with float32 parameters. The modules here keep the
@@ -19,7 +20,7 @@ parameters in float32 and reproduce those numerics at call time:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -192,4 +193,23 @@ def mlp_leaves(prefix: str, mlp: nn.Module):
     if getattr(mlp, "norm", None) is not None:
         out += [(f"{prefix}/LayerNorm_0/scale", mlp.norm.scale, False),
                 (f"{prefix}/LayerNorm_0/bias", mlp.norm.bias, False)]
+    return out
+
+
+def features_2d_to_3d(features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Lift 2D vector features to 3D by zero-padding the z component:
+    ``vel_hist`` (N, n_vels * 2), ``rel_disp`` (N, K, 2), ``force`` (N, 2)
+    and ``bound`` (N, 2 * 2), which becomes two 3-vectors (N, 6)."""
+
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x, x.new_zeros(tuple(x.shape[:-1]) + (1,))], dim=-1)
+
+    out = dict(features)
+    n = features["vel_hist"].shape[0]
+    out["vel_hist"] = pad(features["vel_hist"].reshape(n, -1, 2)).reshape(n, -1)
+    out["rel_disp"] = pad(features["rel_disp"])
+    if "force" in features:
+        out["force"] = pad(features["force"])
+    if "bound" in features:
+        out["bound"] = pad(features["bound"].reshape(n, 2, 2)).reshape(n, 6)
     return out

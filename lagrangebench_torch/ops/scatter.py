@@ -5,6 +5,8 @@ Counterpart of ``lagrangebench_tpu/ops/scatter.py``, dense branches only:
 * ``aggregate_to_receivers``: row i of an (N, K) sender matrix IS receiver
   i, so the sum over receivers is a masked sum over K; slots whose sender is
   the fill value N drop out;
+* ``aggregate_mean_to_receivers``: that sum over the count of valid slots
+  (at least 1, so a row without neighbors gives zeros);
 * ``segment_sum``: rows into buckets by an arbitrary id array (EGNN's
   sender-directed scatter), with (N, K) ids flattened and out-of-range ids
   dropped, as ``jax.ops.segment_sum`` drops them. On CUDA it is a float32
@@ -52,3 +54,18 @@ def aggregate_to_receivers(data: torch.Tensor, receivers: torch.Tensor, senders:
         mask = dense_mask(senders, num_segments)
     mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - mask.dim()))
     return torch.where(mask, data, torch.zeros((), dtype=data.dtype, device=data.device)).sum(1)
+
+
+def aggregate_mean_to_receivers(data: torch.Tensor, receivers: torch.Tensor,
+                                senders: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Mean of per-edge ``data`` (N, K, ...) over each receiver's valid
+    slots (zero-safe)."""
+    if receivers.dim() != 2:
+        raise NotImplementedError(
+            "the sparse (2, E) edge layout is not ported to lagrangebench_torch "
+            "(ROADMAP.md §1 item 6)")
+    mask = dense_mask(senders, num_segments)
+    total = aggregate_to_receivers(data, receivers, senders, num_segments, mask=mask)
+    counts = mask.sum(1).to(data.dtype)
+    counts = counts.reshape(tuple(counts.shape) + (1,) * (total.dim() - counts.dim()))
+    return total / torch.clamp(counts, min=1)

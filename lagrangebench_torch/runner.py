@@ -13,6 +13,11 @@ Neighbor formats: dense (with or without ``neighbors.emit_geometry``) and
 slot (the fused GNS, with batch size 1 in every stage the mode runs; other
 settings raise ValueError saying why).
 
+Models: every model of the JAX package (GNS with either processor, PaiNN,
+EGNN, SEGNN, Linear). As in the JAX runner, the model learns whether the
+particles are of one type from the train split's first sample
+(``homogeneous_particles``; SEGNN adds a type one-hot otherwise).
+
 Not ported (each raises NotImplementedError naming its ROADMAP.md §1 item):
 data or spatial parallelism over several devices, the import of the
 reference's Haiku checkpoints, the sparse neighbor format and the profiler
@@ -133,10 +138,12 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
         dtype=cfg.dtype,
         device=device,
     )
+    _, particle_type = data_train[0]
     model = setup_model(cfg.model, metadata,
                         has_external_force=data_train.external_force_fn is not None,
                         seed=cfg.seed, device=device,
-                        normalization_stats=case.normalization_stats)
+                        normalization_stats=case.normalization_stats,
+                        homogeneous_particles=bool(particle_type.max() == particle_type.min()))
 
     trained = False
     if mode in ("train", "all"):

@@ -263,3 +263,24 @@ def test_mp_times_inputs(monkeypatch):
     assert p["b1"].dtype == torch.float32 and enc["enc_w1"].shape == (4, f)
     again = mp_times._inputs(fused_mp, torch, torch.device("cpu"))[0]
     assert all(torch.equal(t[name], again[name]) for name in t)
+
+
+def test_mp_times_segnn_on_the_cpu(monkeypatch):
+    """The SEGNN group at 512 particles on the CPU (the card's timers and
+    memory counters stubbed): a finite rollout time per run and one timed
+    forward and backward."""
+    from lagrangebench_torch import profiling
+
+    monkeypatch.setattr(mp_times, "N_SAMPLE", 512)
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 2**30)
+    calls = []
+    monkeypatch.setattr(profiling, "device_ms", lambda fn, **kw: (calls.append(fn()), 1.0)[1])
+    monkeypatch.setattr(mp_times, "_device_events", lambda torch, fn: [])
+    out = {}
+    mp_times._time_segnn(torch, torch.device("cpu"), out, steps=2, runs=1)
+    assert len(out["segnn_rollout_b2_ms_per_step"]) == 1
+    assert out["segnn_rollout_b2_ms_per_step"][0] > 0
+    assert out["segnn_fwd_bwd_b1_ms"] == 1.0 and out["segnn_fwd_bwd_b1_peak_gib"] == 1.0
+    assert len(calls) == 1 and out["segnn_fwd_bwd_b1_top_kernels_ms"] == {}
