@@ -103,7 +103,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the CPU: 3D periodic, and 2D with walls, two particle types and lmax 2,
    each a 3-step float32 rollout and 3 float32 training steps; and one bf16
    forward and backward.
-9. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+9. The sparse layout and the cell-list and all-pairs searches (slice 10;
+   no kernel: the JAX package computes them in plain XLA). (a) At 8,000
+   particles in 3D, batch 2: the cell list's dense list on the card equals
+   the CPU's; its rows equal K1 + K2's as sets; the sparse cell list holds
+   the dense list's pairs; all-pairs (dense and sparse) equals a
+   brute-force search at 1,000 particles in a box under three cells; the
+   overflow flags rise at half the capacities; one neighbor update of each
+   backend and format timed. (b) ``runner.train_or_infer`` with
+   ``configs/rpf_3d/gns.yaml``, the standard processor and
+   ``neighbors.format=sparse`` (the cell list; ``mode=all``, 10 training
+   steps at batch 2, a 20-step infer): no kernel launches, every neighbor
+   list on the cell list, finite losses and changed parameters; ms per
+   train and rollout step, profiles of both, the sparse aggregation timed
+   (float32 accumulation against a bf16 ``index_add_``); float32 sparse vs
+   dense from the same weights; a small float32 sparse GNS on the card
+   against the CPU. (c) ``configs/WaterDrop_2d/gns.yaml`` (``WATERDROP_CONFIG``:
+   dense, the cell list) ``mode=infer`` on 2D data with walls and padded
+   particles, held to the same weights on K1 + K2; the fused GNS (K3) and
+   PaiNN's K6 and K5 on a cell-list list (K a multiple of 4, K1 + K2's of
+   8) held to K1 + K2's, float32. (d) The shipped PaiNN,
+   EGNN and SEGNN configs with ``neighbors.format=sparse``, ``mode=infer``
+   for 5 steps, each held to the dense layout and timed beside it.
+10. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
    and C for K7, K8 and K9, from the experiments for E1 and E2), the card
    line, and last ``{"ok": true, "device": {...}}``.
@@ -2186,11 +2208,11 @@ def egnn_cfg(**overrides):
     return shipped_cfg(EGNN_CONFIG, **overrides)
 
 
-def _runner_call(label, cfg, data, kernels):
+def _runner_call(label, cfg, data, kernels, neighbor_kernels=True):
     """runner.train_or_infer with the counters zeroed just before and read
     just after; (metrics, counts, recorder, ok). K1 and K2 must launch once
     per neighbor update (a forward or an allocation), every other kernel of
-    ``kernels`` never."""
+    ``kernels`` never; with ``neighbor_kernels=False`` none may launch."""
     import torch
 
     from lagrangebench_torch import runner
@@ -2206,7 +2228,8 @@ def _runner_call(label, cfg, data, kernels):
     counts = {kern.name: kern.launches for kern in kernels}
     updates = rec.forwards + rec.allocations
     want = {kern.name: 0 for kern in kernels}
-    want.update({"column_table": updates, "neighbor_scan": updates})
+    if neighbor_kernels:
+        want.update({"column_table": updates, "neighbor_scan": updates})
     log(f"{label}: {wall:.1f} s wall, {rec.forwards} forward passes, {rec.allocations} "
         f"allocations, launches {counts}")
     log(f"{label} metrics: {metrics}")
@@ -2645,6 +2668,565 @@ def segnn_reference_check(device):
     return passed and ok
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the sparse (2, E) layout and the cell-list and all-pairs searches
+# (the JAX package computes them in plain XLA: no kernel on these paths)
+# ---------------------------------------------------------------------------
+
+# configs/WaterDrop_2d/gns.yaml, resolved; tests/test_torch_sparse_runner.py
+# holds it equal to the YAML over the defaults
+WATERDROP_CONFIG = {
+    "dataset": {"src": "/tmp/datasets/WaterDrop"},
+    "logging": {"wandb_project": "waterdrop_2d"},
+    "model": {"name": "gns", "num_mp_steps": 10, "latent_dim": 128},
+    "train": {"optimizer": {"lr_start": 5.0e-4}},
+    "neighbors": {"backend": "celllist"},
+}
+# the slice's path: configs/rpf_3d/gns.yaml with the standard processor on
+# sparse edges (backend auto, which resolves to the cell list), batch 2
+SPARSE_GNS = {"model.fused_processor": False, "neighbors.format": "sparse",
+              "train.batch_size": BATCH}
+SPARSE_STEP_MAX, SPARSE_ROLLOUT, SPARSE_INFER = 9, 20, 5
+# The same weights in float32 (TF32 off) on the sparse and the dense layout,
+# or on the cell list and K1 + K2: one forward, max |acc diff| <= 1e-4 x max
+# |acc| (one graph, sums in other orders), as the other layouts are held.
+SPARSE_RTOL = 1e-4
+
+
+def all_kernels():
+    """Every kernel wrapper of the port (K1-K9, E1, E2)."""
+    from lagrangebench_torch.ops import fused_mp, painn_msg, row_gather
+    from lagrangebench_torch.ops import neighbors_cuda as nlc
+
+    return (nlc.COLUMN_TABLE, nlc.NEIGHBOR_SCAN, nlc.NEIGHBOR_SCAN_GEOMETRY, nlc.SLOT_SCAN,
+            fused_mp.FUSED_MP, fused_mp.FUSED_MP_ENC, fused_mp.FUSED_MP_BWD,
+            fused_mp._BWD_REDUCE, fused_mp.FUSED_MP_SLOT, fused_mp.FUSED_MP_SLOT_ENC,
+            fused_mp.FUSED_MP_WINDOW, painn_msg.PAINN_MSG, painn_msg.PAINN_LAYER,
+            row_gather.ROW_GATHER)
+
+
+class _Backends:
+    """Records the (format, backend) of every NeighborList made while
+    active."""
+
+    def __enter__(self):
+        from lagrangebench_torch.ops.neighbors import NeighborList
+
+        self.cls, self.init, self.seen = NeighborList, NeighborList.__init__, set()
+        init, seen = self.init, self.seen
+
+        def recording(nl, *a, **k):
+            init(nl, *a, **k)
+            seen.add((nl.format, nl.backend))
+
+        NeighborList.__init__ = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.init
+
+
+def _backend_gate(label, seen, want):
+    if seen != want:
+        log(f"FAIL: {label} neighbor lists {sorted(seen)}, expected {sorted(want)}")
+        return False
+    log(f"{label}: every neighbor list {sorted(seen)}")
+    return True
+
+
+def _rows_sorted(idx, n, width):
+    """(B, N, K) sender rows padded with n to ``width`` and sorted."""
+    import torch
+
+    pad = idx.new_full(idx.shape[:-1] + (width - idx.shape[-1],), n)
+    return torch.sort(torch.cat([idx, pad], dim=-1), dim=-1).values
+
+
+def _brute_force(pos, box, cutoff, n_valid):
+    """Every (receiver, sender) pair within the cutoff under the minimum
+    image, in float64 numpy, with the searches' rounding (axis by axis)."""
+    import numpy as np
+
+    p = pos[:n_valid]
+    d = np.mod(p[:, None, :] - p[None, :, :] + box * 0.5, box) - box * 0.5
+    d2 = d[..., 0] * d[..., 0]
+    for k in range(1, d.shape[-1]):
+        d2 = d2 + d[..., k] * d[..., k]
+    r, s = np.nonzero(d2 <= cutoff * cutoff)
+    return set(zip(r.tolist(), s.tolist()))
+
+
+def search_checks(device):
+    """(a) The searches at 8,000 particles in 3D, batch 2: the cell list on
+    the card equals the CPU's; its rows equal K1 + K2's as sets; the sparse
+    cell list holds the dense list's pairs; all-pairs (dense, sparse) equals
+    a brute-force search at 1,000 particles in a box under three cells; the
+    flags rise at half the capacities; one update of each backend and
+    format timed (device ms)."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.ops import neighbors as nb
+    from lagrangebench_torch.ops import space
+
+    ok, times = True, {}
+    cfg = gns_cfg()
+    data = runner_data(cfg)
+    cutoff = float(data[0].metadata["default_connectivity_radius"])
+    isl = int(cfg.model.input_seq_length)
+    pos_np = np.stack([data[2][i][0][:, isl - 1] for i in range(BATCH)]).astype(np.float32)
+    n = pos_np.shape[1]
+    npart_np = np.array([n, n - 100])  # sample 1 with 100 padded particles
+
+    def lists(dev, backend, fmt, boost=1.5):
+        disp = space.periodic(torch.full((DIM,), BOX, device=dev))[0]
+        fns = nb.neighbor_list(disp, [BOX] * DIM, cutoff, backend=backend, format=fmt)
+        shell = fns.allocate_shell(pos_np[0], num_particles=n, capacity_boost=boost, device=dev)
+        x = torch.as_tensor(pos_np, device=dev)
+        npart = torch.as_tensor(npart_np, device=dev)
+        return shell, x, npart, shell.broadcast(BATCH).update(x, num_particles=npart)
+
+    cell = {dev: lists(dev, "celllist", "dense")[3] for dev in (device, "cpu")}
+    same = (torch.equal(cell[device].idx.cpu(), cell["cpu"].idx)
+            and torch.equal(cell[device].did_buffer_overflow.cpu(),
+                            cell["cpu"].did_buffer_overflow))
+    log(f"cell list (dense, batch {BATCH} x {n}, K {cell['cpu'].capacity}): card == CPU "
+        f"{same}; overflow {cell['cpu'].did_buffer_overflow.tolist()}")
+    ok &= same and not bool(cell["cpu"].did_buffer_overflow.any())
+
+    kern_shell, x, npart, kern = lists(device, "cuda", "dense")
+    width = max(kern.capacity, cell[device].capacity)
+    rows_equal = torch.equal(_rows_sorted(cell[device].idx, n, width),
+                             _rows_sorted(kern.idx, n, width))
+    log(f"cell list rows vs K1 + K2 rows (K {kern.capacity}), as sorted sets: equal "
+        f"{rows_equal}; K1 + K2 overflow {kern.did_buffer_overflow.tolist()}")
+    ok &= rows_equal and not bool(kern.did_buffer_overflow.any())
+
+    sparse_shell, _, _, sparse = lists(device, "celllist", "sparse")
+    pairs_equal = True
+    for b in range(BATCH):
+        r, s = sparse.idx[b].long()
+        keep = r < n
+        got = torch.sort(r[keep] * n + s[keep]).values
+        dense_idx = cell[device].idx[b].long()
+        rows = torch.arange(n, device=dense_idx.device)[:, None].expand_as(dense_idx)
+        valid = dense_idx < n
+        want = torch.sort(rows[valid] * n + dense_idx[valid]).values
+        pairs_equal &= torch.equal(got, want)
+    log(f"sparse cell list (E {sparse.capacity} per sample) == the dense list's pairs: "
+        f"{pairs_equal}; overflow {sparse.did_buffer_overflow.tolist()}")
+    ok &= pairs_equal and not bool(sparse.did_buffer_overflow.any())
+
+    # all-pairs: 1,000 particles in a unit box, cutoff 0.4 (two cells per axis)
+    rng = np.random.default_rng(0)
+    small = rng.uniform(0, BOX, size=(1000, DIM))
+    want = _brute_force(small, BOX, 0.4, 950)
+    small_lists = {}
+    for backend, fmt in (("cuda", "dense"), ("celllist", "sparse")):
+        disp = space.periodic(torch.full((DIM,), BOX, dtype=torch.float64, device=device))[0]
+        fns = nb.neighbor_list(disp, [BOX] * DIM, 0.4, backend=backend, format=fmt)
+        shell = fns.allocate_shell(small, num_particles=950, device=device)
+        xs = torch.as_tensor(small, device=device)
+        got = shell.update(xs, num_particles=950)
+        idx = got.idx.cpu().numpy()
+        if fmt == "dense":
+            r, k = np.nonzero(idx < 1000)
+            pairs = set(zip(r.tolist(), idx[r, k].tolist()))
+        else:
+            keep = idx[0] < 1000
+            pairs = set(zip(idx[0][keep].tolist(), idx[1][keep].tolist()))
+        good = (got.backend == "allpairs" and pairs == want
+                and not bool(got.did_buffer_overflow))
+        log(f"all-pairs ({backend} -> {got.backend}, {fmt}, 1000 particles, 950 real, "
+            f"cutoff 0.4): {len(pairs)} pairs, brute force {len(want)}: "
+            f"{'equal' if good else 'FAIL'}")
+        ok &= good
+        small_lists[fmt] = (shell, xs)
+
+    # the flags rise at half the capacities (K, E and the cells)
+    for backend, fmt in (("celllist", "dense"), ("celllist", "sparse"), ("cuda", "dense")):
+        flag = lists(device, backend, fmt, boost=0.5)[3].did_buffer_overflow
+        log(f"overflow at half the capacity ({backend}, {fmt}): {flag.tolist()}")
+        ok &= bool(flag.all())
+    if not ok:
+        log("FAIL: the neighbor searches (see above)")
+
+    # device ms of one neighbor update at batch 2
+    for label, (shell, xx, nn_) in {
+            "K1 + K2 (cuda, dense)": (kern_shell, x, npart),
+            "cell list, dense": (lists(device, "celllist", "dense")[0], x, npart),
+            "cell list, sparse": (sparse_shell, x, npart)}.items():
+        sb = shell.broadcast(BATCH)
+        times[label] = cuda_time(lambda: sb.update(xx, num_particles=nn_))
+    for fmt, (shell, xs) in small_lists.items():
+        times[f"all-pairs, {fmt} (1 x 1000, float64)"] = cuda_time(
+            lambda: shell.update(xs, num_particles=950))
+    log(f"neighbor update, device ms (batch {BATCH} x {n} in 3D unless noted): " + json.dumps(
+        {k: round(v, 4) for k, v in times.items()}))
+    return ok, times
+
+
+def sparse_aggregation_times(case, test):
+    """The sparse sum of (E, 128) bf16 messages into their receivers at the
+    path's shape: float32 accumulation (the port's ``segment_sum``) against a
+    bf16 ``index_add_``, forward and forward + backward, device ms."""
+    import torch
+
+    from lagrangebench_torch.ops import scatter
+
+    feats, _ = first_window(case, test)
+    recv, n = feats["receivers"], feats["vel_hist"].shape[0]
+    del feats
+    gen = torch.Generator(device=recv.device).manual_seed(0)
+    msg = torch.randn((recv.shape[0], LATENT), generator=gen, device=recv.device).to(
+        torch.bfloat16).requires_grad_()
+    ids = torch.where(recv < n, recv, n).long()
+    grad = torch.ones((n, LATENT), dtype=torch.bfloat16, device=recv.device)
+
+    def f32():
+        return scatter.segment_sum(msg, recv, n)
+
+    def bf16():
+        return msg.new_zeros((n + 1, LATENT)).index_add(0, ids, msg)[:n]
+
+    out = {}
+    for label, fn in (("float32 accumulation", f32), ("bf16 index_add", bf16)):
+        with torch.no_grad():
+            out[f"{label}, forward"] = cuda_time(fn)
+        out[f"{label}, forward + backward"] = cuda_time(lambda: fn().backward(grad))
+    with torch.no_grad():
+        a, b = f32().float(), bf16().float()
+    err = float((a - b).abs().max() / a.abs().max())
+    log(f"sparse aggregation of ({recv.shape[0]}, {LATENT}) bf16 messages into {n} receivers, "
+        "device ms: " + json.dumps({k: round(v, 4) for k, v in out.items()})
+        + f"; bf16 index_add vs float32 accumulation: {err:.3g} of the largest")
+    return out
+
+
+def sparse_gns_path(device):
+    """(b) The slice's path: GNS-10-128 (configs/rpf_3d/gns.yaml, bf16) with
+    the standard processor on sparse edges through runner.train_or_infer,
+    mode=all: 10 training steps at batch 2, a 20-step infer; no kernel
+    launches and every list on the cell list; finite losses and changed
+    parameters; ms per train and rollout step and their profiles; the
+    sparse aggregation timed; float32 sparse vs dense, one forward."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.models import setup_model
+
+    ok, step_ms = True, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = {"eval.n_rollout_steps": SPARSE_ROLLOUT, "eval.infer.n_trajs": BATCH,
+                  "eval.train.n_trajs": 1, "eval.rollout_dir": f"{tmp}/rollouts",
+                  "logging.ckp_dir": f"{tmp}/ckp", "logging.eval_steps": SPARSE_STEP_MAX}
+        if str(device) == "cpu":
+            common["gpu"] = -1
+        cfg = gns_cfg(mode="all", **{"train.step_max": SPARSE_STEP_MAX}, **common, **SPARSE_GNS)
+        data = runner_data(cfg)
+        with _Backends() as seen:
+            metrics, counts, rec, ok = _runner_call("sparse GNS (mode=all)", cfg, data,
+                                                    all_kernels(), neighbor_kernels=False)
+        ok &= _backend_gate("sparse GNS", seen.seen, {("sparse", "celllist")})
+        model, case, trainer = rec.models[0], rec.cases[0], rec.trainers[0]
+        fresh = setup_model(cfg.model, data[0].metadata, seed=cfg.seed, device=device)
+        changed = sum(not torch.equal(a, b)
+                      for a, b in zip(fresh.parameters(), model.parameters()))
+        n_params = len(list(model.parameters()))
+        log(f"sparse GNS: {type(model).__name__}, losses {[round(x, 6) for x in rec.losses]}; "
+            f"{changed} of {n_params} parameter tensors changed")
+        if (len(rec.losses) != SPARSE_STEP_MAX + 1 or not np.all(np.isfinite(rec.losses))
+                or changed != n_params):
+            log("FAIL: sparse GNS training steps (count, finite losses, changed parameters)")
+            ok = False
+        d = np.asarray(trainer.timer.durations) * 1e3
+        step_ms["sparse gns train"] = float(np.median(d))
+        log(f"sparse GNS train: ms per step (host clock, synchronized) median {np.median(d):.2f} "
+            f"(all {np.round(d, 2).tolist()}) [batch {BATCH} x {N_PARTICLES} particles, "
+            "GNS-10-128 standard, bf16]")
+        pos_t, ptype_t = next(iter(trainer.loader_train))
+        raw = trainer._batch((pos_t, ptype_t))
+        _, _, tnbrs = trainer.case.allocate(trainer.generator, (pos_t[0], ptype_t[0]))
+        log(f"sparse GNS: E {tnbrs.capacity} edge slots per sample")
+        profile_train_step(trainer, raw, tnbrs, batch=BATCH, unroll=0, label="sparse GNS train")
+
+        model.eval()
+        isl = int(cfg.model.input_seq_length)
+        times, finite, (pos, ptype, nbrs) = _rollout_ms(
+            model, case, data[2], isl, SPARSE_ROLLOUT, "sparse GNS-10-128 bf16, standard")
+        ok &= finite
+        step_ms["sparse gns rollout"] = min(times)
+        profile_steps(model, case, pos, ptype, nbrs, steps=1, isl=isl, label="sparse GNS rollout")
+        sparse_aggregation_times(case, data[2])
+
+        # float32: the same seeded weights on sparse and dense edges
+        f32 = {**common, **SPARSE_GNS, "model.compute_dtype": "float32"}
+        accs = {}
+        for fmt in ("sparse", "dense"):
+            c = gns_cfg(**{**f32, "neighbors.format": fmt})
+            case_f, model_f = gns_case_model(c, data[0].metadata, device, seed=0)
+            feats, ptype_f = first_window(case_f, data[2])
+            with torch.no_grad():
+                accs[fmt] = model_f(feats, ptype_f)["acc"]
+            del feats, model_f
+        err = float((accs["sparse"] - accs["dense"]).abs().max() / accs["dense"].abs().max())
+        log(f"sparse vs dense GNS standard (float32, batch 2, one forward): max|acc diff| "
+            f"{err:.3g} of the largest (tol {SPARSE_RTOL})")
+        if not err <= SPARSE_RTOL:
+            log("FAIL: sparse vs dense GNS")
+            ok = False
+    return ok, step_ms
+
+
+def sparse_reference_check(device):
+    """A small float32 GNS (standard processor, 2 layers, latent 128) on
+    sparse edges, 1,000 particles, on the card against the CPU (TF32 off):
+    a 3-step rollout (positions 1e-5 absolute) and 3 training steps
+    (losses 1e-5 relative, parameters 1e-5 absolute; lr 1e-4 as the dense
+    GNS check)."""
+    import numpy as np
+
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+    from lagrangebench_torch.train import Trainer
+
+    cfg = gns_cfg(**{**SPARSE_GNS, "model.num_mp_steps": 2, "model.compute_dtype": "float32",
+                     "eval.n_rollout_steps": 3, "eval.train.n_trajs": 1,
+                     "train.optimizer.lr_start": 1e-4})
+    train, valid, test = runner_data(cfg, n_particles=1000)
+    isl = int(cfg.model.input_seq_length)
+    preds, losses, params = [], [], []
+    for dev in (device, "cpu"):
+        case, model = gns_case_model(cfg, test.metadata, dev, seed=0)
+        pos, ptype = test_batch(test, dev, BATCH)
+        _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+        p, _, _ = rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs.broadcast(BATCH),
+                                pos[:, :, isl:isl + 3])
+        preds.append(p.cpu())
+        tr = Trainer(model, case, train, valid, cfg_train=cfg.train, cfg_eval=cfg.eval,
+                     cfg_logging={"log_steps": 1, "eval_steps": 10**9},
+                     input_seq_length=isl, device=dev)
+        steps, _ = record_steps(tr)
+        tr.train(step_max=2)
+        losses.append(np.asarray([loss for _, loss in steps]))
+        params.append(checkpoint.flatten_tree(model.jax_params()))
+    pos_err = float((preds[0] - preds[1]).abs().max())
+    loss_err = float(np.max(np.abs(losses[0] - losses[1]) / np.abs(losses[1])))
+    par_err, worst = max((float(np.max(np.abs(params[0][k] - params[1][k]))), k)
+                         for k in params[1])
+    passed = pos_err <= 1e-5 and len(losses[0]) == 3 and loss_err <= 1e-5 and par_err <= 1e-5
+    log(f"sparse GNS reference, cuda vs cpu float32: positions after 3 steps {pos_err:.3g} "
+        f"(tol 1e-5); 3 training steps, losses {losses[0].tolist()} vs {losses[1].tolist()}, "
+        f"max rel diff {loss_err:.3g} (tol 1e-5); parameters max abs diff {par_err:.3g} at "
+        f"{worst} (tol 1e-5){'' if passed else '  FAIL'}")
+    return passed
+
+
+def waterdrop_data(cfg, n_particles=1024, n_padded=100):
+    """2D synthetic splits in a box with walls (each coordinate mapped
+    smoothly into [0.1, 0.9]), every sample padded at its end with
+    ``n_padded`` particles of type -1, as WaterDrop pads its samples to
+    ``num_particles_max``."""
+    import numpy as np
+
+    from lagrangebench_torch.data import ArrayDataset
+    from lagrangebench_torch.data.synthetic import _stats, make_synthetic_arrays
+
+    isl = int(cfg.model.input_seq_length)
+    steps = max(int(cfg.eval.n_rollout_steps), 1)
+    side = round(n_particles ** 0.5)
+    splits, metadata = make_synthetic_arrays(
+        n_particles=side**2, dim=2, box=BOX, dx=BOX / side, seq_len_train=12,
+        seq_len_eval=isl + steps, n_trajs=BATCH, name="WaterDrop")
+    splits = {k: [0.5 + 0.4 * np.sin(2 * np.pi * p / BOX) for p in v] for k, v in splits.items()}
+    metadata.update(_stats(splits["train"], BOX, 2))
+    metadata["periodic_boundary_conditions"] = [False, False]
+    types = np.zeros(side**2, np.int64)
+    types[-n_padded:] = -1
+    extra = {"train": max(cfg.train.pushforward.unrolls), "valid": steps, "test": steps}
+    return tuple(ArrayDataset(split, splits[split], [types] * BATCH, metadata,
+                              input_seq_length=isl, extra_seq_length=extra[split])
+                 for split in ("train", "valid", "test"))
+
+
+def bounds_case(cfg, metadata, device):
+    """The case of a config on a dataset's box (its metadata's bounds)."""
+    import numpy as np
+
+    from lagrangebench_torch.case import case_builder
+
+    bounds = np.asarray(metadata["bounds"])
+    return case_builder((bounds[:, 1] - bounds[:, 0]).tolist(), metadata,
+                        cfg.model.input_seq_length, cfg_neighbors=cfg.neighbors,
+                        cfg_model=cfg.model, noise_std=cfg.train.noise_std, device=device)
+
+
+def _seeded_checkpoint(cfg, data, device, path):
+    """Seeded weights of the config's model saved as a checkpoint."""
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.models import setup_model
+
+    case = bounds_case(cfg, data[0].metadata, device)
+    _, ptype = data[0][0]
+    model = setup_model(cfg.model, data[0].metadata, seed=0, device=device,
+                        normalization_stats=case.normalization_stats,
+                        homogeneous_particles=bool(ptype.max() == ptype.min()))
+    checkpoint.save_checkpoint(path, model.jax_params(), {}, {"step": 0, "loss": None})
+
+
+def _layout_forward_diff(cfgs, data, device, ckp):
+    """max |acc_a - acc_b| / max |acc_b| of one forward from a checkpoint's
+    weights under two configs (float32), on the test batch's first window;
+    and each config's senders shape."""
+    import torch
+
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.models import setup_model
+
+    params = checkpoint.load_checkpoint(ckp)[0]
+    accs, shapes = [], []
+    _, ptype0 = data[0][0]
+    for c in cfgs:
+        case = bounds_case(c, data[0].metadata, device)
+        model = setup_model(c.model, data[0].metadata, device=device,
+                            normalization_stats=case.normalization_stats,
+                            homogeneous_particles=bool(ptype0.max() == ptype0.min()))
+        model.load_jax_params(params)
+        feats, ptype = first_window(case, data[2])
+        shapes.append(tuple(feats["senders"].shape))
+        with torch.no_grad():
+            accs.append(model(feats, ptype)["acc"])
+        del feats, model
+    return float((accs[0] - accs[1]).abs().max() / accs[1].abs().max()), shapes
+
+
+def waterdrop_path(device):
+    """(c) configs/WaterDrop_2d/gns.yaml (standard GNS-10-128 float32, dense,
+    backend celllist) through runner.train_or_infer, mode=infer for 5 steps
+    at batch 2 from seeded weights, on 2D data with walls and padded
+    particles: no kernel launches, every list on the cell list; held to
+    the same weights on the auto backend (K1 + K2), one float32 forward."""
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        common = {"eval.n_rollout_steps": SPARSE_INFER, "eval.infer.n_trajs": BATCH,
+                  "eval.rollout_dir": f"{tmp}/rollouts"}
+        if str(device) == "cpu":
+            common["gpu"] = -1
+        cfg = shipped_cfg(WATERDROP_CONFIG, **common)
+        data = waterdrop_data(cfg)
+        ckp = f"{tmp}/ckp"
+        _seeded_checkpoint(cfg, data, device, ckp)
+        cfg_i = shipped_cfg(WATERDROP_CONFIG, mode="infer", load_ckp=ckp, **common)
+        with _Backends() as seen:
+            _, _, _, ok = _runner_call("WaterDrop GNS (celllist, dense, mode=infer)", cfg_i, data,
+                                       all_kernels(), neighbor_kernels=False)
+        ok &= _backend_gate("WaterDrop GNS", seen.seen, {("dense", "celllist")})
+        auto = shipped_cfg(WATERDROP_CONFIG, **{**common, "neighbors.backend": "auto"})
+        err, shapes = _layout_forward_diff((cfg, auto), data, device, ckp)
+        log(f"WaterDrop GNS, cell list vs K1 + K2 (float32, batch 2 x {data[2][0][0].shape[0]} "
+            f"in 2D, senders {shapes}, one forward): max|acc diff| {err:.3g} of the largest "
+            f"(tol {SPARSE_RTOL})")
+        if not err <= SPARSE_RTOL:
+            log("FAIL: WaterDrop cell list vs K1 + K2")
+            ok = False
+    return ok
+
+
+def cell_list_consumers(device):
+    """The dense consumers of a cell-list list, whose K is a multiple of 4
+    (K1 + K2's of 8): the fused GNS (K3), PaiNN's standard layer (K6) and
+    its fused layer (K5) on the cell list against the same weights on
+    K1 + K2, float32, one forward each at 8,000 particles in 3D, batch 2."""
+    ok = True
+    for name, config, over in (("fused GNS (K3)", GNS_CONFIG, {}),
+                               ("PaiNN standard (K6)", PAINN_CONFIG, {}),
+                               ("PaiNN fused (K5)", PAINN_CONFIG,
+                                {"model.fused_processor": True})):
+        with tempfile.TemporaryDirectory() as tmp:
+            over = {**over, "model.compute_dtype": "float32"}
+            cfgs = [shipped_cfg(config, **{**over, "neighbors.backend": b})
+                    for b in ("celllist", "auto")]
+            data = runner_data(cfgs[0])
+            _seeded_checkpoint(cfgs[0], data, device, f"{tmp}/ckp")
+            err, shapes = _layout_forward_diff(cfgs, data, device, f"{tmp}/ckp")
+        good = err <= SPARSE_RTOL
+        log(f"{name}, cell list vs K1 + K2 (float32, senders {shapes}, one forward): "
+            f"max|acc diff| {err:.3g} of the largest (tol {SPARSE_RTOL}){'' if good else '  FAIL'}")
+        ok &= good
+    return ok
+
+
+def sparse_models_path(device):
+    """(d) The shipped configs/rpf_3d/{painn,egnn,segnn}.yaml with
+    neighbors.format=sparse through runner.train_or_infer, mode=infer for 5
+    steps at batch 2 from seeded weights: no kernel launches, every list on
+    the cell list; held to the dense layout on the same weights (float32,
+    one forward); ms per rollout step beside the dense layout's."""
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.models import setup_model
+
+    ok, step_ms = True, {}
+    for name, config in (("painn", PAINN_CONFIG), ("egnn", EGNN_CONFIG),
+                         ("segnn", SEGNN_CONFIG)):
+        with tempfile.TemporaryDirectory() as tmp:
+            common = {"eval.n_rollout_steps": SPARSE_INFER, "eval.infer.n_trajs": BATCH,
+                      "eval.rollout_dir": f"{tmp}/rollouts"}
+            if str(device) == "cpu":
+                common["gpu"] = -1
+            cfgs = {fmt: shipped_cfg(config, **{**common, "neighbors.format": fmt})
+                    for fmt in ("sparse", "dense")}
+            data = runner_data(cfgs["sparse"])
+            ckp = f"{tmp}/ckp"
+            _seeded_checkpoint(cfgs["sparse"], data, device, ckp)
+            cfg_i = shipped_cfg(config, mode="infer", load_ckp=ckp,
+                                **{**common, "neighbors.format": "sparse"})
+            with _Backends() as seen:
+                _, _, _, run_ok = _runner_call(f"sparse {name} (mode=infer)", cfg_i, data,
+                                               all_kernels(), neighbor_kernels=False)
+            ok &= run_ok & _backend_gate(f"sparse {name}", seen.seen, {("sparse", "celllist")})
+            err, shapes = _layout_forward_diff((cfgs["sparse"], cfgs["dense"]), data, device,
+                                               ckp)
+            log(f"sparse vs dense {name} (float32, batch 2, senders {shapes}, one forward): "
+                f"max|acc diff| {err:.3g} of the largest (tol {SPARSE_RTOL})")
+            if not err <= SPARSE_RTOL:
+                log(f"FAIL: sparse vs dense {name}")
+                ok = False
+            params = checkpoint.load_checkpoint(ckp)[0]
+            isl = int(cfgs["sparse"].model.input_seq_length)
+            models, times = {}, {"sparse": [], "dense": []}
+            for fmt, c in cfgs.items():
+                case = bounds_case(c, data[0].metadata, device)
+                model = setup_model(c.model, data[0].metadata, device=device,
+                                    normalization_stats=case.normalization_stats)
+                model.load_jax_params(params)
+                models[fmt] = (model.eval(), case)
+            for fmt in ("sparse", "dense", "dense", "sparse"):
+                model, case = models[fmt]
+                t, finite, _ = _rollout_ms(model, case, data[2], isl, SPARSE_INFER,
+                                           f"{name}, {fmt}", runs=1)
+                times[fmt] += t
+                ok &= finite
+            for fmt, t in times.items():
+                step_ms[f"{name} {fmt} rollout"] = min(t)
+            del models
+    return ok, step_ms
+
+
+def sparse_path(device):
+    """Phase 10: (a) the searches, (b) the sparse GNS path and its card vs
+    CPU check, (c) WaterDrop on the cell list and the dense kernels on a
+    cell-list list, (d) the other models on sparse edges."""
+    ok, search_ms = search_checks(device)
+    gns_ok, gns_ms = sparse_gns_path(device)
+    ok &= gns_ok
+    ok &= sparse_reference_check(device)
+    ok &= waterdrop_path(device)
+    ok &= cell_list_consumers(device)
+    models_ok, models_ms = sparse_models_path(device)
+    ok &= models_ok
+    return ok, {**gns_ms, **models_ms}, search_ms
+
+
 def main() -> int:
     try:
         import torch
@@ -2708,6 +3290,10 @@ def main() -> int:
     ok &= segnn_ok
     ok &= segnn_reference_check("cuda")
     log("SEGNN path (ms per step): " + json.dumps({k: round(v, 3) for k, v in segnn_ms.items()}))
+    sparse_ok, sparse_ms, search_ms = sparse_path("cuda")
+    ok &= sparse_ok
+    log("sparse and cell-list paths (ms per step): " + json.dumps(
+        {k: round(v, 3) for k, v in sparse_ms.items()}))
     exp_rows, exp_ok = experiments_path("cuda")
     ok &= exp_ok
     rows.update(exp_rows)

@@ -11,9 +11,12 @@ metadata and normalization once and returns functions.
       same without noise and targets;
     * ``preprocess_batched`` and ``preprocess_eval_batched`` do the same for
       a batch of B samples as ONE flat (B*N)-row super-graph (per-sample
-      sender offsets; padded slots map to B*N), with one launch of each
-      neighbor kernel. The slot neighbor layout is single-sample: it takes
-      batch 1 (the sample's own slot features) and raises above;
+      sender offsets; padded slots map to B*N), with one neighbor search for
+      the batch. The dense layout builds the features on the flat graph;
+      the sparse layout builds each sample's, then offsets its edge ids
+      (``ops.batching.flatten_graph_batch``). The slot neighbor layout is
+      single-sample: it takes batch 1 (the sample's own slot features) and
+      raises above;
     * ``integrate`` is semi-implicit Euler with dt = 1 folded into the
       normalization.
 
@@ -34,6 +37,7 @@ from ..data.stats import get_dataset_stats
 from ..defaults import defaults, resolve_backend
 from ..ops import neighbors as nb
 from ..ops import space
+from ..ops.batching import flatten_graph_batch
 from ..train.strats import add_gns_noise
 from ..utils import resolve_device
 from .features import physical_feature_builder
@@ -115,15 +119,16 @@ def case_builder(
     else:
         displacement_fn, shift_fn = space.free()
 
+    fmt = cfg_neighbors.get("format", "dense")
     neighbor_fn = nb.neighbor_list(
         displacement_fn,
         box,
         r_cutoff=metadata["default_connectivity_radius"],
-        backend=resolve_backend(cfg_neighbors.backend),
+        backend=resolve_backend(cfg_neighbors.backend, fmt),
         capacity_multiplier=float(cfg_neighbors.multiplier),
         num_particles_max=metadata["num_particles_max"],
         pbc=pbc,
-        format=cfg_neighbors.get("format", "dense"),
+        format=fmt,
         emit_geometry=bool(cfg_neighbors.get("emit_geometry", False)),
     )
 
@@ -203,6 +208,17 @@ def case_builder(
                                          neighbors.select(0))
             return features, neighbors, pos_flat
 
+        if neighbors.format == "sparse":
+            # each sample's transform, then its edge ids offset into the
+            # flat graph (the JAX package's vmapped transform and
+            # flatten_graph_batch)
+            per_sample = [feature_transform(pos_input[i, :, :input_seq_length],
+                                            neighbors.select(i)) for i in range(b)]
+            features, _ = flatten_graph_batch(
+                {k: torch.stack([f[k] for f in per_sample]) for k in per_sample[0]},
+                particle_type)
+            return features, neighbors, pos_flat
+
         idx = neighbors.idx
         off = (torch.arange(b, dtype=idx.dtype, device=device) * n).view(b, 1, 1)
         idx_flat = torch.where(idx < n, idx + off, b * n).reshape(b * n, idx.shape[-1])
@@ -214,6 +230,7 @@ def case_builder(
             update_fn=neighbors.update_fn,
             aux=None if aux is None else {k: v.reshape((b * n,) + v.shape[2:])
                                           for k, v in aux.items()},
+            backend=neighbors.backend,
         )
         features = feature_transform(pos_flat[:, :input_seq_length], flat_nbrs)
         return features, neighbors, pos_flat

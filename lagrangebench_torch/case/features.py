@@ -1,6 +1,7 @@
 """Physical feature engineering: raw position windows -> model inputs.
 
-The FeatureDict contract of the JAX package, dense layout:
+The FeatureDict contract of the JAX package, dense layout (sparse: see
+below):
 
     - "abs_pos"   (N, T, dim)   raw position window
     - "vel_hist"  (N, (T-1)*dim) normalized velocity history
@@ -12,6 +13,9 @@ The FeatureDict contract of the JAX package, dense layout:
     - "rel_disp"  (N, K, dim)   receiver - sender displacement / radius
     - "rel_dist"  (N, K, 1)     norm of rel_disp
 
+A sparse list gives "senders" and "receivers" (E,) (fill N) and "rel_disp"
+(E, dim), "rel_dist" (E, 1); a padded edge gathers row N-1 at both ends
+(what an out-of-range JAX gather does), so its displacement is zero.
 A dense list with in-kernel geometry (``aux``) supplies rel_disp/rel_dist
 itself: the sender-position gather and min-image are skipped. In the slot
 layout (a slot-format list) the node features (not "abs_pos") are gathered
@@ -75,6 +79,15 @@ def physical_feature_builder(
 
         if external_force_fn is not None:
             features["force"] = external_force_fn(most_recent)
+
+        if nbrs.format == "sparse":
+            receivers, senders = nbrs.idx
+            features["receivers"], features["senders"] = receivers, senders
+            edge_disp = displacement_fn(most_recent[torch.clamp(receivers, max=n - 1).long()],
+                                        most_recent[torch.clamp(senders, max=n - 1).long()])
+            features["rel_disp"] = edge_disp / connectivity_radius
+            features["rel_dist"] = space.distance(features["rel_disp"])[:, None]
+            return features
 
         senders = nbrs.idx
         receivers = torch.arange(senders.shape[0], dtype=senders.dtype, device=senders.device)

@@ -2,10 +2,12 @@
 
 The key layout and values are the JAX package's, so the same YAML presets
 resolve to the same tree, with one difference: the neighbor backend
-defaults to ``auto`` (the JAX package's default, ``celllist``, is not
-ported). ``resolve_backend`` maps ``auto`` and ``pallas`` to the port's
-kernel backend (``"cuda"``), which launches the hand-written CUDA kernels
-on CUDA tensors and runs their plain PyTorch versions on CPU tensors.
+defaults to ``auto``, the port's kernel backend for the dense and slot
+formats (the JAX package's default, ``celllist``, is its portable search).
+``resolve_backend`` maps a configured backend and format to the port's
+search: ``"cuda"`` (the hand-written CUDA kernels on CUDA tensors, their
+plain PyTorch versions on CPU tensors), ``"celllist"`` or ``"allpairs"``
+(the JAX package's searches in PyTorch ops).
 """
 
 from __future__ import annotations
@@ -120,22 +122,26 @@ def set_defaults() -> Config:
 defaults = set_defaults()
 
 
-def resolve_backend(backend: str) -> str:
-    """Map a configured neighbor backend to the port's backend.
+def resolve_backend(backend: str, format: str = "dense") -> str:
+    """Map a configured neighbor backend and format to the port's search.
 
-    ``auto``, ``pallas`` and ``cuda`` all mean the port's kernel backend,
-    ``"cuda"``, on every device: a CUDA tensor launches the CUDA kernels and
-    a CPU tensor runs their plain PyTorch versions. The XLA cell-list and
-    all-pairs backends (and their reference aliases) are not ported.
+    ``auto``, ``pallas`` and ``cuda`` mean the kernel backend, ``"cuda"``,
+    for the dense and slot formats; for the sparse format ``auto`` means
+    ``"celllist"`` (the JAX package's ``auto`` off the TPU), and an explicit
+    ``pallas`` or ``cuda`` raises ValueError (the kernels are
+    dense/slot-only). ``celllist``, ``allpairs`` and the reference's names
+    (``BACKEND_ALIASES``) mean the cell list or the all-pairs search.
     """
     if backend in ("auto", "pallas", "cuda"):
-        return "cuda"
+        if format != "sparse":
+            return "cuda"
+        if backend == "auto":
+            return "celllist"
+        raise ValueError(f"neighbors.backend={backend!r} is dense/slot-only (the neighbor "
+                         "kernels); use auto, celllist or allpairs with the sparse format")
     name = BACKEND_ALIASES.get(backend, backend)
     if name in ("celllist", "allpairs"):
-        raise NotImplementedError(
-            f"neighbors backend {backend!r} is not ported to lagrangebench_torch;"
-            " use 'auto' (the CUDA kernel backend)"
-        )
+        return name
     raise ValueError(
         f"Unknown neighbors backend {backend!r}; valid: {VALID_BACKENDS} "
         f"(aliases: {sorted(BACKEND_ALIASES)})"

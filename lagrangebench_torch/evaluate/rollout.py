@@ -29,6 +29,7 @@ import torch
 from ..config import Config, merge
 from ..data import DataLoader
 from ..defaults import defaults
+from ..ops.batching import unflatten_nodes
 from ..utils import get_kinematic_mask, resolve_device
 from .metrics import MetricsComputer
 from .utils import write_vtk
@@ -63,7 +64,7 @@ def rollout_batch(model, case, current, particle_type, neighbors, targets):
         )
         overflow = overflow | neighbors.did_buffer_overflow.any()
         out = model(features, flat_ptype)
-        pred = {k: v.reshape((b, n) + v.shape[1:]) for k, v in out.items()}
+        pred = {k: unflatten_nodes(v, b, n) for k, v in out.items()}
         next_pos = case.integrate(pred, current)
         next_pos = torch.where(kinematic, targets[:, :, t], next_pos)
         current = torch.cat([current[:, :, 1:], next_pos[:, :, None]], dim=2)

@@ -1,4 +1,5 @@
-"""E(n)-equivariant GNN (EGNN, Garcia Satorras et al. 2021), dense layout.
+"""E(n)-equivariant GNN (EGNN, Garcia Satorras et al. 2021), dense and
+sparse layouts.
 
 Counterpart of ``lagrangebench_tpu/models/egnn.py`` (``EGNNLayer``,
 ``EGNN``, ``build_egnn``), with the reference's physics adaptations: the
@@ -18,10 +19,12 @@ Per layer, on the (N, K) sender matrix (row i is receiver i, fill N):
 Padded slots gather row N-1 (``pos[senders]``, ``h[senders]``), as a JAX
 gather clamps; their messages drop out of the receiver sum, and their
 position terms out of the sender-directed ``segment_sum`` (id N is out of
-range). That sum is a float32 ``index_add_`` on the card, whose atomics
-sum in an order that changes from run to run. The layer options the JAX
-``build_egnn`` fixes (residual on; attention, normalize and tanh off; one
-block) are the ones ported.
+range). On sparse (2, E) edges ``pos`` and ``h`` are gathered at the
+receivers as well (``pos[receivers]``, ``h[receivers]``) and the message
+sum runs by receiver id. The sender sum is a float32 ``index_add_`` on the
+card, whose atomics sum in an order that changes from run to run. The
+layer options the JAX ``build_egnn`` fixes (residual on; attention,
+normalize and tanh off; one block) are the ones ported.
 
 Parameters keep the JAX tree's auto names: ``Dense_0`` (the embedding of
 the velocity magnitudes) and per layer ``EGNNLayer_i/MLPXav_0`` (messages),
@@ -78,11 +81,16 @@ class EGNNLayer(nn.Module):
     def forward(self, h, pos, vel, senders, sidx, receivers, edge_attr, node_attr, disp,
                 shift, cdt):
         n = h.shape[0]
-        coord_diff = disp(gather_rows(pos, sidx), pos[:, None, :])
+        if senders.dim() == 2:  # row i is receiver i: a broadcast
+            recv_pos, recv_h = pos[:, None, :], h[:, None, :].expand(-1, senders.shape[1], -1)
+        else:
+            ridx = torch.clamp(receivers, max=n - 1).long()
+            recv_pos, recv_h = gather_rows(pos, ridx), gather_rows(h, ridx)
+        coord_diff = disp(gather_rows(pos, sidx), recv_pos)
         radial = torch.sum(coord_diff**2, dim=-1, keepdim=True)
         wide = torch.promote_types(h.dtype, torch.promote_types(radial.dtype, edge_attr.dtype))
-        msg_in = torch.cat([gather_rows(h, sidx).to(wide), h[:, None, :].expand(
-            -1, senders.shape[1], -1).to(wide), radial.to(wide), edge_attr.to(wide)], dim=-1)
+        msg_in = torch.cat([gather_rows(h, sidx).to(wide), recv_h.to(wide), radial.to(wide),
+                            edge_attr.to(wide)], dim=-1)
         msg = self.msg(msg_in, cdt)
 
         agg = aggregate_to_receivers(msg, receivers, senders, n)

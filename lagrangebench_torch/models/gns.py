@@ -3,8 +3,9 @@ the standard one (``GNSStandard``).
 
 Counterpart of ``lagrangebench_tpu/models/gns.py``. ``GNSStandard`` is its
 default processor (``use_fused_processor=False``; any ``blocks_per_step``,
-any latent width, dense edges). ``GNS`` is the one with
-``use_fused_processor=True`` (dense edges, 2-layer MLP blocks):
+any latent width, dense or sparse edges). ``GNS`` is the one with
+``use_fused_processor=True`` (dense edges, 2-layer MLP blocks; sparse edges
+raise ValueError, as the JAX package asserts):
 
     h = MLP_0(concat(node features, Embed_0(type mod num_types)))
     for step i:  hs = h @ w_s, hr = h @ w_r
@@ -159,6 +160,9 @@ class GNS(JaxTree, nn.Module):
             torch.float64 if cdt == torch.float64 else torch.float32
         )
         senders = features["senders"]
+        if senders.dim() == 1:
+            raise ValueError("the fused GNS processor needs the dense edge layout; sparse "
+                             "edges take the standard processor (fused_processor=false)")
         n = nodes.shape[0]
         slot = "slot_bases" in features
         if slot:
@@ -233,7 +237,9 @@ class GNSStandard(JaxTree, nn.Module):
     level, ``relu(e @ W_e + b + (h @ W_s)[senders] + (h @ W_r)[receivers])``,
     followed by the remaining ``blocks_per_step - 1`` layers; one layer
     takes the concatenation itself. Messages are summed over each receiver's
-    valid slots (dense layout). The products are ``torch.matmul`` in
+    valid slots (dense layout: the receiver rows are a broadcast) or by
+    receiver id (sparse layout: ``hr[receivers]`` is a gather, and a padded
+    edge's receiver N drops). The products are ``torch.matmul`` in
     ``compute_dtype``, at any latent width. Parameters keep the JAX
     standard layout's auto names (``MLP_0`` node encoder, ``MLP_1`` edge
     encoder, per step i ``Dense_{3i..3i+2}`` and ``MLP_{2+2i}``,
@@ -306,16 +312,23 @@ class GNSStandard(JaxTree, nn.Module):
             nodes = torch.cat([nodes.to(wide), emb.to(wide)], dim=-1)
         h = self.node_encoder(nodes, cdt)
         e = self.edge_encoder(concat_edge_features(features), cdt)
-        # padded slots (fill n) gather the last row, as a JAX gather clamps;
-        # their messages drop out of the aggregation
+        # padded slots or edges (fill n) gather the last row, as a JAX gather
+        # clamps; their messages drop out of the aggregation
         sidx = torch.clamp(senders, max=n - 1).long()
+        ridx = None if senders.dim() == 2 else torch.clamp(receivers, max=n - 1).long()
+
+        def recv(x):  # x[receivers]; dense, row i is receiver i: a broadcast
+            if ridx is None:
+                return x[:, None, :].expand(-1, senders.shape[1], -1)
+            return gather_rows(x, ridx)
+
         for step in self.steps:
             if self.blocks_per_step > 1:
                 first = (step["w_e"](e, cdt) + gather_rows(step["w_s"](h, cdt), sidx)
-                         + step["w_r"](h, cdt)[:, None, :])
+                         + recv(step["w_r"](h, cdt)))
                 messages = step["msg"](torch.relu(first), cdt)
-            else:  # row i is receiver i: h[receivers] is a broadcast
-                msg_in = torch.cat([gather_rows(h, sidx), h[:, None, :].expand_as(e), e], dim=-1)
+            else:
+                msg_in = torch.cat([gather_rows(h, sidx), recv(h), e], dim=-1)
                 messages = step["msg"](msg_in, cdt)
             agg = aggregate_to_receivers(messages, receivers, senders, n)
             h = h + step["node"](torch.cat([h, agg], dim=-1), cdt)

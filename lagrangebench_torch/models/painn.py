@@ -1,6 +1,7 @@
-"""PaiNN, the polarizable interaction network, on the dense (N, K) layout.
+"""PaiNN, the polarizable interaction network, on the dense (N, K) and
+sparse (2, E) layouts.
 
-Counterpart of ``lagrangebench_tpu/models/painn.py`` (dense layout only):
+Counterpart of ``lagrangebench_tpu/models/painn.py``:
 vector channels start from the velocity history (plus force and wall
 distances), filters come from a trainable Gaussian radial basis of the edge
 lengths with a cosine cutoff, and the gated readout emits one vector channel
@@ -18,7 +19,11 @@ Per layer, the interaction context net ``x = LinearXav_1(silu(LinearXav_0(s)))``
   the sender index go to K5 (``ops.painn_msg.painn_layer``), which gathers
   the sender rows itself, computes the filters from the raw basis and runs
   the rest of the layer in one launch, with the flat per-layer parameters
-  ``filt_w`` ... ``mix_b2``.
+  ``filt_w`` ... ``mix_b2``;
+* sparse layout (standard layer only; the fused one raises ValueError, as
+  the JAX package asserts): the reference's path, gathering [x, v] from the
+  receivers and summing the messages into the senders (``segment_sum``,
+  a padded edge's sender N dropped), then the same node-level ops.
 
 Parameters keep the JAX tree's names; ``nn.Linear`` weights are stored
 (out, in) against Flax's (in, out) kernels. ``load_jax_params`` takes a tree
@@ -36,6 +41,7 @@ import torch
 from torch import nn
 
 from ..ops import painn_msg
+from ..ops.scatter import segment_sum
 from .base import JaxTree, sorted_leaves
 from .utils import LinearXav, dense_leaves, gather_rows, silu
 
@@ -116,12 +122,14 @@ class PaiNNLayer(nn.Module):
     def context(self, s, cdt):
         return self.ctx2(silu(self.ctx1(s, cdt)), cdt)
 
-    def forward(self, s, v, dir_ij, wij, sidx, mask, cdt):
+    def forward(self, s, v, dir_ij, wij, sidx, mask, cdt, scatter_to=None):
         """s (N, H); v (N, dim, H), flat (N, dim*H) when fused; dir_ij
         (N, K, dim) in cdt; wij the layer's (N, K, 3H) filters, or the
         (N, K, R+1) basis with the scale column when fused; sidx (N, K)
         clamped sender rows (int64, or K5's int32 when fused); mask (N, K)
-        in cdt."""
+        in cdt. Sparse edges: dir_ij (E, dim), wij (E, 3H), sidx the (E,)
+        clamped receiver rows, ``scatter_to`` the (E,) senders, mask
+        None."""
         h = self.hidden_size
         n = s.shape[0]
         x = self.context(s, cdt)  # (N, 3H)
@@ -139,11 +147,19 @@ class PaiNNLayer(nn.Module):
         dim = v.shape[1]
         packed = torch.cat([x, v.reshape(n, dim * h)], dim=-1)
         g = gather_rows(packed, sidx)  # (N, K, 3H + dim H); padded rows masked
-        ds, dv_flat = painn_msg.painn_message(
-            g, (wij * mask[..., None]).contiguous(), (-dir_ij).to(wij.dtype), h
-        )
+        if scatter_to is not None:
+            # sparse: gathered from the receivers, summed into the senders
+            # (the reference's direction: dir_ij as stored, not flipped)
+            ds, dv1, dv2 = torch.split(wij * g[..., :3 * h], h, dim=-1)
+            dv = (dir_ij[..., :, None] * dv1[..., None, :]
+                  + g[..., 3 * h:].reshape(-1, dim, h) * dv2[..., None, :])
+            ds, dv = segment_sum(ds, scatter_to, n), segment_sum(dv, scatter_to, n)
+        else:
+            ds, dv = painn_msg.painn_message(
+                g, (wij * mask[..., None]).contiguous(), (-dir_ij).to(wij.dtype), h
+            )
         s = s + torch.clamp(ds.to(s.dtype), -1e2, 1e2)
-        v = v + torch.clamp(dv_flat.reshape(n, dim, h).to(v.dtype), -1e2, 1e2)
+        v = v + torch.clamp(dv.reshape(n, dim, h).to(v.dtype), -1e2, 1e2)
 
         v_l, v_r = torch.chunk(self.vmix(v, cdt), 2, dim=-1)
         v_norm = torch.sqrt(torch.sum(v_r**2, dim=-2) + EPS)
@@ -217,6 +233,10 @@ class PaiNN(JaxTree, nn.Module):
         v0 = torch.cat(vecs, dim=-1)  # (N, dim, C)
 
         senders = features["senders"]
+        sparse = senders.dim() == 1
+        if sparse and self.fused:
+            raise ValueError("the fused PaiNN layer needs the dense edge layout; sparse edges "
+                             "take the standard layer (fused_processor=false)")
         rel_disp = features["rel_disp"]
         norm_ij = torch.sqrt(torch.sum(rel_disp**2, dim=-1) + EPS)
         dir_ij = rel_disp / (norm_ij[..., None] + EPS)
@@ -225,8 +245,12 @@ class PaiNN(JaxTree, nn.Module):
         mask = (senders < n).to(cdt)
         # padded slots (fill n) gather the last row, as a JAX gather clamps;
         # their filters are zero, so that row gets no gradient from them
+        scatter_to = None
         if self.fused:
             sidx = painn_msg.sender_index(senders, n)  # K5's int32, once per forward
+        elif sparse:  # gather from the receivers, sum into the senders
+            sidx = torch.clamp(features["receivers"], max=n - 1).long()
+            scatter_to, mask = senders, None
         else:
             sidx = torch.clamp(senders, max=n - 1).long()
         dir_c = dir_ij.to(cdt)
@@ -241,7 +265,7 @@ class PaiNN(JaxTree, nn.Module):
             v = v.reshape(n, -1, self.hidden_size)
         else:
             for layer, filt in zip(self.layers, self.filter_nets):
-                s, v = layer(s, v, dir_c, filt(phi, cdt) * cut, sidx, mask, cdt)
+                s, v = layer(s, v, dir_c, filt(phi, cdt) * cut, sidx, mask, cdt, scatter_to)
 
         for block in self.readout:
             s, v = block(s, v, cdt)

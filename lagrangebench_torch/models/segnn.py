@@ -1,5 +1,5 @@
 """Steerable E(3)-equivariant GNN (SEGNN, Brandstetter et al. 2022), dense
-layout.
+and sparse layouts.
 
 Counterpart of ``lagrangebench_tpu/models/segnn.py`` on the port's
 steerable engine (``models/e3``):
@@ -22,8 +22,10 @@ than one particle type, a ``NodeType.SIZE`` one-hot as scalars (the JAX
 package's order; its docstring records how that departs from the
 reference). 2D features are lifted to 3D by zero-padding. Padded slots
 (sender N) gather row N-1, as a JAX gather clamps, and drop out of the
-sums. ``segnn_norm: batch`` is accepted and applies no norm, as in the
-JAX package, which implements only ``instance``.
+sums. On sparse (2, E) edges the receiver rows are gathered
+(``h[receivers]``) and the sums run by receiver id (a padded edge's
+receiver N drops). ``segnn_norm: batch`` is accepted and applies no norm,
+as in the JAX package, which implements only ``instance``.
 
 Parameters keep the JAX tree's auto names: ``O3TensorProduct_0`` (the
 embedding), ``SEGNNLayer_i/O3TensorProductGate_j/O3TensorProduct_0`` and
@@ -105,11 +107,14 @@ class SEGNNLayer(nn.Module):
     def forward(self, nodes: IrrepsArray, node_attributes: IrrepsArray,
                 edge_attributes: IrrepsArray, edge_feats: IrrepsArray, senders: torch.Tensor,
                 sidx: torch.Tensor, receivers: torch.Tensor) -> IrrepsArray:
-        n, k = senders.shape
         h = nodes.array
+        n = h.shape[0]
+        if senders.dim() == 2:  # row i is receiver i: a broadcast
+            recv = h[:, None, :].expand(n, senders.shape[1], h.shape[-1])
+        else:
+            recv = gather_rows(h, torch.clamp(receivers, max=n - 1).long())
         msg = concatenate([IrrepsArray(nodes.irreps, gather_rows(h, sidx)),
-                           IrrepsArray(nodes.irreps, h[:, None, :].expand(n, k, h.shape[-1])),
-                           edge_feats])
+                           IrrepsArray(nodes.irreps, recv), edge_feats])
         for block in self.message:
             msg = block(msg, edge_attributes)
         agg = msg.map_chunks(lambda c: aggregate_to_receivers(c, receivers, senders, n))

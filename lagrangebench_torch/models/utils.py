@@ -198,8 +198,9 @@ def mlp_leaves(prefix: str, mlp: nn.Module):
 
 def features_2d_to_3d(features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Lift 2D vector features to 3D by zero-padding the z component:
-    ``vel_hist`` (N, n_vels * 2), ``rel_disp`` (N, K, 2), ``force`` (N, 2)
-    and ``bound`` (N, 2 * 2), which becomes two 3-vectors (N, 6)."""
+    ``vel_hist`` (N, n_vels * 2), ``rel_disp`` (N, K, 2) dense or (E, 2)
+    sparse, ``force`` (N, 2) and ``bound`` (N, 2 * 2), which becomes two
+    3-vectors (N, 6)."""
 
     def pad(x: torch.Tensor) -> torch.Tensor:
         return torch.cat([x, x.new_zeros(tuple(x.shape[:-1]) + (1,))], dim=-1)

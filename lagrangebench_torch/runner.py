@@ -9,9 +9,14 @@ k ``cuda:k``, which is made the current card before anything is built. ``mode=tr
 asks for it; then ``infer`` runs on the test split and the averaged metrics
 are printed and returned.
 
-Neighbor formats: dense (with or without ``neighbors.emit_geometry``) and
-slot (the fused GNS, with batch size 1 in every stage the mode runs; other
-settings raise ValueError saying why).
+Neighbor formats: dense (with or without ``neighbors.emit_geometry``),
+sparse (the reference's ``(2, E)`` layout, on the cell list or all-pairs
+search; every model but the fused GNS processor and the fused PaiNN layer,
+which need the dense layout, as in the JAX package) and slot (the fused
+GNS, with batch size 1 in every stage the mode runs). Other settings raise
+ValueError saying why. Neighbor backends: ``auto`` (the CUDA kernels for
+the dense and slot formats, the cell list for the sparse one),
+``celllist``, ``allpairs`` and the reference's names for the cell list.
 
 Models: every model of the JAX package (GNS with either processor, PaiNN,
 EGNN, SEGNN, Linear). As in the JAX runner, the model learns whether the
@@ -20,8 +25,8 @@ particles are of one type from the train split's first sample
 
 Not ported (each raises NotImplementedError naming its ROADMAP.md §1 item):
 data or spatial parallelism over several devices, the import of the
-reference's Haiku checkpoints, the sparse neighbor format and the profiler
-hook (``logging.profile_dir``).
+reference's Haiku checkpoints and the profiler hook
+(``logging.profile_dir``).
 """
 
 from __future__ import annotations
@@ -79,10 +84,11 @@ def _check_ported(cfg: Config) -> None:
             "lagrangebench_torch (ROADMAP.md §1 item 7); use parallel.data=-1 or 1"
         )
     fmt = cfg.neighbors.format
-    if fmt == "sparse":
-        raise NotImplementedError(
-            "neighbors.format='sparse' is not ported to lagrangebench_torch "
-            "(ROADMAP.md §1 item 6); use dense or slot"
+    if fmt == "sparse" and cfg.model.get("fused_processor", False) \
+            and cfg.model.name.lower() in ("gns", "painn"):
+        raise ValueError(
+            f"model.fused_processor=true ({cfg.model.name}) needs the dense edge layout, as "
+            "in the JAX package; use neighbors.format=dense or model.fused_processor=false"
         )
     if fmt == "slot":
         if cfg.model.name.lower() != "gns" or not cfg.model.get("fused_processor", False):

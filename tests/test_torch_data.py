@@ -146,8 +146,8 @@ def test_dotlist_and_backend_resolution():
     ).to_dict()
     for name in ("auto", "pallas", "cuda"):
         assert defaults.resolve_backend(name) == "cuda"
-    for name in ("celllist", "allpairs", "jaxmd_vmap"):
-        with pytest.raises(NotImplementedError):
-            defaults.resolve_backend(name)
+    for name, want in (("celllist", "celllist"), ("allpairs", "allpairs"),
+                       ("jaxmd_vmap", "celllist")):
+        assert defaults.resolve_backend(name) == want
     with pytest.raises(ValueError):
         defaults.resolve_backend("nope")

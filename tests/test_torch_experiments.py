@@ -9,7 +9,8 @@ before its copies land). ``gather_variants.py`` runs every variant when
 imported, so it is not imported: its kernels compute ``h[idx]`` (each
 variant checked itself against ``h[idx]``), and the port's plain version is
 held to ``jnp.take`` in every index form and dtype, and to a float32 loop of
-the same additions for the repeated form.
+the same additions for the repeated form. ``compaction``'s three designs of
+the cell list's candidate selection build equal lists on the CPU.
 """
 
 import importlib.util
@@ -24,7 +25,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from lagrangebench_torch.experiments import gather_variants, mp_times, window_select
+from lagrangebench_torch.experiments import compaction, gather_variants, mp_times, window_select
 from lagrangebench_torch.ops import fused_mp, row_gather
 from lagrangebench_tpu.ops import fused_mp as jfused_mp
 
@@ -284,3 +285,12 @@ def test_mp_times_segnn_on_the_cpu(monkeypatch):
     assert out["segnn_rollout_b2_ms_per_step"][0] > 0
     assert out["segnn_fwd_bwd_b1_ms"] == 1.0 and out["segnn_fwd_bwd_b1_peak_gib"] == 1.0
     assert len(calls) == 1 and out["segnn_fwd_bwd_b1_top_kernels_ms"] == {}
+
+
+def test_compaction_designs_agree_on_the_cpu():
+    """The three selections of the cell list's candidates build the same
+    dense and sparse lists (343 particles, the plain ops on the CPU)."""
+    out = compaction.main(["--device", "cpu"], n_particles=343)
+    for fmt in ("dense", "sparse"):
+        for name in compaction.DESIGNS:
+            assert out[f"{fmt} {name}"]["equal"] and len(out[f"{fmt} {name}"]["ms"]) == 2

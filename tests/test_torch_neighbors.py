@@ -153,5 +153,9 @@ def test_neighbor_list_batched_update_matches_per_sample():
 
 
 def test_too_small_box_raises():
-    with pytest.raises(ValueError):
-        neighbor_list(None, [1.0, 1.0], 0.5)
+    """A box under three cells per axis: the slot format raises; the dense
+    format takes the all-pairs search, as the JAX package does."""
+    with pytest.raises(ValueError, match="3-cell stencil"):
+        neighbor_list(None, [1.0, 1.0], 0.5, format="slot")
+    nbrs = neighbor_list(None, [1.0, 1.0], 0.5).allocate(torch.rand(30, 2, dtype=torch.float64))
+    assert nbrs.backend == "allpairs" and nbrs.idx.shape[0] == 30

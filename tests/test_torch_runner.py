@@ -141,7 +141,7 @@ def test_cli_fails_cleanly(jax_run, argv, match):
 
 @pytest.mark.parametrize("override,item", [
     ("parallel.data=2", "item 7"), ("parallel.spatial=2", "item 7"),
-    ("neighbors.format=sparse", "item 6"),
+    ("logging.profile_dir=profile", "item 8"),
 ])
 def test_unported_paths_name_their_roadmap_item(jax_run, override, item):
     root = jax_run[0]

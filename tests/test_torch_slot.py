@@ -566,8 +566,11 @@ def test_runner_refuses_slot_combinations_it_cannot_run(dots):
 
 
 def test_runner_sparse_format_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        runner.train_or_infer(_cfg(**{"neighbors.format": "sparse"}))
+    """The fused GNS processor and the fused PaiNN layer refuse the sparse
+    layout: they need the dense one, as the JAX package asserts."""
+    for name in ("gns", "painn"):
+        with pytest.raises(ValueError, match="needs the dense edge layout"):
+            runner.train_or_infer(_cfg(**{"neighbors.format": "sparse", "model.name": name}))
 
 
 @pytest.mark.parametrize("dots", [
