@@ -125,13 +125,37 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    8) held to K1 + K2's, float32. (d) The shipped PaiNN,
    EGNN and SEGNN configs with ``neighbors.format=sparse``, ``mode=infer``
    for 5 steps, each held to the dense layout and timed beside it.
-10. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+10. Data parallelism (slice 11, "phase 11" in the output; no kernel). (a) Two ranks share cuda:0
+   over gloo (``torch.multiprocessing``; NCCL refuses two ranks on one
+   card): GNS-10-128 bf16 at batch 2 (one sample per rank) through
+   ``Trainer.train`` with a ``parallel.Mesh``, on train_path's data, seed and
+   12-step schedule, the counters zeroed around it in each rank: each rank's
+   K1-K4 counts must equal the one-process run's, the losses must stay
+   within ``DP_LOSS0_RTOL`` (step 0) and ``DP_LOSS_RTOL`` of its losses, and
+   the two ranks must end with
+   bit-identical parameters; rank 0 traces steps 4-6 with
+   ``logging.profile_dir`` (the trace must hold K3, K4 and the all-reduce).
+   A float32 run (3 steps, 1,000 particles, GNS-2-128) must match one
+   process on the card within 1e-5; a 20-step float32 ``infer`` of 2
+   trajectories at batch 2 (sharded) and of 3 at batch 3 (the fallback)
+   from one checkpoint must match one process within 1e-5 relative. ms per
+   train step of the ranks and of the one process are printed (not a
+   scaling number: the ranks share the card). (b) ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1 chip_smoke.py
+   --dp-launched <dir>`` drives ``runner.train_or_infer`` with the shipped
+   ``configs/rpf_3d/gns.yaml``, ``parallel.data=-1``, ``mode=all``, 3 steps
+   and a 5-step infer in an NCCL group of one: exit 0, one checkpoint
+   directory, metrics; then ``parallel.data=2`` in this process, with no
+   launcher, infers from that checkpoint on the one card as
+   ``parallel.data=1`` does.
+11. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
    and C for K7, K8 and K9, from the experiments for E1 and E2), the card
    line, and last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
-repository. Needs one card and no network.
+repository. Needs one card and no network. ``--dp-launched <dir>`` is the
+worker of item 10 (b), started by the script itself.
 """
 
 import json
@@ -654,8 +678,9 @@ def reference_check(device):
 
 
 def train_setup(device, n_particles=N_PARTICLES, dtype="bfloat16", mp_steps=MP_STEPS,
-                seed=0, lr=5e-4, pushforward=None):
-    """A Trainer on synthetic data: seeded weights, batch 2, noise 3e-4."""
+                seed=0, lr=5e-4, pushforward=None, mesh=None, logging=None):
+    """A Trainer on synthetic data: seeded weights, batch 2, noise 3e-4
+    (data-parallel over ``mesh``; ``logging``: more logging keys)."""
     from lagrangebench_torch.train import Trainer
 
     train, metadata = make_data(n_particles, ISL + 3, split="train")
@@ -668,8 +693,8 @@ def train_setup(device, n_particles=N_PARTICLES, dtype="bfloat16", mp_steps=MP_S
         cfg_train={"batch_size": BATCH, "noise_std": 3e-4, "optimizer": {"lr_start": lr},
                    "pushforward": pushforward},
         cfg_eval={"n_rollout_steps": 3, "train": {"n_trajs": 1}},
-        cfg_logging={"log_steps": 1, "eval_steps": 10**9},
-        input_seq_length=ISL, seed=seed, device=device,
+        cfg_logging={"log_steps": 1, "eval_steps": 10**9, **(logging or {})},
+        input_seq_length=ISL, seed=seed, device=device, mesh=mesh,
     )
     return trainer, model, case
 
@@ -909,7 +934,7 @@ def train_path(device):
         ok = False
 
     profile_train_step(trainer, raw, nbrs)
-    return row, ok, counts
+    return row, ok, counts, {"losses": losses, "durations": trainer.timer.durations}
 
 
 def profile_train_step(trainer, raw, nbrs, batch=BATCH, unroll=1, label="train profile",
@@ -3227,6 +3252,304 @@ def sparse_path(device):
     return ok, {**gns_ms, **models_ms}, search_ms
 
 
+# ---------------------------------------------------------------------------
+# slice 11: data parallelism (two gloo ranks sharing cuda:0; the runner
+# under torch.distributed.run)
+# ---------------------------------------------------------------------------
+
+# The two ranks' bf16 losses (one sample each) against train_path's one
+# process at batch 2: |diff| <= tol x |loss|. They sum in other orders (the
+# encoder and decoder products over 8,000 rows, not 16,000; the loss and the
+# gradients in two partial sums). Step 0 runs before any update, so only the
+# forward's bf16 roundings differ there (DP_LOSS0_RTOL). AdamW then moves
+# every weight by about lr per step whatever its gradient's size, so a weight
+# whose bf16 gradient sum is near 0 can move the other way, and the runs
+# drift apart over the 12 steps (DP_LOSS_RTOL, the gate of the other bf16
+# comparisons; the drift read 1.33e-2 at step 11 on an H100, 2.9e-5 at
+# step 0). The float32 run below holds the data-parallel arithmetic to 1e-5.
+DP_LOSS0_RTOL, DP_LOSS_RTOL = 1e-3, 2e-2
+DP_F32_TOL = 1e-5  # float32 parameters after 3 steps, x their largest magnitude
+DP_INFER_RTOL = 1e-5  # float32 infer metrics per trajectory, relative
+DP_INFER_STEPS, DP_LAUNCH_STEPS = 20, 5
+DP_PROFILE = [4, 6]  # rank 0's trace: steps 4-6 (4 and 5 unroll once)
+DP_F32_PF = {"steps": [-1, 0], "unrolls": [0, 1], "probs": [0, 1]}
+
+
+def dp_kernels():
+    from lagrangebench_torch.ops import fused_mp, neighbors_cuda
+
+    return (neighbors_cuda.COLUMN_TABLE, neighbors_cuda.NEIGHBOR_SCAN, fused_mp.FUSED_MP,
+            fused_mp.FUSED_MP_ENC, fused_mp.FUSED_MP_BWD)
+
+
+def dp_infer(ckp, batch, device, mesh=None):
+    """A float32 GNS-10-128 ``infer`` from ``ckp`` of ``batch`` trajectories
+    at batch ``batch`` (20 steps, mse, e_kin, Sinkhorn)."""
+    from lagrangebench_torch.evaluate import infer
+
+    test, metadata = make_data(N_PARTICLES, ISL + DP_INFER_STEPS, n_trajs=3)
+    case, model = build_case_model(metadata, device, dtype="float32")
+    return infer(model, case, test, load_ckp=ckp, n_rollout_steps=DP_INFER_STEPS,
+                 cfg_eval_infer={"batch_size": batch, "n_trajs": batch,
+                                 "metrics": ["mse", "e_kin", "sinkhorn"]},
+                 device=device, mesh=mesh)
+
+
+def dp_float32_params(device, mesh=None):
+    """3 float32 training steps (1,000 particles, GNS-2-128, one unroll
+    from step 1, TF32 off); the parameters by tree path."""
+    from lagrangebench_torch import checkpoint
+
+    trainer, model, _ = train_setup(device, n_particles=1000, dtype="float32", mp_steps=2,
+                                    lr=1e-4, pushforward=DP_F32_PF, mesh=mesh)
+    trainer.train(step_max=2)
+    return checkpoint.flatten_tree(model.jax_params())
+
+
+def _dp_rank(rank, pg_file, out_dir, ckp, prof_dir, device):
+    """One of two ranks on ``device`` over gloo (spawned by ``dp_path``): the
+    full-width bf16 training with counts (rank 0 traced), the float32 run
+    and the sharded and fallback infers; results to ``rank<r>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from lagrangebench_torch import checkpoint
+    from lagrangebench_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # the ranks share the host
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    init_distributed(f"file://{pg_file}", 2, rank, device=device, backend="gloo")
+    mesh = make_mesh(2)
+    logging = {"profile_dir": prof_dir, "profile_steps": DP_PROFILE} if rank == 0 else {}
+    trainer, model, _ = train_setup(device, mesh=mesh, logging=logging)
+    steps, allocs = record_steps(trainer)
+    kernels = dp_kernels()
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(step_max=TRAIN_STEPS - 1)
+    torch.cuda.synchronize()
+    out = {"wall": time.perf_counter() - t0, "counts": {k.name: k.launches for k in kernels},
+           "losses": [loss for _, loss in steps], "allocs": allocs[0],
+           "durations": trainer.timer.durations,
+           "params": checkpoint.flatten_tree(model.jax_params())}
+    del trainer, model
+    out["params32"] = dp_float32_params(device, mesh)
+    out["infer"] = {b: dp_infer(ckp, b, device, mesh) for b in (2, 3)}
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _rel_tree(got, want, path=""):
+    """The largest |got - want| / |want| over nested metric dicts."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        return max(_rel_tree(got[k], want[k], f"{path}/{k}") for k in want)
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(np.asarray(got, np.float64) - want)
+                        / np.maximum(np.abs(want), 1e-30)))
+
+
+def dp_trace_check(path):
+    """K3 and K4 launches and the gradient all-reduce in rank 0's trace;
+    prints the all-reduce's host time per traced step."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [ev.get("name", "") for ev in events]
+    k3 = sum("fused_mp" in n and "bwd" not in n for n in names)
+    k4 = sum("fused_mp_bwd" in n for n in names)
+    red = [ev for ev in events if ev.get("name") in ("gloo:all_reduce", "c10d::allreduce_")]
+    steps = DP_PROFILE[1] - DP_PROFILE[0] + 1
+    per = {}
+    for ev in red:
+        per[ev["name"]] = per.get(ev["name"], 0.0) + float(ev.get("dur", 0)) / 1e3 / steps
+    log(f"dp profile: {os.path.basename(path)}: {len(names)} events, {k3} K3 kernel events, "
+        f"{k4} K4, {len(red)} all-reduce events; host ms per traced step "
+        f"{json.dumps({k: round(v, 3) for k, v in per.items()})} ({steps} steps)")
+    return k3 > 0 and k4 > 0 and len(red) > 0
+
+
+def dp_ranks(ref, tmp, device):
+    """Phase 11 (a): two ranks on cuda:0 over gloo against one process."""
+    import pickle
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from lagrangebench_torch import checkpoint
+
+    test, metadata = make_data(N_PARTICLES, ISL + DP_INFER_STEPS, n_trajs=3)
+    _, seeded = build_case_model(metadata, device, dtype="float32")
+    ckp = os.path.join(tmp, "ckp")
+    checkpoint.save_checkpoint(ckp, seeded.jax_params(), {}, {"step": 0, "loss": None})
+    del seeded
+    want32 = dp_float32_params(device)
+    want_infer = {b: dp_infer(ckp, b, device) for b in (2, 3)}
+    prof = os.path.join(tmp, "prof")
+    t0 = time.perf_counter()
+    mp.spawn(_dp_rank, args=(os.path.join(tmp, "pg"), tmp, ckp, prof, device), nprocs=2)
+    log(f"dp: two ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s wall "
+        "(start-up, kernel loads and every run below)")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+
+    ok = True
+    want_counts = ref["counts"]
+    for r, got in enumerate(ranks):
+        log(f"dp rank {r}: {TRAIN_STEPS} bf16 steps in {got['wall']:.2f} s wall, "
+            f"{got['allocs']} allocations, launches {got['counts']} (one process: "
+            f"{want_counts})")
+        if got["counts"] != want_counts:
+            log(f"FAIL: dp rank {r} launch counts differ from the one-process run's")
+            ok = False
+    losses = np.asarray(ranks[0]["losses"])
+    want = np.asarray(ref["losses"])
+    rel = (np.abs(losses - want) / np.abs(want) if losses.shape == want.shape
+           else np.full(1, np.inf))
+    log(f"dp losses (bf16, two ranks of batch 1 vs one process at batch 2): "
+        f"{np.round(losses, 5).tolist()} vs {np.round(want, 5).tolist()}; rel diff at step 0 "
+        f"{rel[0]:.3g} (tol {DP_LOSS0_RTOL}), max {rel.max():.3g} (tol {DP_LOSS_RTOL})")
+    if not (np.all(np.isfinite(losses)) and rel[0] <= DP_LOSS0_RTOL
+            and rel.max() <= DP_LOSS_RTOL and ranks[0]["losses"] == ranks[1]["losses"]):
+        log("FAIL: dp bf16 losses")
+        ok = False
+    same = all(np.array_equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in ranks[0]["params"])
+    log(f"dp: the two ranks' {len(ranks[0]['params'])} parameter tensors bit-identical: {same}")
+    ok &= same
+
+    top = max(float(np.abs(v).max()) for v in want32.values())
+    err32 = max(float(np.abs(ranks[r]["params32"][k] - want32[k]).max())
+                for r in range(2) for k in want32) / top
+    log(f"dp float32 (3 steps, 1,000 particles, GNS-2-128): parameters max |two ranks - one "
+        f"process| {err32:.3g} of the largest magnitude (tol {DP_F32_TOL})")
+    if not err32 <= DP_F32_TOL:
+        log("FAIL: dp float32 parameters")
+        ok = False
+
+    for b, label in ((2, "sharded, one trajectory per rank"), (3, "fallback, whole batch")):
+        err = max(_rel_tree(ranks[r]["infer"][b], want_infer[b]) for r in range(2))
+        ntraj = [len(ranks[r]["infer"][b]) for r in range(2)]
+        log(f"dp infer batch {b} ({label}, {DP_INFER_STEPS} steps, float32): metrics max rel "
+            f"diff {err:.3g} (tol {DP_INFER_RTOL}), trajectories per rank {ntraj}")
+        if not (err <= DP_INFER_RTOL and ntraj == [b, b]):
+            log(f"FAIL: dp infer at batch {b}")
+            ok = False
+
+    trace = os.path.join(prof, "trace_rank0.json")
+    if not (os.path.exists(trace) and dp_trace_check(trace)):
+        log("FAIL: dp profile trace (rank 0, steps 4-6) missing or without K3, K4 and the "
+            "all-reduce")
+        ok = False
+    one = np.asarray(ref["durations"]) * 1e3  # d[i]: step i + 1
+    tail = slice(DP_PROFILE[1] + 1, TRAIN_STEPS - 1)  # steps 8-11: after the trace
+    per = [np.asarray(r["durations"])[tail] * 1e3 for r in ranks]
+    log(f"dp ms per train step (host clock, synchronized, steps 8-11, one unroll): rank 0 "
+        f"median {np.median(per[0]):.2f}, rank 1 {np.median(per[1]):.2f}, one process at "
+        f"batch 2 {np.median(one[tail]):.2f} (all {np.round(per[0], 2).tolist()}, "
+        f"{np.round(per[1], 2).tolist()}, {np.round(one[tail], 2).tolist()}) "
+        f"[GNS-{MP_STEPS}-{LATENT} bf16, {N_PARTICLES} particles per sample; two processes "
+        f"share one card, gloo stages the all-reduce through the host; not a scaling number]")
+    return ok, [r["counts"] for r in ranks]
+
+
+def dp_launched(tmp, device="cuda"):
+    """The worker of ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1 chip_smoke.py --dp-launched <dir>``: the shipped
+    ``configs/rpf_3d/gns.yaml`` through ``runner.train_or_infer`` with
+    ``parallel.data=-1``, ``mode=all``, 3 steps and a 5-step infer, in the
+    launcher's process group (NCCL, one rank)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lagrangebench_torch import runner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    extra = {"gpu": -1} if device == "cpu" else {}  # a rehearsal on the CPU
+    cfg = gns_cfg(**{"parallel.data": -1, "mode": "all", "train.step_max": 2,
+                     "train.batch_size": BATCH, "logging.log_steps": 1, "logging.eval_steps": 2,
+                     "logging.ckp_dir": f"{tmp}/ckp", "eval.n_rollout_steps": DP_LAUNCH_STEPS,
+                     "eval.train.n_trajs": 1, "eval.infer.n_trajs": BATCH,
+                     "eval.rollout_dir": f"{tmp}/rollouts", **extra})
+    metrics = runner.train_or_infer(cfg, data=runner_data(cfg))
+    log(f"dp launched: process group {dist.get_backend()}, world {dist.get_world_size()}, "
+        f"rank {dist.get_rank()} on {device}")
+    log(f"dp launched metrics: {json.dumps({k: float(v) for k, v in metrics.items()})}")
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_launcher(tmp, device):
+    """Phase 11 (b): the runner under torch.distributed.run (an NCCL group
+    of one), then ``parallel.data=2`` in this process against
+    ``parallel.data=1`` from that run's checkpoint."""
+    import numpy as np
+
+    from lagrangebench_torch import runner
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           os.path.abspath(__file__), "--dp-launched", tmp, device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("dp launched", "0", "1",
+                                                                    "2", "Training"))]
+    for ln in lines:
+        log(f"  | {ln}")
+    ckps = os.listdir(os.path.join(tmp, "ckp")) if os.path.isdir(os.path.join(tmp, "ckp")) \
+        else []
+    log(f"dp launcher: torch.distributed.run --standalone --nproc_per_node=1: exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s wall; checkpoint directories "
+        f"{ckps}")
+    backend = "nccl" if device == "cuda" else "gloo"
+    ok = (proc.returncode == 0 and len(ckps) == 1 and "dp launched metrics" in proc.stdout
+          and f"process group {backend}, world 1" in proc.stdout)
+    if not ok:
+        log("FAIL: the launched runner (exit code, one checkpoint, an NCCL group, metrics)")
+        log(proc.stderr[-3000:])
+        return False
+
+    metrics = {}
+    for n in (1, 2):
+        cfg = gns_cfg(**{"mode": "infer", "load_ckp": os.path.join(tmp, "ckp", ckps[0]),
+                         "parallel.data": n, "eval.n_rollout_steps": DP_LAUNCH_STEPS,
+                         "eval.infer.n_trajs": BATCH, "train.batch_size": BATCH,
+                         **({"gpu": -1} if device == "cpu" else {})})
+        metrics[n] = runner.train_or_infer(cfg, data=runner_data(cfg))
+    rel = max(abs(metrics[2][k] - metrics[1][k]) / max(abs(metrics[1][k]), 1e-30)
+              for k in metrics[1])
+    log(f"dp: parallel.data=2 in one process (no launcher) vs parallel.data=1: {metrics[2]} vs "
+        f"{metrics[1]}, max rel diff {rel:.3g} (tol 1e-6)")
+    finite = all(np.isfinite(v) for v in metrics[2].values())
+    if not (set(metrics[1]) == set(metrics[2]) and rel <= 1e-6 and finite):
+        log("FAIL: parallel.data=2 in one process")
+        return False
+    return True
+
+
+def dp_path(ref, device="cuda"):
+    """Phase 11: data parallelism; (a) two gloo ranks sharing cuda:0 against
+    the one-process run, (b) the runner under the launcher."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ok, counts = dp_ranks(ref, tmp, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        ok &= dp_launcher(tmp, device)
+    log(f"phase 11 (data parallelism): {time.perf_counter() - t0:.1f} s wall")
+    return ok, counts
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3260,7 +3583,7 @@ def main() -> int:
         rows, ok, step_ms = main_path("cuda")
         ok &= reference_check("cuda")
     log(f"inference path: {step_ms:.3f} ms per rollout step")
-    bwd_row, train_ok, counts = train_path("cuda")
+    bwd_row, train_ok, counts, train_ref = train_path("cuda")
     ok &= train_ok
     ok &= train_reference_check("cuda")
     for name, row in rows.items():
@@ -3297,6 +3620,9 @@ def main() -> int:
     exp_rows, exp_ok = experiments_path("cuda")
     ok &= exp_ok
     rows.update(exp_rows)
+    dp_ok, dp_counts = dp_path({**train_ref, "counts": counts}, "cuda")
+    ok &= dp_ok
+    log(f"data-parallel path launches per rank: {json.dumps(dp_counts)}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     if not ok:
@@ -3309,4 +3635,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-launched"]:  # the worker of phase 11 (b)
+        sys.exit(dp_launched(*sys.argv[2:4]))
     sys.exit(main())

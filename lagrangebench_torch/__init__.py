@@ -2,17 +2,20 @@
 
 The port of ``lagrangebench_tpu`` (JAX, the reference) to PyTorch with
 hand-written CUDA kernels for Hopper. It covers training and rollout
-inference of GNS, PaiNN, EGNN, SEGNN and Linear on the dense neighbor layout (and
-of the fused GNS on the slot layout): datasets and stats, case setup with
-noise and targets, neighbor search (kernels K1, the column table, and K2,
-the stencil scan; K7 and K9 for the slot layout and the in-kernel edge
-geometry), GNS with its fused message-passing step (kernel K3; K8 in the
-slot layout) and that step's backward (kernel K4) or with the standard
-processor (PyTorch products at any MLP depth and width), PaiNN with its
-message block (kernel K6) or its fused layer (kernel K5), EGNN and Linear
-(PyTorch products), SEGNN on its steerable engine (``models.e3``, PyTorch
-products), the trainer with AdamW and pushforward, checkpoints with optimizer state, rollouts, metrics and VTK
-output, and the runner and CLI (``python -m lagrangebench_torch``).
+inference of GNS, PaiNN, EGNN, SEGNN and Linear on the dense and the sparse
+``(2, E)`` neighbor layouts (and of the fused GNS on the slot layout), on
+one device or data-parallel over ``torch.distributed`` ranks
+(``parallel``): datasets and stats, case setup with noise and targets,
+neighbor search (kernels K1, the column table, and K2, the stencil scan; K7
+and K9 for the slot layout and the in-kernel edge geometry; the cell list
+and all-pairs in PyTorch ops), GNS with its fused message-passing step
+(kernel K3; K8 in the slot layout) and that step's backward (kernel K4) or
+with the standard processor (PyTorch products at any MLP depth and width),
+PaiNN with its message block (kernel K6) or its fused layer (kernel K5),
+EGNN and Linear (PyTorch products), SEGNN on its steerable engine
+(``models.e3``, PyTorch products), the trainer with AdamW, pushforward and
+a torch.profiler hook, checkpoints with optimizer state, rollouts, metrics
+and VTK output, and the runner and CLI (``python -m lagrangebench_torch``).
 ``experiments`` holds the probes of the row gather (kernel E1) and of the
 windowed-select MP step (kernel E2).
 

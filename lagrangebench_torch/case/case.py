@@ -60,6 +60,7 @@ class CaseSetupFn(NamedTuple):
         shift: boundary-aware shift function.
         normalization_stats: velocity/acceleration stats (tensors).
         device: the device the case's tensors live on.
+        dtype: the preprocessing dtype (positions, noise, features).
     """
 
     allocate: Callable
@@ -73,6 +74,7 @@ class CaseSetupFn(NamedTuple):
     shift: Callable
     normalization_stats: Dict
     device: torch.device
+    dtype: torch.dtype
 
 
 def case_builder(
@@ -316,4 +318,5 @@ def case_builder(
         shift=shift_fn,
         normalization_stats=normalization_stats,
         device=device,
+        dtype=dtype,
     )

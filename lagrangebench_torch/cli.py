@@ -6,6 +6,12 @@ YAML ``extends:`` chain > built-in defaults. ``load_ckp=ckp/<run>`` without
 ``config=`` reuses the run's saved ``config.yaml``. ``gpu=-1`` runs on the
 CPU (each kernel's plain PyTorch version), ``gpu=k`` on ``cuda:k``; without
 it the run needs a CUDA device.
+
+Data-parallel: ``python -m torch.distributed.run --nproc_per_node=N -m
+lagrangebench_torch config=<yaml> parallel.data=-1`` runs one rank per card
+(``cuda:LOCAL_RANK``; add ``gpu=-1`` for N ranks on the CPU over gloo); only
+rank 0 prints and writes. A process group this call initialized is
+destroyed when the run ends.
 """
 
 from __future__ import annotations
@@ -33,6 +39,13 @@ def main(argv=None):
     if cfg.get("config") is None:
         cfg.config = config_path
 
+    import torch.distributed as dist
+
     from .runner import train_or_infer
 
-    return train_or_infer(cfg)
+    had_group = dist.is_initialized()
+    try:
+        return train_or_infer(cfg)
+    finally:
+        if dist.is_initialized() and not had_group:
+            dist.destroy_process_group()

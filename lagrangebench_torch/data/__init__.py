@@ -1,6 +1,6 @@
 """Datasets, statistics and loading."""
 
-from .dataset import ArrayDataset, H5Dataset, TrajectoryDataset
+from .dataset import ArrayDataset, H5Dataset, TrajectoryDataset, get_dataset_name_from_path
 from .loader import DataLoader
 from .stats import get_dataset_stats, numpy_collate
 
@@ -9,6 +9,7 @@ __all__ = [
     "H5Dataset",
     "TrajectoryDataset",
     "DataLoader",
+    "get_dataset_name_from_path",
     "get_dataset_stats",
     "numpy_collate",
 ]

@@ -21,11 +21,29 @@ import bisect
 import importlib.util
 import json
 import os.path as osp
+import re
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..utils import NodeType
+
+
+def get_dataset_name_from_path(path: str) -> str:
+    """The dataset's short name from a directory named by the LagrangeBench
+    convention (``3D_RPF_8000_10kevery100`` -> ``rpf3d``); the directory
+    name, with a warning, for any other name."""
+    dirname = osp.basename(osp.normpath(path))
+    m = re.search(r"(?:2D|3D)_[A-Z]{3}", dirname)
+    if m is not None:
+        dims, case = m.group(0).split("_")
+        return f"{case}{dims}".lower()
+    warnings.warn(
+        f"Dataset directory {dirname} does not follow the lagrangebench "
+        "convention {2D|3D}_{TGV|RPF|LDC|DAM}; using the directory name."
+    )
+    return dirname
 
 
 class TrajectoryDataset:
@@ -128,7 +146,8 @@ class H5Dataset(TrajectoryDataset):
     Args:
         split: "train", "valid" or "test".
         dataset_path: directory holding ``<split>.h5`` + ``metadata.json``.
-        name: dataset short name (informational).
+        name: dataset short name; inferred from the directory name if None
+            (:func:`get_dataset_name_from_path`).
         input_seq_length: number of past positions the model sees.
         extra_seq_length: max pushforward unrolls (train) or eval horizon.
         pad_to_max: pad particles to metadata["num_particles_max"].
@@ -146,7 +165,7 @@ class H5Dataset(TrajectoryDataset):
         import h5py
 
         self.dataset_path = osp.normpath(dataset_path)
-        self.name = name if name is not None else osp.basename(self.dataset_path)
+        self.name = name if name is not None else get_dataset_name_from_path(self.dataset_path)
         self.file_path = osp.join(self.dataset_path, split + ".h5")
         self.external_force_fn = _load_force_fn(self.dataset_path)
         with open(osp.join(self.dataset_path, "metadata.json"), "r") as f:

@@ -1,12 +1,13 @@
 """Evaluation: rollouts, metrics and VTK export."""
 
 from .metrics import MetricsComputer, MetricsDict, averaged_metrics
-from .rollout import eval_rollout, infer, rollout_batch
+from .rollout import RolloutOverflowError, eval_rollout, infer, rollout_batch
 from .utils import pkl2vtk, write_vtk
 
 __all__ = [
     "MetricsComputer",
     "MetricsDict",
+    "RolloutOverflowError",
     "averaged_metrics",
     "eval_rollout",
     "infer",

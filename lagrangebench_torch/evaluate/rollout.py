@@ -1,6 +1,6 @@
 """Autoregressive rollouts and inference.
 
-Counterpart of ``lagrangebench_tpu/evaluate/rollout.py`` (single device).
+Counterpart of ``lagrangebench_tpu/evaluate/rollout.py``.
 A trajectory batch of B samples rolls out as one flat (B*N)-particle
 super-graph per step, in a Python loop: neighbor update (K1, then K2, or K9
 with ``emit_geometry``), features, the model (ten K3 launches for GNS-10),
@@ -14,6 +14,14 @@ read once per batch; on overflow the batch is rerun with the capacities of
 a fresh allocation escalated by x1.5, at most 5 times. Positions are
 carried in the dtype of the loaded trajectories (float64 from the HDF5
 files), the features in the case's dtype.
+
+With a ``parallel.Mesh``, a trajectory batch that divides by the mesh size
+shards over the ranks: each rolls out its own rows, the overflow flag is
+summed over the ranks so that every rank reallocates together (from the
+global batch's first sample, as one rank would), and the per-trajectory
+metrics, and the predictions where they are written, are gathered on the
+host in trajectory order. A batch that does not divide rolls out whole on
+every rank (the JAX package's local fallback). Only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -30,9 +38,14 @@ from ..config import Config, merge
 from ..data import DataLoader
 from ..defaults import defaults
 from ..ops.batching import unflatten_nodes
+from ..parallel import Mesh, all_gather_objects, all_reduce_sum_, is_main, shard_batch
 from ..utils import get_kinematic_mask, resolve_device
 from .metrics import MetricsComputer
 from .utils import write_vtk
+
+
+class RolloutOverflowError(RuntimeError):
+    """The neighbor buffers kept overflowing through every escalation."""
 
 
 def _to_numpy(tree):
@@ -74,8 +87,12 @@ def rollout_batch(model, case, current, particle_type, neighbors, targets):
 
 def _eval_batched_rollout(model, case, traj_batch, neighbors, metrics_computer,
                           n_rollout_steps: int, t_window: int,
-                          n_extrap_steps: int = 0, max_retries: int = 5):
-    """One trajectory batch with overflow-escalation retries."""
+                          n_extrap_steps: int = 0, max_retries: int = 5,
+                          alloc_sample=None, mesh: Optional[Mesh] = None):
+    """One trajectory batch (this rank's rows under ``mesh``) with
+    overflow-escalation retries; a reallocation sizes from
+    ``alloc_sample``, the global batch's first window (default: this
+    batch's first window)."""
     pos_input, particle_type = traj_batch
     batch_size = pos_input.shape[0]
     if n_rollout_steps == -1:
@@ -95,14 +112,18 @@ def _eval_batched_rollout(model, case, traj_batch, neighbors, metrics_computer,
         predictions, overflow, neighbors_batch = rollout_batch(
             model, case, current, particle_type, neighbors_batch, targets
         )
+        if mesh is not None:
+            overflow = all_reduce_sum_(overflow.to(torch.int32).reshape(1), mesh)[0] > 0
         if not bool(overflow):
             break
         boost *= 1.5
-        print(f"(eval) neighbor overflow; reallocating with boost {boost:.2f}")
-        _, nbrs = case.allocate_eval((current[0], particle_type[0]), capacity_boost=boost)
+        if is_main(mesh):
+            print(f"(eval) neighbor overflow; reallocating with boost {boost:.2f}")
+        _, nbrs = case.allocate_eval(alloc_sample or (current[0], particle_type[0]),
+                                     capacity_boost=boost)
         neighbors_batch = nbrs.broadcast(batch_size)
     else:
-        raise RuntimeError("neighbor list kept overflowing during rollout")
+        raise RolloutOverflowError("neighbor list kept overflowing during rollout")
 
     target_tm = targets.permute(0, 2, 1, 3)[:, :n_rollout_steps]
     metrics = [
@@ -123,20 +144,25 @@ def eval_rollout(
     rollout_dir: Optional[str] = None,
     out_type: str = "none",
     n_extrap_steps: int = 0,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Dict]:
     """Evaluate rollouts over a loader; returns metrics (numpy) per trajectory.
 
     With ``rollout_dir``, ``out_type="pkl"`` pickles each rollout as
     ``rollout_<i>.pkl``, ``out_type="vtk"`` writes its frames as
     ``rollout_<i>_<t>.vtk`` (predicted) and ``rollout_<i>_ref_<t>.vtk``
-    (ground truth); the metrics go to ``metrics<timestamp>.pkl``.
+    (ground truth); the metrics go to ``metrics<timestamp>.pkl``. With
+    ``mesh``, batches that divide by its size shard over its ranks, every
+    rank returns every trajectory's metrics, and only rank 0 writes.
     """
     if out_type not in ("none", "pkl", "vtk"):
         raise ValueError(f"unknown rollout output {out_type!r}")
     batch_size = loader_eval.batch_size
     t_window = loader_eval.dataset.input_seq_length
     eval_metrics: Dict[str, Dict] = {}
-    if rollout_dir is not None:
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    write = rollout_dir is not None and is_main(mesh)
+    if write:
         os.makedirs(rollout_dir, exist_ok=True)
 
     for i, (pos_np, ptype_np) in enumerate(loader_eval):
@@ -144,20 +170,27 @@ def eval_rollout(
         if n_traj_left <= 0:
             break
         pos_np, ptype_np = pos_np[:n_traj_left], ptype_np[:n_traj_left]
-        traj_batch = (
-            torch.as_tensor(pos_np, device=case.device),
-            torch.as_tensor(ptype_np, device=case.device),
-        )
+        shard = mesh if mesh is not None and pos_np.shape[0] % mesh.size == 0 else None
+        traj_batch = tuple(torch.as_tensor(x, device=case.device)
+                           for x in shard_batch((pos_np, ptype_np), shard))
         predictions, metrics, neighbors = _eval_batched_rollout(
             model, case, traj_batch, neighbors, metrics_computer,
             n_rollout_steps=n_rollout_steps, t_window=t_window,
-            n_extrap_steps=n_extrap_steps,
+            alloc_sample=(pos_np[0, :, :t_window], ptype_np[0]),
+            n_extrap_steps=n_extrap_steps, mesh=shard,
         )
+        metrics = [_to_numpy(m) for m in metrics]
+        keep = rollout_dir is not None and out_type != "none"
+        preds = predictions.cpu().numpy() if keep else None
+        if shard is not None:
+            # every rank's rows, in rank order: the global trajectory order
+            parts = all_gather_objects((metrics, preds), shard)
+            metrics = [m for part, _ in parts for m in part]
+            preds = np.concatenate([p for _, p in parts]) if keep else None
         for j, m in enumerate(metrics):
-            eval_metrics[f"rollout_{i * batch_size + j}"] = _to_numpy(m)
+            eval_metrics[f"rollout_{i * batch_size + j}"] = m
 
-        if rollout_dir is not None and out_type != "none":
-            preds = predictions.cpu().numpy()
+        if write and keep:
             for j in range(pos_np.shape[0]):
                 truth = pos_np[j].transpose(1, 0, 2)  # (T, N, dim)
                 example = {
@@ -174,7 +207,7 @@ def eval_rollout(
                     with open(f"{prefix}.pkl", "wb") as f:
                         pickle.dump(example, f)
 
-    if rollout_dir is not None:
+    if write:
         stamp = time.strftime("%Y_%m_%d_%H_%M_%S", time.localtime())
         with open(os.path.join(rollout_dir, f"metrics{stamp}.pkl"), "wb") as f:
             pickle.dump(eval_metrics, f)
@@ -191,6 +224,7 @@ def infer(
     n_rollout_steps: int = defaults.eval.n_rollout_steps,
     seed: int = defaults.seed,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Dict]:
     """Run inference over a test dataset and compute metrics.
 
@@ -202,6 +236,8 @@ def infer(
             is loaded into ``model`` first.
         cfg_eval_infer: overrides of ``defaults.eval.infer``.
         device: "cuda" (default) or "cpu"; raises without CUDA unless "cpu".
+        mesh: a ``parallel.Mesh`` whose ranks share the trajectory batches
+            (those that divide by its size; see ``eval_rollout``).
     """
     from ..checkpoint import load_checkpoint
 
@@ -237,4 +273,5 @@ def infer(
         rollout_dir=rollout_dir,
         out_type=cfg.out_type,
         n_extrap_steps=cfg.n_extrap_steps,
+        mesh=mesh,
     )

@@ -2,7 +2,7 @@
 for this checkout or another one.
 
     python lagrangebench_torch/experiments/mp_times.py [--tree DIR] [--label NAME]
-        [--only gns,painn,scan,k1,rollout[,segnn]]
+        [--only gns,painn,scan,k1,rollout[,segnn][,train]]
 
 - K3 and K4 (the fused GNS message-passing step and its backward): seeded
   random inputs at the GNS rollout shape (16,000 receivers x K = 40, F =
@@ -28,12 +28,18 @@ for this checkout or another one.
   launches, counted in a torch.profiler trace.
 - The GNS-10-128 bf16 dense rollout at batch 2 of the same data, seeded
   weights: ms per step on the host clock (20 steps, three runs after one
-  that warms up), the path every rollout's neighbor update runs.
+  that warms up), the path every rollout's neighbor update runs; then the
+  dense and the slot rollouts at batch 1.
 - SEGNN-10-64 float32 (the model of ``configs/rpf_3d/segnn.yaml``) on the
   same data, seeded weights: ms per rollout step at batch 2 on the host
   clock (as the GNS rollout), and the device time, peak memory and twelve
   longest kernels (summed by name) of one forward and backward at batch 1
   (a training step without the optimizer).
+- GNS-10-128 bf16 training on the dense layout at batch 2 of the same data
+  through ``train.Trainer`` (noise 3e-4, 12 steps, one pushforward unroll
+  from step 4, the loss read every step), seeded weights: the step times on
+  the host clock (``profiling.StepTimer``) and their medians over the steps
+  without and with the unroll, as ``chip_smoke.py``'s train path reads them.
 
 Each is timed with CUDA events with the card's queue filled ahead
 (``profiling.device_ms``) and checked against its plain version. ``--tree
@@ -55,6 +61,7 @@ from typing import Optional, Sequence
 
 N, K = 16000, 40
 N_SAMPLE, DIM, ISL = 8000, 3, 6
+GNS_MP_STEPS, GNS_LATENT = 10, 128  # GNS-10-128 of the rollout and train groups
 
 
 def _inputs(fused_mp, torch, device, seed=0):
@@ -237,9 +244,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--only", default="gns,painn,scan,k1,rollout",
                     help="comma-separated groups: gns (K3, K4), painn (K5), scan (K2, K7, K9), "
                          "k1 (K1 and the table build, the neighbor update), rollout (the "
-                         "GNS-10-128 dense rollout), segnn (SEGNN-10-64's rollout and "
+                         "GNS-10-128 rollouts: dense at batch 2, dense and slot at batch 1), "
+                         "segnn (SEGNN-10-64's rollout and "
                          "training forward and backward; not by default: a tree older than "
-                         "slice 9 has no SEGNN)")
+                         "slice 9 has no SEGNN), train (GNS-10-128 training steps through "
+                         "the Trainer; not by default)")
     args = ap.parse_args(argv)
     groups = set(args.only.split(","))
     root = os.path.abspath(args.tree or os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -267,6 +276,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         _time_rollout(torch, device, out)
     if "segnn" in groups:
         _time_segnn(torch, device, out)
+    if "train" in groups:
+        _time_train(torch, device, out)
     print(json.dumps(out))
     return out
 
@@ -327,31 +338,95 @@ def _rpf_batch(torch, device, frames=ISL, cfg_model=None):
 
 
 def _time_rollout(torch, device, out, steps=20, runs=3):
-    """ms per step (host clock, synchronized) of a GNS-10-128 bf16 rollout
-    on the dense layout at batch 2, seeded weights: the path every neighbor
-    update of the rollout runs."""
+    """ms per step (host clock, synchronized) of a GNS-10-128 bf16 rollout,
+    seeded weights: on the dense layout at batch 2, the path every neighbor
+    update of the rollout runs, then at batch 1 on the dense and the slot
+    layouts (``chip_smoke.py``'s "dense b1" and "slot b1")."""
     import time
 
+    from lagrangebench_torch.case import case_builder
     from lagrangebench_torch.config import Config
     from lagrangebench_torch.evaluate.rollout import rollout_batch
     from lagrangebench_torch.models import build_gns
 
     cfg = Config({"name": "gns", "fused_processor": True, "compute_dtype": "bfloat16",
-                  "num_mp_steps": 10, "latent_dim": 128, "num_mlp_layers": 2,
+                  "num_mp_steps": GNS_MP_STEPS, "latent_dim": GNS_LATENT,
+                  "num_mlp_layers": 2,
                   "input_seq_length": ISL, "magnitude_features": False,
                   "isotropic_norm": False})
     case, pos, ptype, metadata = _rpf_batch(torch, device, ISL + steps, cfg)
+    slot_case = case_builder([1.0] * DIM, metadata, ISL,
+                             cfg_neighbors={"backend": "auto", "format": "slot"},
+                             cfg_model=cfg, device=device)
     model = build_gns(cfg, metadata, ISL, seed=0, device=device)
-    _, nbrs = case.allocate_eval((pos[0, :, :ISL], ptype[0]))
-    nbrs = nbrs.broadcast(2)
-    times = []
-    for _ in range(runs + 1):  # the first run warms up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rollout_batch(model, case, pos[:, :, :ISL], ptype, nbrs, pos[:, :, ISL:])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3 / steps)
-    out["gns_rollout_b2_ms_per_step"] = times[1:]
+
+    def per_step(case, b):
+        _, nbrs = case.allocate_eval((pos[0, :, :ISL], ptype[0]))
+        nbrs = nbrs.broadcast(b)
+        times = []
+        for _ in range(runs + 1):  # the first run warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rollout_batch(model, case, pos[:b, :, :ISL], ptype[:b], nbrs, pos[:b, :, ISL:])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / steps)
+        return times[1:]
+
+    out["gns_rollout_b2_ms_per_step"] = per_step(case, 2)
+    out["gns_rollout_b1_ms_per_step"] = {"dense": per_step(case, 1),
+                                         "slot": per_step(slot_case, 1)}
+
+
+def _time_train(torch, device, out, steps=12, unroll_from=4, runs=2):
+    """ms per step (host clock, synchronized, ``profiling.StepTimer``) of
+    GNS-10-128 bf16 training on the dense layout at batch 2, seeded weights,
+    ``runs`` trainers in turn; the step after the first allocation is the
+    first timed."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from lagrangebench_torch.case import case_builder
+    from lagrangebench_torch.config import Config
+    from lagrangebench_torch.data import ArrayDataset
+    from lagrangebench_torch.data.synthetic import make_synthetic_arrays
+    from lagrangebench_torch.models import build_gns
+    from lagrangebench_torch.train import Trainer
+
+    cfg = Config({"name": "gns", "fused_processor": True, "compute_dtype": "bfloat16",
+                  "num_mp_steps": GNS_MP_STEPS, "latent_dim": GNS_LATENT,
+                  "num_mlp_layers": 2,
+                  "input_seq_length": ISL, "magnitude_features": False,
+                  "isotropic_norm": False})
+    splits, metadata = make_synthetic_arrays(
+        n_particles=N_SAMPLE, dim=DIM, box=1.0, dx=1.0 / round(N_SAMPLE ** (1 / DIM)),
+        seq_len_train=12, seq_len_eval=ISL + 3, n_trajs=2, name="RPF")
+    types = [np.zeros(N_SAMPLE, np.int64)] * 2
+    data = {split: ArrayDataset(split, splits[split], types, metadata, input_seq_length=ISL,
+                                extra_seq_length=1 if split == "train" else 3)
+            for split in ("train", "valid")}
+    runs_ms = []
+    for _ in range(runs):
+        case = case_builder([1.0] * DIM, metadata, ISL, cfg_neighbors={"backend": "auto"},
+                            cfg_model=cfg, device=device)
+        model = build_gns(cfg, metadata, ISL, seed=0, device=device)
+        trainer = Trainer(
+            model, case, data["train"], data["valid"],
+            cfg_train={"batch_size": 2, "noise_std": 3e-4, "optimizer": {"lr_start": 5e-4},
+                       "pushforward": {"steps": [-1, unroll_from - 1], "unrolls": [0, 1],
+                                       "probs": [0, 1]}},
+            cfg_eval={"n_rollout_steps": 3, "train": {"n_trajs": 1}},
+            cfg_logging={"log_steps": 1, "eval_steps": 10**9},
+            input_seq_length=ISL, seed=0, device=device,
+        )
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer.train(step_max=steps - 1)
+        runs_ms.append([round(d * 1e3, 3) for d in trainer.timer.durations])
+    out["gns_train_b2_ms"] = runs_ms
+    out["gns_train_b2_median_ms"] = [
+        {"no_unroll": float(np.median(d[:unroll_from - 1])),
+         "one_unroll": float(np.median(d[unroll_from:]))} for d in runs_ms]
 
 
 def _time_segnn(torch, device, out, steps=20, runs=3):

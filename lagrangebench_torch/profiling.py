@@ -1,9 +1,11 @@
-"""Step timing for the trainer, and the time of one call on the card.
+"""Step timing and traces for the trainer, and the time of one call on the card.
 
-Counterpart of ``lagrangebench_tpu/profiling.py``'s ``StepTimer``: rolling
-wall-clock statistics (mean/p50/p95, steps/s, particle-steps/s) reported at
-every log interval. The trainer synchronizes the card before each tick, so
-a duration is the step's time on the host clock, device work included.
+Counterpart of ``lagrangebench_tpu/profiling.py``: ``StepTimer`` keeps
+rolling wall-clock statistics (mean/p50/p95, steps/s, particle-steps/s)
+reported at every log interval; the trainer synchronizes the card before
+each tick, so a duration is the step's time on the host clock, device work
+included. ``ProfilerHook`` traces the steps between
+``logging.profile_steps`` with torch.profiler into ``logging.profile_dir``.
 
 ``call_ms`` times a call on the card with CUDA events, the queue filled
 ahead so that the host's launch overhead does not stand in for the card's
@@ -13,6 +15,7 @@ of an empty kernel, the floor under any kernel's time.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -58,6 +61,45 @@ class StepTimer:
         if particles_per_step:
             out["perf/particle_steps_per_sec"] = float(particles_per_step / d.mean())
         return out
+
+
+class ProfilerHook:
+    """A torch.profiler trace (CPU and, on a card, CUDA activities) from
+    the start of step ``start_step`` to the end of step ``stop_step``,
+    written as a Chrome trace ``trace_rank<rank>.json`` into
+    ``profile_dir`` (one file per rank). No-op without ``profile_dir``."""
+
+    def __init__(self, profile_dir: Optional[str], start_step: int, stop_step: int,
+                 rank: int = 0, cuda: bool = True):
+        self.profile_dir = profile_dir
+        self.start_step = start_step
+        self.stop_step = stop_step
+        self.path = os.path.join(profile_dir, f"trace_rank{rank}.json") if profile_dir else None
+        self.cuda = cuda
+        self._prof = None
+
+    def maybe_start(self, step: int) -> None:
+        if self.profile_dir and self._prof is None and step == self.start_step:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.cuda else [])
+            self._prof = profile(activities=activities)
+            self._prof.start()
+
+    def maybe_stop(self, step: int) -> None:
+        if self._prof is not None and step >= self.stop_step:
+            self.stop()
+
+    def stop(self) -> None:
+        """End an open trace (at ``stop_step``, or where training ends
+        before it) and write it."""
+        if self._prof is None:
+            return
+        self._prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self._prof.export_chrome_trace(self.path)
+        self._prof = None
+        print(f"profiler trace written to {self.path}")
 
 
 def device_ms(fn: Callable, iters: int = 20, warmup: int = 2,

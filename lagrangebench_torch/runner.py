@@ -1,8 +1,9 @@
 """Orchestration: config -> data -> case -> model -> train and/or infer.
 
-Counterpart of ``lagrangebench_tpu/runner.py`` on one device. The device
-comes from ``cfg.gpu`` as in the reference: None means ``cuda``, -1 the CPU,
-k ``cuda:k``, which is made the current card before anything is built. ``mode=train`` and ``mode=all`` train with ``Trainer`` into
+Counterpart of ``lagrangebench_tpu/runner.py``. The device comes from
+``cfg.gpu`` as in the reference: None means ``cuda``, -1 the CPU, k
+``cuda:k``, which is made the current card before anything is built.
+``mode=train`` and ``mode=all`` train with ``Trainer`` into
 ``<logging.ckp_dir>/<run_name>`` (``config.yaml``, ``params.npz``,
 ``opt_state.npz``, ``best/``); ``mode=infer`` loads ``<load_ckp>/best`` (or
 ``load_ckp`` itself), re-laid out for the fused processor where the config
@@ -23,10 +24,20 @@ EGNN, SEGNN, Linear). As in the JAX runner, the model learns whether the
 particles are of one type from the train split's first sample
 (``homogeneous_particles``; SEGNN adds a type one-hot otherwise).
 
+Data parallelism (``parallel.data``), with the JAX runner's mesh sizing:
+for ``parallel.data != 1`` the process group is initialized where a launch
+is indicated (``python -m torch.distributed.run --nproc_per_node=N -m
+lagrangebench_torch ...``; NCCL on the cards, gloo with ``gpu=-1``), and the
+mesh takes all ranks (-1) or ``parallel.data`` of them, cut to the ranks
+that exist and down to a divisor of ``train.batch_size``; a mesh of one is
+no mesh, so ``parallel.data=2`` in one process runs alone, as JAX does on
+one device. Under a launcher rank r runs on ``cuda:LOCAL_RANK`` (every rank
+on the CPU with ``gpu=-1``); a rank beyond the mesh does no work. Training
+and inference share the mesh; rank 0 names the run and writes.
+
 Not ported (each raises NotImplementedError naming its ROADMAP.md §1 item):
-data or spatial parallelism over several devices, the import of the
-reference's Haiku checkpoints and the profiler hook
-(``logging.profile_dir``).
+spatial parallelism (``parallel.spatial > 1``) and the import of the
+reference's Haiku checkpoints.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .case import case_builder
 from .checkpoint import load_checkpoint
@@ -46,8 +58,8 @@ from .data import H5Dataset
 from .defaults import check_cfg
 from .evaluate import averaged_metrics, infer
 from .models import ensure_fused_params, setup_model
+from .parallel import broadcast_object, data_parallel_size, init_distributed, is_main, make_mesh
 from .train import Trainer
-from .train.trainer import check_profile_dir
 
 
 def device_from_gpu(gpu: Optional[int]) -> torch.device:
@@ -57,6 +69,22 @@ def device_from_gpu(gpu: Optional[int]) -> torch.device:
     if int(gpu) == -1:
         return torch.device("cpu")
     return torch.device(f"cuda:{int(gpu)}")
+
+
+def rank_device(gpu: Optional[int]) -> torch.device:
+    """This process's device. Under a launcher (``LOCAL_RANK`` set) with
+    ``gpu`` unset, ``cuda:LOCAL_RANK``; otherwise :func:`device_from_gpu`.
+    ``gpu=k`` with more than one launched rank raises ValueError: every
+    rank would take the same card."""
+    local, world = os.environ.get("LOCAL_RANK"), int(os.environ.get("WORLD_SIZE", "1"))
+    if gpu is not None and int(gpu) != -1 and local is not None and world > 1:
+        raise ValueError(
+            f"gpu={gpu} with {world} launched ranks would put every rank on cuda:{gpu}; "
+            "leave gpu unset (rank r runs on cuda:LOCAL_RANK) or set gpu=-1 (the CPU)"
+        )
+    if gpu is None and local is not None:
+        return torch.device(f"cuda:{int(local)}")
+    return device_from_gpu(gpu)
 
 
 def is_haiku_checkpoint(model_dir: str) -> bool:
@@ -78,10 +106,10 @@ def setup_data(cfg: Config) -> Tuple[H5Dataset, H5Dataset, H5Dataset]:
 
 
 def _check_ported(cfg: Config) -> None:
-    if int(cfg.parallel.get("spatial", 0) or 0) > 1 or int(cfg.parallel.data) > 1:
+    if int(cfg.parallel.get("spatial", 0) or 0) > 1:
         raise NotImplementedError(
-            "parallel.data > 1 and parallel.spatial > 1 are not ported to "
-            "lagrangebench_torch (ROADMAP.md §1 item 7); use parallel.data=-1 or 1"
+            "parallel.spatial > 1 is not ported to lagrangebench_torch (ROADMAP.md §1 "
+            "item 7.2); use parallel.spatial=0"
         )
     fmt = cfg.neighbors.format
     if fmt == "sparse" and cfg.model.get("fused_processor", False) \
@@ -120,13 +148,21 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
     """
     check_cfg(cfg)
     _check_ported(cfg)
-    check_profile_dir(cfg.logging)
-    device = device_from_gpu(cfg.get("gpu"))
+    device = rank_device(cfg.get("gpu"))
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)  # the kernels launch on the current card
-    if device.type == "cuda" and torch.cuda.device_count() > 1 and cfg.parallel.data != 1:
-        print(f"{torch.cuda.device_count()} CUDA devices visible; lagrangebench_torch "
-              f"runs on one ({device})")
+
+    n_data = int(cfg.parallel.data)
+    if n_data != 1:
+        init_distributed(device=device)  # a no-op unless a launch is indicated
+    world, rank = (dist.get_world_size(), dist.get_rank()) if dist.is_initialized() else (1, 0)
+    n_req = data_parallel_size(n_data, world, int(cfg.train.batch_size))
+    mesh = make_mesh(n_req) if n_req > 1 else None
+    if rank >= n_req:
+        print(f"rank {rank}: the data mesh holds ranks 0-{n_req - 1} (parallel.data={n_data}, "
+              f"{world} ranks, train.batch_size={cfg.train.batch_size}); this rank does no work")
+        return None
+    main = is_main(mesh)
     mode = cfg.mode
     old_model_dir = cfg.load_ckp
 
@@ -154,17 +190,21 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
     trained = False
     if mode in ("train", "all"):
         if cfg.logging.run_name is None:
-            cfg.logging.run_name = (f"{cfg.model.name}_{data_train.name}_"
-                                    + datetime.now().strftime("%Y%m%d-%H%M%S"))
+            # rank 0's clock names the run on every rank
+            cfg.logging.run_name = broadcast_object(
+                f"{cfg.model.name}_{data_train.name}_" + datetime.now().strftime("%Y%m%d-%H%M%S"),
+                mesh)
         store_ckp = osp.join(cfg.logging.ckp_dir, cfg.logging.run_name)
-        os.makedirs(store_ckp, exist_ok=True)
-        save_yaml(cfg, osp.join(store_ckp, "config.yaml"))
+        if main:
+            os.makedirs(store_ckp, exist_ok=True)
+            save_yaml(cfg, osp.join(store_ckp, "config.yaml"))
         trainer = Trainer(model, case, data_train, data_valid, cfg_train=cfg.train,
                           cfg_eval=cfg.eval, cfg_logging=cfg.logging,
                           input_seq_length=cfg.model.input_seq_length, seed=cfg.seed,
-                          device=device)
+                          device=device, mesh=mesh)
         trainer.train(step_max=cfg.train.step_max, load_ckp=old_model_dir, store_ckp=store_ckp)
-        print(f"Training done; params: {sum(p.numel() for p in model.parameters())}")
+        if main:
+            print(f"Training done; params: {sum(p.numel() for p in model.parameters())}")
         old_model_dir = store_ckp
         trained = True
 
@@ -180,12 +220,14 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
                 )
             params, _, _, step = load_checkpoint(load_dir)
             model.load_jax_params(ensure_fused_params(params, cfg.model))
-            print(f"Loaded model from {load_dir} at step {step}")
+            if main:
+                print(f"Loaded model from {load_dir} at step {step}")
         eval_metrics = infer(model, case, data_test, cfg_eval_infer=cfg.eval.infer,
                              rollout_dir=cfg.eval.rollout_dir,
                              n_rollout_steps=cfg.eval.n_rollout_steps, seed=cfg.seed,
-                             device=device)
+                             device=device, mesh=mesh)
         metrics = averaged_metrics(eval_metrics)
-        print(metrics)
+        if main:
+            print(metrics)
         return metrics
     return None

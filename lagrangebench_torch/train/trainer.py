@@ -1,6 +1,7 @@
 """Training loop.
 
-Counterpart of ``lagrangebench_tpu/train/trainer.py`` (single device):
+Counterpart of ``lagrangebench_tpu/train/trainer.py``, on one device or
+data-parallel over the ranks of a ``parallel.Mesh``:
 
 * one step = the batched train preprocess (noise, neighbor update,
   features, targets), optional pushforward unrolls without gradient, the
@@ -20,17 +21,32 @@ Counterpart of ``lagrangebench_tpu/train/trainer.py`` (single device):
   are skipped, never half-applied. Deferring the read saves no time here:
   the loop synchronizes every step for its ``StepTimer``;
 * every ``eval_steps`` an in-training rollout (neighbors sized from a
-  validation sample; a failed rollout records ``val/loss=inf``), then a
-  checkpoint with the optimizer state.
+  validation sample; a rollout whose neighbor buffers keep overflowing
+  records ``val/loss=inf``), then a checkpoint with the optimizer state;
+* ``logging.profile_dir`` writes a torch.profiler trace of the steps
+  ``logging.profile_steps`` (``profiling.ProfilerHook``).
 
-Noise is drawn on the host from a seeded ``torch.Generator`` and copied to
-the device, so a run on the card and one on the CPU see the same noise.
-The profiler hook and data parallelism are not ported: a set
-``logging.profile_dir`` raises NotImplementedError (``check_profile_dir``).
+Noise is drawn on the host from a seeded ``torch.Generator`` for the whole
+batch and copied to the device, so a run on the card and one on the CPU see
+the same noise.
+
+Data parallelism (``mesh``): a run on n ranks is the run on one rank up to
+the order of the sums. Every rank loads the same global batch from the same
+seeded shuffle, draws the noise and the pushforward's unroll count for the
+global batch (the generators advance alike on every rank) and takes its own
+rows; the loss sum, the overflow flag and the gradients of every parameter
+are summed over the ranks in one all-reduce of one flat buffer; every rank
+then runs the same AdamW on the same sums, from parameters broadcast from
+rank 0 at the start. A retry after an overflow assembles the global
+per-sample flags (one all-reduce of a (B,) vector), so that every rank
+reallocates from the same first overflowing sample. The port's models
+carry no state besides their parameters, so there is no state to average.
+Only rank 0 writes checkpoints, logs and wandb.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -41,22 +57,11 @@ from ..checkpoint import OptStateLeaves, load_checkpoint, save_checkpoint
 from ..config import Config, merge
 from ..data import DataLoader
 from ..defaults import defaults
-from ..evaluate import MetricsComputer, averaged_metrics, eval_rollout
-from ..profiling import StepTimer
+from ..evaluate import MetricsComputer, RolloutOverflowError, averaged_metrics, eval_rollout
+from ..parallel import Mesh, all_reduce_sum_, broadcast_tensors_, is_main, shard_batch
+from ..profiling import ProfilerHook, StepTimer
 from ..utils import get_kinematic_mask, resolve_device
 from .strats import push_forward_batched_build, push_forward_sample_steps
-
-
-def check_profile_dir(cfg_logging) -> None:
-    """Raise NotImplementedError when ``logging.profile_dir`` is set: the
-    JAX trainer's ``ProfilerHook`` is not ported, and a trace that was asked
-    for must not be silently left out."""
-    if cfg_logging.get("profile_dir"):
-        raise NotImplementedError(
-            f"logging.profile_dir={cfg_logging.get('profile_dir')!r}: the profiler hook "
-            "is not ported to lagrangebench_torch (ROADMAP.md §1 item 8); leave "
-            "logging.profile_dir unset"
-        )
 
 
 def _weighted_sq_error(pred, target, loss_weight) -> torch.Tensor:
@@ -213,6 +218,9 @@ class Trainer:
         seed: seeds the noise generator, the data shuffle and the
             pushforward draws.
         device: "cuda" (default) or "cpu"; raises without CUDA unless "cpu".
+        mesh: a ``parallel.Mesh`` to train data-parallel over its ranks
+            (``train.batch_size`` must divide by its size); None (or a mesh
+            of one) trains on this process alone.
     """
 
     def __init__(
@@ -227,6 +235,7 @@ class Trainer:
         input_seq_length: int = defaults.model.input_seq_length,
         seed: int = defaults.seed,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         device = resolve_device(device)
         if case.device != device:
@@ -238,7 +247,9 @@ class Trainer:
         self.cfg_train = merge(defaults.train, cfg_train or {})
         self.cfg_eval = merge(defaults.eval, cfg_eval or {})
         self.cfg_logging = merge(defaults.logging, cfg_logging or {})
-        check_profile_dir(self.cfg_logging)
+        if mesh is not None and not mesh.member:
+            raise ValueError("this rank is not a member of the mesh")
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
 
         available = data_valid.subseq_length - input_seq_length
         if self.cfg_eval.n_rollout_steps > available:
@@ -255,6 +266,10 @@ class Trainer:
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator().manual_seed(seed)
         self.batch_size = int(self.cfg_train.batch_size)
+        if self.mesh is not None and self.batch_size % self.mesh.size != 0:
+            raise ValueError(f"train.batch_size ({self.batch_size}) must be divisible by "
+                             f"the mesh size ({self.mesh.size})")
+        self.local_batch_size = self.batch_size // (self.mesh.size if self.mesh else 1)
         self.loader_train = DataLoader(data_train, batch_size=self.batch_size, shuffle=True,
                                        drop_last=True, rng=self.rng)
         self.loader_valid = DataLoader(data_valid, batch_size=int(self.cfg_eval.train.batch_size),
@@ -277,7 +292,43 @@ class Trainer:
         self._eval_neighbors = None
 
     def _batch(self, raw):
-        return tuple(torch.as_tensor(x, device=self.device) for x in raw)
+        """This rank's rows of a host batch, on the device."""
+        return tuple(torch.as_tensor(x, device=self.device) for x in shard_batch(raw, self.mesh))
+
+    def _noise_draw(self, raw_batch) -> torch.Tensor:
+        """The standard-normal draw of the random-walk noise for the global
+        batch, from the generator, and this rank's rows of it."""
+        _, n, _, dim = raw_batch[0].shape
+        draw = torch.randn((self.batch_size, n, self.input_seq_length - 1, dim),
+                           generator=self.generator, dtype=self.case.dtype)
+        return shard_batch(draw, self.mesh)
+
+    def _sum_over_ranks(self, loss_sum, overflow):
+        """One all-reduce of the loss sum, the overflow flag and every
+        gradient as one flat buffer in the parameters' (widest) dtype; the
+        gradients become views of the sums. Returns the summed loss and the
+        global flag."""
+        params = self.optimizer.params
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        dtype = functools.reduce(torch.promote_types, [p.dtype for p in params])
+        flat = torch.cat([loss_sum.detach().reshape(1).to(dtype),
+                          overflow.reshape(1).to(dtype)] + [g.reshape(-1) for g in grads])
+        all_reduce_sum_(flat, self.mesh)
+        offset = 2
+        for p in params:
+            p.grad = flat[offset:offset + p.numel()].view_as(p).to(p.dtype)
+            offset += p.numel()
+        return flat[0], flat[1] > 0
+
+    def _global_flags(self, flags: torch.Tensor) -> torch.Tensor:
+        """Every rank's per-sample overflow flags, in global batch order
+        (one all-reduce of a (B,) vector under a mesh)."""
+        if self.mesh is None:
+            return flags
+        full = torch.zeros(self.batch_size, dtype=torch.int32, device=flags.device)
+        start = self.mesh.rank * self.local_batch_size
+        full[start:start + self.local_batch_size] = flags.to(torch.int32)
+        return all_reduce_sum_(full, self.mesh) > 0
 
     def train_step(self, raw_batch, neighbors_batch, noise_std: float, unroll_steps: int):
         """One step on a device batch: preprocess, pushforward, loss,
@@ -289,7 +340,8 @@ class Trainer:
         isl = self.input_seq_length
         self.optimizer.zero_grad()
         features, targets, nbrs_b = self.case.preprocess_batched(
-            self.generator, raw_batch, noise_std, neighbors_batch, unroll_steps
+            self.generator, raw_batch, noise_std, neighbors_batch, unroll_steps,
+            draw=self._noise_draw(raw_batch),
         )
         # the unrolls start from the un-noised positions, as in the JAX trainer
         current_pos = raw_batch[0][:, :, :isl]
@@ -307,6 +359,8 @@ class Trainer:
         loss_sum = flat_mse_loss(self.model, features, ptype.reshape(b * n), targets,
                                  node_weight, self.loss_weight)
         loss_sum.backward()
+        if self.mesh is not None:
+            loss_sum, overflow = self._sum_over_ranks(loss_sum, overflow)
         self.optimizer.step(skip=overflow)
         self.optimizer.zero_grad()
         return loss_sum.detach() / self.batch_size, nbrs_b, overflow
@@ -338,13 +392,20 @@ class Trainer:
             opt_state = opt_state if opt_state is not None else ckp_opt
         if opt_state is not None:
             self.optimizer.load_state_leaves(opt_state)
+        main = is_main(self.mesh)
+        if self.mesh is not None:
+            broadcast_tensors_(self.optimizer.params, self.mesh)
 
-        wandb_run = self._init_wandb(wandb_config, step)
-        if store_ckp is not None:
+        wandb_run = self._init_wandb(wandb_config, step) if main else None
+        if store_ckp is not None and main:
             os.makedirs(os.path.join(store_ckp, "best"), exist_ok=True)
 
-        neighbors_batch = neighbors.broadcast(self.batch_size)
+        neighbors_batch = neighbors.broadcast(self.local_batch_size)
         timer = self.timer
+        profiler = ProfilerHook(cfg_logging.get("profile_dir"),
+                                *list(cfg_logging.get("profile_steps", [10, 15])),
+                                rank=self.mesh.rank if self.mesh else 0,
+                                cuda=self.device.type == "cuda")
         particles_per_step = first_batch[0].shape[1] * self.batch_size
         sync_every = int(self.cfg_train.get("overflow_sync_every", 1))
         # steps whose overflow flag is not read yet: (flag, noise state and
@@ -356,6 +417,7 @@ class Trainer:
             for raw in self.loader_train:
                 raw_batch = self._batch(raw)
                 unroll_steps = push_forward_sample_steps(self.rng, step, pushforward)
+                profiler.maybe_start(step)
                 boost, max_retries = 1.0, 5
                 for attempt in range(max_retries + 1):
                     before = (self.generator.get_state(), self.optimizer.count)
@@ -375,26 +437,30 @@ class Trainer:
                             f"neighbor list still overflows after {max_retries} "
                             f"escalating reallocations at step {step}"
                         )
-                    # re-allocate from the first overflowing sample with an
-                    # escalating boost; the allocation's own noise draw does
-                    # not advance the step's noise stream
+                    # re-allocate from the global batch's first overflowing
+                    # sample (every rank alike) with an escalating boost; the
+                    # allocation's own noise draw does not advance the step's
+                    # noise stream
                     boost *= 1.5
-                    print(f"Reallocate neighbors list at step {step} (boost x{boost:.2f})")
-                    ind = int(torch.argmax(nbrs_b.did_buffer_overflow.to(torch.int32)))
+                    flags = self._global_flags(nbrs_b.did_buffer_overflow)
+                    ind = int(torch.argmax(flags.to(torch.int32)))
                     noise_state = self.generator.get_state()
                     _, _, nbrs = self.case.allocate(
-                        self.generator, (raw_batch[0][ind], raw_batch[1][ind]), noise_std,
+                        self.generator, (raw[0][ind], raw[1][ind]), noise_std,
                         capacity_boost=boost,
                     )
                     self.generator.set_state(noise_state)
-                    print(f"From {tuple(nbrs_b.idx[ind].shape)} to {tuple(nbrs.idx.shape)}")
-                    neighbors_batch = nbrs.broadcast(self.batch_size)
+                    if main:
+                        print(f"Reallocate neighbors list at step {step} (boost x{boost:.2f})")
+                        print(f"From {tuple(nbrs_b.idx[0].shape)} to {tuple(nbrs.idx.shape)}")
+                    neighbors_batch = nbrs.broadcast(self.local_batch_size)
 
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 timer.tick()
+                profiler.maybe_stop(step)
 
-                if step % cfg_logging.log_steps == 0:
+                if step % cfg_logging.log_steps == 0 and main:
                     perf = timer.stats(particles_per_step)
                     if wandb_run is not None:
                         wandb_run.log({"train/loss": float(loss), **perf}, step)
@@ -407,7 +473,7 @@ class Trainer:
                 if step % cfg_logging.eval_steps == 0 and step > 0:
                     timer.reset_clock()  # the eval pause does not count
                     metrics = self._eval(step)
-                    if store_ckp is not None:
+                    if store_ckp is not None and main:
                         save_checkpoint(
                             store_ckp, self.model.jax_params(), {},
                             {"step": step, "loss": metrics.get("val/loss")},
@@ -415,7 +481,7 @@ class Trainer:
                         )
                     if wandb_run is not None:
                         wandb_run.log(metrics, step)
-                    else:
+                    elif main:
                         print(metrics)
 
                 step += 1
@@ -424,6 +490,7 @@ class Trainer:
 
         if unread:
             self._read_overflow(unread)  # the count of the last unread steps
+        profiler.stop()
         if wandb_run is not None:
             wandb_run.finish()
         return self.model, {}, self.optimizer
@@ -461,12 +528,16 @@ class Trainer:
                 n_trajs=int(self.cfg_eval.train.n_trajs),
                 rollout_dir=self.cfg_eval.rollout_dir,
                 out_type=self.cfg_eval.train.out_type,
+                mesh=self.mesh,
             )
             return averaged_metrics(eval_metrics)
-        except RuntimeError as exc:
+        except RolloutOverflowError as exc:
             # a diverged model can cluster particles beyond the rollout's
-            # capacity escalation; record an infinite loss and keep training
-            print(f"{step}, eval rollout failed ({exc}); recording val/loss=inf and continuing")
+            # capacity escalation (on every rank alike: the flag is
+            # reduced); record an infinite loss and keep training
+            if is_main(self.mesh):
+                print(f"{step}, eval rollout failed ({exc}); recording val/loss=inf and "
+                      "continuing")
             return {"val/loss": float("inf")}
 
     def _init_wandb(self, wandb_config, step):

@@ -1,4 +1,4 @@
-"""Which card the port launches on, and options it does not honour yet.
+"""Which card the port launches on, and the profiler option.
 
 On the CPU, with ``torch.cuda.set_device``, ``torch.cuda.device`` and
 ``torch.cuda.current_stream`` replaced by recorders:
@@ -7,8 +7,9 @@ On the CPU, with ``torch.cuda.set_device``, ``torch.cuda.device`` and
   before it builds anything on it;
 - ``build.stream(device)`` is the current stream of that device, and a
   ``Kernel`` launches with its device current and on that stream;
-- ``logging.profile_dir`` raises NotImplementedError naming ROADMAP.md §1
-  item 8 in ``train_or_infer`` and in ``Trainer``.
+- ``logging.profile_dir``, which raised NotImplementedError before the
+  profiler hook was ported, is accepted by ``train_or_infer`` and
+  ``Trainer`` (the trace itself: ``tests/test_torch_parallel.py``).
 """
 
 import contextlib
@@ -129,15 +130,19 @@ def test_kernel_raises_and_does_not_count_a_refused_launch(monkeypatch):
 
 
 def test_runner_refuses_profile_dir(monkeypatch, tmp_path):
+    """The refusal is gone: with ``logging.profile_dir`` set the runner goes
+    on to build the case."""
     monkeypatch.setattr(runner, "case_builder", lambda **kw: (_ for _ in ()).throw(_Stop()))
     cfg = _cfg(profile_dir=str(tmp_path / "trace"))
     cfg.gpu = -1
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    with pytest.raises(_Stop):
         runner.train_or_infer(cfg, data=_stub_data())
 
 
 def test_trainer_refuses_profile_dir(tmp_path):
+    """The refusal is gone: with ``logging.profile_dir`` set the trainer goes
+    on to read its splits (here None, which fails there)."""
     case = types.SimpleNamespace(device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    with pytest.raises(AttributeError, match="subseq_length"):
         Trainer(None, case, None, None, cfg_logging={"profile_dir": str(tmp_path)},
                 device="cpu")

@@ -266,6 +266,45 @@ def test_mp_times_inputs(monkeypatch):
     assert all(torch.equal(t[name], again[name]) for name in t)
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: at these sizes more threads only contend with
+    the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_mp_times_rollout_on_the_cpu(monkeypatch, one_thread):
+    """The rollout group at 512 particles and GNS-2-16 on the CPU (the
+    card's synchronize stubbed): finite times per run, dense at batch 2,
+    dense and slot at batch 1."""
+    monkeypatch.setattr(mp_times, "N_SAMPLE", 512)
+    monkeypatch.setattr(mp_times, "GNS_MP_STEPS", 2)
+    monkeypatch.setattr(mp_times, "GNS_LATENT", 16)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    out = {}
+    mp_times._time_rollout(torch, torch.device("cpu"), out, steps=2, runs=1)
+    times = [out["gns_rollout_b2_ms_per_step"], *out["gns_rollout_b1_ms_per_step"].values()]
+    assert set(out["gns_rollout_b1_ms_per_step"]) == {"dense", "slot"}
+    assert all(len(t) == 1 and np.isfinite(t[0]) and t[0] > 0 for t in times)
+
+
+def test_mp_times_train_on_the_cpu(monkeypatch, one_thread):
+    """The training group at 512 particles, GNS-2-16 and 4 steps on the CPU
+    (the card's synchronize stubbed): steps 1-3 timed, finite medians per
+    run."""
+    monkeypatch.setattr(mp_times, "N_SAMPLE", 512)
+    monkeypatch.setattr(mp_times, "GNS_MP_STEPS", 2)
+    monkeypatch.setattr(mp_times, "GNS_LATENT", 16)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    out = {}
+    mp_times._time_train(torch, torch.device("cpu"), out, steps=4, unroll_from=2, runs=1)
+    assert len(out["gns_train_b2_ms"]) == 1 and len(out["gns_train_b2_ms"][0]) == 3
+    assert np.isfinite(list(out["gns_train_b2_median_ms"][0].values())).all()
+
+
 def test_mp_times_segnn_on_the_cpu(monkeypatch):
     """The SEGNN group at 512 particles on the CPU (the card's timers and
     memory counters stubbed): a finite rollout time per run and one timed

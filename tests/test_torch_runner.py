@@ -139,10 +139,7 @@ def test_cli_fails_cleanly(jax_run, argv, match):
         cli.main(argv)
 
 
-@pytest.mark.parametrize("override,item", [
-    ("parallel.data=2", "item 7"), ("parallel.spatial=2", "item 7"),
-    ("logging.profile_dir=profile", "item 8"),
-])
+@pytest.mark.parametrize("override,item", [("parallel.spatial=2", "item 7")])
 def test_unported_paths_name_their_roadmap_item(jax_run, override, item):
     root = jax_run[0]
     with pytest.raises(NotImplementedError, match=item):

@@ -509,8 +509,8 @@ def test_slot_training_matches_jax_trainer(dataset, monkeypatch):
                          dtype=torch.float64, device="cpu")
     real = pcase.preprocess_batched
 
-    def with_draw(*args, **kw):  # the JAX side's noise, for the batch of 1
-        return real(*args, **kw, draw=torch.as_tensor(draw[None]))
+    def with_draw(*args, **kw):  # the JAX side's noise in place of the trainer's draw
+        return real(*args, **dict(kw, draw=torch.as_tensor(draw[None])))
 
     pcase = pcase._replace(preprocess_batched=with_draw)
     pmodel = _port_gns().double()

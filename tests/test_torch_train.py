@@ -394,10 +394,11 @@ def test_failed_eval_records_inf_and_training_continues(tmp_path, monkeypatch):
     the checkpoint's metadata and training runs to the end."""
     import json
 
+    from lagrangebench_torch.evaluate import RolloutOverflowError
     from lagrangebench_torch.train import trainer as trainer_mod
 
     def boom(*args, **kwargs):
-        raise RuntimeError("neighbor list kept overflowing during rollout")
+        raise RolloutOverflowError("neighbor list kept overflowing during rollout")
 
     monkeypatch.setattr(trainer_mod, "eval_rollout", boom)
     ckp = str(tmp_path / "ckp")
