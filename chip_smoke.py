@@ -148,7 +148,28 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    directory, metrics; then ``parallel.data=2`` in this process, with no
    launcher, infers from that checkpoint on the one card as
    ``parallel.data=1`` does.
-11. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+11. Spatial sharding (slice 12, "phase 12" in the output; no new kernel).
+   Three ranks share cuda:0 over gloo (``torch.multiprocessing``), a slab
+   ring of 3 (x-slabs 0.333 wide, 8,000 particles in 3D, cutoff 0.0725),
+   and drive the port's entry points with the counters zeroed around each:
+   GNS-10-128 bf16 (the shipped ``configs/rpf_3d/gns.yaml``)
+   ``infer_spatial`` (20 steps, 2 trajectories, mse, e_kin, Sinkhorn) and
+   ``train_spatial`` (12 steps at batch 1, one pushforward unroll from step
+   4, validation and a checkpoint at the last step), PaiNN-5-128 float32
+   (``configs/rpf_3d/painn.yaml``) ``infer_spatial`` (5 steps). Each rank
+   must launch K3 (both instances) in GNS inference and training, K4 in
+   training and K5 in PaiNN; only rank 0 writes, a standard-layout
+   checkpoint. On rank 0's slab, K3 and K4 (inputs captured from one bf16
+   train step) and K5 (its first layer, 3 N_loc source rows: the slab and
+   both halo slabs) must match their plain versions under phase 2's, 3's
+   and 4's limits. float32 on the same weights: the three-rank forward,
+   train step (loss and gradients) and 20-step infer metrics must match the
+   unsharded port within 1e-5 of the largest value (metrics: relative).
+   Prints ms per rollout and train step of the ranks and of the same runs
+   in one process (a ring of one), and the halo exchange's host ms per
+   step with its host staging from rank 0's trace (not a scaling number:
+   the ranks share one card).
+12. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
    and C for K7, K8 and K9, from the experiments for E1 and E2), the card
    line, and last ``{"ok": true, "device": {...}}``.
@@ -413,7 +434,7 @@ def bound(name, args, kw):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_kernels(seen):
+def compare_kernels(seen, names=("neighbor_scan", "fused_mp", "fused_mp_enc")):
     """Phase 2: every kernel vs its plain version on the card; timings."""
     import torch
 
@@ -427,7 +448,8 @@ def compare_kernels(seen):
                          fused_mp.FUSED_MP_ENC),
     }
     rows, ok = {}, True
-    for name, (kern, plain, handle) in funcs.items():
+    for name in names:
+        kern, plain, handle = funcs[name]
         args, kw = seen[name]
         got = kern(*args, **kw)
         want = plain(*args, **kw)
@@ -1180,7 +1202,7 @@ def painn_bound(name, args):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_painn_kernels(seen):
+def compare_painn_kernels(seen, names=("painn_msg", "painn_layer")):
     """K6 and K5 against their plain versions (float32 and bf16), timed at
     the path's float32 shapes."""
     import torch
@@ -1192,7 +1214,8 @@ def compare_painn_kernels(seen):
                            painn_msg.PAINN_MSG),
              "painn_layer": (painn_msg.painn_layer_kernel, painn_msg.painn_layer_plain,
                              painn_msg.PAINN_LAYER)}
-    for name, (kern, plain, handle) in funcs.items():
+    for name in names:
+        kern, plain, handle = funcs[name]
         args = seen[name]
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
@@ -3550,6 +3573,569 @@ def dp_path(ref, device="cuda"):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12 (slice 12): spatial sharding over a slab ring
+# ---------------------------------------------------------------------------
+
+SPATIAL_RANKS = 3
+# phase 12's sizes: GNS-10-128 and PaiNN-5-128 at 8,000 particles; a CPU
+# rehearsal passes smaller ones to spatial_path
+SPATIAL_SIZES = {"n": N_PARTICLES, "gns_steps": 10, "painn_steps": 5, "latent": LATENT,
+                 "infer": 20, "train": 12, "painn_infer": 5, "profile": 3}
+# float32, three ranks against the unsharded port on the same weights: the
+# slab search orders each receiver's slots otherwise than K1 + K2, so the
+# K-sums differ by float32 rounding. Accelerations, loss and gradients
+# within 1e-5 of the largest value; rollout metrics within 1e-5 relative.
+SPATIAL_F32_TOL = 1e-5
+SPATIAL_PUSHFORWARD = {"steps": [-1, UNROLL_FROM - 1], "unrolls": [0, 1], "probs": [0, 1]}
+SPATIAL_METRICS = ["mse", "e_kin", "sinkhorn"]
+
+
+def spatial_kernels():
+    from lagrangebench_torch.ops import fused_mp, painn_msg
+
+    return (fused_mp.FUSED_MP, fused_mp.FUSED_MP_ENC, fused_mp.FUSED_MP_BWD,
+            painn_msg.PAINN_LAYER)
+
+
+def spatial_cfgs(sizes, dtype="bfloat16"):
+    """The shipped GNS and PaiNN configs under ``parallel.spatial=3`` at batch
+    1 (GNS in ``dtype``, PaiNN as shipped: float32), cut to ``sizes``."""
+    from lagrangebench_torch.config import Config, merge
+
+    common = {"parallel.spatial": SPATIAL_RANKS, "train.batch_size": 1,
+              "eval.train.n_trajs": 1, "logging.log_steps": 1,
+              "model.latent_dim": sizes["latent"]}
+    gns = gns_cfg(**common, **{"model.num_mp_steps": sizes["gns_steps"],
+                               "model.compute_dtype": dtype,
+                               "eval.n_rollout_steps": sizes["infer"]})
+    gns = merge(gns, Config({"train": {"pushforward": SPATIAL_PUSHFORWARD}}))
+    painn = painn_cfg(**common, **{"model.num_mp_steps": sizes["painn_steps"],
+                                   "eval.n_rollout_steps": sizes["painn_infer"]})
+    return gns, painn
+
+
+def spatial_inputs(sizes, device):
+    """Both configs, the synthetic splits of each and the seeded parameter
+    trees (GNS fused layout, PaiNN standard layout), as every rank builds
+    them."""
+    from lagrangebench_torch.models import setup_model
+
+    gns, painn = spatial_cfgs(sizes)
+    out = {}
+    for name, cfg in (("gns", gns), ("painn", painn)):
+        data = runner_data(cfg, n_particles=sizes["n"], n_trajs=2)
+        meta = data[0].metadata
+        params = setup_model(cfg.model, meta, seed=0, device="cpu").jax_params()
+        out[name] = (cfg, data, params)
+    return out
+
+
+class SpatialClock:
+    """While entered: the host ms per step of every rollout chunk of
+    ``parallel.spatial`` (synchronized by the chunk's flag read) with its
+    (steps, overflow, drift), and of every train step (synchronized), by
+    wrapping the module's functions."""
+
+    def __init__(self):
+        self.rollout, self.chunks, self.train = [], [], []
+
+    def __enter__(self):
+        import torch
+
+        from lagrangebench_torch.parallel import spatial as sp
+
+        self.saved = (sp._rollout_chunk, sp.build_spatial_gns_train_step)
+        real_chunk, real_build = self.saved
+        clock = self
+
+        def sync():
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+
+        def chunk(core, pos, ptype, count, n_steps, gt=None):
+            t0 = time.perf_counter()
+            out = real_chunk(core, pos, ptype, count, n_steps, gt)
+            clock.rollout.append((time.perf_counter() - t0) * 1e3 / n_steps)
+            clock.chunks.append((n_steps, *out[2]))
+            return out
+
+        def build(*a, **k):
+            step, net = real_build(*a, **k)
+
+            def timed(*args, **kw):
+                sync()
+                t0 = time.perf_counter()
+                out = step(*args, **kw)
+                sync()
+                clock.train.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            timed.core = step.core
+            return timed, net
+
+        sp._rollout_chunk, sp.build_spatial_gns_train_step = chunk, build
+        return self
+
+    def __exit__(self, *exc):
+        from lagrangebench_torch.parallel import spatial as sp
+
+        sp._rollout_chunk, sp.build_spatial_gns_train_step = self.saved
+
+
+def _spatial_case(cfg, data, device):
+    return gns_case(cfg, data[0].metadata, device)
+
+
+def spatial_main_runs(inputs, device, n_space, sizes, store_ckp=None):
+    """The main path through the port's entry points on a ring of
+    ``n_space``: GNS bf16 ``infer_spatial`` (the test split's 2 trajectories),
+    ``train_spatial`` (one pushforward unroll from step 4, validation at
+    the last step, a checkpoint in ``store_ckp``), PaiNN ``infer_spatial``;
+    the launch counts of each, zeroed just before it; ms per step."""
+    import numpy as np
+
+    from lagrangebench_torch.checkpoint import flatten_tree
+    from lagrangebench_torch.parallel import spatial as sp
+
+    kernels = spatial_kernels()
+    out = {"counts": {}}
+    cfg, data, params = inputs["gns"]
+    case = _spatial_case(cfg, data, device)
+    pcfg, pdata, pparams = inputs["painn"]
+    pcase = _spatial_case(pcfg, pdata, device)
+    runs = {
+        "infer": lambda: sp.infer_spatial(
+            params, case, data[2], n_devices=n_space, num_mp_steps=cfg.model.num_mp_steps,
+            cfg_eval_infer={"n_trajs": 2, "metrics": SPATIAL_METRICS},
+            n_rollout_steps=cfg.eval.n_rollout_steps, compute_dtype="bfloat16", model="gns",
+            device=device),
+        "train": lambda: sp.train_spatial(
+            params, case, data[0], data[1], n_devices=n_space, model="gns",
+            num_mp_steps=cfg.model.num_mp_steps, cfg_train=cfg.train,
+            cfg_logging=cfg.logging, input_seq_length=cfg.model.input_seq_length,
+            metadata=data[0].metadata, seed=cfg.seed, step_max=sizes["train"],
+            store_ckp=store_ckp, compute_dtype="bfloat16",
+            n_rollout_steps_val=cfg.eval.n_rollout_steps, n_trajs_val=1, device=device),
+        "painn": lambda: sp.infer_spatial(
+            pparams, pcase, pdata[2], n_devices=n_space, num_mp_steps=pcfg.model.num_mp_steps,
+            cfg_eval_infer={"n_trajs": 1, "metrics": ["mse"]},
+            n_rollout_steps=pcfg.eval.n_rollout_steps, compute_dtype="float32",
+            model="painn", device=device),
+    }
+    for name, run in runs.items():
+        for kern in kernels:
+            kern.launches = 0
+        with SpatialClock() as clock:
+            result = run()
+        out["counts"][name] = {k.name: k.launches for k in kernels}
+        out[name] = {"rollout_ms": clock.rollout, "chunks": clock.chunks,
+                     "train_ms": clock.train}
+        if name == "train":
+            std, _, opt = result
+            out[name]["finite"] = all(np.isfinite(v).all() for v in flatten_tree(std).values())
+            out[name]["count"] = opt.count
+        else:
+            out[name]["metrics"] = result
+    return out
+
+
+class SpatialRun:
+    """GNS (or PaiNN) of phase 12 on a ring: its config, splits, parameters,
+    case and the sizes the spatial functions take."""
+
+    def __init__(self, inputs, name, device, mesh):
+        self.cfg, self.data, self.params = inputs[name]
+        self.case = _spatial_case(self.cfg, self.data, device)
+        self.device, self.mesh = device, mesh
+        self.isl = int(self.cfg.model.input_seq_length)
+        self.mp_steps = int(self.cfg.model.num_mp_steps)
+        self.cutoff = float(self.data[0].metadata["default_connectivity_radius"])
+        self.kw = dict(box=[BOX] * DIM, cutoff=self.cutoff, input_seq_length=self.isl,
+                       num_mp_steps=self.mp_steps, device=device)
+
+    def caps(self, pos):
+        from lagrangebench_torch.parallel import spatial as sp
+
+        k_cap, cell_cap = sp.spatial_caps(pos[:, self.isl - 1], [BOX] * DIM, self.cutoff)
+        return dict(k_cap=k_cap, cell_cap=cell_cap)
+
+    def block(self, pos, ptype):
+        """This rank's slab of one (N, T, dim) window."""
+        from lagrangebench_torch.parallel import spatial as sp
+
+        pos_sh, pt_sh, counts, order = sp.spatial_partition(pos, ptype, self.mesh.size, BOX)
+        r = self.mesh.rank
+        return (pos_sh[r], pt_sh[r], counts[r]), sp._slab_rows(counts, order, r)
+
+    def train_step(self, dtype):
+        """The GNS train step on the ring and this rank's slab of the train
+        split's first window (no noise)."""
+        from lagrangebench_torch.parallel import spatial as sp
+
+        pos, ptype = self.data[0][0]
+        step, net = sp.build_spatial_gns_train_step(
+            self.mesh, self.params, normalization_stats=self.case.normalization_stats,
+            compute_dtype=dtype, **self.caps(pos), **self.kw)
+        return step, net, self.block(pos[:, :self.isl + 1], ptype)[0]
+
+
+def spatial_float32(inputs, device, n_space):
+    """float32 GNS on a ring of ``n_space``: the forward of the test split's
+    first window (this slab's global rows and accelerations), one train
+    step on the train split's first window without noise (loss and
+    gradients by tree path) and ``infer_spatial``'s metrics (2 trajectories)."""
+    import torch
+
+    from lagrangebench_torch.parallel import make_mesh
+    from lagrangebench_torch.parallel import spatial as sp
+
+    run = SpatialRun(inputs, "gns", device, make_mesh(n_space))
+    stats = run.case.normalization_stats
+    pos, ptype = run.data[2][0]
+    fwd = sp.build_spatial_gns_forward(
+        run.mesh, run.params, vel_mean=stats["velocity"]["mean"],
+        vel_std=stats["velocity"]["std"], compute_dtype=torch.float32, **run.caps(pos),
+        **run.kw)
+    block, rows = run.block(pos[:, :run.isl], ptype)
+    acc, overflow = fwd(*block)
+    out = {"rows": rows, "acc": acc[:rows.size].cpu().numpy(), "overflow": overflow}
+    step, net, block = run.train_step(torch.float32)
+    loss, overflow = step(*block)
+    out["loss"], out["step_overflow"] = float(loss), bool(overflow)
+    out["grads"] = {path: (p.grad.t() if tr else p.grad).cpu().numpy()
+                    for path, p, tr in net.jax_leaves()}
+    out["metrics"] = sp.infer_spatial(
+        run.params, run.case, run.data[2], n_devices=n_space, num_mp_steps=run.mp_steps,
+        cfg_eval_infer={"n_trajs": 2, "metrics": SPATIAL_METRICS},
+        n_rollout_steps=run.cfg.eval.n_rollout_steps, compute_dtype="float32", model="gns",
+        device=device, mesh=run.mesh)
+    return out
+
+
+def spatial_unsharded_float32(inputs, device):
+    """The unsharded port on the same float32 weights and windows: the GNS
+    forward, one train step's loss and gradients (``mse_loss``, no noise)
+    and ``infer``'s metrics."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.config import Config, merge
+    from lagrangebench_torch.evaluate import infer
+    from lagrangebench_torch.models import setup_model
+    from lagrangebench_torch.train.trainer import mse_loss
+
+    cfg, data, params = inputs["gns"]
+    cfg = merge(cfg, Config({"model": {"compute_dtype": "float32"}}))
+    case = _spatial_case(cfg, data, device)
+    model = setup_model(cfg.model, data[0].metadata, seed=0, device=device)
+    model.load_jax_params(params)
+    isl = int(cfg.model.input_seq_length)
+    pos, ptype = data[2][0]
+    window = (torch.as_tensor(pos[:, :isl], device=device), torch.as_tensor(ptype, device=device))
+    feats, _ = case.allocate_eval(window)
+    with torch.no_grad():
+        acc = model(feats, window[1])["acc"].cpu().numpy()
+    tpos, tptype = data[0][0]
+    sample = (torch.as_tensor(tpos[:, :isl + 1], device=device),
+              torch.as_tensor(tptype, device=device))
+    _, nbrs = case.allocate_eval((sample[0][:, :isl], sample[1]))
+    feats, targets, _ = case.preprocess(torch.Generator(), sample, 0.0, nbrs)
+    loss = mse_loss(model, feats, sample[1], targets, {"acc": 1.0, "vel": 0.0, "pos": 0.0})
+    loss.backward()
+    grads = {path: (p.grad.t() if tr else p.grad).cpu().numpy()
+             for path, p, tr in model.jax_leaves()}
+    model.zero_grad()
+    metrics = infer(model, case, data[2], n_rollout_steps=cfg.eval.n_rollout_steps,
+                    cfg_eval_infer={"n_trajs": 2, "batch_size": 1, "metrics": SPATIAL_METRICS},
+                    device=device)
+    return {"acc": acc, "loss": float(loss.detach()), "grads": grads, "metrics": metrics,
+            "finite": bool(np.isfinite(acc).all())}
+
+
+def _host(t):
+    import torch
+
+    if isinstance(t, dict):
+        return {k: _host(v) for k, v in t.items()}
+    return t.detach().cpu().clone() if isinstance(t, torch.Tensor) else t
+
+
+def spatial_capture(inputs, device, n_space, record):
+    """One bf16 GNS train step and one float32 PaiNN forward on the ring
+    (every rank takes part); with ``record``, on the host: K3's inputs (the
+    first plain step and the encoder step), K4's (the step before the last
+    and the encoder step) and K5's (the first layer: the slab's receivers and
+    the 3 N_loc rows of its slab and halo) as they reach the kernels."""
+    import torch
+
+    from lagrangebench_torch.ops import fused_mp, painn_msg
+    from lagrangebench_torch.parallel import make_mesh
+    from lagrangebench_torch.parallel import spatial as sp
+
+    mesh = make_mesh(n_space)
+    gns = SpatialRun(inputs, "gns", device, mesh)
+    step, _, block = gns.train_step("bfloat16")
+    painn = SpatialRun(inputs, "painn", device, mesh)
+    pos, ptype = painn.data[2][0]
+    stats = painn.case.normalization_stats
+    fwd = sp.build_spatial_painn_forward(
+        mesh, painn.params, vel_mean=stats["velocity"]["mean"],
+        vel_std=stats["velocity"]["std"], compute_dtype=torch.float32, **painn.caps(pos),
+        **painn.kw)
+    seen, bwd = {}, []
+    real = (fused_mp.gns_mp_step, fused_mp.gns_mp_step_bwd, painn_msg.painn_layer_kernel)
+
+    def rec_fwd(e, hs, hr, h, mask, p, enc=None):
+        key = "fused_mp_enc" if enc is not None else "fused_mp"
+        seen.setdefault(key, (_host((e, hs, hr, h, mask.to(torch.float32), p, enc)), {}))
+        return real[0](e, hs, hr, h, mask, p, enc)
+
+    def rec_bwd(*args):
+        bwd.append(_host(args) if len(bwd) in (1, gns.mp_steps - 1) else None)
+        return real[1](*args)
+
+    def rec_k5(*args):
+        seen.setdefault("painn_layer", _host(args))
+        return real[2](*args)
+
+    if record:
+        fused_mp.gns_mp_step, fused_mp.gns_mp_step_bwd, painn_msg.painn_layer_kernel = (
+            rec_fwd, rec_bwd, rec_k5)
+    try:
+        step(*block)
+        fwd(*painn.block(pos[:, :painn.isl], ptype)[0])
+    finally:
+        fused_mp.gns_mp_step, fused_mp.gns_mp_step_bwd, painn_msg.painn_layer_kernel = real
+    if not record:
+        return None
+    return {"k3": {k: v for k, v in seen.items() if k != "painn_layer"},
+            "k4": {"plain step": bwd[1], "encoder step": bwd[-1]},
+            "k5": seen.get("painn_layer")}
+
+
+def spatial_profile(inputs, device, n_space, sizes, trace):
+    """``sizes["profile"]`` rollout steps and as many train steps of GNS bf16
+    on the ring; with ``trace`` under torch.profiler: the host ms per step of
+    the halo exchange spans and of their staging."""
+    import torch
+
+    from lagrangebench_torch.parallel import make_mesh
+    from lagrangebench_torch.parallel import spatial as sp
+
+    run = SpatialRun(inputs, "gns", device, make_mesh(n_space))
+    n = sizes["profile"]
+    step, _, block = run.train_step("bfloat16")
+    step(*block)  # warm
+    pos, ptype = run.data[2][0]
+
+    def rollout():
+        sp.spatial_rollout(run.params, pos[:, :run.isl], ptype, mesh=run.mesh, n_steps=n,
+                           normalization_stats=run.case.normalization_stats,
+                           compute_dtype="bfloat16", **run.kw)
+
+    out = {}
+    for label, fn in (("rollout", rollout), ("train", lambda: [step(*block) for _ in range(n)])):
+        if not trace:
+            fn()
+            continue
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+        spans = {}
+        for ev in prof.events():
+            if ev.name in ("spatial::halo_exchange", "spatial::halo_staging"):
+                spans[ev.name] = spans.get(ev.name, 0.0) + ev.cpu_time_total / 1e3 / n
+        out[label] = spans
+    return out
+
+
+def _spatial_rank(rank, pg_file, out_dir, sizes, device):
+    """One of three ranks on ``device`` over gloo (spawned by
+    ``spatial_path``): the main path with counts, the float32 runs, the
+    kernel captures and the profile (rank 0); results to ``rank<r>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from lagrangebench_torch.parallel import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or SPATIAL_RANKS) // SPATIAL_RANKS))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    init_distributed(f"file://{pg_file}", SPATIAL_RANKS, rank, device=device, backend="gloo")
+    inputs = spatial_inputs(sizes, device)
+    ckp = os.path.join(out_dir, f"ckp_rank{rank}")
+    out = spatial_main_runs(inputs, device, SPATIAL_RANKS, sizes, store_ckp=ckp)
+    out["float32"] = spatial_float32(inputs, device, SPATIAL_RANKS)
+    out["capture"] = spatial_capture(inputs, device, SPATIAL_RANKS, record=rank == 0)
+    out["profile"] = spatial_profile(inputs, device, SPATIAL_RANKS, sizes, trace=rank == 0)
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _max_rel(got, want):
+    import numpy as np
+
+    top = max(float(np.abs(v).max()) for v in want.values())
+    return max(float(np.abs(np.asarray(got[k]) - np.asarray(v)).max()) for k, v in want.items()) \
+        / max(top, 1e-30)
+
+
+def spatial_path(device="cuda", sizes=None):
+    """Phase 12: spatial sharding; three gloo ranks sharing ``device`` run the
+    main path (GNS bf16 ``infer_spatial`` and ``train_spatial``, PaiNN
+    ``infer_spatial``) with counts, float32 gates against the unsharded port,
+    kernel checks on rank 0's slab and a trace; the same main path in one
+    process for comparison. Returns (ok, launches per rank)."""
+    import pickle
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from lagrangebench_torch.checkpoint import flatten_tree, load_checkpoint
+
+    sizes = dict(SPATIAL_SIZES, **(sizes or {}))
+    t0 = time.perf_counter()
+    ok = True
+    inputs = spatial_inputs(sizes, device)
+    one = spatial_main_runs(inputs, device, 1, sizes)
+    want32 = spatial_unsharded_float32(inputs, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        mp.spawn(_spatial_rank, args=(os.path.join(tmp, "pg"), tmp, sizes, device),
+                 nprocs=SPATIAL_RANKS)
+        log(f"spatial: {SPATIAL_RANKS} ranks on {device} over gloo: "
+            f"{time.perf_counter() - t1:.1f} s wall (start-up and every run below)")
+        ranks = []
+        for r in range(SPATIAL_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        ckps = [os.path.exists(os.path.join(tmp, f"ckp_rank{r}", "params.npz"))
+                for r in range(SPATIAL_RANKS)]
+        std_layout = False
+        if ckps[0]:
+            params, _, _, _ = load_checkpoint(os.path.join(tmp, "ckp_rank0"))
+            std_layout = "Dense_0" in params and not any(k.startswith("mp0_") for k in params)
+    log(f"spatial train_spatial checkpoints written by rank {[r for r, c in enumerate(ckps) if c]}"
+        f", standard layout {std_layout}")
+    ok &= ckps == [True] + [False] * (SPATIAL_RANKS - 1) and std_layout
+
+    # launches: K3 (both instances) on every main-path run of GNS, K4 in
+    # training, K5 on the PaiNN run, on each rank
+    need = {"infer": ("fused_mp", "fused_mp_enc"), "train": ("fused_mp", "fused_mp_enc",
+                                                            "fused_mp_bwd"),
+            "painn": ("painn_layer",)}
+    for r, got in enumerate(ranks):
+        log(f"spatial rank {r} launches: {json.dumps(got['counts'])}")
+        for run, names in need.items():
+            missing = [n for n in names if got["counts"][run][n] == 0]
+            if missing:
+                log(f"FAIL: spatial rank {r} {run}: no launch of {missing}")
+                ok = False
+    log(f"spatial one process launches: {json.dumps(one['counts'])}")
+
+    # the main path's results: finite
+    for r, got in enumerate(ranks):
+        finite = (got["train"]["finite"] and got["train"]["count"] == sizes["train"]
+                  and all(np.isfinite(v).all() for m in (got["infer"]["metrics"],
+                                                        got["painn"]["metrics"])
+                          for v in flatten_tree(m).values()))
+        if not finite:
+            log(f"FAIL: spatial rank {r}: non-finite metrics or parameters, or steps missing")
+            ok = False
+
+    # kernels against their plain versions on rank 0's slab
+    cap = ranks[0]["capture"]
+
+    def to_dev(x):
+        if isinstance(x, dict):
+            return {k: to_dev(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(to_dev(v) for v in x)
+        return x.to(device) if hasattr(x, "to") else x
+
+    if device == "cuda":
+        seen = {k: (to_dev(v[0]), v[1]) for k, v in cap["k3"].items()}
+        n_loc, k = seen["fused_mp"][0][1].shape[:2]
+        log(f"spatial K3 inputs from rank 0's slab: N_loc = {n_loc}, K = {k}")
+        _, k3_ok = compare_kernels(seen, names=("fused_mp", "fused_mp_enc"))
+        _, k4_ok = compare_bwd({k: to_dev(v) for k, v in cap["k4"].items()})
+        k5 = {"painn_layer": to_dev(cap["k5"])}
+        m_rows, n_recv = k5["painn_layer"][0].shape[0], k5["painn_layer"][2].shape[0]
+        log(f"spatial K5 inputs from rank 0's slab: {n_recv} receivers, packed of {m_rows} "
+            f"source rows (3 N_loc: {m_rows == 3 * n_recv})")
+        _, k5_ok = compare_painn_kernels(k5, names=("painn_layer",))
+        ok &= k3_ok and k4_ok and k5_ok and m_rows == 3 * n_recv
+
+    # float32: three ranks against the unsharded port
+    acc = np.zeros_like(want32["acc"])
+    for got in ranks:
+        acc[got["float32"]["rows"]] = got["float32"]["acc"]
+    err = float(np.abs(acc - want32["acc"]).max()) / float(np.abs(want32["acc"]).max())
+    got32 = ranks[0]["float32"]
+    loss_err = abs(got32["loss"] - want32["loss"]) / abs(want32["loss"])
+    grad_err = max(_max_rel(r["float32"]["grads"], want32["grads"]) for r in ranks)
+    metric_err = max(_rel_tree(r["float32"]["metrics"], want32["metrics"]) for r in ranks)
+    overflow = any(r["float32"]["overflow"] or r["float32"]["step_overflow"] for r in ranks)
+    log(f"spatial float32 vs the unsharded GNS ({sizes['gns_steps']} steps, {sizes['n']} "
+        f"particles): forward max |diff| {err:.3g} of the largest acceleration; train step "
+        f"loss {got32['loss']:.6g} vs {want32['loss']:.6g} (rel {loss_err:.3g}), gradients "
+        f"{grad_err:.3g} of the largest; infer metrics ({sizes['infer']} steps) max rel "
+        f"{metric_err:.3g} (tol {SPATIAL_F32_TOL} each); overflow {overflow}")
+    if not (max(err, loss_err, grad_err, metric_err) <= SPATIAL_F32_TOL and not overflow
+            and want32["finite"]):
+        log("FAIL: spatial float32 against the unsharded port")
+        ok = False
+
+    # times
+    def med(xs):
+        return float(np.median(xs)) if len(xs) else float("nan")
+
+    for label, got in (("rank 0", ranks[0]), ("one process", one)):
+        chunks = got["infer"]["chunks"]
+        log(f"spatial infer chunks ({label}, steps / overflow / drift, reruns included): "
+            f"{len(chunks)} runs, {sum(c[1] for c in chunks)} overflowed, "
+            f"{sum(c[2] for c in chunks)} drifted: {chunks}")
+    def accepted(got):  # chunk ms per step x steps, over the steps kept
+        run = got["infer"]
+        spent = sum(ms * c[0] for ms, c in zip(run["rollout_ms"], run["chunks"]))
+        return spent / (2 * sizes["infer"])
+
+    log(f"spatial ms per kept rollout step (the chunks' time, reruns included, over the "
+        f"{2 * sizes['infer']} steps kept): ranks {[round(accepted(r), 3) for r in ranks]}, one "
+        f"process {accepted(one):.3f}")
+    roll = [med(r["infer"]["rollout_ms"]) for r in ranks]
+    train = [med(r["train"]["train_ms"][1:]) for r in ranks]
+    painn = [med(r["painn"]["rollout_ms"]) for r in ranks]
+    log(f"spatial ms per rollout step (GNS-{sizes['gns_steps']}-{sizes['latent']} bf16, "
+        f"infer_spatial, host clock per chunk, median over chunks): ranks "
+        f"{[round(x, 3) for x in roll]}, one process {med(one['infer']['rollout_ms']):.3f}")
+    log(f"spatial ms per train step (train_spatial, synchronized, median of steps 1-"
+        f"{sizes['train'] - 1}): ranks {[round(x, 3) for x in train]}, one process "
+        f"{med(one['train']['train_ms'][1:]):.3f} (all rank 0 "
+        f"{[round(x, 2) for x in ranks[0]['train']['train_ms']]}, one process "
+        f"{[round(x, 2) for x in one['train']['train_ms']]})")
+    log(f"spatial ms per PaiNN-{sizes['painn_steps']}-{sizes['latent']} rollout step (float32):"
+        f" ranks {[round(x, 3) for x in painn]}, one process "
+        f"{med(one['painn']['rollout_ms']):.3f}")
+    prof = ranks[0]["profile"]
+    log(f"spatial halo host ms per step (rank 0's trace, {sizes['profile']} steps each): "
+        f"rollout exchange {prof['rollout'].get('spatial::halo_exchange', 0.0):.3f}, of it "
+        f"staging {prof['rollout'].get('spatial::halo_staging', 0.0):.3f}; train exchange "
+        f"{prof['train'].get('spatial::halo_exchange', 0.0):.3f}, staging "
+        f"{prof['train'].get('spatial::halo_staging', 0.0):.3f} [gloo stages each CUDA "
+        "tensor through the host; three processes share one card: not a scaling number]")
+    log(f"phase 12 (spatial sharding): {time.perf_counter() - t0:.1f} s wall")
+    return ok, [r["counts"] for r in ranks]
+
+
 def main() -> int:
     try:
         import torch
@@ -3623,6 +4209,9 @@ def main() -> int:
     dp_ok, dp_counts = dp_path({**train_ref, "counts": counts}, "cuda")
     ok &= dp_ok
     log(f"data-parallel path launches per rank: {json.dumps(dp_counts)}")
+    spatial_ok, spatial_counts = spatial_path("cuda")
+    ok &= spatial_ok
+    log(f"spatial path launches per rank: {json.dumps(spatial_counts)}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     if not ok:

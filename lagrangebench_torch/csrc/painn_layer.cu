@@ -22,7 +22,10 @@
 // with clip to +-100 and T the compute type (float32 or bf16) of every
 // activation input and output; products of T operands are summed in float32,
 // as the TPU kernel's jnp.dot(..., preferred_element_type=float32) does.
-// Indices outside [0, N) are clamped, as a JAX gather clamps them.
+// packed holds M >= N source rows: the N receivers' own rows on the dense
+// path (M = N), the slab's rows and its two halo slabs under spatial
+// sharding (M = 3 N_loc). Indices outside [0, M) are clamped, as a JAX
+// gather clamps them.
 //
 // Bound on an H100: operations. With the gather inside, the bytes are one
 // read of packed, phi, nd, sidx, s and v and one write of the outputs
@@ -88,7 +91,7 @@ __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); 
 __device__ __forceinline__ float clip(float v) { return fminf(fmaxf(v, -kClip), kClip); }
 
 struct Args {
-  const void* packed;   // (N, (2 + dim) H) T: per node [x1, x2, u_d]
+  const void* packed;   // (M, (2 + dim) H) T: per source row [x1, x2, u_d]
   const int32_t* sidx;  // (N, K) sender rows
   const void* phi;      // (N, K, R + 1) T
   const void* nd;       // (N, K, dim) T
@@ -103,7 +106,7 @@ struct Args {
   const float* mix_b2;  // (3H)
   void* s_out;          // (N, H) T
   void* v_out;          // (N, dim H) T
-  int n, k;
+  int n, k, m;  // receivers, slots per receiver, source rows of packed
 };
 
 // Shared memory (float32 words): the node phase's rows, then two receiver
@@ -150,9 +153,9 @@ struct Stage {
 
 // One sender's five (four in 2D) channel-c values: x1, x2, u_d.
 template <typename T, int DIM>
-__device__ __forceinline__ void load_sender(const T* __restrict__ packed, int row, int n, int c,
+__device__ __forceinline__ void load_sender(const T* __restrict__ packed, int row, int m, int c,
                                             float (&g)[2 + DIM]) {
-  row = min(max(row, 0), n - 1);
+  row = min(max(row, 0), m - 1);
   const T* gr = packed + (int64_t)row * (2 + DIM) * H + c;
 #pragma unroll
   for (int q = 0; q < 2 + DIM; ++q) g[q] = to_f(__ldg(gr + q * H));
@@ -224,13 +227,13 @@ __global__ void __launch_bounds__(THREADS, 3) painn_layer(const Args a) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) dv[d] = 0.f;
     float gn[2 + DIM];
-    load_sender<T, DIM>(packed, sSid[0], a.n, c, gn);
+    load_sender<T, DIM>(packed, sSid[0], a.m, c, gn);
 #pragma unroll 2
     for (int j = 0; j < K; ++j) {
       float g[2 + DIM];
 #pragma unroll
       for (int q = 0; q < 2 + DIM; ++q) g[q] = gn[q];
-      load_sender<T, DIM>(packed, sSid[min(j + 1, K - 1)], a.n, c, gn);
+      load_sender<T, DIM>(packed, sSid[min(j + 1, K - 1)], a.m, c, gn);
       const float* ph = sPhi + j * RP;
       float w0 = 0.f, w1 = 0.f, w2 = 0.f;
 #pragma unroll
@@ -407,10 +410,10 @@ int launch(const Args& a, cudaStream_t stream) {
 //   0 packed, 1 sidx (int32), 2 phi, 3 nd, 4 s, 5 v, 6 filt_w, 7 filt_b,
 //   8 vmix_w, 9 mix_w1, 10 mix_b1, 11 mix_w2, 12 mix_b2, 13 s_out, 14 v_out.
 // Matrices and activations in the compute type (is_bf16 ? bf16 : float32),
-// biases float32.
-LBT_EXPORT int lbt_painn_layer(const void* const* ptrs, int n, int k, int h, int r, int dim,
-                               int is_bf16, cudaStream_t stream) {
-  if (h != H || r != R || n < 1 || k < 1 || (dim != 2 && dim != 3))
+// biases float32. n receivers, k slots each, m >= n rows of packed.
+LBT_EXPORT int lbt_painn_layer(const void* const* ptrs, int n, int k, int m, int h, int r,
+                               int dim, int is_bf16, cudaStream_t stream) {
+  if (h != H || r != R || n < 1 || k < 1 || m < n || (dim != 2 && dim != 3))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.packed = ptrs[0];
@@ -430,6 +433,7 @@ LBT_EXPORT int lbt_painn_layer(const void* const* ptrs, int n, int k, int h, int
   a.v_out = const_cast<void*>(ptrs[14]);
   a.n = n;
   a.k = k;
+  a.m = m;
   if (is_bf16) return dim == 3 ? launch<bf16, 3>(a, stream) : launch<bf16, 2>(a, stream);
   return dim == 3 ? launch<float, 3>(a, stream) : launch<float, 2>(a, stream);
 }

@@ -1,7 +1,7 @@
 """Datasets, statistics and loading."""
 
 from .dataset import ArrayDataset, H5Dataset, TrajectoryDataset, get_dataset_name_from_path
-from .loader import DataLoader
+from .loader import DataLoader, cycle
 from .stats import get_dataset_stats, numpy_collate
 
 __all__ = [
@@ -9,6 +9,7 @@ __all__ = [
     "H5Dataset",
     "TrajectoryDataset",
     "DataLoader",
+    "cycle",
     "get_dataset_name_from_path",
     "get_dataset_stats",
     "numpy_collate",

@@ -102,3 +102,9 @@ class DataLoader:
                     q.get_nowait()
                 except queue.Empty:
                     thread.join(timeout=0.1)
+
+
+def cycle(loader: DataLoader) -> Iterator:
+    """Endless epoch-respecting iterator (reshuffles between epochs)."""
+    while True:
+        yield from loader

@@ -8,7 +8,14 @@ from typing import Dict, Optional
 from torch import nn
 
 from .egnn import EGNN, build_egnn
-from .gns import GNS, GNSStandard, build_gns, fused_params_from_standard, gns_input_sizes
+from .gns import (
+    GNS,
+    GNSStandard,
+    build_gns,
+    fused_params_from_standard,
+    gns_input_sizes,
+    standard_params_from_fused,
+)
 from .linear import Linear, build_linear
 from .painn import (
     PaiNN,
@@ -36,6 +43,7 @@ __all__ = [
     "painn_fused_params_from_standard",
     "painn_standard_params_from_fused",
     "setup_model",
+    "standard_params_from_fused",
 ]
 
 def ensure_fused_params(params: Dict, cfg_model) -> Dict:

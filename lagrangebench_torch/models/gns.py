@@ -168,21 +168,9 @@ class GNS(JaxTree, nn.Module):
         if slot:
             s2p = torch.clamp(features["slot_to_particle"], max=particle_type.shape[0] - 1)
             particle_type = particle_type[s2p.long()]
-        if self.num_particle_types > 1:
-            emb = self.embedding[torch.remainder(particle_type.long(), self.num_particle_types)]
-            wide = torch.promote_types(nodes.dtype, emb.dtype)
-            nodes = torch.cat([nodes.to(wide), emb.to(wide)], dim=-1)
-        h = self.node_encoder(nodes, cdt)
-
-        training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
-        if training:
-            # training: the stored parameters enter the autograd Function,
-            # which casts them itself and returns gradients in their dtype
-            steps = [dict(s) for s in self.mp_steps]
-            enc = dict(self.edge_encoder)
-        else:
-            steps, enc = self._processor_params(cdt)
+        h = self.encode_nodes(nodes, particle_type)
         if slot:
+            training, steps, enc = self._step_params()
             step_fn = (fused_mp.gns_mp_step_slot_autograd if training
                        else fused_mp.gns_mp_step_slot)
             for i, p in enumerate(steps):
@@ -192,21 +180,55 @@ class GNS(JaxTree, nn.Module):
                                enc=enc if i == 0 else None)
             acc = self.decoder(h, cdt)[features["particle_to_slot"].long()]
             return {"acc": acc.to(torch.float32)}
-        step_fn = fused_mp.gns_mp_step_autograd if training else fused_mp.gns_mp_step
         mask = (senders < n).to(torch.float32)
         # padded slots (fill n) gather the last row, as a JAX gather clamps;
         # their messages are masked out, so that row gets no gradient from
         # them. The gather's backward sums in float32 (``gather_rows``).
         sidx = torch.clamp(senders, max=n - 1).long()
+        h = self.process(h, e, sidx, mask)
+        return {"acc": self.decoder(h, cdt).to(torch.float32)}
+
+    def encode_nodes(self, nodes: torch.Tensor, particle_type: torch.Tensor) -> torch.Tensor:
+        """The node encoder on the node features and the type embedding:
+        h (N, F) in the compute dtype."""
+        if self.num_particle_types > 1:
+            emb = self.embedding[torch.remainder(particle_type.long(), self.num_particle_types)]
+            wide = torch.promote_types(nodes.dtype, emb.dtype)
+            nodes = torch.cat([nodes.to(wide), emb.to(wide)], dim=-1)
+        return self.node_encoder(nodes, self.compute_dtype)
+
+    def _step_params(self):
+        """(training, per-step parameters, encoder parameters): in training
+        the stored parameters enter the autograd Function, which casts them
+        itself and returns gradients in their dtype; otherwise the cached
+        kernel layout."""
+        training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
+        if training:
+            return True, [dict(s) for s in self.mp_steps], dict(self.edge_encoder)
+        return (False, *self._processor_params(self.compute_dtype))
+
+    def process(self, h: torch.Tensor, e: torch.Tensor, sidx: torch.Tensor,
+                mask: torch.Tensor, extend=None) -> torch.Tensor:
+        """The processor on the dense layout: per step the sender and
+        receiver projections, the gather of the sender rows, then K3 (K4 in
+        the backward), the edge encoder folded into step 0. h (N, F); e the
+        raw (N, K, dim + 1) edge features in float32 (float64 in float64);
+        sidx (N, K) int64 rows of the gathered table; mask (N, K). With
+        ``extend``, the table is ``extend(hs_proj)``, rows beyond the N
+        nodes' own (spatial sharding's halo); else the N projections.
+        Returns the node state after the last step."""
+        cdt = self.compute_dtype
+        training, steps, enc = self._step_params()
+        step_fn = fused_mp.gns_mp_step_autograd if training else fused_mp.gns_mp_step
         for i, p in enumerate(steps):
             hs_proj = matmul(h, p["w_s"].to(cdt))
             hr_proj = matmul(h, p["w_r"].to(cdt))
+            table = hs_proj if extend is None else extend(hs_proj)
             e, h = step_fn(
-                e, gather_rows(hs_proj, sidx), hr_proj, h, mask, p,
+                e, gather_rows(table, sidx), hr_proj, h, mask, p,
                 enc=enc if i == 0 else None,
             )
-        acc = self.decoder(h, cdt)
-        return {"acc": acc.to(torch.float32)}
+        return h
 
     # -- weights carried across from / to the JAX parameter tree -----------
 
@@ -400,6 +422,38 @@ def fused_params_from_standard(params: Dict, num_mp_steps: int) -> Dict:
             }
         )
     out["MLP_1"] = params[f"MLP_{2 + 2 * num_mp_steps}"]
+    return out
+
+
+def standard_params_from_fused(fp: Dict, num_mp_steps: int) -> Dict:
+    """The exact inverse of :func:`fused_params_from_standard`: a fused-layout
+    GNS tree back in the standard (auto-named Flax) layout, as spatially
+    trained parameters are checkpointed."""
+    out = {k: fp[k] for k in ("Embed_0", "MLP_0") if k in fp}
+    latent = np.asarray(fp["MLP_0"]["Dense_1"]["kernel"]).shape[1]
+    out["MLP_1"] = {
+        "Dense_0": {"kernel": fp["enc_w1"], "bias": fp["enc_b1"]},
+        "Dense_1": {"kernel": fp["enc_w2"], "bias": fp["enc_b2"]},
+        "LayerNorm_0": {"scale": fp["enc_ln_scale"], "bias": fp["enc_ln_bias"]},
+    }
+    for i in range(num_mp_steps):
+        out[f"Dense_{3 * i}"] = {"kernel": fp[f"mp{i}_w_s"]}
+        out[f"Dense_{3 * i + 1}"] = {"kernel": fp[f"mp{i}_w_r"]}
+        out[f"Dense_{3 * i + 2}"] = {"kernel": fp[f"mp{i}_w_e"], "bias": fp[f"mp{i}_b1"]}
+        out[f"MLP_{2 + 2 * i}"] = {
+            "Dense_0": {"kernel": fp[f"mp{i}_w2"], "bias": fp[f"mp{i}_b2"]},
+            "LayerNorm_0": {"scale": fp[f"mp{i}_ln1_scale"], "bias": fp[f"mp{i}_ln1_bias"]},
+        }
+        wn = np.concatenate([np.asarray(fp[f"mp{i}_w_nh"]), np.asarray(fp[f"mp{i}_w_na"])])
+        if wn.shape[0] != 2 * latent:
+            raise ValueError(f"mp{i}_w_nh and mp{i}_w_na stack to {wn.shape[0]} rows, "
+                             f"expected {2 * latent}")
+        out[f"MLP_{3 + 2 * i}"] = {
+            "Dense_0": {"kernel": wn, "bias": fp[f"mp{i}_bn1"]},
+            "Dense_1": {"kernel": fp[f"mp{i}_wn2"], "bias": fp[f"mp{i}_bn2"]},
+            "LayerNorm_0": {"scale": fp[f"mp{i}_ln2_scale"], "bias": fp[f"mp{i}_ln2_bias"]},
+        }
+    out[f"MLP_{2 + 2 * num_mp_steps}"] = fp["MLP_1"]
     return out
 
 

@@ -122,14 +122,16 @@ class PaiNNLayer(nn.Module):
     def context(self, s, cdt):
         return self.ctx2(silu(self.ctx1(s, cdt)), cdt)
 
-    def forward(self, s, v, dir_ij, wij, sidx, mask, cdt, scatter_to=None):
+    def forward(self, s, v, dir_ij, wij, sidx, mask, cdt, scatter_to=None, extend=None):
         """s (N, H); v (N, dim, H), flat (N, dim*H) when fused; dir_ij
         (N, K, dim) in cdt; wij the layer's (N, K, 3H) filters, or the
         (N, K, R+1) basis with the scale column when fused; sidx (N, K)
         clamped sender rows (int64, or K5's int32 when fused); mask (N, K)
         in cdt. Sparse edges: dir_ij (E, dim), wij (E, 3H), sidx the (E,)
         clamped receiver rows, ``scatter_to`` the (E,) senders, mask
-        None."""
+        None. Fused only: with ``extend``, K5 gathers from
+        ``extend(packed)``, rows beyond the N nodes' own (spatial
+        sharding's halo)."""
         h = self.hidden_size
         n = s.shape[0]
         x = self.context(s, cdt)  # (N, 3H)
@@ -140,6 +142,8 @@ class PaiNNLayer(nn.Module):
                 [x[..., :h], x[..., h: 2 * h]] + [v[..., d * h: (d + 1) * h] * x3 for d in range(dim)],
                 dim=-1,
             )
+            if extend is not None:
+                packed = extend(packed)
             # K5 gathers the sender rows; padded slots carry scale 0
             return painn_msg.painn_layer(packed, sidx, wij, (-dir_ij).to(x.dtype), s, v,
                                          dict(self.p))
@@ -255,8 +259,7 @@ class PaiNN(JaxTree, nn.Module):
             sidx = torch.clamp(senders, max=n - 1).long()
         dir_c = dir_ij.to(cdt)
 
-        s = self.embed_s(features["vel_mag"], cdt)  # (N, H)
-        v = self.embed_v(v0, cdt)  # (N, dim, H)
+        s, v = self.embed(features["vel_mag"], v0)
         if self.fused:
             phi_ext = torch.cat([phi, cut * mask[..., None]], dim=-1).contiguous()
             v = v.reshape(n, -1)
@@ -266,10 +269,19 @@ class PaiNN(JaxTree, nn.Module):
         else:
             for layer, filt in zip(self.layers, self.filter_nets):
                 s, v = layer(s, v, dir_c, filt(phi, cdt) * cut, sidx, mask, cdt, scatter_to)
+        return {"acc": self.read_out(s, v).to(torch.float32)}
 
+    def embed(self, vel_mag: torch.Tensor, v0: torch.Tensor):
+        """Scalar and vector channels from the velocity magnitudes (N,
+        n_vels) and the vector features (N, dim, C): s (N, H), v (N, dim,
+        H) in the compute dtype."""
+        return self.embed_s(vel_mag, self.compute_dtype), self.embed_v(v0, self.compute_dtype)
+
+    def read_out(self, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """The gated readout: the (N, dim) acceleration in the compute dtype."""
         for block in self.readout:
-            s, v = block(s, v, cdt)
-        return {"acc": v.squeeze(-1).to(torch.float32)}
+            s, v = block(s, v, self.compute_dtype)
+        return v.squeeze(-1)
 
     # -- weights carried across from / to the JAX parameter tree -----------
 

@@ -4,7 +4,10 @@ Each source compiles on first use into a shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``), loaded
 with ctypes. Libraries are named by a hash of their sources and flags, so a
 changed source rebuilds and an unchanged one loads at once. ``build()``
-starts one nvcc per stale source, all at once, and waits for them.
+starts one nvcc per stale source, all at once, and waits for them. Builds
+of one library by several processes (the ranks of a distributed run share
+the build directory) are serialized by a lock file per library: the first
+compiles, the others wait and then load its result.
 
 The build directory is ``lagrangebench_torch/_build`` (listed in
 ``.gitignore``) unless ``LAGRANGEBENCH_TORCH_BUILD_DIR`` names another.
@@ -12,7 +15,9 @@ The build directory is ``lagrangebench_torch/_build`` (listed in
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -66,13 +71,35 @@ def _lib_path(name: str) -> str:
     return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _locked(paths):
+    """Exclusive locks on ``<path>.lock`` for every path, taken in sorted
+    order (so two processes never wait on each other), released on exit."""
+    with contextlib.ExitStack() as stack:
+        for path in sorted(paths):
+            f = stack.enter_context(open(f"{path}.lock", "w"))
+            fcntl.flock(f, fcntl.LOCK_EX)
+            stack.callback(fcntl.flock, f, fcntl.LOCK_UN)
+        yield
+
+
 def build(names: Iterable[str]) -> Dict[str, float]:
     """Compile every named source whose library is missing, in parallel.
 
     Returns the wall seconds of each compile that ran (0.0 for a library
-    that was already built). Raises with nvcc's output if one fails; the
+    that was already built, or that another process built while this one
+    waited for its lock). Raises with nvcc's output if one fails; the
     compiler's resource report (-Xptxas -v) goes to ``<lib>.log``.
     """
+    names = list(names)
+    stale = [_lib_path(name) for name in names if not os.path.exists(_lib_path(name))]
+    if not stale:
+        return {name: 0.0 for name in names}
+    with _locked(stale):
+        return _build_unlocked(names)
+
+
+def _build_unlocked(names) -> Dict[str, float]:
     pending = {}
     out = {}
     exe = None

@@ -62,7 +62,7 @@ PAINN_MSG = Kernel(
 )
 PAINN_LAYER = Kernel(
     "painn_layer", "painn_layer", "lbt_painn_layer",
-    [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     replaces="lagrangebench_tpu/ops/painn_msg.py:252",
 )
 
@@ -164,8 +164,10 @@ def painn_layer_plain(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tenso
                       neg_dir: torch.Tensor, s: torch.Tensor, v_flat: torch.Tensor,
                       p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K5: :func:`painn_layer_gathered_plain` of
-    ``packed[sidx]``, the rows (N, (2 + dim) * H) of every node gathered by
-    the (N, K) sender index, clamped to [0, N) as a JAX gather clamps."""
+    ``packed[sidx]``, the source rows (M, (2 + dim) * H) gathered by the
+    (N, K) sender index, clamped to [0, M) as a JAX gather clamps. M >= N:
+    the nodes' own rows (M = N), or under spatial sharding the slab's rows
+    with its two halo slabs behind them (M = 3 N_loc)."""
     rows = _sender_rows(sidx, packed.shape[0])
     return painn_layer_gathered_plain(packed[rows], phi, neg_dir, s, v_flat, p)
 
@@ -233,18 +235,22 @@ def painn_layer_kernel(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tens
 
     All activations share the compute dtype of ``s`` (bfloat16 or float32),
     ``sidx`` is int32 (:func:`sender_index`); H is 128, R (the basis width,
-    ``phi``'s last axis minus one) 20 and dim 2 or 3. ``p`` is in any dtype
-    and is converted with :func:`layer_kernel_params`.
+    ``phi``'s last axis minus one) 20 and dim 2 or 3. ``packed`` has M >= N
+    rows, N the receivers of ``phi``. ``p`` is in any dtype and is
+    converted with :func:`layer_kernel_params`.
     """
     cdt = _cuda_dtype(s.dtype, "painn_layer")
     n, k, _ = phi.shape
+    m = packed.shape[0]
     h = s.shape[-1]
     dim = neg_dir.shape[-1]
     r = phi.shape[-1] - 1
     if h != HIDDEN or r != N_RBF or dim not in (2, 3):
         raise ValueError(f"painn_layer kernel: H {h} (needs {HIDDEN}), R {r} (needs "
                          f"{N_RBF}), dim {dim} (needs 2 or 3)")
-    _check("painn_layer packed", packed, cdt, (n, (2 + dim) * h))
+    if m < n:
+        raise ValueError(f"painn_layer kernel: packed has {m} rows, fewer than the {n} receivers")
+    _check("painn_layer packed", packed, cdt, (m, (2 + dim) * h))
     _check("painn_layer sidx", sidx, torch.int32, (n, k))
     _check("painn_layer phi", phi, cdt, (n, k, r + 1))
     _check("painn_layer neg_dir", neg_dir, cdt, (n, k, dim))
@@ -262,14 +268,15 @@ def painn_layer_kernel(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tens
     tensors = [packed, sidx, phi, neg_dir, s, v_flat] + [kp[name] for name in LAYER_PARAM_NAMES]
     ptrs = [t.data_ptr() for t in tensors + [s_out, v_out]]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    PAINN_LAYER(ctypes.cast(arr, ctypes.c_void_p), n, k, h, r, dim,
+    PAINN_LAYER(ctypes.cast(arr, ctypes.c_void_p), n, k, m, h, r, dim,
                 int(cdt == torch.bfloat16), device=s_out.device)
     return s_out, v_out
 
 
 def sender_index(senders: torch.Tensor, n: int) -> torch.Tensor:
     """The (N, K) sender rows as K5 takes them: int32, contiguous, padded
-    slots (fill ``n``) clamped to row n - 1, as a JAX gather clamps."""
+    slots (fill ``n``, the row count of ``packed``) clamped to row n - 1, as
+    a JAX gather clamps."""
     return torch.clamp(senders, max=n - 1).to(torch.int32).contiguous()
 
 
@@ -344,10 +351,12 @@ def painn_layer(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tensor,
                 p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5, differentiable: the CUDA kernel forward on CUDA tensors (the
     plain version on CPU tensors), the backward rematerialized through
-    :func:`painn_layer_plain`. ``packed`` (N, (2 + dim) * H) holds every
-    node's [x1, x2, u] row, ``sidx`` (N, K) the sender rows (int32 on the
-    card, :func:`sender_index`); ``p`` holds the parameters as stored, and
-    their gradients come back in their own dtype. Counts a launch only
-    where the kernel runs (``PAINN_LAYER.launches``)."""
+    :func:`painn_layer_plain`. ``packed`` (M, (2 + dim) * H) holds the
+    source rows [x1, x2, u] (M >= N: every node's own, or a slab's with its
+    halo), ``sidx`` (N, K) the sender rows (int32 on the card,
+    :func:`sender_index`); the gradient of ``packed`` comes back in all M
+    rows. ``p`` holds the parameters as stored, and their gradients come
+    back in their own dtype. Counts a launch only where the kernel runs
+    (``PAINN_LAYER.launches``)."""
     return _LayerFunction.apply(packed, sidx, phi, neg_dir, s, v_flat,
                                 *(p[name] for name in LAYER_PARAM_NAMES))

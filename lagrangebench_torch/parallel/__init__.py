@@ -1,9 +1,11 @@
-"""Data parallelism over ``torch.distributed`` (``mesh.py``)."""
+"""Data parallelism over ``torch.distributed`` (``mesh.py``); spatial sharding
+(``spatial.py``, imported on use)."""
 
 from .mesh import (
     DATA_AXIS,
     SPATIAL_AXIS,
     Mesh,
+    Mesh2D,
     all_gather_objects,
     all_reduce_sum_,
     broadcast_object,
@@ -20,6 +22,7 @@ __all__ = [
     "DATA_AXIS",
     "SPATIAL_AXIS",
     "Mesh",
+    "Mesh2D",
     "make_mesh",
     "make_mesh_2d",
     "shard_batch",

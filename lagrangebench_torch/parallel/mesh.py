@@ -19,13 +19,16 @@ the process group), this rank's index in it and its size, and the trainer and ro
 The backend is NCCL for CUDA ranks and gloo for CPU ranks; gloo also
 reduces and broadcasts CUDA tensors (through the host), which lets two
 ranks share one card where NCCL refuses to.
+
+Spatial sharding (``parallel/spatial.py``) runs a slab ring over a
+:class:`Mesh` or over each row of a :class:`Mesh2D` (:func:`make_mesh_2d`).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -87,12 +90,65 @@ def make_mesh(n_devices: int = -1) -> Mesh:
     return Mesh(group, rank, n_devices)
 
 
-def make_mesh_2d(n_data: int, n_space: int) -> Mesh:
-    """The (data, space) mesh of spatial sharding: not ported yet."""
-    raise NotImplementedError(
-        "the (data, space) mesh of spatial sharding is not ported to lagrangebench_torch "
-        "(ROADMAP.md §1 item 7.2)"
-    )
+@dataclass(frozen=True)
+class Mesh2D(Mesh):
+    """The (data, space) mesh of spatial sharding over the first ``n_data x
+    n_space`` ranks: rank r is row ``r // n_space`` (its share of the batch)
+    and column ``r % n_space`` (its slab of the row's ring). ``group``,
+    ``rank`` and ``size`` describe the whole mesh, over which gradients are
+    summed; ``ring`` is the process group of this rank's row (None for a
+    ring of one) and ``ring_ranks`` its global ranks in ring order."""
+
+    n_data: int = 1
+    n_space: int = 1
+    ring: Optional[Any] = None
+    ring_ranks: Tuple[int, ...] = ()
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_space
+
+    @property
+    def space_index(self) -> int:
+        return self.rank % self.n_space
+
+
+def launch_hint(n: int) -> str:
+    """How to launch ``n`` ranks, for the errors that find too few."""
+    return (f"launch {n} ranks: python -m torch.distributed.run --nproc_per_node={n} "
+            "-m lagrangebench_torch ... (add gpu=-1 for CPU ranks over gloo)")
+
+
+def make_mesh_2d(n_data: int, n_space: int) -> Mesh2D:
+    """The (data, space) mesh over the first ``n_data * n_space`` ranks.
+
+    Every rank of the process group calls it: it makes the mesh's group and
+    one group per row, in row order, which is collective. Raises ValueError
+    where the ranks are too few; a rank beyond the mesh gets a non-member
+    mesh (``rank == -1``).
+    """
+    world, rank = _world()
+    need = n_data * n_space
+    if n_data < 1 or n_space < 1:
+        raise ValueError(f"a ({n_data}, {n_space}) mesh has no ranks")
+    if need > world:
+        raise ValueError(f"the ({n_data}, {n_space}) (data, space) mesh needs {need} ranks, "
+                         f"{world} available; {launch_hint(need)}")
+    if need == 1:
+        return Mesh2D(None, 0 if rank == 0 else -1, 1, 1, 1, None, (0,))
+    whole = dist.group.WORLD if need == world else dist.new_group(list(range(need)))
+    rings = []
+    for row in range(n_data):
+        members = list(range(row * n_space, (row + 1) * n_space))
+        if n_space == 1:
+            rings.append(None)
+        else:
+            rings.append(whole if n_data == 1 else dist.new_group(members))
+    if rank >= need:
+        return Mesh2D(None, -1, need, n_data, n_space, None, ())
+    row = rank // n_space
+    return Mesh2D(whole, rank, need, n_data, n_space, rings[row],
+                  tuple(range(row * n_space, (row + 1) * n_space)))
 
 
 def data_parallel_size(parallel_data: int, world_size: int, batch_size: int) -> int:

@@ -35,9 +35,19 @@ one device. Under a launcher rank r runs on ``cuda:LOCAL_RANK`` (every rank
 on the CPU with ``gpu=-1``); a rank beyond the mesh does no work. Training
 and inference share the mesh; rank 0 names the run and writes.
 
+Spatial sharding (``parallel.spatial: N``, N > 1; GNS and PaiNN, fully
+periodic boxes): training and inference run over an N-slab ring
+(``parallel/spatial.py``) of N launched ranks, N x n_data when
+``train.batch_size > 1`` shards the batch over the rows of a (data, space)
+mesh (n_data the largest divisor of the batch within ranks // N); with
+fewer ranks the runner raises ValueError saying how to launch, rather than
+run alone. Checkpoints are written in the standard layout, by rank 0. The
+compute dtype is ``model.compute_dtype`` (the JAX runner's spatial path
+leaves its functions' float32 default).
+
 Not ported (each raises NotImplementedError naming its ROADMAP.md §1 item):
-spatial parallelism (``parallel.spatial > 1``) and the import of the
-reference's Haiku checkpoints.
+SEGNN and EGNN under ``parallel.spatial > 1`` (item 7.3) and the import of
+the reference's Haiku checkpoints (item 8).
 """
 
 from __future__ import annotations
@@ -52,13 +62,21 @@ import torch
 import torch.distributed as dist
 
 from .case import case_builder
-from .checkpoint import load_checkpoint
+from .checkpoint import flatten_tree, load_checkpoint
 from .config import Config, save_yaml
 from .data import H5Dataset
 from .defaults import check_cfg
 from .evaluate import averaged_metrics, infer
 from .models import ensure_fused_params, setup_model
-from .parallel import broadcast_object, data_parallel_size, init_distributed, is_main, make_mesh
+from .parallel import (
+    Mesh,
+    broadcast_object,
+    data_parallel_size,
+    init_distributed,
+    is_main,
+    make_mesh,
+)
+from .parallel.mesh import launch_hint
 from .train import Trainer
 
 
@@ -105,12 +123,22 @@ def setup_data(cfg: Config) -> Tuple[H5Dataset, H5Dataset, H5Dataset]:
     )
 
 
+def _spatial(cfg: Config) -> int:
+    return int(cfg.parallel.get("spatial", 0) or 0)
+
+
 def _check_ported(cfg: Config) -> None:
-    if int(cfg.parallel.get("spatial", 0) or 0) > 1:
-        raise NotImplementedError(
-            "parallel.spatial > 1 is not ported to lagrangebench_torch (ROADMAP.md §1 "
-            "item 7.2); use parallel.spatial=0"
-        )
+    if _spatial(cfg) > 1:
+        name = cfg.model.name.lower()
+        if name in ("segnn", "egnn"):
+            raise NotImplementedError(
+                f"parallel.spatial > 1 with model.name={name} is not ported to "
+                "lagrangebench_torch (ROADMAP.md §1 item 7.3); parallel.spatial runs gns and "
+                "painn"
+            )
+        if name not in ("gns", "painn"):
+            raise ValueError(f"parallel.spatial supports gns|painn (segnn|egnn: ROADMAP.md §1 "
+                             f"item 7.3), got model.name={name}")
     fmt = cfg.neighbors.format
     if fmt == "sparse" and cfg.model.get("fused_processor", False) \
             and cfg.model.name.lower() in ("gns", "painn"):
@@ -153,9 +181,12 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
         torch.cuda.set_device(device)  # the kernels launch on the current card
 
     n_data = int(cfg.parallel.data)
-    if n_data != 1:
+    n_spatial = _spatial(cfg)
+    if n_data != 1 or n_spatial > 1:
         init_distributed(device=device)  # a no-op unless a launch is indicated
     world, rank = (dist.get_world_size(), dist.get_rank()) if dist.is_initialized() else (1, 0)
+    if n_spatial > 1:
+        return _train_or_infer_spatial(cfg, data, device, world, rank)
     n_req = data_parallel_size(n_data, world, int(cfg.train.batch_size))
     mesh = make_mesh(n_req) if n_req > 1 else None
     if rank >= n_req:
@@ -168,18 +199,7 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
 
     data_train, data_valid, data_test = data if data is not None else setup_data(cfg)
     metadata = data_train.metadata
-    bounds = np.asarray(metadata["bounds"])
-    case = case_builder(
-        box=(bounds[:, 1] - bounds[:, 0]).tolist(),
-        metadata=metadata,
-        input_seq_length=cfg.model.input_seq_length,
-        cfg_neighbors=cfg.neighbors,
-        cfg_model=cfg.model,
-        noise_std=cfg.train.noise_std,
-        external_force_fn=data_train.external_force_fn,
-        dtype=cfg.dtype,
-        device=device,
-    )
+    case = _case(cfg, data_train, device)
     _, particle_type = data_train[0]
     model = setup_model(cfg.model, metadata,
                         has_external_force=data_train.external_force_fn is not None,
@@ -189,15 +209,7 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
 
     trained = False
     if mode in ("train", "all"):
-        if cfg.logging.run_name is None:
-            # rank 0's clock names the run on every rank
-            cfg.logging.run_name = broadcast_object(
-                f"{cfg.model.name}_{data_train.name}_" + datetime.now().strftime("%Y%m%d-%H%M%S"),
-                mesh)
-        store_ckp = osp.join(cfg.logging.ckp_dir, cfg.logging.run_name)
-        if main:
-            os.makedirs(store_ckp, exist_ok=True)
-            save_yaml(cfg, osp.join(store_ckp, "config.yaml"))
+        store_ckp = _run_dir(cfg, data_train, mesh, main)
         trainer = Trainer(model, case, data_train, data_valid, cfg_train=cfg.train,
                           cfg_eval=cfg.eval, cfg_logging=cfg.logging,
                           input_seq_length=cfg.model.input_seq_length, seed=cfg.seed,
@@ -210,18 +222,8 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
 
     if mode in ("infer", "all"):
         if not trained:
-            best_dir = osp.join(old_model_dir, "best")
-            load_dir = best_dir if osp.exists(osp.join(best_dir, "metadata_ckp.json")) \
-                else old_model_dir
-            if is_haiku_checkpoint(load_dir):
-                raise NotImplementedError(
-                    f"{load_dir} is a reference Haiku checkpoint; its import is not "
-                    "ported to lagrangebench_torch (ROADMAP.md §1 item 8)"
-                )
-            params, _, _, step = load_checkpoint(load_dir)
+            params = _load_params(old_model_dir, main)
             model.load_jax_params(ensure_fused_params(params, cfg.model))
-            if main:
-                print(f"Loaded model from {load_dir} at step {step}")
         eval_metrics = infer(model, case, data_test, cfg_eval_infer=cfg.eval.infer,
                              rollout_dir=cfg.eval.rollout_dir,
                              n_rollout_steps=cfg.eval.n_rollout_steps, seed=cfg.seed,
@@ -231,3 +233,98 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
             print(metrics)
         return metrics
     return None
+
+
+def _case(cfg: Config, data_train, device):
+    bounds = np.asarray(data_train.metadata["bounds"])
+    return case_builder(box=(bounds[:, 1] - bounds[:, 0]).tolist(),
+                        metadata=data_train.metadata,
+                        input_seq_length=cfg.model.input_seq_length, cfg_neighbors=cfg.neighbors,
+                        cfg_model=cfg.model, noise_std=cfg.train.noise_std,
+                        external_force_fn=data_train.external_force_fn, dtype=cfg.dtype,
+                        device=device)
+
+
+def _run_dir(cfg: Config, data_train, mesh, main: bool) -> str:
+    """The run's checkpoint directory ``<ckp_dir>/<run_name>``; rank 0's
+    clock names the run on every rank of ``mesh``, and rank 0 makes the
+    directory and writes ``config.yaml``."""
+    if cfg.logging.run_name is None:
+        cfg.logging.run_name = broadcast_object(
+            f"{cfg.model.name}_{data_train.name}_" + datetime.now().strftime("%Y%m%d-%H%M%S"),
+            mesh)
+    store_ckp = osp.join(cfg.logging.ckp_dir, cfg.logging.run_name)
+    if main:
+        os.makedirs(store_ckp, exist_ok=True)
+        save_yaml(cfg, osp.join(store_ckp, "config.yaml"))
+    return store_ckp
+
+
+def _load_params(model_dir: str, main: bool):
+    """The parameter tree of ``<model_dir>/best`` (or ``model_dir`` itself)."""
+    best_dir = osp.join(model_dir, "best")
+    load_dir = best_dir if osp.exists(osp.join(best_dir, "metadata_ckp.json")) else model_dir
+    if is_haiku_checkpoint(load_dir):
+        raise NotImplementedError(
+            f"{load_dir} is a reference Haiku checkpoint; its import is not "
+            "ported to lagrangebench_torch (ROADMAP.md §1 item 8)"
+        )
+    params, _, _, step = load_checkpoint(load_dir)
+    if main:
+        print(f"Loaded model from {load_dir} at step {step}")
+    return params
+
+
+def _train_or_infer_spatial(cfg: Config, data, device, world: int, rank: int):
+    """``train_or_infer`` under ``parallel.spatial: N``: ``train_spatial``,
+    then ``infer_spatial``, on the first N ranks (N x n_data for training at
+    a batch above one; further ranks do no work)."""
+    from .parallel.spatial import _require_periodic, infer_spatial, train_spatial
+
+    n_spatial = _spatial(cfg)
+    if world < n_spatial:
+        raise ValueError(f"parallel.spatial={n_spatial} shards each sample over {n_spatial} "
+                         f"ranks, and {world} are running; {launch_hint(n_spatial)}")
+    name = cfg.model.name.lower()
+    main = rank == 0
+    data_train, data_valid, data_test = data if data is not None else setup_data(cfg)
+    metadata = data_train.metadata
+    _require_periodic(metadata, f"runner(mode={cfg.mode})")  # before any work
+    case = _case(cfg, data_train, device)
+    kw = dict(num_mp_steps=int(cfg.model.num_mp_steps), model=name, device=device,
+              compute_dtype=cfg.model.get("compute_dtype", "float32"))
+    old_model_dir, params = cfg.load_ckp, None
+    if cfg.mode in ("train", "all"):
+        store_ckp = _run_dir(cfg, data_train, Mesh(dist.group.WORLD, rank, world), main)
+        _, particle_type = data_train[0]
+        seeded = setup_model(cfg.model, metadata, seed=cfg.seed, device="cpu",
+                             homogeneous_particles=bool(particle_type.max() == particle_type.min()))
+        n_trajs_val = int(cfg.eval.train.n_trajs)
+        if n_trajs_val == -1:
+            n_trajs_val = data_valid.num_samples
+        params, _, _ = train_spatial(
+            seeded.jax_params(), case, data_train, data_valid, n_devices=n_spatial,
+            cfg_train=cfg.train, cfg_logging=cfg.logging,
+            input_seq_length=cfg.model.input_seq_length, metadata=metadata, seed=cfg.seed,
+            step_max=cfg.train.step_max, store_ckp=store_ckp, load_ckp=old_model_dir,
+            n_rollout_steps_val=int(cfg.eval.n_rollout_steps), n_trajs_val=n_trajs_val, **kw)
+        if main:
+            print(f"Training done; params: {sum(v.size for v in flatten_tree(params).values())}")
+        old_model_dir = store_ckp
+    if cfg.mode not in ("infer", "all"):
+        return None
+    if rank >= n_spatial:
+        make_mesh(n_spatial)  # the ring's group is made by every rank
+        print(f"rank {rank}: the slab ring holds ranks 0-{n_spatial - 1} "
+              f"(parallel.spatial={n_spatial}, {world} ranks); this rank does no work")
+        return None
+    if params is None:
+        params = _load_params(old_model_dir, main)
+    eval_metrics = infer_spatial(params, case, data_test, n_devices=n_spatial,
+                                 cfg_eval_infer=cfg.eval.infer,
+                                 n_rollout_steps=cfg.eval.n_rollout_steps, **kw)
+    metrics = averaged_metrics(eval_metrics)
+    if main:
+        print(metrics)
+    return metrics
+

@@ -341,6 +341,33 @@ def test_painn_layer_kernel_ragged(cuda, n, k, dim, dtype):
             assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_painn_layer_kernel_halo_rows(cuda, dtype):
+    """K5 with a source table of M = 3N rows (a slab and its two halo slabs
+    under spatial sharding; senders in [0, 3N], the fill clamped to row
+    3N - 1) against its plain version: float32 (TF32 off) within 1e-4 of
+    the largest magnitude; bf16 within 1e-3 in the relative 2-norm."""
+    from lagrangebench_torch.ops import painn_msg
+
+    t, p = _painn_case(cuda, dtype, 3, fused=True, seed=7)
+    n, k = t["phi"].shape[:2]
+    g = torch.Generator().manual_seed(8)
+    h = painn_msg.HIDDEN
+    packed = torch.randn(3 * n, 5 * h, generator=g).to(dtype).to(cuda)
+    senders = torch.randint(0, 3 * n, (n, k), generator=g)
+    senders = torch.where(t["phi"][..., -1].cpu() > 0, senders, 3 * n)
+    p["sidx"] = painn_msg.sender_index(senders, 3 * n).to(cuda)
+    args = (packed,) + _layer_args(t, p)[1:]
+    got = painn_msg.painn_layer_kernel(*args)
+    want = painn_msg.painn_layer_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if dtype == torch.float32:
+            assert _rel(a, b) <= 1e-4
+        else:
+            assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
+
+
 def test_painn_layer_kernel_gradients(cuda):
     """The autograd Function around K5: gradients (rematerialized through
     the plain version, packed's through the gather) equal those of the

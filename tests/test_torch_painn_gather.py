@@ -105,6 +105,33 @@ def test_plain_layer_gathers_with_the_clamped_index():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_plain_layer_takes_a_source_table_of_its_own_size(dim):
+    """K5's plain version with M = 3N source rows (a slab and its two halo
+    slabs under spatial sharding), senders anywhere in [0, 3N] (fill 3N):
+    float64, exactly painn_layer_gathered_plain of packed[rows], the rows
+    clamped to M - 1; the Function's gradient of packed has all M rows,
+    zero where no slot gathered."""
+    t, _, params = _inputs(dim, "float64", seed=5)
+    rng = np.random.default_rng(6)
+    m = 3 * N
+    senders = rng.integers(0, m, size=(N, K))
+    senders[rng.uniform(size=(N, K)) < 0.3] = m
+    packed = torch.as_tensor(rng.normal(size=(m, (2 + dim) * H)))
+    sidx = painn_msg.sender_index(torch.as_tensor(senders), m)
+    assert int(sidx.max()) == m - 1
+    rest = (t["phi"], t["nd"], t["s"], t["v"], params)
+    got = painn_msg.painn_layer_plain(packed, sidx, *rest)
+    want = painn_msg.painn_layer_gathered_plain(packed[sidx.long()], *rest)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    x = packed.clone().requires_grad_()
+    sum(o.sum() for o in painn_msg.painn_layer(x, sidx, *rest)).backward()
+    assert x.grad.shape == (m, (2 + dim) * H)
+    unused = np.setdiff1d(np.arange(m), np.asarray(sidx).reshape(-1))
+    assert unused.size and float(x.grad[unused].abs().max()) == 0.0
+
+
 def _features(dim=3, seed=3):
     rng = np.random.default_rng(seed)
     senders = rng.integers(0, N, size=(N, K)).astype(np.int32)

@@ -152,12 +152,12 @@ def test_init_distributed_ignores_single_host_markers(monkeypatch, no_launch):
 
 def test_mesh_in_one_process():
     """Without a group: a mesh of one over this process; more ranks than
-    exist raise; the 2D mesh names its ROADMAP item."""
+    exist raise, for the 2D (data, space) mesh too, saying how to launch."""
     mesh = make_mesh(-1)
     assert (mesh.group, mesh.rank, mesh.size, mesh.member) == (None, 0, 1, True)
     with pytest.raises(ValueError, match="only 1 available"):
         make_mesh(2)
-    with pytest.raises(NotImplementedError, match="item 7.2"):
+    with pytest.raises(ValueError, match="needs 2 ranks, 1 available.*torch.distributed.run"):
         make_mesh_2d(1, 2)
 
 

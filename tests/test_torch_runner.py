@@ -139,11 +139,17 @@ def test_cli_fails_cleanly(jax_run, argv, match):
         cli.main(argv)
 
 
-@pytest.mark.parametrize("override,item", [("parallel.spatial=2", "item 7")])
-def test_unported_paths_name_their_roadmap_item(jax_run, override, item):
+@pytest.mark.parametrize("overrides,error,match", [
+    (["parallel.spatial=2", "model.name=segnn"], NotImplementedError, "item 7.3"),
+    (["parallel.spatial=2"], ValueError, "needs 2 ranks|torch.distributed.run"),
+], ids=["spatial_segnn", "spatial_gns_one_process"])
+def test_unported_paths_name_their_roadmap_item(jax_run, overrides, error, match):
+    """SEGNN (and EGNN) under parallel.spatial name ROADMAP item 7.3; GNS
+    under parallel.spatial=2 in one process raises, saying how to launch
+    two ranks, rather than run alone."""
     root = jax_run[0]
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main([f"config={os.path.join(root, 'cfg.yaml')}", "gpu=-1", override])
+    with pytest.raises(error, match=match):
+        cli.main([f"config={os.path.join(root, 'cfg.yaml')}", "gpu=-1", *overrides])
 
 
 def test_haiku_checkpoint_is_not_ported(jax_run, tmp_path):
