@@ -79,26 +79,40 @@ class EGNNLayer(nn.Module):
         return out(silu(hidden(x, cdt)), cdt)
 
     def forward(self, h, pos, vel, senders, sidx, receivers, edge_attr, node_attr, disp,
-                shift, cdt):
+                shift, cdt, sender_h=None, sender_pos=None, edge_mask=None,
+                sender_scatter_fn=None):
+        """``sender_h``, ``sender_pos``, ``edge_mask`` and ``sender_scatter_fn``
+        serve the spatially sharded path (``parallel/spatial.py``): the
+        senders index halo-extended rows, an explicit (N, K) mask says which
+        slots are edges (masking the receiver sum and the position terms),
+        and the sender-directed sum of the position terms returns the halo
+        rows' shares to their owners."""
         n = h.shape[0]
+        h_src = h if sender_h is None else sender_h
+        pos_src = pos if sender_pos is None else sender_pos
         if senders.dim() == 2:  # row i is receiver i: a broadcast
             recv_pos, recv_h = pos[:, None, :], h[:, None, :].expand(-1, senders.shape[1], -1)
         else:
             ridx = torch.clamp(receivers, max=n - 1).long()
             recv_pos, recv_h = gather_rows(pos, ridx), gather_rows(h, ridx)
-        coord_diff = disp(gather_rows(pos, sidx), recv_pos)
+        coord_diff = disp(gather_rows(pos_src, sidx), recv_pos)
         radial = torch.sum(coord_diff**2, dim=-1, keepdim=True)
         wide = torch.promote_types(h.dtype, torch.promote_types(radial.dtype, edge_attr.dtype))
-        msg_in = torch.cat([gather_rows(h, sidx).to(wide), recv_h.to(wide), radial.to(wide),
+        msg_in = torch.cat([gather_rows(h_src, sidx).to(wide), recv_h.to(wide), radial.to(wide),
                             edge_attr.to(wide)], dim=-1)
         msg = self.msg(msg_in, cdt)
 
-        agg = aggregate_to_receivers(msg, receivers, senders, n)
+        agg = aggregate_to_receivers(msg, receivers, senders, n, mask=edge_mask)
         upd_in = [h, agg] if node_attr is None else [h, agg, node_attr.to(h.dtype)]
         h_new = (h + self.upd(torch.cat(upd_in, dim=-1), cdt)).to(h.dtype)
 
         trans = coord_diff * self._head(self.pos_hidden, self.pos_out, msg, cdt).to(pos.dtype)
-        pos = shift(pos, segment_sum(trans, senders, n))
+        if edge_mask is not None:
+            trans = torch.where(edge_mask[..., None], trans, torch.zeros_like(trans))
+        if sender_scatter_fn is None:
+            pos = shift(pos, segment_sum(trans, senders, n))
+        else:
+            pos = shift(pos, sender_scatter_fn(trans, senders))
         pos = shift(pos, self._head(self.vel_hidden, self.vel_out, h_new, cdt).to(pos.dtype) * vel)
         return h_new, pos
 

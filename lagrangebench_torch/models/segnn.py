@@ -106,18 +106,25 @@ class SEGNNLayer(nn.Module):
 
     def forward(self, nodes: IrrepsArray, node_attributes: IrrepsArray,
                 edge_attributes: IrrepsArray, edge_feats: IrrepsArray, senders: torch.Tensor,
-                sidx: torch.Tensor, receivers: torch.Tensor) -> IrrepsArray:
+                sidx: torch.Tensor, receivers: torch.Tensor,
+                sender_nodes: Optional[IrrepsArray] = None,
+                edge_mask: Optional[torch.Tensor] = None) -> IrrepsArray:
+        """``sender_nodes`` and ``edge_mask`` serve the spatially sharded
+        path (``parallel/spatial.py``): the senders index halo-extended node
+        rows, and an explicit (N, K) mask says which slots are edges."""
         h = nodes.array
         n = h.shape[0]
         if senders.dim() == 2:  # row i is receiver i: a broadcast
             recv = h[:, None, :].expand(n, senders.shape[1], h.shape[-1])
         else:
             recv = gather_rows(h, torch.clamp(receivers, max=n - 1).long())
-        msg = concatenate([IrrepsArray(nodes.irreps, gather_rows(h, sidx)),
+        src = h if sender_nodes is None else sender_nodes.array
+        msg = concatenate([IrrepsArray(nodes.irreps, gather_rows(src, sidx)),
                            IrrepsArray(nodes.irreps, recv), edge_feats])
         for block in self.message:
             msg = block(msg, edge_attributes)
-        agg = msg.map_chunks(lambda c: aggregate_to_receivers(c, receivers, senders, n))
+        agg = msg.map_chunks(lambda c: aggregate_to_receivers(c, receivers, senders, n,
+                                                              mask=edge_mask))
 
         x = concatenate([nodes, agg])
         for block in self.update:
@@ -176,6 +183,7 @@ class SEGNN(JaxTree, nn.Module):
         gen = torch.Generator().manual_seed(seed)
         kw = dict(compute_dtype=compute_dtype, generator=gen)
         self.n_vels = n_vels
+        self.compute_dtype = getattr(torch, compute_dtype)
         self.velocity_aggregate = velocity_aggregate
         self.homogeneous_particles = homogeneous_particles
         self.node_features_irreps = Irreps(node_features_irreps)

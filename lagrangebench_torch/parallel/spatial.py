@@ -1,6 +1,7 @@
 """Spatial (x-slab) sharding with a halo exchange, over ``torch.distributed``.
 
-Counterpart of ``lagrangebench_tpu/parallel/spatial.py`` for GNS and PaiNN.
+Counterpart of ``lagrangebench_tpu/parallel/spatial.py`` for GNS, PaiNN,
+SEGNN and EGNN.
 The box is split into slabs along x and each rank of a slab ring owns the
 particles of one slab: positions, the (N_loc, K) neighbor list, edge states
 and node states never leave it. Per message-passing step a rank sends its
@@ -19,8 +20,10 @@ its sender's row; nothing is gathered across the ring.
   periodic axes only make the senders equal JAX's in float64.
 * The halo: :func:`halo_exchange`, one ``batch_isend_irecv`` of the ring
   shifts, inside an autograd Function whose backward sends the cotangents
-  back the other way (the transpose of JAX's ``ppermute``). Over gloo a
-  CUDA tensor is staged through the host (``.cpu()``, the exchange,
+  back the other way (the transpose of JAX's ``ppermute``);
+  :func:`reverse_halo`, its transpose as a Function of its own (halo
+  segments home and summed; the backward is the halo's forward). Over
+  gloo a CUDA tensor is staged through the host (``.cpu()``, the exchange,
   ``.to(device)``), under the ``spatial::halo_staging`` span of the
   ``spatial::halo_exchange`` span; NCCL exchanges CUDA tensors directly.
 * The models are the port's own modules, not restated: the spatial GNS runs
@@ -28,7 +31,14 @@ its sender's row; nothing is gathered across the ring.
   gathered from the halo-extended projection, then K3 with the edge encoder
   folded into step 0; K4 in the backward) and the decoder; the spatial
   PaiNN runs ``PaiNN.embed``, each fused layer with K5 gathering from the
-  halo-extended (3 N_loc, (2 + dim) H) rows, and ``PaiNN.read_out``.
+  halo-extended (3 N_loc, (2 + dim) H) rows, and ``PaiNN.read_out``. SEGNN
+  and EGNN run the module built for the config (``model_def``, as JAX
+  passes its flax module) with their layers' ``sender_nodes`` /
+  ``sender_h``, ``sender_pos``, ``edge_mask`` and ``sender_scatter_fn``:
+  SEGNN exchanges its whole (N_loc, dim) node tensor once per layer, EGNN
+  its ``h`` and accumulated position delta in one tensor, and returns its
+  sender-directed position sums through the reverse halo. PyTorch ops, as
+  JAX leaves them to XLA.
 * Training: the loss is each rank's share of the global kinematic-masked
   acceleration MSE; sender-state cotangents return home through the halo's
   backward; loss, overflow flag and gradients are summed over the mesh in
@@ -52,8 +62,10 @@ centered_mod(x - owner * slab_w)`` (plain differences in x, min-image on the
 other axes). Rings of 2 and 1 degenerate to the fully periodic box on each
 rank (no self-image duplicates).
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``. SEGNN
-and EGNN raise NotImplementedError (ROADMAP.md §1 item 7.3).
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+SEGNN with instance norm and EGNN with more than the velocity magnitudes
+as node features (particle types, an external force) raise ValueError, as
+JAX's asserts refuse them.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..models.e3 import IrrepsArray, from_mul_major
 from ..models.gns import GNS, fused_params_from_standard, standard_params_from_fused
 from ..models.painn import (
     EPS,
@@ -76,11 +89,13 @@ from ..models.painn import (
     painn_standard_params_from_fused,
 )
 from ..ops import neighbors as nb
+from ..models.segnn import EDGE_IRREPS
 from ..ops import painn_msg, space
-from ..utils import resolve_device
+from ..ops.scatter import segment_sum
+from ..utils import NodeType, resolve_device
 from .mesh import Mesh, Mesh2D, _world, launch_hint, make_mesh, make_mesh_2d
 
-MODELS = ("gns", "painn")
+MODELS = ("gns", "painn", "segnn", "egnn")
 # a chunk reruns shorter once 2 x the largest x-drift since it started plus
 # the cutoff reaches this share of the slab width
 DRIFT_SHARE = 0.95
@@ -258,6 +273,16 @@ def _exchange(ring: Ring, sends: Sequence[Tuple[int, torch.Tensor]]) -> List[tor
         return out
 
 
+def _send_back(ring: Ring, shifts, xs) -> torch.Tensor:
+    """Each of ``xs`` back the other way (``-shift`` places on), summed on
+    arrival: the transpose of the shifts of one tensor."""
+    back = _exchange(ring, [(-s, x.contiguous()) for s, x in zip(shifts, xs)])
+    out = back[0]
+    for x in back[1:]:
+        out = out + x
+    return out
+
+
 class _Halo(torch.autograd.Function):
     """The ring shifts of one tensor, differentiable: the forward sends x
     ``shift`` places on for every shift and returns what arrives; the
@@ -271,17 +296,37 @@ class _Halo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        back = _exchange(ctx.ring, [(-s, g.contiguous()) for s, g in zip(ctx.shifts, grads)])
-        grad = back[0]
-        for g in back[1:]:
-            grad = grad + g
-        return None, None, grad
+        return None, None, _send_back(ctx.ring, ctx.shifts, grads)
+
+
+class _ReverseHalo(torch.autograd.Function):
+    """The transpose of :class:`_Halo`: the forward sends each halo segment
+    back to the rank it came from and sums what arrives (``_Halo``'s
+    backward); the backward sends the cotangent out as ``_Halo``'s forward
+    does, one segment's gradient per shift."""
+
+    @staticmethod
+    def forward(ctx, ring, shifts, *segments):
+        ctx.ring, ctx.shifts = ring, shifts
+        return _send_back(ring, shifts, segments)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, *_exchange(ctx.ring, [(s, grad.contiguous()) for s in ctx.shifts]))
 
 
 def halo_exchange(ring: Ring, x: torch.Tensor, shifts=(1, -1)) -> Tuple[torch.Tensor, ...]:
     """``x`` of the ranks ``shifts`` places back around the ring (shift +1:
     the left neighbour's, -1: the right one's), differentiable in x."""
     return _Halo.apply(ring, tuple(shifts), x)
+
+
+def reverse_halo(ring: Ring, segments: Sequence[torch.Tensor], shifts=(1, -1)) -> torch.Tensor:
+    """Per-row sums over the halo segments that ``halo_exchange(ring, x,
+    shifts)`` delivered, returned to the rows' owners and summed there
+    (the segment of shift +1 goes back to the left neighbour);
+    differentiable."""
+    return _ReverseHalo.apply(ring, tuple(shifts), *segments)
 
 
 def _all_reduce(ring: Ring, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -383,7 +428,7 @@ class _SpatialBase:
         self.ring = ring
         self.n_dev = ring.size
         self.model = model
-        self.cdt = model.compute_dtype
+        self.cdt = _dtype(model.compute_dtype)
         self.pos_dtype = torch.float64 if self.cdt == torch.float64 else torch.float32
         self.device = next(model.parameters()).device
         self.box_np = np.asarray(box, np.float64).reshape(-1)
@@ -450,19 +495,30 @@ class _SpatialBase:
             return most_recent, torch.cat([most_recent, other]), (slot % n_loc) < seg
         return most_recent, most_recent, slot < count
 
+    @property
+    def _shifts(self) -> Tuple[int, ...]:
+        """The halo's ring shifts: the left and the right neighbour for n >= 3,
+        the other rank for n == 2."""
+        return (1, -1) if self.n_dev >= 3 else (1,) if self.n_dev == 2 else ()
+
     def _halo_concat(self, x: torch.Tensor) -> torch.Tensor:
         """Node rows extended to the candidate rows: [own, left, right]."""
-        if self.n_dev >= 3:
-            return torch.cat([x, *halo_exchange(self.ring, x, (1, -1))])
-        if self.n_dev == 2:
-            return torch.cat([x, *halo_exchange(self.ring, x, (1,))])
-        return x
+        if self.n_dev == 1:
+            return x
+        return torch.cat([x, *halo_exchange(self.ring, x, self._shifts)])
 
-    def _graph(self, pos: torch.Tensor, count: torch.Tensor):
-        """The slab's neighbor list and edge geometry: (senders clamped to the
-        candidate rows (N_loc, K) int64, edge_valid, rel_disp (N_loc, K, dim)
-        receiver - sender over the cutoff in the local frame, zero on padded
-        slots, overflow)."""
+    def _reverse_halo(self, buckets: torch.Tensor, n_loc: int) -> torch.Tensor:
+        """(candidate rows, ...) sums -> (N_loc, ...) sums of the rows'
+        owners: the halo segments' rows go home and add to the slab's own."""
+        if self.n_dev == 1:
+            return buckets
+        segments = buckets[n_loc:].split(n_loc)
+        return buckets[:n_loc] + reverse_halo(self.ring, segments, self._shifts)
+
+    def _search(self, pos: torch.Tensor, count: torch.Tensor):
+        """The slab's neighbor list: (recv_pos (N_loc, dim) and cand_pos (M,
+        dim) in the local frame, senders clamped to the candidate rows
+        (N_loc, K) int64, edge_valid, overflow)."""
         n_loc = pos.shape[0]
         most_recent = pos[:, self.isl - 1]
         recv_valid = torch.arange(n_loc, device=self.device) < count
@@ -471,6 +527,14 @@ class _SpatialBase:
             recv_pos, recv_valid, cand_pos, cand_valid, self.grid, self.cell_cap, self.k_cap,
             self.cutoff)
         safe = torch.clamp(senders, max=cand_pos.shape[0] - 1).long()
+        return recv_pos, cand_pos, safe, edge_valid, overflow
+
+    def _graph(self, pos: torch.Tensor, count: torch.Tensor):
+        """The slab's neighbor list and edge geometry: (senders clamped to the
+        candidate rows (N_loc, K) int64, edge_valid, rel_disp (N_loc, K, dim)
+        receiver - sender over the cutoff in the local frame, zero on padded
+        slots, overflow)."""
+        recv_pos, cand_pos, safe, edge_valid, overflow = self._search(pos, count)
         diff = _min_image(recv_pos[:, None, :] - cand_pos[safe], self.grid)
         rel_disp = torch.where(edge_valid[..., None], diff / self.cutoff, torch.zeros_like(diff))
         return safe, edge_valid, rel_disp, overflow
@@ -546,16 +610,158 @@ class _SpatialPaiNN(_SpatialBase):
         return acc.to(self.pos_dtype), overflow
 
 
+class _SpatialSEGNN(_SpatialBase):
+    """The port's SEGNN over the slab, its steerable math not restated: the
+    features and attributes of ``SEGNN.forward`` (the 2D -> 3D lift, the
+    node attributes with the mean of the edge harmonics over the valid
+    slots), ``SEGNN.embed``, each ``SEGNNLayer`` with the senders on the
+    halo-extended node rows and an explicit edge mask, the decoder gates
+    and the output product. The halo exchanges the whole (N_loc, dim) node
+    tensor once per layer (JAX: each m-part on its own; the rows are the
+    same). Instance norm needs statistics over all nodes and is refused."""
+
+    def __init__(self, ring, model, **kw):
+        if any(layer.norm == "instance" for layer in model.layers):
+            raise ValueError("spatial SEGNN does not support instance norm (it needs "
+                             "statistics over every node of the system)")
+        super().__init__(ring, model, **kw)
+
+    def _forward(self, pos, ptype, count):
+        m = self.model
+        n_loc, dim = pos.shape[0], pos.shape[-1]
+        nv = m.n_vels
+        safe, edge_valid, rel_disp, overflow = self._graph(pos, count)
+        rel_dist = torch.sqrt(torch.sum(rel_disp**2, dim=-1, keepdim=True))
+        vel3, rel_disp3 = self._vel_norm(pos), rel_disp
+        if dim == 2:
+            vel3 = torch.nn.functional.pad(vel3, (0, 1))
+            rel_disp3 = torch.nn.functional.pad(rel_disp, (0, 1))
+
+        # the attributes of SEGNN._attributes, the mean over the valid slots
+        if nv == 1:
+            vel_agg = vel3[:, 0]
+        elif m.velocity_aggregate == "avg":
+            vel_agg = vel3.mean(dim=1)
+        else:
+            vel_agg = vel3[:, -1]
+        edge_attr = m.sh(rel_disp3)
+        maskf = edge_valid[..., None].to(edge_attr.dtype)
+        scattered = torch.sum(edge_attr * maskf, dim=1) / torch.clamp(maskf.sum(dim=1), min=1.0)
+        node_attr = m.sh(vel_agg) + scattered
+        node_attr = torch.cat([torch.ones_like(node_attr[:, :1]), node_attr[:, 1:]], dim=-1)
+        node_attributes = IrrepsArray(m.attribute_irreps, node_attr)
+        edge_attributes = IrrepsArray(m.attribute_irreps, edge_attr)
+
+        # node features of a periodic box: the velocities [+ their
+        # magnitudes] [+ the type one-hot]
+        feats = [vel3.reshape(n_loc, nv * 3)]
+        irreps = m.node_features_irreps
+        types = 0 if m.homogeneous_particles else NodeType.SIZE
+        if irreps.count("0e") >= nv + types:
+            feats.append(torch.linalg.vector_norm(vel3, dim=-1))
+        if not m.homogeneous_particles:
+            feats.append((ptype[:, None] == torch.arange(NodeType.SIZE, device=self.device))
+                         .to(vel3.dtype))
+        if irreps.dim != sum(f.shape[-1] for f in feats):
+            raise ValueError(f"spatial SEGNN takes velocity [+ magnitude] [+ type] node features; "
+                             f"the model expects {irreps} ({irreps.dim} values)")
+        nodes = m.embed(from_mul_major(irreps, torch.cat(feats, dim=-1)), node_attributes)
+        edge_feats = IrrepsArray(EDGE_IRREPS, torch.cat([rel_disp3, rel_dist], dim=-1))
+
+        receivers = torch.arange(n_loc, device=self.device)[:, None].expand_as(safe)
+        for layer in m.layers:
+            ext = IrrepsArray(nodes.irreps, self._halo_concat(nodes.array))
+            nodes = layer(nodes, node_attributes, edge_attributes, edge_feats, safe, safe,
+                          receivers, sender_nodes=ext, edge_mask=edge_valid)
+        x = nodes
+        for block in m.decoder:
+            x = block(x, node_attributes)
+        acc = m.out(x, node_attributes).array[:, :dim]
+        return acc.to(self.pos_dtype), overflow
+
+
+class _SpatialEGNN(_SpatialBase):
+    """The port's EGNN over the slab: ``EGNN.embed`` and each ``EGNNLayer``
+    on halo-extended sender rows. Positions move per layer, so the halo
+    carries the accumulated position delta with ``h`` (one exchange of the
+    two, concatenated) and the senders' positions are the candidates'
+    layer-0 positions plus their owners' deltas; the position terms sum
+    into their senders, over the candidate rows, and the reverse halo
+    returns the halo rows' sums to their owners. Positions stay in the
+    local frame (plain differences in x, min-image on the periodic axes, no
+    wrap within a forward). Returns the normalized acceleration."""
+
+    def __init__(self, ring, model, **kw):
+        h = model.embed.out_features
+        if model.embed.in_features != model.n_vels or any(
+                layer.upd.layers[0].in_features != 2 * h for layer in model.layers):
+            raise ValueError("spatial EGNN supports homogeneous particles without an external "
+                             "force: the embedding takes the velocity magnitudes only")
+        super().__init__(ring, model, **kw)
+
+    def _forward(self, pos, ptype, count):
+        m = self.model
+        n_loc = pos.shape[0]
+        recv_pos, cand_pos, safe, edge_valid, overflow = self._search(pos, count)
+        n_cand = cand_pos.shape[0]
+        pbc = torch.as_tensor(self.grid.pbc, device=self.device)
+        box_l = torch.as_tensor([s * c for s, c in zip(self.grid.cell_size,
+                                                       self.grid.cells_per_side)],
+                                dtype=self.pos_dtype, device=self.device)
+
+        def disp(a, b):
+            d = a - b
+            return torch.where(pbc, d - box_l * torch.round(d / box_l), d)
+
+        def shift(p, dp):
+            return p + dp
+
+        diff0 = disp(cand_pos[safe], recv_pos[:, None, :])
+        rel_dist = torch.sqrt(torch.sum((diff0 / self.cutoff) ** 2, dim=-1, keepdim=True))
+        rel_dist = torch.where(edge_valid[..., None], rel_dist, torch.zeros_like(rel_dist))
+        vel_n = self._vel_norm(pos)
+        h = m.embed(torch.sqrt(torch.sum(vel_n**2, dim=-1) + 1e-16), m.compute_dtype)
+        stats = {k: torch.as_tensor(v, device=self.device).to(self.pos_dtype)
+                 for k, v in m.velocity_stats.items()}
+        prev_vel = vel_n[:, -1] * stats["std"] + stats["mean"]
+
+        def sender_scatter(trans, senders):
+            return self._reverse_halo(segment_sum(trans, senders, n_cand), n_loc)
+
+        receivers = torch.arange(n_loc, device=self.device)[:, None].expand_as(safe)
+        dpos = torch.zeros_like(recv_pos)
+        width = h.shape[-1]
+        for layer in m.layers:
+            wide = torch.promote_types(h.dtype, dpos.dtype)
+            ext = self._halo_concat(torch.cat([h.to(wide), dpos.to(wide)], dim=-1))
+            h_ext, dpos_ext = ext[:, :width].to(h.dtype), ext[:, width:].to(dpos.dtype)
+            h, new_pos = layer(h, recv_pos + dpos, prev_vel, safe, safe, receivers, rel_dist,
+                               None, disp, shift, m.compute_dtype, sender_h=h_ext,
+                               sender_pos=cand_pos + dpos_ext, edge_mask=edge_valid,
+                               sender_scatter_fn=sender_scatter)
+            dpos = new_pos - recv_pos
+        acc = dpos - prev_vel
+        return ((acc - self.acc_mean) / self.acc_std).to(self.pos_dtype), overflow
+
+
+_CORES = {"gns": _SpatialGNS, "painn": _SpatialPaiNN, "segnn": _SpatialSEGNN,
+          "egnn": _SpatialEGNN}
+
+
 def _tree_of(params) -> Dict:
     return {k: (_tree_of(v) if isinstance(v, dict) else np.asarray(v)) for k, v in params.items()}
 
 
-def spatial_model(model: str, params, num_mp_steps: int, *, compute_dtype=torch.float32,
-                  radius: Optional[float] = None, cutoff: Optional[float] = None,
+def spatial_model(model: str, params, num_mp_steps: Optional[int] = None, *,
+                  compute_dtype=torch.float32, radius: Optional[float] = None,
+                  cutoff: Optional[float] = None, model_def: Optional[nn.Module] = None,
                   device="cuda") -> nn.Module:
-    """The port's fused GNS or PaiNN holding a JAX parameter tree (either
-    layout, numpy leaves), sized from the tree; parameters in float64 for a
-    float64 compute dtype, else float32. An ``nn.Module`` passes through."""
+    """The port's module of ``model`` holding a JAX parameter tree (numpy
+    leaves); parameters in float64 for a float64 compute dtype, else as
+    built. The fused GNS or PaiNN is sized from the tree (either layout);
+    SEGNN and EGNN need ``model_def``, the port's module built for the
+    config (their shapes do not follow from the tree), into which the tree
+    is loaded. An ``nn.Module`` passed as ``params`` passes through."""
     if isinstance(params, nn.Module):
         return params
     _check_model(model)
@@ -563,6 +769,13 @@ def spatial_model(model: str, params, num_mp_steps: int, *, compute_dtype=torch.
     cdt = _dtype(compute_dtype)
     name = str(cdt).split(".")[-1]
     tree = _tree_of(params)
+    if model in ("segnn", "egnn"):
+        if model_def is None:
+            raise ValueError(f"spatial {model} needs the port's {model} module (model_def), "
+                             "built for the config, to hold the parameter tree")
+        net = model_def.double() if cdt == torch.float64 else model_def
+        net.load_jax_params(tree)
+        return net.to(device)
     if model == "gns":
         if not any(str(k).startswith("mp0_") for k in tree):
             tree = fused_params_from_standard(tree, num_mp_steps)
@@ -598,53 +811,56 @@ def spatial_model(model: str, params, num_mp_steps: int, *, compute_dtype=torch.
 
 def standard_params(model: str, net: nn.Module) -> Dict:
     """The module's parameters as a standard-layout JAX tree (numpy), the
-    layout spatial checkpoints are written in."""
+    layout spatial checkpoints are written in (SEGNN's and EGNN's have one
+    layout)."""
     _check_model(model)
-    fused = net.jax_params()
+    params = net.jax_params()
     if model == "gns":
-        return standard_params_from_fused(fused, net.num_mp_steps)
-    return painn_standard_params_from_fused(fused, net.num_mp_steps)
+        return standard_params_from_fused(params, net.num_mp_steps)
+    if model == "painn":
+        return painn_standard_params_from_fused(params, net.num_mp_steps)
+    return params
 
 
 def _check_model(model: str) -> None:
-    if model in ("segnn", "egnn"):
-        raise NotImplementedError(
-            f"spatial sharding of {model} is not ported to lagrangebench_torch (ROADMAP.md §1 "
-            "item 7.3: it needs edge_mask, sender_nodes and sender_scatter_fn on the port's "
-            "model, and EGNN a reverse halo); parallel.spatial runs gns and painn")
     if model not in MODELS:
-        raise ValueError(f"spatial sharding supports gns|painn (segnn|egnn: ROADMAP.md §1 item "
-                         f"7.3), got {model}")
+        raise ValueError(f"spatial sharding supports {'|'.join(MODELS)}, got {model}")
 
 
 def _make_core(model: str, mesh, params, *, box, cutoff, input_seq_length, num_mp_steps, k_cap,
-               cell_cap, stats, compute_dtype=torch.float32, radius=None, device="cuda"):
-    """The spatial core of ``model`` (gns | painn) on this rank's ring of
-    ``mesh``; ``params`` a JAX tree or the module to share."""
+               cell_cap, stats, compute_dtype=torch.float32, radius=None, model_def=None,
+               device="cuda"):
+    """The spatial core of ``model`` (gns | painn | segnn | egnn) on this
+    rank's ring of ``mesh``; ``params`` a JAX tree or the module to share
+    (a tree of SEGNN or EGNN goes into ``model_def``)."""
     _check_model(model)
     net = spatial_model(model, params, num_mp_steps, compute_dtype=compute_dtype, radius=radius,
-                        cutoff=cutoff, device=device)
-    cls = _SpatialGNS if model == "gns" else _SpatialPaiNN
-    return cls(ring_of(mesh), net, box=box, cutoff=cutoff, input_seq_length=input_seq_length,
-               k_cap=k_cap, cell_cap=cell_cap, stats=stats)
+                        cutoff=cutoff, model_def=model_def, device=device)
+    return _CORES[model](ring_of(mesh), net, box=box, cutoff=cutoff,
+                         input_seq_length=input_seq_length, k_cap=k_cap, cell_cap=cell_cap,
+                         stats=stats)
 
 
-def _velocity_stats(vel_mean, vel_std) -> Dict:
-    """A forward's normalization stats: the velocity's (the acceleration's
-    are not read)."""
+def _forward_stats(vel_mean, vel_std, acc_mean=None, acc_std=None) -> Dict:
+    """A forward's normalization stats: the velocity's, and the
+    acceleration's where the model reads them (EGNN; else mean 0, std 1)."""
     mean = torch.as_tensor(vel_mean)
     return {"velocity": {"mean": mean, "std": torch.as_tensor(vel_std)},
-            "acceleration": {"mean": torch.zeros_like(mean), "std": torch.ones_like(mean)}}
+            "acceleration": {
+                "mean": torch.zeros_like(mean) if acc_mean is None else torch.as_tensor(acc_mean),
+                "std": torch.ones_like(mean) if acc_std is None else torch.as_tensor(acc_std)}}
 
 
-def _build_forward(model: str, mesh, params, *, box, cutoff, input_seq_length, num_mp_steps,
-                   k_cap, vel_mean, vel_std, cell_cap: Optional[int] = None,
-                   compute_dtype=torch.float32, radius: Optional[float] = None, device="cuda"):
+def _build_forward(model: str, mesh, params, *, box, cutoff, input_seq_length, k_cap, vel_mean,
+                   vel_std, num_mp_steps: Optional[int] = None, cell_cap: Optional[int] = None,
+                   acc_mean=None, acc_std=None, compute_dtype=torch.float32,
+                   radius: Optional[float] = None, model_def=None, device="cuda"):
     core = _make_core(model, mesh, params, box=box, cutoff=cutoff,
                       input_seq_length=input_seq_length, num_mp_steps=num_mp_steps, k_cap=k_cap,
                       cell_cap=cell_cap or 4 * k_cap,
-                      stats=_velocity_stats(vel_mean, vel_std),
-                      compute_dtype=compute_dtype, radius=radius, device=device)
+                      stats=_forward_stats(vel_mean, vel_std, acc_mean, acc_std),
+                      compute_dtype=compute_dtype, radius=radius, model_def=model_def,
+                      device=device)
 
     @torch.no_grad()
     def forward(pos, ptype, count):
@@ -674,6 +890,21 @@ def build_spatial_painn_forward(mesh, params, **kw):
     ``params`` a PaiNN tree in either layout and the keyword ``radius`` the
     model's RBF and cutoff radius (1.5 x ``cutoff`` by default)."""
     return _build_forward("painn", mesh, params, **kw)
+
+
+def build_spatial_segnn_forward(mesh, params, model_def=None, **kw):
+    """Spatially sharded SEGNN forward: as :func:`build_spatial_gns_forward`,
+    ``params`` a SEGNN tree loaded into ``model_def`` (the port's SEGNN built
+    for the config) or the module itself; no ``num_mp_steps``."""
+    return _build_forward("segnn", mesh, params, model_def=model_def, **kw)
+
+
+def build_spatial_egnn_forward(mesh, params, model_def=None, **kw):
+    """Spatially sharded EGNN forward: as :func:`build_spatial_segnn_forward`
+    with the port's EGNN, and the keywords ``acc_mean`` and ``acc_std``: it
+    returns the normalized acceleration (the EGNN itself integrates
+    positions)."""
+    return _build_forward("egnn", mesh, params, model_def=model_def, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -760,10 +991,10 @@ def _batch_loss(core, samples, unroll: int, n_batch: int, grad: bool):
     return total / n_batch, overflow
 
 
-def _mesh_step(mesh, params, grad: bool, *, box, cutoff, input_seq_length, num_mp_steps, k_cap,
-               normalization_stats, cell_cap: Optional[int] = None,
-               compute_dtype=torch.float32, model: str = "gns",
-               radius: Optional[float] = None, device="cuda"):
+def _mesh_step(mesh, params, grad: bool, *, box, cutoff, input_seq_length, k_cap,
+               normalization_stats, num_mp_steps: Optional[int] = None,
+               cell_cap: Optional[int] = None, compute_dtype=torch.float32, model: str = "gns",
+               radius: Optional[float] = None, model_def=None, device="cuda"):
     """``step(pos, ptype, count, unroll_steps=0) -> (loss, overflow)``: this
     rank's share of the loss (with ``grad`` its backward), summed with the
     overflow flag (and the gradients) over the mesh. One sample per call on
@@ -773,7 +1004,8 @@ def _mesh_step(mesh, params, grad: bool, *, box, cutoff, input_seq_length, num_m
     core = _make_core(model, mesh, params, box=box, cutoff=cutoff,
                       input_seq_length=input_seq_length, num_mp_steps=num_mp_steps, k_cap=k_cap,
                       cell_cap=cell_cap or 4 * k_cap, stats=normalization_stats,
-                      compute_dtype=compute_dtype, radius=radius, device=device)
+                      compute_dtype=compute_dtype, radius=radius, model_def=model_def,
+                      device=device)
     leaves = list(core.model.parameters()) if grad else []
 
     def step(pos, ptype, count, unroll_steps: int = 0):
@@ -802,9 +1034,9 @@ def _as_samples(core, pos, ptype, count, batched: bool):
 
 def build_spatial_gns_train_step(mesh, params, **kw):
     """Spatially sharded training step on the slab ring of a 1D ``mesh``,
-    for ``model`` gns or painn (keywords: box, cutoff, input_seq_length,
-    num_mp_steps, k_cap, normalization_stats, cell_cap, compute_dtype,
-    model, radius, device).
+    for ``model`` gns, painn, segnn or egnn (keywords: box, cutoff,
+    input_seq_length, num_mp_steps, k_cap, normalization_stats, cell_cap,
+    compute_dtype, model, radius, model_def, device).
 
     Returns ``(step, module)``. ``step(pos, ptype, count, unroll_steps=0) ->
     (loss, overflow)`` takes this rank's slab of one sample (pos (N_loc, T,
@@ -813,7 +1045,8 @@ def build_spatial_gns_train_step(mesh, params, **kw):
     backward (K4 for GNS; the halo's backward routes the sender cotangents
     home) and sums loss, overflow and every gradient over the mesh: the
     gradients of the global loss are left in the module's ``.grad``.
-    ``module`` is the port's fused model holding ``params``."""
+    ``module`` is the port's model holding ``params`` (GNS and PaiNN fused;
+    ``model_def`` for SEGNN and EGNN)."""
     step = _mesh_step(mesh, params, True, **kw)
     return step, step.core.model
 
@@ -893,7 +1126,7 @@ def _rollout_chunk(core: _SpatialBase, pos, ptype, count, n_steps: int, gt=None)
 def build_spatial_gns_rollout(mesh, params, *, box, cutoff, input_seq_length, num_mp_steps,
                               k_cap, cell_cap, normalization_stats, compute_dtype=torch.float32,
                               model: str = "gns", radius: Optional[float] = None,
-                              device="cuda"):
+                              model_def=None, device="cuda"):
     """A chunk of rollout on the slab ring of ``mesh``: returns ``run(pos,
     ptype, count, n_steps, gt=None) -> (preds (n_steps, N_loc, dim), window,
     (overflow, drift))`` for this rank's slab (see ``_rollout_chunk``);
@@ -902,7 +1135,8 @@ def build_spatial_gns_rollout(mesh, params, *, box, cutoff, input_seq_length, nu
     core = _make_core(model, mesh, params, box=box, cutoff=cutoff,
                       input_seq_length=input_seq_length, num_mp_steps=num_mp_steps, k_cap=k_cap,
                       cell_cap=cell_cap, stats=normalization_stats,
-                      compute_dtype=compute_dtype, radius=radius, device=device)
+                      compute_dtype=compute_dtype, radius=radius, model_def=model_def,
+                      device=device)
 
     def run(pos, ptype, count, n_steps: int, gt=None):
         return _rollout_chunk(core, pos, ptype, count, int(n_steps), gt)
@@ -920,7 +1154,7 @@ def spatial_rollout(params, pos: np.ndarray, ptype: np.ndarray, *, mesh, box, cu
                     chunk: int = 25, multiplier: float = 1.25, compute_dtype=torch.float32,
                     max_retries: int = 8, model: str = "gns",
                     target: Optional[np.ndarray] = None, radius: Optional[float] = None,
-                    device="cuda") -> np.ndarray:
+                    model_def=None, device="cuda") -> np.ndarray:
     """A full spatially sharded rollout, every rank of the ring taking part.
 
     pos (N, input_seq_length, dim), the initial window in global order, the
@@ -930,7 +1164,8 @@ def spatial_rollout(params, pos: np.ndarray, ptype: np.ndarray, *, mesh, box, cu
     dim): the ground truth onto which kinematic particles (walls, moving
     walls) are forced each step (the reference's
     lagrangebench/evaluate/rollout.py:64-69); without it they hold their
-    position. ``params``: a JAX tree or the module (a trainer's live one).
+    position. ``params``: a JAX tree (SEGNN's and EGNN's loaded into
+    ``model_def``) or the module (a trainer's live one).
 
     On a neighbor-capacity overflow the caps grow x1.5 and the chunk
     reruns; on drift the chunk reruns from its start at half its length.
@@ -944,7 +1179,7 @@ def spatial_rollout(params, pos: np.ndarray, ptype: np.ndarray, *, mesh, box, cu
                                     num_mp_steps=num_mp_steps, k_cap=k_cap, cell_cap=cell_cap,
                                     normalization_stats=normalization_stats,
                                     compute_dtype=compute_dtype, model=model, radius=radius,
-                                    device=device)
+                                    model_def=model_def, device=device)
     core = run.core
     ring = core.ring
     cur = np.array(pos)
@@ -1014,7 +1249,7 @@ def train_spatial(params, case, data_train, data_valid, *, n_devices: int, model
                   seed: int = 0, step_max: Optional[int] = None, store_ckp: Optional[str] = None,
                   compute_dtype=torch.float32, multiplier: float = 1.25,
                   load_ckp: Optional[str] = None, n_rollout_steps_val: int = 20,
-                  n_trajs_val: int = 2, device="cuda"):
+                  n_trajs_val: int = 2, model_def: Optional[nn.Module] = None, device="cuda"):
     """Spatially sharded training (``parallel.spatial: N``).
 
     Every step runs the halo-exchange train step over an N-slab ring; with
@@ -1030,6 +1265,9 @@ def train_spatial(params, case, data_train, data_valid, *, n_devices: int, model
     ``n_rollout_steps_val`` steps), the pushforward curriculum (the unroll
     count sampled per step, no gradient through it), GNS noise drawn on the
     host. Rank 0 prints and writes the checkpoints, in the standard layout.
+    ``model``: gns, painn, segnn or egnn; SEGNN and EGNN train
+    ``model_def``, the port's module built for the config, which takes
+    ``params``.
 
     Returns (standard-layout parameters, state, optimizer); a rank outside
     the mesh returns (None, {}, None).
@@ -1074,7 +1312,7 @@ def train_spatial(params, case, data_train, data_valid, *, n_devices: int, model
         params, _, opt_leaves, ckp_step = load_checkpoint(load_ckp)
         step_start = int(ckp_step) + 1
     net = spatial_model(model, params, num_mp_steps, compute_dtype=compute_dtype,
-                        cutoff=cutoff, device=device)
+                        cutoff=cutoff, model_def=model_def, device=device)
     stats = case.normalization_stats
     pos0 = np.asarray(data_train[0][0])
     k_cap, cell_cap = spatial_caps(pos0[:, isl - 1], box, cutoff, multiplier)
@@ -1212,14 +1450,17 @@ def train_spatial(params, case, data_train, data_valid, *, n_devices: int, model
 
 def infer_spatial(params, case, data_test, *, n_devices: int, num_mp_steps: int,
                   cfg_eval_infer=None, n_rollout_steps: int = 20, compute_dtype=torch.float32,
-                  model: str = "gns", device="cuda", mesh=None) -> Optional[Dict[str, Dict]]:
+                  model: str = "gns", model_def: Optional[nn.Module] = None, device="cuda",
+                  mesh=None) -> Optional[Dict[str, Dict]]:
     """Spatially sharded inference over a test split (``parallel.spatial: N``
     in infer mode), on the first N ranks or on ``mesh``'s ring.
 
     Kinematic particles are forced to the ground truth each step, as in the
     standard ``infer``, and the metrics are computed on the gathered global
-    trajectory with the standard ``MetricsComputer``. Returns the metrics
-    per trajectory on every rank of the ring; None on a rank outside it.
+    trajectory with the standard ``MetricsComputer``. ``params`` of SEGNN
+    and EGNN go into ``model_def`` (see :func:`spatial_model`). Returns the
+    metrics per trajectory on every rank of the ring; None on a rank outside
+    it.
     """
     from ..config import merge
     from ..defaults import defaults
@@ -1243,7 +1484,7 @@ def infer_spatial(params, case, data_test, *, n_devices: int, num_mp_steps: int,
     box = bounds[:, 1] - bounds[:, 0]
     cutoff = float(metadata["default_connectivity_radius"])
     net = spatial_model(model, params, num_mp_steps, compute_dtype=compute_dtype,
-                        cutoff=cutoff, device=device)
+                        cutoff=cutoff, model_def=model_def, device=device)
     metrics_computer = MetricsComputer(list(cfg.metrics), dist_fn=case.displacement,
                                        metadata=metadata, input_seq_length=isl,
                                        stride=cfg.metrics_stride)

@@ -35,8 +35,8 @@ one device. Under a launcher rank r runs on ``cuda:LOCAL_RANK`` (every rank
 on the CPU with ``gpu=-1``); a rank beyond the mesh does no work. Training
 and inference share the mesh; rank 0 names the run and writes.
 
-Spatial sharding (``parallel.spatial: N``, N > 1; GNS and PaiNN, fully
-periodic boxes): training and inference run over an N-slab ring
+Spatial sharding (``parallel.spatial: N``, N > 1; GNS, PaiNN, SEGNN and
+EGNN, fully periodic boxes): training and inference run over an N-slab ring
 (``parallel/spatial.py``) of N launched ranks, N x n_data when
 ``train.batch_size > 1`` shards the batch over the rows of a (data, space)
 mesh (n_data the largest divisor of the batch within ranks // N); with
@@ -45,9 +45,11 @@ run alone. Checkpoints are written in the standard layout, by rank 0. The
 compute dtype is ``model.compute_dtype`` (the JAX runner's spatial path
 leaves its functions' float32 default).
 
-Not ported (each raises NotImplementedError naming its ROADMAP.md §1 item):
-SEGNN and EGNN under ``parallel.spatial > 1`` (item 7.3) and the import of
-the reference's Haiku checkpoints (item 8).
+Checkpoints: ``load_ckp`` names one of this package's (``params.npz``)
+or one of the reference's Haiku checkpoints (``params_array.npy``), which
+``compat.load_reference_checkpoint`` imports for GNS, EGNN, PaiNN and
+Linear, as the JAX runner does; either is then re-laid out for the fused
+processor where the config asks for it.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ import torch.distributed as dist
 
 from .case import case_builder
 from .checkpoint import flatten_tree, load_checkpoint
+from .compat import is_haiku_checkpoint, load_reference_checkpoint
 from .config import Config, save_yaml
 from .data import H5Dataset
 from .defaults import check_cfg
@@ -105,11 +108,6 @@ def rank_device(gpu: Optional[int]) -> torch.device:
     return device_from_gpu(gpu)
 
 
-def is_haiku_checkpoint(model_dir: str) -> bool:
-    """A checkpoint in the reference's Haiku layout (``params_array.npy``)."""
-    return osp.exists(osp.join(model_dir, "params_array.npy"))
-
-
 def setup_data(cfg: Config) -> Tuple[H5Dataset, H5Dataset, H5Dataset]:
     """Train, valid and test splits from ``dataset.src``; the train windows
     carry the pushforward's extra frames, the eval windows the rollout."""
@@ -129,16 +127,12 @@ def _spatial(cfg: Config) -> int:
 
 def _check_ported(cfg: Config) -> None:
     if _spatial(cfg) > 1:
+        from .parallel.spatial import MODELS
+
         name = cfg.model.name.lower()
-        if name in ("segnn", "egnn"):
-            raise NotImplementedError(
-                f"parallel.spatial > 1 with model.name={name} is not ported to "
-                "lagrangebench_torch (ROADMAP.md §1 item 7.3); parallel.spatial runs gns and "
-                "painn"
-            )
-        if name not in ("gns", "painn"):
-            raise ValueError(f"parallel.spatial supports gns|painn (segnn|egnn: ROADMAP.md §1 "
-                             f"item 7.3), got model.name={name}")
+        if name not in MODELS:
+            raise ValueError(f"parallel.spatial supports {'|'.join(MODELS)}, got "
+                             f"model.name={name}")
     fmt = cfg.neighbors.format
     if fmt == "sparse" and cfg.model.get("fused_processor", False) \
             and cfg.model.name.lower() in ("gns", "painn"):
@@ -222,8 +216,8 @@ def train_or_infer(cfg: Config, data: Optional[Sequence] = None):
 
     if mode in ("infer", "all"):
         if not trained:
-            params = _load_params(old_model_dir, main)
-            model.load_jax_params(ensure_fused_params(params, cfg.model))
+            params = _load_params(old_model_dir, main, cfg.model)
+            model.load_jax_params(params)
         eval_metrics = infer(model, case, data_test, cfg_eval_infer=cfg.eval.infer,
                              rollout_dir=cfg.eval.rollout_dir,
                              n_rollout_steps=cfg.eval.n_rollout_steps, seed=cfg.seed,
@@ -260,19 +254,20 @@ def _run_dir(cfg: Config, data_train, mesh, main: bool) -> str:
     return store_ckp
 
 
-def _load_params(model_dir: str, main: bool):
-    """The parameter tree of ``<model_dir>/best`` (or ``model_dir`` itself)."""
+def _load_params(model_dir: str, main: bool, cfg_model):
+    """The parameter tree of ``<model_dir>/best`` (or ``model_dir`` itself),
+    this package's checkpoint or an imported Haiku one, re-laid out for the
+    fused processor where ``cfg_model`` asks for it."""
     best_dir = osp.join(model_dir, "best")
     load_dir = best_dir if osp.exists(osp.join(best_dir, "metadata_ckp.json")) else model_dir
     if is_haiku_checkpoint(load_dir):
-        raise NotImplementedError(
-            f"{load_dir} is a reference Haiku checkpoint; its import is not "
-            "ported to lagrangebench_torch (ROADMAP.md §1 item 8)"
-        )
-    params, _, _, step = load_checkpoint(load_dir)
-    if main:
-        print(f"Loaded model from {load_dir} at step {step}")
-    return params
+        params, _, _ = load_reference_checkpoint(load_dir, cfg_model.name, cfg_model,
+                                                 verbose=main)
+    else:
+        params, _, _, step = load_checkpoint(load_dir)
+        if main:
+            print(f"Loaded model from {load_dir} at step {step}")
+    return ensure_fused_params(params, cfg_model)
 
 
 def _train_or_infer_spatial(cfg: Config, data, device, world: int, rank: int):
@@ -291,14 +286,19 @@ def _train_or_infer_spatial(cfg: Config, data, device, world: int, rank: int):
     metadata = data_train.metadata
     _require_periodic(metadata, f"runner(mode={cfg.mode})")  # before any work
     case = _case(cfg, data_train, device)
+    _, particle_type = data_train[0]
+    # SEGNN and EGNN run the module built for the config (as JAX passes its
+    # model_def); GNS and PaiNN are sized from their parameter trees
+    seeded = setup_model(cfg.model, metadata, seed=cfg.seed,
+                         device=device if name in ("segnn", "egnn") else "cpu",
+                         normalization_stats=case.normalization_stats,
+                         homogeneous_particles=bool(particle_type.max() == particle_type.min()))
     kw = dict(num_mp_steps=int(cfg.model.num_mp_steps), model=name, device=device,
-              compute_dtype=cfg.model.get("compute_dtype", "float32"))
+              compute_dtype=cfg.model.get("compute_dtype", "float32"),
+              model_def=seeded if name in ("segnn", "egnn") else None)
     old_model_dir, params = cfg.load_ckp, None
     if cfg.mode in ("train", "all"):
         store_ckp = _run_dir(cfg, data_train, Mesh(dist.group.WORLD, rank, world), main)
-        _, particle_type = data_train[0]
-        seeded = setup_model(cfg.model, metadata, seed=cfg.seed, device="cpu",
-                             homogeneous_particles=bool(particle_type.max() == particle_type.min()))
         n_trajs_val = int(cfg.eval.train.n_trajs)
         if n_trajs_val == -1:
             n_trajs_val = data_valid.num_samples
@@ -319,7 +319,7 @@ def _train_or_infer_spatial(cfg: Config, data, device, world: int, rank: int):
               f"(parallel.spatial={n_spatial}, {world} ranks); this rank does no work")
         return None
     if params is None:
-        params = _load_params(old_model_dir, main)
+        params = _load_params(old_model_dir, main, cfg.model)
     eval_metrics = infer_spatial(params, case, data_test, n_devices=n_spatial,
                                  cfg_eval_infer=cfg.eval.infer,
                                  n_rollout_steps=cfg.eval.n_rollout_steps, **kw)

@@ -5,7 +5,9 @@ re-imports this module); pytest does not collect it.
 
 The case: 1,024 particles in a 3D periodic box of side 1.0, cutoff 0.09,
 input sequence 4, models of latent width 16 with 2 message-passing steps,
-float64 on the CPU. :func:`start_ranks` starts a list of jobs on n gloo
+float64 on the CPU. SEGNN and EGNN (the ``steerable_*`` jobs): 512
+particles, cutoff 0.12, a SEGNN of 2 layers, 8 scalar units and lmax 1, an
+EGNN of 2 layers and width 16. :func:`start_ranks` starts a list of jobs on n gloo
 ranks over a ``file://`` init method; :func:`join_ranks` waits for them
 and returns each rank's results.
 """
@@ -26,14 +28,14 @@ METADATA = {"dim": DIM, "num_particles_max": N, "periodic_boundary_conditions": 
             "acc_std": [1e-4] * DIM}
 
 
-def trajectory(seed=3, frames=ISL + 1 + ROLLOUT):
-    """(N, frames, dim) straight-line trajectories wrapped in the box and
-    (N,) types with five walls."""
+def trajectory(seed=3, frames=ISL + 1 + ROLLOUT, n=N):
+    """(n, frames, dim) straight-line trajectories wrapped in the box and
+    (n,) types with five walls."""
     rng = np.random.default_rng(seed)
-    base = rng.uniform(0, BOX, size=(N, 1, DIM))
-    vel = rng.normal(0, 2e-3, size=(N, 1, DIM))
+    base = rng.uniform(0, BOX, size=(n, 1, DIM))
+    vel = rng.normal(0, 2e-3, size=(n, 1, DIM))
     pos = np.mod(base + vel * np.arange(frames)[None, :, None], BOX)
-    ptype = np.zeros(N, np.int32)
+    ptype = np.zeros(n, np.int32)
     ptype[:5] = 1
     return pos, ptype
 
@@ -346,3 +348,124 @@ def join_ranks(context, tmp_dir, world=4):
         with open(os.path.join(tmp_dir, f"rank{rank}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+# ---------------------------------------------------------------------------
+# SEGNN and EGNN
+# ---------------------------------------------------------------------------
+
+S_N, S_CUTOFF = 512, 0.12
+S_METADATA = dict(METADATA, num_particles_max=S_N, default_connectivity_radius=S_CUTOFF,
+                  dt=0.01)
+
+
+def steerable_cfg(name, **overrides):
+    from lagrangebench_torch.config import Config
+
+    return Config({"name": name, "compute_dtype": "float64", "num_mp_steps": MP_STEPS,
+                   "latent_dim": 8 if name == "segnn" else LATENT, "num_mlp_layers": 2,
+                   "input_seq_length": ISL, "magnitude_features": True,
+                   "isotropic_norm": False, "lmax_hidden": 1, "lmax_attributes": 1,
+                   "velocity_aggregate": "avg", "segnn_norm": "none", **overrides})
+
+
+def torch_stats():
+    return {k: {kk: torch.as_tensor(vv) for kk, vv in v.items()} for k, v in STATS.items()}
+
+
+def steerable_model(name, params=None, **overrides):
+    """The port's SEGNN or EGNN in float64 on the CPU (seeded, or holding
+    ``params``); EGNN integrates with the velocity stats of ``STATS``."""
+    from lagrangebench_torch.models import setup_model
+
+    net = setup_model(steerable_cfg(name, **overrides), S_METADATA, seed=0, device="cpu",
+                      normalization_stats=torch_stats()).double()
+    if params is not None:
+        net.load_jax_params(params)
+    return net
+
+
+def s_common(model):
+    return dict(box=[BOX] * DIM, cutoff=S_CUTOFF, input_seq_length=ISL,
+                compute_dtype=torch.float64, model_def=steerable_model(model), device="cpu")
+
+
+def steerable_forward(n_space, model, params, pos, ptype, k_cap):
+    """The spatial SEGNN or EGNN forward on a ring of ``n_space`` (EGNN's
+    normalized by ``STATS``): this slab's global rows and accelerations."""
+    from lagrangebench_torch.parallel import make_mesh
+    from lagrangebench_torch.parallel import spatial as sp
+
+    mesh = make_mesh(n_space)
+    if not mesh.member:
+        return None
+    pos_sh, pt_sh, counts, order = sp.spatial_partition(pos[:, :ISL], ptype, n_space, BOX)
+    kw = dict(vel_mean=STATS["velocity"]["mean"], vel_std=STATS["velocity"]["std"])
+    if model == "egnn":
+        kw.update(acc_mean=STATS["acceleration"]["mean"], acc_std=STATS["acceleration"]["std"])
+    build = sp.build_spatial_segnn_forward if model == "segnn" else sp.build_spatial_egnn_forward
+    fwd = build(mesh, params, k_cap=k_cap, **kw, **s_common(model))
+    r = mesh.rank
+    acc, overflow = fwd(pos_sh[r], pt_sh[r], counts[r])
+    return {"rows": sp._slab_rows(counts, order, r), "acc": acc[:counts[r]].numpy(),
+            "overflow": overflow}
+
+
+def steerable_train_step(n_space, model, params, samples, k_cap):
+    """One spatial train step of SEGNN or EGNN on a ring of ``n_space``: the
+    loss, the overflow flag and the gradients by tree path."""
+    from lagrangebench_torch.checkpoint import flatten_tree, unflatten_tree
+    from lagrangebench_torch.parallel import make_mesh
+    from lagrangebench_torch.parallel import spatial as sp
+
+    mesh = make_mesh(n_space)
+    if not mesh.member:
+        return None
+    block = sp._rank_block(mesh, partition_batch(samples, n_space), len(samples))
+    step, net = sp.build_spatial_gns_train_step(mesh, params, k_cap=k_cap,
+                                                normalization_stats=STATS, model=model,
+                                                **s_common(model))
+    loss, overflow = step(*block)
+    grads = flatten_tree(unflatten_tree({path: (p.grad.t() if tr else p.grad).numpy().copy()
+                                         for path, p, tr in net.jax_leaves()}))
+    return {"loss": float(loss), "overflow": bool(overflow), "grads": grads}
+
+
+def steerable_rollout(n_space, model, params, pos, ptype):
+    """``spatial_rollout`` of SEGNN or EGNN for ROLLOUT steps, walls forced
+    onto the ground truth."""
+    from lagrangebench_torch.parallel import make_mesh
+    from lagrangebench_torch.parallel import spatial as sp
+
+    mesh = make_mesh(n_space)
+    if not mesh.member:
+        return None
+    return sp.spatial_rollout(params, pos[:, :ISL], ptype, mesh=mesh, n_steps=ROLLOUT,
+                              normalization_stats=STATS, num_mp_steps=MP_STEPS, model=model,
+                              target=pos[:, ISL:ISL + ROLLOUT].transpose(1, 0, 2),
+                              **s_common(model))
+
+
+def steerable_unsharded(model, params, pos, ptype, rollout=False):
+    """The port's unsharded SEGNN or EGNN on its own dense neighbor list:
+    the normalized acceleration of the first window or, with ``rollout``,
+    ROLLOUT steps with the walls forced onto the ground truth."""
+    from lagrangebench_torch.case import case_builder
+    from lagrangebench_torch.evaluate.rollout import rollout_batch
+
+    net = steerable_model(model, params)
+    case = case_builder([BOX] * DIM, S_METADATA, ISL, cfg_neighbors={"multiplier": 1.4},
+                        cfg_model=steerable_cfg(model), noise_std=0.0, dtype=torch.float64,
+                        device="cpu")
+    window = torch.as_tensor(pos[:, :ISL])
+    feats, nbrs = case.allocate_eval((window, torch.as_tensor(ptype)))
+    with torch.no_grad():
+        if not rollout:
+            acc = net(feats, torch.as_tensor(ptype))["acc"].numpy()
+            std = STATS["acceleration"]["std"] if model == "egnn" else 1.0
+            return acc / std
+        preds, overflow, _ = rollout_batch(
+            net, case, window[None], torch.as_tensor(ptype)[None], nbrs.broadcast(1),
+            torch.as_tensor(pos[None, :, ISL:ISL + ROLLOUT]))
+    assert not bool(overflow)
+    return preds[0].numpy()

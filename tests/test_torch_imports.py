@@ -1,8 +1,8 @@
 """The port stands alone: no JAX-side imports, and CUDA unless asked.
 
-``lagrangebench_torch/`` and ``chip_smoke.py`` import no jax, flax, optax
-or lagrangebench_tpu module (an AST scan of every file). Without CUDA the
-entry points raise unless the caller passes ``device="cpu"``.
+``lagrangebench_torch/`` and ``chip_smoke.py`` import no jax, flax, optax,
+haiku or lagrangebench_tpu module (an AST scan of every file). Without CUDA
+the entry points raise unless the caller passes ``device="cpu"``.
 """
 
 import ast
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "lagrangebench_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "haiku", "lagrangebench_tpu")
 
 
 def _port_files():

@@ -140,24 +140,38 @@ def test_cli_fails_cleanly(jax_run, argv, match):
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    (["parallel.spatial=2", "model.name=segnn"], NotImplementedError, "item 7.3"),
+    (["parallel.spatial=2", "model.name=segnn"], ValueError,
+     "needs 2 ranks|torch.distributed.run"),
     (["parallel.spatial=2"], ValueError, "needs 2 ranks|torch.distributed.run"),
 ], ids=["spatial_segnn", "spatial_gns_one_process"])
 def test_unported_paths_name_their_roadmap_item(jax_run, overrides, error, match):
-    """SEGNN (and EGNN) under parallel.spatial name ROADMAP item 7.3; GNS
-    under parallel.spatial=2 in one process raises, saying how to launch
-    two ranks, rather than run alone."""
+    """SEGNN and GNS under parallel.spatial=2 in one process raise, saying
+    how to launch two ranks, rather than run alone (spatial SEGNN and EGNN
+    are ported: ROADMAP.md §1 item 7.3)."""
     root = jax_run[0]
     with pytest.raises(error, match=match):
         cli.main([f"config={os.path.join(root, 'cfg.yaml')}", "gpu=-1", *overrides])
 
 
-def test_haiku_checkpoint_is_not_ported(jax_run, tmp_path):
-    (tmp_path / "params_array.npy").write_bytes(b"")
-    root = jax_run[0]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main([f"config={os.path.join(root, 'cfg.yaml')}", "gpu=-1", "mode=infer",
-                  f"load_ckp={tmp_path}"])
+def test_haiku_checkpoint_is_not_ported(jax_run, tmp_path, capsys):
+    """The import of the reference's Haiku checkpoints is ported (ROADMAP.md
+    §1 item 8.2): the JAX run's weights exported with the port's
+    ``save_reference_checkpoint`` and inferred with ``mode=infer
+    load_ckp=<Haiku dir>`` give the metrics of infer from the same weights'
+    ``params.npz``, exactly."""
+    from lagrangebench_torch.checkpoint import load_checkpoint
+    from lagrangebench_torch.compat import save_reference_checkpoint
+
+    root, _, run_dir, _ = jax_run
+    params, _, _, _ = load_checkpoint(os.path.join(run_dir, "best"))
+    haiku_dir = str(tmp_path / "haiku")
+    save_reference_checkpoint(haiku_dir, "painn", params, {"num_mp_steps": 2})
+    cfg = os.path.join(root, "cfg.yaml")
+    common = [f"config={cfg}", "gpu=-1", "mode=infer", f"eval.rollout_dir={tmp_path}"]
+    got = cli.main(common + [f"load_ckp={haiku_dir}"])
+    assert "Imported reference haiku checkpoint" in capsys.readouterr().out
+    want = cli.main(common + [f"load_ckp={run_dir}"])
+    assert got == want and all(np.isfinite(v) for v in got.values())
 
 
 def test_chip_smoke_config_is_the_shipped_painn_config():

@@ -91,11 +91,29 @@ def test_periodic_boxes_only():
 
 
 def test_segnn_and_egnn_name_their_roadmap_item():
+    """SEGNN and EGNN are ported (ROADMAP.md §1 item 7.3); what JAX's
+    asserts refuse, the port refuses with ValueError: SEGNN with instance
+    norm (it needs statistics over every node), an EGNN whose embedding
+    takes more than the velocity magnitudes (the type one-hot of JAX's EGNN
+    with ``homogeneous_particles=False``), and a SEGNN or EGNN tree without
+    the module to hold it."""
+    from lagrangebench_torch.models.utils import LinearXav
+    from lagrangebench_torch.utils import NodeType
+
+    kw = dict(box=[1.0] * 3, cutoff=0.1, input_seq_length=4, num_mp_steps=2, k_cap=8,
+              cell_cap=8, stats=w.STATS, device="cpu")
+    segnn = w.steerable_model("segnn", segnn_norm="instance")
+    with pytest.raises(ValueError, match="instance norm"):
+        sp._make_core("segnn", make_mesh(1), segnn, **kw)
+    egnn = w.steerable_model("egnn")
+    egnn.embed = LinearXav(w.ISL - 1 + NodeType.SIZE, w.LATENT).double()
+    with pytest.raises(ValueError, match="homogeneous particles"):
+        sp._make_core("egnn", make_mesh(1), egnn, **kw)
     for model in ("segnn", "egnn"):
-        with pytest.raises(NotImplementedError, match="item 7.3"):
-            sp._make_core(model, make_mesh(1), {}, box=[1.0] * 3, cutoff=0.1,
-                          input_seq_length=4, num_mp_steps=2, k_cap=8, cell_cap=8,
-                          stats=w.STATS, device="cpu")
+        with pytest.raises(ValueError, match="model_def"):
+            sp._make_core(model, make_mesh(1), {}, **kw)
+    with pytest.raises(ValueError, match="gns|painn|segnn|egnn"):
+        sp._make_core("linear", make_mesh(1), {}, **kw)
 
 
 def test_standard_params_from_fused_equals_jax_and_inverts():
