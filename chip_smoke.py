@@ -199,7 +199,34 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    torch's deterministic index_add: its rollout blows up, and the atomics'
    order alone moves its 5-step metrics) and Linear. Nothing on this path
    imports Haiku.
-14. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+14. Data generation (slice 14, "phase 15" in the output; no new kernel).
+   (a) The WCSPH solver (``data_gen.wcsph``) at the reference scales: TGV
+   2D (2,500 particles), TGV 3D (8,000, a Verlet skin of 0.25 h, capacity
+   multiplier 1.5), DAM (dx 0.025), RPF 2D (3,200, with the band force) and
+   LDC (dx 1/46), one frame of substeps (40, DAM 50) in float32 on the card
+   with K1 + K2 against the CPU (their plain versions) and against the cell
+   list on the card, within ``DATAGEN_TOL``; the allocations' neighbor rows
+   as sets (a pair only one search keeps must sit on the cutoff); K1 and K2
+   exactly 1 + ceil(steps / nl_every) launches per allocation and advance,
+   no other kernel; walls unmoved; ms per substep. (b) The JAX tests'
+   physical checks on the card at their sizes (TGV decay and momentum,
+   the hydrostatic tank, the RPF bands, the LDC lid, walls). (c) A TGV 2D
+   ensemble (6 trajectories x 30 frames x 40 substeps, split 4/1/1) and an
+   RPF 2D trajectory (600 warmup substeps, 120 frames x 60, time-split
+   80/10/10) generated on the card (``simulate_frames``, K1 and K2 counted),
+   split by the converter's ``split_trajectories`` into metadata with
+   statistics and into ``ArrayDataset``s; the RPF force is ``RPF_FORCE_PY``
+   written to a temporary directory and loaded by the dataset loader (the
+   port's ``jax.numpy`` namespace). (d) GNS-10-128 bf16 fused, batch 2,
+   through ``runner.train_or_infer(mode=all)`` with
+   ``configs/tgv_2d_gen/gns.yaml`` and ``configs/rpf_2d_gen/gns.yaml``
+   (``TGV_GEN_CONFIG``, ``RPF_GEN_CONFIG``): 5 training steps, validation,
+   and infer (20 and 6 rollout steps); K1 and K2 once per neighbor update,
+   K3 9 + 1 per forward, K4 and its reduction 10 per training step; finite
+   losses and metrics; the RPF model built with the force feature. No h5py
+   is used; the frames stay in memory. Prints frames/s of generation and
+   the phase's wall time beside the card.
+15. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
    and C for K7, K8 and K9, from the experiments for E1 and E2), the card
    line, and last ``{"ok": true, "device": {...}}``.
@@ -660,9 +687,6 @@ def profile_steps(model, case, pos, ptype, nbrs, steps=3, isl=ISL, label="profil
     """Device time per rollout step by kernel group, and the device's idle
     share of the window, from torch.profiler (CUPTI). ``rename`` relabels
     groups (K7 and K8 share K2's and K3's sources and names)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from lagrangebench_torch.evaluate.rollout import rollout_batch
 
     groups = {"fused_mp": "K3 fused_mp", "painn_msg": "K6 painn_msg",
@@ -674,24 +698,37 @@ def profile_steps(model, case, pos, ptype, nbrs, steps=3, isl=ISL, label="profil
               "gather": "gather/scatter (torch index ops)"}
     groups.update(rename or {})
     rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs, pos[:, :, isl:isl + 1])  # warm
+    profiled(lambda: rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs,
+                                   pos[:, :, isl:isl + steps]),
+             steps, groups, label, "rollout step")
+
+
+def profiled(run, steps, groups, label, unit):
+    """Runs ``run`` (``steps`` units of work) under torch.profiler and logs
+    its device time per ``unit`` by kernel group (a kernel joins the first
+    group whose key its name contains), its device kernels per unit and the
+    device's idle share of the window. A report, not a gate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rollout_batch(model, case, pos[:, :, :isl], ptype, nbrs,
-                          pos[:, :, isl:isl + steps])
+            run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    except RuntimeError as e:  # the profiler is a report, not a gate
+    except RuntimeError as e:
         log(f"{label}: not measured (profiler failed: {e})")
         return
-    per = {}
+    per, kernels = {}, 0
     for ev in prof.key_averages():
         dev = getattr(ev, "device_time_total", None)
         if dev is None:
             dev = getattr(ev, "cuda_time_total", 0)
         if dev <= 0 or getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
+        kernels += ev.count
         name = ev.key.lower()
         group = next((g for k, g in groups.items() if k in name), "other (elementwise, copies)")
         per[group] = per.get(group, 0.0) + dev / 1e3 / steps
@@ -699,10 +736,11 @@ def profile_steps(model, case, pos, ptype, nbrs, steps=3, isl=ISL, label="profil
     if busy <= 0:
         log(f"{label}: no device time in the trace (not measured)")
         return
-    log(f"{label} (ms of device time per rollout step): " + json.dumps(
+    log(f"{label} (ms of device time per {unit}): " + json.dumps(
         {k: round(v, 4) for k, v in sorted(per.items(), key=lambda kv: -kv[1])}))
-    log(f"{label}: window {wall_us / 1e3 / steps:.3f} ms per step on the host clock, "
-        f"device busy {busy / wall_us:.1%}, idle {1 - busy / wall_us:.1%}")
+    log(f"{label}: {kernels / steps:.1f} device kernels per {unit}; window "
+        f"{wall_us / 1e3 / steps:.3f} ms per {unit} on the host clock, device busy "
+        f"{busy / wall_us:.1%}, idle {1 - busy / wall_us:.1%}")
 
 
 def reference_check(device):
@@ -2286,11 +2324,12 @@ def egnn_cfg(**overrides):
     return shipped_cfg(EGNN_CONFIG, **overrides)
 
 
-def _runner_call(label, cfg, data, kernels, neighbor_kernels=True):
+def _runner_call(label, cfg, data, kernels, neighbor_kernels=True, expect=None):
     """runner.train_or_infer with the counters zeroed just before and read
     just after; (metrics, counts, recorder, ok). K1 and K2 must launch once
     per neighbor update (a forward or an allocation), every other kernel of
-    ``kernels`` never; with ``neighbor_kernels=False`` none may launch."""
+    ``kernels`` never, or as often as ``expect(recorder)`` says (a dict by
+    kernel name); with ``neighbor_kernels=False`` K1 and K2 may not launch."""
     import torch
 
     from lagrangebench_torch import runner
@@ -2308,6 +2347,8 @@ def _runner_call(label, cfg, data, kernels, neighbor_kernels=True):
     want = {kern.name: 0 for kern in kernels}
     if neighbor_kernels:
         want.update({"column_table": updates, "neighbor_scan": updates})
+    if expect is not None:
+        want.update(expect(rec))
     log(f"{label}: {wall:.1f} s wall, {rec.forwards} forward passes, {rec.allocations} "
         f"allocations, launches {counts}")
     log(f"{label} metrics: {metrics}")
@@ -2337,7 +2378,7 @@ def _rollout_ms(model, case, test, isl, steps, label, bsz=BATCH, runs=3):
         times.append((time.perf_counter() - t0) * 1e3 / steps)
         finite &= bool(torch.isfinite(preds).all())
     log(f"rollout ({label}): {[round(t, 3) for t in times]} ms per step (batch {bsz} x "
-        f"{N_PARTICLES} particles)")
+        f"{pos.shape[1]} particles)")
     if not finite:
         log(f"FAIL: {label} rollout predictions are not finite")
     return times, finite, (pos, ptype, nbrs)
@@ -4713,6 +4754,539 @@ def reference_path(device="cuda", n_particles=N_PARTICLES):
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15 (slice 14): data generation
+# ---------------------------------------------------------------------------
+
+# configs/tgv_2d_gen/gns.yaml and configs/rpf_2d_gen/gns.yaml, each resolved
+# over its base.yaml (the phase reads no YAML file)
+GEN_GNS = {
+    "model": {"name": "gns", "fused_processor": True, "compute_dtype": "bfloat16",
+              "num_mp_steps": 10, "latent_dim": 128},
+    "train": {"batch_size": 2, "noise_std": 3.0e-4, "overflow_sync_every": 25,
+              "optimizer": {"lr_start": 5.0e-4}},
+    "eval": {"n_rollout_steps": 20, "train": {"metrics_stride": 5},
+             "infer": {"metrics": ["mse", "e_kin", "sinkhorn"], "out_type": "pkl"}},
+    "logging": {"log_steps": 500, "eval_steps": 5000},
+    "neighbors": {"backend": "auto"},
+}
+TGV_GEN_CONFIG = {
+    **GEN_GNS,
+    "dataset": {"src": "datasets/TGV_2500_gen"},
+    "logging": {**GEN_GNS["logging"], "wandb_project": "tgv_2d_gen"},
+    "train": {**GEN_GNS["train"], "step_max": 50000,
+              "optimizer": {"lr_start": 5.0e-4, "lr_decay_steps": 15000},
+              "pushforward": {"steps": [-1, 15000, 30000, 40000], "unrolls": [0, 1, 2, 3],
+                              "probs": [18, 2, 1, 1]}},
+    "eval": {**GEN_GNS["eval"], "train": {"n_trajs": 10, "metrics_stride": 5}},
+}
+RPF_GEN_CONFIG = {
+    **GEN_GNS,
+    "dataset": {"src": "datasets/RPF_2D_gen"},
+    "logging": {**GEN_GNS["logging"], "wandb_project": "rpf_2d_gen"},
+    "train": {**GEN_GNS["train"], "step_max": 25000,
+              "optimizer": {"lr_start": 5.0e-4, "lr_decay_steps": 7500},
+              "pushforward": {"steps": [-1, 7500, 15000, 20000], "unrolls": [0, 1, 2, 3],
+                              "probs": [18, 2, 1, 1]}},
+    "eval": {**GEN_GNS["eval"], "train": {"n_trajs": 4, "metrics_stride": 5}},
+}
+DATAGEN_CASES = ("tgv2d", "tgv3d", "dam", "rpf", "ldc")
+# the reference scales (TGV: particles per side; else dx) and the phase's
+# run lengths; DATAGEN_CPU_SIZES is the CPU rehearsal's default
+DATAGEN_SIZES = {"tgv2d": 50, "tgv3d": 20, "dam": 0.025, "rpf": 0.025, "ldc": 1 / 46,
+                 "frame": 40, "dam_frame": 50, "tgv_trajs": 6, "tgv_frames": 30,
+                 "rpf_frames": 120, "rpf_every": 60, "rpf_warmup": 600, "train_steps": 5,
+                 "tgv_rollout": 20, "rpf_rollout": 6, "timing_runs": 5, "profile": 10,
+                 "egnn_steps": 5}
+DATAGEN_CPU_SIZES = {"tgv2d": 16, "tgv3d": 10, "dam": 0.1, "rpf": 1 / 16, "ldc": 1 / 16,
+                     "frame": 8, "dam_frame": 10, "tgv_trajs": 6, "tgv_frames": 14,
+                     "rpf_frames": 120, "rpf_every": 2, "rpf_warmup": 10, "train_steps": 2,
+                     "tgv_rollout": 4, "rpf_rollout": 4, "timing_runs": 1, "profile": 2,
+                     "egnn_steps": 3}
+# float32 solver state, card against CPU and K1 + K2 against the cell
+# list, after one frame of substeps: max |r diff| (minimum image) and
+# max |v diff| / max |v|. The runs differ in the order of each particle's
+# neighbor sums only: on the CPU, K1 + K2's plain versions against the cell
+# list at these scales read at most 4.77e-7 (DAM) and 4.03e-5 (DAM, RPF);
+# the limits are ten times that.
+DATAGEN_TOL = {"r": 5e-6, "v": 4e-4}
+# a pair that one search keeps and the other drops must lie within this
+# relative distance of the cutoff (float32 rounding of the distance)
+DATAGEN_CUTOFF_TIE = 1e-5
+# TGV momentum drift over 200 float32 substeps at 256 particles, max |sum
+# v - sum v0|: the pair forces cancel up to float32 rounding (5.83e-5 on
+# the CPU)
+DATAGEN_MOMENTUM_TOL = 1e-3
+
+
+def datagen_case(name, sizes, seed=0):
+    """(make_sph kwargs, r, v, tag, wall mask or None) of one case family at
+    ``sizes``, with the generators' physical settings."""
+    import numpy as np
+
+    from lagrangebench_torch.data_gen import wcsph
+
+    rng = np.random.default_rng(seed)
+    if name in ("tgv2d", "tgv3d"):
+        dim, n_side = (2 if name == "tgv2d" else 3), sizes[name]
+        r, v = wcsph.tgv_initial_state(n_side, rng, dim=dim)
+        kw = dict(dx=1.0 / n_side, box=[1.0] * dim, visc=0.01, c0=10.0)
+        if dim == 3:  # the tgv3d preset of data_gen.generate
+            kw.update(nl_skin_h=0.25, capacity_multiplier=1.5)
+        return kw, r, v, np.zeros(len(r), np.int32), None
+    dx = sizes[name]
+    if name == "dam":
+        r, v, tag, box, wall = wcsph.dam_initial_state(dx, rng)
+        return dict(dx=dx, box=box, visc=0.01, c0=15.0, pbc=[False, False], g_ext=[0.0, -1.0],
+                    wall_mask=wall, free_surface=True), r, v, tag, wall
+    if name == "rpf":
+        r, v, tag = wcsph.rpf_initial_state(dx, rng, box=[1.0, 2.0])
+        return dict(dx=dx, box=[1.0, 2.0], visc=0.1, c0=15.0, pbc=[True, True],
+                    force_fn=wcsph.rpf_force_fn), r, v, tag, None
+    r, v, tag, box, wall = wcsph.ldc_initial_state(dx, rng, u_lid=1.0)
+    return dict(dx=dx, box=box, visc=0.01, c0=10.0, pbc=[False, False], wall_mask=wall,
+                free_surface=True), r, v, tag, wall
+
+
+def _state_diff(a, b, box, periodic):
+    """max |a - b| over positions, under the minimum image if periodic."""
+    import numpy as np
+
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    if periodic:
+        box = np.asarray(box, np.float64)
+        d = d - box * np.round(d / box)
+    return float(np.abs(d).max())
+
+
+def _rows_diff(idx_a, idx_b, pos, box, periodic, cutoff):
+    """(pairs kept by only one search, of which off the cutoff tie): the
+    rows of two dense lists compared as sets."""
+    import numpy as np
+
+    n = pos.shape[0]
+    a, b = np.asarray(idx_a), np.asarray(idx_b)
+    bad, off = 0, 0
+    for i in np.nonzero((np.sort(np.pad(a, ((0, 0), (0, max(b.shape[1] - a.shape[1], 0))),
+                                        constant_values=n), 1)
+                         != np.sort(np.pad(b, ((0, 0), (0, max(a.shape[1] - b.shape[1], 0))),
+                                           constant_values=n), 1)).any(1))[0]:
+        only = set(a[i][a[i] < n].tolist()) ^ set(b[i][b[i] < n].tolist())
+        for j in only:
+            d = pos[i].astype(np.float64) - pos[j].astype(np.float64)
+            if periodic:
+                d = d - np.asarray(box) * np.round(d / np.asarray(box))
+            bad += 1
+            off += abs(np.linalg.norm(d) - cutoff) > DATAGEN_CUTOFF_TIE * cutoff
+    return bad, int(off)
+
+
+# kernel groups of a WCSPH substep's profile
+DATAGEN_GROUPS = {"bin_": "K1 column_table", "neighbor_scan": "K2 neighbor_scan",
+                  "index": "gather/scatter", "gather": "gather/scatter",
+                  "scatter": "gather/scatter", "reduce": "reductions"}
+
+
+def datagen_solver(sizes, device, kernels):
+    """(a) One frame of substeps of each case family at ``sizes``: the card
+    (K1 + K2) against the CPU (their plain versions) and against the cell
+    list on the card, the launches of K1 and K2 per advance, ms per
+    substep. Returns (ok, ms per substep by case)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.data_gen import wcsph
+
+    ok, ms = True, {}
+    for name in DATAGEN_CASES:
+        kw, r, v, _, wall = datagen_case(name, sizes)
+        steps = sizes["dam_frame" if name == "dam" else "frame"]
+        periodic = all(kw.get("pbc", [True]))
+        runs, walls = {}, {}
+        for label, dev, backend in (("card", device, "auto"), ("cpu", "cpu", "auto"),
+                                    ("celllist", device, "celllist")):
+            nl, adv, dt = wcsph.make_sph(**kw, backend=backend, device=dev)
+            for kern in kernels:
+                kern.launches = 0
+            t0 = time.perf_counter()
+            r0 = torch.as_tensor(r, dtype=torch.float32, device=dev)
+            nbrs = nl.allocate(r0)
+            idx0 = nbrs.idx.cpu().numpy()
+            r1, v1, nbrs = adv(r0, v, nbrs, steps)
+            if str(dev) != "cpu":
+                torch.cuda.synchronize()
+            counts = {kern.name: kern.launches for kern in kernels}
+            walls[label] = time.perf_counter() - t0
+            runs[label] = (idx0, r1.cpu().numpy(), v1.cpu().numpy(),
+                           bool(nbrs.did_buffer_overflow), counts, adv.nl_every, nbrs)
+            if label == "card":
+                times = []
+                for _ in range(sizes["timing_runs"]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    adv(r1, v1, nbrs, steps)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3 / steps)
+                ms[name] = min(times)
+                if name in ("tgv2d", "tgv3d", "rpf"):
+                    profiled(lambda: adv(r1, v1, nbrs, sizes["profile"]), sizes["profile"],
+                             DATAGEN_GROUPS, f"datagen {name} profile", "substep")
+        idx0, rc, vc, ovf, counts, nl_every, nbrs = runs["card"]
+        want = {kern.name: 0 for kern in kernels}
+        rebuilds = 1 + math.ceil(steps / nl_every)
+        want.update({"column_table": rebuilds, "neighbor_scan": rebuilds})
+        vmax = float(np.abs(vc).max())
+        diffs = {other: (_state_diff(runs[other][1], rc, kw["box"], periodic),
+                         float(np.abs(runs[other][2] - vc).max()) / vmax)
+                 for other in ("cpu", "celllist")}
+        cutoff = 2 * 1.5 * kw["dx"] + kw.get("nl_skin_h", 0.0) * 1.5 * kw["dx"]
+        pairs, off = _rows_diff(idx0, runs["celllist"][0], r.astype(np.float32), kw["box"],
+                                any(kw.get("pbc", [True])), cutoff)
+        walls_still = wall is None or all(
+            np.array_equal(runs[k][1][wall], r.astype(np.float32)[wall]) for k in runs)
+        log(f"datagen {name}: {len(r)} particles, {steps} substeps (nl_every {nl_every}, "
+            f"K {nbrs.capacity}), {ms[name]:.3f} ms per substep on the card (host clock, "
+            f"synchronized, min of {sizes['timing_runs']} runs); card vs CPU max |dr| "
+            f"{diffs['cpu'][0]:.3g}, |dv|/max|v| {diffs['cpu'][1]:.3g}; K1 + K2 vs the cell "
+            f"list |dr| {diffs['celllist'][0]:.3g}, |dv|/max|v| {diffs['celllist'][1]:.3g}, "
+            f"allocation rows differ in {pairs} pairs ({off} off the cutoff tie); launches "
+            f"{json.dumps({k: n for k, n in counts.items() if n})}; s wall (allocation and "
+            f"one frame) {json.dumps({k: round(w, 2) for k, w in walls.items()})}")
+        if counts != want:
+            log(f"FAIL: datagen {name} launches, expected "
+                f"{json.dumps({k: n for k, n in want.items() if n})} (1 allocation + "
+                f"ceil({steps}/{nl_every}) rebuilds)")
+            ok = False
+        if any(d[0] > DATAGEN_TOL["r"] or d[1] > DATAGEN_TOL["v"] for d in diffs.values()):
+            log(f"FAIL: datagen {name} state off by more than {DATAGEN_TOL}")
+            ok = False
+        if off or any(runs[k][3] for k in runs) or not walls_still:
+            log(f"FAIL: datagen {name}: rows off the cutoff tie {off}, overflow "
+                f"{[runs[k][3] for k in runs]}, walls still {walls_still}")
+            ok = False
+        if not np.isfinite(rc).all() or not np.isfinite(vc).all():
+            log(f"FAIL: datagen {name}: non-finite state")
+            ok = False
+    return ok, ms
+
+
+def datagen_physics(device):
+    """(b) The JAX tests' physical checks, in float32 on ``device``, at
+    their sizes: TGV decays and conserves momentum, the hydrostatic tank
+    stays still, the RPF bands drive apart, the LDC lid drags the fluid,
+    and walls never move."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.data_gen import wcsph
+
+    def run(kw, r, v, steps):
+        nl, adv, _ = wcsph.make_sph(**kw, device=device)
+        r0 = torch.as_tensor(r, dtype=torch.float32, device=device)
+        r1, v1, nbrs = adv(r0, v, nl.allocate(r0), steps)
+        return r1.cpu().numpy(), v1.cpu().numpy(), bool(nbrs.did_buffer_overflow)
+
+    checks = {}
+    r, v = wcsph.tgv_initial_state(16, np.random.default_rng(1))
+    r2, v2, ovf = run(dict(dx=1 / 16, box=[1.0, 1.0]), r, v, 200)
+    v0 = v.astype(np.float32).astype(np.float64)  # the solver's float32 start
+    v2 = v2.astype(np.float64)
+    ke0, ke = 0.5 * np.mean(np.sum(v0**2, -1)), 0.5 * np.mean(np.sum(v2**2, -1))
+    mom = float(np.abs(v2.sum(0) - v0.sum(0)).max())
+    checks["tgv decays"] = (0.0 < ke < ke0, f"KE {ke0:.4f} -> {ke:.4f}")
+    checks["tgv momentum"] = (mom <= DATAGEN_MOMENTUM_TOL,
+                              f"max |sum v - sum v0| {mom:.3g} (limit {DATAGEN_MOMENTUM_TOL})")
+    checks["tgv in box"] = (bool(np.all(r2 >= 0) and np.all(r2 < 1.0)) and not ovf, "")
+
+    dx = 0.05
+    r, v, _, box, wall = wcsph.dam_initial_state(dx, np.random.default_rng(3), tank=(1.0, 1.0),
+                                                 column=(1.0, 0.5), jitter=0.01)
+    r2, v2, ovf = run(dict(dx=dx, box=box, visc=0.05, c0=15.0, pbc=[False, False],
+                           g_ext=[0.0, -1.0], wall_mask=wall, free_surface=True), r, v, 400)
+    vf, rf = np.abs(v2[~wall]).max(), r2[~wall]
+    checks["tank still"] = (vf < 0.25 and not ovf, f"max fluid |v| {vf:.4f} (< 0.25)")
+    checks["tank holds"] = (bool(rf[:, 0].min() > 2 * dx and rf[:, 0].max() < box[0] - 2 * dx
+                                 and rf[:, 1].min() > 2 * dx), "")
+    checks["tank walls"] = (np.array_equal(r2[wall], r.astype(np.float32)[wall]), "")
+
+    r, v, _ = wcsph.rpf_initial_state(1 / 16, np.random.default_rng(0), box=[1.0, 2.0])
+    r2, v2, ovf = run(dict(dx=1 / 16, box=[1.0, 2.0], visc=0.1, pbc=[True, True],
+                           force_fn=wcsph.rpf_force_fn), r, v, 100)
+    lower = r2[:, 1] < 1.0
+    lo, hi = float(v2[lower, 0].mean()), float(v2[~lower, 0].mean())
+    checks["rpf bands"] = (lo > 0.01 and hi < -0.01 and not ovf,
+                           f"mean vx lower {lo:.4f}, upper {hi:.4f}")
+
+    dx = 1 / 16
+    r, v, tag, box, wall = wcsph.ldc_initial_state(dx, np.random.default_rng(0), u_lid=1.0)
+    r2, v2, ovf = run(dict(dx=dx, box=box, visc=0.05, pbc=[False, False], wall_mask=wall,
+                           free_surface=True), r, v, 300)
+    top = (tag == 0) & (r[:, 1] > box[1] - 6 * dx)
+    drag = float(v2[top, 0].mean())
+    checks["ldc drags"] = (drag > 0.02 and not ovf, f"mean vx under the lid {drag:.4f}")
+    checks["ldc lid and walls"] = (bool(np.all(v2[tag == 2, 0] == 1.0))
+                                   and np.array_equal(r2[wall], r.astype(np.float32)[wall]), "")
+    ok = True
+    for label, (passed, note) in checks.items():
+        log(f"datagen physics {label}: {'ok' if passed else 'FAIL'} {note}")
+        ok &= bool(passed)
+    return ok
+
+
+def _split_datasets(per_split, metadata, cfg, force_fn=None):
+    """ArrayDatasets of a converter split, windowed as the runner's
+    setup_data windows the H5 splits."""
+    from lagrangebench_torch.data import ArrayDataset
+
+    isl = int(cfg.model.input_seq_length)
+    steps = max(int(cfg.eval.n_rollout_steps), 1)
+    extra = {"train": max(cfg.train.pushforward.unrolls), "valid": steps, "test": steps}
+    return tuple(ArrayDataset(s, [p for p, _ in per_split[s]], [t for _, t in per_split[s]],
+                              metadata, input_seq_length=isl, extra_seq_length=extra[s],
+                              external_force_fn=force_fn)
+                 for s in ("train", "valid", "test"))
+
+
+def datagen_datasets(sizes, device, kernels, cfgs, tmp):
+    """(c) A TGV 2D ensemble and an RPF 2D trajectory generated on the card
+    (``simulate_frames``), split by the converter's array function
+    (``split_trajectories``) into metadata with statistics and then into
+    ArrayDatasets; the RPF force from ``RPF_FORCE_PY`` written to ``tmp``
+    and loaded by the dataset loader. Returns (ok, {case: datasets},
+    frames/s by case)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.data.dataset import _load_force_fn
+    from lagrangebench_torch.data.force import apply_force
+    from lagrangebench_torch.data_gen import wcsph
+    from lagrangebench_torch.data_gen.jax_sph_converter import split_trajectories
+
+    ok, out, fps = True, {}, {}
+    for name in ("tgv2d", "rpf"):
+        kw, r, v, tag, _ = datagen_case(name, sizes)
+        nl, adv, dt = wcsph.make_sph(**kw, device=device)
+        if name == "tgv2d":
+            n_trajs, frames, every, warmup, split = (sizes["tgv_trajs"], sizes["tgv_frames"],
+                                                     sizes["frame"], 0, "4_1_1")
+        else:
+            n_trajs, frames, every, warmup, split = (1, sizes["rpf_frames"], sizes["rpf_every"],
+                                                     sizes["rpf_warmup"], "80_10_10")
+        rng = np.random.default_rng(0)
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trajs = []
+        for i in range(n_trajs):
+            if name == "tgv2d":  # one jitter realization per trajectory
+                r, v = wcsph.tgv_initial_state(sizes["tgv2d"], rng)
+            got, _, _ = wcsph.simulate_frames(r, v, nl, adv, frames, every, warmup,
+                                              device=device, label=f"{name} {i}")
+            trajs.append((got, tag))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {kern.name: kern.launches for kern in kernels}
+        rebuilds = n_trajs * (1 + math.ceil(warmup / adv.nl_every)
+                              + (frames - 1) * math.ceil(every / adv.nl_every))
+        want = {kern.name: 0 for kern in kernels}
+        want.update({"column_table": rebuilds, "neighbor_scan": rebuilds})
+        substeps = n_trajs * (warmup + (frames - 1) * every)
+        fps[name] = n_trajs * frames / wall
+        config = wcsph.traj_config(name[:3].upper(), kw["dx"], len(kw["box"]), kw["box"],
+                                   kw.get("pbc", [True] * len(kw["box"])), kw["visc"], dt,
+                                   kw["c0"], every)
+        per_split, meta = split_trajectories(trajs, config, split)
+        force = None
+        if name == "rpf":
+            with open(os.path.join(tmp, "force.py"), "w") as f:
+                f.write(wcsph.RPF_FORCE_PY)
+            force = _load_force_fn(tmp)
+            pos = torch.as_tensor(trajs[0][0][-1], device=device)
+            same = torch.equal(apply_force(force, pos), apply_force(wcsph.rpf_force_fn, pos))
+            log(f"datagen rpf: RPF_FORCE_PY loaded through the port's jax.numpy namespace, "
+                f"applied on the card, equals rpf_force_fn: {same}")
+            ok &= same
+        cfg = cfgs[name]
+        out[name] = _split_datasets(per_split, meta, cfg, force)
+        finite = all(np.isfinite(p).all() for p, _ in trajs)
+        stats_ok = all(np.isfinite(meta[k]).all() and min(meta[k]) > 0
+                       for k in ("vel_std", "acc_std"))
+        log(f"datagen {name} generation: {n_trajs} x {frames} frames x {every} substeps "
+            f"(+{warmup} warmup) of {trajs[0][0].shape[1]} particles in {wall:.2f} s wall: "
+            f"{fps[name]:.2f} frames/s, {wall * 1e3 / substeps:.3f} ms per substep; launches "
+            f"{json.dumps({k: n for k, n in counts.items() if n})}; split {split}: "
+            f"{[len(per_split[s]) for s in ('train', 'valid', 'test')]} trajectories, "
+            f"sequence_length_train {meta['sequence_length_train']}, radius "
+            f"{meta['default_connectivity_radius']}, vel_std {meta['vel_std']}, acc_std "
+            f"{meta['acc_std']}")
+        if counts != want or not finite or not stats_ok:
+            log(f"FAIL: datagen {name} generation: launches expected "
+                f"{json.dumps({k: n for k, n in want.items() if n})}, finite {finite}, "
+                f"statistics positive {stats_ok}")
+            ok = False
+    return ok, out, fps
+
+
+def datagen_gns(label, cfg, data, sizes, device):
+    """(d) GNS-10-128 (fused, bf16, batch 2) through runner.train_or_infer
+    with ``mode=all`` on generated data: K1 and K2 once per neighbor update,
+    K3 9 plain + 1 with the encoder per forward, K4 (and its reduction) 10
+    per training step (one backward per step; the pushforward does not
+    unroll in these steps); finite losses and metrics; the forced case's
+    model takes the force feature; then ms per rollout step of the trained
+    model on the test trajectory (batch 1, finite predictions)."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.models import setup_model
+
+    mp = int(cfg.model.num_mp_steps)
+
+    def expect(rec):
+        return {"fused_mp": (mp - 1) * rec.forwards, "fused_mp_enc": rec.forwards,
+                "fused_mp_bwd": mp * len(rec.losses), "fused_mp_bwd_reduce": mp * len(rec.losses)}
+
+    metrics, counts, rec, ok = _runner_call(f"datagen {label} (mode=all)", cfg, data,
+                                            all_kernels(), expect=expect)
+    steps = int(cfg.train.step_max) + 1
+    if len(rec.losses) != steps or not np.all(np.isfinite(rec.losses)):
+        log(f"FAIL: datagen {label}: {len(rec.losses)} of {steps} training steps, losses "
+            f"{rec.losses}")
+        ok = False
+    log(f"datagen {label}: losses {[round(x, 5) for x in rec.losses]}")
+    forced = data[0].external_force_fn is not None
+    if forced:
+        model, case = rec.models[0], rec.cases[0]
+        sizes_of = [sum(p.numel() for p in setup_model(cfg.model, data[0].metadata,
+                                                       has_external_force=f,
+                                                       device=device).parameters())
+                    for f in (True, False)]
+        got = sum(p.numel() for p in model.parameters())
+        pos, ptype = test_batch(data[2], device, 1)
+        feats, _ = case.allocate_eval((pos[0, :, :int(cfg.model.input_seq_length)], ptype[0]))
+        signs = set(torch.sign(feats["force"][:, 0]).tolist()) if "force" in feats else set()
+        log(f"datagen {label}: the model has {got} parameters (with the force feature "
+            f"{sizes_of[0]}, without {sizes_of[1]}); force feature signs {sorted(signs)}")
+        if got != sizes_of[0] or got == sizes_of[1] or signs != {-1.0, 1.0}:
+            log(f"FAIL: datagen {label}: the model was not built with the force")
+            ok = False
+    d = np.asarray(rec.trainers[0].timer.durations) * 1e3 if rec.trainers else np.zeros(0)
+    if d.size:
+        log(f"datagen {label} train: ms per step (host clock, synchronized) median "
+            f"{np.median(d):.2f} (all {np.round(d, 2).tolist()})")
+    model = rec.models[0]
+    model.eval()
+    _, finite, _ = _rollout_ms(model, rec.cases[0], data[2], int(cfg.model.input_seq_length),
+                               int(cfg.eval.n_rollout_steps), f"datagen {label}, trained "
+                               f"GNS-{mp}-{cfg.model.latent_dim} bf16", bsz=1)
+    return ok and finite, metrics, counts
+
+
+def datagen_egnn_witness(sizes, device, tmp):
+    """Printed, not gated: the seeded EGNN-5-128 of phase 13
+    (``configs/rpf_3d/egnn.yaml``, float32, seed 0) inferred for
+    ``egnn_steps`` steps on the synthetic RPF-3D-scale data of phases 2-14
+    and on a TGV 3D trajectory generated here at the same scale (8,000
+    particles, one trajectory): does the blow-up follow the data?"""
+    import numpy as np
+
+    from lagrangebench_torch import runner
+    from lagrangebench_torch.data_gen import wcsph
+    from lagrangebench_torch.data_gen.jax_sph_converter import split_trajectories
+
+    steps = sizes["egnn_steps"]
+    over = {"mode": "infer", "eval.n_rollout_steps": steps, "eval.infer.n_trajs": 1,
+            "eval.infer.batch_size": 1, "eval.rollout_dir": f"{tmp}/egnn_rollouts"}
+    if str(device) == "cpu":
+        over["gpu"] = -1
+    kw, r, v, tag, _ = datagen_case("tgv3d", sizes)
+    nl, adv, dt = wcsph.make_sph(**kw, device=device)
+    frames, _, _ = wcsph.simulate_frames(r, v, nl, adv, 6 + steps + 1, sizes["frame"],
+                                         device=device, label="tgv3d witness")
+    config = wcsph.traj_config("TGV", kw["dx"], 3, kw["box"], [True] * 3, kw["visc"], dt,
+                               kw["c0"], sizes["frame"])
+    # one trajectory: the same frames serve every split
+    _, meta = split_trajectories([(frames, tag)] * 3, config, "1_1_1")
+    for label in ("synthetic", "generated TGV 3D"):
+        cfg = egnn_cfg(**over)
+        if label == "synthetic":
+            data = runner_data(cfg, n_particles=sizes["tgv3d"] ** 3, n_trajs=1)
+        else:
+            data = _split_datasets({s: [(frames, tag)] for s in ("train", "valid", "test")},
+                                   meta, cfg)
+        cfg.load_ckp = f"{tmp}/egnn_{label.split()[0]}"
+        _seeded_checkpoint(cfg, data, device, cfg.load_ckp)
+        metrics = runner.train_or_infer(cfg, data=data)
+        # the data's own kinetic energy over the rollout window, as the
+        # e_kin metric computes it (its mse is against this)
+        m = data[2].metadata
+        pos = np.asarray(data[2][0][0], np.float64)[:, 6 - 1:6 + steps]  # (N, steps+1, dim)
+        box = np.asarray(m["bounds"])[:, 1] - np.asarray(m["bounds"])[:, 0]
+        vel = np.diff(pos, axis=1)
+        vel = vel - box * np.round(vel / box)
+        e_data = np.sum((vel / (m["dt"] * m["write_every"])) ** 2, axis=(0, 2)) * m["dx"] ** 3
+        log(f"datagen egnn witness, {label} ({m['num_particles_max']} particles, {steps} "
+            f"steps, seeded EGNN-5-128 float32): val/e_kin (mse of the kinetic energy) "
+            f"{metrics.get('val/e_kin')} against the data's kinetic energy "
+            f"{np.round(e_data, 5).tolist()}; val/loss {metrics.get('val/loss')}; finite "
+            f"{bool(all(np.isfinite(x) for x in metrics.values()))}")
+
+
+def datagen_path(device="cuda", sizes=None):
+    """Phase 15: data generation on the card. (a) the WCSPH solver at the
+    reference scales against the CPU and the cell list, with K1 + K2's
+    launches per advance; (b) the JAX tests' physical checks; (c) a TGV 2D
+    ensemble and an RPF 2D trajectory generated on the card into
+    ArrayDatasets; (d) GNS-10-128 trained and inferred on them through the
+    runner. ``sizes`` defaults to DATAGEN_SIZES on the card and to
+    DATAGEN_CPU_SIZES on the CPU. Returns (ok, launches by run)."""
+    import torch
+
+    t0 = time.perf_counter()
+    cpu = str(device) == "cpu"
+    sizes = sizes or (DATAGEN_CPU_SIZES if cpu else DATAGEN_SIZES)
+    kernels = all_kernels()
+    card = card_line()
+    ok, ms = datagen_solver(sizes, device, kernels)
+    log("datagen ms per substep (host clock, synchronized): " + json.dumps(
+        {k: round(v, 4) for k, v in ms.items()}) + f" [{card}]")
+    ok &= datagen_physics(device)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfgs = {}
+        for name, config, steps in (("tgv2d", TGV_GEN_CONFIG, sizes["tgv_rollout"]),
+                                    ("rpf", RPF_GEN_CONFIG, sizes["rpf_rollout"])):
+            over = {"mode": "all", "train.step_max": sizes["train_steps"] - 1,
+                    "logging.eval_steps": sizes["train_steps"] - 1,
+                    "eval.n_rollout_steps": steps, "eval.train.n_trajs": 1,
+                    "eval.infer.n_trajs": 1, "eval.infer.batch_size": 1,
+                    "eval.rollout_dir": f"{tmp}/{name}_rollouts",
+                    "logging.ckp_dir": f"{tmp}/{name}_ckp"}
+            if cpu:
+                over["gpu"] = -1
+            cfgs[name] = shipped_cfg(config, **over)
+            if cpu:
+                cfgs[name].model.latent_dim, cfgs[name].model.num_mp_steps = 16, 2
+        gen_ok, data, fps = datagen_datasets(sizes, device, kernels, cfgs, tmp)
+        ok &= gen_ok
+        for name in ("tgv2d", "rpf"):
+            run_ok, metrics, counts = datagen_gns(name, cfgs[name], data[name], sizes, device)
+            ok &= run_ok
+            launches[name] = {k: v for k, v in counts.items() if v}
+        datagen_egnn_witness(sizes, device, tmp)
+    log(f"datagen frames/s of generation: {json.dumps({k: round(v, 3) for k, v in fps.items()})}"
+        f" [{card}]")
+    log(f"phase 15 (data generation): {time.perf_counter() - t0:.1f} s wall [{card}]")
+    if not cpu:
+        torch.cuda.synchronize()
+    return ok, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4795,6 +5369,9 @@ def main() -> int:
     ref_ok, ref_counts = reference_path("cuda")
     ok &= ref_ok
     log(f"reference-checkpoint path launches: {json.dumps(ref_counts)}")
+    gen_ok, gen_counts = datagen_path("cuda")
+    ok &= gen_ok
+    log(f"data-generation path launches (GNS runs): {json.dumps(gen_counts)}")
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     if not ok:

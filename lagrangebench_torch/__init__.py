@@ -17,20 +17,23 @@ EGNN and Linear (PyTorch products), SEGNN on its steerable engine
 a torch.profiler hook, checkpoints with optimizer state, rollouts, metrics
 and VTK output, and the runner and CLI (``python -m lagrangebench_torch``).
 ``experiments`` holds the probes of the row gather (kernel E1) and of the
-windowed-select MP step (kernel E2).
+windowed-select MP step (kernel E2). ``data_gen`` generates datasets: a
+WCSPH solver whose neighbor search is K1 + K2, and the converters to the
+LagrangeBench layout (``python -m lagrangebench_torch.data_gen.generate``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 each kernel's plain PyTorch version runs instead.
 """
 
 from .case import case_builder
-from .data import ArrayDataset, H5Dataset
+from .data import DAM2D, LDC2D, LDC3D, RPF2D, RPF3D, TGV2D, TGV3D, ArrayDataset, H5Dataset
 from .defaults import defaults
 from .evaluate import infer
 from .models import EGNN, GNS, SEGNN, GNSStandard, Linear, PaiNN
 from .train import Trainer
 
 __all__ = [
-    "case_builder", "ArrayDataset", "H5Dataset", "defaults", "infer", "EGNN", "GNS",
+    "case_builder", "ArrayDataset", "H5Dataset", "TGV2D", "TGV3D", "RPF2D", "RPF3D", "LDC2D",
+    "LDC3D", "DAM2D", "defaults", "infer", "EGNN", "GNS",
     "GNSStandard", "Linear", "PaiNN", "SEGNN", "Trainer",
 ]

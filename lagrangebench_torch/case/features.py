@@ -31,6 +31,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..data.force import apply_force
 from ..ops import space
 
 FeatureDict = Dict[str, torch.Tensor]
@@ -54,7 +55,8 @@ def physical_feature_builder(
         displacement_fn: boundary-aware displacement.
         pbc: per-dimension periodicity flags.
         magnitude_features: append velocity magnitudes.
-        external_force_fn: per-position external force (optional).
+        external_force_fn: per-particle external force ``(dim,) -> (dim,)``
+            (optional), applied to every particle by ``apply_force``.
     """
     vel_stats = normalization_stats["velocity"]
     has_pbc = any(pbc)
@@ -78,7 +80,8 @@ def physical_feature_builder(
             features["bound"] = torch.clamp(dist / connectivity_radius, -1.0, 1.0)
 
         if external_force_fn is not None:
-            features["force"] = external_force_fn(most_recent)
+            # per particle, as the JAX package's jax.vmap(external_force_fn)
+            features["force"] = apply_force(external_force_fn, most_recent)
 
         if nbrs.format == "sparse":
             receivers, senders = nbrs.idx

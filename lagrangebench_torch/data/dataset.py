@@ -11,23 +11,42 @@ mode splits each trajectory into ``seq_len // subseq_length`` chunks.
 Particles pad to ``num_particles_max`` with ``NodeType.PAD_VALUE`` types.
 
 ``ArrayDataset`` applies the same windowing to trajectories held in memory,
-so a program can roll out synthetic data without h5py, which is imported
-only where HDF5 is read.
+so a program can roll out synthetic or generated data without h5py, which
+is imported only where HDF5 is read.
+
+``H5Dataset`` downloads a published dataset from Zenodo (``URLS``) when its
+directory is missing and its name is known; ``TGV2D`` .. ``DAM2D`` are
+``H5Dataset`` bound to the seven datasets' short names and the JAX
+package's default directories. A ``force.py`` runs without JAX
+(:mod:`.force`).
 """
 
 from __future__ import annotations
 
 import bisect
-import importlib.util
 import json
+import os
 import os.path as osp
 import re
 import warnings
-from typing import Dict, List, Optional, Tuple
+import zipfile
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..utils import NodeType
+from .force import load_force_fn
+
+ZENODO_PREFIX = "https://zenodo.org/records/10491868/files/"
+URLS = {
+    "tgv2d": f"{ZENODO_PREFIX}2D_TGV_2500_10kevery100.zip",
+    "rpf2d": f"{ZENODO_PREFIX}2D_RPF_3200_20kevery100.zip",
+    "ldc2d": f"{ZENODO_PREFIX}2D_LDC_2708_10kevery100.zip",
+    "dam2d": f"{ZENODO_PREFIX}2D_DAM_5740_20kevery100.zip",
+    "tgv3d": f"{ZENODO_PREFIX}3D_TGV_8000_10kevery100.zip",
+    "rpf3d": f"{ZENODO_PREFIX}3D_RPF_8000_10kevery100.zip",
+    "ldc3d": f"{ZENODO_PREFIX}3D_LDC_8160_10kevery100.zip",
+}
 
 
 def get_dataset_name_from_path(path: str) -> str:
@@ -146,11 +165,13 @@ class H5Dataset(TrajectoryDataset):
     Args:
         split: "train", "valid" or "test".
         dataset_path: directory holding ``<split>.h5`` + ``metadata.json``.
+            Downloaded from Zenodo if missing and the name is in ``URLS``.
         name: dataset short name; inferred from the directory name if None
             (:func:`get_dataset_name_from_path`).
         input_seq_length: number of past positions the model sees.
         extra_seq_length: max pushforward unrolls (train) or eval horizon.
         pad_to_max: pad particles to metadata["num_particles_max"].
+        nl_backend: accepted for the reference's API; unused.
     """
 
     def __init__(
@@ -161,11 +182,15 @@ class H5Dataset(TrajectoryDataset):
         input_seq_length: int = 6,
         extra_seq_length: int = 0,
         pad_to_max: bool = True,
+        nl_backend: str = "celllist",
     ):
         import h5py
 
         self.dataset_path = osp.normpath(dataset_path)
         self.name = name if name is not None else get_dataset_name_from_path(self.dataset_path)
+        if not osp.exists(self.dataset_path):
+            self.dataset_path = self.download(self.name, self.dataset_path)
+        self.nl_backend = nl_backend
         self.file_path = osp.join(self.dataset_path, split + ".h5")
         self.external_force_fn = _load_force_fn(self.dataset_path)
         with open(osp.join(self.dataset_path, "metadata.json"), "r") as f:
@@ -178,6 +203,25 @@ class H5Dataset(TrajectoryDataset):
             split, metadata, len(self.traj_keys), sequence_length,
             input_seq_length, extra_seq_length, pad_to_max,
         )
+
+    def download(self, name: str, path: str) -> str:
+        """Download and unzip a published dataset from Zenodo into the
+        parent of ``path``; returns ``path``."""
+        if name not in URLS:
+            raise ValueError(f"Dataset {name} not available for download.")
+        import urllib.request
+
+        url = URLS[name]
+        path = path.rstrip("/")
+        path_root = osp.split(path)[0] or "."
+        os.makedirs(path_root, exist_ok=True)
+        filename = osp.join(path_root, osp.basename(url))
+        print(f"Downloading {url} -> {filename}")
+        urllib.request.urlretrieve(url, filename)
+        with zipfile.ZipFile(filename, "r") as z:
+            z.extractall(path_root)
+        os.remove(filename)
+        return path
 
     def _read(self, traj_idx: int, start: int, stop: int):
         import h5py
@@ -201,6 +245,8 @@ class ArrayDataset(TrajectoryDataset):
         trajectories: list of (num_steps, N, dim) position arrays.
         particle_types: list of (N,) type arrays, one per trajectory.
         metadata: the dataset's metadata dict (as in ``metadata.json``).
+        external_force_fn: the per-particle force of a forced case (a
+            dataset's ``force_fn``), or None.
     """
 
     def __init__(
@@ -212,12 +258,13 @@ class ArrayDataset(TrajectoryDataset):
         input_seq_length: int = 6,
         extra_seq_length: int = 0,
         pad_to_max: bool = True,
+        external_force_fn: Optional[Callable] = None,
     ):
         lengths = {t.shape[0] for t in trajectories}
         if len(lengths) != 1 or len(trajectories) != len(particle_types):
             raise ValueError("trajectories must share one length and have types")
         self.name = str(metadata.get("case", "arrays"))
-        self.external_force_fn = None
+        self.external_force_fn = external_force_fn
         self._trajs = trajectories
         self._types = particle_types
         self._setup(
@@ -230,11 +277,48 @@ class ArrayDataset(TrajectoryDataset):
 
 
 def _load_force_fn(dataset_path: str):
-    """The dataset's external force function from ``force.py``, if any."""
+    """The dataset's external force function from ``force.py``, if any, run
+    without JAX (:func:`.force.load_force_fn`)."""
     path = osp.join(dataset_path, "force.py")
-    if not osp.exists(path):
-        return None
-    spec = importlib.util.spec_from_file_location("force_module", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.force_fn
+    return load_force_fn(path) if osp.exists(path) else None
+
+
+def _named(name: str, default_dir: str):
+    """An ``H5Dataset`` subclass bound to a dataset's short name and default
+    directory."""
+
+    class _Named(H5Dataset):
+        def __init__(
+            self,
+            split: str,
+            dataset_path: str = default_dir,
+            input_seq_length: int = 6,
+            extra_seq_length: int = 0,
+            pad_to_max: bool = True,
+            nl_backend: str = "celllist",
+        ):
+            super().__init__(split, dataset_path, name=name, input_seq_length=input_seq_length,
+                             extra_seq_length=extra_seq_length, pad_to_max=pad_to_max,
+                             nl_backend=nl_backend)
+
+    _Named.__name__ = _Named.__qualname__ = name.upper()
+    return _Named
+
+
+# the JAX package's default directories, as written there: LDC2D's and
+# DAM2D's differ from the directories their archives unpack to
+TGV2D = _named("tgv2d", "datasets/2D_TGV_2500_10kevery100")
+TGV3D = _named("tgv3d", "datasets/3D_TGV_8000_10kevery100")
+RPF2D = _named("rpf2d", "datasets/2D_RPF_3200_20kevery100")
+RPF3D = _named("rpf3d", "datasets/3D_RPF_8000_10kevery100")
+LDC2D = _named("ldc2d", "datasets/2D_LDC_2500_10kevery100")
+LDC3D = _named("ldc3d", "datasets/3D_LDC_8160_10kevery100")
+DAM2D = _named("dam2d", "datasets/2D_DB_5740_20kevery100")
+
+TGV2D.__doc__ = "Taylor-Green Vortex 2D dataset (2.5K particles)."
+TGV3D.__doc__ = "Taylor-Green Vortex 3D dataset (8K particles)."
+RPF2D.__doc__ = "Reverse Poiseuille Flow 2D dataset (3.2K particles)."
+RPF3D.__doc__ = "Reverse Poiseuille Flow 3D dataset (8K particles)."
+LDC2D.__doc__ = "Lid-Driven Cavity 2D dataset (2.5K particles)."
+LDC3D.__doc__ = "Lid-Driven Cavity 3D dataset (8.2K particles)."
+DAM2D.__doc__ = "Dam break 2D dataset (5.7K particles)."
