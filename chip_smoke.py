@@ -226,10 +226,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    losses and metrics; the RPF model built with the force feature. No h5py
    is used; the frames stay in memory. Prints frames/s of generation and
    the phase's wall time beside the card.
-15. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+15. GNS-5-64 (slice 15, "phase 16" in the output): the fused GNS kernels
+   at latent width 64. K3 (plain and encoder step) and K4 on inputs
+   captured from one GNS-5-64 forward and one training backward (8,000
+   particles in 3D, batch 2), K8 (plain and encoder) on one slot forward
+   at batch 1 and E2 on the probe's structure, all at F = 64, against their
+   plain versions under phases 2's, 3's, 5's and 6's limits (bf16, and
+   float32 with TF32 off; K4's weight gradients bit-identical over two
+   launches), timed beside their bounds. Then ``configs/rpf_3d/gns.yaml``
+   with ``model.num_mp_steps=5 model.latent_dim=64`` (``GNS64``) through
+   ``runner.train_or_infer``: ``mode=all``, 12 training steps at batch 2
+   with one pushforward unroll from step 4 and a 20-step infer (mse,
+   e_kin, Sinkhorn), K1 and K2 once per neighbor update, K3 4 + 1 per
+   forward, K4 and its reduction 5 per training step, every other kernel
+   none; finite losses and metrics; ms per train and rollout step and a
+   rollout profile; ``mode=infer`` in the slot layout at batch 1 from its
+   checkpoint (K8 4 + 1 per forward); ``window_select.main --latent 64``
+   (E2's launches); a 3-step float32 GNS-5-64 training run on the card
+   held against the CPU (1e-5).
+16. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
-   and C for K7, K8 and K9, from the experiments for E1 and E2), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+   and C for K7, K8 and K9, from the experiments for E1 and E2; the F = 64
+   instances, named with ``@64``, from phase 16), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository. Needs one card and no network. ``--dp-launched <dir>`` is the
@@ -297,7 +316,9 @@ def cuda_time(fn, iters=20, warmup=3):
 def ptxas_report(build, names=("fused_mp", "fused_mp_bwd")):
     """Each kernel's registers, spills and stack from nvcc's -Xptxas -v
     report (the ``.log`` beside each built library), one line per kernel,
-    named by its mangled identifier and template arguments."""
+    named by its mangled identifier and template arguments; the fused GNS
+    kernels' lines also name their latent width F (their first integer
+    template argument), one line per instance."""
     import re
 
     for name in names:
@@ -312,7 +333,9 @@ def ptxas_report(build, names=("fused_mp", "fused_mp_bwd")):
             if m and regs and spill:
                 ident = mangled[m.end():m.end() + int(m.group(1))]
                 targs = re.match(r"I\w*?EE", mangled[m.end() + len(ident):])
-                log(f"ptxas {name}.cu {ident}{targs.group(0) if targs else ''}: "
+                width = re.search(r"Li(\d+)E", targs.group(0)) if targs else None
+                width = f" [F = {width.group(1)}]" if width and name.startswith("fused_mp") else ""
+                log(f"ptxas {name}.cu {ident}{targs.group(0) if targs else ''}{width}: "
                     f"{regs.group(1)} registers, stack {spill.group(1)} B, spill stores "
                     f"{spill.group(2)} B, loads {spill.group(3)} B")
 
@@ -340,14 +363,17 @@ def make_data(n_particles, seq_len, n_trajs=BATCH, split="test"):
     return data, metadata
 
 
-def build_case_model(metadata, device, dtype="bfloat16", mp_steps=MP_STEPS, seed=0):
+def build_case_model(metadata, device, dtype="bfloat16", mp_steps=MP_STEPS, seed=0,
+                     latent=None):
+    """A dense K1 + K2 case and a fused GNS-``mp_steps``-``latent`` (LATENT
+    unless given) with seeded weights."""
     from lagrangebench_torch.case import case_builder
     from lagrangebench_torch.config import Config
     from lagrangebench_torch.models import build_gns
 
     cfg_model = Config({
         "name": "gns", "fused_processor": True, "compute_dtype": dtype,
-        "num_mp_steps": mp_steps, "latent_dim": LATENT, "num_mlp_layers": 2,
+        "num_mp_steps": mp_steps, "latent_dim": latent or LATENT, "num_mlp_layers": 2,
         "input_seq_length": ISL, "magnitude_features": False, "isotropic_norm": False,
     })
     box = [BOX] * DIM
@@ -524,7 +550,8 @@ def compare_kernels(seen, names=("neighbor_scan", "fused_mp", "fused_mp_enc")):
             err32 = max(float((a - b).abs().max()) for a, b in zip(g32, w32))
             passed &= err32 <= K3_TOL["float32"]
             log(f"{name}: bf16 max|kernel-plain| {err:.4g} (tol {K3_TOL['bfloat16']}), "
-                f"float32 (TF32 off) {err32:.3g} (tol {K3_TOL['float32']})")
+                f"float32 (TF32 off) {err32:.3g} (tol {K3_TOL['float32']})"
+                f"{'' if passed else '  FAIL'}")
         else:
             err = max(float((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
             passed = err == 0
@@ -768,14 +795,16 @@ def reference_check(device):
 
 
 def train_setup(device, n_particles=N_PARTICLES, dtype="bfloat16", mp_steps=MP_STEPS,
-                seed=0, lr=5e-4, pushforward=None, mesh=None, logging=None):
+                seed=0, lr=5e-4, pushforward=None, mesh=None, logging=None, latent=None):
     """A Trainer on synthetic data: seeded weights, batch 2, noise 3e-4
-    (data-parallel over ``mesh``; ``logging``: more logging keys)."""
+    (data-parallel over ``mesh``; ``logging``: more logging keys; ``latent``:
+    the GNS width, LATENT unless given)."""
     from lagrangebench_torch.train import Trainer
 
     train, metadata = make_data(n_particles, ISL + 3, split="train")
     valid, _ = make_data(n_particles, ISL + 3, split="valid")
-    case, model = build_case_model(metadata, device, dtype=dtype, mp_steps=mp_steps, seed=seed)
+    case, model = build_case_model(metadata, device, dtype=dtype, mp_steps=mp_steps, seed=seed,
+                                   latent=latent)
     pushforward = pushforward or {"steps": [-1, UNROLL_FROM - 1], "unrolls": [0, 1],
                                   "probs": [0, 1]}
     trainer = Trainer(
@@ -810,19 +839,21 @@ def record_steps(trainer):
     return steps, allocs
 
 
-def capture_bwd_inputs(trainer):
+def capture_bwd_inputs(trainer, mp_steps=None):
     """K4's inputs from one training backward (unroll 0) at the slice's
     shapes: the step before the last (a plain step whose e' feeds the next
-    step) and the encoder step (the last backward call)."""
+    step) and the encoder step (the last backward call) of a model of
+    ``mp_steps`` steps (MP_STEPS unless given)."""
     import torch
 
     from lagrangebench_torch.ops import fused_mp
 
     calls = []
     real = fused_mp.gns_mp_step_bwd
+    mp_steps = mp_steps or MP_STEPS
 
     def rec(*args):
-        keep = len(calls) in (1, MP_STEPS - 1)
+        keep = len(calls) in (1, mp_steps - 1)
         calls.append(tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args)
                      if keep else None)
         return real(*args)
@@ -944,9 +975,9 @@ def compare_bwd(sets):
     ms = cuda_time(lambda: fused_mp.gns_mp_step_bwd(*call))
     plain_ms = cuda_time(lambda: fused_mp.gns_mp_step_bwd_plain(*call), iters=3, warmup=1)
     bms, by = bound("fused_mp_bwd", call, {})
-    n, k, _ = args[0].shape
+    n, k, f = args[0].shape
     log(f"fused_mp_bwd: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by}) "
-        f"at N = {n}, K = {k}")
+        f"at N = {n}, K = {k}, F = {f}")
     row = {"name": "fused_mp_bwd", "route": "cuda",
            "source": fused_mp.FUSED_MP_BWD.source_path,
            "replaces": fused_mp.FUSED_MP_BWD.replaces, "max_abs_err": worst, "ms": ms,
@@ -1077,10 +1108,11 @@ def profile_train_step(trainer, raw, nbrs, batch=BATCH, unroll=1, label="train p
         f"{busy / wall_us:.1%}, idle {1 - busy / wall_us:.1%}")
 
 
-def train_reference_check(device):
+def train_reference_check(device, mp_steps=2, latent=None):
     """Three float32 training steps on the card agree with the same steps
     on the CPU (TF32 off, the same host-drawn noise): 1,000 particles,
-    GNS-2-128, batch 2, one pushforward unroll from step 1, lr 1e-4 (the
+    GNS-2-128 (GNS-``mp_steps``-``latent``), batch 2, one pushforward
+    unroll from step 1, lr 1e-4 (the
     config default). Not run under torch.use_deterministic_algorithms: the
     sender gather's backward adds with atomics, and the tolerances (losses
     1e-5 relative, parameters 1e-5 absolute) hold with any order of those
@@ -1094,8 +1126,9 @@ def train_reference_check(device):
     pf = {"steps": [-1, 0], "unrolls": [0, 1], "probs": [0, 1]}
     losses, params = [], []
     for dev in (device, "cpu"):
-        trainer, model, _ = train_setup(dev, n_particles=1000, dtype="float32", mp_steps=2,
-                                        lr=1e-4, pushforward=pf)
+        trainer, model, _ = train_setup(dev, n_particles=1000, dtype="float32",
+                                        mp_steps=mp_steps, lr=1e-4, pushforward=pf,
+                                        latent=latent)
         steps, _ = record_steps(trainer)
         trainer.train(step_max=2)
         losses.append(np.asarray([loss for _, loss in steps]))
@@ -1103,7 +1136,8 @@ def train_reference_check(device):
     loss_err = float(np.max(np.abs(losses[0] - losses[1]) / np.abs(losses[1])))
     par_err, worst = max((float(np.max(np.abs(params[0][k] - params[1][k]))), k)
                          for k in params[1])
-    log(f"train reference: 3 float32 steps, cuda vs cpu: losses {losses[0].tolist()} vs "
+    log(f"train reference (GNS-{mp_steps}-{latent or LATENT}): 3 float32 steps, cuda vs cpu: "
+        f"losses {losses[0].tolist()} vs "
         f"{losses[1].tolist()}, max rel diff {loss_err:.3g} (tol 1e-5); parameters max abs "
         f"diff {par_err:.3g} at {worst} (tol 1e-5)")
     return len(losses[0]) == 3 and loss_err <= 1e-5 and par_err <= 1e-5
@@ -1343,6 +1377,7 @@ class _Recorder:
 
         self.runner, self.model_classes = runner, (PaiNN, GNS, GNSStandard, EGNN, Linear, SEGNN)
         self.cases, self.models, self.trainers, self.losses = [], [], [], []
+        self.unrolls = []  # each training step's pushforward unrolls
         self.forwards = self.allocations = 0
 
     def __enter__(self):
@@ -1376,6 +1411,7 @@ class _Recorder:
                 def train_step(*args):
                     out = step(*args)
                     rec.losses.append(float(out[0]))
+                    rec.unrolls.append(int(args[3]))
                     return out
 
                 self.train_step = train_step
@@ -1782,18 +1818,19 @@ def test_batch(test, device, bsz):
     return pos, ptype
 
 
-def capture_slot_inputs(device):
+def capture_slot_inputs(device, **overrides):
     """K7's and K8's inputs from one slot preprocess and one bf16 forward
     of path A (8,000 particles, 3D, batch 1), K9's from one dense
     preprocess with in-kernel geometry at batch 2; run on the plain
     versions. Also returns the slot list of that preprocess and its
-    positions, for the maps check."""
+    positions, for the maps check. ``overrides``: more config keys (the
+    GNS-5-64 phase's width and depth)."""
     import torch
 
     from lagrangebench_torch.ops import fused_mp
     from lagrangebench_torch.ops import neighbors_cuda as nlc
 
-    cfg = gns_cfg(**{"neighbors.format": "slot"})
+    cfg = gns_cfg(**{"neighbors.format": "slot"}, **overrides)
     _, _, test = runner_data(cfg)
     case, model = gns_case_model(cfg, test.metadata, device)
     geo_case = gns_case(gns_cfg(**{"neighbors.emit_geometry": True}), test.metadata, device)
@@ -1832,10 +1869,10 @@ def capture_slot_inputs(device):
     return seen, nbrs.select(0), pos[0, :, isl - 1]
 
 
-def compare_slot_kernels(seen, nbrs, position):
-    """K7, K9 and K8 against their plain versions on the captured inputs,
-    timed; and the whole slot update (K1, K7 and the maps) on the card
-    against the same update on the CPU."""
+def compare_slot_kernels(seen, names=("slot_scan", "neighbor_scan_geometry", "fused_mp_slot",
+                                      "fused_mp_slot_enc")):
+    """K7, K9 and K8 (those of ``names``) against their plain versions on
+    the captured inputs, timed."""
     import torch
 
     from lagrangebench_torch.ops import fused_mp
@@ -1851,7 +1888,8 @@ def compare_slot_kernels(seen, nbrs, position):
                               fused_mp.FUSED_MP_SLOT_ENC, None),
     }
     rows, ok = {}, True
-    for name, (kern, plain, handle, int_outs) in funcs.items():
+    for name in names:
+        kern, plain, handle, int_outs = funcs[name]
         args, kw = seen[name]
         got, want = kern(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
@@ -1886,8 +1924,14 @@ def compare_slot_kernels(seen, nbrs, position):
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
         }
         log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by})")
+    return rows, ok
 
-    # the slot update end to end (K1, K7 and the maps) on the card vs the CPU
+
+def check_slot_update(nbrs, position):
+    """The whole slot update (K1, K7 and the maps) on the card against the
+    same update on the CPU."""
+    import torch
+
     got, want = nbrs.update(position), nbrs.update(position.cpu())
     same = torch.equal(got.idx.cpu(), want.idx) and all(
         torch.equal(got.aux[key].cpu(), want.aux[key])
@@ -1896,8 +1940,7 @@ def compare_slot_kernels(seen, nbrs, position):
               for key in ("rel_disp", "rel_dist"))
     log(f"slot update, card vs CPU: cand and maps equal {same}, geometry {geo:.3g} (tol "
         f"{GEOM_TOL})")
-    ok &= same and geo <= GEOM_TOL
-    return rows, ok
+    return same and geo <= GEOM_TOL
 
 
 def layout_checks(ckp, data, device):
@@ -1977,7 +2020,8 @@ def slot_path(device):
     log(f"slot shapes: N = {N_PARTICLES}, n_cols = {n_cols}, C = {n_ext // (n_cols + 1)}, "
         f"n_ext = {n_ext}, K = {k}; geometry scan table "
         f"{tuple(seen['neighbor_scan_geometry'][0][0].shape)}")
-    rows, ok = compare_slot_kernels(seen, nbrs, position)
+    rows, ok = compare_slot_kernels(seen)
+    ok &= check_slot_update(nbrs, position)
     del seen, nbrs
 
     kernels = (nlc.COLUMN_TABLE, nlc.NEIGHBOR_SCAN, nlc.NEIGHBOR_SCAN_GEOMETRY, nlc.SLOT_SCAN,
@@ -2189,10 +2233,11 @@ def compare_row_gather(device):
     return row, ok
 
 
-def window_inputs(structure, dtype, device):
-    """E2's inputs on the probe's structure: seeded e, h, hr, hs (as the
-    probe's main makes them), hs_ext = hs[ext_idx], the weights of
-    ``window_select.init_step_params`` (seed 0) in the kernel's layout."""
+def window_inputs(structure, dtype, device, f=None):
+    """E2's inputs on the probe's structure at latent width f (the probe's
+    F unless given): seeded e, h, hr, hs (as the probe's main makes them),
+    hs_ext = hs[ext_idx], the weights of ``window_select.init_step_params``
+    (seed 0) in the kernel's layout."""
     import numpy as np
     import torch
 
@@ -2200,28 +2245,29 @@ def window_inputs(structure, dtype, device):
     from lagrangebench_torch.ops import fused_mp
 
     n_rows, _, ext_idx, cand, w0s, _, wsub = structure
+    f = f or ws.F
     rng = np.random.default_rng(1)
     e, h, hr, hs = (torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=device)
-                    for shape in ((n_rows, ws.K, ws.F), (n_rows, ws.F), (n_rows, ws.F),
-                                  (n_rows, ws.F)))
-    p = fused_mp.kernel_params(ws.init_step_params(ws.F, torch.Generator().manual_seed(0)), dtype)
+                    for shape in ((n_rows, ws.K, f), (n_rows, f), (n_rows, f), (n_rows, f)))
+    p = fused_mp.kernel_params(ws.init_step_params(f, torch.Generator().manual_seed(0)), dtype)
     p = {name: v.to(device) for name, v in p.items()}
     hs_ext = hs[torch.as_tensor(ext_idx, device=device)]
     return (e, torch.as_tensor(cand, device=device), torch.as_tensor(w0s, device=device),
             int(wsub), hs_ext, hr, h, p)
 
 
-def compare_window(structure, device):
+def compare_window(structure, device, f=None):
     """E2 against its plain version (K3's limits, bf16 and float32 with TF32
-    off) on the probe's 8,000-particle structure, and against K3 on the
-    decoded, masked gather (printed); timed in bf16."""
+    off) on the probe's 8,000-particle structure at latent width f (the
+    probe's F unless given), and against K3 on the decoded, masked gather
+    (printed); timed in bf16."""
     import torch
 
     from lagrangebench_torch.ops import fused_mp
 
     ok, errs = True, {}
     for dt, tol in ((torch.bfloat16, K3_TOL["bfloat16"]), (torch.float32, K3_TOL["float32"])):
-        args = window_inputs(structure, dt, device)
+        args = window_inputs(structure, dt, device, f)
         e, cand, w0s, wsub, hs_ext, hr, h, p = args
         got = fused_mp.gns_mp_step_window(*args)
         want = fused_mp.gns_mp_step_window_plain(*args)
@@ -2237,13 +2283,14 @@ def compare_window(structure, device):
         log(f"fused_mp_window ({str(dt)[6:]}): max|kernel-plain| {err:.4g} (tol {tol}); "
             f"max|E2 - K3 on the decoded gather| {vs_k3:.4g} (expected 0: the same kernel "
             f"code reads the same rows){'' if passed else '  FAIL'}")
-    args = window_inputs(structure, torch.bfloat16, device)
+    args = window_inputs(structure, torch.bfloat16, device, f)
     ms = cuda_time(lambda: fused_mp.gns_mp_step_window(*args))
     plain_ms = cuda_time(lambda: fused_mp.gns_mp_step_window_plain(*args), iters=5, warmup=1)
     bms, by = bound("fused_mp_window", args, {})
     n_rows, k = args[1].shape
-    log(f"fused_mp_window: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by}) "
-        f"at n_rows = {n_rows}, K = {k}, n_ext = {args[4].shape[0]}, WSUB = {args[3]}, bf16; "
+    log(f"fused_mp_window: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by "
+        f"{by}) at n_rows = {n_rows}, K = {k}, F = {args[0].shape[-1]}, n_ext = "
+        f"{args[4].shape[0]}, WSUB = {args[3]}, bf16; "
         f"{ms * 1e3 / n_rows:.4f} us per receiver row")
     row = {"name": "fused_mp_window", "route": "cuda",
            "source": fused_mp.FUSED_MP_WINDOW.source_path,
@@ -5287,6 +5334,158 @@ def datagen_path(device="cuda", sizes=None):
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# slice 15: GNS-5-64, the fused GNS kernels at latent width 64
+# ---------------------------------------------------------------------------
+
+# GNS-5-64 (LagrangeBench's baseline table) is configs/rpf_3d/gns.yaml with
+# these CLI overrides: python -m lagrangebench_torch
+# config=configs/rpf_3d/gns.yaml model.num_mp_steps=5 model.latent_dim=64
+GNS64 = {"model.num_mp_steps": 5, "model.latent_dim": 64}
+GNS64_ROLLOUT = 20
+GNS64_PUSHFORWARD = {"steps": [-1, UNROLL_FROM - 1], "unrolls": [0, 1], "probs": [0, 1]}
+WIDTH = "@64"  # ends the F = 64 instances' names in the kernels line
+
+
+def gns64_kernel_checks(device):
+    """K3 (plain and encoder step), K4, K8 and E2 at F = 64 against their
+    plain versions, bf16 and float32 (TF32 off), under phase 2's, 3's, 5's
+    and 6's limits, timed beside their bounds: K3 on the inputs of one
+    GNS-5-64 forward and K4 on those of one training backward (8,000
+    particles in 3D, batch 2), K8 on one slot forward at batch 1, E2 on
+    the probe's structure at F = 64. Rows are named ``name@64``."""
+    from lagrangebench_torch.experiments import window_select as ws
+
+    mp, f = GNS64["model.num_mp_steps"], GNS64["model.latent_dim"]
+    log(f"phase 16: the fused GNS kernels at F = {f} (rows {WIDTH} in the kernels line)")
+    data, metadata = make_data(N_PARTICLES, ISL + 1)
+    case, model = build_case_model(metadata, device, mp_steps=mp, latent=f)
+    seen, _ = capture_kernel_inputs(case, model, data)
+    rows, ok = compare_kernels(seen, names=("fused_mp", "fused_mp_enc"))
+    del seen, case, model
+
+    trainer, _, _ = train_setup(device, N_PARTICLES, mp_steps=mp, latent=f)
+    sets, _ = capture_bwd_inputs(trainer, mp_steps=mp)
+    row, passed = compare_bwd(sets)
+    rows[row["name"]] = row
+    ok &= passed
+    del sets, trainer
+
+    seen, _, _ = capture_slot_inputs(device, **GNS64)
+    slot_rows, passed = compare_slot_kernels(seen, names=("fused_mp_slot", "fused_mp_slot_enc"))
+    rows.update(slot_rows)
+    ok &= passed
+    del seen
+
+    row, passed = compare_window(ws.build_structure(ws.N, ws.DIM, ws.K, ws.CUTOFF, ws.T,
+                                                    ws.SUB), device, f=f)
+    rows[row["name"]] = row
+    return {name + WIDTH: dict(r, name=name + WIDTH) for name, r in rows.items()}, ok & passed
+
+
+def gns64_path(device):
+    """Slice 15 ("phase 16"): the F = 64 kernel gates, then GNS-5-64 (bf16,
+    fused, dense, backend auto) through runner.train_or_infer: mode=all, 12
+    training steps at batch 2 with one pushforward unroll from step 4 and a
+    20-step infer (mse, e_kin, Sinkhorn), the counters zeroed around it: K1
+    and K2 once per neighbor update, K3 4 + 1 per forward, K4 and its
+    reduction 5 per training step; finite losses and metrics, ms per train
+    and rollout step and a rollout profile; then mode=infer in the slot
+    layout at batch 1 from its checkpoint (K8 4 + 1 per forward) and
+    ``window_select.main --latent 64`` (E2), for the F = 64 instances'
+    launches; and a 3-step float32 GNS-5-64 training run on the card held
+    against the CPU."""
+    import numpy as np
+
+    from lagrangebench_torch.config import Config, merge
+    from lagrangebench_torch.experiments import window_select
+    from lagrangebench_torch.ops import fused_mp
+
+    t_phase = time.perf_counter()
+    rows, ok = gns64_kernel_checks(device)
+    mp, f = GNS64["model.num_mp_steps"], GNS64["model.latent_dim"]
+    label = f"GNS-{mp}-{f}"
+    step_ms = {}
+
+    def expect(rec):
+        steps = len(rec.losses)
+        return {"fused_mp": (mp - 1) * rec.forwards, "fused_mp_enc": rec.forwards,
+                "fused_mp_bwd": mp * steps, "fused_mp_bwd_reduce": mp * steps}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = {"eval.n_rollout_steps": GNS64_ROLLOUT, "eval.infer.n_trajs": BATCH,
+                  "eval.train.n_trajs": 1, "eval.rollout_dir": f"{tmp}/rollouts",
+                  "logging.ckp_dir": f"{tmp}/ckp", "logging.log_steps": 1,
+                  "logging.eval_steps": TRAIN_STEPS - 1, **GNS64}
+        if str(device) == "cpu":  # a rehearsal on the CPU; the card is the runner's default
+            common["gpu"] = -1
+        cfg = gns_cfg(mode="all", **{"train.step_max": TRAIN_STEPS - 1}, **common)
+        cfg = merge(cfg, Config({"train": {"pushforward": GNS64_PUSHFORWARD}}))
+        data = runner_data(cfg)
+        _, counts, rec, passed = _runner_call(f"{label} (mode=all)", cfg, data, all_kernels(),
+                                              expect=expect)
+        ok &= passed
+        want_unrolls = [int(i >= UNROLL_FROM) for i in range(TRAIN_STEPS)]
+        log(f"{label}: losses {[round(x, 5) for x in rec.losses]}, unrolls {rec.unrolls}")
+        if (rec.unrolls != want_unrolls or not np.all(np.isfinite(rec.losses))):
+            log(f"FAIL: {label} training steps (unrolls {want_unrolls} expected, finite losses)")
+            ok = False
+        for name in ("fused_mp", "fused_mp_enc", "fused_mp_bwd"):
+            rows[name + WIDTH]["launches"] = counts[name]
+        d = np.asarray(rec.trainers[0].timer.durations) * 1e3  # d[i]: step i + 1
+        if len(d) >= TRAIN_STEPS - 1:
+            step_ms[f"{label} train (unroll steps 5-11 median)"] = float(np.median(d[UNROLL_FROM:]))
+            step_ms[f"{label} train (steps 1-3 median)"] = float(np.median(d[:3]))
+            log(f"{label} train: ms per step (host clock, synchronized): unroll steps 5-11 "
+                f"median {np.median(d[UNROLL_FROM:]):.2f} (all "
+                f"{np.round(d[UNROLL_FROM:], 2).tolist()}), steps 1-3 median "
+                f"{np.median(d[:3]):.2f} (all {np.round(d[:3], 2).tolist()}) [batch {BATCH} x "
+                f"{N_PARTICLES} particles, {label} bf16]")
+        model, case = rec.models[0], rec.cases[0]
+        model.eval()
+        isl = int(cfg.model.input_seq_length)
+        times, finite, (pos, ptype, nbrs) = _rollout_ms(model, case, data[2], isl,
+                                                        GNS64_ROLLOUT, f"{label} bf16")
+        ok &= finite
+        step_ms[f"{label} rollout"] = min(times)
+        profile_steps(model, case, pos, ptype, nbrs, steps=3, isl=isl,
+                      label=f"{label} rollout profile")
+        del model, case, rec
+
+        # the slot layout at batch 1 from that checkpoint: K8 at F = 64
+        (run,) = os.listdir(f"{tmp}/ckp")
+        cfg_a = gns_cfg(mode="infer", load_ckp=f"{tmp}/ckp/{run}",
+                        **{"neighbors.format": "slot", "eval.infer.batch_size": 1}, **common)
+
+        def expect_slot(rec):
+            updates = rec.forwards + rec.allocations
+            return {"neighbor_scan": 0, "slot_scan": updates,
+                    "fused_mp_slot": (mp - 1) * rec.forwards, "fused_mp_slot_enc": rec.forwards}
+
+        _, counts_a, _, passed = _runner_call(f"{label} (mode=infer, slot, batch 1)", cfg_a,
+                                              data, all_kernels(), expect=expect_slot)
+        ok &= passed
+        rows["fused_mp_slot" + WIDTH]["launches"] = counts_a["fused_mp_slot"]
+        rows["fused_mp_slot_enc" + WIDTH]["launches"] = counts_a["fused_mp_slot_enc"]
+
+    # E2 at F = 64: the probe's main at that width
+    fused_mp.FUSED_MP_WINDOW.launches = 0
+    ws = window_select.main(["--latent", str(f)], device=device)
+    want_e2 = ws["loops"] * ws["steps"] + ws["check_launches"]
+    got_e2 = fused_mp.FUSED_MP_WINDOW.launches
+    log(f"window_select --latent {f}: launches {got_e2} (expected {want_e2}); ms per MP step "
+        f"(b) hs[ext_idx] + E2 {ws['window_ms']:.4f}, (a) hs[senders] + K3 "
+        f"{ws['gather_ms']:.4f}; max |E2 - plain| {ws['max_abs_err']}")
+    if got_e2 != want_e2 or ws["max_abs_err"] > K3_TOL["bfloat16"]:
+        log(f"FAIL: window_select --latent {f} (launches or its check)")
+        ok = False
+    rows["fused_mp_window" + WIDTH]["launches"] = got_e2
+
+    ok &= train_reference_check(device, mp_steps=mp, latent=f)
+    log(f"phase 16 ({label}): {time.perf_counter() - t_phase:.1f} s wall")
+    return rows, ok, step_ms
+
+
 def main() -> int:
     try:
         import torch
@@ -5372,6 +5571,10 @@ def main() -> int:
     gen_ok, gen_counts = datagen_path("cuda")
     ok &= gen_ok
     log(f"data-generation path launches (GNS runs): {json.dumps(gen_counts)}")
+    w64_rows, w64_ok, w64_ms = gns64_path("cuda")
+    ok &= w64_ok
+    rows.update(w64_rows)
+    log("GNS-5-64 path (ms per step): " + json.dumps({k: round(v, 3) for k, v in w64_ms.items()}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     if not ok:

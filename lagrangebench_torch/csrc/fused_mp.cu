@@ -5,7 +5,9 @@
 // Replaces: lagrangebench_tpu/ops/fused_mp.py::_make_fused_kernel (math in
 // _mp_math), launched by _launch_fused (K3), ::_make_slot_kernel, launched
 // by _launch_fused_slot (K8), and scripts/experiments/window_select.py::
-// make_window_kernel (E2). Per receiver, with F = 128:
+// make_window_kernel (E2). Per receiver, at latent width F (every kernel
+// is a template on F, instantiated at the published GNS widths 64 and 128;
+// the entry points choose the instance from their `latent` argument):
 //
 //   [step 0]  e = LN(relu(raw @ enc_w1 + enc_b1) @ enc_w2 + enc_b2)  (ENC)
 //   first = e @ W_e + hs_gath + hr + b1
@@ -21,9 +23,10 @@
 // FMAs) exists to check the arithmetic against the plain version with TF32
 // off; the main path runs the bf16 instance.
 //
-// Bound on an H100: bytes. Per edge row it reads e and hs_gath (2 x 256 B
-// in bf16) and writes e' (256 B) for 2 x 128 x 128 x 2 = 65.5 kFLOP, about
-// 85 FLOP/B against the card's ~295 FLOP/B balance point for bf16.
+// Bound on an H100: bytes. Per edge row it reads e and hs_gath (2 x 2F B
+// in bf16) and writes e' (2F B) for 2 x F x F x 2 FLOP, F / 1.5 FLOP/B (85
+// at F = 128, 43 at F = 64) against the card's ~295 FLOP/B balance point
+// for bf16.
 //
 // K8 (SLOT) computes the same step on the slot layout's n_ext rows, with
 // the sender term of each edge read in-kernel instead of from a gathered
@@ -69,9 +72,10 @@
 //   fused_mp_node (below): 8 warps per block, W_nh, W_na, W_n2 staged once
 //     per block; each warp takes 16 nodes: h by cp.async, agg from the scratch,
 //     the node MLP and LayerNorm in registers, h' out as 16-byte stores.
-// Shared memory: edge 196 KB (2 x 32 KB weights, 4 KB vectors, 8 warps x 2
-// stages x 8 KB), 168 KB on step 0 (+ enc_w2, enc_w1; the raw features are
-// loaded into registers, so the ring holds hs only); node 130 KB. Why
+// Shared memory at F = 128: edge 196 KB (2 x 32 KB weights, 4 KB vectors,
+// 8 warps x 2 stages x 8 KB), 168 KB on step 0 (+ enc_w2, enc_w1; the raw
+// features are loaded into registers, so the ring holds hs only); node
+// 130 KB; at F = 64 each about half, with the same grid and blocks. Why
 // mma.sync and not wgmma: each warp owns whole rows through the chain
 // (LayerNorm by quad shuffles, the register A operand), which is
 // mma.sync's layout; the products are not the bound (the chain's two
@@ -111,24 +115,25 @@ struct Args {
   int T, SUB, WSUB;  // E2: rows per tile and sub-tile, window rows
 };
 
-template <typename T>
+template <typename T, int F>
 struct Smem {
-  static constexpr int LDA = Layout<T>::LDA;
+  static constexpr int LDA = Layout<T, F>::LDA;
   static constexpr int kA = M * LDA * (int)sizeof(T);
-  static constexpr int kF = M * LDF * 4;
+  static constexpr int kF = M * kLdf<F> * 4;
   static constexpr int kAgg = TR * F * 4;
   static constexpr int kBytes = 2 * kA + kF + kAgg;
 };
 
-template <typename T, bool ENC, Src SRC>
+template <typename T, int F, bool ENC, Src SRC>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
+  using S = Smem<T, F>;
   constexpr bool kSelect = SRC != Src::kGathered;  // sender rows read in-kernel
-  constexpr int LDA = Layout<T>::LDA;
+  constexpr int LDA = S::LDA, LDF = kLdf<F>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sA = reinterpret_cast<T*>(smem);
-  T* sB = reinterpret_cast<T*>(smem + Smem<T>::kA);
-  float* sF = reinterpret_cast<float*>(smem + 2 * Smem<T>::kA);
-  float* sAgg = reinterpret_cast<float*>(smem + 2 * Smem<T>::kA + Smem<T>::kF);
+  T* sB = reinterpret_cast<T*>(smem + S::kA);
+  float* sF = reinterpret_cast<float*>(smem + 2 * S::kA);
+  float* sAgg = reinterpret_cast<float*>(smem + 2 * S::kA + S::kF);
   __shared__ int sSrc[kSelect ? M : 1];  // K8, E2: the chunk's sender rows, -1 if padded
 
   const int K = a.k;
@@ -188,7 +193,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
         sB[r * LDA + c] = from_f<T>(x);
       }
       __syncthreads();
-      block_gemm<T>(sB, wEnc2, sF, rows_pad, false);
+      block_gemm<F>(sB, wEnc2, sF, rows_pad, false);
       __syncthreads();
       for (int r = warp; r < rows_pad; r += WARPS) {
         float x[F / 32];
@@ -214,7 +219,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
     __syncthreads();
 
     // (b) first = e @ W_e -> sF
-    block_gemm<T>(sA, wE, sF, rows_pad, false);
+    block_gemm<F>(sA, wE, sF, rows_pad, false);
     __syncthreads();
 
     // (c) + hs + hr + b1, relu, cast -> sB
@@ -238,7 +243,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
     __syncthreads();
 
     // (d) relu(first) @ W2 -> sF
-    block_gemm<T>(sB, w2, sF, rows_pad, false);
+    block_gemm<F>(sB, w2, sF, rows_pad, false);
     __syncthreads();
 
     // (e) msg = LN(. + b2); e' = T(e + msg); sF <- msg * mask
@@ -281,16 +286,16 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
     sB[r * LDA + c] = from_f<T>(sAgg[i]);
   }
   __syncthreads();
-  block_gemm<T>(sA, wNh, sF, TR, false);
+  block_gemm<F>(sA, wNh, sF, TR, false);
   __syncthreads();
-  block_gemm<T>(sB, wNa, sF, TR, true);
+  block_gemm<F>(sB, wNa, sF, TR, true);
   __syncthreads();
   for (int i = threadIdx.x; i < TR * F; i += THREADS) {
     const int r = i / F, c = i % F;
     sB[r * LDA + c] = from_f<T>(fmaxf(sF[r * LDF + c] + a.vec[4][c], 0.f));
   }
   __syncthreads();
-  block_gemm<T>(sB, wN2, sF, TR, false);
+  block_gemm<F>(sB, wN2, sF, TR, false);
   __syncthreads();
   T* h_out = static_cast<T*>(a.h_out);
   for (int r = warp; r < nodes; r += WARPS) {
@@ -310,21 +315,21 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
   }
 }
 
-template <typename T, bool ENC, Src SRC>
+template <typename T, int F, bool ENC, Src SRC>
 int launch(const Args& a, cudaStream_t stream) {
-  constexpr int smem = Smem<T>::kBytes;
+  constexpr int smem = Smem<T, F>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mp<T, ENC, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_mp<T, F, ENC, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_mp<T, ENC, SRC><<<lbt::ceil_div(a.n, TR), THREADS, smem, stream>>>(a);
+  fused_mp<T, F, ENC, SRC><<<lbt::ceil_div(a.n, TR), THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // ---- bf16: fused_mp_edge (edge_fwd, mp_warp.cuh), then fused_mp_node -------
 
-template <bool ENC, Src SRC>
+template <int F, bool ENC, Src SRC>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp_edge(const EdgeArgs a) {
-  edge_fwd<ENC, SRC>(a);
+  edge_fwd<F, ENC, SRC>(a);
 }
 
 struct NodeArgs {
@@ -336,45 +341,50 @@ struct NodeArgs {
   int n;
 };
 
+template <int F>
 struct NodeSmem {
-  static constexpr int kVec = 3 * WEIGHT_BYTES;
+  static constexpr int kVec = 3 * Tile<F>::WEIGHT_BYTES;
   static constexpr int kTiles = kVec + 4 * F * 4;
-  static constexpr int kBytes = kTiles + WARPS * SLICE_BYTES;
+  static constexpr int kBytes = kTiles + WARPS * Tile<F>::SLICE_BYTES;
   static_assert(kBytes <= kSmemMax, "node kernel shared memory");
 };
 
 // h' = T(h + LN2(relu(h @ W_nh + T(agg) @ W_na + bn1) @ W_n2 + bn2)), 16
 // nodes per warp, the weights staged once per block.
+template <int F>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp_node(const NodeArgs a) {
+  using D = Tile<F>;
+  constexpr int NB = D::NB, KB = D::KB, WEIGHT_BYTES = D::WEIGHT_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const u32 sb = smem_addr(smem);
-  for (int i = 0; i < 3; ++i) stage_rows(sb + i * WEIGHT_BYTES, a.w[i], F, F);
+  for (int i = 0; i < 3; ++i) stage_rows<F>(sb + i * WEIGHT_BYTES, a.w[i], F, F);
   cp_commit();
-  float* vec = reinterpret_cast<float*>(smem + NodeSmem::kVec);
+  float* vec = reinterpret_cast<float*>(smem + NodeSmem<F>::kVec);
   for (int i = threadIdx.x; i < 4 * F; i += THREADS) vec[i] = a.vec[i / F][i % F];
   cp_wait<0>();
   __syncthreads();
   const float* bn1 = vec;
 
-  const u32 tile = NodeSmem::kTiles + warp * SLICE_BYTES;
+  const u32 tile = NodeSmem<F>::kTiles + warp * D::SLICE_BYTES;
   const int slices = (a.n + SR - 1) / SR;
   for (int sl = blockIdx.x * WARPS + warp; sl < slices; sl += gridDim.x * WARPS) {
     const int64_t r0 = (int64_t)sl * SR;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = (lane >> 4) + 2 * i, c = lane & 15;
+    for (int i = 0; i < D::CP_ITERS; ++i) {
+      int r, c;
+      slice_chunk<F>(lane, i, r, c);
       const bool v = r0 + r < a.n;
-      cp_async16(sb + tile + swz(r, c), v ? a.h + (r0 + r) * F + c * 8 : a.h, v);
+      cp_async16(sb + tile + swz<F>(r, c), v ? a.h + (r0 + r) * F + c * 8 : a.h, v);
     }
     cp_commit();
     cp_wait<0>();
     __syncwarp();
-    u32 ha[8][4], ga[8][4];
+    u32 ha[KB][4], ga[KB][4];
     load_a(ha, sb + tile, lane);
     const bool vg = r0 + g < a.n, vg8 = r0 + g + 8 < a.n;
 #pragma unroll
-    for (int nb = 0; nb < 16; ++nb) {
+    for (int nb = 0; nb < NB; ++nb) {
       const int c = nb * 8 + 2 * t;
       const float2 x = vg ? *reinterpret_cast<const float2*>(a.agg + (r0 + g) * F + c)
                           : make_float2(0.f, 0.f);
@@ -383,11 +393,11 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_node(const NodeArgs a) {
       ga[nb >> 1][(nb & 1) * 2] = pack(x.x, x.y);
       ga[nb >> 1][(nb & 1) * 2 + 1] = pack(x8.x, x8.y);
     }
-    float acc[16][4];
+    float acc[NB][4];
     zero(acc);
     gemm(acc, ha, sb, lane);
     gemm(acc, ga, sb + WEIGHT_BYTES, lane);
-    u32 ra[8][4];
+    u32 ra[KB][4];
     to_frag(ra, acc,
             [&](float x, int nb, int j) { return fmaxf(x + bn1[nb * 8 + 2 * t + j], 0.f); });
     zero(acc);
@@ -397,19 +407,19 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_node(const NodeArgs a) {
     row_normalize(acc, inv0, inv1);
     scale_shift(acc, vec + 2 * F, vec + 3 * F, t);
 #pragma unroll
-    for (int nb = 0; nb < 16; ++nb) {
+    for (int nb = 0; nb < NB; ++nb) {
       const int c = nb * 8 + 2 * t;
       const float2 hg = unpack(frag_pair(ha, nb, 0)), hg8 = unpack(frag_pair(ha, nb, 1));
-      sts32(smem, tile + swz_pair(g, c), pack(hg.x + acc[nb][0], hg.y + acc[nb][1]));
-      sts32(smem, tile + swz_pair(g + 8, c), pack(hg8.x + acc[nb][2], hg8.y + acc[nb][3]));
+      sts32(smem, tile + swz_pair<F>(g, c), pack(hg.x + acc[nb][0], hg.y + acc[nb][1]));
+      sts32(smem, tile + swz_pair<F>(g + 8, c), pack(hg8.x + acc[nb][2], hg8.y + acc[nb][3]));
     }
     __syncwarp();
-    store_slice(a.h_out, r0, a.n, smem, tile, lane);
+    store_slice<F>(a.h_out, r0, a.n, smem, tile, lane);
     __syncwarp();
   }
 }
 
-template <Src SRC>
+template <int F, Src SRC>
 int run_bf16(const Args& a, bool has_enc, const int* grids, float* agg, cudaStream_t stream) {
   EdgeArgs ea;
   ea.e = a.e;
@@ -438,15 +448,15 @@ int run_bf16(const Args& a, bool has_enc, const int* grids, float* agg, cudaStre
   ea.SUB = a.SUB;
   ea.WSUB = a.WSUB;
   const auto plain = [&] {
-    return launch_kernel(fused_mp_edge<false, SRC>, grids[0], THREADS, EdgeSmem<false>::kBytes,
-                         ea, stream);
+    return launch_kernel(fused_mp_edge<F, false, SRC>, grids[0], THREADS,
+                         EdgeSmem<F, false>::kBytes, ea, stream);
   };
   int err;
   if constexpr (SRC == Src::kWindow) {
     err = plain();
   } else {
-    err = has_enc ? launch_kernel(fused_mp_edge<true, SRC>, grids[0], THREADS,
-                                  EdgeSmem<true>::kBytes, ea, stream)
+    err = has_enc ? launch_kernel(fused_mp_edge<F, true, SRC>, grids[0], THREADS,
+                                  EdgeSmem<F, true>::kBytes, ea, stream)
                   : plain();
   }
   if (err != 0) return err;
@@ -457,19 +467,24 @@ int run_bf16(const Args& a, bool has_enc, const int* grids, float* agg, cudaStre
   for (int i = 0; i < 3; ++i) na.w[i] = static_cast<const bf16*>(a.w[2 + i]);
   for (int i = 0; i < 4; ++i) na.vec[i] = a.vec[4 + i];
   na.n = a.n;
-  return launch_kernel(fused_mp_node, grids[1], THREADS, NodeSmem::kBytes, na, stream);
+  return launch_kernel(fused_mp_node<F>, grids[1], THREADS, NodeSmem<F>::kBytes, na, stream);
 }
 
+// The instance at width `latent` (latent_dispatch: 64 or 128).
 template <Src SRC>
-int dispatch(const Args& a, int is_bf16, int has_enc, const void* const* ptrs, const int* grids,
-             cudaStream_t stream) {
-  if (is_bf16) {
-    if (grids[0] < 1 || grids[1] < 1) return (int)cudaErrorInvalidValue;
-    return run_bf16<SRC>(a, has_enc, grids, static_cast<float*>(const_cast<void*>(ptrs[28])),
-                         stream);
-  }
-  if constexpr (SRC == Src::kWindow) return launch<float, false, SRC>(a, stream);
-  else return has_enc ? launch<float, true, SRC>(a, stream) : launch<float, false, SRC>(a, stream);
+int dispatch(const Args& a, int latent, int is_bf16, int has_enc, const void* const* ptrs,
+             const int* grids, cudaStream_t stream) {
+  if (is_bf16 && (grids[0] < 1 || grids[1] < 1)) return (int)cudaErrorInvalidValue;
+  return latent_dispatch(latent, [&](auto width) {
+    constexpr int F = decltype(width)::value;
+    if (is_bf16)
+      return run_bf16<F, SRC>(a, has_enc, grids,
+                              static_cast<float*>(const_cast<void*>(ptrs[28])), stream);
+    if constexpr (SRC == Src::kWindow) return launch<float, F, false, SRC>(a, stream);
+    else
+      return has_enc ? launch<float, F, true, SRC>(a, stream)
+                     : launch<float, F, false, SRC>(a, stream);
+  });
 }
 
 Args make_args(const void* const* ptrs, int n, int k, int fe) {
@@ -510,13 +525,13 @@ Args make_args(const void* const* ptrs, int n, int k, int fe) {
 //   20 enc_w1, 21 enc_w2, 22 enc_b1, 23 enc_b2, 24 enc_ln_scale,
 //   25 enc_ln_bias (unused unless has_enc), 26, 27 (K8, E2 below),
 //   28 agg scratch (n, F) float32 (bf16 only).
+// latent: F, 64 or 128 (else cudaErrorInvalidValue).
 // grids: the bf16 instance's edge and node grids (unused in float32).
 LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int latent,
                             int is_bf16, int has_enc, const int* grids, cudaStream_t stream) {
-  if (latent != F || n < 1 || k < 1 || (has_enc && (fe < 1 || fe > 16)))
-    return (int)cudaErrorInvalidValue;
-  return dispatch<Src::kGathered>(make_args(ptrs, n, k, fe), is_bf16, has_enc, ptrs, grids,
-                                  stream);
+  if (n < 1 || k < 1 || (has_enc && (fe < 1 || fe > 16))) return (int)cudaErrorInvalidValue;
+  return dispatch<Src::kGathered>(make_args(ptrs, n, k, fe), latent, is_bf16, has_enc, ptrs,
+                                  grids, stream);
 }
 
 // K8: ptrs as lbt_fused_mp's, with 1 = hs_ext (n_ext, F), 4 unused, and
@@ -525,15 +540,14 @@ LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int l
 LBT_EXPORT int lbt_fused_mp_slot(const void* const* ptrs, int n, int k, int fe, int latent,
                                  int is_bf16, int has_enc, int C, int S, const int* grids,
                                  cudaStream_t stream) {
-  if (latent != F || n < 1 || k < 1 || C < 1 || S < 1 || n % C ||
-      (has_enc && (fe < 1 || fe > 16)))
+  if (n < 1 || k < 1 || C < 1 || S < 1 || n % C || (has_enc && (fe < 1 || fe > 16)))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(ptrs, n, k, fe);
   a.cand = static_cast<const int32_t*>(ptrs[26]);
   a.bases_ext = static_cast<const int32_t*>(ptrs[27]);
   a.C = C;
   a.S = S;
-  return dispatch<Src::kSlot>(a, is_bf16, has_enc, ptrs, grids, stream);
+  return dispatch<Src::kSlot>(a, latent, is_bf16, has_enc, ptrs, grids, stream);
 }
 
 // E2: ptrs as lbt_fused_mp's (no encoder), with 1 = hs_ext (n_ext, F), 4
@@ -541,7 +555,7 @@ LBT_EXPORT int lbt_fused_mp_slot(const void* const* ptrs, int n, int k, int fe, 
 LBT_EXPORT int lbt_fused_mp_window(const void* const* ptrs, int n, int k, int latent,
                                    int is_bf16, int T, int SUB, int WSUB, const int* grids,
                                    cudaStream_t stream) {
-  if (latent != F || n < 1 || k < 1 || T < 1 || SUB < 1 || T % SUB || n % T || WSUB < 1)
+  if (n < 1 || k < 1 || T < 1 || SUB < 1 || T % SUB || n % T || WSUB < 1)
     return (int)cudaErrorInvalidValue;
   Args a = make_args(ptrs, n, k, 0);
   a.cand = static_cast<const int32_t*>(ptrs[26]);
@@ -549,5 +563,5 @@ LBT_EXPORT int lbt_fused_mp_window(const void* const* ptrs, int n, int k, int la
   a.T = T;
   a.SUB = SUB;
   a.WSUB = WSUB;
-  return dispatch<Src::kWindow>(a, is_bf16, 0, ptrs, grids, stream);
+  return dispatch<Src::kWindow>(a, latent, is_bf16, 0, ptrs, grids, stream);
 }

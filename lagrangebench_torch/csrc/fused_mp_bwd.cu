@@ -2,7 +2,9 @@
 // layout.
 //
 // Replaces: lagrangebench_tpu/ops/fused_mp.py::_fused_bwd_kernel, launched
-// by _gns_mp_step_bwd_pallas. Per receiver, with F = 128, it rematerializes
+// by _gns_mp_step_bwd_pallas. Per receiver, at latent width F (every kernel
+// is a template on F, instantiated at 64 and 128 and chosen by the entry
+// points' `latent` argument), it rematerializes
 // the forward of K3 (csrc/fused_mp.cu) from the inputs,
 //
 //   first = e @ W_e + hs + hr + b1,  r1 = relu(first)
@@ -18,7 +20,7 @@
 // arithmetic against the plain version with TF32 off.
 //
 // Bound on an H100: bytes. Per edge row it reads e, hs, ge and writes de,
-// dhs (5 x 256 B in bf16) against 6 x 2 x 128 x 128 FLOP of edge products
+// dhs (5 x 2F B in bf16) against 6 x 2 x F x F FLOP of edge products
 // that the function needs (the forward rematerialization adds 4 more).
 //
 // Design, bf16 (the main path): four hand-written kernels and a sum, on
@@ -40,24 +42,27 @@
 //      (dm = ge + dagg * mask) into dx1, then dfirst = T(dx1) @ W2^T * (first
 //      > 0) -> dhs (= T(dfirst)) and dhr (summed per receiver by its warp,
 //      in row order). T(relu(first)) and T(dx1) go back into the slice's
-//      ring slots, and after a block barrier each warp adds its 16 rows of
-//      dW2 += T(r1)^T T(dx1) over the 8 slices, in a register accumulator it
-//      keeps for the whole launch.
+//      ring slots, and after a block barrier each warp w < F / 16 adds its
+//      16 rows [16 w, 16 w + 16) of dW2 += T(r1)^T T(dx1) over the 8 slices,
+//      in a register accumulator it keeps for the whole launch (at F = 64
+//      warps 4-7 own no rows and skip the sum).
 //   4. fused_mp_bwd_edge_b: persistent, W_e resident, the same lockstep: de = ge +
-//      dhs @ W_e^T, and dW_e += e^T dhs in registers for the whole launch.
+//      dhs @ W_e^T, and dW_e += e^T dhs in registers for the whole launch,
+//      rows owned as in 3.
 //   5. fused_mp_bwd_reduce: each gradient summed over its kernel's blocks in
 //      block order.
 // No atomics: every sum has a fixed order, so the weight gradients are the
 // same bits on every launch. The vector gradients are summed per warp by
 // shuffles over each slice's rows (owner lanes keep them in registers),
-// then over the warps in order. Shared memory: the node kernel 186 KB, edge
-// kernel a 226 KB (2 weights, 8 warps x 2 stages x (e, hs), 8 warps x one ge slice),
-// edge kernel b 224 KB (W_e, 8 warps x 2 stages x (e, dhs, ge)).
+// then over the warps in order. Shared memory at F = 128: the node kernel
+// 186 KB, edge kernel a 226 KB (2 weights, 8 warps x 2 stages x (e, hs), 8
+// warps x one ge slice), edge kernel b 224 KB (W_e, 8 warps x 2 stages x
+// (e, dhs, ge)); at F = 64 about half, with the same grids and blocks.
 //
 // The float32 instance keeps the first, simple design: a persistent grid
 // of about one block per SM; each block of 8 warps walks receiver tiles of
 // 16. The tile's float32 LayerNorm activations do not fit in shared memory
-// (16 x 40 rows x 128 x 4 B = 320 KB), so the tile's edges stream through
+// (16 x 40 rows x 128 x 4 B = 320 KB at F = 128), so the tile's edges stream through
 // shared memory twice, 64 rows at a time:
 //   pass 1: rematerialize to agg; then the node-path backward, which
 //           leaves dagg in shared memory;
@@ -75,6 +80,7 @@ namespace {
 constexpr int TR = 16;  // receivers per tile
 constexpr int M = 64;   // edge rows per chunk
 constexpr int NV = 8;   // vector gradients
+template <int F>
 constexpr int GRADS = 5 * F * F + NV * F;  // floats of one block's partials
 
 // partials layout: dW_e, dW2, dW_nh, dW_na, dW_n2 (F x F, row-major), then
@@ -102,22 +108,19 @@ struct Args {
   int n, k;
 };
 
-template <typename T>
+template <typename T, int F>
 struct Smem {
-  static constexpr int LDA = Layout<T>::LDA;
+  static constexpr int LDA = Layout<T, F>::LDA;
   static constexpr int kA = M * LDA * (int)sizeof(T);
-  static constexpr int kF = M * LDF * 4;
+  static constexpr int kF = M * kLdf<F> * 4;
   static constexpr int kNode = TR * F * 4;
   static constexpr int kBytes = 3 * kA + 2 * kF + 2 * kNode;
 };
 
 // C[rows, F] = A[rows, F] @ W^T, W (F, F) row-major (in, out); rows % 16 == 0.
-template <typename T>
-__device__ void block_gemm_nt(const T* A, const T* W, float* C, int rows);
-
-template <>
-__device__ void block_gemm_nt<float>(const float* A, const float* W, float* C, int rows) {
-  constexpr int LDA = Layout<float>::LDA;
+template <int F>
+__device__ void block_gemm_nt(const float* A, const float* W, float* C, int rows) {
+  constexpr int LDA = Layout<float, F>::LDA, LDF = kLdf<F>;
   const int c = threadIdx.x % F;
   for (int r0 = (threadIdx.x / F) * 8; r0 < rows; r0 += (THREADS / F) * 8) {
     float acc[8];
@@ -135,12 +138,9 @@ __device__ void block_gemm_nt<float>(const float* A, const float* W, float* C, i
 
 // G[F, F] += A[rows, F]^T @ B[rows, F], G a float32 matrix in device memory
 // (row stride F) that this block alone writes; rows % 16 == 0.
-template <typename T>
-__device__ void block_gemm_tn(const T* A, const T* B, float* G, int rows);
-
-template <>
-__device__ void block_gemm_tn<float>(const float* A, const float* B, float* G, int rows) {
-  constexpr int LDA = Layout<float>::LDA;
+template <int F>
+__device__ void block_gemm_tn(const float* A, const float* B, float* G, int rows) {
+  constexpr int LDA = Layout<float, F>::LDA;
   for (int idx = threadIdx.x; idx < F * F; idx += THREADS) {
     const int i = idx / F, j = idx % F;
     float s = G[idx];
@@ -149,50 +149,54 @@ __device__ void block_gemm_tn<float>(const float* A, const float* B, float* G, i
   }
 }
 
-// Row statistics of one F-wide float row held by a warp (4 values per
-// lane): xhat = (x - mean) * inv in place; returns inv.
-__device__ __forceinline__ float warp_normalize(float (&x)[F / 32]) {
+// Row statistics of one F-wide float row held by a warp (V = F / 32 values
+// per lane): xhat = (x - mean) * inv in place; returns inv.
+template <int V>
+__device__ __forceinline__ float warp_normalize(float (&x)[V]) {
+  constexpr float kInvF = 1.f / (32 * V);
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < F / 32; ++i) s += x[i];
-  const float mean = lbt::warp_sum(s) * (1.f / F);
+  for (int i = 0; i < V; ++i) s += x[i];
+  const float mean = lbt::warp_sum(s) * kInvF;
   float v = 0.f;
 #pragma unroll
-  for (int i = 0; i < F / 32; ++i) {
+  for (int i = 0; i < V; ++i) {
     const float d = x[i] - mean;
     v += d * d;
   }
-  const float inv = rsqrtf(lbt::warp_sum(v) * (1.f / F) + kEps);
+  const float inv = rsqrtf(lbt::warp_sum(v) * kInvF + kEps);
 #pragma unroll
-  for (int i = 0; i < F / 32; ++i) x[i] = (x[i] - mean) * inv;
+  for (int i = 0; i < V; ++i) x[i] = (x[i] - mean) * inv;
   return inv;
 }
 
 // LayerNorm input gradient of a warp-held row: dx = inv * (dxhat - mean(dxhat)
 // - xhat * mean(dxhat * xhat)), dxhat = dy * scale. Overwrites dy with dx.
-__device__ __forceinline__ void warp_ln_bwd(float (&dy)[F / 32], const float (&xhat)[F / 32],
-                                            float inv, const float* scale, int lane) {
+template <int V>
+__device__ __forceinline__ void warp_ln_bwd(float (&dy)[V], const float (&xhat)[V], float inv,
+                                            const float* scale, int lane) {
+  constexpr float kInvF = 1.f / (32 * V);
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int i = 0; i < F / 32; ++i) {
+  for (int i = 0; i < V; ++i) {
     dy[i] *= scale[lane + 32 * i];
     s1 += dy[i];
     s2 += dy[i] * xhat[i];
   }
-  const float m1 = lbt::warp_sum(s1) * (1.f / F);
-  const float m2 = lbt::warp_sum(s2) * (1.f / F);
+  const float m1 = lbt::warp_sum(s1) * kInvF;
+  const float m2 = lbt::warp_sum(s2) * kInvF;
 #pragma unroll
-  for (int i = 0; i < F / 32; ++i) dy[i] = inv * (dy[i] - m1 - xhat[i] * m2);
+  for (int i = 0; i < V; ++i) dy[i] = inv * (dy[i] - m1 - xhat[i] * m2);
 }
 
 // The tile's edge rows [c0, c0 + rows) -> sA (e) and sB (T(relu(first))),
 // first = e @ W_e + hs + hr + b1; rows past `rows` up to rows_pad are zero.
 // Leaves relu(first) @ W2 in sF. Starts and ends with the block in step.
-template <typename T>
+template <typename T, int F>
 __device__ void remat_chunk(const Args& a, const T* wE, const T* w2, T* sA, T* sB,
                             float* sF, int64_t row0, int node0, int c0, int rows,
                             int rows_pad) {
-  constexpr int LDA = Layout<T>::LDA;
+  constexpr int LDA = Layout<T, F>::LDA, LDF = kLdf<F>;
   constexpr int V = 16 / sizeof(T);
   const T* e = static_cast<const T*>(a.e);
   const T* hs = static_cast<const T*>(a.hs);
@@ -204,7 +208,7 @@ __device__ void remat_chunk(const Args& a, const T* wE, const T* w2, T* sA, T* s
     *reinterpret_cast<int4*>(sA + r * LDA + c) = v;
   }
   __syncthreads();
-  block_gemm<T>(sA, wE, sF, rows_pad, false);
+  block_gemm<F>(sA, wE, sF, rows_pad, false);
   __syncthreads();
   for (int i = threadIdx.x; i < rows_pad * F; i += THREADS) {
     const int r = i / F, c = i % F;
@@ -219,14 +223,14 @@ __device__ void remat_chunk(const Args& a, const T* wE, const T* w2, T* sA, T* s
     sB[r * LDA + c] = from_f<T>(x);
   }
   __syncthreads();
-  block_gemm<T>(sB, w2, sF, rows_pad, false);
+  block_gemm<F>(sB, w2, sF, rows_pad, false);
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, int F>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
-  using S = Smem<T>;
-  constexpr int LDA = Layout<T>::LDA;
+  using S = Smem<T, F>;
+  constexpr int LDA = S::LDA, LDF = kLdf<F>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sA = reinterpret_cast<T*>(smem);
   T* sB = reinterpret_cast<T*>(smem + S::kA);
@@ -240,7 +244,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
   const int K = a.k;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tiles = (a.n + TR - 1) / TR;
-  float* part = a.partials + (int64_t)blockIdx.x * GRADS;
+  float* part = a.partials + (int64_t)blockIdx.x * GRADS<F>;
   const T* ge = static_cast<const T*>(a.ge);
   const T* gh = static_cast<const T*>(a.gh);
   const T* h = static_cast<const T*>(a.h);
@@ -275,7 +279,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       const int rows = min(M, rows_tile - c0);
       const int rows_pad = (rows + 15) / 16 * 16;
       __syncthreads();
-      remat_chunk<T>(a, wE, w2, sA, sB, sF, row0, node0, c0, rows, rows_pad);
+      remat_chunk<T, F>(a, wE, w2, sA, sB, sF, row0, node0, c0, rows, rows_pad);
       for (int r = warp; r < rows; r += WARPS) {
         float x[F / 32];
 #pragma unroll
@@ -313,9 +317,9 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       nAggc[r * LDA + c] = from_f<T>(sNode[i]);
     }
     __syncthreads();
-    block_gemm<T>(nH, wNh, nR2, TR, false);
+    block_gemm<F>(nH, wNh, nR2, TR, false);
     __syncthreads();
-    block_gemm<T>(nAggc, wNa, nR2, TR, true);
+    block_gemm<F>(nAggc, wNa, nR2, TR, true);
     __syncthreads();
     for (int i = threadIdx.x; i < TR * F; i += THREADS) {
       const int r = i / F, c = i % F;
@@ -324,7 +328,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       nR2c[r * LDA + c] = from_f<T>(r2);
     }
     __syncthreads();
-    block_gemm<T>(nR2c, wN2, nY, TR, false);
+    block_gemm<F>(nR2c, wN2, nY, TR, false);
     __syncthreads();
     for (int r = warp; r < TR; r += WARPS) {
       float x[F / 32], g[F / 32];
@@ -348,8 +352,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       }
     }
     __syncthreads();
-    block_gemm_tn<T>(nR2c, nDy1c, part + G_WN2 * F * F, TR);
-    block_gemm_nt<T>(nDy1c, wN2, nDnf, TR);
+    block_gemm_tn<F>(nR2c, nDy1c, part + G_WN2 * F * F, TR);
+    block_gemm_nt<F>(nDy1c, wN2, nDnf, TR);
     __syncthreads();
     for (int r = warp; r < TR; r += WARPS) {
 #pragma unroll
@@ -361,10 +365,10 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       }
     }
     __syncthreads();
-    block_gemm_tn<T>(nH, nDnfc, part + G_WNH * F * F, TR);
-    block_gemm_tn<T>(nAggc, nDnfc, part + G_WNA * F * F, TR);
-    block_gemm_nt<T>(nDnfc, wNh, nDh, TR);
-    block_gemm_nt<T>(nDnfc, wNa, nDagg, TR);
+    block_gemm_tn<F>(nH, nDnfc, part + G_WNH * F * F, TR);
+    block_gemm_tn<F>(nAggc, nDnfc, part + G_WNA * F * F, TR);
+    block_gemm_nt<F>(nDnfc, wNh, nDh, TR);
+    block_gemm_nt<F>(nDnfc, wNa, nDagg, TR);
     __syncthreads();
     {
       T* dh = static_cast<T*>(a.dh);
@@ -386,7 +390,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
       const int rows = min(M, rows_tile - c0);
       const int rows_pad = (rows + 15) / 16 * 16;
       __syncthreads();
-      remat_chunk<T>(a, wE, w2, sA, sB, sF, row0, node0, c0, rows, rows_pad);
+      remat_chunk<T, F>(a, wE, w2, sA, sB, sF, row0, node0, c0, rows, rows_pad);
       // LN1 and its backward: dm = ge + dagg * mask -> dx1 -> sC
       for (int r = warp; r < rows_pad; r += WARPS) {
         if (r >= rows) {
@@ -416,8 +420,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
         }
       }
       __syncthreads();
-      block_gemm_tn<T>(sB, sC, part + G_W2 * F * F, rows_pad);  // dW2 += T(r1)^T dx1c
-      block_gemm_nt<T>(sC, w2, sG, rows_pad);                // dx1c @ W2^T
+      block_gemm_tn<F>(sB, sC, part + G_W2 * F * F, rows_pad);  // dW2 += T(r1)^T dx1c
+      block_gemm_nt<F>(sC, w2, sG, rows_pad);                // dx1c @ W2^T
       __syncthreads();
       // dfirst = (dx1c @ W2^T) * (first > 0) -> sG (float), sC (T), dhs
       for (int r = warp; r < rows_pad; r += WARPS) {
@@ -439,8 +443,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
         const int c = threadIdx.x;
         for (int r = 0; r < rows; ++r) sDhr[((c0 + r) / K) * F + c] += sG[r * LDF + c];
       }
-      block_gemm_tn<T>(sA, sC, part + G_WE * F * F, rows_pad);  // dW_e += e^T dfirstc
-      block_gemm_nt<T>(sC, wE, sF, rows_pad);                // dfirstc @ W_e^T
+      block_gemm_tn<F>(sA, sC, part + G_WE * F * F, rows_pad);  // dW_e += e^T dfirstc
+      block_gemm_nt<F>(sC, wE, sF, rows_pad);                // dfirstc @ W_e^T
       __syncthreads();
       for (int i = threadIdx.x; i < rows * F; i += THREADS) {
         const int r = i / F, c = i % F;
@@ -475,14 +479,18 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
 
 constexpr int NB_WARPS = 4;              // fused_mp_bwd_node: warps per block
 constexpr int NB_ROWS = NB_WARPS * SR;   // fused_mp_bwd_node: nodes per block
+template <int F>
 constexpr int P_NODE = 3 * F * F + 4 * F;  // node kernel: dW_nh, dW_na, dW_n2, bn1..ln2 bias
+template <int F>
 constexpr int P_EA = F * F + 4 * F;        // edge kernel a: dW2, b1, b2, ln1 scale, ln1 bias
+template <int F>
 constexpr int P_EB = F * F;                // edge kernel b: dW_e
 
+template <int F>
 struct NodeBwdSmem {
-  static constexpr int kVec = 3 * WEIGHT_BYTES;  // bn1, bn2, ln2 scale, ln2 bias
+  static constexpr int kVec = 3 * Tile<F>::WEIGHT_BYTES;  // bn1, bn2, ln2 scale, ln2 bias
   static constexpr int kTiles = kVec + 4 * F * 4;
-  static constexpr int kTile = NB_WARPS * SLICE_BYTES;  // H, AGGC, R2C, DY1C, DNFC
+  static constexpr int kTile = NB_WARPS * Tile<F>::SLICE_BYTES;  // H, AGGC, R2C, DY1C, DNFC
   static constexpr int kOwn = kTiles + 5 * kTile;        // warps x 4 vector sums
   static constexpr int kBytes = kOwn + NB_WARPS * 4 * F * 4;
   static_assert(kBytes <= kSmemMax, "node kernel shared memory");
@@ -506,29 +514,34 @@ __device__ __forceinline__ void block_slices(const Args& a, int* cnt) {
 }
 
 // K3's edge body with no e' out: the step's agg, rematerialized.
+template <int F>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_agg(const EdgeArgs a) {
-  edge_fwd<false, Src::kGathered>(a);
+  edge_fwd<F, false, Src::kGathered>(a);
 }
 
 // The node path's forward and backward, 16 nodes per warp.
+template <int F>
 __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args a) {
-  using S = NodeBwdSmem;
+  using S = NodeBwdSmem<F>;
+  using D = Tile<F>;
+  constexpr int NB = D::NB, KB = D::KB, NH = D::NH, WEIGHT_BYTES = D::WEIGHT_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const u32 sb = smem_addr(smem);
   for (int i = 0; i < 3; ++i)
-    stage_rows(sb + i * WEIGHT_BYTES, static_cast<const bf16*>(a.w[2 + i]), F, F);
+    stage_rows<F>(sb + i * WEIGHT_BYTES, static_cast<const bf16*>(a.w[2 + i]), F, F);
   const int64_t r0 = (int64_t)blockIdx.x * NB_ROWS + warp * SR;
   const bf16* h = static_cast<const bf16*>(a.h);
   auto tile = [&](int which, int w) {
-    return (u32)(S::kTiles + which * S::kTile + w * SLICE_BYTES);
+    return (u32)(S::kTiles + which * S::kTile + w * D::SLICE_BYTES);
   };
   enum { H = 0, AGGC, R2C, DY1C, DNFC };
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = (lane >> 4) + 2 * i, c = lane & 15;
+  for (int i = 0; i < D::CP_ITERS; ++i) {
+    int r, c;
+    slice_chunk<F>(lane, i, r, c);
     const bool v = r0 + r < a.n;
-    cp_async16(sb + tile(H, warp) + swz(r, c), v ? h + (r0 + r) * F + c * 8 : h, v);
+    cp_async16(sb + tile(H, warp) + swz<F>(r, c), v ? h + (r0 + r) * F + c * 8 : h, v);
   }
   cp_commit();
   float* vec = reinterpret_cast<float*>(smem + S::kVec);
@@ -539,11 +552,11 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
   const u32 wNh = sb, wNa = sb + WEIGHT_BYTES, wN2 = sb + 2 * WEIGHT_BYTES;
 
   const bool vg = r0 + g < a.n, vg8 = r0 + g + 8 < a.n;
-  float own[4][2][2] = {};  // bn1, bn2, ln2 scale, ln2 bias
-  u32 ha[8][4], ga[8][4], ra[8][4];
+  float own[4][NH][2] = {};  // bn1, bn2, ln2 scale, ln2 bias
+  u32 ha[KB][4], ga[KB][4], ra[KB][4];
   load_a(ha, sb + tile(H, warp), lane);
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     const int c = nb * 8 + 2 * t;
     const float2 x = vg ? *reinterpret_cast<const float2*>(a.agg + (r0 + g) * F + c)
                         : make_float2(0.f, 0.f);
@@ -551,19 +564,19 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
                           : make_float2(0.f, 0.f);
     ga[nb >> 1][(nb & 1) * 2] = pack(x.x, x.y);
     ga[nb >> 1][(nb & 1) * 2 + 1] = pack(x8.x, x8.y);
-    sts32(smem, tile(AGGC, warp) + swz_pair(g, c), frag_pair(ga, nb, 0));
-    sts32(smem, tile(AGGC, warp) + swz_pair(g + 8, c), frag_pair(ga, nb, 1));
+    sts32(smem, tile(AGGC, warp) + swz_pair<F>(g, c), frag_pair(ga, nb, 0));
+    sts32(smem, tile(AGGC, warp) + swz_pair<F>(g + 8, c), frag_pair(ga, nb, 1));
   }
-  float acc[16][4];
+  float acc[NB][4];
   zero(acc);
   gemm(acc, ha, wNh, lane);
   gemm(acc, ga, wNa, lane);
   to_frag(ra, acc, [&](float x, int nb, int j) { return fmaxf(x + bn1[nb * 8 + 2 * t + j], 0.f); });
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     const int c = nb * 8 + 2 * t;
-    sts32(smem, tile(R2C, warp) + swz_pair(g, c), frag_pair(ra, nb, 0));
-    sts32(smem, tile(R2C, warp) + swz_pair(g + 8, c), frag_pair(ra, nb, 1));
+    sts32(smem, tile(R2C, warp) + swz_pair<F>(g, c), frag_pair(ra, nb, 0));
+    sts32(smem, tile(R2C, warp) + swz_pair<F>(g + 8, c), frag_pair(ra, nb, 1));
   }
   zero(acc);
   gemm(acc, ra, wN2, lane);
@@ -573,10 +586,10 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
 
   // LN2 backward with gh: dy1 = inv (gh s - mean(gh s) - xhat mean(gh s xhat))
   const bf16* gh = static_cast<const bf16*>(a.gh);
-  u32 ghp[16][2];
+  u32 ghp[NB][2];
   float p1[2] = {0.f, 0.f}, p2[2] = {0.f, 0.f};
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     const int c = nb * 8 + 2 * t;
     ghp[nb][0] = vg ? ldg32(gh + (r0 + g) * F + c) : 0u;
     ghp[nb][1] = vg8 ? ldg32(gh + (r0 + g + 8) * F + c) : 0u;
@@ -602,7 +615,7 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
     m2[r8] = quad_sum(p2[r8]) * (1.f / F);
   }
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     const int c = nb * 8 + 2 * t;
     const float2 d = unpack(ghp[nb][0]), d8 = unpack(ghp[nb][1]);
     const float dv[4] = {d.x, d.y, d8.x, d8.y};
@@ -614,18 +627,18 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
 #pragma unroll
     for (int j = 0; j < 2; ++j) colsum_add(own[1], acc[nb][j] + acc[nb][2 + j], nb, j, g);
   }
-  u32 da[8][4];  // T(dy1), then T(dnf)
+  u32 da[KB][4];  // T(dy1), then T(dnf)
   to_frag(da, acc, [](float x, int, int) { return x; });
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     const int c = nb * 8 + 2 * t;
-    sts32(smem, tile(DY1C, warp) + swz_pair(g, c), frag_pair(da, nb, 0));
-    sts32(smem, tile(DY1C, warp) + swz_pair(g + 8, c), frag_pair(da, nb, 1));
+    sts32(smem, tile(DY1C, warp) + swz_pair<F>(g, c), frag_pair(da, nb, 0));
+    sts32(smem, tile(DY1C, warp) + swz_pair<F>(g + 8, c), frag_pair(da, nb, 1));
   }
   zero(acc);
   gemm_t(acc, da, wN2, lane);
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {  // dnf = (T(dy1) @ W_n2^T) * (nf > 0)
+  for (int nb = 0; nb < NB; ++nb) {  // dnf = (T(dy1) @ W_n2^T) * (nf > 0)
     const float2 r = unpack(frag_pair(ra, nb, 0)), r8 = unpack(frag_pair(ra, nb, 1));
     acc[nb][0] = r.x > 0.f ? acc[nb][0] : 0.f;
     acc[nb][1] = r.y > 0.f ? acc[nb][1] : 0.f;
@@ -636,16 +649,16 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
   }
   to_frag(da, acc, [](float x, int, int) { return x; });
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     const int c = nb * 8 + 2 * t;
-    sts32(smem, tile(DNFC, warp) + swz_pair(g, c), frag_pair(da, nb, 0));
-    sts32(smem, tile(DNFC, warp) + swz_pair(g + 8, c), frag_pair(da, nb, 1));
+    sts32(smem, tile(DNFC, warp) + swz_pair<F>(g, c), frag_pair(da, nb, 0));
+    sts32(smem, tile(DNFC, warp) + swz_pair<F>(g + 8, c), frag_pair(da, nb, 1));
   }
   zero(acc);
   gemm_t(acc, da, wNh, lane);  // dh = gh + T(dnf) @ W_nh^T
   bf16* dh = static_cast<bf16*>(a.dh);
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     const int c = nb * 8 + 2 * t;
     const float2 d = unpack(ghp[nb][0]), d8 = unpack(ghp[nb][1]);
     if (vg)
@@ -657,7 +670,7 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
   zero(acc);
   gemm_t(acc, da, wNa, lane);  // dagg = T(dnf) @ W_na^T
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     const int c = nb * 8 + 2 * t;
     if (vg)
       *reinterpret_cast<float2*>(a.dagg + (r0 + g) * F + c) = make_float2(acc[nb][0], acc[nb][1]);
@@ -670,20 +683,23 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
   for (int v = 0; v < 4; ++v) store_own(own_s + (warp * 4 + v) * F, own[v], g, t);
   __syncthreads();
 
-  // the block's weight gradients: warp w owns rows [32w, 32w + 32) of each
-  float* part = a.partials + (int64_t)blockIdx.x * P_NODE;
+  // the block's weight gradients: warp w owns rows [RW w, RW w + RW) of each,
+  // RW = F / NB_WARPS (32 at F = 128, 16 at F = 64), 16 at a time
+  constexpr int RW = F / NB_WARPS;
+  static_assert(RW % 16 == 0, "whole 16-row blocks per warp");
+  float* part = a.partials + (int64_t)blockIdx.x * P_NODE<F>;
   const int xs[3] = {H, AGGC, R2C}, ys[3] = {DNFC, DNFC, DY1C};  // dW_nh, dW_na, dW_n2
 #pragma unroll 1
   for (int gi = 0; gi < 3; ++gi) {
 #pragma unroll 1
-    for (int hf = 0; hf < 2; ++hf) {
-      const int i0 = warp * 32 + hf * 16;
+    for (int hf = 0; hf < RW / 16; ++hf) {
+      const int i0 = warp * RW + hf * 16;
       zero(acc);
       for (int w = 0; w < NB_WARPS; ++w)
         gemm_tn(acc, sb + tile(xs[gi], w), sb + tile(ys[gi], w), i0, lane);
       float* dst = part + gi * F * F;
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {
+      for (int nb = 0; nb < NB; ++nb) {
         const int c = nb * 8 + 2 * t;
         *reinterpret_cast<float2*>(dst + (i0 + g) * F + c) = make_float2(acc[nb][0], acc[nb][1]);
         *reinterpret_cast<float2*>(dst + (i0 + g + 8) * F + c) =
@@ -698,8 +714,19 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
   }
 }
 
+// The warps that own rows of an edge kernel's weight gradient: warp w owns
+// rows [16 w, 16 w + 16), so at F = 64 warps 4-7 own none.
+template <int F>
+__device__ __forceinline__ bool owns_grad_rows(int warp) {
+  static_assert(F <= WARPS * SR, "8 warps x 16 rows cover the gradient");
+  return warp * SR < F;
+}
+
+template <int F>
 struct EdgeBwdASmem {
-  static constexpr int kVec = 2 * WEIGHT_BYTES;  // W_e, W2; then b1, b2, ln1 scale, ln1 bias
+  static constexpr int SLICE_BYTES = Tile<F>::SLICE_BYTES;
+  // W_e, W2; then b1, b2, ln1 scale, ln1 bias
+  static constexpr int kVec = 2 * Tile<F>::WEIGHT_BYTES;
   static constexpr int kRing = kVec + 4 * F * 4;
   static constexpr int kStage = 2 * SLICE_BYTES;  // e (then T(r1)), hs (then T(dx1))
   static constexpr int kGe = kRing + WARPS * 2 * kStage;
@@ -709,14 +736,18 @@ struct EdgeBwdASmem {
 
 // Rematerialization and the edge-path backward up to dfirst: dhs, dhr,
 // dW2 and the vector gradients b1, b2, ln1 scale, ln1 bias.
+template <int F>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) {
-  using S = EdgeBwdASmem;
+  using S = EdgeBwdASmem<F>;
+  using D = Tile<F>;
+  constexpr int NB = D::NB, KB = D::KB, NH = D::NH;
+  constexpr int SLICE_BYTES = D::SLICE_BYTES, WEIGHT_BYTES = D::WEIGHT_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int cnt[WARPS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const u32 sb = smem_addr(smem);
-  stage_rows(sb, static_cast<const bf16*>(a.w[0]), F, F);
-  stage_rows(sb + WEIGHT_BYTES, static_cast<const bf16*>(a.w[1]), F, F);
+  stage_rows<F>(sb, static_cast<const bf16*>(a.w[0]), F, F);
+  stage_rows<F>(sb + WEIGHT_BYTES, static_cast<const bf16*>(a.w[1]), F, F);
   cp_commit();
   float* vec = reinterpret_cast<float*>(smem + S::kVec);
   for (int i = threadIdx.x; i < 4 * F; i += THREADS) vec[i] = a.vec[i / F][i % F];
@@ -740,10 +771,11 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
 
   auto copy_slice = [&](u32 dst, const bf16* src, int64_t s0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = (lane >> 4) + 2 * i, c = lane & 15;
+    for (int i = 0; i < D::CP_ITERS; ++i) {
+      int r, c;
+      slice_chunk<F>(lane, i, r, c);
       const bool v = s0 + r < r_hi;
-      cp_async16(sb + dst + swz(r, c), v ? src + (s0 + r) * F + c * 8 : src, v);
+      cp_async16(sb + dst + swz<F>(r, c), v ? src + (s0 + r) * F + c * 8 : src, v);
     }
   };
   float m_next = 0.f;
@@ -757,16 +789,16 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
     cp_commit();
   };
 
-  float gw2[16][4];  // rows [16 warp, 16 warp + 16) of dW2, for the whole launch
+  float gw2[NB][4];  // rows [16 warp, 16 warp + 16) of dW2, for the whole launch
   zero(gw2);
-  float own[4][2][2] = {};  // b1, b2, ln1 scale, ln1 bias
-  int64_t cur = -1;         // the receiver whose dhr `dhr_own` holds
-  float dhr_own[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float own[4][NH][2] = {};  // b1, b2, ln1 scale, ln1 bias
+  int64_t cur = -1;          // the receiver whose dhr `dhr_own` holds
+  float dhr_own[NH][2] = {};
   bf16* dhr = static_cast<bf16*>(a.dhr);
   auto flush = [&]() {
     if (cur < 0) return;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
+    for (int hh = 0; hh < NH; ++hh)
       *reinterpret_cast<u32*>(dhr + cur * F + (g + 8 * hh) * 8 + 2 * t) =
           pack(dhr_own[hh][0], dhr_own[hh][1]);
   };
@@ -777,8 +809,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
     const int64_t s0 = r_lo + (int64_t)j * SR;
     const u32 st = ring + (j & 1) * S::kStage, st_hs = st + SLICE_BYTES;
     const float m_row = m_next;
-    u32 dxa[8][4];  // T(dx1), kept across the block's dW2 step
-    float acc[16][4];
+    u32 dxa[KB][4];  // T(dx1), kept across the block's dW2 step
+    float acc[NB][4];
     if (active) {
       copy_slice(ge_slot, ge, s0);
       cp_commit();
@@ -792,16 +824,16 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
       const float mg = __shfl_sync(lbt::kFullMask, m_row, g);
       const float mg8 = __shfl_sync(lbt::kFullMask, m_row, g + 8);
       {  // first = e @ W_e + hs + hr + b1 -> T(relu(first)), into the e slot
-        u32 ea[8][4];
+        u32 ea[KB][4];
         load_a(ea, sb + st, lane);
         zero(acc);
         gemm(acc, ea, wE, lane);
       }
-      u32 ra[8][4];
+      u32 ra[KB][4];
 #pragma unroll
-      for (int kb = 0; kb < 8; ++kb) {
+      for (int kb = 0; kb < KB; ++kb) {
         u32 h4[4];
-        ldsm(h4, sb + st_hs + swz(lane & 15, kb * 2 + (lane >> 4)));
+        ldsm(h4, sb + st_hs + swz<F>(lane & 15, kb * 2 + (lane >> 4)));
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int nb = 2 * kb + hf, c = nb * 8 + 2 * t;
@@ -817,10 +849,10 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
         }
       }
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {
+      for (int nb = 0; nb < NB; ++nb) {
         const int c = nb * 8 + 2 * t;
-        sts32(smem, st + swz_pair(g, c), frag_pair(ra, nb, 0));
-        sts32(smem, st + swz_pair(g + 8, c), frag_pair(ra, nb, 1));
+        sts32(smem, st + swz_pair<F>(g, c), frag_pair(ra, nb, 0));
+        sts32(smem, st + swz_pair<F>(g + 8, c), frag_pair(ra, nb, 1));
       }
       zero(acc);
       gemm(acc, ra, w2, lane);
@@ -834,8 +866,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
       // xhat mean(dm s xhat)); dm is formed twice rather than kept
       auto dm_of = [&](int nb, float (&dv)[4]) {
         const int c = nb * 8 + 2 * t;
-        const float2 q = unpack(lds32(smem, ge_slot + swz_pair(g, c)));
-        const float2 q8 = unpack(lds32(smem, ge_slot + swz_pair(g + 8, c)));
+        const float2 q = unpack(lds32(smem, ge_slot + swz_pair<F>(g, c)));
+        const float2 q8 = unpack(lds32(smem, ge_slot + swz_pair<F>(g + 8, c)));
         const float2 d = vg ? *reinterpret_cast<const float2*>(a.dagg + ig * F + c)
                             : make_float2(0.f, 0.f);
         const float2 d8 = vg8 ? *reinterpret_cast<const float2*>(a.dagg + ig8 * F + c)
@@ -847,7 +879,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
       };
       float p1[2] = {0.f, 0.f}, p2[2] = {0.f, 0.f};
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {
+      for (int nb = 0; nb < NB; ++nb) {
         const int c = nb * 8 + 2 * t;
         float dv[4];
         dm_of(nb, dv);
@@ -870,7 +902,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
         m2[r8] = quad_sum(p2[r8]) * (1.f / F);
       }
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {
+      for (int nb = 0; nb < NB; ++nb) {
         const int c = nb * 8 + 2 * t;
         float dv[4];
         dm_of(nb, dv);
@@ -885,25 +917,26 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
       to_frag(dxa, acc, [](float x, int, int) { return x; });
       if (!vg || !vg8) {
 #pragma unroll
-        for (int kb = 0; kb < 8; ++kb) {
+        for (int kb = 0; kb < KB; ++kb) {
           if (!vg) dxa[kb][0] = dxa[kb][2] = 0u;
           if (!vg8) dxa[kb][1] = dxa[kb][3] = 0u;
         }
       }
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {  // T(dx1) into the hs slot
+      for (int nb = 0; nb < NB; ++nb) {  // T(dx1) into the hs slot
         const int c = nb * 8 + 2 * t;
-        sts32(smem, st_hs + swz_pair(g, c), frag_pair(dxa, nb, 0));
-        sts32(smem, st_hs + swz_pair(g + 8, c), frag_pair(dxa, nb, 1));
+        sts32(smem, st_hs + swz_pair<F>(g, c), frag_pair(dxa, nb, 0));
+        sts32(smem, st_hs + swz_pair<F>(g + 8, c), frag_pair(dxa, nb, 1));
       }
     }
     __syncthreads();
     // dW2 += T(r1)^T T(dx1) over the block's slices, in warp order
-    for (int w = 0; w < WARPS; ++w)
-      if (j < cnt[w]) {
-        const u32 sw = S::kRing + w * 2 * S::kStage + (j & 1) * S::kStage;
-        gemm_tn(gw2, sb + sw, sb + sw + SLICE_BYTES, warp * 16, lane);
-      }
+    if (owns_grad_rows<F>(warp))
+      for (int w = 0; w < WARPS; ++w)
+        if (j < cnt[w]) {
+          const u32 sw = S::kRing + w * 2 * S::kStage + (j & 1) * S::kStage;
+          gemm_tn(gw2, sb + sw, sb + sw + SLICE_BYTES, warp * SR, lane);
+        }
     __syncthreads();
     if (!active) continue;
 
@@ -913,21 +946,21 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
     const bool vg = s0 + g < r_hi, vg8 = s0 + g + 8 < r_hi;
     const int64_t ig = vg ? (s0 + g) / K : 0, ig8 = vg8 ? (s0 + g + 8) / K : 0;
 #pragma unroll
-    for (int nb = 0; nb < 16; ++nb) {
+    for (int nb = 0; nb < NB; ++nb) {
       const int c = nb * 8 + 2 * t;
-      const float2 r = unpack(lds32(smem, st + swz_pair(g, c)));
-      const float2 r8 = unpack(lds32(smem, st + swz_pair(g + 8, c)));
+      const float2 r = unpack(lds32(smem, st + swz_pair<F>(g, c)));
+      const float2 r8 = unpack(lds32(smem, st + swz_pair<F>(g + 8, c)));
       acc[nb][0] = r.x > 0.f ? acc[nb][0] : 0.f;
       acc[nb][1] = r.y > 0.f ? acc[nb][1] : 0.f;
       acc[nb][2] = r8.x > 0.f ? acc[nb][2] : 0.f;
       acc[nb][3] = r8.y > 0.f ? acc[nb][3] : 0.f;
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) colsum_add(own[0], acc[nb][jj] + acc[nb][2 + jj], nb, jj, g);
-      sts32(smem, st + swz_pair(g, c), pack(acc[nb][0], acc[nb][1]));
-      sts32(smem, st + swz_pair(g + 8, c), pack(acc[nb][2], acc[nb][3]));
+      sts32(smem, st + swz_pair<F>(g, c), pack(acc[nb][0], acc[nb][1]));
+      sts32(smem, st + swz_pair<F>(g + 8, c), pack(acc[nb][2], acc[nb][3]));
     }
     __syncwarp();
-    store_slice(static_cast<bf16*>(a.dhs), s0, r_hi, smem, st, lane);
+    store_slice<F>(static_cast<bf16*>(a.dhs), s0, r_hi, smem, st, lane);
     __syncwarp();
     // dhr: dfirst summed per receiver, in row order
     const int64_t first = s0 / K, last = ((s0 + SR < r_hi ? s0 + SR : r_hi) - 1) / K;
@@ -935,11 +968,12 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
       if (i != cur) {
         flush();
         cur = i;
-        dhr_own[0][0] = dhr_own[0][1] = dhr_own[1][0] = dhr_own[1][1] = 0.f;
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh) dhr_own[hh][0] = dhr_own[hh][1] = 0.f;
       }
       const bool in_g = vg && ig == i, in_g8 = vg8 && ig8 == i;
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb)
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj)
           colsum_add(dhr_own, (in_g ? acc[nb][jj] : 0.f) + (in_g8 ? acc[nb][2 + jj] : 0.f), nb,
@@ -948,12 +982,15 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
   }
   flush();
 
-  float* part = a.partials + (int64_t)blockIdx.x * P_EA;
+  float* part = a.partials + (int64_t)blockIdx.x * P_EA<F>;
+  if (owns_grad_rows<F>(warp)) {
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
-    const int c = nb * 8 + 2 * t, i0 = warp * 16;
-    *reinterpret_cast<float2*>(part + (i0 + g) * F + c) = make_float2(gw2[nb][0], gw2[nb][1]);
-    *reinterpret_cast<float2*>(part + (i0 + g + 8) * F + c) = make_float2(gw2[nb][2], gw2[nb][3]);
+    for (int nb = 0; nb < NB; ++nb) {
+      const int c = nb * 8 + 2 * t, i0 = warp * SR;
+      *reinterpret_cast<float2*>(part + (i0 + g) * F + c) = make_float2(gw2[nb][0], gw2[nb][1]);
+      *reinterpret_cast<float2*>(part + (i0 + g + 8) * F + c) =
+          make_float2(gw2[nb][2], gw2[nb][3]);
+    }
   }
   __syncthreads();  // the rings are free: the warps' vector sums go there
   float* own_s = reinterpret_cast<float*>(smem + S::kRing);
@@ -967,21 +1004,25 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
   }
 }
 
+template <int F>
 struct EdgeBwdBSmem {
-  static constexpr int kRing = WEIGHT_BYTES;        // after W_e
-  static constexpr int kStage = 3 * SLICE_BYTES;    // e, dhs, ge (then de)
+  static constexpr int kRing = Tile<F>::WEIGHT_BYTES;      // after W_e
+  static constexpr int kStage = 3 * Tile<F>::SLICE_BYTES;  // e, dhs, ge (then de)
   static constexpr int kBytes = kRing + WARPS * 2 * kStage;
   static_assert(kBytes + WARPS * 4 <= kSmemMax, "edge kernel b shared memory");
 };
 
 // de = ge + dhs @ W_e^T and dW_e = e^T dhs.
+template <int F>
 __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_b(const Args a) {
-  using S = EdgeBwdBSmem;
+  using S = EdgeBwdBSmem<F>;
+  using D = Tile<F>;
+  constexpr int NB = D::NB, KB = D::KB, SLICE_BYTES = D::SLICE_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int cnt[WARPS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const u32 sb = smem_addr(smem);
-  stage_rows(sb, static_cast<const bf16*>(a.w[0]), F, F);
+  stage_rows<F>(sb, static_cast<const bf16*>(a.w[0]), F, F);
   cp_commit();
   if (threadIdx.x == 0) block_slices(a, cnt);
   cp_wait<0>();
@@ -1000,18 +1041,19 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_b(const Args a) 
     const int64_t s0 = r_lo + (int64_t)j * SR;
     const u32 st = ring + (j & 1) * S::kStage;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = (lane >> 4) + 2 * i, c = lane & 15;
+    for (int i = 0; i < D::CP_ITERS; ++i) {
+      int r, c;
+      slice_chunk<F>(lane, i, r, c);
       const bool v = s0 + r < r_hi;
       const int64_t at = v ? (s0 + r) * F + c * 8 : 0;
-      cp_async16(sb + st + swz(r, c), e + at, v);
-      cp_async16(sb + st + SLICE_BYTES + swz(r, c), dhs + at, v);
-      cp_async16(sb + st + 2 * SLICE_BYTES + swz(r, c), ge + at, v);
+      cp_async16(sb + st + swz<F>(r, c), e + at, v);
+      cp_async16(sb + st + SLICE_BYTES + swz<F>(r, c), dhs + at, v);
+      cp_async16(sb + st + 2 * SLICE_BYTES + swz<F>(r, c), ge + at, v);
     }
     cp_commit();
   };
 
-  float gwe[16][4];  // rows [16 warp, 16 warp + 16) of dW_e, for the whole launch
+  float gwe[NB][4];  // rows [16 warp, 16 warp + 16) of dW_e, for the whole launch
   zero(gwe);
   if (mine > 0) issue(0);
   for (int j = 0; j < iters; ++j) {
@@ -1026,34 +1068,36 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_b(const Args a) 
         cp_wait<0>();
       }
       __syncwarp();
-      u32 da[8][4];
+      u32 da[KB][4];
       load_a(da, sb + st + SLICE_BYTES, lane);
-      float acc[16][4];
+      float acc[NB][4];
       zero(acc);
       gemm_t(acc, da, sb, lane);
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {  // de = T(ge + T(dfirst) @ W_e^T), into the ge slot
+      for (int nb = 0; nb < NB; ++nb) {  // de = T(ge + T(dfirst) @ W_e^T), into the ge slot
         const int c = nb * 8 + 2 * t;
-        const float2 q = unpack(lds32(smem, st_ge + swz_pair(g, c)));
-        const float2 q8 = unpack(lds32(smem, st_ge + swz_pair(g + 8, c)));
-        sts32(smem, st_ge + swz_pair(g, c), pack(q.x + acc[nb][0], q.y + acc[nb][1]));
-        sts32(smem, st_ge + swz_pair(g + 8, c), pack(q8.x + acc[nb][2], q8.y + acc[nb][3]));
+        const float2 q = unpack(lds32(smem, st_ge + swz_pair<F>(g, c)));
+        const float2 q8 = unpack(lds32(smem, st_ge + swz_pair<F>(g + 8, c)));
+        sts32(smem, st_ge + swz_pair<F>(g, c), pack(q.x + acc[nb][0], q.y + acc[nb][1]));
+        sts32(smem, st_ge + swz_pair<F>(g + 8, c), pack(q8.x + acc[nb][2], q8.y + acc[nb][3]));
       }
       __syncwarp();
-      store_slice(static_cast<bf16*>(a.de), s0, r_hi, smem, st_ge, lane);
+      store_slice<F>(static_cast<bf16*>(a.de), s0, r_hi, smem, st_ge, lane);
     }
     __syncthreads();
-    for (int w = 0; w < WARPS; ++w)
-      if (j < cnt[w]) {
-        const u32 sw = S::kRing + w * 2 * S::kStage + (j & 1) * S::kStage;
-        gemm_tn(gwe, sb + sw, sb + sw + SLICE_BYTES, warp * 16, lane);
-      }
+    if (owns_grad_rows<F>(warp))
+      for (int w = 0; w < WARPS; ++w)
+        if (j < cnt[w]) {
+          const u32 sw = S::kRing + w * 2 * S::kStage + (j & 1) * S::kStage;
+          gemm_tn(gwe, sb + sw, sb + sw + SLICE_BYTES, warp * SR, lane);
+        }
     __syncthreads();
   }
-  float* part = a.partials + (int64_t)blockIdx.x * P_EB;
+  if (!owns_grad_rows<F>(warp)) return;
+  float* part = a.partials + (int64_t)blockIdx.x * P_EB<F>;
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
-    const int c = nb * 8 + 2 * t, i0 = warp * 16;
+  for (int nb = 0; nb < NB; ++nb) {
+    const int c = nb * 8 + 2 * t, i0 = warp * SR;
     *reinterpret_cast<float2*>(part + (i0 + g) * F + c) = make_float2(gwe[nb][0], gwe[nb][1]);
     *reinterpret_cast<float2*>(part + (i0 + g + 8) * F + c) = make_float2(gwe[nb][2], gwe[nb][3]);
   }
@@ -1080,28 +1124,30 @@ __global__ void fused_mp_bwd_reduce(const Segs segs, float* out) {
   }
 }
 
-template <typename T>
+template <typename T, int F>
 int launch(const Args& a, int grid, cudaStream_t stream) {
-  constexpr int smem = Smem<T>::kBytes;
+  constexpr int smem = Smem<T, F>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mp_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_mp_bwd<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_mp_bwd<T><<<grid, THREADS, smem, stream>>>(a);
+  fused_mp_bwd<T, F><<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 int node_blocks(int n) { return lbt::ceil_div(n, NB_ROWS); }
 
 // the three partial buffers of the bf16 instance, in one allocation
+template <int F>
 void bf16_partials(float* base, int grid, int n, float** node, float** ea, float** eb) {
   *node = base;
-  *ea = *node + (int64_t)node_blocks(n) * P_NODE;
-  *eb = *ea + (int64_t)grid * P_EA;
+  *ea = *node + (int64_t)node_blocks(n) * P_NODE<F>;
+  *eb = *ea + (int64_t)grid * P_EA<F>;
 }
 
+template <int F>
 int run_bf16(Args a, int grid, cudaStream_t stream) {
   float *p_node, *p_ea, *p_eb;
-  bf16_partials(a.partials, grid, a.n, &p_node, &p_ea, &p_eb);
+  bf16_partials<F>(a.partials, grid, a.n, &p_node, &p_ea, &p_eb);
   EdgeArgs f{};
   f.e = a.e;
   f.hs = static_cast<const bf16*>(a.hs);
@@ -1114,17 +1160,18 @@ int run_bf16(Args a, int grid, cudaStream_t stream) {
   f.agg = a.agg;
   f.n = a.n;
   f.k = a.k;
-  int err = launch_kernel(fused_mp_bwd_agg, grid, THREADS, EdgeSmem<false>::kBytes, f, stream);
+  int err = launch_kernel(fused_mp_bwd_agg<F>, grid, THREADS, EdgeSmem<F, false>::kBytes, f,
+                          stream);
   if (err != 0) return err;
   a.partials = p_node;
-  err = launch_kernel(fused_mp_bwd_node, node_blocks(a.n), NB_WARPS * 32, NodeBwdSmem::kBytes, a,
-                      stream);
+  err = launch_kernel(fused_mp_bwd_node<F>, node_blocks(a.n), NB_WARPS * 32,
+                      NodeBwdSmem<F>::kBytes, a, stream);
   if (err != 0) return err;
   a.partials = p_ea;
-  err = launch_kernel(fused_mp_bwd_edge_a, grid, THREADS, EdgeBwdASmem::kBytes, a, stream);
+  err = launch_kernel(fused_mp_bwd_edge_a<F>, grid, THREADS, EdgeBwdASmem<F>::kBytes, a, stream);
   if (err != 0) return err;
   a.partials = p_eb;
-  return launch_kernel(fused_mp_bwd_edge_b, grid, THREADS, EdgeBwdBSmem::kBytes, a, stream);
+  return launch_kernel(fused_mp_bwd_edge_b<F>, grid, THREADS, EdgeBwdBSmem<F>::kBytes, a, stream);
 }
 
 }  // namespace
@@ -1137,8 +1184,9 @@ int run_bf16(Args a, int grid, cudaStream_t stream) {
 //   ceil(n / 64) x (3 F^2 + 4 F) for the node kernel, then grid x (F^2 +
 //   4 F) for edge kernel a and grid x F^2 for edge kernel b), 25 scratch (bf16: (2 n, F)
 //   float32, agg then dagg).
-LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int is_bf16, int grid,
-                                cudaStream_t stream) {
+// latent: F, 64 or 128 (else cudaErrorInvalidValue).
+LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int latent, int is_bf16,
+                                int grid, cudaStream_t stream) {
   if (n < 1 || k < 1 || grid < 1 || (!is_bf16 && grid > lbt::ceil_div(n, TR)))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -1160,32 +1208,39 @@ LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int is_bf
   a.dagg = nullptr;
   a.n = n;
   a.k = k;
-  if (!is_bf16) return launch<float>(a, grid, stream);
-  a.agg = static_cast<float*>(const_cast<void*>(ptrs[25]));
-  a.dagg = a.agg + (int64_t)n * F;
-  return run_bf16(a, grid, stream);
+  return latent_dispatch(latent, [&](auto width) {
+    constexpr int F = decltype(width)::value;
+    if (!is_bf16) return launch<float, F>(a, grid, stream);
+    Args b = a;
+    b.agg = static_cast<float*>(const_cast<void*>(ptrs[25]));
+    b.dagg = b.agg + (int64_t)n * F;
+    return run_bf16<F>(b, grid, stream);
+  });
 }
 
 // grads (5 F^2 + 8 F, the order of Args::w then Args::vec) from the
 // partials of lbt_fused_mp_bwd, each summed over its blocks in block order
-LBT_EXPORT int lbt_fused_mp_bwd_reduce(const float* partials, float* out, int n, int is_bf16,
-                                       int grid, cudaStream_t stream) {
+LBT_EXPORT int lbt_fused_mp_bwd_reduce(const float* partials, float* out, int n, int latent,
+                                       int is_bf16, int grid, cudaStream_t stream) {
   if (n < 1 || grid < 1) return (int)cudaErrorInvalidValue;
-  Segs segs{};
-  if (!is_bf16) {
-    segs.s[0] = Seg{partials, grid, GRADS, GRADS, 0};
-    segs.count = 1;
-  } else {
-    float *p_node, *p_ea, *p_eb;
-    bf16_partials(const_cast<float*>(partials), grid, n, &p_node, &p_ea, &p_eb);
-    const int nb = node_blocks(n);
-    segs.s[0] = Seg{p_eb, grid, P_EB, F * F, G_WE * F * F};
-    segs.s[1] = Seg{p_ea, grid, P_EA, F * F, G_W2 * F * F};
-    segs.s[2] = Seg{p_node, nb, P_NODE, 3 * F * F, G_WNH * F * F};
-    segs.s[3] = Seg{p_ea + F * F, grid, P_EA, 4 * F, 5 * F * F + V_B1 * F};
-    segs.s[4] = Seg{p_node + 3 * F * F, nb, P_NODE, 4 * F, 5 * F * F + V_BN1 * F};
-    segs.count = 5;
-  }
-  fused_mp_bwd_reduce<<<lbt::ceil_div(GRADS, 256), 256, 0, stream>>>(segs, out);
-  return (int)cudaGetLastError();
+  return latent_dispatch(latent, [&](auto width) {
+    constexpr int F = decltype(width)::value;
+    Segs segs{};
+    if (!is_bf16) {
+      segs.s[0] = Seg{partials, grid, GRADS<F>, GRADS<F>, 0};
+      segs.count = 1;
+    } else {
+      float *p_node, *p_ea, *p_eb;
+      bf16_partials<F>(const_cast<float*>(partials), grid, n, &p_node, &p_ea, &p_eb);
+      const int nb = node_blocks(n);
+      segs.s[0] = Seg{p_eb, grid, P_EB<F>, F * F, G_WE * F * F};
+      segs.s[1] = Seg{p_ea, grid, P_EA<F>, F * F, G_W2 * F * F};
+      segs.s[2] = Seg{p_node, nb, P_NODE<F>, 3 * F * F, G_WNH * F * F};
+      segs.s[3] = Seg{p_ea + F * F, grid, P_EA<F>, 4 * F, 5 * F * F + V_B1 * F};
+      segs.s[4] = Seg{p_node + 3 * F * F, nb, P_NODE<F>, 4 * F, 5 * F * F + V_BN1 * F};
+      segs.count = 5;
+    }
+    fused_mp_bwd_reduce<<<lbt::ceil_div(GRADS<F>, 256), 256, 0, stream>>>(segs, out);
+    return (int)cudaGetLastError();
+  });
 }

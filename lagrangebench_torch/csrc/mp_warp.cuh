@@ -3,7 +3,7 @@
 //
 // A warp owns a slice of 16 rows through a whole chain of products. Its
 // operands are mma.sync m16n8k16 fragments (bf16 in, float32 accumulators
-// in registers); the B operands (the 128x128 weights, and the slices that
+// in registers); the B operands (the F x F weights, and the slices that
 // weight gradients read) are 16-byte-chunk-swizzled tiles in shared memory
 // read with ldmatrix (.trans for a row-major (in, out) weight). An
 // accumulator maps onto the next product's A operand register for
@@ -12,15 +12,17 @@
 // Edge and node rows arrive by cp.async (16 bytes, zero-filled past the
 // end) into per-warp rings.
 //
-// Layouts (g = lane / 4, t = lane % 4):
-//   accumulator acc[nb][0..3], nb = 0..15: rows g (0, 1) and g + 8 (2, 3),
+// Everything is templated on the latent width F (a multiple of 64; the
+// entry points instantiate 64 and 128). Layouts (g = lane / 4, t = lane % 4):
+//   accumulator acc[nb][0..3], nb = 0..F/8-1: rows g (0, 1) and g + 8 (2, 3),
 //     columns nb * 8 + 2t (+1);
-//   A operand a[kb][0..3], kb = 0..7: the same elements of n-blocks 2kb
+//   A operand a[kb][0..3], kb = 0..F/16-1: the same elements of n-blocks 2kb
 //     (0: row g, 1: row g + 8) and 2kb + 1 (2: row g, 3: row g + 8), as
 //     bf16 pairs (the lower column in the low half);
-//   tile: rows of 256 bytes (16 chunks of 16 bytes), chunk c of row r at
-//     r * 256 + (c ^ (r % 8)) * 16, so that ldmatrix's 8-row reads and the
-//     pair stores of a warp hit distinct banks.
+//   tile: rows of 2F bytes (F/8 chunks of 16 bytes), chunk c of row r at
+//     r * 2F + (c ^ (r % 8)) * 16, so that ldmatrix's 8-row reads and the
+//     pair stores of a warp hit distinct banks. A row needs at least 8
+//     chunks for the XOR to stay inside it: F >= 64.
 #pragma once
 
 #include "mp_common.cuh"
@@ -29,20 +31,42 @@ namespace {
 
 using u32 = uint32_t;
 
-constexpr int SR = 16;                       // rows of one warp slice
-constexpr int ROW_BYTES = F * 2;             // one bf16 row
-constexpr int SLICE_BYTES = SR * ROW_BYTES;  // 4 KB
-constexpr int WEIGHT_BYTES = F * ROW_BYTES;  // 32 KB
-constexpr int kSmemMax = 232448;             // a block's shared memory on an H100
+constexpr int SR = 16;            // rows of one warp slice
+constexpr int kSmemMax = 232448;  // a block's shared memory on an H100
+
+// The sizes of the bf16 tiles and fragments at latent width F.
+template <int F>
+struct Tile {
+  static_assert(F % 64 == 0, "the swizzle needs rows of at least 8 chunks, whole quads");
+  static constexpr int NB = F / 8;                    // 8-column n-blocks of an accumulator
+  static constexpr int KB = F / 16;                   // 16-column k-blocks of an A operand
+  static constexpr int NH = F / 64;                   // column-sum owner blocks per lane
+  static constexpr int CH = F / 8;                    // 16-byte chunks of a row
+  static constexpr int ROW_BYTES = F * 2;             // one bf16 row
+  static constexpr int SLICE_BYTES = SR * ROW_BYTES;  // 4 KB at F = 128
+  static constexpr int WEIGHT_BYTES = F * ROW_BYTES;  // 32 KB at F = 128
+  static constexpr int CP_ITERS = SR * CH / 32;       // 16-byte copies per lane of a slice
+};
 
 __device__ __forceinline__ u32 smem_addr(const void* p) {
   return static_cast<u32>(__cvta_generic_to_shared(p));
 }
+template <int F>
 __device__ __forceinline__ u32 swz(int r, int c) {
-  return r * ROW_BYTES + ((c ^ (r & 7)) << 4);
+  return r * Tile<F>::ROW_BYTES + ((c ^ (r & 7)) << 4);
 }
 // byte offset of the bf16 pair (r, col), col even
-__device__ __forceinline__ u32 swz_pair(int r, int col) { return swz(r, col >> 3) + (col & 7) * 2; }
+template <int F>
+__device__ __forceinline__ u32 swz_pair(int r, int col) {
+  return swz<F>(r, col >> 3) + (col & 7) * 2;
+}
+// the (row, chunk) of a 16-row slice that lane copies in its i-th 16-byte
+// copy (i < Tile<F>::CP_ITERS): a warp's 32 lanes cover 32 / CH whole rows
+template <int F>
+__device__ __forceinline__ void slice_chunk(int lane, int i, int& r, int& c) {
+  r = lane / Tile<F>::CH + (32 / Tile<F>::CH) * i;
+  c = lane % Tile<F>::CH;
+}
 
 __device__ __forceinline__ void cp_async16(u32 dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -95,23 +119,27 @@ __device__ __forceinline__ u32 ldg32(const bf16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
-__device__ __forceinline__ void zero(float (&acc)[16][4]) {
+template <int NB>
+__device__ __forceinline__ void zero(float (&acc)[NB][4]) {
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb)
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[nb][i] = 0.f;
 }
 
 // acc += A @ W, W the swizzled (F, F) row-major (in, out) weight at shared
-// address w
-__device__ __forceinline__ void gemm(float (&acc)[16][4], const u32 (&a)[8][4], u32 w, int lane) {
+// address w, F = 8 NB
+template <int NB, int KB>
+__device__ __forceinline__ void gemm(float (&acc)[NB][4], const u32 (&a)[KB][4], u32 w,
+                                     int lane) {
+  static_assert(NB == 2 * KB, "a square weight");
 #pragma unroll
-  for (int kb = 0; kb < 8; ++kb) {
+  for (int kb = 0; kb < KB; ++kb) {
     const int k = kb * 16 + (lane & 7) + (lane & 8);
 #pragma unroll
-    for (int np = 0; np < 8; ++np) {
+    for (int np = 0; np < NB / 2; ++np) {
       u32 b[4];
-      ldsm_t(b, w + swz(k, np * 2 + (lane >> 4)));
+      ldsm_t(b, w + swz<8 * NB>(k, np * 2 + (lane >> 4)));
       mma(acc[2 * np], a[kb], b[0], b[1]);
       mma(acc[2 * np + 1], a[kb], b[2], b[3]);
     }
@@ -119,50 +147,58 @@ __device__ __forceinline__ void gemm(float (&acc)[16][4], const u32 (&a)[8][4], 
 }
 
 // acc += A @ W^T, W as in gemm
-__device__ __forceinline__ void gemm_t(float (&acc)[16][4], const u32 (&a)[8][4], u32 w, int lane) {
+template <int NB, int KB>
+__device__ __forceinline__ void gemm_t(float (&acc)[NB][4], const u32 (&a)[KB][4], u32 w,
+                                       int lane) {
+  static_assert(NB == 2 * KB, "a square weight");
 #pragma unroll
-  for (int kb = 0; kb < 8; ++kb) {
+  for (int kb = 0; kb < KB; ++kb) {
 #pragma unroll
-    for (int np = 0; np < 8; ++np) {
+    for (int np = 0; np < NB / 2; ++np) {
       u32 b[4];
-      ldsm(b, w + swz(np * 16 + (lane & 7) + ((lane >> 4) << 3), kb * 2 + ((lane >> 3) & 1)));
+      ldsm(b, w + swz<8 * NB>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                              kb * 2 + ((lane >> 3) & 1)));
       mma(acc[2 * np], a[kb], b[0], b[1]);
       mma(acc[2 * np + 1], a[kb], b[2], b[3]);
     }
   }
 }
 
-// g (rows i0 .. i0 + 15 of a 128 x 128 weight gradient) += X^T @ Y over the
-// 16 rows of two swizzled slices at shared addresses x and y
-__device__ __forceinline__ void gemm_tn(float (&g)[16][4], u32 x, u32 y, int i0, int lane) {
+// g (rows i0 .. i0 + 15 of an F x F weight gradient, F = 8 NB) += X^T @ Y
+// over the 16 rows of two swizzled slices at shared addresses x and y
+template <int NB>
+__device__ __forceinline__ void gemm_tn(float (&g)[NB][4], u32 x, u32 y, int i0, int lane) {
+  constexpr int F = 8 * NB;
   u32 a[4];
-  ldsm_t(a, x + swz((lane & 7) + ((lane >> 4) << 3), (i0 >> 3) + ((lane >> 3) & 1)));
+  ldsm_t(a, x + swz<F>((lane & 7) + ((lane >> 4) << 3), (i0 >> 3) + ((lane >> 3) & 1)));
   const int k = (lane & 7) + (lane & 8);
 #pragma unroll
-  for (int np = 0; np < 8; ++np) {
+  for (int np = 0; np < NB / 2; ++np) {
     u32 b[4];
-    ldsm_t(b, y + swz(k, np * 2 + (lane >> 4)));
+    ldsm_t(b, y + swz<F>(k, np * 2 + (lane >> 4)));
     mma(g[2 * np], a, b[0], b[1]);
     mma(g[2 * np + 1], a, b[2], b[3]);
   }
 }
 
-// A operand of the 16-row swizzled slice at shared address s
-__device__ __forceinline__ void load_a(u32 (&a)[8][4], u32 s, int lane) {
+// A operand of the 16-row swizzled slice at shared address s (F = 16 KB)
+template <int KB>
+__device__ __forceinline__ void load_a(u32 (&a)[KB][4], u32 s, int lane) {
 #pragma unroll
-  for (int kb = 0; kb < 8; ++kb) ldsm(a[kb], s + swz(lane & 15, kb * 2 + (lane >> 4)));
+  for (int kb = 0; kb < KB; ++kb) ldsm(a[kb], s + swz<16 * KB>(lane & 15, kb * 2 + (lane >> 4)));
 }
 
 // the accumulator's bf16 pairs of n-block nb: row g (0) and row g + 8 (1)
-__device__ __forceinline__ u32 frag_pair(const u32 (&a)[8][4], int nb, int row8) {
+template <int KB>
+__device__ __forceinline__ u32 frag_pair(const u32 (&a)[KB][4], int nb, int row8) {
   return a[nb >> 1][(nb & 1) * 2 + row8];
 }
 
 // acc -> A operand, with f applied to each value first
-template <typename Fn>
-__device__ __forceinline__ void to_frag(u32 (&a)[8][4], const float (&acc)[16][4], Fn f) {
+template <int NB, typename Fn>
+__device__ __forceinline__ void to_frag(u32 (&a)[NB / 2][4], const float (&acc)[NB][4], Fn f) {
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     a[nb >> 1][(nb & 1) * 2] = pack(f(acc[nb][0], nb, 0), f(acc[nb][1], nb, 1));
     a[nb >> 1][(nb & 1) * 2 + 1] = pack(f(acc[nb][2], nb, 0), f(acc[nb][3], nb, 1));
   }
@@ -175,17 +211,19 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // rows g and g + 8 of the accumulator normalized in place: x = (x - mean) *
 // inv, float32, eps kEps; returns the two rows' inv
-__device__ __forceinline__ void row_normalize(float (&x)[16][4], float& inv0, float& inv1) {
+template <int NB>
+__device__ __forceinline__ void row_normalize(float (&x)[NB][4], float& inv0, float& inv1) {
+  constexpr float kInvF = 1.f / (8 * NB);
   float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     s0 += x[nb][0] + x[nb][1];
     s1 += x[nb][2] + x[nb][3];
   }
-  const float m0 = quad_sum(s0) * (1.f / F), m1 = quad_sum(s1) * (1.f / F);
+  const float m0 = quad_sum(s0) * kInvF, m1 = quad_sum(s1) * kInvF;
   float v0 = 0.f, v1 = 0.f;
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     x[nb][0] -= m0;
     x[nb][1] -= m0;
     x[nb][2] -= m1;
@@ -193,10 +231,10 @@ __device__ __forceinline__ void row_normalize(float (&x)[16][4], float& inv0, fl
     v0 += x[nb][0] * x[nb][0] + x[nb][1] * x[nb][1];
     v1 += x[nb][2] * x[nb][2] + x[nb][3] * x[nb][3];
   }
-  inv0 = rsqrtf(quad_sum(v0) * (1.f / F) + kEps);
-  inv1 = rsqrtf(quad_sum(v1) * (1.f / F) + kEps);
+  inv0 = rsqrtf(quad_sum(v0) * kInvF + kEps);
+  inv1 = rsqrtf(quad_sum(v1) * kInvF + kEps);
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
+  for (int nb = 0; nb < NB; ++nb) {
     x[nb][0] *= inv0;
     x[nb][1] *= inv0;
     x[nb][2] *= inv1;
@@ -205,10 +243,11 @@ __device__ __forceinline__ void row_normalize(float (&x)[16][4], float& inv0, fl
 }
 
 // x = x * scale + bias (float vectors in shared memory), per column
-__device__ __forceinline__ void scale_shift(float (&x)[16][4], const float* scale,
+template <int NB>
+__device__ __forceinline__ void scale_shift(float (&x)[NB][4], const float* scale,
                                             const float* bias, int t) {
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb)
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int c = nb * 8 + 2 * t + j;
@@ -218,9 +257,10 @@ __device__ __forceinline__ void scale_shift(float (&x)[16][4], const float* scal
 }
 
 // x += b (a float vector in shared memory), per column
-__device__ __forceinline__ void add_bias(float (&x)[16][4], const float* b, int t) {
+template <int NB>
+__device__ __forceinline__ void add_bias(float (&x)[NB][4], const float* b, int t) {
 #pragma unroll
-  for (int nb = 0; nb < 16; ++nb)
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       x[nb][j] += b[nb * 8 + 2 * t + j];
@@ -229,42 +269,49 @@ __device__ __forceinline__ void add_bias(float (&x)[16][4], const float* b, int 
 }
 
 // Column sums over a slice's 16 rows, kept by owner lanes: lane (g, t) owns
-// columns (g + 8h) * 8 + 2t + j, h, j in {0, 1}. colsum_add adds the sum
-// over the rows of v (this lane's rows g and g + 8 of column nb * 8 + 2t +
-// j, already added) to the owner's own[h][j]; the order is fixed.
-__device__ __forceinline__ void colsum_add(float (&own)[2][2], float v, int nb, int j, int g) {
+// columns (g + 8h) * 8 + 2t + j, h < NH = F / 64, j in {0, 1}. colsum_add
+// adds the sum over the rows of v (this lane's rows g and g + 8 of column
+// nb * 8 + 2t + j, already added) to the owner's own[h][j]; the order is
+// fixed.
+template <int NH>
+__device__ __forceinline__ void colsum_add(float (&own)[NH][2], float v, int nb, int j, int g) {
   v += __shfl_xor_sync(lbt::kFullMask, v, 4);
   v += __shfl_xor_sync(lbt::kFullMask, v, 8);
   v += __shfl_xor_sync(lbt::kFullMask, v, 16);
   if ((nb & 7) == g) own[nb >> 3][j] += v;
 }
 
-__device__ __forceinline__ void store_own(float* dst, const float (&own)[2][2], int g, int t) {
+template <int NH>
+__device__ __forceinline__ void store_own(float* dst, const float (&own)[NH][2], int g, int t) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < NH; ++h)
     *reinterpret_cast<float2*>(dst + (g + 8 * h) * 8 + 2 * t) = make_float2(own[h][0], own[h][1]);
 }
 
 // Stage `rows` rows of a row-major (rows, F) bf16 matrix into the swizzled
 // tile at shared address dst by the whole block (zero rows past `valid`).
+template <int F>
 __device__ __forceinline__ void stage_rows(u32 dst, const bf16* src, int rows, int valid) {
-  for (int i = threadIdx.x; i < rows * 16; i += blockDim.x) {
-    const int r = i >> 4, c = i & 15;
+  constexpr int CH = Tile<F>::CH;
+  for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
     const bool v = r < valid;
-    cp_async16(dst + swz(r, c), v ? src + r * F + c * 8 : src, v);
+    cp_async16(dst + swz<F>(r, c), v ? src + r * F + c * 8 : src, v);
   }
 }
 
 // Copy a warp's 16-row swizzled slice at shared offset off to global rows
 // [row0, row0 + 16), 16 bytes per lane and store, rows >= row_end skipped.
+template <int F>
 __device__ __forceinline__ void store_slice(bf16* dst, int64_t row0, int64_t row_end,
                                             const unsigned char* smem, u32 off, int lane) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = (lane >> 4) + 2 * i, c = lane & 15;
+  for (int i = 0; i < Tile<F>::CP_ITERS; ++i) {
+    int r, c;
+    slice_chunk<F>(lane, i, r, c);
     if (row0 + r < row_end)
       *reinterpret_cast<int4*>(dst + (row0 + r) * F + c * 8) =
-          *reinterpret_cast<const int4*>(smem + off + swz(r, c));
+          *reinterpret_cast<const int4*>(smem + off + swz<F>(r, c));
   }
 }
 
@@ -308,8 +355,9 @@ struct EdgeArgs {
   int T, SUB, WSUB;          // E2
 };
 
-template <bool ENC>
+template <int F, bool ENC>
 struct EdgeSmem {
+  static constexpr int WEIGHT_BYTES = Tile<F>::WEIGHT_BYTES, SLICE_BYTES = Tile<F>::SLICE_BYTES;
   static constexpr int kWe = 0;
   static constexpr int kW2 = WEIGHT_BYTES;
   static constexpr int kEnc2 = 2 * WEIGHT_BYTES;
@@ -329,21 +377,23 @@ __device__ __forceinline__ void warp_range(int n, int gw, int nw, int64_t& lo, i
 
 // The body of an edge kernel (a __global__ wrapper per translation unit
 // gives each use its own name in traces): one block of THREADS threads with
-// EdgeSmem<ENC>::kBytes of dynamic shared memory.
-template <bool ENC, Src SRC>
+// EdgeSmem<F, ENC>::kBytes of dynamic shared memory.
+template <int F, bool ENC, Src SRC>
 __device__ __forceinline__ void edge_fwd(const EdgeArgs& a) {
-  using S = EdgeSmem<ENC>;
+  using S = EdgeSmem<F, ENC>;
+  using D = Tile<F>;
+  constexpr int NB = D::NB, KB = D::KB, NH = D::NH, SLICE_BYTES = D::SLICE_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const u32 sb = smem_addr(smem);
   const bf16* e = static_cast<const bf16*>(a.e);
   const float* raw = static_cast<const float*>(a.e);
 
-  stage_rows(sb + S::kWe, a.w_e, F, F);
-  stage_rows(sb + S::kW2, a.w2, F, F);
+  stage_rows<F>(sb + S::kWe, a.w_e, F, F);
+  stage_rows<F>(sb + S::kW2, a.w2, F, F);
   if constexpr (ENC) {
-    stage_rows(sb + S::kEnc2, a.enc_w2, F, F);
-    stage_rows(sb + S::kEnc1, a.enc_w1, SR, a.fe);
+    stage_rows<F>(sb + S::kEnc2, a.enc_w2, F, F);
+    stage_rows<F>(sb + S::kEnc1, a.enc_w1, SR, a.fe);
   }
   cp_commit();
   float* vec = reinterpret_cast<float*>(smem + S::kVec);
@@ -387,16 +437,17 @@ __device__ __forceinline__ void edge_fwd(const EdgeArgs& a) {
     if constexpr (SRC == Src::kGathered) m_next = rv ? a.mask[rr] : 0.f;
     else m_next = src >= 0 ? 1.f : 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = (lane >> 4) + 2 * i, c = lane & 15;
+    for (int i = 0; i < D::CP_ITERS; ++i) {
+      int r, c;
+      slice_chunk<F>(lane, i, r, c);
       const int64_t row = s0 + r;
       const bool v = row < r_hi;
-      if constexpr (!ENC) cp_async16(sb + st + swz(r, c), v ? e + row * F + c * 8 : e, v);
+      if constexpr (!ENC) cp_async16(sb + st + swz<F>(r, c), v ? e + row * F + c * 8 : e, v);
       if constexpr (SRC == Src::kGathered) {
-        cp_async16(sb + st_hs + swz(r, c), v ? a.hs + row * F + c * 8 : a.hs, v);
+        cp_async16(sb + st_hs + swz<F>(r, c), v ? a.hs + row * F + c * 8 : a.hs, v);
       } else {
         const int sr = __shfl_sync(lbt::kFullMask, src, r);
-        cp_async16(sb + st_hs + swz(r, c), sr >= 0 ? a.hs + (int64_t)sr * F + c * 8 : a.hs,
+        cp_async16(sb + st_hs + swz<F>(r, c), sr >= 0 ? a.hs + (int64_t)sr * F + c * 8 : a.hs,
                    sr >= 0);
       }
     }
@@ -412,7 +463,7 @@ __device__ __forceinline__ void edge_fwd(const EdgeArgs& a) {
   };
 
   int64_t cur = -1;  // the receiver whose agg `own` holds
-  float own[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float own[NH][2] = {};
   auto flush = [&]() {
     if (cur >= 0) store_own(a.agg + cur * F, own, g, t);
   };
@@ -435,30 +486,30 @@ __device__ __forceinline__ void edge_fwd(const EdgeArgs& a) {
     const u32 st_hs = st + (ENC ? 0 : SLICE_BYTES);
     const bool vg = s0 + g < r_hi, vg8 = s0 + g + 8 < r_hi;
     const int64_t ig = vg ? (s0 + g) / K : 0, ig8 = vg8 ? (s0 + g + 8) / K : 0;
-    u32 hrp[16][2];
+    u32 hrp[NB][2];
 #pragma unroll
-    for (int nb = 0; nb < 16; ++nb) {
+    for (int nb = 0; nb < NB; ++nb) {
       const int c = nb * 8 + 2 * t;
       hrp[nb][0] = vg ? ldg32(a.hr + ig * F + c) : 0u;
       hrp[nb][1] = vg8 ? ldg32(a.hr + ig8 * F + c) : 0u;
     }
 
-    u32 ea[8][4];
-    float acc[16][4];
+    u32 ea[KB][4];
+    float acc[NB][4];
     if constexpr (ENC) {
       const u32 a1[4] = {pack(raw_cur[0], raw_cur[1]), pack(raw_cur[2], raw_cur[3]),
                          pack(raw_cur[4], raw_cur[5]), pack(raw_cur[6], raw_cur[7])};
       zero(acc);
       const int k = (lane & 7) + (lane & 8);
 #pragma unroll
-      for (int np = 0; np < 8; ++np) {
+      for (int np = 0; np < NB / 2; ++np) {
         u32 b[4];
-        ldsm_t(b, sb + S::kEnc1 + swz(k, np * 2 + (lane >> 4)));
+        ldsm_t(b, sb + S::kEnc1 + swz<F>(k, np * 2 + (lane >> 4)));
         mma(acc[2 * np], a1, b[0], b[1]);
         mma(acc[2 * np + 1], a1, b[2], b[3]);
       }
       const float* eb1 = vec + 4 * F;
-      u32 ha[8][4];
+      u32 ha[KB][4];
       to_frag(ha, acc, [&](float x, int nb, int jj) {
         return fmaxf(x + eb1[nb * 8 + 2 * t + jj], 0.f);
       });
@@ -476,11 +527,11 @@ __device__ __forceinline__ void edge_fwd(const EdgeArgs& a) {
     // first = e @ W_e + hs + hr + b1 -> T(relu(first))
     zero(acc);
     gemm(acc, ea, sb + S::kWe, lane);
-    u32 ra[8][4];
+    u32 ra[KB][4];
 #pragma unroll
-    for (int kb = 0; kb < 8; ++kb) {
+    for (int kb = 0; kb < KB; ++kb) {
       u32 h4[4];
-      ldsm(h4, sb + st_hs + swz(lane & 15, kb * 2 + (lane >> 4)));
+      ldsm(h4, sb + st_hs + swz<F>(lane & 15, kb * 2 + (lane >> 4)));
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int nb = 2 * kb + hf, c = nb * 8 + 2 * t;
@@ -503,14 +554,15 @@ __device__ __forceinline__ void edge_fwd(const EdgeArgs& a) {
 
     if (a.e_out != nullptr) {  // e' = T(e + msg), staged in the hs slot (consumed)
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {
+      for (int nb = 0; nb < NB; ++nb) {
         const int c = nb * 8 + 2 * t;
         const float2 eg = unpack(frag_pair(ea, nb, 0)), eg8 = unpack(frag_pair(ea, nb, 1));
-        sts32(smem, st_hs + swz_pair(g, c), pack(eg.x + acc[nb][0], eg.y + acc[nb][1]));
-        sts32(smem, st_hs + swz_pair(g + 8, c), pack(eg8.x + acc[nb][2], eg8.y + acc[nb][3]));
+        sts32(smem, st_hs + swz_pair<F>(g, c), pack(eg.x + acc[nb][0], eg.y + acc[nb][1]));
+        sts32(smem, st_hs + swz_pair<F>(g + 8, c),
+              pack(eg8.x + acc[nb][2], eg8.y + acc[nb][3]));
       }
       __syncwarp();
-      store_slice(a.e_out, s0, r_hi, smem, st_hs, lane);
+      store_slice<F>(a.e_out, s0, r_hi, smem, st_hs, lane);
     }
     __syncwarp();  // the slot is refilled by the next issue
 
@@ -522,11 +574,12 @@ __device__ __forceinline__ void edge_fwd(const EdgeArgs& a) {
       if (i != cur) {
         flush();
         cur = i;
-        own[0][0] = own[0][1] = own[1][0] = own[1][1] = 0.f;
+#pragma unroll
+        for (int h = 0; h < NH; ++h) own[h][0] = own[h][1] = 0.f;
       }
       const bool in_g = vg && ig == i, in_g8 = vg8 && ig8 == i;
 #pragma unroll
-      for (int nb = 0; nb < 16; ++nb)
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj)
           colsum_add(own, (in_g ? acc[nb][jj] * mg : 0.f) + (in_g8 ? acc[nb][2 + jj] * mg8 : 0.f),

@@ -2,12 +2,13 @@
 for this checkout or another one.
 
     python lagrangebench_torch/experiments/mp_times.py [--tree DIR] [--label NAME]
-        [--only gns,painn,scan,k1,rollout[,segnn][,train]]
+        [--only gns,painn,scan,k1,rollout[,segnn][,train]] [--latent 64|128]
 
 - K3 and K4 (the fused GNS message-passing step and its backward): seeded
   random inputs at the GNS rollout shape (16,000 receivers x K = 40, F =
-  128, bf16: batch 2 x 8,000 particles): K3's plain step, K3's
-  encoder-folded step (raw edge features of width 4) and K4.
+  ``--latent`` (128 by default; 64 is GNS-5-64's width), bf16: batch 2 x
+  8,000 particles): K3's plain step, K3's encoder-folded step (raw edge
+  features of width 4) and K4.
 - K5 (the fused PaiNN layer) at the PaiNN rollout shape (16,000 receivers
   x K = 40, float32, H = 128, R = 20) on the dense neighbor list of a batch
   of 2 of the synthetic RPF-3D-scale data that ``chip_smoke.py`` drives
@@ -64,9 +65,11 @@ N_SAMPLE, DIM, ISL = 8000, 3, 6
 GNS_MP_STEPS, GNS_LATENT = 10, 128  # GNS-10-128 of the rollout and train groups
 
 
-def _inputs(fused_mp, torch, device, seed=0):
+def _inputs(fused_mp, torch, device, seed=0, f=None):
+    """K3's and K4's seeded inputs at latent width f (GNS_LATENT unless
+    given), bf16."""
     g = torch.Generator().manual_seed(seed)
-    f, cdt = fused_mp.LATENT, torch.bfloat16
+    f, cdt = f or GNS_LATENT, torch.bfloat16
     p = {name: (torch.randn(f, f, generator=g) / f**0.5 if name.startswith("w")
                 else 0.1 * torch.randn(f, generator=g) + (1.0 if "scale" in name else 0.0))
          for name in fused_mp.PARAM_NAMES}
@@ -249,6 +252,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "training forward and backward; not by default: a tree older than "
                          "slice 9 has no SEGNN), train (GNS-10-128 training steps through "
                          "the Trainer; not by default)")
+    ap.add_argument("--latent", type=int, default=GNS_LATENT,
+                    help="the latent width of the gns group's K3 and K4 inputs (a width the "
+                         "tree's kernels are compiled at: 128, or 64 from slice 15 on)")
     args = ap.parse_args(argv)
     groups = set(args.only.split(","))
     root = os.path.abspath(args.tree or os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -263,9 +269,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise RuntimeError(f"imported {fused_mp.__file__}, not the package under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
-    out = {"label": args.label or root, "card": torch.cuda.get_device_name(0), "N": N, "K": K}
+    out = {"label": args.label or root, "card": torch.cuda.get_device_name(0), "N": N, "K": K,
+           "latent": args.latent}
     if "gns" in groups:
-        _time_gns(fused_mp, torch, device, out)
+        _time_gns(fused_mp, torch, device, out, args.latent)
     if "painn" in groups:
         _time_painn(torch, device, out)
     if "scan" in groups:
@@ -282,11 +289,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     return out
 
 
-def _time_gns(fused_mp, torch, device, out):
-    """K3 (plain and encoder-folded) and K4 on seeded random inputs."""
+def _time_gns(fused_mp, torch, device, out, latent=None):
+    """K3 (plain and encoder-folded) and K4 on seeded random inputs at
+    width ``latent`` (GNS_LATENT unless given)."""
     from lagrangebench_torch.profiling import device_ms
 
-    t, p, enc = _inputs(fused_mp, torch, device)
+    t, p, enc = _inputs(fused_mp, torch, device, f=latent)
     plain = (t["e"], t["hs"], t["hr"], t["h"], t["mask"], p)
     folded = (t["raw"], t["hs"], t["hr"], t["h"], t["mask"], p, enc)
     bwd = (t["e"], t["hs"], t["hr"], t["h"], t["mask"], p, t["ge"], t["gh"])

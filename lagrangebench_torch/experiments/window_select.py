@@ -8,8 +8,8 @@ x-slab, into a ghost-extended copy of the sender rows (``hs_ext``). An
 edge's candidate id ``c`` names its sender as row ``w0s[t, u, c // WSUB] *
 8 + c % WSUB`` of ``hs_ext``; ``c = 3 WSUB`` is a padded slot.
 
-``main`` runs at the probe's size (8,000 particles in 3D, K = 24, F = 128,
-bf16, real cell-sorted positions) and times 50-step loops of
+``main`` runs at the probe's size (8,000 particles in 3D, K = 24, F = 128
+or ``--latent``, bf16, real cell-sorted positions) and times 50-step loops of
 
 - (b) ``hs_ext = hs[ext_idx]`` followed by E2 (``fused_mp.gns_mp_step_window``),
 - (a) ``hs[senders_abs]`` followed by K3 (``fused_mp.gns_mp_step``),
@@ -17,7 +17,7 @@ bf16, real cell-sorted positions) and times 50-step loops of
 in device time (CUDA events, the queue filled ahead: ``profiling.device_ms``),
 then checks one step of E2 against its plain version.
 
-    python -m lagrangebench_torch.experiments.window_select [--device cpu]
+    python -m lagrangebench_torch.experiments.window_select [--device cpu] [--latent 64]
 """
 
 from __future__ import annotations
@@ -262,8 +262,11 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Dict:
     launches and its max |E2 - plain| and |E2 - K3 on the decoded gather|."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--latent", type=int, default=F,
+                        help="latent width F (on the card one of fused_mp.LATENTS)")
     args = parser.parse_args(argv or [])
     device = resolve_device(device or args.device)
+    f = args.latent
 
     n_rows, n_ext, ext_idx, cand, w0s, w0s_rows, wsub = build_structure(
         N, DIM, K, CUTOFF, T, SUB)
@@ -273,8 +276,8 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Dict:
     def arr(shape):
         return torch.as_tensor(rng.normal(size=shape), dtype=cdt, device=device)
 
-    e, h, hr, hs = arr((n_rows, K, F)), arr((n_rows, F)), arr((n_rows, F)), arr((n_rows, F))
-    p = fused_mp.kernel_params(init_step_params(F, torch.Generator().manual_seed(0)), cdt)
+    e, h, hr, hs = arr((n_rows, K, f)), arr((n_rows, f)), arr((n_rows, f)), arr((n_rows, f))
+    p = fused_mp.kernel_params(init_step_params(f, torch.Generator().manual_seed(0)), cdt)
     p = {name: v.to(device) for name, v in p.items()}
     ext_idx_t = torch.as_tensor(ext_idx, device=device)
     cand_t = torch.as_tensor(cand, device=device)
@@ -325,7 +328,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Dict:
     print(f"max diff window vs gather + fused step on the decoded gather: {err_k3}", flush=True)
     return {"window_ms": ms["window"], "gather_ms": ms["gather"], "loops": loops["window"],
             "steps": STEPS, "check_launches": 1, "max_abs_err": err, "vs_gather": err_k3,
-            "n_rows": n_rows, "n_ext": n_ext, "wsub": wsub}
+            "n_rows": n_rows, "n_ext": n_ext, "wsub": wsub, "latent": f}
 
 
 if __name__ == "__main__":

@@ -71,7 +71,10 @@ class GNS(JaxTree, nn.Module):
         particle_dimension: spatial dimensionality (2 or 3).
         node_in: node feature width (see :func:`gns_input_sizes`).
         edge_in: edge feature width (dim + 1).
-        latent_size: latent width of node/edge states (128 on CUDA).
+        latent_size: latent width of node/edge states; on CUDA one of
+            ``fused_mp.LATENTS`` (64 or 128, the widths the kernels are
+            compiled at; another raises ValueError at the first forward),
+            any on the CPU.
         num_mp_steps: number of message-passing steps.
         particle_type_embedding_size: width of the type embedding.
         num_particle_types: number of particle type ids.

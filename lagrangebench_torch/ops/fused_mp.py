@@ -34,6 +34,11 @@ K8 (``gns_mp_step_slot``) through the slot layout's stencil table, and E2
 (``gns_mp_step_window``, the probe of ``scripts/experiments/
 window_select.py``) through three windows per 32-row sub-tile of compact,
 cell-sorted rows.
+
+Every kernel is compiled at the latent widths of ``LATENTS`` (64 and 128,
+the published GNS widths: GNS-5-64 and GNS-10-128); on a CUDA tensor any
+other width raises ``ValueError`` (``check_latent``). The plain versions,
+and so the CPU path, take any width.
 """
 
 from __future__ import annotations
@@ -57,7 +62,16 @@ ENC_PARAM_NAMES = (
 _KERNEL_WEIGHTS = ("w_e", "w2", "w_nh", "w_na", "wn2")
 _KERNEL_VECTORS = ("b1", "b2", "ln1_scale", "ln1_bias", "bn1", "bn2",
                    "ln2_scale", "ln2_bias")
-LATENT = 128  # the kernel's compiled width
+LATENTS = (64, 128)  # the latent widths the kernels are compiled at
+
+
+def check_latent(f: int, kernel: str) -> None:
+    """Raise ``ValueError`` unless the kernels are compiled at width ``f``
+    (on the card there is no fallback to the plain version)."""
+    if f not in LATENTS:
+        raise ValueError(f"{kernel} kernel: latent width {f} not supported on CUDA; "
+                         f"the kernels are compiled at widths {LATENTS}")
+
 
 _ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
 FUSED_MP = Kernel(
@@ -86,11 +100,12 @@ def mp_grids(n: int, k: int, sms: int) -> Tuple[int, int]:
     return max(1, min(sms, edge)), max(1, min(sms, node))
 
 
-def bwd_partials_floats(n: int, grid: int, bf16: bool, f: int = LATENT) -> int:
-    """Floats of K4's per-block partials: float32, ``grid`` blocks of the 13
-    gradients; bf16, the node kernel's blocks (64 nodes each) of the three
-    node matrices and four node vectors, then ``grid`` blocks of dW2 and the
-    four edge vectors, then ``grid`` blocks of dW_e."""
+def bwd_partials_floats(n: int, grid: int, bf16: bool, f: int) -> int:
+    """Floats of K4's per-block partials at latent width ``f``: float32,
+    ``grid`` blocks of the 13 gradients; bf16, the node kernel's blocks (64
+    nodes each) of the three node matrices and four node vectors, then
+    ``grid`` blocks of dW2 and the four edge vectors, then ``grid`` blocks
+    of dW_e."""
     if not bf16:
         return grid * (5 * f * f + 8 * f)
     return -(-n // _NODE_BWD_ROWS) * (3 * f * f + 4 * f) + grid * (2 * f * f + 4 * f)
@@ -183,9 +198,9 @@ def gns_mp_step(
     version. See :func:`gns_mp_step_plain` for shapes.
 
     On CUDA the compute dtype (of hs_gath, hr_proj, h, and e unless
-    ``enc``) is bfloat16 or float32, the latent width is 128, weights are
-    (in, out) in the compute dtype and vectors float32 (``kernel_params``
-    converts a parameter dict once).
+    ``enc``) is bfloat16 or float32, the latent width one of ``LATENTS``,
+    weights are (in, out) in the compute dtype and vectors float32
+    (``kernel_params`` converts a parameter dict once).
     """
     if not hs_gath.is_cuda:
         return gns_mp_step_plain(e, hs_gath, hr_proj, h, mask, p, enc)
@@ -193,8 +208,7 @@ def gns_mp_step(
     if cdt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_mp kernel: compute dtype {cdt} not supported")
     n, k, f = hs_gath.shape
-    if f != LATENT:
-        raise ValueError(f"fused_mp kernel: latent width {f} != {LATENT}")
+    check_latent(f, "fused_mp")
     if hr_proj.shape != (n, f) or h.shape != (n, f) or mask.shape != (n, k):
         raise ValueError("fused_mp kernel: inconsistent shapes")
     if hr_proj.dtype != cdt or h.dtype != cdt:
@@ -224,7 +238,7 @@ def gns_mp_step(
         ]
     else:
         fe = 0
-    agg = _agg_scratch(n, cdt, h.device)
+    agg = _agg_scratch(n, f, cdt, h.device)
     ptrs = [t.data_ptr() for t in tensors + [e_out, h_out] + params]
     ptrs += [0] * (28 - len(ptrs)) + [agg.data_ptr() if agg is not None else 0]
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
@@ -234,12 +248,12 @@ def gns_mp_step(
     return e_out, h_out
 
 
-def _agg_scratch(n: int, cdt: torch.dtype, device) -> Optional[torch.Tensor]:
-    """The bf16 kernels' float32 (n, F) agg, handed from the edge kernel to
+def _agg_scratch(n: int, f: int, cdt: torch.dtype, device) -> Optional[torch.Tensor]:
+    """The bf16 kernels' float32 (n, f) agg, handed from the edge kernel to
     the node kernel; the float32 instance needs none."""
     if cdt != torch.bfloat16:
         return None
-    return torch.empty((n, LATENT), dtype=torch.float32, device=device)
+    return torch.empty((n, f), dtype=torch.float32, device=device)
 
 
 def _checked(t: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
@@ -276,14 +290,14 @@ BWD_PARAM_ORDER = (
 )
 _BWD_GRAD_SLOTS = _KERNEL_WEIGHTS + _KERNEL_VECTORS  # the kernel's output layout
 
-_BWD_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 FUSED_MP_BWD = Kernel(
     "fused_mp_bwd", "fused_mp_bwd", "lbt_fused_mp_bwd", _BWD_ARGTYPES,
     replaces="lagrangebench_tpu/ops/fused_mp.py:443",
 )
 _BWD_REDUCE = Kernel(
     "fused_mp_bwd_reduce", "fused_mp_bwd", "lbt_fused_mp_bwd_reduce",
-    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     replaces="lagrangebench_tpu/ops/fused_mp.py:443",
 )
 _BWD_TILE = 16  # receivers per tile of the float32 backward kernel
@@ -408,8 +422,8 @@ def gns_mp_step_bwd(
     :func:`gns_mp_step_bwd_plain` for shapes and returns.
 
     On CUDA the compute dtype (of e, hs_gath, hr_proj, h, ge, gh) is
-    bfloat16 or float32, the latent width 128, and ``p`` is in the kernel's
-    layout (``kernel_params``). The weight gradients are summed without
+    bfloat16 or float32, the latent width one of ``LATENTS``, and ``p`` is
+    in the kernel's layout (``kernel_params``). The weight gradients are summed without
     atomics: each block adds its rows into its own float32 partials, once
     per launch, and a last launch sums the partials in block order, so two
     calls on the same inputs give the same bits.
@@ -420,8 +434,7 @@ def gns_mp_step_bwd(
     if cdt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_mp_bwd kernel: compute dtype {cdt} not supported")
     n, k, f = e.shape
-    if f != LATENT:
-        raise ValueError(f"fused_mp_bwd kernel: latent width {f} != {LATENT}")
+    check_latent(f, "fused_mp_bwd")
     if hs_gath.shape != (n, k, f) or ge.shape != (n, k, f) or mask.shape != (n, k):
         raise ValueError("fused_mp_bwd kernel: inconsistent edge shapes")
     if hr_proj.shape != (n, f) or h.shape != (n, f) or gh.shape != (n, f):
@@ -449,9 +462,9 @@ def gns_mp_step_bwd(
     grads = torch.empty((per_block,), dtype=torch.float32, device=e.device)
     ptrs = [t.data_ptr() for t in tensors + [de, dhs, dhr, dh] + params + [partials, scratch]]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, int(bf16), grid, device=e.device)
+    FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, f, int(bf16), grid, device=e.device)
     _BWD_REDUCE(ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(grads.data_ptr()),
-                n, int(bf16), grid, device=e.device)
+                n, f, int(bf16), grid, device=e.device)
     dp, at = {}, 0
     for name in _BWD_GRAD_SLOTS:
         size = f * f if name in _KERNEL_WEIGHTS else f
@@ -616,8 +629,7 @@ def gns_mp_step_slot(
     n, f = hs_ext.shape
     k = cand.shape[-1]
     n_cols, s = bases.shape
-    if f != LATENT:
-        raise ValueError(f"fused_mp_slot kernel: latent width {f} != {LATENT}")
+    check_latent(f, "fused_mp_slot")
     if n % (n_cols + 1) or cand.shape != (n, k) or hr.shape != (n, f) or h.shape != (n, f):
         raise ValueError("fused_mp_slot kernel: inconsistent shapes")
     if cand.dtype != torch.int32 or bases.dtype != torch.int32:
@@ -651,7 +663,7 @@ def gns_mp_step_slot(
         ]
     ptrs = [t.data_ptr() for t in (e, hs_ext, hr, h)] + [0]  # slot 4 (mask) unused
     ptrs += [e_out.data_ptr(), h_out.data_ptr()] + [t.data_ptr() for t in params]
-    agg = _agg_scratch(n, cdt, h.device)
+    agg = _agg_scratch(n, f, cdt, h.device)
     ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), bases_ext.data_ptr()]
     ptrs += [agg.data_ptr() if agg is not None else 0]
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
@@ -788,8 +800,7 @@ def gns_mp_step_window(
         raise ValueError(f"fused_mp_window kernel: compute dtype {cdt} not supported")
     n, k = cand.shape
     f = hs_ext.shape[1]
-    if f != LATENT:
-        raise ValueError(f"fused_mp_window kernel: latent width {f} != {LATENT}")
+    check_latent(f, "fused_mp_window")
     t, sub = WINDOW_TILE, WINDOW_SUB
     if n % t or w0s.shape != (n // t, t // sub, 3):
         raise ValueError("fused_mp_window kernel: inconsistent tiles or window table")
@@ -809,7 +820,7 @@ def gns_mp_step_window(
     params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
     ptrs = [x.data_ptr() for x in (e, hs_ext, hr, h)] + [0]  # slot 4 (mask) unused
     ptrs += [e_out.data_ptr(), h_out.data_ptr()] + [x.data_ptr() for x in params]
-    agg = _agg_scratch(n, cdt, h.device)
+    agg = _agg_scratch(n, f, cdt, h.device)
     ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), w0s.data_ptr()]
     ptrs += [agg.data_ptr() if agg is not None else 0]
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)

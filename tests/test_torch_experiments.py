@@ -246,14 +246,16 @@ def test_mp_times_needs_a_card(no_cuda):
         mp_times.main([])
 
 
-def test_mp_times_inputs(monkeypatch):
-    """The timed inputs, at a reduced size on the CPU: bf16 edge and node
+@pytest.mark.parametrize("f", [None, *fused_mp.LATENTS])
+def test_mp_times_inputs(monkeypatch, f):
+    """The timed inputs, at a reduced size on the CPU and each compiled
+    width (``--latent``; 128, GNS_LATENT, by default): bf16 edge and node
     tensors, a float32 0/1 mask, the step's and the encoder's parameters in
     the kernel layout; the same seed gives the same inputs."""
     monkeypatch.setattr(mp_times, "N", 5)
     monkeypatch.setattr(mp_times, "K", 3)
-    t, p, enc = mp_times._inputs(fused_mp, torch, torch.device("cpu"))
-    f = fused_mp.LATENT
+    t, p, enc = mp_times._inputs(fused_mp, torch, torch.device("cpu"), f=f)
+    f = f or 128
     for name in ("e", "hs", "ge"):
         assert t[name].shape == (5, 3, f) and t[name].dtype == torch.bfloat16
     for name in ("hr", "h", "gh"):
@@ -262,7 +264,7 @@ def test_mp_times_inputs(monkeypatch):
     assert set(t["mask"].unique().tolist()) <= {0.0, 1.0}
     assert set(p) == set(fused_mp.PARAM_NAMES) and p["w_e"].dtype == torch.bfloat16
     assert p["b1"].dtype == torch.float32 and enc["enc_w1"].shape == (4, f)
-    again = mp_times._inputs(fused_mp, torch, torch.device("cpu"))[0]
+    again = mp_times._inputs(fused_mp, torch, torch.device("cpu"), f=f)[0]
     assert all(torch.equal(t[name], again[name]) for name in t)
 
 

@@ -140,16 +140,17 @@ def test_mp_grids_cover_every_slice(n, k):
         assert node == 1 or (node - 1) * 8 < node_slices
 
 
+@pytest.mark.parametrize("f", fmp.LATENTS)
 @pytest.mark.parametrize("n,grid", [(1, 1), (16000, 132), (1000, 63)])
-def test_bwd_partials_floats(n, grid):
-    """K4's partials: float32, grid x the 13 gradients; bf16, the node
-    kernel's 64-node blocks of 3 matrices and 4 vectors, then the edge
-    kernels' blocks of dW2 with 4 vectors and of dW_e, which together hold
-    each of the 13 gradients once per block of its kernel."""
-    f = fmp.LATENT
+def test_bwd_partials_floats(n, grid, f):
+    """K4's partials at each compiled width: float32, grid x the 13
+    gradients; bf16, the node kernel's 64-node blocks of 3 matrices and 4
+    vectors, then the edge kernels' blocks of dW2 with 4 vectors and of
+    dW_e, which together hold each of the 13 gradients once per block of
+    its kernel."""
     per_block = 5 * f * f + 8 * f
-    assert fmp.bwd_partials_floats(n, grid, False) == grid * per_block
+    assert fmp.bwd_partials_floats(n, grid, False, f) == grid * per_block
     node_blocks = -(-n // 64)
-    got = fmp.bwd_partials_floats(n, grid, True)
+    got = fmp.bwd_partials_floats(n, grid, True, f)
     assert got == node_blocks * (3 * f * f + 4 * f) + grid * (f * f + 4 * f) + grid * f * f
     assert (3 * f * f + 4 * f) + (f * f + 4 * f) + f * f == per_block
