@@ -244,11 +244,36 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    checkpoint (K8 4 + 1 per forward); ``window_select.main --latent 64``
    (E2's launches); a 3-step float32 GNS-5-64 training run on the card
    held against the CPU (1e-5).
-16. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+16. Every latent width (slice 16, "phase 17" in the output): K3 (plain
+   and encoder step), K4 and K8 (plain and encoder step) at F = 32, 96,
+   100, 192 and 256 on inputs captured from a GNS-3-F training step and
+   slot forward (8,000 particles in 3D, the slot forward at batch 1), and
+   E2 on the probe's structure, through the wrappers at the true width
+   (zero-padding to the instance 64 ceil(F / 64) and slicing back where F
+   is not one), against their plain versions under phases 2's, 3's, 5's
+   and 6's limits (K4's weight gradients bit-identical over two launches);
+   K6 at H = 32, 64, 100, 256 and K5 at those H x R = 8, 20, 32, in 2D and
+   3D, on inputs of one-layer PaiNNs at those widths, under phase 3's
+   limits. Then through ``runner.train_or_infer``: GNS-10-256
+   (``configs/rpf_3d/gns.yaml`` + ``model.latent_dim=256``, bf16, fused,
+   dense) ``mode=all``, 10 training steps at batch 2 with one pushforward
+   unroll from step 4 and a 20-step infer, then ``mode=infer`` in the slot
+   layout at batch 1 from its checkpoint; GNS-10-96 ``mode=all``;
+   PaiNN-5-64 (``configs/rpf_3d/painn.yaml`` + ``model.latent_dim=64``)
+   standard ``mode=all`` and fused ``mode=infer`` from its checkpoint, K5
+   and K6 timed on its own inputs; ``window_select.main --latent 96`` and
+   ``256``; K1 and K2 once per neighbor update, K3 9 + 1 per forward, K4
+   and its reduction 10 per training step, K6 and K5 5 per forward; finite
+   losses and metrics, ms per train and rollout step; float32 card-vs-CPU
+   checks: phase 7's 3-step rollout at GNS-2-96 and GNS-2-256, 3 training
+   steps of GNS-2-96, one forward of PaiNN-2-64 in both layouts. Prints
+   its wall time beside the card.
+17. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
    and C for K7, K8 and K9, from the experiments for E1 and E2; the F = 64
-   instances, named with ``@64``, from phase 16), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   instances, named with ``@64``, from phase 16; the F = 96 and 256 ones
+   and the H = 64 ones, named ``@96``, ``@256`` and ``@64``, from phase
+   17), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository. Needs one card and no network. ``--dp-launched <dir>`` is the
@@ -285,6 +310,10 @@ K3_TOL = {"bfloat16": 0.125, "float32": 1e-4}  # max |kernel - plain|
 # relu resolved either way.
 K4_TOL = {"bf16_out": 1e-2, "bf16_grads": 1e-4, "float32": 1e-4}
 NF_TIE = 1e-6
+# K4's bf16 weight gradients at the widths where a reading showed agg's
+# bf16 rounding ties moving them past their limit, in the plain version's
+# own float32 sums too (phase 17; ``bf16_tie_check``)
+BF16_TIE_WIDTHS = (192, 256)
 TRAIN_STEPS, UNROLL_FROM = 12, 4  # steps 0-3 unroll 0, steps 4-11 unroll 1
 
 
@@ -403,11 +432,12 @@ def capture_kernel_inputs(case, model, data):
         seen.setdefault("neighbor_scan", ((pos.clone(), idx.clone(), bases.clone()), kw))
         return neighbors_cuda.neighbor_scan_plain(pos, idx, bases, **kw)
 
-    def rec_mp(e, hs, hr, h, mask, p, enc=None):
+    def rec_mp(e, hs, hr, h, mask, p, enc=None, latent=None):
         key = "fused_mp_enc" if enc is not None else "fused_mp"
         args = tuple(t.clone() for t in (e, hs, hr, h, mask.to(torch.float32)))
-        seen.setdefault(key, (args + (p, enc), {}))
-        return fused_mp.gns_mp_step_plain(e, hs, hr, h, mask, p, enc)
+        seen.setdefault(key, (args + (p, enc), {} if latent == hs.shape[-1] else
+                              {"latent": latent}))
+        return fused_mp.gns_mp_step_plain(e, hs, hr, h, mask, p, enc, latent)
 
     pos, ptype = data[0]
     _, nbrs = case.allocate_eval((pos[:, :ISL], ptype))
@@ -517,6 +547,20 @@ def bound(name, args, kw):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def true_width(name, hs_arg):
+    """The fused step wrapper ``name`` of ``fused_mp`` on arguments at
+    their true latent width, read off argument ``hs_arg`` unless given as
+    ``latent`` (``fused_mp.at_true_width``: padded to the instance width,
+    the outputs sliced back)."""
+    from lagrangebench_torch.ops import fused_mp
+
+    def call(*args, latent=None):
+        latent = args[hs_arg].shape[-1] if latent is None else latent
+        return fused_mp.at_true_width(name, *args, latent=latent)
+
+    return call
+
+
 def compare_kernels(seen, names=("neighbor_scan", "fused_mp", "fused_mp_enc")):
     """Phase 2: every kernel vs its plain version on the card; timings."""
     import torch
@@ -526,8 +570,9 @@ def compare_kernels(seen, names=("neighbor_scan", "fused_mp", "fused_mp_enc")):
     funcs = {
         "neighbor_scan": (neighbors_cuda.neighbor_scan, neighbors_cuda.neighbor_scan_plain,
                           neighbors_cuda.NEIGHBOR_SCAN),
-        "fused_mp": (fused_mp.gns_mp_step, fused_mp.gns_mp_step_plain, fused_mp.FUSED_MP),
-        "fused_mp_enc": (fused_mp.gns_mp_step, fused_mp.gns_mp_step_plain,
+        "fused_mp": (true_width("gns_mp_step", 1), fused_mp.gns_mp_step_plain,
+                     fused_mp.FUSED_MP),
+        "fused_mp_enc": (true_width("gns_mp_step", 1), fused_mp.gns_mp_step_plain,
                          fused_mp.FUSED_MP_ENC),
     }
     rows, ok = {}, True
@@ -770,9 +815,10 @@ def profiled(run, steps, groups, label, unit):
         f"{busy / wall_us:.1%}, idle {1 - busy / wall_us:.1%}")
 
 
-def reference_check(device):
+def reference_check(device, latent=None):
     """A small float32 rollout through the kernels agrees with the plain
-    path on the CPU (TF32 off): 1,000 particles, GNS-2-128, 3 steps."""
+    path on the CPU (TF32 off): 1,000 particles, GNS-2-128 (GNS-2-``latent``),
+    3 steps."""
     import numpy as np
     import torch
 
@@ -781,7 +827,7 @@ def reference_check(device):
     data, metadata = make_data(1000, ISL + 3)
     preds = []
     for dev in (device, "cpu"):
-        case, model = build_case_model(metadata, dev, dtype="float32", mp_steps=2)
+        case, model = build_case_model(metadata, dev, dtype="float32", mp_steps=2, latent=latent)
         batch = [data[i] for i in range(BATCH)]
         pos = torch.as_tensor(np.stack([b[0] for b in batch]), device=case.device)
         ptype = torch.as_tensor(np.stack([b[1] for b in batch]), device=case.device)
@@ -790,7 +836,8 @@ def reference_check(device):
                                   pos[:, :, ISL:])
         preds.append(p.cpu())
     err = float((preds[0] - preds[1]).abs().max())
-    log(f"reference: max |cuda - cpu| position after 3 steps {err:.3g} (tol 1e-5)")
+    log(f"reference (GNS-2-{latent or LATENT}): max |cuda - cpu| position after 3 steps "
+        f"{err:.3g} (tol 1e-5)")
     return err <= 1e-5
 
 
@@ -852,11 +899,11 @@ def capture_bwd_inputs(trainer, mp_steps=None):
     real = fused_mp.gns_mp_step_bwd
     mp_steps = mp_steps or MP_STEPS
 
-    def rec(*args):
+    def rec(*args, **kw):
         keep = len(calls) in (1, mp_steps - 1)
         calls.append(tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args)
                      if keep else None)
-        return real(*args)
+        return real(*args, **kw)
 
     pos, ptype = next(iter(trainer.loader_train))
     raw = trainer._batch((pos, ptype))
@@ -923,14 +970,82 @@ def float32_out_err(args, p, grads, got, want):
     return float(per.max()), ties
 
 
-def compare_bwd(sets):
+def bf16_exact(args, p, grads, aggc=None):
+    """K4's plain version on bf16 inputs with its sums in float64: the same
+    function, the same bf16 roundings of its intermediates, every sum
+    (agg's over K above all) exact to float64 (the plain version's
+    accumulation dtype swapped for the call); ``aggc`` as the plain version
+    takes it."""
+    import torch
+
+    from lagrangebench_torch.ops import fused_mp
+
+    real = fused_mp._acc_dtype
+    fused_mp._acc_dtype = lambda cdt: torch.float64
+    try:
+        return fused_mp.gns_mp_step_bwd_plain(*args[:5], p, *grads, aggc=aggc)
+    finally:
+        fused_mp._acc_dtype = real
+
+
+def agg_exact(args, p):
+    """The step's agg from K4's bf16 inputs with the plain version's bf16
+    rounding of relu(first) and its sums in float64."""
+    import torch
+
+    e, hs, hr, h, mask = args[:5]
+    d = torch.float64
+    p = {name: v.to(d) for name, v in p.items()}
+
+    def c(x):
+        return x.to(torch.bfloat16).to(d)
+
+    first = c(e) @ c(p["w_e"]) + hs.to(d) + hr.to(d)[:, None] + p["b1"]
+    x1 = c(torch.relu(first)) @ c(p["w2"]) + p["b2"]
+    del first
+    xhat = (x1 - x1.mean(-1, keepdim=True)) * torch.rsqrt(
+        x1.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    return ((xhat * p["ln1_scale"] + p["ln1_bias"]) * mask.to(d)[..., None]).sum(1)
+
+
+def bf16_tie_check(args, p, grads, norm):
+    """K4 in bf16 with agg's rounding ties decided as the kernel decided
+    them: one more launch hands out the kernel's float32 agg (``agg_out``),
+    which is held to ``agg_exact`` (2-norm, relative), and its outputs and
+    weight gradients are returned beside the plain version with its sums
+    in float64 fed the kernel's bf16 rounding of that agg. Where a float32
+    sum order puts agg within float32 noise of a bf16 rounding midpoint,
+    each order rounds it its own way, and at F >= 192 such ties moved the
+    weight gradients past their limits (BF16_TIE_WIDTHS). Returns (agg
+    error, {name: error under ``norm``} for de, dhs, dhr, dh and the
+    weight gradients, the launch's outputs)."""
+    import torch
+
+    from lagrangebench_torch.ops import fused_mp
+
+    agg_k = torch.empty(args[3].shape, dtype=torch.float32, device=args[3].device)
+    got = fused_mp.gns_mp_step_bwd(*args[:5], p, *grads, agg_out=agg_k)
+    exact = bf16_exact(args, p, grads, aggc=agg_k)
+    agg64 = agg_exact(args, p)
+    agg_err = float((agg_k.double() - agg64).norm() / agg64.norm().clamp_min(1e-30))
+    errs = {name: norm(x, y) for name, x, y in zip(("de", "dhs", "dhr", "dh"), got[:4], exact[:4])}
+    errs.update({name: norm(got[4][name], exact[4][name]) for name in fused_mp.BWD_PARAM_ORDER})
+    return agg_err, errs, got
+
+
+def compare_bwd(sets, tie_rule=False):
     """K4 against its plain version (bf16 and float32), bit-identical weight
-    gradients over two launches, and its time."""
+    gradients over two launches, and its time. With ``tie_rule`` the bf16
+    weight gradients are held, each within K4_TOL["bf16_grads"], to the
+    plain version with its sums in float64 fed the kernel's bf16 rounding
+    of agg, and the kernel's agg to the float64 sum (``bf16_tie_check``);
+    the raw error against the float32 plain version is printed."""
     import torch
 
     from lagrangebench_torch.ops import fused_mp
 
     ok, worst = True, 0.0
+    bwd = true_width("gns_mp_step_bwd", 1)
 
     def rel(a, b):
         return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
@@ -940,9 +1055,9 @@ def compare_bwd(sets):
             a = [t.to(dt) if i != 4 else t for i, t in enumerate(args[:5])]
             p = fused_mp.kernel_params(args[5], dt)
             g = [t.to(dt) for t in args[6:]]
-            got = fused_mp.gns_mp_step_bwd(*a, p, *g)
+            got = bwd(*a, p, *g)
             want = fused_mp.gns_mp_step_bwd_plain(*a, p, *g)
-            again = fused_mp.gns_mp_step_bwd(*a, p, *g)
+            again = bwd(*a, p, *g)
             torch.cuda.synchronize()
             out_err = max(rel(x, y) for x, y in zip(got[:4], want[:4]))
             out_l2 = max(float((x.float() - y.float()).norm() / y.float().norm())
@@ -953,10 +1068,24 @@ def compare_bwd(sets):
             grad_err = max(rel(got[4][n], want[4][n]) for n in fused_mp.BWD_PARAM_ORDER)
             same = all(torch.equal(got[4][n], again[4][n]) for n in fused_mp.BWD_PARAM_ORDER)
             if dt == torch.bfloat16:
-                passed = out_l2 <= K4_TOL["bf16_out"] and grad_err <= K4_TOL["bf16_grads"]
+                tied = ""
+                grads_ok = grad_err <= K4_TOL["bf16_grads"]
+                if tie_rule:
+                    agg_err, errs, fed = bf16_tie_check(a, p, g, rel)
+                    same &= all(torch.equal(got[4][n], fed[4][n])
+                                for n in fused_mp.BWD_PARAM_ORDER)
+                    tie_err = max(errs[n] for n in fused_mp.BWD_PARAM_ORDER)
+                    grads_ok = agg_err <= K4_TOL["float32"] and tie_err <= K4_TOL["bf16_grads"]
+                    tied = ("; the kernel's agg against the float64 sum: 2-norm "
+                            f"{agg_err:.3g} (limit 1e-4); against the plain version summed in "
+                            "float64 and fed the kernel's T(agg) (agg's bf16 rounding ties "
+                            "decided as the kernel decided them), per gradient " + json.dumps(
+                                {n: float(f"{errs[n]:.3g}") for n in fused_mp.BWD_PARAM_ORDER})
+                            + f" (limit 1e-4 each), outputs " + json.dumps(
+                                {n: float(f"{errs[n]:.3g}") for n in ("de", "dhs", "dhr", "dh")}))
+                passed = out_l2 <= K4_TOL["bf16_out"] and grads_ok
                 worst = max(worst, float(max((x.float() - y.float()).abs().max()
                                              for x, y in zip(got[:4], want[:4]))))
-                tied = ""
             else:
                 tie_err, ties = float32_out_err(a, p, g, got, want)
                 passed = max(tie_err, grad_err) <= K4_TOL["float32"]
@@ -972,7 +1101,7 @@ def compare_bwd(sets):
     args = sets["plain step"]
     p = fused_mp.kernel_params(args[5], torch.bfloat16)
     call = (*args[:5], p, *args[6:])
-    ms = cuda_time(lambda: fused_mp.gns_mp_step_bwd(*call))
+    ms = cuda_time(lambda: bwd(*call))
     plain_ms = cuda_time(lambda: fused_mp.gns_mp_step_bwd_plain(*call), iters=3, warmup=1)
     bms, by = bound("fused_mp_bwd", call, {})
     n, k, f = args[0].shape
@@ -1304,9 +1433,11 @@ def painn_bound(name, args):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_painn_kernels(seen, names=("painn_msg", "painn_layer")):
+def compare_painn_kernels(seen, names=("painn_msg", "painn_layer"), timed=True):
     """K6 and K5 against their plain versions (float32 and bf16), timed at
-    the path's float32 shapes."""
+    the path's float32 shapes (untimed with ``timed=False``: the gates of
+    phase 17, where K5's witness that the bf16 gate can tell a skipped
+    rounding apart is printed and not gated)."""
     import torch
 
     from lagrangebench_torch.ops import painn_msg
@@ -1347,13 +1478,16 @@ def compare_painn_kernels(seen, names=("painn_msg", "painn_layer")):
             wide = plain(*(t.float() if t.is_floating_point() else t for t in bf[:6]),
                          {k: v.float() for k, v in bf[6].items()})
             l2_wide = l2_of([t.to(torch.bfloat16) for t in wide])
-            passed &= l2_wide > PAINN_TOL[f"{name}_bf16"]
+            if timed:
+                passed &= l2_wide > PAINN_TOL[f"{name}_bf16"]
             unrounded = f"; without the inner bf16 roundings it reads {l2_wide:.3g}"
         ok &= passed
         log(f"{name}: float32 (TF32 off) max|kernel-plain| {err:.3g}, {rel:.3g} of the largest "
             f"(tol {PAINN_TOL['float32']}); bf16 relative 2-norm {l2:.3g} (tol "
             f"{PAINN_TOL[name + '_bf16']}), max-norm {mx:.3g}{unrounded}"
             f"{'' if passed else '  FAIL'}")
+        if not timed:
+            continue
         ms = cuda_time(lambda: kern(*args))
         plain_ms = cuda_time(lambda: plain(*args), iters=5, warmup=1)
         bms, by = painn_bound(name, args)
@@ -1847,11 +1981,11 @@ def capture_slot_inputs(device, **overrides):
         seen.setdefault("neighbor_scan_geometry", ((p.clone(), idx.clone(), bases.clone()), kw))
         return nlc.neighbor_scan_geometry_plain(p, idx, bases, **kw)
 
-    def rec_mp(e, cand, bases, hs, hr, h, p, enc=None):
+    def rec_mp(e, cand, bases, hs, hr, h, p, enc=None, latent=None):
         key = "fused_mp_slot_enc" if enc is not None else "fused_mp_slot"
         args = tuple(t.clone() for t in (e, cand, bases, hs, hr, h))
-        seen.setdefault(key, (args + (p, enc), {}))
-        return fused_mp.gns_mp_step_slot_plain(e, cand, bases, hs, hr, h, p, enc)
+        seen.setdefault(key, (args + (p, enc), {} if latent is None else {"latent": latent}))
+        return fused_mp.gns_mp_step_slot_plain(e, cand, bases, hs, hr, h, p, enc, latent)
 
     nlc.slot_scan, nlc.neighbor_scan_geometry, fused_mp.gns_mp_step_slot = (
         rec_slot, rec_geom, rec_mp)
@@ -1882,10 +2016,10 @@ def compare_slot_kernels(seen, names=("slot_scan", "neighbor_scan_geometry", "fu
         "slot_scan": (nlc.slot_scan, nlc.slot_scan_plain, nlc.SLOT_SCAN, (0, 3)),
         "neighbor_scan_geometry": (nlc.neighbor_scan_geometry, nlc.neighbor_scan_geometry_plain,
                                    nlc.NEIGHBOR_SCAN_GEOMETRY, (0, 2)),
-        "fused_mp_slot": (fused_mp.gns_mp_step_slot, fused_mp.gns_mp_step_slot_plain,
+        "fused_mp_slot": (true_width("gns_mp_step_slot", 3), fused_mp.gns_mp_step_slot_plain,
                           fused_mp.FUSED_MP_SLOT, None),
-        "fused_mp_slot_enc": (fused_mp.gns_mp_step_slot, fused_mp.gns_mp_step_slot_plain,
-                              fused_mp.FUSED_MP_SLOT_ENC, None),
+        "fused_mp_slot_enc": (true_width("gns_mp_step_slot", 3),
+                              fused_mp.gns_mp_step_slot_plain, fused_mp.FUSED_MP_SLOT_ENC, None),
     }
     rows, ok = {}, True
     for name in names:
@@ -2266,14 +2400,15 @@ def compare_window(structure, device, f=None):
     from lagrangebench_torch.ops import fused_mp
 
     ok, errs = True, {}
+    window = true_width("gns_mp_step_window", 4)
     for dt, tol in ((torch.bfloat16, K3_TOL["bfloat16"]), (torch.float32, K3_TOL["float32"])):
         args = window_inputs(structure, dt, device, f)
         e, cand, w0s, wsub, hs_ext, hr, h, p = args
-        got = fused_mp.gns_mp_step_window(*args)
+        got = window(*args)
         want = fused_mp.gns_mp_step_window_plain(*args)
         rows, mask = fused_mp.window_sender_rows(cand, w0s, wsub)
         hs_g = torch.where(mask[..., None], hs_ext[rows], 0).to(dt).contiguous()
-        k3 = fused_mp.gns_mp_step(e, hs_g, hr, h, mask.to(torch.float32), p)
+        k3 = true_width("gns_mp_step", 1)(e, hs_g, hr, h, mask.to(torch.float32), p)
         torch.cuda.synchronize()
         err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
         vs_k3 = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, k3))
@@ -2284,7 +2419,7 @@ def compare_window(structure, device, f=None):
             f"max|E2 - K3 on the decoded gather| {vs_k3:.4g} (expected 0: the same kernel "
             f"code reads the same rows){'' if passed else '  FAIL'}")
     args = window_inputs(structure, torch.bfloat16, device, f)
-    ms = cuda_time(lambda: fused_mp.gns_mp_step_window(*args))
+    ms = cuda_time(lambda: window(*args))
     plain_ms = cuda_time(lambda: fused_mp.gns_mp_step_window_plain(*args), iters=5, warmup=1)
     bms, by = bound("fused_mp_window", args, {})
     n_rows, k = args[1].shape
@@ -4004,14 +4139,14 @@ def spatial_capture(inputs, device, n_space, record):
     seen, bwd = {}, []
     real = (fused_mp.gns_mp_step, fused_mp.gns_mp_step_bwd, painn_msg.painn_layer_kernel)
 
-    def rec_fwd(e, hs, hr, h, mask, p, enc=None):
+    def rec_fwd(e, hs, hr, h, mask, p, enc=None, latent=None):
         key = "fused_mp_enc" if enc is not None else "fused_mp"
         seen.setdefault(key, (_host((e, hs, hr, h, mask.to(torch.float32), p, enc)), {}))
-        return real[0](e, hs, hr, h, mask, p, enc)
+        return real[0](e, hs, hr, h, mask, p, enc, latent=latent)
 
-    def rec_bwd(*args):
+    def rec_bwd(*args, **kw):
         bwd.append(_host(args) if len(bwd) in (1, gns.mp_steps - 1) else None)
-        return real[1](*args)
+        return real[1](*args, **kw)
 
     def rec_k5(*args):
         seen.setdefault("painn_layer", _host(args))
@@ -5439,8 +5574,8 @@ def gns64_path(device):
             log(f"{label} train: ms per step (host clock, synchronized): unroll steps 5-11 "
                 f"median {np.median(d[UNROLL_FROM:]):.2f} (all "
                 f"{np.round(d[UNROLL_FROM:], 2).tolist()}), steps 1-3 median "
-                f"{np.median(d[:3]):.2f} (all {np.round(d[:3], 2).tolist()}) [batch {BATCH} x "
-                f"{N_PARTICLES} particles, {label} bf16]")
+                f"{np.median(d[:3]):.2f} (all {np.round(d[:3], 2).tolist()}) [batch "
+                f"{cfg.train.batch_size} x {N_PARTICLES} particles, {label} bf16]")
         model, case = rec.models[0], rec.cases[0]
         model.eval()
         isl = int(cfg.model.input_seq_length)
@@ -5483,6 +5618,404 @@ def gns64_path(device):
 
     ok &= train_reference_check(device, mp_steps=mp, latent=f)
     log(f"phase 16 ({label}): {time.perf_counter() - t_phase:.1f} s wall")
+    return rows, ok, step_ms
+
+
+# ---------------------------------------------------------------------------
+# slice 16: every latent width (GNS-10-256, GNS-10-96, PaiNN-5-64)
+# ---------------------------------------------------------------------------
+
+# configs/rpf_3d/gns.yaml and configs/rpf_3d/painn.yaml with these CLI
+# overrides, at full depth: python -m lagrangebench_torch
+# config=configs/rpf_3d/gns.yaml model.latent_dim=256 (or 96)
+GNS256, GNS96, PAINN64 = ({"model.latent_dim": 256}, {"model.latent_dim": 96},
+                          {"model.latent_dim": 64})
+WIDTH_F = (32, 96, 100, 192, 256)  # the fused GNS kernels' gate widths
+WIDTH_H = (32, 64, 100, 256)  # K5's and K6's gate widths
+WIDTH_R = (8, 20, 32)  # K5's gate basis widths
+W_TRAIN_STEPS, W_ROLLOUT, W_CAPTURE_STEPS = 10, 20, 3
+W_GATE_PARTICLES = 2000  # the K5/K6 gates' particles per sample (3D; 2D the nearest square)
+
+
+def _unpad(args, width, latent):
+    """Captured step arguments at the kernels' instance width cut back to
+    the true width: the floating tensors' last axis, the parameters' every
+    axis of that width; the ``latent`` argument dropped."""
+    import torch
+
+    from lagrangebench_torch.ops import fused_mp
+
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: fused_mp._sliced(v, tuple(latent if d == width else d for d in v.shape))
+                    .contiguous() for k, v in x.items()}
+        if isinstance(x, torch.Tensor) and x.is_floating_point() and x.shape[-1] == width:
+            return x[..., :latent].contiguous()
+        return x
+
+    return tuple(cut(x) for x in args if not isinstance(x, int) or isinstance(x, bool))
+
+
+def width_step_inputs(device, f):
+    """K3's (plain and encoder step) and K4's inputs from one bf16 training
+    step of a GNS-3-F on the phase's data (8,000 particles in 3D, batch
+    2), as the model hands them to the kernels: at the instance width,
+    with the true width ``latent`` where F is not one. Run on the plain
+    versions."""
+    import torch
+
+    from lagrangebench_torch.ops import fused_mp
+
+    trainer, _, _ = train_setup(device, N_PARTICLES, mp_steps=W_CAPTURE_STEPS, latent=f)
+    fwd, bwd = {}, []
+    real = fused_mp.gns_mp_step, fused_mp.gns_mp_step_bwd
+
+    def clone(args, kw):  # the true width ``latent``, where padded, last
+        args = args + (kw["latent"],) if kw else args
+        return tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args)
+
+    def rec_fwd(*args, **kw):
+        fwd.setdefault("fused_mp_enc" if args[6] is not None else "fused_mp", clone(args, kw))
+        return fused_mp.gns_mp_step_plain(*args, **kw)
+
+    def rec_bwd(*args, **kw):
+        bwd.append(clone(args, kw))
+        return fused_mp.gns_mp_step_bwd_plain(*args, **kw)
+
+    pos, ptype = next(iter(trainer.loader_train))
+    raw = trainer._batch((pos, ptype))
+    _, _, nbrs = trainer.case.allocate(trainer.generator, (pos[0], ptype[0]))
+    fused_mp.gns_mp_step, fused_mp.gns_mp_step_bwd = rec_fwd, rec_bwd
+    try:
+        trainer.train_step(raw, nbrs.broadcast(BATCH), 3e-4, 0)
+    finally:
+        fused_mp.gns_mp_step, fused_mp.gns_mp_step_bwd = real
+    torch.cuda.synchronize()
+    return fwd, {"plain step": bwd[1], "encoder step": bwd[-1]}
+
+
+def width_gns_checks(device, f, rows, main_widths):
+    """K3 (plain and encoder step), K4, K8 (plain and encoder step) and E2
+    at latent width f against their plain versions under phases 2's, 3's,
+    5's and 6's limits (bf16, and float32 with TF32 off; K4's weight
+    gradients bit-identical over two launches), on inputs captured from the
+    models (E2 on the probe's structure), through the wrappers at the true
+    width (padding, kernel, slicing where f is not an instance width).
+    Timed as the models launch them (at the instance width) beside the
+    bound of the true width's work; rows named ``name@f`` for the widths
+    of ``main_widths`` (a main path of the phase launches them)."""
+    import torch
+
+    from lagrangebench_torch.experiments import window_select as ws
+    from lagrangebench_torch.ops import fused_mp
+
+    width = fused_mp.kernel_width(f)
+    design = "warp" if width <= fused_mp.LATENTS[-1] else "tile"
+    log(f"phase 17: the fused GNS kernels at F = {f} (instance {width}, bf16 {design} design)")
+    fwd, bwd = width_step_inputs(device, f)
+    seen = {name: (_unpad(args, width, f)[:7], {}) for name, args in fwd.items()}
+    got_rows, ok = compare_kernels(seen, names=("fused_mp", "fused_mp_enc"))
+    for name, args in fwd.items():  # the launch the model makes: no padding copy
+        ms = cuda_time(lambda: fused_mp.gns_mp_step(*args))
+        log(f"{name} at F = {f} as the model launches it: {ms:.4f} ms")
+        got_rows[name]["ms"] = ms
+    del seen
+    row, passed = compare_bwd({k: _unpad(v, width, f) for k, v in bwd.items()},
+                              tie_rule=f in BF16_TIE_WIDTHS)
+    ok &= passed
+    args = bwd["plain step"]
+    kp = fused_mp.kernel_params(args[5], torch.bfloat16)
+    row["ms"] = cuda_time(lambda: fused_mp.gns_mp_step_bwd(*args[:5], kp, *args[6:]))
+    log(f"fused_mp_bwd at F = {f} as the model launches it: {row['ms']:.4f} ms")
+    got_rows["fused_mp_bwd"] = row
+    del fwd, bwd, args
+
+    seen, _, _ = capture_slot_inputs(device, **{"model.num_mp_steps": W_CAPTURE_STEPS,
+                                                "model.latent_dim": f})
+    seen = {name: (_unpad(args, width, f), {}) for name, (args, _) in seen.items()
+            if name.startswith("fused_mp_slot")}
+    slot_rows, passed = compare_slot_kernels(seen, names=("fused_mp_slot", "fused_mp_slot_enc"))
+    got_rows.update(slot_rows)
+    ok &= passed
+    del seen
+    row, passed = compare_window(ws.build_structure(ws.N, ws.DIM, ws.K, ws.CUTOFF, ws.T,
+                                                    ws.SUB), device, f=f)
+    got_rows[row["name"]] = row
+    ok &= passed
+    if f in main_widths:
+        rows.update({f"{name}@{f}": dict(r, name=f"{name}@{f}") for name, r in got_rows.items()})
+    return ok
+
+
+def width_painn_inputs(device, h, r, dim, n_particles):
+    """K6's and K5's inputs from one float32 forward of a one-layer PaiNN
+    (standard and fused, the fused one carrying the standard one's weights)
+    at hidden width h and basis width r, on synthetic data in ``dim``
+    dimensions at batch 2; run on the plain versions."""
+    import numpy as np
+    import torch
+
+    from lagrangebench_torch.case import case_builder
+    from lagrangebench_torch.data.synthetic import make_synthetic_arrays
+    from lagrangebench_torch.models import PaiNN
+    from lagrangebench_torch.ops import painn_msg
+
+    isl = int(painn_cfg().model.input_seq_length)
+    side = round(n_particles ** (1 / dim))
+    splits, metadata = make_synthetic_arrays(
+        n_particles=side ** dim, dim=dim, box=BOX, dx=BOX / side, seq_len_train=12,
+        seq_len_eval=isl + 1, n_trajs=BATCH, name="RPF")
+    pos = np.stack([t.transpose(1, 0, 2)[:, :isl] for t in splits["test"]])
+    pos = torch.as_tensor(pos, dtype=torch.float32, device=device)
+    ptype = torch.zeros(pos.shape[:2], dtype=torch.int64, device=device)
+    case = case_builder([BOX] * dim, metadata, isl, cfg_neighbors={"backend": "auto"},
+                        cfg_model={"isotropic_norm": True, "magnitude_features": True},
+                        device=device)
+    radius = 1.5 * float(metadata["default_connectivity_radius"])
+    std = PaiNN(h, 1, r, radius, isl - 1, fused=False, device=device)
+    fused = PaiNN(h, 1, r, radius, isl - 1, fused=True, device=device)
+    fused.load_jax_params(std.jax_params())
+    _, nbrs = case.allocate_eval((pos[0], ptype[0]))
+    seen = {}
+    real = painn_msg.painn_message, painn_msg.painn_layer
+
+    def rec_msg(g, wij, nd, hh):
+        seen.setdefault("painn_msg", (g.clone(), wij.clone(), nd.clone(), hh))
+        return painn_msg.painn_message_plain(g, wij, nd, hh)
+
+    def rec_layer(packed, sidx, phi, nd, s, v, p):
+        kp = painn_msg.layer_kernel_params(p, s.dtype)
+        seen.setdefault("painn_layer",
+                        tuple(t.clone() for t in (packed, sidx, phi, nd, s, v)) + (kp,))
+        return painn_msg.painn_layer_plain(packed, sidx, phi, nd, s, v, p)
+
+    painn_msg.painn_message, painn_msg.painn_layer = rec_msg, rec_layer
+    try:
+        with torch.no_grad():
+            feats, _ = case.preprocess_eval_batched((pos, ptype), nbrs.broadcast(BATCH))
+            std(feats, ptype.reshape(-1))
+            fused(feats, ptype.reshape(-1))
+    finally:
+        painn_msg.painn_message, painn_msg.painn_layer = real
+    return seen
+
+
+def width_painn_checks(device):
+    """K6 at H in WIDTH_H and K5 at H x R in WIDTH_H x WIDTH_R, in 2D and 3D,
+    against their plain versions under phase 3's limits (float32 with TF32
+    off 1e-4 of the largest magnitude; bf16 relative 2-norm: K6 1e-5, K5
+    1e-4), on inputs of one-layer PaiNNs at those widths (2,000 particles
+    per sample, batch 2); not timed (PaiNN-5-64's instance is timed on its
+    own inputs in ``width_path``)."""
+    ok = True
+    for dim in (2, 3):
+        for h in WIDTH_H:
+            for r in WIDTH_R:
+                seen = width_painn_inputs(device, h, r, dim, W_GATE_PARTICLES)
+                names = ("painn_layer",) if r != WIDTH_R[0] else ("painn_msg", "painn_layer")
+                log(f"phase 17: K6/K5 gates at H = {h}, R = {r}, dim {dim}")
+                _, passed = compare_painn_kernels(seen, names, timed=False)
+                ok &= passed
+    return ok
+
+
+def width_reference_check(device, widths, hidden):
+    """float32 card against CPU (TF32 off) at the phase's widths: GNS-2-F
+    for F in ``widths``, phase 7's 3-step rollout of 1,000 particles
+    (positions 1e-5), and 3 training steps at F = 96 (losses 1e-5
+    relative, parameters 1e-5); PaiNN-2-``hidden``, both layouts, one
+    forward of 1,000 particles at batch 2 (acc 1e-5 of its largest
+    magnitude: a rollout of the seeded PaiNN-2-64 moves particles across
+    the cutoff within 3 steps, so that the two sides' neighbor lists part)."""
+    import numpy as np
+    import torch
+
+    ok = True
+    for f in widths:
+        ok &= reference_check(device, latent=f)
+    ok &= train_reference_check(device, mp_steps=2, latent=96)
+    for fused in (False, True):
+        cfg = painn_cfg(**{"model.num_mp_steps": 2, "model.fused_processor": fused,
+                           "model.latent_dim": hidden})
+        _, _, test = runner_data(cfg, n_particles=1000)
+        isl = int(cfg.model.input_seq_length)
+        accs = []
+        for dev in (device, "cpu"):
+            case, model = painn_case_model(cfg, test.metadata, dev)
+            pos, ptype = test_batch(test, case.device, BATCH)
+            _, nbrs = case.allocate_eval((pos[0, :, :isl], ptype[0]))
+            with torch.no_grad():
+                feats, _ = case.preprocess_eval_batched((pos[:, :, :isl], ptype),
+                                                        nbrs.broadcast(BATCH))
+                accs.append(model(feats, ptype.reshape(-1))["acc"].cpu())
+        err = float((accs[0] - accs[1]).abs().max() / accs[1].abs().max())
+        passed = bool(np.isfinite(err)) and err <= 1e-5
+        ok &= passed
+        log(f"painn reference (PaiNN-2-{hidden}, {'fused' if fused else 'standard'}): one "
+            f"forward, max |cuda - cpu| acc {err:.3g} of the largest (tol 1e-5)"
+            f"{'' if passed else '  FAIL'}")
+    return ok
+
+
+def width_path(device):
+    """Slice 16 ("phase 17"): every fused GNS kernel at F in WIDTH_F and
+    K5/K6 at H in WIDTH_H (x R in WIDTH_R) against their plain versions;
+    then through runner.train_or_infer, each with the counters zeroed around
+    it: GNS-10-256 (bf16, fused, dense) mode=all, 10 training steps at batch
+    2 with one pushforward unroll from step 4 and a 20-step infer, then
+    mode=infer in the slot layout at batch 1 from its checkpoint (K8);
+    GNS-10-96 mode=all; PaiNN-5-64 standard mode=all and fused mode=infer
+    from its checkpoint; window_select --latent 96 and 256 (E2); finite
+    losses and metrics, launch counts, ms per train and rollout step; and
+    float32 card-vs-CPU checks (``width_reference_check``)."""
+    import numpy as np
+
+    from lagrangebench_torch.config import Config, merge
+    from lagrangebench_torch.experiments import window_select
+    from lagrangebench_torch.ops import fused_mp
+
+    t_phase = time.perf_counter()
+    rows, ok, step_ms = {}, True, {}
+    mains = (GNS256["model.latent_dim"], GNS96["model.latent_dim"])
+    for f in WIDTH_F:
+        ok &= width_gns_checks(device, f, rows, mains)
+    ok &= width_painn_checks(device)
+    log(f"phase 17 kernel gates: {time.perf_counter() - t_phase:.1f} s wall")
+    mp = int(GNS_CONFIG["model"]["num_mp_steps"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = {"eval.n_rollout_steps": W_ROLLOUT, "eval.infer.n_trajs": BATCH,
+                  "eval.train.n_trajs": 1, "logging.log_steps": 1,
+                  "logging.eval_steps": W_TRAIN_STEPS - 1}
+        if str(device) == "cpu":  # a rehearsal on the CPU; the card is the runner's default
+            common["gpu"] = -1
+        for over in (GNS256, GNS96):
+            f = over["model.latent_dim"]
+            label = f"GNS-{mp}-{f}"
+            run = {**common, "eval.rollout_dir": f"{tmp}/rollouts{f}",
+                   "logging.ckp_dir": f"{tmp}/ckp{f}", **over}
+
+            def expect(rec):
+                steps = len(rec.losses)
+                return {"fused_mp": (mp - 1) * rec.forwards, "fused_mp_enc": rec.forwards,
+                        "fused_mp_bwd": mp * steps, "fused_mp_bwd_reduce": mp * steps}
+
+            cfg = gns_cfg(mode="all", **{"train.step_max": W_TRAIN_STEPS - 1}, **run)
+            cfg = merge(cfg, Config({"train": {"pushforward": GNS64_PUSHFORWARD}}))
+            data = runner_data(cfg)
+            _, counts, rec, passed = _runner_call(f"{label} (mode=all)", cfg, data,
+                                                  all_kernels(), expect=expect)
+            ok &= passed
+            want_unrolls = [int(i >= UNROLL_FROM) for i in range(W_TRAIN_STEPS)]
+            log(f"{label}: losses {[round(x, 5) for x in rec.losses]}, unrolls {rec.unrolls}")
+            if rec.unrolls != want_unrolls or not np.all(np.isfinite(rec.losses)):
+                log(f"FAIL: {label} training steps (unrolls {want_unrolls} expected, finite "
+                    f"losses)")
+                ok = False
+            for name in ("fused_mp", "fused_mp_enc", "fused_mp_bwd"):
+                rows[f"{name}@{f}"]["launches"] = counts[name]
+            d = np.asarray(rec.trainers[0].timer.durations) * 1e3  # d[i]: step i + 1
+            if len(d) >= W_TRAIN_STEPS - 1:
+                step_ms[f"{label} train (unroll steps 5-{W_TRAIN_STEPS - 1} median)"] = float(
+                    np.median(d[UNROLL_FROM:]))
+                step_ms[f"{label} train (steps 1-3 median)"] = float(np.median(d[:3]))
+                log(f"{label} train: ms per step (host clock, synchronized): unroll steps "
+                    f"median {np.median(d[UNROLL_FROM:]):.2f} (all "
+                    f"{np.round(d[UNROLL_FROM:], 2).tolist()}), steps 1-3 median "
+                    f"{np.median(d[:3]):.2f} (all {np.round(d[:3], 2).tolist()}) [batch "
+                    f"{cfg.train.batch_size} x {N_PARTICLES} particles, {label} bf16]")
+            model, case = rec.models[0], rec.cases[0]
+            model.eval()
+            isl = int(cfg.model.input_seq_length)
+            times, finite, _ = _rollout_ms(model, case, data[2], isl, W_ROLLOUT, f"{label} bf16")
+            ok &= finite
+            step_ms[f"{label} rollout"] = min(times)
+            del model, case, rec
+            if f != GNS256["model.latent_dim"]:
+                continue
+            # the slot layout at batch 1 from that checkpoint: K8 at F = 256
+            (run_dir,) = os.listdir(f"{tmp}/ckp{f}")
+            cfg_a = gns_cfg(mode="infer", load_ckp=f"{tmp}/ckp{f}/{run_dir}",
+                            **{"neighbors.format": "slot", "eval.infer.batch_size": 1}, **run)
+
+            def expect_slot(rec):
+                updates = rec.forwards + rec.allocations
+                return {"neighbor_scan": 0, "slot_scan": updates,
+                        "fused_mp_slot": (mp - 1) * rec.forwards,
+                        "fused_mp_slot_enc": rec.forwards}
+
+            _, counts_a, _, passed = _runner_call(f"{label} (mode=infer, slot, batch 1)", cfg_a,
+                                                  data, all_kernels(), expect=expect_slot)
+            ok &= passed
+            for name in ("fused_mp_slot", "fused_mp_slot_enc"):
+                rows[f"{name}@{f}"]["launches"] = counts_a[name]
+        for name in ("fused_mp_slot", "fused_mp_slot_enc"):  # GNS-10-96 runs no slot path
+            rows.pop(f"{name}@{GNS96['model.latent_dim']}", None)
+
+        # PaiNN-5-64: the standard layout (K6) mode=all, the fused (K5) mode=infer
+        h = PAINN64["model.latent_dim"]
+        layers = int(PAINN_CONFIG["model"]["num_mp_steps"])
+        label = f"PaiNN-{layers}-{h}"
+        run = {**common, "eval.rollout_dir": f"{tmp}/rollouts_painn",
+               "logging.ckp_dir": f"{tmp}/ckp_painn", **PAINN64}
+        cfg = painn_cfg(mode="all", **{"train.step_max": W_TRAIN_STEPS - 1}, **run)
+        data = runner_data(cfg)
+        seen = width_painn_inputs(device, h, 20, DIM, N_PARTICLES)
+        painn_rows, passed = compare_painn_kernels(seen)
+        ok &= passed
+        del seen
+        _, counts, rec, passed = _runner_call(
+            f"{label} standard (mode=all)", cfg, data, all_kernels(),
+            expect=lambda rec: {"painn_msg": layers * rec.forwards})
+        ok &= passed
+        if len(rec.losses) != W_TRAIN_STEPS or not np.all(np.isfinite(rec.losses)):
+            log(f"FAIL: {label} standard training steps (finite losses)")
+            ok = False
+        log(f"{label} standard: losses {[round(x, 5) for x in rec.losses]}")
+        d = np.asarray(rec.trainers[0].timer.durations) * 1e3
+        step_ms[f"{label} standard train (median)"] = float(np.median(d))
+        model, case = rec.models[0], rec.cases[0]
+        model.eval()
+        isl = int(cfg.model.input_seq_length)
+        times, finite, _ = _rollout_ms(model, case, data[2], isl, W_ROLLOUT,
+                                       f"{label} standard float32")
+        ok &= finite
+        step_ms[f"{label} standard rollout"] = min(times)
+        painn_rows["painn_msg"]["launches"] = counts["painn_msg"]
+        del model, case, rec
+        (run_dir,) = os.listdir(f"{tmp}/ckp_painn")
+        cfg_f = painn_cfg(mode="infer", load_ckp=f"{tmp}/ckp_painn/{run_dir}",
+                          **{"model.fused_processor": True}, **run)
+        _, counts_f, rec, passed = _runner_call(
+            f"{label} fused (mode=infer)", cfg_f, data, all_kernels(),
+            expect=lambda rec: {"painn_layer": layers * rec.forwards})
+        ok &= passed
+        painn_rows["painn_layer"]["launches"] = counts_f["painn_layer"]
+        model, case = rec.models[0], rec.cases[0]
+        times, finite, _ = _rollout_ms(model, case, data[2], isl, W_ROLLOUT,
+                                       f"{label} fused float32")
+        ok &= finite
+        step_ms[f"{label} fused rollout"] = min(times)
+        del model, case, rec
+        rows.update({f"{name}@{h}": dict(r, name=f"{name}@{h}") for name, r in painn_rows.items()})
+
+    # E2 at F = 96 and 256: the probe's main at those widths
+    for f in mains:
+        fused_mp.FUSED_MP_WINDOW.launches = 0
+        ws = window_select.main(["--latent", str(f)], device=device)
+        want_e2 = ws["loops"] * ws["steps"] + ws["check_launches"]
+        got_e2 = fused_mp.FUSED_MP_WINDOW.launches
+        log(f"window_select --latent {f}: launches {got_e2} (expected {want_e2}); ms per MP "
+            f"step (b) hs[ext_idx] + E2 {ws['window_ms']:.4f}, (a) hs[senders] + K3 "
+            f"{ws['gather_ms']:.4f}; max |E2 - plain| {ws['max_abs_err']}")
+        if got_e2 != want_e2 or ws["max_abs_err"] > K3_TOL["bfloat16"]:
+            log(f"FAIL: window_select --latent {f} (launches or its check)")
+            ok = False
+        rows[f"fused_mp_window@{f}"]["launches"] = got_e2
+
+    ok &= width_reference_check(device, mains, h)
+    log(f"phase 17 (every latent width): {time.perf_counter() - t_phase:.1f} s wall "
+        f"[{card_line()}]")
     return rows, ok, step_ms
 
 
@@ -5575,6 +6108,11 @@ def main() -> int:
     ok &= w64_ok
     rows.update(w64_rows)
     log("GNS-5-64 path (ms per step): " + json.dumps({k: round(v, 3) for k, v in w64_ms.items()}))
+    width_rows, width_ok, width_ms = width_path("cuda")
+    ok &= width_ok
+    rows.update(width_rows)
+    log("GNS-10-256, GNS-10-96 and PaiNN-5-64 paths (ms per step): " + json.dumps(
+        {k: round(v, 3) for k, v in width_ms.items()}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     if not ok:

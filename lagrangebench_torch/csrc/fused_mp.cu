@@ -5,9 +5,11 @@
 // Replaces: lagrangebench_tpu/ops/fused_mp.py::_make_fused_kernel (math in
 // _mp_math), launched by _launch_fused (K3), ::_make_slot_kernel, launched
 // by _launch_fused_slot (K8), and scripts/experiments/window_select.py::
-// make_window_kernel (E2). Per receiver, at latent width F (every kernel
-// is a template on F, instantiated at the published GNS widths 64 and 128;
-// the entry points choose the instance from their `latent` argument):
+// make_window_kernel (E2). Per receiver, at latent width nf in [1, 256]
+// (every kernel is a template on the instance width F = 64 ceil(nf / 64),
+// chosen by the entry points from their `latent` argument nf; the wrapper
+// pads the tensors and weights to F with zeros, and each LayerNorm runs
+// over the first nf channels: mp_common.cuh):
 //
 //   [step 0]  e = LN(relu(raw @ enc_w1 + enc_b1) @ enc_w2 + enc_b2)  (ENC)
 //   first = e @ W_e + hs_gath + hr + b1
@@ -52,7 +54,8 @@
 // hundred rows) is left out: it would not fit beside the edge kernel's
 // resident weights and rings.
 //
-// Design, bf16 (the main path): two hand-written kernels per step.
+// Design, bf16 at F = 64 and 128 (the warp design; GNS-10-128, GNS-5-64
+// and every width up to 128): two hand-written kernels per step.
 //   fused_mp_edge (edge_fwd, mp_warp.cuh): a persistent grid of one 8-warp
 //     block per SM; the block stages W_e and W2 (and enc_w1, enc_w2 on step
 //     0) once per launch with cp.async into swizzled shared memory, where
@@ -82,10 +85,15 @@
 // products take ~0.04 ms at the rollout shape at the bf16 peak, against
 // 0.15 ms of bytes).
 //
-// The float32 instance keeps the first, simple design: one block of 8
-// warps per tile of 16 receivers, rows streamed through shared memory 64 at
-// a time, weights read from global memory (L1/L2), CUDA-core FMAs, the
-// K-sum row by row in k order.
+// The tile design (fused_mp below): one block of 8 warps per tile of 16
+// receivers, rows streamed through shared memory 64 at a time, weights read
+// from global memory (L1/L2), the K-sum row by row in k order. It is the
+// float32 instance at every F (CUDA-core FMAs) and the bf16 instance at F =
+// 192 and 256 (WMMA tensor-core tiles, block_gemm in mp_common.cuh): there
+// the warp design does not fit, since a slice's chain would hold ~1.3 F
+// registers per lane and the two resident F x F weights alone take 144 KB
+// (F = 192) or 256 KB (F = 256) of the 227 KB of shared memory. Shared
+// memory of the tile design in bf16: 147 KB at F = 256; in float32: 211 KB.
 #include "mp_warp.cuh"
 
 namespace {
@@ -111,6 +119,7 @@ struct Args {
   const int32_t* bases_ext;  // K8: (n_cols+1, S) stencil table (+ sentinel row)
   const int32_t* w0s;        // E2: (n_rows/T, T/SUB, 3) window starts, 8-row units
   int n, k, fe;
+  int nf;    // the true latent width, <= F
   int C, S;  // K8: column capacity, stencil columns
   int T, SUB, WSUB;  // E2: rows per tile and sub-tile, window rows
 };
@@ -122,6 +131,8 @@ struct Smem {
   static constexpr int kF = M * kLdf<F> * 4;
   static constexpr int kAgg = TR * F * 4;
   static constexpr int kBytes = 2 * kA + kF + kAgg;
+  static_assert(kBytes <= kSmemMax, "tile design shared memory");
+  static_assert(M <= kMaxTileRows, "block_gemm's row tiles");
 };
 
 template <typename T, int F, bool ENC, Src SRC>
@@ -202,7 +213,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
           const int c = lane + 32 * i;
           x[i] = sF[r * LDF + c] + a.enc_vec[1][c];
         }
-        warp_layernorm(x, a.enc_vec[2], a.enc_vec[3], lane);
+        warp_layernorm(x, a.enc_vec[2], a.enc_vec[3], lane, a.nf);
 #pragma unroll
         for (int i = 0; i < F / 32; ++i) sA[r * LDA + lane + 32 * i] = from_f<T>(x[i]);
       }
@@ -255,7 +266,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
         const int c = lane + 32 * i;
         x[i] = sF[r * LDF + c] + a.vec[1][c];
       }
-      warp_layernorm(x, a.vec[2], a.vec[3], lane);
+      warp_layernorm(x, a.vec[2], a.vec[3], lane, a.nf);
       float m;
       if constexpr (kSelect) m = sSrc[r] >= 0 ? 1.f : 0.f;
       else m = a.mask[er];
@@ -305,7 +316,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp(const Args a) {
       const int c = lane + 32 * i;
       x[i] = sF[r * LDF + c] + a.vec[5][c];
     }
-    warp_layernorm(x, a.vec[6], a.vec[7], lane);
+    warp_layernorm(x, a.vec[6], a.vec[7], lane, a.nf);
 #pragma unroll
     for (int i = 0; i < F / 32; ++i) {
       const int c = lane + 32 * i;
@@ -338,7 +349,7 @@ struct NodeArgs {
   bf16* h_out;         // (n, F)
   const bf16* w[3];    // W_nh, W_na, W_n2
   const float* vec[4]; // bn1, bn2, ln2 scale, ln2 bias
-  int n;
+  int n, nf;
 };
 
 template <int F>
@@ -404,7 +415,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_node(const NodeArgs a) {
     gemm(acc, ra, sb + 2 * WEIGHT_BYTES, lane);
     add_bias(acc, vec + F, t);
     float inv0, inv1;
-    row_normalize(acc, inv0, inv1);
+    row_normalize(acc, inv0, inv1, a.nf);
     scale_shift(acc, vec + 2 * F, vec + 3 * F, t);
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
@@ -442,6 +453,7 @@ int run_bf16(const Args& a, bool has_enc, const int* grids, float* agg, cudaStre
   ea.n = a.n;
   ea.k = a.k;
   ea.fe = a.fe;
+  ea.nf = a.nf;
   ea.C = a.C;
   ea.S = a.S;
   ea.T = a.T;
@@ -467,27 +479,37 @@ int run_bf16(const Args& a, bool has_enc, const int* grids, float* agg, cudaStre
   for (int i = 0; i < 3; ++i) na.w[i] = static_cast<const bf16*>(a.w[2 + i]);
   for (int i = 0; i < 4; ++i) na.vec[i] = a.vec[4 + i];
   na.n = a.n;
+  na.nf = a.nf;
   return launch_kernel(fused_mp_node<F>, grids[1], THREADS, NodeSmem<F>::kBytes, na, stream);
 }
 
-// The instance at width `latent` (latent_dispatch: 64 or 128).
+// The tile design's instance of type T at width F.
+template <typename T, int F, Src SRC>
+int launch_tile(const Args& a, int has_enc, cudaStream_t stream) {
+  if constexpr (SRC == Src::kWindow) return launch<T, F, false, SRC>(a, stream);
+  else
+    return has_enc ? launch<T, F, true, SRC>(a, stream) : launch<T, F, false, SRC>(a, stream);
+}
+
+// The instance for latent width a.nf (latent_dispatch): bf16 at F <= 128
+// the warp design, else the tile design.
 template <Src SRC>
-int dispatch(const Args& a, int latent, int is_bf16, int has_enc, const void* const* ptrs,
+int dispatch(const Args& a, int is_bf16, int has_enc, const void* const* ptrs,
              const int* grids, cudaStream_t stream) {
-  if (is_bf16 && (grids[0] < 1 || grids[1] < 1)) return (int)cudaErrorInvalidValue;
-  return latent_dispatch(latent, [&](auto width) {
+  return latent_dispatch(a.nf, [&](auto width) {
     constexpr int F = decltype(width)::value;
-    if (is_bf16)
+    if (!is_bf16) return launch_tile<float, F, SRC>(a, has_enc, stream);
+    if constexpr (F <= 128) {
+      if (grids[0] < 1 || grids[1] < 1) return (int)cudaErrorInvalidValue;
       return run_bf16<F, SRC>(a, has_enc, grids,
                               static_cast<float*>(const_cast<void*>(ptrs[28])), stream);
-    if constexpr (SRC == Src::kWindow) return launch<float, F, false, SRC>(a, stream);
-    else
-      return has_enc ? launch<float, F, true, SRC>(a, stream)
-                     : launch<float, F, false, SRC>(a, stream);
+    } else {
+      return launch_tile<bf16, F, SRC>(a, has_enc, stream);
+    }
   });
 }
 
-Args make_args(const void* const* ptrs, int n, int k, int fe) {
+Args make_args(const void* const* ptrs, int n, int k, int fe, int nf) {
   Args a;
   a.e = ptrs[0];
   a.hs = ptrs[1];
@@ -507,6 +529,7 @@ Args make_args(const void* const* ptrs, int n, int k, int fe) {
   a.n = n;
   a.k = k;
   a.fe = fe;
+  a.nf = nf;
   a.C = 0;
   a.S = 0;
   a.T = 0;
@@ -524,13 +547,14 @@ Args make_args(const void* const* ptrs, int n, int k, int fe) {
 //   19 ln2_bias,
 //   20 enc_w1, 21 enc_w2, 22 enc_b1, 23 enc_b2, 24 enc_ln_scale,
 //   25 enc_ln_bias (unused unless has_enc), 26, 27 (K8, E2 below),
-//   28 agg scratch (n, F) float32 (bf16 only).
-// latent: F, 64 or 128 (else cudaErrorInvalidValue).
-// grids: the bf16 instance's edge and node grids (unused in float32).
+//   28 agg scratch (n, F) float32 (the bf16 warp design, F <= 128, only).
+// latent: the true width nf in [1, 256] (else cudaErrorInvalidValue); every
+//   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
+// grids: the warp design's edge and node grids (unused by the tile design).
 LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int latent,
                             int is_bf16, int has_enc, const int* grids, cudaStream_t stream) {
   if (n < 1 || k < 1 || (has_enc && (fe < 1 || fe > 16))) return (int)cudaErrorInvalidValue;
-  return dispatch<Src::kGathered>(make_args(ptrs, n, k, fe), latent, is_bf16, has_enc, ptrs,
+  return dispatch<Src::kGathered>(make_args(ptrs, n, k, fe, latent), is_bf16, has_enc, ptrs,
                                   grids, stream);
 }
 
@@ -542,12 +566,12 @@ LBT_EXPORT int lbt_fused_mp_slot(const void* const* ptrs, int n, int k, int fe, 
                                  cudaStream_t stream) {
   if (n < 1 || k < 1 || C < 1 || S < 1 || n % C || (has_enc && (fe < 1 || fe > 16)))
     return (int)cudaErrorInvalidValue;
-  Args a = make_args(ptrs, n, k, fe);
+  Args a = make_args(ptrs, n, k, fe, latent);
   a.cand = static_cast<const int32_t*>(ptrs[26]);
   a.bases_ext = static_cast<const int32_t*>(ptrs[27]);
   a.C = C;
   a.S = S;
-  return dispatch<Src::kSlot>(a, latent, is_bf16, has_enc, ptrs, grids, stream);
+  return dispatch<Src::kSlot>(a, is_bf16, has_enc, ptrs, grids, stream);
 }
 
 // E2: ptrs as lbt_fused_mp's (no encoder), with 1 = hs_ext (n_ext, F), 4
@@ -557,11 +581,11 @@ LBT_EXPORT int lbt_fused_mp_window(const void* const* ptrs, int n, int k, int la
                                    cudaStream_t stream) {
   if (n < 1 || k < 1 || T < 1 || SUB < 1 || T % SUB || n % T || WSUB < 1)
     return (int)cudaErrorInvalidValue;
-  Args a = make_args(ptrs, n, k, 0);
+  Args a = make_args(ptrs, n, k, 0, latent);
   a.cand = static_cast<const int32_t*>(ptrs[26]);
   a.w0s = static_cast<const int32_t*>(ptrs[27]);
   a.T = T;
   a.SUB = SUB;
   a.WSUB = WSUB;
-  return dispatch<Src::kWindow>(a, latent, is_bf16, 0, ptrs, grids, stream);
+  return dispatch<Src::kWindow>(a, is_bf16, 0, ptrs, grids, stream);
 }

@@ -2,9 +2,11 @@
 // layout.
 //
 // Replaces: lagrangebench_tpu/ops/fused_mp.py::_fused_bwd_kernel, launched
-// by _gns_mp_step_bwd_pallas. Per receiver, at latent width F (every kernel
-// is a template on F, instantiated at 64 and 128 and chosen by the entry
-// points' `latent` argument), it rematerializes
+// by _gns_mp_step_bwd_pallas. Per receiver, at latent width nf in [1, 256]
+// (every kernel is a template on the instance width F = 64 ceil(nf / 64),
+// chosen by the entry points' `latent` argument nf; tensors and weights
+// zero-padded to F, LayerNorm and its backward over the first nf channels,
+// mp_common.cuh), it rematerializes
 // the forward of K3 (csrc/fused_mp.cu) from the inputs,
 //
 //   first = e @ W_e + hs + hr + b1,  r1 = relu(first)
@@ -23,7 +25,8 @@
 // dhs (5 x 2F B in bf16) against 6 x 2 x F x F FLOP of edge products
 // that the function needs (the forward rematerialization adds 4 more).
 //
-// Design, bf16 (the main path): four hand-written kernels and a sum, on
+// Design, bf16 at F = 64 and 128 (the warp design): four hand-written
+// kernels and a sum, on
 // the forward's machinery (mp_warp.cuh: warp-owned 16-row slices, cp.async
 // rings, mma.sync m16n8k16 with register accumulators and register A
 // operands, transposed products by ldmatrix without .trans on the same
@@ -59,11 +62,15 @@
 // warps x one ge slice), edge kernel b 224 KB (W_e, 8 warps x 2 stages x
 // (e, dhs, ge)); at F = 64 about half, with the same grids and blocks.
 //
-// The float32 instance keeps the first, simple design: a persistent grid
+// The tile design (fused_mp_bwd below) is the float32 instance at every F
+// (CUDA-core FMAs) and the bf16 instance at F = 192 and 256 (WMMA
+// tensor-core tiles, mp_common.cuh), where the warp design's register
+// chains and resident weights do not fit (fused_mp.cu): a persistent grid
 // of about one block per SM; each block of 8 warps walks receiver tiles of
 // 16. The tile's float32 LayerNorm activations do not fit in shared memory
 // (16 x 40 rows x 128 x 4 B = 320 KB at F = 128), so the tile's edges stream through
-// shared memory twice, 64 rows at a time:
+// shared memory twice, 64 rows at a time (32 at F > 128, so that five row
+// buffers fit: 146 KB in bf16 and 195 KB in float32 at F = 256):
 //   pass 1: rematerialize to agg; then the node-path backward, which
 //           leaves dagg in shared memory;
 //   pass 2: rematerialize again; then the edge-path backward with dagg.
@@ -78,7 +85,8 @@
 namespace {
 
 constexpr int TR = 16;  // receivers per tile
-constexpr int M = 64;   // edge rows per chunk
+template <int F>
+constexpr int kRows = F <= 128 ? 64 : 32;  // edge rows per chunk of the tile design
 constexpr int NV = 8;   // vector gradients
 template <int F>
 constexpr int GRADS = 5 * F * F + NV * F;  // floats of one block's partials
@@ -103,26 +111,30 @@ struct Args {
   const void* w[5];   // W_e, W2, W_nh, W_na, W_n2: (F, F) T, row-major (in, out)
   const float* vec[8];  // b1, b2, ln1 scale, ln1 bias, bn1, bn2, ln2 scale, ln2 bias
   float* partials;    // float32: (gridDim.x, GRADS); bf16: see lbt_fused_mp_bwd
-  float* agg;         // bf16: (N, F) float32 scratch
-  float* dagg;        // bf16: (N, F) float32 scratch
+  float* agg;         // bf16 warp design: (N, F) float32 scratch; tile design: agg out or null
+  float* dagg;        // bf16 warp design: (N, F) float32 scratch
   int n, k;
+  int nf;             // the true latent width, <= F
 };
 
 template <typename T, int F>
 struct Smem {
   static constexpr int LDA = Layout<T, F>::LDA;
-  static constexpr int kA = M * LDA * (int)sizeof(T);
-  static constexpr int kF = M * kLdf<F> * 4;
+  static constexpr int kA = kRows<F> * LDA * (int)sizeof(T);
+  static constexpr int kF = kRows<F> * kLdf<F> * 4;
   static constexpr int kNode = TR * F * 4;
   static constexpr int kBytes = 3 * kA + 2 * kF + 2 * kNode;
+  static_assert(kRows<F> >= 2 * TR, "the node path's buffers: two tiles in each row buffer");
+  static_assert(kBytes <= kSmemMax, "tile design shared memory");
+  static_assert(kRows<F> <= kMaxTileRows, "block_gemm's row tiles");
 };
 
 // C[rows, F] = A[rows, F] @ W^T, W (F, F) row-major (in, out); rows % 16 == 0.
 template <int F>
 __device__ void block_gemm_nt(const float* A, const float* W, float* C, int rows) {
   constexpr int LDA = Layout<float, F>::LDA, LDF = kLdf<F>;
-  const int c = threadIdx.x % F;
-  for (int r0 = (threadIdx.x / F) * 8; r0 < rows; r0 += (THREADS / F) * 8) {
+  for (int idx = threadIdx.x; idx < (rows / 8) * F; idx += THREADS) {
+    const int c = idx % F, r0 = (idx / F) * 8;
     float acc[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = 0.f;
@@ -133,6 +145,34 @@ __device__ void block_gemm_nt(const float* A, const float* W, float* C, int rows
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) C[(r0 + i) * LDF + c] = acc[i];
+  }
+}
+
+// bf16: WMMA strips as block_gemm's, W^T read as a column-major B
+template <int F>
+__device__ void block_gemm_nt(const bf16* A, const bf16* W, float* C, int rows) {
+  using namespace nvcuda;
+  constexpr int LDA = Layout<bf16, F>::LDA, LDF = kLdf<F>, RT = kMaxTileRows / 16;
+  const int rt = rows / 16;
+  for (int c0 = (threadIdx.x / 32) * 16; c0 < F; c0 += WARPS * 16) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      if (i < rt) wmma::fill_fragment(acc[i], 0.f);
+    for (int k = 0; k < F; k += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fb, W + c0 * F + k, F);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        if (i >= rt) continue;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, A + i * 16 * LDA + k, LDA);
+        wmma::mma_sync(acc[i], fa, fb, acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      if (i < rt) wmma::store_matrix_sync(C + i * 16 * LDF + c0, acc[i], LDF, wmma::mem_row_major);
   }
 }
 
@@ -149,44 +189,67 @@ __device__ void block_gemm_tn(const float* A, const float* B, float* G, int rows
   }
 }
 
+// bf16: the warps take 16 x 16 tiles of G in turn; A^T is A read column-major
+template <int F>
+__device__ void block_gemm_tn(const bf16* A, const bf16* B, float* G, int rows) {
+  using namespace nvcuda;
+  constexpr int LDA = Layout<bf16, F>::LDA, TC = F / 16;
+  for (int tile = threadIdx.x / 32; tile < TC * TC; tile += WARPS) {
+    const int i0 = (tile / TC) * 16, j0 = (tile % TC) * 16;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::load_matrix_sync(acc, G + i0 * F + j0, F, wmma::mem_row_major);
+    for (int r = 0; r < rows; r += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fa, A + r * LDA + i0, LDA);
+      wmma::load_matrix_sync(fb, B + r * LDA + j0, LDA);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(G + i0 * F + j0, acc, F, wmma::mem_row_major);
+  }
+}
+
 // Row statistics of one F-wide float row held by a warp (V = F / 32 values
-// per lane): xhat = (x - mean) * inv in place; returns inv.
+// per lane) over its first nf columns: xhat = (x - mean) * inv in place, 0
+// past nf; returns inv.
 template <int V>
-__device__ __forceinline__ float warp_normalize(float (&x)[V]) {
-  constexpr float kInvF = 1.f / (32 * V);
+__device__ __forceinline__ float warp_normalize(float (&x)[V], int lane, int nf) {
+  const float inv_n = 1.f / nf;
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < V; ++i) s += x[i];
-  const float mean = lbt::warp_sum(s) * kInvF;
+  for (int i = 0; i < V; ++i) s += lane + 32 * i < nf ? x[i] : 0.f;
+  const float mean = lbt::warp_sum(s) * inv_n;
   float v = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    const float d = x[i] - mean;
+    const float d = lane + 32 * i < nf ? x[i] - mean : 0.f;
     v += d * d;
   }
-  const float inv = rsqrtf(lbt::warp_sum(v) * kInvF + kEps);
+  const float inv = rsqrtf(lbt::warp_sum(v) * inv_n + kEps);
 #pragma unroll
-  for (int i = 0; i < V; ++i) x[i] = (x[i] - mean) * inv;
+  for (int i = 0; i < V; ++i) x[i] = lane + 32 * i < nf ? (x[i] - mean) * inv : 0.f;
   return inv;
 }
 
-// LayerNorm input gradient of a warp-held row: dx = inv * (dxhat - mean(dxhat)
-// - xhat * mean(dxhat * xhat)), dxhat = dy * scale. Overwrites dy with dx.
+// LayerNorm input gradient of a warp-held row over its first nf columns: dx
+// = inv * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)), dxhat = dy *
+// scale, 0 past nf. Overwrites dy with dx.
 template <int V>
 __device__ __forceinline__ void warp_ln_bwd(float (&dy)[V], const float (&xhat)[V], float inv,
-                                            const float* scale, int lane) {
-  constexpr float kInvF = 1.f / (32 * V);
+                                            const float* scale, int lane, int nf) {
+  const float inv_n = 1.f / nf;
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    dy[i] *= scale[lane + 32 * i];
+    dy[i] = lane + 32 * i < nf ? dy[i] * scale[lane + 32 * i] : 0.f;
     s1 += dy[i];
     s2 += dy[i] * xhat[i];
   }
-  const float m1 = lbt::warp_sum(s1) * kInvF;
-  const float m2 = lbt::warp_sum(s2) * kInvF;
+  const float m1 = lbt::warp_sum(s1) * inv_n;
+  const float m2 = lbt::warp_sum(s2) * inv_n;
 #pragma unroll
-  for (int i = 0; i < V; ++i) dy[i] = inv * (dy[i] - m1 - xhat[i] * m2);
+  for (int i = 0; i < V; ++i)
+    dy[i] = lane + 32 * i < nf ? inv * (dy[i] - m1 - xhat[i] * m2) : 0.f;
 }
 
 // The tile's edge rows [c0, c0 + rows) -> sA (e) and sB (T(relu(first))),
@@ -275,8 +338,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
     }
 
     // ---- pass 1: rematerialize to agg ----------------------------------
-    for (int c0 = 0; c0 < rows_tile; c0 += M) {
-      const int rows = min(M, rows_tile - c0);
+    for (int c0 = 0; c0 < rows_tile; c0 += kRows<F>) {
+      const int rows = min(kRows<F>, rows_tile - c0);
       const int rows_pad = (rows + 15) / 16 * 16;
       __syncthreads();
       remat_chunk<T, F>(a, wE, w2, sA, sB, sF, row0, node0, c0, rows, rows_pad);
@@ -284,7 +347,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
         float x[F / 32];
 #pragma unroll
         for (int i = 0; i < F / 32; ++i) x[i] = sF[r * LDF + lane + 32 * i] + a.vec[V_B2][lane + 32 * i];
-        warp_normalize(x);
+        warp_normalize(x, lane, a.nf);
         const float m = a.mask[row0 + c0 + r];
 #pragma unroll
         for (int i = 0; i < F / 32; ++i) {
@@ -300,15 +363,19 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
     }
     __syncthreads();
 
+    if (a.agg)  // the caller asked for the step's agg as summed here
+      for (int i = threadIdx.x; i < nodes * F; i += THREADS) a.agg[(int64_t)node0 * F + i] = sNode[i];
+
     // ---- node-path backward (TR rows; rows past `nodes` are zero) --------
+    // two TR-row tiles in each row buffer (kRows >= 2 TR)
     T* nH = sA;
     T* nAggc = sA + TR * LDA;
-    T* nR2c = sA + 2 * TR * LDA;
-    T* nDy1c = sA + 3 * TR * LDA;
+    T* nR2c = sC;
+    T* nDy1c = sC + TR * LDA;
     T* nDnfc = sB;
     float* nR2 = sF;             // r2 = relu(nf)
     float* nY = sF + TR * LDF;   // y1
-    float* nDnf = sF + 2 * TR * LDF;
+    float* nDnf = nY;            // written once y1 is read
     float* nDh = sG;             // dnfc @ W_nh^T
     float* nDagg = sG + TR * LDF;
     for (int i = threadIdx.x; i < TR * F; i += THREADS) {
@@ -338,13 +405,13 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
         x[i] = nY[r * LDF + c] + a.vec[V_BN2][c];
         g[i] = r < nodes ? to_f(gh[(int64_t)(node0 + r) * F + c]) : 0.f;
       }
-      const float inv = warp_normalize(x);
+      const float inv = warp_normalize(x, lane, a.nf);
 #pragma unroll
       for (int i = 0; i < F / 32; ++i) {
         vacc[V_G2][i] += g[i] * x[i];
         vacc[V_BE2][i] += g[i];
       }
-      warp_ln_bwd(g, x, inv, a.vec[V_G2], lane);
+      warp_ln_bwd(g, x, inv, a.vec[V_G2], lane, a.nf);
 #pragma unroll
       for (int i = 0; i < F / 32; ++i) {
         vacc[V_BN2][i] += g[i];
@@ -386,8 +453,8 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
     // ---- pass 2: rematerialize again, then the edge-path backward ---------
     T* de = static_cast<T*>(a.de);
     T* dhs = static_cast<T*>(a.dhs);
-    for (int c0 = 0; c0 < rows_tile; c0 += M) {
-      const int rows = min(M, rows_tile - c0);
+    for (int c0 = 0; c0 < rows_tile; c0 += kRows<F>) {
+      const int rows = min(kRows<F>, rows_tile - c0);
       const int rows_pad = (rows + 15) / 16 * 16;
       __syncthreads();
       remat_chunk<T, F>(a, wE, w2, sA, sB, sF, row0, node0, c0, rows, rows_pad);
@@ -403,7 +470,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
         float x[F / 32], d[F / 32];
 #pragma unroll
         for (int i = 0; i < F / 32; ++i) x[i] = sF[r * LDF + lane + 32 * i] + a.vec[V_B2][lane + 32 * i];
-        const float inv = warp_normalize(x);
+        const float inv = warp_normalize(x, lane, a.nf);
         const float m = a.mask[er];
 #pragma unroll
         for (int i = 0; i < F / 32; ++i) {
@@ -412,7 +479,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd(const Args a) {
           vacc[V_G1][i] += d[i] * x[i];
           vacc[V_BE1][i] += d[i];
         }
-        warp_ln_bwd(d, x, inv, a.vec[V_G1], lane);
+        warp_ln_bwd(d, x, inv, a.vec[V_G1], lane, a.nf);
 #pragma unroll
         for (int i = 0; i < F / 32; ++i) {
           vacc[V_B2][i] += d[i];
@@ -582,7 +649,7 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
   gemm(acc, ra, wN2, lane);
   add_bias(acc, bn2, t);
   float inv0, inv1;
-  row_normalize(acc, inv0, inv1);  // acc = xhat2
+  row_normalize(acc, inv0, inv1, a.nf);  // acc = xhat2 (-mean inv past nf)
 
   // LN2 backward with gh: dy1 = inv (gh s - mean(gh s) - xhat mean(gh s xhat))
   const bf16* gh = static_cast<const bf16*>(a.gh);
@@ -608,11 +675,12 @@ __global__ void __launch_bounds__(NB_WARPS * 32, 1) fused_mp_bwd_node(const Args
     }
   }
   const float inv[2] = {inv0, inv1};
+  const float inv_n = 1.f / a.nf;
   float m1[2], m2[2];
 #pragma unroll
   for (int r8 = 0; r8 < 2; ++r8) {
-    m1[r8] = quad_sum(p1[r8]) * (1.f / F);
-    m2[r8] = quad_sum(p2[r8]) * (1.f / F);
+    m1[r8] = quad_sum(p1[r8]) * inv_n;
+    m2[r8] = quad_sum(p2[r8]) * inv_n;
   }
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) {
@@ -858,7 +926,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
       gemm(acc, ra, w2, lane);
       add_bias(acc, b2, t);
       float inv[2];
-      row_normalize(acc, inv[0], inv[1]);  // acc = xhat1
+      row_normalize(acc, inv[0], inv[1], a.nf);  // acc = xhat1 (-mean inv past nf)
       if (next) cp_wait<1>(); else cp_wait<0>();  // this slice's ge
       __syncwarp();
 
@@ -895,11 +963,12 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_a(const Args a) 
           }
         }
       }
+      const float inv_n = 1.f / a.nf;
       float m1[2], m2[2];
 #pragma unroll
       for (int r8 = 0; r8 < 2; ++r8) {
-        m1[r8] = quad_sum(p1[r8]) * (1.f / F);
-        m2[r8] = quad_sum(p2[r8]) * (1.f / F);
+        m1[r8] = quad_sum(p1[r8]) * inv_n;
+        m2[r8] = quad_sum(p2[r8]) * inv_n;
       }
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
@@ -1160,6 +1229,7 @@ int run_bf16(Args a, int grid, cudaStream_t stream) {
   f.agg = a.agg;
   f.n = a.n;
   f.k = a.k;
+  f.nf = a.nf;
   int err = launch_kernel(fused_mp_bwd_agg<F>, grid, THREADS, EdgeSmem<F, false>::kBytes, f,
                           stream);
   if (err != 0) return err;
@@ -1183,11 +1253,15 @@ int run_bf16(Args a, int grid, cudaStream_t stream) {
 //   23 ln2_bias, 24 partials (float32: (grid, 5 F^2 + 8 F); bf16:
 //   ceil(n / 64) x (3 F^2 + 4 F) for the node kernel, then grid x (F^2 +
 //   4 F) for edge kernel a and grid x F^2 for edge kernel b), 25 scratch (bf16: (2 n, F)
-//   float32, agg then dagg).
-// latent: F, 64 or 128 (else cudaErrorInvalidValue).
+//   float32, agg then dagg), 26 agg out (the tile design: (n, F) float32 that receives
+//   the step's agg as the kernel summed it, or null). The tile design (float32; bf16 at
+//   F > 128) takes the float32 layout.
+// latent: the true width nf in [1, 256] (else cudaErrorInvalidValue); every
+//   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
 LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int latent, int is_bf16,
                                 int grid, cudaStream_t stream) {
-  if (n < 1 || k < 1 || grid < 1 || (!is_bf16 && grid > lbt::ceil_div(n, TR)))
+  const bool tile = !is_bf16 || latent > 128;
+  if (n < 1 || k < 1 || grid < 1 || (tile && grid > lbt::ceil_div(n, TR)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.e = ptrs[0];
@@ -1204,17 +1278,22 @@ LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int laten
   for (int i = 0; i < 5; ++i) a.w[i] = ptrs[11 + i];
   for (int i = 0; i < 8; ++i) a.vec[i] = static_cast<const float*>(ptrs[16 + i]);
   a.partials = static_cast<float*>(const_cast<void*>(ptrs[24]));
-  a.agg = nullptr;
+  a.agg = static_cast<float*>(const_cast<void*>(ptrs[26]));
   a.dagg = nullptr;
   a.n = n;
   a.k = k;
+  a.nf = latent;
   return latent_dispatch(latent, [&](auto width) {
     constexpr int F = decltype(width)::value;
     if (!is_bf16) return launch<float, F>(a, grid, stream);
-    Args b = a;
-    b.agg = static_cast<float*>(const_cast<void*>(ptrs[25]));
-    b.dagg = b.agg + (int64_t)n * F;
-    return run_bf16<F>(b, grid, stream);
+    if constexpr (F > 128) {
+      return launch<bf16, F>(a, grid, stream);
+    } else {
+      Args b = a;
+      b.agg = static_cast<float*>(const_cast<void*>(ptrs[25]));
+      b.dagg = b.agg + (int64_t)n * F;
+      return run_bf16<F>(b, grid, stream);
+    }
   });
 }
 
@@ -1226,7 +1305,7 @@ LBT_EXPORT int lbt_fused_mp_bwd_reduce(const float* partials, float* out, int n,
   return latent_dispatch(latent, [&](auto width) {
     constexpr int F = decltype(width)::value;
     Segs segs{};
-    if (!is_bf16) {
+    if (!is_bf16 || F > 128) {
       segs.s[0] = Seg{partials, grid, GRADS<F>, GRADS<F>, 0};
       segs.count = 1;
     } else {

@@ -1,11 +1,19 @@
 // Building blocks shared by the fused message-passing kernels (K3 forward,
-// K4 backward), templated on the latent width F: for the float32 instances
-// (the bf16 ones are built from mp_warp.cuh) the shared-memory layout, the
-// block GEMM C (+)= A @ W on CUDA-core FMAs and the warp-per-row LayerNorm.
-// The entry points instantiate F = 64 and F = 128 (latent_dispatch).
+// K4 backward), templated on the instance width F (64, 128, 192 or 256):
+// the tile design's shared-memory layout, its block GEMMs C (+)= A @ W
+// (CUDA-core FMAs in float32; WMMA 16x16x16 tensor-core tiles in bf16,
+// B read from the (in, out) weight in device memory), the warp-per-row
+// LayerNorm, and the width map (latent_dispatch).
+//
+// Width map: a latent width nf in [1, 256] runs the instance F = 64
+// ceil(nf / 64). The wrapper (ops/fused_mp.py) pads every tensor and
+// weight to F with zeros, LayerNorm scale and bias included, and the
+// kernels take nf: every LayerNorm's mean, variance and backward run over
+// the first nf channels, and the padded channels come out 0.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <mma.h>
 
 #include <type_traits>
 
@@ -27,6 +35,10 @@ template <int F>
 struct Layout<float, F> {
   static constexpr int LDA = F + 4;  // row stride in shared memory; weights stay in global
 };
+template <int F>
+struct Layout<__nv_bfloat16, F> {
+  static constexpr int LDA = F + 8;  // a multiple of 8 bf16 (16 B), as WMMA loads need
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -37,15 +49,14 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 
-// C[rows, F] (+)= A[rows, F] @ W[F, F]; rows is a multiple of 16. Thread
-// column c = threadIdx.x % F; the THREADS / F thread groups take 8-row
-// blocks in turn.
+// C[rows, F] (+)= A[rows, F] @ W[F, F]; rows is a multiple of 16. float32:
+// each thread takes (8-row block, column c) pairs in turn (with F dividing
+// THREADS, column c = threadIdx.x % F throughout), the sum over k in order.
 template <int F>
 __device__ void block_gemm(const float* A, const float* W, float* C, int rows, bool accumulate) {
-  static_assert(THREADS % F == 0, "a thread group covers whole rows");
   constexpr int LDA = Layout<float, F>::LDA;
-  const int c = threadIdx.x % F;
-  for (int r0 = (threadIdx.x / F) * 8; r0 < rows; r0 += (THREADS / F) * 8) {
+  for (int idx = threadIdx.x; idx < (rows / 8) * F; idx += THREADS) {
+    const int c = idx % F, r0 = (idx / F) * 8;
     float acc[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = accumulate ? C[(r0 + i) * kLdf<F> + c] : 0.f;
@@ -59,42 +70,85 @@ __device__ void block_gemm(const float* A, const float* W, float* C, int rows, b
   }
 }
 
-// LayerNorm of one F-wide float row held by a warp (V = F / 32 values per
-// lane, column lane + 32 i).
-template <int V>
-__device__ __forceinline__ void warp_layernorm(float (&x)[V], const float* scale,
-                                               const float* bias, int lane) {
-  constexpr float kInvF = 1.f / (32 * V);
-  float s = 0.f;
+// bf16: each warp takes 16-column strips of C in turn and, for k in
+// 16-deep steps, reads W's 16 x 16 tile once from device memory (L1/L2) and
+// multiplies it into all row tiles (WMMA, bf16 products, float32
+// accumulators); A from shared memory. rows <= kMaxTileRows.
+constexpr int kMaxTileRows = 64;
+template <int F>
+__device__ void block_gemm(const bf16* A, const bf16* W, float* C, int rows, bool accumulate) {
+  using namespace nvcuda;
+  constexpr int LDA = Layout<bf16, F>::LDA, RT = kMaxTileRows / 16;
+  const int rt = rows / 16;
+  for (int c0 = (threadIdx.x / 32) * 16; c0 < F; c0 += WARPS * 16) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
 #pragma unroll
-  for (int i = 0; i < V; ++i) s += x[i];
-  const float mean = lbt::warp_sum(s) * kInvF;
-  float v = 0.f;
+    for (int i = 0; i < RT; ++i) {
+      if (i >= rt) continue;
+      if (accumulate)
+        wmma::load_matrix_sync(acc[i], C + i * 16 * kLdf<F> + c0, kLdf<F>, wmma::mem_row_major);
+      else
+        wmma::fill_fragment(acc[i], 0.f);
+    }
+    for (int k = 0; k < F; k += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, W + k * F + c0, F);
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const float d = x[i] - mean;
-    v += d * d;
-  }
-  const float inv = rsqrtf(lbt::warp_sum(v) * kInvF + kEps);
+      for (int i = 0; i < RT; ++i) {
+        if (i >= rt) continue;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, A + i * 16 * LDA + k, LDA);
+        wmma::mma_sync(acc[i], fa, fb, acc[i]);
+      }
+    }
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = lane + 32 * i;
-    x[i] = (x[i] - mean) * inv * scale[c] + bias[c];
+    for (int i = 0; i < RT; ++i)
+      if (i < rt)
+        wmma::store_matrix_sync(C + i * 16 * kLdf<F> + c0, acc[i], kLdf<F>, wmma::mem_row_major);
   }
 }
 
-// Calls fn(std::integral_constant<int, F>{}) for latent == F in {64, 128},
-// the widths the kernels are instantiated at (ops/fused_mp.py LATENTS);
-// any other width is cudaErrorInvalidValue.
+// LayerNorm of one F-wide float row held by a warp (V = F / 32 values per
+// lane, column lane + 32 i) over its first nf columns; the others come out 0.
+template <int V>
+__device__ __forceinline__ void warp_layernorm(float (&x)[V], const float* scale,
+                                               const float* bias, int lane, int nf) {
+  const float inv_n = 1.f / nf;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) s += lane + 32 * i < nf ? x[i] : 0.f;
+  const float mean = lbt::warp_sum(s) * inv_n;
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float d = lane + 32 * i < nf ? x[i] - mean : 0.f;
+    v += d * d;
+  }
+  const float inv = rsqrtf(lbt::warp_sum(v) * inv_n + kEps);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = lane + 32 * i;
+    x[i] = c < nf ? (x[i] - mean) * inv * scale[c] + bias[c] : 0.f;
+  }
+}
+
+constexpr int kMaxLatent = 256;  // the widest instance (ops/fused_mp.py MAX_LATENT)
+
+// Calls fn(std::integral_constant<int, F>{}) for the instance F that runs
+// latent width nf (the width map above); nf outside [1, kMaxLatent] is
+// cudaErrorInvalidValue.
 template <typename Fn>
-int latent_dispatch(int latent, Fn fn) {
-  switch (latent) {
-    case 64:
+int latent_dispatch(int nf, Fn fn) {
+  if (nf < 1 || nf > kMaxLatent) return (int)cudaErrorInvalidValue;
+  switch ((nf + 63) / 64) {
+    case 1:
       return fn(std::integral_constant<int, 64>{});
-    case 128:
+    case 2:
       return fn(std::integral_constant<int, 128>{});
+    case 3:
+      return fn(std::integral_constant<int, 192>{});
     default:
-      return (int)cudaErrorInvalidValue;
+      return fn(std::integral_constant<int, 256>{});
   }
 }
 

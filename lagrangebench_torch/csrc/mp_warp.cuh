@@ -12,8 +12,11 @@
 // Edge and node rows arrive by cp.async (16 bytes, zero-filled past the
 // end) into per-warp rings.
 //
-// Everything is templated on the latent width F (a multiple of 64; the
-// entry points instantiate 64 and 128). Layouts (g = lane / 4, t = lane % 4):
+// Everything is templated on the instance width F (64 or 128: a 16-row
+// slice's chain keeps ~1.3 F registers per lane, so the wider instances run
+// the tile design of mp_common.cuh), and LayerNorm runs over the true
+// width nf <= F (the channels past nf are zero-padded and come out 0).
+// Layouts (g = lane / 4, t = lane % 4):
 //   accumulator acc[nb][0..3], nb = 0..F/8-1: rows g (0, 1) and g + 8 (2, 3),
 //     columns nb * 8 + 2t (+1);
 //   A operand a[kb][0..3], kb = 0..F/16-1: the same elements of n-blocks 2kb
@@ -209,18 +212,24 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(lbt::kFullMask, v, 2);
 }
 
-// rows g and g + 8 of the accumulator normalized in place: x = (x - mean) *
-// inv, float32, eps kEps; returns the two rows' inv
+// rows g and g + 8 of the accumulator normalized in place over their first
+// nf columns: x = (x - mean) * inv, float32, eps kEps; returns the two
+// rows' inv. The F - nf padded columns hold exact zeros (zero-padded weights
+// and biases): they add nothing to the sums, each adds mean^2 to the sum of
+// squares, which is taken back out, and they come out as -mean * inv, which
+// the zero-padded LayerNorm scale and bias turn into 0. With nf = F this is
+// the plain two-pass LayerNorm; no per-column mask costs registers.
 template <int NB>
-__device__ __forceinline__ void row_normalize(float (&x)[NB][4], float& inv0, float& inv1) {
-  constexpr float kInvF = 1.f / (8 * NB);
+__device__ __forceinline__ void row_normalize(float (&x)[NB][4], float& inv0, float& inv1,
+                                              int nf) {
+  const float inv_n = 1.f / nf, pad = (float)(8 * NB - nf);
   float s0 = 0.f, s1 = 0.f;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) {
     s0 += x[nb][0] + x[nb][1];
     s1 += x[nb][2] + x[nb][3];
   }
-  const float m0 = quad_sum(s0) * kInvF, m1 = quad_sum(s1) * kInvF;
+  const float m0 = quad_sum(s0) * inv_n, m1 = quad_sum(s1) * inv_n;
   float v0 = 0.f, v1 = 0.f;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) {
@@ -231,8 +240,10 @@ __device__ __forceinline__ void row_normalize(float (&x)[NB][4], float& inv0, fl
     v0 += x[nb][0] * x[nb][0] + x[nb][1] * x[nb][1];
     v1 += x[nb][2] * x[nb][2] + x[nb][3] * x[nb][3];
   }
-  inv0 = rsqrtf(quad_sum(v0) * kInvF + kEps);
-  inv1 = rsqrtf(quad_sum(v1) * kInvF + kEps);
+  v0 = quad_sum(v0) - pad * m0 * m0;
+  v1 = quad_sum(v1) - pad * m1 * m1;
+  inv0 = rsqrtf(v0 * inv_n + kEps);
+  inv1 = rsqrtf(v1 * inv_n + kEps);
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) {
     x[nb][0] *= inv0;
@@ -351,6 +362,7 @@ struct EdgeArgs {
   bf16* e_out;               // (rows, F), or null: agg only
   float* agg;                // (n, F)
   int n, k, fe;
+  int nf;                    // the true latent width (LayerNorm), <= F
   int C, S;                  // K8
   int T, SUB, WSUB;          // E2
 };
@@ -517,7 +529,7 @@ __device__ __forceinline__ void edge_fwd(const EdgeArgs& a) {
       gemm(acc, ha, sb + S::kEnc2, lane);
       add_bias(acc, vec + 5 * F, t);
       float i0, i1;
-      row_normalize(acc, i0, i1);
+      row_normalize(acc, i0, i1, a.nf);
       scale_shift(acc, vec + 6 * F, vec + 7 * F, t);
       to_frag(ea, acc, [](float x, int, int) { return x; });
     } else {
@@ -549,7 +561,7 @@ __device__ __forceinline__ void edge_fwd(const EdgeArgs& a) {
     gemm(acc, ra, sb + S::kW2, lane);
     add_bias(acc, b2, t);
     float inv0, inv1;
-    row_normalize(acc, inv0, inv1);
+    row_normalize(acc, inv0, inv1, a.nf);
     scale_shift(acc, ln_s, ln_b, t);
 
     if (a.e_out != nullptr) {  // e' = T(e + msg), staged in the hs slot (consumed)

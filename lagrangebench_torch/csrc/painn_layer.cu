@@ -4,9 +4,10 @@
 // Replaces: lagrangebench_tpu/ops/painn_msg.py::_layer_kernel, launched by
 // _painn_layer_pallas, and the gather `packed[senders]` in front of it
 // (lagrangebench_tpu/models/painn.py), which the TPU kernel takes outside
-// because Mosaic has no row gather. Per receiver, with H = 128 channels,
-// R = 20 radial basis functions, g_k = packed[sidx[k]] the k-th sender's
-// row [x1, x2, u_d] and d over the dim axes:
+// because Mosaic has no row gather. Per receiver, with H <= 256 channels
+// (128 in the shipped configs), R <= 64 radial basis functions (20,
+// build_painn), g_k = packed[sidx[k]] the k-th sender's row [x1, x2, u_d]
+// and d over the dim axes:
 //
 //   W      = (phi[:, :R] @ filt_w + filt_b) * phi[:, R]     (K, 3H) filters
 //   ds     = sum_K W[:H] * g[:H]
@@ -37,10 +38,17 @@
 // product is (K x 20) @ (20 x 3H) per receiver, too shallow for TF32
 // tensor-core tiles to pay for the three passes a float32-accurate 3xTF32
 // split needs, and plain TF32 would break the float32 gate; bf16 runs the
-// same body on bf16 loads. One block of 128 threads per tile of 16
-// receivers, thread c owning channel c, three blocks per SM.
-// - Edge phase: each thread keeps its three filter columns (60 values) in
-//   registers. A receiver's K basis rows (padded to 24 for float4 reads),
+// same body on bf16 loads. One block per tile of 16 receivers, thread c
+// owning channel c: 128 threads for H <= 128 (three blocks per SM), 256
+// for H <= 256; threads past H stage and synchronize with the others and
+// hold zeros. Rows in shared memory are HP = H rounded up to 4 floats
+// wide, zero past H, for float4 reads.
+// - Edge phase: each thread keeps its three filter columns (3 RC values) in
+//   registers, RC = 20 for R <= 20 and 64 for R <= 64, zero past R, so
+//   that the filter loop is unrolled over RC (at RC = 64 they spill to
+//   local memory: a correct instance, not a fast one). A receiver's K
+//   basis rows (RC values, zero past R, then the scale; padded to RP, a
+//   multiple of 4, for float4 reads),
 //   directions and sender indices are staged in shared memory, double
 //   buffered: the next receiver's values are loaded into registers while
 //   the current one computes, so there is one barrier per receiver. Each
@@ -54,7 +62,8 @@
 //   vmix_w, mix_w1 and mix_w2 (448 KB in float32) are read once per 16
 //   receivers. vl_d and sum_d vr_d vl_d stay in registers from the vmix
 //   product to the output, since thread c owns channel c in all of them.
-// On an H100 (700 W) this takes ~0.73 ms at the rollout shape, ~2.8x its
+// On an H100 (700 W) this takes ~0.73 ms at the rollout shape (H = 128,
+// R = 20), ~2.8x its
 // operations bound: the edge phase is ~0.6 ms of it, with 168 registers
 // allowing 12 warps per SM and each float4 of basis values broadcast from
 // shared memory feeding only 12 FMAs. Variants that loaded the gathered
@@ -69,12 +78,13 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int H = 128;
-constexpr int R = 20;       // radial basis functions (build_painn)
-constexpr int RP = 24;      // padded basis row in shared memory (float4 reads)
 constexpr int TR = 16;      // receivers per block
-constexpr int THREADS = H;  // thread c owns channel c
-constexpr int PF = 8;       // staged words a thread loads ahead (covers K <= 48)
+constexpr int PF = 8;       // staged words a thread loads ahead (covers K <= 48 at 128 threads)
+constexpr int kMaxHidden = 256, kMaxRbf = 64;  // ops/painn_msg.py MAX_HIDDEN, MAX_RBF
+// the basis row in shared memory at basis capacity RC: RC values, the
+// scale at RC, padded to whole float4s
+template <int RC>
+constexpr int kRowP = (RC + 1 + 3) / 4 * 4;
 constexpr float kClip = 100.f;
 constexpr float kEps = 1e-8f;
 
@@ -107,41 +117,49 @@ struct Args {
   void* s_out;          // (N, H) T
   void* v_out;          // (N, dim H) T
   int n, k, m;  // receivers, slots per receiver, source rows of packed
+  int h, r;     // hidden width, radial basis functions
 };
 
-// Shared memory (float32 words): the node phase's rows, then two receiver
-// stages of K basis rows (RP), K directions (4) and K sender rows (1).
-template <int DIM>
+// Shared memory (float32 words): the node phase's rows (hp = H rounded up
+// to 4), then two receiver stages of K basis rows (RP), K directions (4)
+// and K sender rows (1).
+template <int RC, int DIM>
 struct Smem {
-  static constexpr int kV1 = 0;                  // (TR DIM, H)  v1_d, row i * DIM + d
-  static constexpr int kTS = kV1 + TR * DIM * H;  // (TR, 2H)     ts = [s1, |vr|]
-  static constexpr int kZ = kTS + TR * 2 * H;     // (TR, H)      z
-  static constexpr int kStage = kZ + TR * H;
+  static constexpr int RP = kRowP<RC>;
+  int hp, kV1, kTS, kZ, kStage;
+  __host__ __device__ explicit Smem(int h) : hp((h + 3) / 4 * 4) {
+    kV1 = 0;                      // (TR DIM, hp)  v1_d, row i * DIM + d
+    kTS = kV1 + TR * DIM * hp;    // (TR, 2 hp)    ts = [s1, |vr|]
+    kZ = kTS + TR * 2 * hp;       // (TR, hp)      z
+    kStage = kZ + TR * hp;
+  }
   // rounded up to whole float4s, so that both stages are 16-byte aligned
   __host__ __device__ static int stage_words(int k) { return (k * (RP + 4 + 1) + 3) / 4 * 4; }
-  static int bytes(int k) { return (kStage + 2 * stage_words(k)) * 4; }
+  int bytes(int k) const { return (kStage + 2 * stage_words(k)) * 4; }
 };
 
 // Word e of a receiver's stage: its basis values, then its directions, then
 // its sender rows, in the order they lie in device memory.
-template <typename T, int DIM>
+template <typename T, int RC, int DIM>
 struct Stage {
+  static constexpr int RP = kRowP<RC>;
   const T* phi;
   const T* nd;
   const int32_t* sidx;
-  int k, words;
+  int k, r, words;
 
   __device__ float fetch(int64_t node, int e) const {
-    const int np = k * (R + 1), nn = k * DIM;
+    const int np = k * (r + 1), nn = k * DIM;
     if (e < np) return to_f(phi[node * np + e]);
     if (e < np + nn) return to_f(nd[node * nn + e - np]);
     return __int_as_float(sidx[node * k + e - np - nn]);
   }
 
   __device__ void put(float* buf, int e, float val) const {
-    const int np = k * (R + 1), nn = k * DIM;
+    const int np = k * (r + 1), nn = k * DIM;
     if (e < np) {
-      buf[(e / (R + 1)) * RP + e % (R + 1)] = val;
+      const int q = e % (r + 1);  // basis value q < r, or the scale
+      buf[(e / (r + 1)) * RP + (q < r ? q : RC)] = val;
     } else if (e < np + nn) {
       e -= np;
       buf[k * RP + (e / DIM) * 4 + e % DIM] = val;
@@ -154,68 +172,82 @@ struct Stage {
 // One sender's five (four in 2D) channel-c values: x1, x2, u_d.
 template <typename T, int DIM>
 __device__ __forceinline__ void load_sender(const T* __restrict__ packed, int row, int m, int c,
-                                            float (&g)[2 + DIM]) {
+                                            int h, float (&g)[2 + DIM]) {
   row = min(max(row, 0), m - 1);
-  const T* gr = packed + (int64_t)row * (2 + DIM) * H + c;
+  const T* gr = packed + (int64_t)row * (2 + DIM) * h + c;
 #pragma unroll
-  for (int q = 0; q < 2 + DIM; ++q) g[q] = to_f(__ldg(gr + q * H));
+  for (int q = 0; q < 2 + DIM; ++q) g[q] = to_f(__ldg(gr + q * h));
 }
 
-template <typename T, int DIM>
-__global__ void __launch_bounds__(THREADS, 3) painn_layer(const Args a) {
-  using L = Smem<DIM>;
-  constexpr int ROWS = TR * DIM;
+// EXACT: H == HT and R == RC, both compile-time constants (the shipped
+// PaiNN's H = 128, R = 20), so that no guard, runtime stride or division
+// by R + 1 costs the main path anything.
+template <typename T, int DIM, int HT, int RC, bool EXACT>
+__global__ void __launch_bounds__(HT, HT == 128 ? 3 : 1) painn_layer(const Args a) {
+  constexpr int ROWS = TR * DIM, RP = kRowP<RC>;
+  static_assert(RC % 4 == 0, "the filter loop reads float4s of basis values");
+  const int H = EXACT ? HT : a.h, R = EXACT ? RC : a.r;
+  const Smem<RC, DIM> L(H);
   extern __shared__ __align__(16) float smem[];
-  float* sV1 = smem + L::kV1;
-  float* sTS = smem + L::kTS;
-  float* sZ = smem + L::kZ;
+  float* sV1 = smem + L.kV1;
+  float* sTS = smem + L.kTS;
+  float* sZ = smem + L.kZ;
 
-  const int K = a.k;
+  const int K = a.k, HP = L.hp;
   const int c = threadIdx.x;
+  const bool active = EXACT || c < H;  // threads past H hold zeros
   const int node0 = blockIdx.x * TR;
   const int nodes = min(TR, a.n - node0);
   const T* packed = static_cast<const T*>(a.packed);
   const T* s = static_cast<const T*>(a.s);
   const T* v = static_cast<const T*>(a.v);
-  const Stage<T, DIM> stage{static_cast<const T*>(a.phi), static_cast<const T*>(a.nd), a.sidx,
-                             K, K * (R + 1 + DIM + 1)};
-  const int sw = L::stage_words(K);
+  const Stage<T, RC, DIM> stage{static_cast<const T*>(a.phi), static_cast<const T*>(a.nd),
+                                a.sidx, K, R, K * (R + 1 + DIM + 1)};
+  const int sw = L.stage_words(K);
 
-  // this channel's three filter columns and biases, for the whole tile
-  const T* fw = static_cast<const T*>(a.filt_w);
-  float f0[R], f1[R], f2[R];
-#pragma unroll
-  for (int q = 0; q < R; ++q) {
-    f0[q] = to_f(fw[q * 3 * H + c]);
-    f1[q] = to_f(fw[q * 3 * H + H + c]);
-    f2[q] = to_f(fw[q * 3 * H + 2 * H + c]);
+  // the basis rows' values past R stay 0 in both stages (never written)
+  for (int i = c; i < 2 * K * (RC - R); i += HT) {
+    const int b = i / (K * (RC - R)), j = i % (K * (RC - R));
+    smem[L.kStage + b * sw + (j / (RC - R)) * RP + R + j % (RC - R)] = 0.f;
   }
-  const float b0 = a.filt_b[c], b1 = a.filt_b[H + c], b2 = a.filt_b[2 * H + c];
+
+  // this channel's three filter columns (zero past R) and biases, for the
+  // whole tile
+  const T* fw = static_cast<const T*>(a.filt_w);
+  float f0[RC], f1[RC], f2[RC];
+#pragma unroll
+  for (int q = 0; q < RC; ++q) {
+    const bool in = EXACT || (active && q < R);
+    f0[q] = in ? to_f(fw[q * 3 * H + c]) : 0.f;
+    f1[q] = in ? to_f(fw[q * 3 * H + H + c]) : 0.f;
+    f2[q] = in ? to_f(fw[q * 3 * H + 2 * H + c]) : 0.f;
+  }
+  const float b0 = active ? a.filt_b[c] : 0.f, b1 = active ? a.filt_b[H + c] : 0.f,
+              b2 = active ? a.filt_b[2 * H + c] : 0.f;
 
   // ---- edge phase: gathers, filters, messages, K-sums, clipped residuals
   float pf[PF];  // the next receiver's stage words, loaded ahead
 #pragma unroll
   for (int u = 0; u < PF; ++u) {
-    const int e = c + u * THREADS;
+    const int e = c + u * HT;
     if (e < stage.words) pf[u] = stage.fetch(node0, e);
   }
   for (int i = 0; i < nodes; ++i) {  // uniform over the block
     const int64_t node = node0 + i;
-    float* st = smem + L::kStage + (i & 1) * sw;
+    float* st = smem + L.kStage + (i & 1) * sw;
 #pragma unroll
     for (int u = 0; u < PF; ++u) {
-      const int e = c + u * THREADS;
+      const int e = c + u * HT;
       if (e < stage.words) stage.put(st, e, pf[u]);
     }
-    for (int e = c + PF * THREADS; e < stage.words; e += THREADS)
-      stage.put(st, e, stage.fetch(node, e));
+    for (int e = c + PF * HT; e < stage.words; e += HT) stage.put(st, e, stage.fetch(node, e));
     // the stage is complete, and the buffer written next was last read
     // before the previous barrier
     __syncthreads();
     if (i + 1 < nodes) {
 #pragma unroll
       for (int u = 0; u < PF; ++u) {
-        const int e = c + u * THREADS;
+        const int e = c + u * HT;
         if (e < stage.words) pf[u] = stage.fetch(node + 1, e);
       }
     }
@@ -227,17 +259,19 @@ __global__ void __launch_bounds__(THREADS, 3) painn_layer(const Args a) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) dv[d] = 0.f;
     float gn[2 + DIM];
-    load_sender<T, DIM>(packed, sSid[0], a.m, c, gn);
+#pragma unroll
+    for (int q = 0; q < 2 + DIM; ++q) gn[q] = 0.f;
+    if (active) load_sender<T, DIM>(packed, sSid[0], a.m, c, H, gn);
 #pragma unroll 2
     for (int j = 0; j < K; ++j) {
       float g[2 + DIM];
 #pragma unroll
       for (int q = 0; q < 2 + DIM; ++q) g[q] = gn[q];
-      load_sender<T, DIM>(packed, sSid[min(j + 1, K - 1)], a.m, c, gn);
+      if (active) load_sender<T, DIM>(packed, sSid[min(j + 1, K - 1)], a.m, c, H, gn);
       const float* ph = sPhi + j * RP;
       float w0 = 0.f, w1 = 0.f, w2 = 0.f;
 #pragma unroll
-      for (int q = 0; q < R; q += 4) {
+      for (int q = 0; q < RC; q += 4) {
         const float4 p4 = *reinterpret_cast<const float4*>(ph + q);
         w0 = fmaf(p4.x, f0[q], w0);
         w1 = fmaf(p4.x, f1[q], w1);
@@ -252,7 +286,7 @@ __global__ void __launch_bounds__(THREADS, 3) painn_layer(const Args a) {
         w1 = fmaf(p4.w, f1[q + 3], w1);
         w2 = fmaf(p4.w, f2[q + 3], w2);
       }
-      const float scale = ph[R];
+      const float scale = ph[RC];
       w0 = (w0 + b0) * scale;
       w1 = (w1 + b1) * scale;
       w2 = (w2 + b2) * scale;
@@ -263,37 +297,43 @@ __global__ void __launch_bounds__(THREADS, 3) painn_layer(const Args a) {
 #pragma unroll
       for (int d = 0; d < DIM; ++d) dv[d] += ndj[d] * m1 + w2 * g[2 + d];
     }
-    sTS[i * 2 * H + c] = round_to<T>(to_f(s[node * H + c]) + clip(ds));
+    if (EXACT || c < HP) {
+      sTS[i * 2 * HP + c] = active ? round_to<T>(to_f(s[node * H + c]) + clip(ds)) : 0.f;
 #pragma unroll
-    for (int d = 0; d < DIM; ++d)
-      sV1[(i * DIM + d) * H + c] = round_to<T>(to_f(v[node * DIM * H + d * H + c]) + clip(dv[d]));
+      for (int d = 0; d < DIM; ++d)
+        sV1[(i * DIM + d) * HP + c] =
+            active ? round_to<T>(to_f(v[node * DIM * H + d * H + c]) + clip(dv[d])) : 0.f;
+    }
   }
   // rows past the last receiver stay 0 through the node phase
   for (int i = nodes; i < TR; ++i) {
-    sTS[i * 2 * H + c] = 0.f;
+    if (c < HP) {
+      sTS[i * 2 * HP + c] = 0.f;
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) sV1[(i * DIM + d) * H + c] = 0.f;
+      for (int d = 0; d < DIM; ++d) sV1[(i * DIM + d) * HP + c] = 0.f;
+    }
   }
   __syncthreads();
 
   // ---- node phase. vm = v1 @ vmix_w: thread c computes vl (column c) and
-  // vr (column H + c) of every row
+  // vr (column H + c) of every row; weights past row H read as 0
   float vl[ROWS], dot[TR];
   {
     const T* W = static_cast<const T*>(a.vmix_w);
     float vr[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) vl[r] = vr[r] = 0.f;
-    for (int kk = 0; kk < H; kk += 4) {
+    for (int kk = 0; kk < HP; kk += 4) {
       float wl[4], wr[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        wl[q] = to_f(__ldg(W + (kk + q) * 2 * H + c));
-        wr[q] = to_f(__ldg(W + (kk + q) * 2 * H + H + c));
+        const bool in = EXACT || (active && kk + q < H);
+        wl[q] = in ? to_f(__ldg(W + (kk + q) * 2 * H + c)) : 0.f;
+        wr[q] = in ? to_f(__ldg(W + (kk + q) * 2 * H + H + c)) : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(sV1 + r * H + kk);
+        const float4 x = *reinterpret_cast<const float4*>(sV1 + r * HP + kk);
         vl[r] = fmaf(x.x, wl[0], vl[r]);
         vr[r] = fmaf(x.x, wr[0], vr[r]);
         vl[r] = fmaf(x.y, wl[1], vl[r]);
@@ -313,58 +353,68 @@ __global__ void __launch_bounds__(THREADS, 3) painn_layer(const Args a) {
         dt += vr[i * DIM + d] * vl[i * DIM + d];
       }
       dot[i] = dt;
-      sTS[i * 2 * H + H + c] = round_to<T>(sqrtf(nrm + kEps));
+      if (EXACT || c < HP)
+        sTS[i * 2 * HP + HP + c] = active ? round_to<T>(sqrtf(nrm + kEps)) : 0.f;
     }
   }
   __syncthreads();
 
-  // z = silu(ts @ mix_w1 + mix_b1)
+  // z = silu(ts @ mix_w1 + mix_b1), ts = [s1, |vr|]: weight rows kk of the
+  // first half, H + kk of the second
   {
     const T* W = static_cast<const T*>(a.mix_w1);
     float z[TR];
 #pragma unroll
     for (int i = 0; i < TR; ++i) z[i] = 0.f;
-    for (int kk = 0; kk < 2 * H; kk += 4) {
-      float w[4];
+    for (int half = 0; half < 2; ++half) {
+      for (int kk = 0; kk < HP; kk += 4) {
+        float w[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = to_f(__ldg(W + (kk + q) * H + c));
+        for (int q = 0; q < 4; ++q)
+          w[q] = EXACT || (active && kk + q < H) ? to_f(__ldg(W + (half * H + kk + q) * H + c))
+                                                 : 0.f;
 #pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(sTS + i * 2 * H + kk);
-        z[i] = fmaf(x.x, w[0], z[i]);
-        z[i] = fmaf(x.y, w[1], z[i]);
-        z[i] = fmaf(x.z, w[2], z[i]);
-        z[i] = fmaf(x.w, w[3], z[i]);
+        for (int i = 0; i < TR; ++i) {
+          const float4 x = *reinterpret_cast<const float4*>(sTS + i * 2 * HP + half * HP + kk);
+          z[i] = fmaf(x.x, w[0], z[i]);
+          z[i] = fmaf(x.y, w[1], z[i]);
+          z[i] = fmaf(x.z, w[2], z[i]);
+          z[i] = fmaf(x.w, w[3], z[i]);
+        }
       }
     }
-    const float b = a.mix_b1[c];
+    const float b = active ? a.mix_b1[c] : 0.f;
+    if (EXACT || c < HP) {
 #pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const float zi = z[i] + b;
-      sZ[i * H + c] = round_to<T>(zi * (1.f / (1.f + expf(-zi))));
+      for (int i = 0; i < TR; ++i) {
+        const float zi = z[i] + b;
+        sZ[i * HP + c] = active ? round_to<T>(zi * (1.f / (1.f + expf(-zi)))) : 0.f;
+      }
     }
   }
   __syncthreads();
 
   // m = z @ mix_w2 + mix_b2: thread c computes columns c, H + c, 2H + c,
   // then the outputs of channel c
+  if (!active) return;
   {
     const T* W = static_cast<const T*>(a.mix_w2);
     float m0[TR], m1[TR], m2[TR];
 #pragma unroll
     for (int i = 0; i < TR; ++i) m0[i] = m1[i] = m2[i] = 0.f;
-    for (int kk = 0; kk < H; kk += 4) {
+    for (int kk = 0; kk < HP; kk += 4) {
       float w0[4], w1[4], w2[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
+        const bool in = EXACT || kk + q < H;
         const T* wr = W + (kk + q) * 3 * H + c;
-        w0[q] = to_f(__ldg(wr));
-        w1[q] = to_f(__ldg(wr + H));
-        w2[q] = to_f(__ldg(wr + 2 * H));
+        w0[q] = in ? to_f(__ldg(wr)) : 0.f;
+        w1[q] = in ? to_f(__ldg(wr + H)) : 0.f;
+        w2[q] = in ? to_f(__ldg(wr + 2 * H)) : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < TR; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(sZ + i * H + kk);
+        const float4 x = *reinterpret_cast<const float4*>(sZ + i * HP + kk);
         const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -382,26 +432,36 @@ __global__ void __launch_bounds__(THREADS, 3) painn_layer(const Args a) {
       if (i < nodes) {
         const int64_t node = node0 + i;
         s_out[node * H + c] =
-            from_f<T>(sTS[i * 2 * H + c] + clip((m0[i] + bs) + (m2[i] + bd) * dot[i]));
+            from_f<T>(sTS[i * 2 * HP + c] + clip((m0[i] + bs) + (m2[i] + bd) * dot[i]));
         const float dv2 = m1[i] + bv;
 #pragma unroll
         for (int d = 0; d < DIM; ++d)
           v_out[node * DIM * H + d * H + c] =
-              from_f<T>(sV1[(i * DIM + d) * H + c] + clip(vl[i * DIM + d] * dv2));
+              from_f<T>(sV1[(i * DIM + d) * HP + c] + clip(vl[i * DIM + d] * dv2));
       }
     }
   }
 }
 
-template <typename T, int DIM>
+template <typename T, int DIM, int HT, int RC, bool EXACT = false>
 int launch(const Args& a, cudaStream_t stream) {
-  const int smem = Smem<DIM>::bytes(a.k);
+  const int smem = Smem<RC, DIM>(a.h).bytes(a.k);
   if (smem > 232448) return (int)cudaErrorInvalidValue;  // K too large for one block
-  cudaError_t err = cudaFuncSetAttribute(painn_layer<T, DIM>,
+  cudaError_t err = cudaFuncSetAttribute(painn_layer<T, DIM, HT, RC, EXACT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  painn_layer<T, DIM><<<lbt::ceil_div(a.n, TR), THREADS, smem, stream>>>(a);
+  painn_layer<T, DIM, HT, RC, EXACT><<<lbt::ceil_div(a.n, TR), HT, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the instance for (H, R): 128 or 256 threads, basis capacity 20 or 64;
+// the shipped H = 128, R = 20 exactly
+template <typename T, int DIM>
+int launch_width(const Args& a, cudaStream_t stream) {
+  if (a.h == 128 && a.r == 20) return launch<T, DIM, 128, 20, true>(a, stream);
+  if (a.h <= 128)
+    return a.r <= 20 ? launch<T, DIM, 128, 20>(a, stream) : launch<T, DIM, 128, 64>(a, stream);
+  return a.r <= 20 ? launch<T, DIM, 256, 20>(a, stream) : launch<T, DIM, 256, 64>(a, stream);
 }
 
 }  // namespace
@@ -410,10 +470,12 @@ int launch(const Args& a, cudaStream_t stream) {
 //   0 packed, 1 sidx (int32), 2 phi, 3 nd, 4 s, 5 v, 6 filt_w, 7 filt_b,
 //   8 vmix_w, 9 mix_w1, 10 mix_b1, 11 mix_w2, 12 mix_b2, 13 s_out, 14 v_out.
 // Matrices and activations in the compute type (is_bf16 ? bf16 : float32),
-// biases float32. n receivers, k slots each, m >= n rows of packed.
+// biases float32. n receivers, k slots each, m >= n rows of packed; h in
+// [1, 256], r in [1, 64] (else cudaErrorInvalidValue).
 LBT_EXPORT int lbt_painn_layer(const void* const* ptrs, int n, int k, int m, int h, int r,
                                int dim, int is_bf16, cudaStream_t stream) {
-  if (h != H || r != R || n < 1 || k < 1 || m < n || (dim != 2 && dim != 3))
+  if (h < 1 || h > kMaxHidden || r < 1 || r > kMaxRbf || n < 1 || k < 1 || m < n ||
+      (dim != 2 && dim != 3))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.packed = ptrs[0];
@@ -434,6 +496,9 @@ LBT_EXPORT int lbt_painn_layer(const void* const* ptrs, int n, int k, int m, int
   a.n = n;
   a.k = k;
   a.m = m;
-  if (is_bf16) return dim == 3 ? launch<bf16, 3>(a, stream) : launch<bf16, 2>(a, stream);
-  return dim == 3 ? launch<float, 3>(a, stream) : launch<float, 2>(a, stream);
+  a.h = h;
+  a.r = r;
+  if (is_bf16)
+    return dim == 3 ? launch_width<bf16, 3>(a, stream) : launch_width<bf16, 2>(a, stream);
+  return dim == 3 ? launch_width<float, 3>(a, stream) : launch_width<float, 2>(a, stream);
 }

@@ -2,21 +2,24 @@
 for this checkout or another one.
 
     python lagrangebench_torch/experiments/mp_times.py [--tree DIR] [--label NAME]
-        [--only gns,painn,scan,k1,rollout[,segnn][,train]] [--latent 64|128]
+        [--only gns,painn,scan,k1,rollout[,segnn][,train]] [--latent F] [--hidden H]
 
 - K3 and K4 (the fused GNS message-passing step and its backward): seeded
   random inputs at the GNS rollout shape (16,000 receivers x K = 40, F =
-  ``--latent`` (128 by default; 64 is GNS-5-64's width), bf16: batch 2 x
-  8,000 particles): K3's plain step, K3's encoder-folded step (raw edge
-  features of width 4) and K4.
-- K5 (the fused PaiNN layer) at the PaiNN rollout shape (16,000 receivers
-  x K = 40, float32, H = 128, R = 20) on the dense neighbor list of a batch
+  ``--latent``, any width from 1 to 256 (128 by default; 64 is GNS-5-64's
+  width; a width that is not a multiple of 64 is timed with the wrapper's
+  padding and slicing of its tensors), bf16: batch 2 x 8,000 particles):
+  K3's plain step, K3's encoder-folded step (raw edge features of width 4)
+  and K4.
+- K5 (the fused PaiNN layer) and K6 (the message block) at the PaiNN
+  rollout shape (16,000 receivers x K = 40, float32, H = ``--hidden``, 1 to
+  256, 128 by default, R = 20) on the dense neighbor list of a batch
   of 2 of the synthetic RPF-3D-scale data that ``chip_smoke.py`` drives
   (``data.synthetic.make_synthetic_arrays``, 8,000 particles in 3D), the
   values seeded. A tree whose K5 takes the gathered rows
   ``g`` is timed as ``gather_rows(packed, sidx)`` + K5, the layer's forward
   in that tree; one whose K5 gathers itself as K5 alone. Also the fused
-  PaiNN-5-128 forward and forward + backward on those neighbors.
+  PaiNN-5-H forward and forward + backward on those neighbors.
 - K2, K9 and K7 (the column-stencil scan) on the inputs the neighbor update
   gives them on the port's own grid positions (``experiments/_setup.py``,
   8,000 particles in 3D, the second sample the first reversed): dense at
@@ -135,10 +138,10 @@ def _scan_inputs(torch, device):
     return {name: seen[name] + (real[name], getattr(nlc, f"{name}_plain")) for name in names}
 
 
-def _painn_inputs(torch, device, seed=1):
-    """K5's float32 inputs at the rollout shape: packed rows, the dense
-    senders (fill N) of a batch of 2 of the synthetic RPF-3D-scale data,
-    basis, directions, state and parameters, seeded."""
+def _painn_inputs(torch, device, seed=1, h=128):
+    """K5's float32 inputs at the rollout shape and hidden width h: packed
+    rows, the dense senders (fill N) of a batch of 2 of the synthetic
+    RPF-3D-scale data, basis, directions, state and parameters, seeded."""
     import numpy as np
 
     from lagrangebench_torch.case import case_builder
@@ -159,7 +162,7 @@ def _painn_inputs(torch, device, seed=1):
     senders = feats["senders"]
     n, k = senders.shape
     g = torch.Generator().manual_seed(seed)
-    h, r = 128, 20
+    r = 20
     mask = (senders < n).float().cpu()
     t = {"packed": torch.randn(n, (2 + DIM) * h, generator=g),
          "phi": torch.cat([torch.rand(n, k, r, generator=g),
@@ -178,15 +181,16 @@ def _painn_inputs(torch, device, seed=1):
     return feats, senders, t, p
 
 
-def _time_painn(torch, device, out):
+def _time_painn(torch, device, out, hidden=128):
     """K5 (with the gather in front of it where the tree's K5 takes the
-    gathered rows) and the fused PaiNN-5-128 forward and train step."""
+    gathered rows), K6, and the fused PaiNN-5-H forward and train step, at
+    hidden width H = ``hidden``."""
     from lagrangebench_torch.models import PaiNN
     from lagrangebench_torch.models.utils import gather_rows
     from lagrangebench_torch.ops import painn_msg
     from lagrangebench_torch.profiling import device_ms
 
-    feats, senders, t, p = _painn_inputs(torch, device)
+    feats, senders, t, p = _painn_inputs(torch, device, h=hidden)
     n, k = senders.shape
     rest = (t["phi"], t["nd"], t["s"], t["v"], p)
     gather_in = "sidx" in inspect.signature(painn_msg.painn_layer_kernel).parameters
@@ -224,8 +228,22 @@ def _time_painn(torch, device, out):
     torch.cuda.synchronize()
     out["k5_bf16_rel_l2"] = max(float((a.float() - b.float()).norm() / b.float().norm())
                                 for a, b in zip(got, want))
+    del got, want, bf, rest_bf, lead
 
-    model = PaiNN(128, 5, 20, 1.5 * 0.0725, ISL - 1, fused=True, device=device)
+    # K6 on seeded float32 rows [x, v] and filters masked like the basis
+    gen = torch.Generator().manual_seed(2)
+    g6 = torch.randn(n, k, (3 + DIM) * hidden, generator=gen).to(device)
+    wij = (torch.randn(n, k, 3 * hidden, generator=gen).to(device)
+           * (senders < n).float()[..., None]).contiguous()
+    got = painn_msg.painn_message_kernel(g6, wij, t["nd"], hidden)
+    want = painn_msg.painn_message_plain(g6, wij, t["nd"], hidden)
+    torch.cuda.synchronize()
+    out["k6_max_abs_err"] = _err(got, want)
+    out["k6_ms"] = device_ms(lambda: painn_msg.painn_message_kernel(g6, wij, t["nd"], hidden),
+                             20, 3)
+    del g6, wij, got, want
+
+    model = PaiNN(hidden, 5, 20, 1.5 * 0.0725, ISL - 1, fused=True, device=device)
     ptype = torch.zeros(n, dtype=torch.int64, device=device)
 
     def forward():
@@ -254,7 +272,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "the Trainer; not by default)")
     ap.add_argument("--latent", type=int, default=GNS_LATENT,
                     help="the latent width of the gns group's K3 and K4 inputs (a width the "
-                         "tree's kernels are compiled at: 128, or 64 from slice 15 on)")
+                         "tree's kernels take: 128, 64 from slice 15 on, 1 to 256 from "
+                         "slice 16 on)")
+    ap.add_argument("--hidden", type=int, default=128,
+                    help="the hidden width of the painn group's K5, K6 and PaiNN-5-H (128, "
+                         "the shipped width, in every tree; 1 to 256 from slice 16 on)")
     args = ap.parse_args(argv)
     groups = set(args.only.split(","))
     root = os.path.abspath(args.tree or os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -270,11 +292,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     out = {"label": args.label or root, "card": torch.cuda.get_device_name(0), "N": N, "K": K,
-           "latent": args.latent}
+           "latent": args.latent, "hidden": args.hidden}
     if "gns" in groups:
         _time_gns(fused_mp, torch, device, out, args.latent)
     if "painn" in groups:
-        _time_painn(torch, device, out)
+        _time_painn(torch, device, out, args.hidden)
     if "scan" in groups:
         _time_scans(torch, device, out)
     if "k1" in groups:
@@ -298,10 +320,17 @@ def _time_gns(fused_mp, torch, device, out, latent=None):
     plain = (t["e"], t["hs"], t["hr"], t["h"], t["mask"], p)
     folded = (t["raw"], t["hs"], t["hr"], t["h"], t["mask"], p, enc)
     bwd = (t["e"], t["hs"], t["hr"], t["h"], t["mask"], p, t["ge"], t["gh"])
+    at_true_width = getattr(fused_mp, "at_true_width", None)
+
+    def kernel(name):  # a tree without at_true_width takes only its instance widths
+        if at_true_width is None:
+            return getattr(fused_mp, name)
+        return lambda *a: at_true_width(name, *a, latent=t["hs"].shape[-1])
+
     for name, fn, ref, call in (
-        ("k3_plain", fused_mp.gns_mp_step, fused_mp.gns_mp_step_plain, plain),
-        ("k3_encoder", fused_mp.gns_mp_step, fused_mp.gns_mp_step_plain, folded),
-        ("k4", fused_mp.gns_mp_step_bwd, fused_mp.gns_mp_step_bwd_plain, bwd),
+        ("k3_plain", kernel("gns_mp_step"), fused_mp.gns_mp_step_plain, plain),
+        ("k3_encoder", kernel("gns_mp_step"), fused_mp.gns_mp_step_plain, folded),
+        ("k4", kernel("gns_mp_step_bwd"), fused_mp.gns_mp_step_bwd_plain, bwd),
     ):
         got, want = fn(*call), ref(*call)
         torch.cuda.synchronize()

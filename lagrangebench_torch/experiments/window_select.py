@@ -263,7 +263,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--latent", type=int, default=F,
-                        help="latent width F (on the card one of fused_mp.LATENTS)")
+                        help="latent width F (on the card 1 to fused_mp.MAX_LATENT)")
     args = parser.parse_args(argv or [])
     device = resolve_device(device or args.device)
     f = args.latent
@@ -289,12 +289,18 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Dict:
 
     loops = {"window": 0, "gather": 0}  # loops run, warm-up included
 
+    def window_step(*a):
+        return fused_mp.at_true_width("gns_mp_step_window", *a, latent=f)
+
+    def gather_step(*a):
+        return fused_mp.at_true_width("gns_mp_step", *a, latent=f)
+
     def window_steps():
         loops["window"] += 1
         ee, hh = e, h
         for _ in range(STEPS):
             hs_ext = hs[ext_idx_t]  # ghost-extended layout, built per step
-            ee, hh = fused_mp.gns_mp_step_window(ee, cand_t, w0s_t, wsub, hs_ext, hr, hh, p)
+            ee, hh = window_step(ee, cand_t, w0s_t, wsub, hs_ext, hr, hh, p)
         return ee, hh
 
     def gather_steps():
@@ -302,7 +308,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Dict:
         ee, hh = e, h
         for _ in range(STEPS):
             hs_g = hs[senders_t]
-            ee, hh = fused_mp.gns_mp_step(ee, hs_g, hr, hh, mask_t, p)
+            ee, hh = gather_step(ee, hs_g, hr, hh, mask_t, p)
         return ee, hh
 
     ms = {label: call_ms(fn, device, iters=REPEATS, warmup=1) / STEPS
@@ -313,10 +319,10 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Dict:
     # numerical check: one step, E2 against its plain version and against
     # the fused step (K3) on the decoded, masked gather
     hs_ext = hs[ext_idx_t]
-    e1, h1 = fused_mp.gns_mp_step_window(e, cand_t, w0s_t, wsub, hs_ext, hr, h, p)
+    e1, h1 = window_step(e, cand_t, w0s_t, wsub, hs_ext, hr, h, p)
     e2, h2 = fused_mp.gns_mp_step_window_plain(e, cand_t, w0s_t, wsub, hs_ext, hr, h, p)
     hs_g = hs[senders_t] * mask_t[..., None].to(cdt)
-    e3, h3 = fused_mp.gns_mp_step(e, hs_g, hr, h, mask_t, p)
+    e3, h3 = gather_step(e, hs_g, hr, h, mask_t, p)
 
     def diff(a, b):
         return float((a.float() - b.float()).abs().max())

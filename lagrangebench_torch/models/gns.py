@@ -12,6 +12,12 @@ raise ValueError, as the JAX package asserts):
                  e, h = K3(e, hs[senders], hr, h, mask; encoder on step 0)
     acc = MLP_1(h)   (decoder, no LayerNorm), returned as float32
 
+On the card the processor carries h and e zero-padded to the kernels'
+instance width (``fused_mp.kernel_width``: 64 ceil(F / 64)) from the node
+encoder to the decoder, with the true width F passed to every step, so
+that no step copies its edges to pad or slice them; on the CPU it runs at
+F itself.
+
 In the slot layout (features of a slot-format neighbor list, marked by
 "slot_bases") the node state lives in column-slot order, (n_ext, F): the
 particle types are gathered through ``slot_to_particle``, the encoder and
@@ -71,10 +77,9 @@ class GNS(JaxTree, nn.Module):
         particle_dimension: spatial dimensionality (2 or 3).
         node_in: node feature width (see :func:`gns_input_sizes`).
         edge_in: edge feature width (dim + 1).
-        latent_size: latent width of node/edge states; on CUDA one of
-            ``fused_mp.LATENTS`` (64 or 128, the widths the kernels are
-            compiled at; another raises ValueError at the first forward),
-            any on the CPU.
+        latent_size: latent width of node/edge states; on CUDA 1 to
+            ``fused_mp.MAX_LATENT`` (256; a wider one raises ValueError at
+            the first forward), any on the CPU.
         num_mp_steps: number of message-passing steps.
         particle_type_embedding_size: width of the type embedding.
         num_particle_types: number of particle type ids.
@@ -142,18 +147,27 @@ class GNS(JaxTree, nn.Module):
             return w
         return torch.ones(f) if "scale" in name else torch.zeros(f)
 
-    def _processor_params(self, cdt: torch.dtype):
-        """Per-step and encoder parameters in the kernel's layout, converted
-        once and reused until a parameter changes (inference: detached)."""
+    def _processor_params(self, cdt: torch.dtype, width: int):
+        """Per-step and encoder parameters in the kernel's layout at latent
+        width ``width`` (zero-padded past ``latent_size``), converted once
+        and reused until a parameter changes (inference: detached)."""
         version = tuple(p._version for p in self.parameters())
         cache = self._cast_cache
-        if cache is None or cache[0] != (cdt, version):
+        if cache is None or cache[0] != (cdt, width, version):
             with torch.no_grad():
-                steps = [fused_mp.kernel_params(dict(s), cdt) for s in self.mp_steps]
-                enc = fused_mp.kernel_params(dict(self.edge_encoder), cdt)
-            cache = ((cdt, version), steps, enc)
+                steps = [fused_mp.kernel_params(dict(s), cdt, width) for s in self.mp_steps]
+                enc = fused_mp.kernel_params(dict(self.edge_encoder), cdt, width)
+            cache = ((cdt, width, version), steps, enc)
             self._cast_cache = cache
         return cache[1], cache[2]
+
+    def _width(self, h: torch.Tensor) -> int:
+        """The width the processor carries its latents at: the kernels'
+        instance for ``latent_size`` on the card, ``latent_size`` on the
+        CPU."""
+        if h.is_cuda:
+            return fused_mp.kernel_width(self.latent_size, "fused_mp")
+        return self.latent_size
 
     def forward(self, features: Dict[str, torch.Tensor],
                 particle_type: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -173,15 +187,17 @@ class GNS(JaxTree, nn.Module):
             particle_type = particle_type[s2p.long()]
         h = self.encode_nodes(nodes, particle_type)
         if slot:
-            training, steps, enc = self._step_params()
+            f, width = self.latent_size, self._width(h)
+            h = fused_mp.pad_last(h, width)
+            training, steps, enc = self._step_params(width)
             step_fn = (fused_mp.gns_mp_step_slot_autograd if training
                        else fused_mp.gns_mp_step_slot)
             for i, p in enumerate(steps):
-                hs_proj = matmul(h, p["w_s"].to(cdt))
-                hr_proj = matmul(h, p["w_r"].to(cdt))
-                e, h = step_fn(e, senders, features["slot_bases"], hs_proj, hr_proj, h, p,
-                               enc=enc if i == 0 else None)
-            acc = self.decoder(h, cdt)[features["particle_to_slot"].long()]
+                e, h = step_fn(e, senders, features["slot_bases"], _project(h, p["w_s"], cdt),
+                               _project(h, p["w_r"], cdt), h, p,
+                               enc=enc if i == 0 else None,
+                               latent=f)
+            acc = self.decoder(h[..., :f], cdt)[features["particle_to_slot"].long()]
             return {"acc": acc.to(torch.float32)}
         mask = (senders < n).to(torch.float32)
         # padded slots (fill n) gather the last row, as a JAX gather clamps;
@@ -200,15 +216,15 @@ class GNS(JaxTree, nn.Module):
             nodes = torch.cat([nodes.to(wide), emb.to(wide)], dim=-1)
         return self.node_encoder(nodes, self.compute_dtype)
 
-    def _step_params(self):
+    def _step_params(self, width: int):
         """(training, per-step parameters, encoder parameters): in training
-        the stored parameters enter the autograd Function, which casts them
-        itself and returns gradients in their dtype; otherwise the cached
-        kernel layout."""
+        the stored parameters enter the autograd Function, which casts and
+        pads them itself and returns gradients in their dtype and shape;
+        otherwise the cached kernel layout at ``width``."""
         training = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
         if training:
             return True, [dict(s) for s in self.mp_steps], dict(self.edge_encoder)
-        return (False, *self._processor_params(self.compute_dtype))
+        return (False, *self._processor_params(self.compute_dtype, width))
 
     def process(self, h: torch.Tensor, e: torch.Tensor, sidx: torch.Tensor,
                 mask: torch.Tensor, extend=None) -> torch.Tensor:
@@ -219,19 +235,22 @@ class GNS(JaxTree, nn.Module):
         sidx (N, K) int64 rows of the gathered table; mask (N, K). With
         ``extend``, the table is ``extend(hs_proj)``, rows beyond the N
         nodes' own (spatial sharding's halo); else the N projections.
-        Returns the node state after the last step."""
+        Returns the node state after the last step, (N, F). On the card the
+        steps run on h and e zero-padded to the instance width."""
         cdt = self.compute_dtype
-        training, steps, enc = self._step_params()
+        f, width = self.latent_size, self._width(h)
+        h = fused_mp.pad_last(h, width)
+        training, steps, enc = self._step_params(width)
         step_fn = fused_mp.gns_mp_step_autograd if training else fused_mp.gns_mp_step
         for i, p in enumerate(steps):
-            hs_proj = matmul(h, p["w_s"].to(cdt))
-            hr_proj = matmul(h, p["w_r"].to(cdt))
+            hs_proj = _project(h, p["w_s"], cdt)
+            hr_proj = _project(h, p["w_r"], cdt)
             table = hs_proj if extend is None else extend(hs_proj)
             e, h = step_fn(
                 e, gather_rows(table, sidx), hr_proj, h, mask, p,
-                enc=enc if i == 0 else None,
+                enc=enc if i == 0 else None, latent=f,
             )
-        return h
+        return h if width == f else h[..., :f]
 
     # -- weights carried across from / to the JAX parameter tree -----------
 
@@ -380,6 +399,17 @@ class GNSStandard(JaxTree, nn.Module):
             out += mlp_leaves(f"MLP_{3 + 2 * i}", step["node"])
         out += mlp_leaves(f"MLP_{2 + 2 * self.num_mp_steps}", self.decoder)
         return sorted_leaves(out)
+
+
+def _project(h: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """h @ w for node latents h (N, W) zero-padded past the true width: w at
+    width W (the cached, padded kernel layout) or at the true width F (the
+    stored parameter, in training), whose product with h's first F
+    channels is zero-padded back to W."""
+    f = w.shape[0]
+    if f == h.shape[-1]:
+        return matmul(h, w.to(cdt))
+    return fused_mp.pad_last(matmul(h[..., :f], w.to(cdt)), h.shape[-1])
 
 
 def fused_params_from_standard(params: Dict, num_mp_steps: int) -> Dict:

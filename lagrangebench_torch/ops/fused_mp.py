@@ -35,10 +35,19 @@ K8 (``gns_mp_step_slot``) through the slot layout's stencil table, and E2
 window_select.py``) through three windows per 32-row sub-tile of compact,
 cell-sorted rows.
 
-Every kernel is compiled at the latent widths of ``LATENTS`` (64 and 128,
-the published GNS widths: GNS-5-64 and GNS-10-128); on a CUDA tensor any
-other width raises ``ValueError`` (``check_latent``). The plain versions,
-and so the CPU path, take any width.
+On the card the kernels take any latent width F from 1 to ``MAX_LATENT``
+(256). Each is compiled at the instance widths of ``INSTANCES`` (64, 128,
+192, 256; in bf16 the warp design at ``LATENTS``, 64 and 128, the tile
+design above): width F runs the instance ``kernel_width(F)`` = 64 ceil(F /
+64), with the tensors and weights zero-padded past F (LayerNorm scale and
+bias included, ``pad_params``) and the true F passed to the kernel, which
+takes every LayerNorm's statistics over the first F channels; the padded
+channels come out 0. On CUDA tensors a wrapper takes its tensors at the
+instance width, with ``latent`` the true width (the GNS model carries its
+latents padded through the processor); ``at_true_width`` pads tensors at
+the true width and slices the outputs. A width above ``MAX_LATENT`` raises
+``ValueError`` on a CUDA tensor. The plain versions take the same
+``latent`` argument (the padded form, on the CPU) and any width.
 """
 
 from __future__ import annotations
@@ -62,15 +71,93 @@ ENC_PARAM_NAMES = (
 _KERNEL_WEIGHTS = ("w_e", "w2", "w_nh", "w_na", "wn2")
 _KERNEL_VECTORS = ("b1", "b2", "ln1_scale", "ln1_bias", "bn1", "bn2",
                    "ln2_scale", "ln2_bias")
-LATENTS = (64, 128)  # the latent widths the kernels are compiled at
+LATENTS = (64, 128)  # the bf16 warp design's instances (GNS-5-64, GNS-10-128)
+INSTANCES = (64, 128, 192, 256)  # every instance width (bf16 tile design above 128)
+MAX_LATENT = INSTANCES[-1]
+
+
+def kernel_width(f: int, kernel: str = "fused_mp") -> int:
+    """The instance width that runs latent width ``f`` on the card, 64
+    ceil(f / 64); ``ValueError`` naming the limit for f outside [1,
+    ``MAX_LATENT``] (on the card there is no fallback to the plain
+    version)."""
+    if not 1 <= f <= MAX_LATENT:
+        raise ValueError(f"{kernel} kernel: latent width {f} not supported on CUDA; "
+                         f"the kernels take widths 1 to {MAX_LATENT}")
+    return -(-f // 64) * 64
 
 
 def check_latent(f: int, kernel: str) -> None:
-    """Raise ``ValueError`` unless the kernels are compiled at width ``f``
-    (on the card there is no fallback to the plain version)."""
-    if f not in LATENTS:
-        raise ValueError(f"{kernel} kernel: latent width {f} not supported on CUDA; "
-                         f"the kernels are compiled at widths {LATENTS}")
+    """Raise ``ValueError`` unless the kernels take latent width ``f``."""
+    kernel_width(f, kernel)
+
+
+def _instance_width(width: int, latent: int, kernel: str) -> int:
+    """The instance width of a wrapper's call on CUDA tensors ``width``
+    wide for latent width ``latent``; ``ValueError`` unless they are that
+    wide (``at_true_width`` pads tensors at the true width)."""
+    f = kernel_width(latent, kernel)
+    if width != f:
+        raise ValueError(f"{kernel} kernel: tensors {width} wide, expected the instance width "
+                         f"{f} of latent width {latent} (at_true_width pads them)")
+    return f
+
+
+def pad_last(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` zero-padded along its last axis to ``width`` (``x`` itself
+    when it is that wide); differentiable."""
+    extra = width - x.shape[-1]
+    return x if extra == 0 else torch.nn.functional.pad(x, (0, extra))
+
+
+def pad_params(p: Dict[str, torch.Tensor], width: int) -> Dict[str, torch.Tensor]:
+    """Step or encoder parameters zero-padded to latent width ``width``:
+    (F, F) matrices in both axes, ``enc_w1`` (fe, F) in its columns, the
+    (F,) vectors, LayerNorm scales and biases included, so that the padded
+    channels stay 0 through the step; differentiable."""
+    out = {}
+    for name, v in p.items():
+        if v.dim() == 2:
+            rows = v.shape[0] if name == "enc_w1" else width
+            out[name] = v if v.shape == (rows, width) else torch.nn.functional.pad(
+                v, (0, width - v.shape[1], 0, rows - v.shape[0]))
+        else:
+            out[name] = pad_last(v, width)
+    return out
+
+
+# each step wrapper's arguments at the latent width, by position (e without
+# the encoder), and the position of its encoder argument
+_WIDE_ARGS = {"gns_mp_step": ((0, 1, 2, 3), 6), "gns_mp_step_bwd": ((0, 1, 2, 3, 6, 7), None),
+              "gns_mp_step_slot": ((0, 3, 4, 5), 7), "gns_mp_step_window": ((0, 4, 5, 6), None)}
+
+
+def at_true_width(name: str, *args, latent: int):
+    """The step wrapper ``name`` (``gns_mp_step``, ``gns_mp_step_bwd``,
+    ``gns_mp_step_slot`` or ``gns_mp_step_window``) on its arguments at the
+    true latent width ``latent``: the tensors of that width zero-padded to
+    ``kernel_width(latent)``, the one width the wrappers take on CUDA
+    tensors, the parameters with them (``pad_params``), and the outputs
+    cut back to ``latent`` (K4's parameter gradients in every axis). The
+    model carries its latents padded instead (``models.gns``); the kernel
+    checks and probes call this. On CPU tensors the wrapper runs its plain
+    version, which takes any width, on the arguments as they are."""
+    f = kernel_width(latent, name)
+    wide, enc = _WIDE_ARGS[name]
+    if not args[wide[1]].is_cuda:
+        return globals()[name](*args, latent=latent)
+    raw = enc is not None and len(args) > enc and args[enc] is not None
+    args = [pad_last(a, f) if i in wide and not (i == 0 and raw)
+            else pad_params(a, f) if isinstance(a, dict) else a for i, a in enumerate(args)]
+    out = globals()[name](*args, latent=latent)
+    return tuple(o[..., :latent].contiguous() if isinstance(o, torch.Tensor)
+                 else {k: v[(slice(0, latent),) * v.dim()] for k, v in o.items()} for o in out)
+
+
+def _warp_design(cdt: torch.dtype, width: int) -> bool:
+    """Whether the instance at ``width`` runs the bf16 warp design (two
+    persistent kernels and an agg scratch) rather than the tile design."""
+    return cdt == torch.bfloat16 and width <= LATENTS[-1]
 
 
 _ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
@@ -101,12 +188,13 @@ def mp_grids(n: int, k: int, sms: int) -> Tuple[int, int]:
 
 
 def bwd_partials_floats(n: int, grid: int, bf16: bool, f: int) -> int:
-    """Floats of K4's per-block partials at latent width ``f``: float32,
-    ``grid`` blocks of the 13 gradients; bf16, the node kernel's blocks (64
-    nodes each) of the three node matrices and four node vectors, then
-    ``grid`` blocks of dW2 and the four edge vectors, then ``grid`` blocks
-    of dW_e."""
-    if not bf16:
+    """Floats of K4's per-block partials at instance width ``f``: the tile
+    design (float32, and bf16 at f > 128), ``grid`` blocks of the 13
+    gradients; the bf16 warp design, the node kernel's blocks (64 nodes
+    each) of the three node matrices and four node vectors, then ``grid``
+    blocks of dW2 and the four edge vectors, then ``grid`` blocks of
+    dW_e."""
+    if not bf16 or f > LATENTS[-1]:
         return grid * (5 * f * f + 8 * f)
     return -(-n // _NODE_BWD_ROWS) * (3 * f * f + 4 * f) + grid * (2 * f * f + 4 * f)
 
@@ -128,11 +216,21 @@ def _acc_dtype(cdt: torch.dtype) -> torch.dtype:
     return torch.float64 if cdt == torch.float64 else torch.float32
 
 
-def _layernorm(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:
-    mean = x.mean(dim=-1, keepdim=True)
-    var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
-    y = (x - mean) * torch.rsqrt(var + eps)
-    return y * scale.to(x.dtype) + bias.to(x.dtype)
+def _normalize(x: torch.Tensor, n: Optional[int] = None, eps: float = 1e-5):
+    """(xhat, inv): LayerNorm's normalized ``x`` and inverse deviation over
+    the first ``n`` channels (all by default); xhat is 0 past n."""
+    w = x.shape[-1]
+    n = w if n is None else n
+    xt = x if n == w else x[..., :n]
+    mean = xt.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(((xt - mean) ** 2).mean(dim=-1, keepdim=True) + eps)
+    return pad_last((xt - mean) * inv, w), inv
+
+
+def _layernorm(x: torch.Tensor, scale, bias, n: Optional[int] = None) -> torch.Tensor:
+    """LayerNorm over the first ``n`` channels; past n the zero-padded scale
+    and bias give 0."""
+    return _normalize(x, n)[0] * scale.to(x.dtype) + bias.to(x.dtype)
 
 
 def _dot(a: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -142,13 +240,14 @@ def _dot(a: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
 
 
 def encode_edges_plain(raw: torch.Tensor, enc: Dict[str, torch.Tensor],
-                       cdt: torch.dtype) -> torch.Tensor:
-    """Edge-encoder MLP on raw edge features: LN(relu(raw@W1+b1)@W2+b2)."""
+                       cdt: torch.dtype, latent: Optional[int] = None) -> torch.Tensor:
+    """Edge-encoder MLP on raw edge features: LN(relu(raw@W1+b1)@W2+b2),
+    the LayerNorm over the first ``latent`` channels (all by default)."""
     acc = _acc_dtype(cdt)
     x = _dot(raw, enc["enc_w1"], cdt) + enc["enc_b1"].to(acc)
     x = torch.relu(x)
     x = _dot(x, enc["enc_w2"], cdt) + enc["enc_b2"].to(acc)
-    return _layernorm(x, enc["enc_ln_scale"], enc["enc_ln_bias"]).to(cdt)
+    return _layernorm(x, enc["enc_ln_scale"], enc["enc_ln_bias"], latent).to(cdt)
 
 
 def gns_mp_step_plain(
@@ -159,29 +258,33 @@ def gns_mp_step_plain(
     mask: torch.Tensor,
     p: Dict[str, torch.Tensor],
     enc: Optional[Dict[str, torch.Tensor]] = None,
+    latent: Optional[int] = None,
 ):
     """Plain PyTorch version of the fused step (same math, same casts).
 
     e (N, K, F) edge latents, or raw (N, K, Fe) features with ``enc``;
     hs_gath (N, K, F); hr_proj (N, F); h (N, F); mask (N, K).
     Returns (e' (N, K, F), h' (N, F)) in the compute dtype of hs_gath / h.
+    With ``latent`` < F (the padded form the kernels take) every LayerNorm
+    runs over the first ``latent`` channels and the parameters are
+    zero-padded past it (``pad_params``), so the padded channels stay 0.
     """
     cdt = hs_gath.dtype
     acc = _acc_dtype(cdt)
     if enc is not None:
-        e = encode_edges_plain(e, enc, cdt)
+        e = encode_edges_plain(e, enc, cdt, latent)
     e = e.to(cdt)
     first = _dot(e, p["w_e"], cdt) + hs_gath.to(acc)
     first = first + hr_proj.to(acc)[:, None, :] + p["b1"].to(acc)
     x = _dot(torch.relu(first), p["w2"], cdt) + p["b2"].to(acc)
-    messages = _layernorm(x, p["ln1_scale"], p["ln1_bias"])
+    messages = _layernorm(x, p["ln1_scale"], p["ln1_bias"], latent)
     e_out = (e.to(acc) + messages).to(cdt)
 
     agg = torch.sum(messages * mask[..., None].to(acc), dim=1)
     node_first = _dot(h, p["w_nh"], cdt) + _dot(agg, p["w_na"], cdt)
     y = _dot(torch.relu(node_first + p["bn1"].to(acc)), p["wn2"], cdt)
     y = y + p["bn2"].to(acc)
-    h_out = h.to(acc) + _layernorm(y, p["ln2_scale"], p["ln2_bias"])
+    h_out = h.to(acc) + _layernorm(y, p["ln2_scale"], p["ln2_bias"], latent)
     return e_out, h_out.to(h.dtype)
 
 
@@ -193,22 +296,31 @@ def gns_mp_step(
     mask: torch.Tensor,
     p: Dict[str, torch.Tensor],
     enc: Optional[Dict[str, torch.Tensor]] = None,
+    latent: Optional[int] = None,
 ):
     """K3: the fused step; the CUDA kernel on CUDA tensors, else the plain
-    version. See :func:`gns_mp_step_plain` for shapes.
+    version. See :func:`gns_mp_step_plain` for shapes and ``latent`` (the
+    true width; the tensors' width F by default).
 
     On CUDA the compute dtype (of hs_gath, hr_proj, h, and e unless
-    ``enc``) is bfloat16 or float32, the latent width one of ``LATENTS``,
-    weights are (in, out) in the compute dtype and vectors float32
-    (``kernel_params`` converts a parameter dict once).
+    ``enc``) is bfloat16 or float32, weights are (in, out) in the compute
+    dtype and vectors float32 (``kernel_params`` converts a parameter dict
+    once), and ``latent`` is at most ``MAX_LATENT``. The tensors are
+    ``kernel_width(latent)`` wide, zero past ``latent``, and so are the
+    outputs; the parameters may be at either width (``at_true_width``
+    takes tensors at the true width).
     """
+    width = hs_gath.shape[-1]
+    latent = width if latent is None else latent
     if not hs_gath.is_cuda:
-        return gns_mp_step_plain(e, hs_gath, hr_proj, h, mask, p, enc)
+        return gns_mp_step_plain(e, hs_gath, hr_proj, h, mask, p, enc, latent)
     cdt = hs_gath.dtype
     if cdt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_mp kernel: compute dtype {cdt} not supported")
-    n, k, f = hs_gath.shape
-    check_latent(f, "fused_mp")
+    f = _instance_width(width, latent, "fused_mp")
+    p = pad_params(p, f)
+    enc = pad_params(enc, f) if enc is not None else None
+    n, k, _ = hs_gath.shape
     if hr_proj.shape != (n, f) or h.shape != (n, f) or mask.shape != (n, k):
         raise ValueError("fused_mp kernel: inconsistent shapes")
     if hr_proj.dtype != cdt or h.dtype != cdt:
@@ -225,33 +337,40 @@ def gns_mp_step(
 
     e_out = torch.empty((n, k, f), dtype=cdt, device=h.device)
     h_out = torch.empty_like(h)
-    params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
-    params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
-    if enc is not None:
-        fe = e.shape[-1]
-        params += [
-            _checked(enc["enc_w1"], cdt, (fe, f)),
-            _checked(enc["enc_w2"], cdt, (f, f)),
-        ] + [
-            _checked(enc[name], torch.float32, (f,))
-            for name in ("enc_b1", "enc_b2", "enc_ln_scale", "enc_ln_bias")
-        ]
-    else:
-        fe = 0
+    params, fe = _step_pointers(p, enc, cdt, f, e)
     agg = _agg_scratch(n, f, cdt, h.device)
     ptrs = [t.data_ptr() for t in tensors + [e_out, h_out] + params]
     ptrs += [0] * (28 - len(ptrs)) + [agg.data_ptr() if agg is not None else 0]
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     kernel = FUSED_MP_ENC if enc is not None else FUSED_MP
-    kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, f, int(cdt == torch.bfloat16),
+    kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, latent, int(cdt == torch.bfloat16),
            int(enc is not None), _grid_array(h.device, n, k), device=h.device)
     return e_out, h_out
 
 
+def _step_pointers(p, enc, cdt, f, e):
+    """The checked kernel-layout parameters of a forward entry, in its
+    pointer order (the five matrices, the eight vectors, then the encoder's
+    six with ``enc``), and the raw edge width fe (0 without ``enc``)."""
+    params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
+    params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
+    if enc is None:
+        return params, 0
+    fe = e.shape[-1]
+    params += [
+        _checked(enc["enc_w1"], cdt, (fe, f)),
+        _checked(enc["enc_w2"], cdt, (f, f)),
+    ] + [
+        _checked(enc[name], torch.float32, (f,))
+        for name in ("enc_b1", "enc_b2", "enc_ln_scale", "enc_ln_bias")
+    ]
+    return params, fe
+
+
 def _agg_scratch(n: int, f: int, cdt: torch.dtype, device) -> Optional[torch.Tensor]:
-    """The bf16 kernels' float32 (n, f) agg, handed from the edge kernel to
-    the node kernel; the float32 instance needs none."""
-    if cdt != torch.bfloat16:
+    """The bf16 warp design's float32 (n, f) agg, handed from the edge
+    kernel to the node kernel; the tile design needs none."""
+    if not _warp_design(cdt, f):
         return None
     return torch.empty((n, f), dtype=torch.float32, device=device)
 
@@ -267,15 +386,18 @@ def _checked(t: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
     return t
 
 
-def kernel_params(p: Dict[str, torch.Tensor], cdt: torch.dtype) -> Dict[str, torch.Tensor]:
+def kernel_params(p: Dict[str, torch.Tensor], cdt: torch.dtype,
+                  width: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """A parameter dict in the layout the kernel takes: matrices in the
     compute dtype, vectors in float32 (float64 when the compute dtype is
-    float64), all contiguous."""
+    float64), all contiguous, zero-padded to latent width ``width`` when
+    given (``pad_params``)."""
     acc = _acc_dtype(cdt)
-    return {
+    out = {
         name: (v.to(cdt) if v.dim() == 2 else v.to(acc)).detach().contiguous()
         for name, v in p.items()
     }
+    return out if width is None else pad_params(out, width)
 
 
 # ---------------------------------------------------------------------------
@@ -303,12 +425,20 @@ _BWD_REDUCE = Kernel(
 _BWD_TILE = 16  # receivers per tile of the float32 backward kernel
 
 
-def _ln_bwd(dy, xhat, inv, scale):
-    """LayerNorm input gradient from the normalized activations."""
+def _ln_bwd(dy, xhat, inv, scale, n=None):
+    """LayerNorm input gradient from the normalized activations, over the
+    first ``n`` channels (all by default; 0 past n)."""
     dxhat = dy * scale
+    w = dy.shape[-1]
+    n = w if n is None else n
+    if n == w:
+        mean1 = dxhat.mean(dim=-1, keepdim=True)
+        mean2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+        return inv * (dxhat - mean1 - xhat * mean2)
+    dxhat, xhat = dxhat[..., :n], xhat[..., :n]
     mean1 = dxhat.mean(dim=-1, keepdim=True)
     mean2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
-    return inv * (dxhat - mean1 - xhat * mean2)
+    return pad_last(inv * (dxhat - mean1 - xhat * mean2), w)
 
 
 def _dot_t(a, w, acc):
@@ -331,6 +461,9 @@ def gns_mp_step_bwd_plain(
     p: Dict[str, torch.Tensor],
     ge: torch.Tensor,
     gh: torch.Tensor,
+    latent: Optional[int] = None,
+    aggc: Optional[torch.Tensor] = None,
+    relu_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """Plain PyTorch version of K4: the backward of one (non-encoder) step.
 
@@ -344,11 +477,17 @@ def gns_mp_step_bwd_plain(
     ``ge`` (N, K, F) and ``gh`` (N, F) are the cotangents of e' and h'.
     Returns (de, dhs, dhr, dh, dp): de and dhs (N, K, F), dhr and dh (N, F)
     in the compute dtype, and ``dp`` the 13 parameter gradients of
-    ``BWD_PARAM_ORDER`` in the accumulation dtype.
+    ``BWD_PARAM_ORDER`` in the accumulation dtype. ``latent`` as in
+    :func:`gns_mp_step_plain`.
+
+    For checks that resolve ties as the kernel resolved them: ``aggc``
+    (N, F) is the rounded agg to use in place of this version's own
+    rounding of its sum (the kernel's ``agg_out``, rounded), and
+    ``relu_masks`` the derivatives (first > 0, node_first > 0), (N, K, F)
+    and (N, F) bool, to use in place of this version's.
     """
     cdt = e.dtype
     acc = _acc_dtype(cdt)
-    eps = 1e-5
 
     def vec(name):
         return p[name].to(acc)
@@ -359,31 +498,28 @@ def gns_mp_step_bwd_plain(
     r1 = torch.relu(first)
     r1c = r1.to(cdt)
     x1 = _dot(r1c, p["w2"], cdt) + vec("b2")
-    mu1 = x1.mean(dim=-1, keepdim=True)
-    inv1 = torch.rsqrt(((x1 - mu1) ** 2).mean(dim=-1, keepdim=True) + eps)
-    xhat1 = (x1 - mu1) * inv1
+    xhat1, inv1 = _normalize(x1, latent)
     m = xhat1 * vec("ln1_scale") + vec("ln1_bias")
     maskf = mask.to(acc)[..., None]
-    aggc = torch.sum(m * maskf, dim=1).to(cdt)
+    aggc = torch.sum(m * maskf, dim=1).to(cdt) if aggc is None else aggc.to(cdt)
 
     nf = _dot(h, p["w_nh"], cdt) + _dot(aggc, p["w_na"], cdt) + vec("bn1")
     r2 = torch.relu(nf)
     r2c = r2.to(cdt)
     y1 = _dot(r2c, p["wn2"], cdt) + vec("bn2")
-    mu2 = y1.mean(dim=-1, keepdim=True)
-    inv2 = torch.rsqrt(((y1 - mu2) ** 2).mean(dim=-1, keepdim=True) + eps)
-    xhat2 = (y1 - mu2) * inv2
+    xhat2, inv2 = _normalize(y1, latent)
 
     dp = {}
     # node-path backward
     ghf = gh.to(acc)
     dp["ln2_scale"] = torch.sum(ghf * xhat2, dim=0)
     dp["ln2_bias"] = torch.sum(ghf, dim=0)
-    dy1 = _ln_bwd(ghf, xhat2, inv2, vec("ln2_scale"))
+    dy1 = _ln_bwd(ghf, xhat2, inv2, vec("ln2_scale"), latent)
     dy1c = dy1.to(cdt)
     dp["wn2"] = _dot_g(r2c, dy1c, acc)
     dp["bn2"] = torch.sum(dy1, dim=0)
-    dnf = _dot_t(dy1c, p["wn2"].to(cdt), acc) * (r2 > 0)
+    r1_on, r2_on = (r1 > 0, r2 > 0) if relu_masks is None else relu_masks
+    dnf = _dot_t(dy1c, p["wn2"].to(cdt), acc) * r2_on
     dnfc = dnf.to(cdt)
     dp["w_nh"] = _dot_g(h.to(cdt), dnfc, acc)
     dp["w_na"] = _dot_g(aggc, dnfc, acc)
@@ -395,11 +531,11 @@ def gns_mp_step_bwd_plain(
     dm = ge.to(acc) + dagg[:, None, :] * maskf
     dp["ln1_scale"] = torch.sum(dm * xhat1, dim=(0, 1))
     dp["ln1_bias"] = torch.sum(dm, dim=(0, 1))
-    dx1 = _ln_bwd(dm, xhat1, inv1, vec("ln1_scale"))
+    dx1 = _ln_bwd(dm, xhat1, inv1, vec("ln1_scale"), latent)
     dx1c = dx1.to(cdt)
     dp["w2"] = _dot_g(r1c, dx1c, acc)
     dp["b2"] = torch.sum(dx1, dim=(0, 1))
-    dfirst = _dot_t(dx1c, p["w2"].to(cdt), acc) * (r1 > 0)
+    dfirst = _dot_t(dx1c, p["w2"].to(cdt), acc) * r1_on
     dfirstc = dfirst.to(cdt)
     dp["w_e"] = _dot_g(e, dfirstc, acc)
     dp["b1"] = torch.sum(dfirst, dim=(0, 1))
@@ -417,24 +553,34 @@ def gns_mp_step_bwd(
     p: Dict[str, torch.Tensor],
     ge: torch.Tensor,
     gh: torch.Tensor,
+    latent: Optional[int] = None,
+    agg_out: Optional[torch.Tensor] = None,
 ):
     """K4: the backward kernel on CUDA tensors, else the plain version. See
-    :func:`gns_mp_step_bwd_plain` for shapes and returns.
+    :func:`gns_mp_step_bwd_plain` for shapes and returns. ``agg_out``, a
+    float32 (N, F) CUDA tensor at the tensors' width, receives the step's
+    agg as the kernel summed it (for checks; the plain version leaves it).
 
     On CUDA the compute dtype (of e, hs_gath, hr_proj, h, ge, gh) is
-    bfloat16 or float32, the latent width one of ``LATENTS``, and ``p`` is
-    in the kernel's layout (``kernel_params``). The weight gradients are summed without
+    bfloat16 or float32, ``p`` is in the kernel's layout (``kernel_params``)
+    at the true or the instance width, and the tensors are at the instance
+    width, as :func:`gns_mp_step` takes them; the parameter gradients come
+    back at the width of ``p``. The weight gradients are summed without
     atomics: each block adds its rows into its own float32 partials, once
     per launch, and a last launch sums the partials in block order, so two
     calls on the same inputs give the same bits.
     """
+    width = e.shape[-1]
+    latent = width if latent is None else latent
     if not e.is_cuda:
-        return gns_mp_step_bwd_plain(e, hs_gath, hr_proj, h, mask, p, ge, gh)
+        return gns_mp_step_bwd_plain(e, hs_gath, hr_proj, h, mask, p, ge, gh, latent)
     cdt = e.dtype
     if cdt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_mp_bwd kernel: compute dtype {cdt} not supported")
-    n, k, f = e.shape
-    check_latent(f, "fused_mp_bwd")
+    f = _instance_width(width, latent, "fused_mp_bwd")
+    given = p["w_e"].shape[0]
+    p = pad_params(p, f)
+    n, k, _ = e.shape
     if hs_gath.shape != (n, k, f) or ge.shape != (n, k, f) or mask.shape != (n, k):
         raise ValueError("fused_mp_bwd kernel: inconsistent edge shapes")
     if hr_proj.shape != (n, f) or h.shape != (n, f) or gh.shape != (n, f):
@@ -452,24 +598,33 @@ def gns_mp_step_bwd(
     dh = torch.empty_like(h)
     params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
     params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
-    bf16 = cdt == torch.bfloat16
+    warp = _warp_design(cdt, f)
     sms = _sms(e.device)
-    grid = mp_grids(n, k, sms)[0] if bf16 else min(-(-n // _BWD_TILE), sms)
+    grid = mp_grids(n, k, sms)[0] if warp else min(-(-n // _BWD_TILE), sms)
     per_block = len(_KERNEL_WEIGHTS) * f * f + len(_KERNEL_VECTORS) * f
-    partials = torch.empty((bwd_partials_floats(n, grid, bf16, f),), dtype=torch.float32,
+    partials = torch.empty((bwd_partials_floats(n, grid, warp, f),), dtype=torch.float32,
                            device=e.device)
-    scratch = torch.empty((2 * n if bf16 else 1, f), dtype=torch.float32, device=e.device)
+    scratch = torch.empty((2 * n if warp else 1, f), dtype=torch.float32, device=e.device)
     grads = torch.empty((per_block,), dtype=torch.float32, device=e.device)
+    if agg_out is not None:
+        _checked(agg_out, torch.float32, (n, f))
     ptrs = [t.data_ptr() for t in tensors + [de, dhs, dhr, dh] + params + [partials, scratch]]
+    ptrs.append(agg_out.data_ptr() if agg_out is not None and not warp else 0)
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, f, int(bf16), grid, device=e.device)
+    bf16 = int(cdt == torch.bfloat16)
+    FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, latent, bf16, grid, device=e.device)
+    if agg_out is not None and warp:  # the warp design's agg scratch
+        agg_out.copy_(scratch[:n])
     _BWD_REDUCE(ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(grads.data_ptr()),
-                n, f, int(bf16), grid, device=e.device)
+                n, latent, bf16, grid, device=e.device)
     dp, at = {}, 0
     for name in _BWD_GRAD_SLOTS:
-        size = f * f if name in _KERNEL_WEIGHTS else f
-        dp[name] = grads[at:at + size].view(p[name].shape)
-        at += size
+        if name in _KERNEL_WEIGHTS:
+            dp[name] = grads[at:at + f * f].view(f, f)[:given, :given]
+            at += f * f
+        else:
+            dp[name] = grads[at:at + f][:given]
+            at += f
     return de, dhs, dhr, dh, dp
 
 
@@ -477,30 +632,32 @@ class _MPStepFunction(torch.autograd.Function):
     """K3 forward and K4 backward of one step, as the JAX package's
     ``_gns_mp_step_vjp``.
 
-    Inputs: ``has_enc``, e (or raw edge features with the encoder),
-    hs_gath, hr_proj, h, mask, then the 13 parameters of
-    ``BWD_PARAM_ORDER`` (and the 6 of ``ENC_PARAM_NAMES`` with the
-    encoder) as stored, e.g. float32. They are cast to the kernel's layout
-    here, inside the Function, so their gradients come back in their own
-    dtype without passing through the compute dtype. The residuals are
+    Inputs: ``has_enc``, ``latent`` (the true width), e (or raw edge
+    features with the encoder), hs_gath, hr_proj, h, mask, then the 13
+    parameters of ``BWD_PARAM_ORDER`` (and the 6 of ``ENC_PARAM_NAMES``
+    with the encoder) as stored, e.g. float32, at the true width. They are
+    cast to the kernel's layout and zero-padded to the tensors' width here,
+    inside the Function, so their gradients come back in their own dtype
+    and shape without passing through the compute dtype. The residuals are
     the inputs; the backward rematerializes the forward. The mask gets no
     gradient.
     """
 
     @staticmethod
-    def forward(ctx, has_enc, e, hs_gath, hr_proj, h, mask, *params):
-        cdt = hs_gath.dtype
-        p = kernel_params(dict(zip(BWD_PARAM_ORDER, params)), cdt)
-        enc = kernel_params(dict(zip(ENC_PARAM_NAMES, params[13:])), cdt) if has_enc else None
-        ctx.has_enc = has_enc
+    def forward(ctx, has_enc, latent, e, hs_gath, hr_proj, h, mask, *params):
+        cdt, width = hs_gath.dtype, hs_gath.shape[-1]
+        p = kernel_params(dict(zip(BWD_PARAM_ORDER, params)), cdt, width)
+        enc = (kernel_params(dict(zip(ENC_PARAM_NAMES, params[13:])), cdt, width)
+               if has_enc else None)
+        ctx.has_enc, ctx.latent = has_enc, latent
         ctx.save_for_backward(e, hs_gath, hr_proj, h, mask, *params)
-        return gns_mp_step(e, hs_gath, hr_proj, h, mask, p, enc)
+        return gns_mp_step(e, hs_gath, hr_proj, h, mask, p, enc, latent=latent)
 
     @staticmethod
     def backward(ctx, ge, gh):
         e, hs_gath, hr_proj, h, mask, *params = ctx.saved_tensors
-        cdt = hs_gath.dtype
-        p = kernel_params(dict(zip(BWD_PARAM_ORDER, params)), cdt)
+        cdt, width, latent = hs_gath.dtype, hs_gath.shape[-1], ctx.latent
+        p = kernel_params(dict(zip(BWD_PARAM_ORDER, params)), cdt, width)
         ge, gh = ge.contiguous(), gh.contiguous()
         enc_grads = []
         if ctx.has_enc:
@@ -508,19 +665,28 @@ class _MPStepFunction(torch.autograd.Function):
             # rematerialize the encoded edges (JAX: jax.vjp of the mirror)
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_() for t in params[13:]]
-                raw = e.detach().requires_grad_(ctx.needs_input_grad[1])
+                raw = e.detach().requires_grad_(ctx.needs_input_grad[2])
                 e_enc = encode_edges_plain(raw, dict(zip(ENC_PARAM_NAMES, leaves)), cdt)
             de, dhs, dhr, dh, dp = gns_mp_step_bwd(
-                e_enc.detach().contiguous(), hs_gath, hr_proj, h, mask, p, ge, gh
+                pad_last(e_enc.detach(), width).contiguous(), hs_gath, hr_proj, h, mask, p,
+                ge, gh, latent=latent
             )
             inputs = leaves + ([raw] if raw.requires_grad else [])
-            grads = torch.autograd.grad(e_enc, inputs, de.to(e_enc.dtype))
+            grads = torch.autograd.grad(e_enc, inputs,
+                                        de[..., :e_enc.shape[-1]].to(e_enc.dtype))
             enc_grads = list(grads[:len(leaves)])
             de = grads[len(leaves)] if raw.requires_grad else None
         else:
-            de, dhs, dhr, dh, dp = gns_mp_step_bwd(e, hs_gath, hr_proj, h, mask, p, ge, gh)
-        pgrads = [dp[name].to(t.dtype) for name, t in zip(BWD_PARAM_ORDER, params)]
-        return (None, de, dhs, dhr, dh, None, *pgrads, *enc_grads)
+            de, dhs, dhr, dh, dp = gns_mp_step_bwd(e, hs_gath, hr_proj, h, mask, p, ge, gh,
+                                                   latent=latent)
+        pgrads = [_sliced(dp[name], t.shape).to(t.dtype)
+                  for name, t in zip(BWD_PARAM_ORDER, params)]
+        return (None, None, de, dhs, dhr, dh, None, *pgrads, *enc_grads)
+
+
+def _sliced(g: torch.Tensor, shape) -> torch.Tensor:
+    """A padded parameter's gradient cut back to the parameter's shape."""
+    return g[tuple(slice(0, d) for d in shape)]
 
 
 def gns_mp_step_autograd(
@@ -531,16 +697,21 @@ def gns_mp_step_autograd(
     mask: torch.Tensor,
     p: Dict[str, torch.Tensor],
     enc: Optional[Dict[str, torch.Tensor]] = None,
+    latent: Optional[int] = None,
 ):
     """The fused step, differentiable: K3 forward, K4 backward (the plain
     versions on CPU tensors). ``p`` and ``enc`` hold the parameters as
     stored (any of ``PARAM_NAMES``; ``w_s``/``w_r`` are applied outside and
-    ignored here). Returns (e', h') as :func:`gns_mp_step` does."""
+    ignored here) at the true width ``latent`` (the tensors' width by
+    default), the tensors zero-padded to the instance width
+    ``kernel_width(latent)`` (on the CPU also at the true width). Returns
+    (e', h') as :func:`gns_mp_step` does."""
     params = [p[name] for name in BWD_PARAM_ORDER]
     if enc is not None:
         params += [enc[name] for name in ENC_PARAM_NAMES]
     mask = mask if mask.dtype == torch.float32 else mask.to(torch.float32)
-    return _MPStepFunction.apply(enc is not None, e, hs_gath, hr_proj, h, mask, *params)
+    latent = hs_gath.shape[-1] if latent is None else latent
+    return _MPStepFunction.apply(enc is not None, latent, e, hs_gath, hr_proj, h, mask, *params)
 
 
 # ---------------------------------------------------------------------------
@@ -593,12 +764,14 @@ def slot_gather_plain(hs_ext: torch.Tensor, cand: torch.Tensor, bases: torch.Ten
     return torch.where(mask[..., None], hs_ext[rows], 0).to(hs_ext.dtype)
 
 
-def gns_mp_step_slot_plain(e, cand, bases, hs_ext, hr, h, p, enc=None):
+def gns_mp_step_slot_plain(e, cand, bases, hs_ext, hr, h, p, enc=None, latent=None):
     """Plain PyTorch version of K8: the fused step with the sender rows
     selected through the stencil table and the mask ``cand < S*C``
-    (``gns_mp_step_slot_reference``)."""
+    (``gns_mp_step_slot_reference``); ``latent`` as in
+    :func:`gns_mp_step_plain`."""
     mask = slot_sender_rows(cand, bases)[1]
-    return gns_mp_step_plain(e, slot_gather_plain(hs_ext, cand, bases), hr, h, mask, p, enc)
+    return gns_mp_step_plain(e, slot_gather_plain(hs_ext, cand, bases), hr, h, mask, p, enc,
+                             latent)
 
 
 def gns_mp_step_slot(
@@ -610,6 +783,7 @@ def gns_mp_step_slot(
     h: torch.Tensor,
     p: Dict[str, torch.Tensor],
     enc: Optional[Dict[str, torch.Tensor]] = None,
+    latent: Optional[int] = None,
 ):
     """K8: the fused step in column-slot order; the CUDA kernel on CUDA
     tensors, else the plain version.
@@ -618,18 +792,22 @@ def gns_mp_step_slot(
     cand (n_ext, K) int32 stencil-candidate ids (fill S*C), bases (n_cols,
     S) int32, hs_ext / hr / h (n_ext, F) with n_ext = (n_cols+1)*C. The
     kernel reads each edge's sender row of ``hs_ext`` itself: no (n_ext, K,
-    F) gathered tensor exists. On CUDA the dtypes and parameters are those
-    of :func:`gns_mp_step`.
+    F) gathered tensor exists. On CUDA the dtypes, parameters and widths
+    are those of :func:`gns_mp_step`.
     """
+    width = hs_ext.shape[-1]
+    latent = width if latent is None else latent
     if not hs_ext.is_cuda:
-        return gns_mp_step_slot_plain(e, cand, bases, hs_ext, hr, h, p, enc)
+        return gns_mp_step_slot_plain(e, cand, bases, hs_ext, hr, h, p, enc, latent)
     cdt = hs_ext.dtype
     if cdt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_mp_slot kernel: compute dtype {cdt} not supported")
-    n, f = hs_ext.shape
+    f = _instance_width(width, latent, "fused_mp_slot")
+    p = pad_params(p, f)
+    enc = pad_params(enc, f) if enc is not None else None
+    n = hs_ext.shape[0]
     k = cand.shape[-1]
     n_cols, s = bases.shape
-    check_latent(f, "fused_mp_slot")
     if n % (n_cols + 1) or cand.shape != (n, k) or hr.shape != (n, f) or h.shape != (n, f):
         raise ValueError("fused_mp_slot kernel: inconsistent shapes")
     if cand.dtype != torch.int32 or bases.dtype != torch.int32:
@@ -649,18 +827,7 @@ def gns_mp_step_slot(
 
     e_out = torch.empty((n, k, f), dtype=cdt, device=h.device)
     h_out = torch.empty_like(h)
-    params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
-    params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
-    fe = 0
-    if enc is not None:
-        fe = e.shape[-1]
-        params += [
-            _checked(enc["enc_w1"], cdt, (fe, f)),
-            _checked(enc["enc_w2"], cdt, (f, f)),
-        ] + [
-            _checked(enc[name], torch.float32, (f,))
-            for name in ("enc_b1", "enc_b2", "enc_ln_scale", "enc_ln_bias")
-        ]
+    params, fe = _step_pointers(p, enc, cdt, f, e)
     ptrs = [t.data_ptr() for t in (e, hs_ext, hr, h)] + [0]  # slot 4 (mask) unused
     ptrs += [e_out.data_ptr(), h_out.data_ptr()] + [t.data_ptr() for t in params]
     agg = _agg_scratch(n, f, cdt, h.device)
@@ -668,7 +835,7 @@ def gns_mp_step_slot(
     ptrs += [agg.data_ptr() if agg is not None else 0]
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     kernel = FUSED_MP_SLOT_ENC if enc is not None else FUSED_MP_SLOT
-    kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, f, int(cdt == torch.bfloat16),
+    kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, latent, int(cdt == torch.bfloat16),
            int(enc is not None), c, s, _grid_array(h.device, n, k), device=h.device)
     return e_out, h_out
 
@@ -679,57 +846,62 @@ class _SlotStepFunction(torch.autograd.Function):
     ``_gns_mp_slot_vjp`` differentiates ``gns_mp_step_slot_reference`` (no
     backward kernel: the JAX package has none for this step).
 
-    Inputs: ``has_enc``, e (or raw edge features), cand, bases, hs_ext, hr,
-    h, then the parameters as in ``_MPStepFunction``, cast to the kernel's
-    layout inside. In the backward the products sum in float32 (float64 in
-    float64), and the sender rows' gradient is summed in float32 by
+    Inputs: ``has_enc``, ``latent``, e (or raw edge features), cand, bases,
+    hs_ext, hr, h, then the parameters as in ``_MPStepFunction``, cast to
+    the kernel's layout and padded to the tensors' width inside. In the
+    backward the products sum in float32 (float64 in float64), and the
+    sender rows' gradient is summed in float32 by
     ``models.utils.gather_rows`` (PyTorch's bf16 ``index_put_`` backward is
     orders of magnitude slower on CUDA).
     """
 
     @staticmethod
-    def forward(ctx, has_enc, e, cand, bases, hs_ext, hr, h, *params):
-        cdt = hs_ext.dtype
-        p = kernel_params(dict(zip(BWD_PARAM_ORDER, params)), cdt)
-        enc = kernel_params(dict(zip(ENC_PARAM_NAMES, params[13:])), cdt) if has_enc else None
-        ctx.has_enc = has_enc
+    def forward(ctx, has_enc, latent, e, cand, bases, hs_ext, hr, h, *params):
+        cdt, width = hs_ext.dtype, hs_ext.shape[-1]
+        p = kernel_params(dict(zip(BWD_PARAM_ORDER, params)), cdt, width)
+        enc = (kernel_params(dict(zip(ENC_PARAM_NAMES, params[13:])), cdt, width)
+               if has_enc else None)
+        ctx.has_enc, ctx.latent = has_enc, latent
         ctx.save_for_backward(e, cand, bases, hs_ext, hr, h, *params)
-        return gns_mp_step_slot(e, cand, bases, hs_ext, hr, h, p, enc)
+        return gns_mp_step_slot(e, cand, bases, hs_ext, hr, h, p, enc, latent=latent)
 
     @staticmethod
     def backward(ctx, ge, gh):
         from ..models.utils import gather_rows
 
         e, cand, bases, hs_ext, hr, h, *params = ctx.saved_tensors
-        cdt = hs_ext.dtype
+        cdt, width = hs_ext.dtype, hs_ext.shape[-1]
         acc = _acc_dtype(cdt)
         needs = ctx.needs_input_grad
         with torch.enable_grad():
             e_, hs_, hr_, h_ = (t.detach().requires_grad_(needs[i])
-                                for i, t in ((1, e), (4, hs_ext), (5, hr), (6, h)))
+                                for i, t in ((2, e), (5, hs_ext), (6, hr), (7, h)))
             leaves = [t.detach().requires_grad_() for t in params]
             cast = [v.to(cdt) if v.dim() == 2 else v.to(acc) for v in leaves]
-            p = dict(zip(BWD_PARAM_ORDER, cast))
-            enc = dict(zip(ENC_PARAM_NAMES, cast[13:])) if ctx.has_enc else None
+            p = pad_params(dict(zip(BWD_PARAM_ORDER, cast)), width)
+            enc = (pad_params(dict(zip(ENC_PARAM_NAMES, cast[13:])), width)
+                   if ctx.has_enc else None)
             rows, mask = slot_sender_rows(cand, bases)
             hs_gath = torch.where(mask[..., None], gather_rows(hs_, rows), 0).to(cdt)
-            outs = gns_mp_step_plain(e_, hs_gath, hr_, h_, mask, p, enc)
+            outs = gns_mp_step_plain(e_, hs_gath, hr_, h_, mask, p, enc, ctx.latent)
             inputs = [t for t in (e_, hs_, hr_, h_) if t.requires_grad] + leaves
             grads = list(torch.autograd.grad(outs, inputs, (ge, gh), allow_unused=True))
         node = [grads.pop(0) if t.requires_grad else None for t in (e_, hs_, hr_, h_)]
         pgrads = [torch.zeros_like(t) if g is None else g.to(t.dtype)
                   for g, t in zip(grads, params)]
-        return (None, node[0], None, None, node[1], node[2], node[3], *pgrads)
+        return (None, None, node[0], None, None, node[1], node[2], node[3], *pgrads)
 
 
-def gns_mp_step_slot_autograd(e, cand, bases, hs_ext, hr, h, p, enc=None):
-    """K8, differentiable (the backward through the plain version); ``p``
-    and ``enc`` as :func:`gns_mp_step_autograd` takes them. Returns (e', h')
-    as :func:`gns_mp_step_slot` does."""
+def gns_mp_step_slot_autograd(e, cand, bases, hs_ext, hr, h, p, enc=None, latent=None):
+    """K8, differentiable (the backward through the plain version); ``p``,
+    ``enc`` and ``latent`` as :func:`gns_mp_step_autograd` takes them.
+    Returns (e', h') as :func:`gns_mp_step_slot` does."""
     params = [p[name] for name in BWD_PARAM_ORDER]
     if enc is not None:
         params += [enc[name] for name in ENC_PARAM_NAMES]
-    return _SlotStepFunction.apply(enc is not None, e, cand, bases, hs_ext, hr, h, *params)
+    latent = hs_ext.shape[-1] if latent is None else latent
+    return _SlotStepFunction.apply(enc is not None, latent, e, cand, bases, hs_ext, hr, h,
+                                   *params)
 
 
 # ---------------------------------------------------------------------------
@@ -763,13 +935,13 @@ def window_sender_rows(cand: torch.Tensor, w0s: torch.Tensor, wsub: int,
     return torch.where(mask, rows, 0), mask
 
 
-def gns_mp_step_window_plain(e, cand, w0s, wsub, hs_ext, hr, h, p):
+def gns_mp_step_window_plain(e, cand, w0s, wsub, hs_ext, hr, h, p, latent=None):
     """Plain PyTorch version of E2: the sender rows of ``hs_ext`` decoded
     through the windows (zeros on padded slots), then the fused step with
-    the mask ``cand < 3 wsub``."""
+    the mask ``cand < 3 wsub``; ``latent`` as in :func:`gns_mp_step_plain`."""
     rows, mask = window_sender_rows(cand, w0s, wsub)
     hs_gath = torch.where(mask[..., None], hs_ext[rows], 0).to(hs_ext.dtype)
-    return gns_mp_step_plain(e, hs_gath, hr, h, mask, p)
+    return gns_mp_step_plain(e, hs_gath, hr, h, mask, p, latent=latent)
 
 
 def gns_mp_step_window(
@@ -781,6 +953,7 @@ def gns_mp_step_window(
     hr: torch.Tensor,
     h: torch.Tensor,
     p: Dict[str, torch.Tensor],
+    latent: Optional[int] = None,
 ):
     """E2: the fused step with each edge's sender row selected through the
     sub-tile windows; the CUDA kernel on CUDA tensors, else the plain
@@ -790,17 +963,19 @@ def gns_mp_step_window(
     ids (fill 3 wsub), w0s (n_rows // 128, 4, 3) int32 window starts in
     8-row units of the 32-row sub-tiles of 128-row tiles, hs_ext (n_ext, F) the ghost-extended sender projection, hr
     and h (n_rows, F). The kernel reads each edge's sender row of
-    ``hs_ext`` itself. On CUDA the dtypes and parameters are those of
-    :func:`gns_mp_step`; there is no encoder-folded instance.
+    ``hs_ext`` itself. On CUDA the dtypes, parameters and widths are those
+    of :func:`gns_mp_step`; there is no encoder-folded instance.
     """
+    width = hs_ext.shape[-1]
+    latent = width if latent is None else latent
     if not hs_ext.is_cuda:
-        return gns_mp_step_window_plain(e, cand, w0s, wsub, hs_ext, hr, h, p)
+        return gns_mp_step_window_plain(e, cand, w0s, wsub, hs_ext, hr, h, p, latent)
     cdt = hs_ext.dtype
     if cdt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_mp_window kernel: compute dtype {cdt} not supported")
+    f = _instance_width(width, latent, "fused_mp_window")
+    p = pad_params(p, f)
     n, k = cand.shape
-    f = hs_ext.shape[1]
-    check_latent(f, "fused_mp_window")
     t, sub = WINDOW_TILE, WINDOW_SUB
     if n % t or w0s.shape != (n // t, t // sub, 3):
         raise ValueError("fused_mp_window kernel: inconsistent tiles or window table")
@@ -824,6 +999,7 @@ def gns_mp_step_window(
     ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), w0s.data_ptr()]
     ptrs += [agg.data_ptr() if agg is not None else 0]
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
-    FUSED_MP_WINDOW(ctypes.cast(arr, ctypes.c_void_p), n, k, f, int(cdt == torch.bfloat16),
-                    t, sub, int(wsub), _grid_array(h.device, n, k), device=h.device)
+    FUSED_MP_WINDOW(ctypes.cast(arr, ctypes.c_void_p), n, k, latent,
+                    int(cdt == torch.bfloat16), t, sub, int(wsub), _grid_array(h.device, n, k),
+                    device=h.device)
     return e_out, h_out

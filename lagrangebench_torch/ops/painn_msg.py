@@ -37,6 +37,11 @@ returns ``torch.autograd.grad`` of it: the reference's own design
 through the pure-JAX mirror), not a fallback; K5's carries the gradient of
 ``packed`` through the gather with ``models.utils.gather_rows`` (a float32
 ``index_add_``). Neither TPU kernel has a backward kernel.
+
+On the card K6 takes any channel width H and K5 any H up to
+``MAX_HIDDEN`` (256) and radial-basis width R up to ``MAX_RBF`` (64); a
+wider K5 layer raises ``ValueError`` naming the limit. The plain versions,
+and so the CPU path, take any width.
 """
 
 from __future__ import annotations
@@ -48,8 +53,8 @@ import torch
 
 from .build import Kernel
 
-HIDDEN = 128  # the kernels' compiled channel width
-N_RBF = 20  # K5's compiled radial-basis width (``build_painn``'s 20)
+MAX_HIDDEN = 256  # K5's widest channel width (256 threads, one per channel)
+MAX_RBF = 64  # K5's widest radial basis (its filter columns live in registers)
 
 LAYER_PARAM_NAMES = ("filt_w", "filt_b", "vmix_w", "mix_w1", "mix_b1",
                      "mix_w2", "mix_b2")
@@ -198,20 +203,29 @@ def _cuda_dtype(cdt: torch.dtype, kernel: str) -> torch.dtype:
     return cdt
 
 
+def message_vector(h: int) -> int:
+    """The channels a lane of K6 loads at once at width ``h``: 4 where h %
+    4 == 0, else 2 where h is even, else 1 (so that every row segment is
+    aligned for the load)."""
+    return 4 if h % 4 == 0 else 2 if h % 2 == 0 else 1
+
+
 def painn_message_kernel(g: torch.Tensor, wij: torch.Tensor, neg_dir: torch.Tensor,
                          h: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K6 on CUDA tensors (no autograd); see :func:`painn_message_plain`.
 
     g, wij and neg_dir share the compute dtype (bfloat16 or float32); H is
-    128 and dim 2 or 3.
+    any width >= 1 and dim 2 or 3; g and wij start aligned for loads of
+    ``message_vector(h)`` elements.
     """
     cdt = _cuda_dtype(g.dtype, "painn_msg")
     n, k, gw = g.shape
     dim = neg_dir.shape[-1]
-    if h != HIDDEN or dim not in (2, 3):
-        raise ValueError(f"painn_msg kernel: H {h} (needs {HIDDEN}), dim {dim} (needs 2 or 3)")
-    _check("painn_msg g", g, cdt, (n, k, (3 + dim) * h), vec=4)
-    _check("painn_msg wij", wij, cdt, (n, k, 3 * h), vec=4)
+    if h < 1 or dim not in (2, 3):
+        raise ValueError(f"painn_msg kernel: H {h} (needs >= 1), dim {dim} (needs 2 or 3)")
+    vec = message_vector(h)
+    _check("painn_msg g", g, cdt, (n, k, (3 + dim) * h), vec=vec)
+    _check("painn_msg wij", wij, cdt, (n, k, 3 * h), vec=vec)
     _check("painn_msg neg_dir", neg_dir, cdt, (n, k, dim))
     ds = torch.empty((n, h), dtype=torch.float32, device=g.device)
     dv = torch.empty((n, dim * h), dtype=torch.float32, device=g.device)
@@ -234,8 +248,9 @@ def painn_layer_kernel(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tens
     """Launch K5 on CUDA tensors (no autograd); see :func:`painn_layer_plain`.
 
     All activations share the compute dtype of ``s`` (bfloat16 or float32),
-    ``sidx`` is int32 (:func:`sender_index`); H is 128, R (the basis width,
-    ``phi``'s last axis minus one) 20 and dim 2 or 3. ``packed`` has M >= N
+    ``sidx`` is int32 (:func:`sender_index`); H is 1 to ``MAX_HIDDEN``, R
+    (the basis width, ``phi``'s last axis minus one) 1 to ``MAX_RBF`` and
+    dim 2 or 3. ``packed`` has M >= N
     rows, N the receivers of ``phi``. ``p`` is in any dtype and is
     converted with :func:`layer_kernel_params`.
     """
@@ -245,9 +260,9 @@ def painn_layer_kernel(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tens
     h = s.shape[-1]
     dim = neg_dir.shape[-1]
     r = phi.shape[-1] - 1
-    if h != HIDDEN or r != N_RBF or dim not in (2, 3):
-        raise ValueError(f"painn_layer kernel: H {h} (needs {HIDDEN}), R {r} (needs "
-                         f"{N_RBF}), dim {dim} (needs 2 or 3)")
+    if not (1 <= h <= MAX_HIDDEN and 1 <= r <= MAX_RBF) or dim not in (2, 3):
+        raise ValueError(f"painn_layer kernel: H {h} (needs 1 to {MAX_HIDDEN}), R {r} (needs "
+                         f"1 to {MAX_RBF}), dim {dim} (needs 2 or 3)")
     if m < n:
         raise ValueError(f"painn_layer kernel: packed has {m} rows, fewer than the {n} receivers")
     _check("painn_layer packed", packed, cdt, (m, (2 + dim) * h))

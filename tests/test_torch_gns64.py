@@ -10,8 +10,9 @@ and 5 message-passing steps, on the CPU against the JAX package.
   mode=all model.num_mp_steps=5 model.latent_dim=64`` trains and infers on
   a small synthetic dataset; the JAX runner's ``mode=infer`` on the port's
   checkpoint gives the port's metrics, rtol 1e-5.
-* The widths the CUDA kernels are compiled at (``fused_mp.LATENTS``): 64
-  and 128 pass the check, others raise ValueError naming them.
+* The widths the CUDA kernels take (``fused_mp.kernel_width``): 1 to
+  256 pass the check (64 and 128 compiled as they are, 96 padded to 128),
+  wider ones raise ValueError naming the limit.
 """
 
 import os
@@ -217,8 +218,18 @@ def test_check_latent_accepts_the_compiled_widths(f):
 
 
 @pytest.mark.parametrize("f", [96, 256])
-def test_check_latent_refuses_other_widths(f):
-    """A width the kernels are not compiled at raises ValueError that names
-    the compiled widths (no fallback to the plain version on the card)."""
-    with pytest.raises(ValueError, match=r"latent width %d .*\(64, 128\)" % f):
+def test_check_latent_takes_the_other_widths_to_the_limit(f):
+    """A width between the compiled instances, or the widest instance,
+    runs on the card: the check passes and names the instance that runs
+    it (96 padded to 128; 256 itself)."""
+    fused_mp.check_latent(f, "fused_mp")
+    assert fused_mp.kernel_width(f) == {96: 128, 256: 256}[f]
+
+
+@pytest.mark.parametrize("f", [257, 0])
+def test_check_latent_refuses_widths_past_the_limit(f):
+    """A width above MAX_LATENT (or below 1) raises ValueError that names
+    the widths the kernels take (no fallback to the plain version on the
+    card)."""
+    with pytest.raises(ValueError, match=r"latent width %d .*widths 1 to 256" % f):
         fused_mp.check_latent(f, "fused_mp")

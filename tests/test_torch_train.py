@@ -204,11 +204,11 @@ def test_train_step_reaches_every_parameter_and_not_padded_slots(monkeypatch):
     seen = []
     real = fused_mp.gns_mp_step_autograd
 
-    def spy(e, hs_gath, hr, h, mask, p, enc=None):
+    def spy(e, hs_gath, hr, h, mask, p, enc=None, latent=None):
         grads = {}
         hs_gath.register_hook(lambda g: grads.setdefault("g", g))
         seen.append((mask, grads))
-        return real(e, hs_gath, hr, h, mask, p, enc)
+        return real(e, hs_gath, hr, h, mask, p, enc, latent=latent)
 
     monkeypatch.setattr(fused_mp, "gns_mp_step_autograd", spy)
     loss = flat_mse_loss(model, {k: v.float() if v.is_floating_point() else v
