@@ -342,12 +342,13 @@ def cuda_time(fn, iters=20, warmup=3):
     return device_ms(fn, iters, warmup)
 
 
-def ptxas_report(build, names=("fused_mp", "fused_mp_bwd")):
+def ptxas_report(build, names=("fused_mp", "fused_mp_bwd"), only=None):
     """Each kernel's registers, spills and stack from nvcc's -Xptxas -v
     report (the ``.log`` beside each built library), one line per kernel,
     named by its mangled identifier and template arguments; the fused GNS
     kernels' lines also name their latent width F (their first integer
-    template argument), one line per instance."""
+    template argument), one line per instance. ``only``: the kernel names
+    to report (all by default)."""
     import re
 
     for name in names:
@@ -361,6 +362,8 @@ def ptxas_report(build, names=("fused_mp", "fused_mp_bwd")):
                               r"(\d+) bytes spill loads", block)
             if m and regs and spill:
                 ident = mangled[m.end():m.end() + int(m.group(1))]
+                if only is not None and ident not in only:
+                    continue
                 targs = re.match(r"I\w*?EE", mangled[m.end() + len(ident):])
                 width = re.search(r"Li(\d+)E", targs.group(0)) if targs else None
                 width = f" [F = {width.group(1)}]" if width and name.startswith("fused_mp") else ""
@@ -5631,6 +5634,17 @@ def gns64_path(device):
 GNS256, GNS96, PAINN64 = ({"model.latent_dim": 256}, {"model.latent_dim": 96},
                           {"model.latent_dim": 64})
 WIDTH_F = (32, 96, 100, 192, 256)  # the fused GNS kernels' gate widths
+# the CUDA kernels behind each fused GNS wrapper in the bf16 stream design (F
+# = 192, 256; csrc/mp_stream.cuh), named in the kernels line's rows at 256
+STREAM_KERNELS = {
+    "fused_mp": ("fused_mp_edge_stream", "fused_mp_node_stream"),
+    "fused_mp_enc": ("fused_mp_edge_stream", "fused_mp_node_stream"),
+    "fused_mp_slot": ("fused_mp_edge_stream", "fused_mp_node_stream"),
+    "fused_mp_slot_enc": ("fused_mp_edge_stream", "fused_mp_node_stream"),
+    "fused_mp_window": ("fused_mp_edge_stream", "fused_mp_node_stream"),
+    "fused_mp_bwd": ("fused_mp_bwd_agg_stream", "fused_mp_bwd_node_stream",
+                     "fused_mp_bwd_edge_stream", "fused_mp_bwd_tn", "fused_mp_bwd_reduce"),
+}
 WIDTH_H = (32, 64, 100, 256)  # K5's and K6's gate widths
 WIDTH_R = (8, 20, 32)  # K5's gate basis widths
 W_TRAIN_STEPS, W_ROLLOUT, W_CAPTURE_STEPS = 10, 20, 3
@@ -5710,7 +5724,7 @@ def width_gns_checks(device, f, rows, main_widths):
     from lagrangebench_torch.ops import fused_mp
 
     width = fused_mp.kernel_width(f)
-    design = "warp" if width <= fused_mp.LATENTS[-1] else "tile"
+    design = fused_mp._design(torch.bfloat16, width)
     log(f"phase 17: the fused GNS kernels at F = {f} (instance {width}, bf16 {design} design)")
     fwd, bwd = width_step_inputs(device, f)
     seen = {name: (_unpad(args, width, f)[:7], {}) for name, args in fwd.items()}
@@ -5743,7 +5757,10 @@ def width_gns_checks(device, f, rows, main_widths):
     got_rows[row["name"]] = row
     ok &= passed
     if f in main_widths:
-        rows.update({f"{name}@{f}": dict(r, name=f"{name}@{f}") for name, r in got_rows.items()})
+        for name, r in got_rows.items():
+            rows[f"{name}@{f}"] = dict(r, name=f"{name}@{f}")
+            if design == "stream":  # the stream design's kernels behind the wrapper
+                rows[f"{name}@{f}"]["cuda_kernels"] = list(STREAM_KERNELS[name])
     return ok
 
 
@@ -5877,6 +5894,12 @@ def width_path(device):
     t_phase = time.perf_counter()
     rows, ok, step_ms = {}, True, {}
     mains = (GNS256["model.latent_dim"], GNS96["model.latent_dim"])
+    if str(device) != "cpu":  # the stream design's registers and spills (F = 192, 256)
+        from lagrangebench_torch.ops import build
+
+        log("phase 17: the bf16 stream design's kernels (F = 192 and 256)")
+        ptxas_report(build, ("fused_mp", "fused_mp_bwd"),
+                     only={k for ks in STREAM_KERNELS.values() for k in ks})
     for f in WIDTH_F:
         ok &= width_gns_checks(device, f, rows, mains)
     ok &= width_painn_checks(device)

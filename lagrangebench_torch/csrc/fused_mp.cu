@@ -85,16 +85,46 @@
 // products take ~0.04 ms at the rollout shape at the bf16 peak, against
 // 0.15 ms of bytes).
 //
-// The tile design (fused_mp below): one block of 8 warps per tile of 16
-// receivers, rows streamed through shared memory 64 at a time, weights read
-// from global memory (L1/L2), the K-sum row by row in k order. It is the
-// float32 instance at every F (CUDA-core FMAs) and the bf16 instance at F =
-// 192 and 256 (WMMA tensor-core tiles, block_gemm in mp_common.cuh): there
-// the warp design does not fit, since a slice's chain would hold ~1.3 F
-// registers per lane and the two resident F x F weights alone take 144 KB
-// (F = 192) or 256 KB (F = 256) of the 227 KB of shared memory. Shared
-// memory of the tile design in bf16: 147 KB at F = 256; in float32: 211 KB.
-#include "mp_warp.cuh"
+// Design, bf16 at F = 192 and 256 (the stream design, mp_stream.cuh; GNS-10-
+// 256 and every width from 129 to 256): the same two kernels per step, with
+// the warp design's row ownership and register accumulators, but no weight
+// resident and no A operand in registers, which do not fit there (a 16-row
+// chain would hold ~F registers per lane, and two resident F x F weights take
+// 144 KB at F = 192 and 256 KB at F = 256 of the 227 KB of shared memory).
+//   fused_mp_edge_stream: persistent, one 8-warp block per SM; each warp owns
+//     an even share of the receivers and takes one 16-row slice per
+//     iteration, its float32 accumulator for the whole width in registers
+//     (128 per lane at F = 256). The slice's operands live in two slots of
+//     shared memory per warp (e, then the sender rows overwritten in place by
+//     T(relu(first))); the weights W_e and W2 (and enc_w2 on step 0) stream
+//     through a block-wide 4-stage cp.async ring of 32-row slabs (16 KB at F =
+//     256) that the block's 8 warps share, one block barrier per slab. Each
+//     LayerNorm reduces in its warp by quad shuffles, e' goes out of its slot
+//     in 16-byte stores, and agg is summed per receiver by its warp in row
+//     order into the float32 scratch. Step 0's first layer (raw @ enc_w1)
+//     is one mma.sync k-step from registers on the resident enc_w1 rows, and
+//     enc_w2 is one more streamed product.
+//   fused_mp_node_stream: 16 nodes per warp, 128 per block and iteration, h
+//     and T(agg) in the warp's slots, W_nh, W_na, W_n2 streamed the same way.
+// What bounds it (an H100 at F = 256, the rollout shape 16,000 x 40;
+// experiments/stream_ablation.py): the products, not the card's bytes (0.30
+// ms). The edge kernel takes 1.19 ms, 0.96 of it with relu_first and the agg
+// sums taken out. Each warp reads every slab's B fragments for its 16 rows
+// (17 ldmatrix per 32 mma.sync: ~0.38 ms of ldmatrix issue at the card's
+// shared-memory rate); at 255 registers (128 of them the accumulator) the
+// loop keeps few fragments in flight, and the 8 warps take each slab in
+// step, so no warp's epilogue overlaps another's products. The slab loop
+// is rolled: unrolled, K4's edge kernel took 3.55 ms for its products
+// alone against 2.04, and the build 87 s against 63. Shared memory:
+// 208 KB at F = 256 with the encoder (ring 64 KB, slots 128 KB, enc_w1 8
+// KB, vectors 8 KB), 196 KB for the node kernel.
+//
+// The tile design (fused_mp below) is the float32 instance at every F: one
+// block of 8 warps per tile of 16 receivers, rows streamed through shared
+// memory 64 at a time, weights read from global memory (L1/L2), CUDA-core
+// FMAs, the K-sum row by row in k order; it checks the arithmetic against
+// the plain version with TF32 off. Shared memory: 211 KB at F = 256.
+#include "mp_stream.cuh"
 
 namespace {
 
@@ -132,7 +162,6 @@ struct Smem {
   static constexpr int kAgg = TR * F * 4;
   static constexpr int kBytes = 2 * kA + kF + kAgg;
   static_assert(kBytes <= kSmemMax, "tile design shared memory");
-  static_assert(M <= kMaxTileRows, "block_gemm's row tiles");
 };
 
 template <typename T, int F, bool ENC, Src SRC>
@@ -343,6 +372,11 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_edge(const EdgeArgs a) {
   edge_fwd<F, ENC, SRC>(a);
 }
 
+template <int F, bool ENC, Src SRC>
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_edge_stream(const EdgeArgs a) {
+  edge_fwd_stream<F, ENC, SRC>(a);
+}
+
 struct NodeArgs {
   const bf16* h;       // (n, F)
   const float* agg;    // (n, F)
@@ -430,6 +464,87 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_node(const NodeArgs a) {
   }
 }
 
+template <int F>
+struct NodeStreamSmem {
+  static constexpr int kSlots = Stream<F>::RING_BYTES;
+  static constexpr int kVec = kSlots + Stream<F>::SLOTS_BYTES;  // bn1, bn2, ln2 scale, ln2 bias
+  static constexpr int kBytes = kVec + 4 * F * 4;
+  static_assert(kBytes <= kSmemMax, "stream node kernel shared memory");
+};
+
+// The node half in the stream design: 16 nodes per warp, 128 per block and
+// iteration; slots s_h (h, then h') and s_a (T(agg), then T(r2)); the ring
+// streams W_nh, W_na, W_n2 per iteration.
+template <int F>
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_node_stream(const NodeArgs a) {
+  using D = Tile<F>;
+  using S = NodeStreamSmem<F>;
+  constexpr int NB = D::NB, SLICE = D::SLICE_BYTES, ROWS = WARPS * SR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const u32 sb = smem_addr(smem);
+  float* vec = reinterpret_cast<float*>(smem + S::kVec);
+  for (int i = threadIdx.x; i < 4 * F; i += THREADS) vec[i] = a.vec[i / F][i % F];
+  const float* bn1 = vec;
+  const int groups = (a.n + ROWS - 1) / ROWS;
+  const int iters = (int)blockIdx.x < groups ? (groups - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  Ring<F> ring;
+  ring.base = sb;
+  ring.nseq = 3;
+  ring.cols = 0;
+  for (int i = 0; i < 3; ++i) ring.seq[i] = a.w[i];
+  ring.start(iters);
+  const u32 s_h = S::kSlots + warp * 2 * SLICE, s_a = s_h + SLICE;
+  float acc[NB][4];
+  for (int it = 0; it < iters; ++it) {
+    const int64_t r0 = ((int64_t)(blockIdx.x + it * gridDim.x) * WARPS + warp) * SR;
+    const bool live = r0 < a.n;
+    if (live) {
+      copy_slice<F>(sb + s_h, a.h, r0, a.n, lane);
+      const bool vg = r0 + g < a.n, vg8 = r0 + g + 8 < a.n;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {  // T(agg)
+        const int c = nb * 8 + 2 * t;
+        const float2 x = vg ? *reinterpret_cast<const float2*>(a.agg + (r0 + g) * F + c)
+                            : make_float2(0.f, 0.f);
+        const float2 x8 = vg8 ? *reinterpret_cast<const float2*>(a.agg + (r0 + g + 8) * F + c)
+                              : make_float2(0.f, 0.f);
+        sts32(smem, s_a + swz_pair<F>(g, c), pack(x.x, x.y));
+        sts32(smem, s_a + swz_pair<F>(g + 8, c), pack(x8.x, x8.y));
+      }
+    }
+    cp_commit();
+    zero(acc);  // h @ W_nh + T(agg) @ W_na, one sum
+    product<false>(acc, ring, sb + s_h, live, true, lane);
+    product<false>(acc, ring, sb + s_a, live, false, lane);
+    if (live) {
+      __syncwarp();
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {  // T(relu(nf)) over T(agg)
+        const int c = nb * 8 + 2 * t;
+        sts32(smem, s_a + swz_pair<F>(g, c),
+              pack(fmaxf(acc[nb][0] + bn1[c], 0.f), fmaxf(acc[nb][1] + bn1[c + 1], 0.f)));
+        sts32(smem, s_a + swz_pair<F>(g + 8, c),
+              pack(fmaxf(acc[nb][2] + bn1[c], 0.f), fmaxf(acc[nb][3] + bn1[c + 1], 0.f)));
+      }
+      __syncwarp();
+    }
+    zero(acc);
+    product<false>(acc, ring, sb + s_a, live, false, lane);
+    if (live) {  // h' = T(h + LN2(y1)), in place in s_h
+      add_bias(acc, vec + F, t);
+      float inv0, inv1;
+      row_normalize(acc, inv0, inv1, a.nf);
+      scale_shift(acc, vec + 2 * F, vec + 3 * F, t);
+      add_pairs(acc, smem, s_h, lane);
+      __syncwarp();
+      store_slice<F>(static_cast<bf16*>(a.h_out), r0, a.n, smem, s_h, lane);
+      __syncwarp();
+    }
+  }
+  cp_wait<0>();
+}
+
 template <int F, Src SRC>
 int run_bf16(const Args& a, bool has_enc, const int* grids, float* agg, cudaStream_t stream) {
   EdgeArgs ea;
@@ -459,17 +574,22 @@ int run_bf16(const Args& a, bool has_enc, const int* grids, float* agg, cudaStre
   ea.T = a.T;
   ea.SUB = a.SUB;
   ea.WSUB = a.WSUB;
-  const auto plain = [&] {
-    return launch_kernel(fused_mp_edge<F, false, SRC>, grids[0], THREADS,
-                         EdgeSmem<F, false>::kBytes, ea, stream);
+  // the edge kernel of the instance's design: the warp design at F <= 128,
+  // the stream design above
+  const auto edge = [&](auto enc) {
+    constexpr bool E = decltype(enc)::value;
+    if constexpr (F <= 128)
+      return launch_kernel(fused_mp_edge<F, E, SRC>, grids[0], THREADS, EdgeSmem<F, E>::kBytes, ea,
+                           stream);
+    else
+      return launch_kernel(fused_mp_edge_stream<F, E, SRC>, grids[0], THREADS,
+                           EdgeStreamSmem<F, E>::kBytes, ea, stream);
   };
   int err;
   if constexpr (SRC == Src::kWindow) {
-    err = plain();
+    err = edge(std::false_type{});
   } else {
-    err = has_enc ? launch_kernel(fused_mp_edge<F, true, SRC>, grids[0], THREADS,
-                                  EdgeSmem<F, true>::kBytes, ea, stream)
-                  : plain();
+    err = has_enc ? edge(std::true_type{}) : edge(std::false_type{});
   }
   if (err != 0) return err;
   NodeArgs na;
@@ -480,32 +600,32 @@ int run_bf16(const Args& a, bool has_enc, const int* grids, float* agg, cudaStre
   for (int i = 0; i < 4; ++i) na.vec[i] = a.vec[4 + i];
   na.n = a.n;
   na.nf = a.nf;
-  return launch_kernel(fused_mp_node<F>, grids[1], THREADS, NodeSmem<F>::kBytes, na, stream);
-}
-
-// The tile design's instance of type T at width F.
-template <typename T, int F, Src SRC>
-int launch_tile(const Args& a, int has_enc, cudaStream_t stream) {
-  if constexpr (SRC == Src::kWindow) return launch<T, F, false, SRC>(a, stream);
+  if constexpr (F <= 128)
+    return launch_kernel(fused_mp_node<F>, grids[1], THREADS, NodeSmem<F>::kBytes, na, stream);
   else
-    return has_enc ? launch<T, F, true, SRC>(a, stream) : launch<T, F, false, SRC>(a, stream);
+    return launch_kernel(fused_mp_node_stream<F>, grids[1], THREADS, NodeStreamSmem<F>::kBytes, na,
+                         stream);
 }
 
-// The instance for latent width a.nf (latent_dispatch): bf16 at F <= 128
-// the warp design, else the tile design.
+// The float32 tile design's instance at width F.
+template <int F, Src SRC>
+int launch_tile(const Args& a, int has_enc, cudaStream_t stream) {
+  if constexpr (SRC == Src::kWindow) return launch<float, F, false, SRC>(a, stream);
+  else
+    return has_enc ? launch<float, F, true, SRC>(a, stream) : launch<float, F, false, SRC>(a, stream);
+}
+
+// The instance for latent width a.nf (latent_dispatch): float32 the tile
+// design; bf16 the warp design at F <= 128, else the stream design.
 template <Src SRC>
 int dispatch(const Args& a, int is_bf16, int has_enc, const void* const* ptrs,
              const int* grids, cudaStream_t stream) {
   return latent_dispatch(a.nf, [&](auto width) {
     constexpr int F = decltype(width)::value;
-    if (!is_bf16) return launch_tile<float, F, SRC>(a, has_enc, stream);
-    if constexpr (F <= 128) {
-      if (grids[0] < 1 || grids[1] < 1) return (int)cudaErrorInvalidValue;
-      return run_bf16<F, SRC>(a, has_enc, grids,
-                              static_cast<float*>(const_cast<void*>(ptrs[28])), stream);
-    } else {
-      return launch_tile<bf16, F, SRC>(a, has_enc, stream);
-    }
+    if (!is_bf16) return launch_tile<F, SRC>(a, has_enc, stream);
+    if (grids[0] < 1 || grids[1] < 1 || ptrs[28] == nullptr) return (int)cudaErrorInvalidValue;
+    return run_bf16<F, SRC>(a, has_enc, grids, static_cast<float*>(const_cast<void*>(ptrs[28])),
+                            stream);
   });
 }
 
@@ -547,10 +667,10 @@ Args make_args(const void* const* ptrs, int n, int k, int fe, int nf) {
 //   19 ln2_bias,
 //   20 enc_w1, 21 enc_w2, 22 enc_b1, 23 enc_b2, 24 enc_ln_scale,
 //   25 enc_ln_bias (unused unless has_enc), 26, 27 (K8, E2 below),
-//   28 agg scratch (n, F) float32 (the bf16 warp design, F <= 128, only).
+//   28 agg scratch (n, F) float32 (bf16 only: the warp and stream designs).
 // latent: the true width nf in [1, 256] (else cudaErrorInvalidValue); every
 //   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
-// grids: the warp design's edge and node grids (unused by the tile design).
+// grids: the bf16 designs' edge and node grids (unused by the float32 tile design).
 LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int latent,
                             int is_bf16, int has_enc, const int* grids, cudaStream_t stream) {
   if (n < 1 || k < 1 || (has_enc && (fe < 1 || fe > 16))) return (int)cudaErrorInvalidValue;

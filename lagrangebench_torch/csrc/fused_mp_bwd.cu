@@ -62,15 +62,62 @@
 // warps x one ge slice), edge kernel b 224 KB (W_e, 8 warps x 2 stages x
 // (e, dhs, ge)); at F = 64 about half, with the same grids and blocks.
 //
-// The tile design (fused_mp_bwd below) is the float32 instance at every F
-// (CUDA-core FMAs) and the bf16 instance at F = 192 and 256 (WMMA
-// tensor-core tiles, mp_common.cuh), where the warp design's register
-// chains and resident weights do not fit (fused_mp.cu): a persistent grid
-// of about one block per SM; each block of 8 warps walks receiver tiles of
-// 16. The tile's float32 LayerNorm activations do not fit in shared memory
-// (16 x 40 rows x 128 x 4 B = 320 KB at F = 128), so the tile's edges stream through
-// shared memory twice, 64 rows at a time (32 at F > 128, so that five row
-// buffers fit: 146 KB in bf16 and 195 KB in float32 at F = 256):
+// Design, bf16 at F = 192 and 256 (the stream design, mp_stream.cuh; GNS-10-
+// 256). What bounded the WMMA tile design that ran here before was the
+// weight gradients: each block added every tile's rows into its five F x F
+// float32 partials in device memory, loading and storing each 16 x 16 tile
+// of them once per 32-row chunk (~20 GB of round trips a call at F = 256,
+// 173 MB of partials, past the 50 MB L2). Of the two ways to keep those sums
+// off device memory, this design takes (a), two stages, over (b), a column
+// split across a 2-CTA cluster: (a) reuses the stream design's row kernels
+// unchanged in shape, needs no exchange of LayerNorm sums between CTAs, and
+// its extra traffic (writing and reading T(relu(first)) and T(dx1), 2 x 2 n k
+// F bytes, ~0.4 ms at F = 256 at the rollout shape) is a fraction of the
+// row products' time. Five kernels and the sum:
+//   1. fused_mp_bwd_agg_stream (K3's stream edge body, agg only): agg to a
+//      float32 scratch.
+//   2. fused_mp_bwd_node_stream: 16 nodes per warp, 128 per block; the node
+//      forward and backward on the streamed W_nh, W_na, W_n2 (and their
+//      transposes, streamed as column blocks): dh, dagg to a float32
+//      scratch, and the bf16 operands T(agg), T(r2), T(dy1), T(dnf) of the
+//      node weight gradients, written once, rounded as the products take them.
+//   3. fused_mp_bwd_edge_stream: persistent, warps owning even shares of the
+//      receivers as the forward's; per 16-row slice it rematerializes first
+//      and x1, runs LN1's backward (dm = ge + dagg * mask) into dx1, then
+//      dfirst = T(dx1) @ W2^T * (first > 0) -> dhs (= T(dfirst)) and dhr
+//      (summed per receiver by its warp, in row order), and de = ge +
+//      T(dfirst) @ W_e^T, on the streamed W_e, W2, W2, W_e; it writes the
+//      operands T(relu(first)) and T(dx1) of dW2 once. dW_e's operands are e
+//      (an input) and dhs (an output): nothing more to write.
+//   4. fused_mp_bwd_tn: the five weight gradients X^T Y, hand-written on
+//      mma.sync m16n8k16 (bf16 in, float32 sums): each job's rows (n k for
+//      dW_e and dW2, n for the node three) split into a fixed partition of
+//      row ranges (ops/fused_mp.py bwd_stream_plan), each range summed by
+//      two blocks (the two halves of the output rows) through a 3-stage
+//      cp.async ring of 32-row chunks, each warp's 64 x 64 (F = 256) output
+//      tile in registers for the whole range, written once to its range's
+//      partial.
+//   5. fused_mp_bwd_reduce: each gradient's partials summed in range (block)
+//      order.
+// No atomics: the weight gradients are the same bits on every launch.
+// Shared memory at F = 256: the node and edge kernels 220 KB (a 3-stage ring
+// 48 KB, slots 128 KB, each warp's vector sums and dhr row 40 KB, vectors),
+// the TN kernel 96 KB.
+// What bounds it (an H100 at F = 256, the rollout shape 16,000 x 40;
+// experiments/stream_ablation.py): K4 takes 7.24 ms, 5.27 of it the edge
+// kernel, whose four products alone take 2.04; taking out LN1's backward
+// saves 2.05 ms, the four slice stores 1.35, the dagg loads 0.39, dfirst's
+// column sums and dhr 0.27. As in the forward, the block's warps take each
+// slab in step, so the epilogues, the stores and the products do not
+// overlap; the agg pass takes 1.07 ms and the product kernel 0.73 (its 1.3
+// GB of edge operands are 0.39 ms of the card's bytes).
+//
+// The tile design (fused_mp_bwd below) is the float32 instance at every F:
+// a persistent grid of about one block per SM; each block of 8 warps walks
+// receiver tiles of 16. The tile's float32 LayerNorm activations do not fit
+// in shared memory (16 x 40 rows x 128 x 4 B = 320 KB at F = 128), so the
+// tile's edges stream through shared memory twice, 64 rows at a time (32 at
+// F > 128, so that five row buffers fit: 195 KB at F = 256):
 //   pass 1: rematerialize to agg; then the node-path backward, which
 //           leaves dagg in shared memory;
 //   pass 2: rematerialize again; then the edge-path backward with dagg.
@@ -80,7 +127,7 @@
 // vector gradients in registers, row by row, then summed over the warps in
 // order), and the sum adds the partials in block order. dhr sums a
 // receiver's K rows in k order.
-#include "mp_warp.cuh"
+#include "mp_stream.cuh"
 
 namespace {
 
@@ -111,8 +158,9 @@ struct Args {
   const void* w[5];   // W_e, W2, W_nh, W_na, W_n2: (F, F) T, row-major (in, out)
   const float* vec[8];  // b1, b2, ln1 scale, ln1 bias, bn1, bn2, ln2 scale, ln2 bias
   float* partials;    // float32: (gridDim.x, GRADS); bf16: see lbt_fused_mp_bwd
-  float* agg;         // bf16 warp design: (N, F) float32 scratch; tile design: agg out or null
-  float* dagg;        // bf16 warp design: (N, F) float32 scratch
+  float* agg;         // bf16: (N, F) float32 scratch; float32 tile design: agg out or null
+  float* dagg;        // bf16: (N, F) float32 scratch
+  void* ops;          // bf16 stream design: the weight gradients' operands (Ops)
   int n, k;
   int nf;             // the true latent width, <= F
 };
@@ -126,7 +174,6 @@ struct Smem {
   static constexpr int kBytes = 3 * kA + 2 * kF + 2 * kNode;
   static_assert(kRows<F> >= 2 * TR, "the node path's buffers: two tiles in each row buffer");
   static_assert(kBytes <= kSmemMax, "tile design shared memory");
-  static_assert(kRows<F> <= kMaxTileRows, "block_gemm's row tiles");
 };
 
 // C[rows, F] = A[rows, F] @ W^T, W (F, F) row-major (in, out); rows % 16 == 0.
@@ -148,34 +195,6 @@ __device__ void block_gemm_nt(const float* A, const float* W, float* C, int rows
   }
 }
 
-// bf16: WMMA strips as block_gemm's, W^T read as a column-major B
-template <int F>
-__device__ void block_gemm_nt(const bf16* A, const bf16* W, float* C, int rows) {
-  using namespace nvcuda;
-  constexpr int LDA = Layout<bf16, F>::LDA, LDF = kLdf<F>, RT = kMaxTileRows / 16;
-  const int rt = rows / 16;
-  for (int c0 = (threadIdx.x / 32) * 16; c0 < F; c0 += WARPS * 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      if (i < rt) wmma::fill_fragment(acc[i], 0.f);
-    for (int k = 0; k < F; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, W + c0 * F + k, F);
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        if (i >= rt) continue;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, A + i * 16 * LDA + k, LDA);
-        wmma::mma_sync(acc[i], fa, fb, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      if (i < rt) wmma::store_matrix_sync(C + i * 16 * LDF + c0, acc[i], LDF, wmma::mem_row_major);
-  }
-}
-
 // G[F, F] += A[rows, F]^T @ B[rows, F], G a float32 matrix in device memory
 // (row stride F) that this block alone writes; rows % 16 == 0.
 template <int F>
@@ -186,26 +205,6 @@ __device__ void block_gemm_tn(const float* A, const float* B, float* G, int rows
     float s = G[idx];
     for (int r = 0; r < rows; ++r) s += A[r * LDA + i] * B[r * LDA + j];
     G[idx] = s;
-  }
-}
-
-// bf16: the warps take 16 x 16 tiles of G in turn; A^T is A read column-major
-template <int F>
-__device__ void block_gemm_tn(const bf16* A, const bf16* B, float* G, int rows) {
-  using namespace nvcuda;
-  constexpr int LDA = Layout<bf16, F>::LDA, TC = F / 16;
-  for (int tile = threadIdx.x / 32; tile < TC * TC; tile += WARPS) {
-    const int i0 = (tile / TC) * 16, j0 = (tile % TC) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, G + i0 * F + j0, F, wmma::mem_row_major);
-    for (int r = 0; r < rows; r += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, A + r * LDA + i0, LDA);
-      wmma::load_matrix_sync(fb, B + r * LDA + j0, LDA);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(G + i0 * F + j0, acc, F, wmma::mem_row_major);
   }
 }
 
@@ -562,14 +561,6 @@ struct NodeBwdSmem {
   static constexpr int kBytes = kOwn + NB_WARPS * 4 * F * 4;
   static_assert(kBytes <= kSmemMax, "node kernel shared memory");
 };
-
-// a warp's receiver range: the block's even share of n, split evenly
-__device__ __forceinline__ void block_warp_range(int n, int blk, int blocks, int w, int64_t& lo,
-                                                 int64_t& hi) {
-  const int64_t b0 = (int64_t)n * blk / blocks, b1 = (int64_t)n * (blk + 1) / blocks;
-  lo = b0 + (b1 - b0) * w / WARPS;
-  hi = b0 + (b1 - b0) * (w + 1) / WARPS;
-}
 
 // the warps' slice counts of this block
 __device__ __forceinline__ void block_slices(const Args& a, int* cnt) {
@@ -1172,13 +1163,633 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_b(const Args a) 
   }
 }
 
+// ---- bf16 at F = 192 and 256: the stream design ---------------------------
+
+// The stream design's bf16 operands of the weight-gradient products, in one
+// (2 n k + 4 n, F) buffer: T(relu(first)) and T(dx1) (n k rows each), then
+// T(agg), T(r2), T(dy1), T(dnf) (n rows each).
+struct Ops {
+  bf16 *r1c, *dx1c, *aggc, *r2c, *dy1c, *dnfc;
+  __host__ __device__ Ops(void* base, int n, int k, int f) {
+    const int64_t edge = (int64_t)n * k * f, node = (int64_t)n * f;
+    r1c = static_cast<bf16*>(base);
+    dx1c = r1c + edge;
+    aggc = dx1c + edge;
+    r2c = aggc + node;
+    dy1c = r2c + node;
+    dnfc = dy1c + node;
+  }
+};
+
+// The stream backward's row kernels keep each warp's vector-gradient sums
+// (and the edge kernel its receiver's dhr) in shared memory, out of the
+// registers that the accumulator fills, and take a 3-stage ring for room.
+constexpr int BWD_STAGES = 3;
+
+template <int F>
+struct BwdStreamSmem {  // the node and edge kernels
+  static constexpr int kSlots = Stream<F, BWD_STAGES>::RING_BYTES;
+  static constexpr int kOwn = kSlots + Stream<F>::SLOTS_BYTES;  // each warp's 4 vector sums
+  static constexpr int kDhr = kOwn + WARPS * 4 * F * 4;         // each warp's dhr row
+  static constexpr int kVec = kDhr + WARPS * F * 4;              // 4 float vectors
+  static constexpr int kBytes = kVec + 4 * F * 4;
+  static_assert(kBytes <= kSmemMax, "stream backward shared memory");
+};
+
+// zeroes the warps' vector sums and dhr rows (seen after the ring's first
+// barrier)
+template <int F>
+__device__ __forceinline__ void zero_sums(unsigned char* smem) {
+  using S = BwdStreamSmem<F>;
+  float* z = reinterpret_cast<float*>(smem + S::kOwn);
+  for (int i = threadIdx.x; i < WARPS * 5 * F; i += THREADS) z[i] = 0.f;
+}
+
+// this block's 4 vector gradients: the warps' sums added in warp order into
+// part[0, 4 F)
+template <int F>
+__device__ __forceinline__ void block_vectors(const unsigned char* smem, float* part) {
+  const float* own = reinterpret_cast<const float*>(smem + BwdStreamSmem<F>::kOwn);
+  cp_wait<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < 4 * F; i += THREADS) {
+    float sum = 0.f;
+    for (int w = 0; w < WARPS; ++w) sum += own[w * 4 * F + i];
+    part[i] = sum;
+  }
+}
+
+// K3's stream edge body with no e' out: the step's agg, rematerialized.
+template <int F>
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_agg_stream(const EdgeArgs a) {
+  edge_fwd_stream<F, false, Src::kGathered>(a);
+}
+
+// The node path's forward and backward in the stream design: 16 nodes per
+// warp, 128 per block and iteration. Slots s_h (h, then T(dy1), then dh) and
+// s_a (T(agg), then T(r2), then T(dnf)); the ring streams W_nh, W_na, W_n2,
+// then W_n2, W_nh, W_na as column blocks (the transposed products). Writes dh,
+// dagg (float32 scratch), the operands T(agg), T(r2), T(dy1), T(dnf), and
+// the block's sums of bn1, bn2, ln2 scale and ln2 bias (4 F floats).
+template <int F>
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_node_stream(const Args a) {
+  using S = BwdStreamSmem<F>;
+  using D = Tile<F>;
+  constexpr int NB = D::NB, SLICE = D::SLICE_BYTES, ROWS = WARPS * SR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const u32 sb = smem_addr(smem);
+  float* vec = reinterpret_cast<float*>(smem + S::kVec);
+  for (int i = threadIdx.x; i < 4 * F; i += THREADS) vec[i] = a.vec[V_BN1 + i / F][i % F];
+  const float *bn1 = vec, *bn2 = vec + F, *s2 = vec + 2 * F;
+  const int groups = (a.n + ROWS - 1) / ROWS;
+  const int iters = (int)blockIdx.x < groups ? (groups - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const bf16 *wNh = static_cast<const bf16*>(a.w[G_WNH]), *wNa = static_cast<const bf16*>(a.w[G_WNA]);
+  const bf16* wN2 = static_cast<const bf16*>(a.w[G_WN2]);
+  zero_sums<F>(smem);
+  Ring<F, BWD_STAGES> ring;
+  ring.base = sb;
+  ring.nseq = 6;
+  ring.cols = 0b111000;  // W_n2, W_nh, W_na transposed
+  ring.seq[0] = wNh;
+  ring.seq[1] = wNa;
+  ring.seq[2] = wN2;
+  ring.seq[3] = wN2;
+  ring.seq[4] = wNh;
+  ring.seq[5] = wNa;
+  ring.start(iters);
+  const u32 s_h = S::kSlots + warp * 2 * SLICE, s_a = s_h + SLICE;
+  const Ops ops(a.ops, a.n, a.k, F);
+  const bf16 *h = static_cast<const bf16*>(a.h), *gh = static_cast<const bf16*>(a.gh);
+  bf16* dh = static_cast<bf16*>(a.dh);
+  const float inv_n = 1.f / a.nf;
+
+  // this warp's sums of bn1, bn2, ln2 scale, ln2 bias, F floats each
+  float* own = reinterpret_cast<float*>(smem + S::kOwn) + warp * 4 * F;
+  float acc[NB][4];
+  for (int it = 0; it < iters; ++it) {
+    const int64_t r0 = ((int64_t)(blockIdx.x + it * gridDim.x) * WARPS + warp) * SR;
+    const bool live = r0 < a.n;
+    const bool vg = r0 + g < a.n, vg8 = r0 + g + 8 < a.n;
+    if (live) {
+      copy_slice<F>(sb + s_h, h, r0, a.n, lane);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {  // T(agg)
+        const int c = nb * 8 + 2 * t;
+        const float2 x = vg ? *reinterpret_cast<const float2*>(a.agg + (r0 + g) * F + c)
+                            : make_float2(0.f, 0.f);
+        const float2 x8 = vg8 ? *reinterpret_cast<const float2*>(a.agg + (r0 + g + 8) * F + c)
+                              : make_float2(0.f, 0.f);
+        sts32(smem, s_a + swz_pair<F>(g, c), pack(x.x, x.y));
+        sts32(smem, s_a + swz_pair<F>(g + 8, c), pack(x8.x, x8.y));
+      }
+    }
+    cp_commit();
+    if (live) {
+      __syncwarp();
+      store_slice<F>(ops.aggc, r0, a.n, smem, s_a, lane);
+    }
+    zero(acc);  // nf - bn1 = h @ W_nh + T(agg) @ W_na, one sum
+    product<false>(acc, ring, sb + s_h, live, true, lane);
+    product<false>(acc, ring, sb + s_a, live, false, lane);
+    if (live) {  // T(r2) = T(relu(nf)), over T(agg)
+      __syncwarp();
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c = nb * 8 + 2 * t;
+        sts32(smem, s_a + swz_pair<F>(g, c),
+              pack(fmaxf(acc[nb][0] + bn1[c], 0.f), fmaxf(acc[nb][1] + bn1[c + 1], 0.f)));
+        sts32(smem, s_a + swz_pair<F>(g + 8, c),
+              pack(fmaxf(acc[nb][2] + bn1[c], 0.f), fmaxf(acc[nb][3] + bn1[c + 1], 0.f)));
+      }
+      __syncwarp();
+      store_slice<F>(ops.r2c, r0, a.n, smem, s_a, lane);
+    }
+    zero(acc);  // y1 - bn2 = T(r2) @ W_n2
+    product<false>(acc, ring, sb + s_a, live, false, lane);
+    if (live) {
+      add_bias(acc, bn2, t);
+      float inv[2];
+      row_normalize(acc, inv[0], inv[1], a.nf);  // acc = xhat2 (-mean inv past nf)
+      // LN2 backward with gh: dy1 = inv (gh s - mean(gh s) - xhat mean(gh s xhat))
+      auto gh_of = [&](int nb, float (&dv)[4]) {
+        const int c = nb * 8 + 2 * t;
+        const float2 d = unpack(vg ? ldg32(gh + (r0 + g) * F + c) : 0u);
+        const float2 d8 = unpack(vg8 ? ldg32(gh + (r0 + g + 8) * F + c) : 0u);
+        dv[0] = d.x;
+        dv[1] = d.y;
+        dv[2] = d8.x;
+        dv[3] = d8.y;
+      };
+      float p1[2] = {0.f, 0.f}, p2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int b0 = 0; b0 < NB; b0 += 8) {
+        float dv[8][4];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) gh_of(b0 + k, dv[k]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float vs[8], vb[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int nb = b0 + k, c = nb * 8 + 2 * t;
+            vs[k] = dv[k][j] * acc[nb][j] + dv[k][2 + j] * acc[nb][2 + j];
+            vb[k] = dv[k][j] + dv[k][2 + j];
+#pragma unroll
+            for (int r8 = 0; r8 < 2; ++r8) {
+              const float dx = dv[k][2 * r8 + j] * s2[c + j];
+              p1[r8] += dx;
+              p2[r8] += dx * acc[nb][2 * r8 + j];
+            }
+          }
+          colsum8_to(own + 2 * F, vs, b0, j, g, t);
+          colsum8_to(own + 3 * F, vb, b0, j, g, t);
+        }
+      }
+      float m1[2], m2[2];
+#pragma unroll
+      for (int r8 = 0; r8 < 2; ++r8) {
+        m1[r8] = quad_sum(p1[r8]) * inv_n;
+        m2[r8] = quad_sum(p2[r8]) * inv_n;
+      }
+#pragma unroll
+      for (int b0 = 0; b0 < NB; b0 += 8) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int nb = b0 + k, c = nb * 8 + 2 * t;
+          float dv[4];
+          gh_of(nb, dv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r8 = i >> 1, j = i & 1;
+            acc[nb][i] = inv[r8] * (dv[i] * s2[c + j] - m1[r8] - acc[nb][i] * m2[r8]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[k] = acc[b0 + k][j] + acc[b0 + k][2 + j];
+          colsum8_to(own + F, v, b0, j, g, t);
+        }
+      }
+      __syncwarp();  // h, in s_h, was the first product's operand
+      put_pairs(acc, smem, s_h, lane);  // T(dy1)
+      __syncwarp();
+      store_slice<F>(ops.dy1c, r0, a.n, smem, s_h, lane);
+    }
+    zero(acc);  // T(dy1) @ W_n2^T
+    product<true>(acc, ring, sb + s_h, live, false, lane);
+    if (live) {  // dnf = . * (nf > 0) -> T(dnf), over T(r2)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c = nb * 8 + 2 * t;
+        const float2 r = unpack(lds32(smem, s_a + swz_pair<F>(g, c)));
+        const float2 r8 = unpack(lds32(smem, s_a + swz_pair<F>(g + 8, c)));
+        acc[nb][0] = r.x > 0.f ? acc[nb][0] : 0.f;
+        acc[nb][1] = r.y > 0.f ? acc[nb][1] : 0.f;
+        acc[nb][2] = r8.x > 0.f ? acc[nb][2] : 0.f;
+        acc[nb][3] = r8.y > 0.f ? acc[nb][3] : 0.f;
+        sts32(smem, s_a + swz_pair<F>(g, c), pack(acc[nb][0], acc[nb][1]));
+        sts32(smem, s_a + swz_pair<F>(g + 8, c), pack(acc[nb][2], acc[nb][3]));
+      }
+#pragma unroll
+      for (int b0 = 0; b0 < NB; b0 += 8)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[k] = acc[b0 + k][j] + acc[b0 + k][2 + j];
+          colsum8_to(own, v, b0, j, g, t);
+        }
+      __syncwarp();
+      store_slice<F>(ops.dnfc, r0, a.n, smem, s_a, lane);
+    }
+    zero(acc);  // T(dnf) @ W_nh^T
+    product<true>(acc, ring, sb + s_a, live, false, lane);
+    if (live) {  // dh = T(gh + .), out through s_h
+      __syncwarp();  // T(dy1), in s_h, was an operand
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c = nb * 8 + 2 * t;
+        const float2 d = unpack(vg ? ldg32(gh + (r0 + g) * F + c) : 0u);
+        const float2 d8 = unpack(vg8 ? ldg32(gh + (r0 + g + 8) * F + c) : 0u);
+        sts32(smem, s_h + swz_pair<F>(g, c), pack(d.x + acc[nb][0], d.y + acc[nb][1]));
+        sts32(smem, s_h + swz_pair<F>(g + 8, c), pack(d8.x + acc[nb][2], d8.y + acc[nb][3]));
+      }
+      __syncwarp();
+      store_slice<F>(dh, r0, a.n, smem, s_h, lane);
+    }
+    zero(acc);  // dagg = T(dnf) @ W_na^T
+    product<true>(acc, ring, sb + s_a, live, false, lane);
+    if (live) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c = nb * 8 + 2 * t;
+        if (vg)
+          *reinterpret_cast<float2*>(a.dagg + (r0 + g) * F + c) = make_float2(acc[nb][0], acc[nb][1]);
+        if (vg8)
+          *reinterpret_cast<float2*>(a.dagg + (r0 + g + 8) * F + c) =
+              make_float2(acc[nb][2], acc[nb][3]);
+      }
+      __syncwarp();  // both slots are refilled by the next iteration
+    }
+  }
+  block_vectors<F>(smem, a.partials + (int64_t)blockIdx.x * 4 * F);
+}
+
+// The edge path's backward in the stream design, from the rematerialized
+// forward: dhs, dhr, de, the operands T(relu(first)) and T(dx1) of dW2, and
+// the block's sums of b1, b2, ln1 scale and ln1 bias (4 F floats).
+// Persistent, each warp owning the receivers it owns in the agg pass; slots
+// s_0 (e, then ge, then T(dx1), then T(dfirst)) and s_1 (hs, then
+// T(relu(first)), then ge, then de); the ring streams W_e, W2, then W2 and
+// W_e as column blocks (the transposed products).
+template <int F>
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_edge_stream(const Args a) {
+  using S = BwdStreamSmem<F>;
+  using D = Tile<F>;
+  constexpr int NB = D::NB, NH = D::NH, SLICE = D::SLICE_BYTES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const u32 sb = smem_addr(smem);
+  float* vec = reinterpret_cast<float*>(smem + S::kVec);
+  for (int i = threadIdx.x; i < 4 * F; i += THREADS) vec[i] = a.vec[i / F][i % F];
+  const float *b1 = vec, *b2 = vec + F, *s1 = vec + 2 * F;
+
+  const int K = a.k;
+  int64_t rc0, rc1;
+  block_warp_range(a.n, blockIdx.x, gridDim.x, warp, rc0, rc1);
+  const int64_t r_lo = rc0 * K, r_hi = rc1 * K;
+  const int mine = (int)((r_hi - r_lo + SR - 1) / SR);
+  const int iters = block_iters(a.n, K);
+  const bf16 *wE = static_cast<const bf16*>(a.w[G_WE]), *w2 = static_cast<const bf16*>(a.w[G_W2]);
+  zero_sums<F>(smem);
+  Ring<F, BWD_STAGES> ring;
+  ring.base = sb;
+  ring.nseq = 4;
+  ring.cols = 0b1100;  // W2, W_e transposed
+  ring.seq[0] = wE;
+  ring.seq[1] = w2;
+  ring.seq[2] = w2;
+  ring.seq[3] = wE;
+  ring.start(iters);
+  const u32 s_0 = S::kSlots + warp * 2 * SLICE, s_1 = s_0 + SLICE;
+  const Ops ops(a.ops, a.n, K, F);
+  const bf16 *e = static_cast<const bf16*>(a.e), *hs = static_cast<const bf16*>(a.hs);
+  const bf16 *ge = static_cast<const bf16*>(a.ge), *hr = static_cast<const bf16*>(a.hr);
+  bf16 *dhs = static_cast<bf16*>(a.dhs), *de = static_cast<bf16*>(a.de);
+  bf16* dhr = static_cast<bf16*>(a.dhr);
+  const float inv_n = 1.f / a.nf;
+
+  float m_next = 0.f;
+  auto mask_of = [&](int64_t s0) {  // lane r < 16: row r's mask
+    const int64_t rr = s0 + (lane & 15);
+    return rr < r_hi ? a.mask[rr] : 0.f;
+  };
+  if (mine > 0) {
+    copy_slice<F>(sb + s_0, e, r_lo, r_hi, lane);
+    copy_slice<F>(sb + s_1, hs, r_lo, r_hi, lane);
+    m_next = mask_of(r_lo);
+  }
+  cp_commit();
+
+  // this warp's sums of b1, b2, ln1 scale, ln1 bias, F floats each, and the
+  // dhr of receiver `cur`, each column kept by its owner lane
+  float* own = reinterpret_cast<float*>(smem + S::kOwn) + warp * 4 * F;
+  float* dhr_row = reinterpret_cast<float*>(smem + S::kDhr) + warp * F;
+  int64_t cur = -1;
+  auto flush = [&]() {  // T(dhr) out, the row zeroed
+    if (cur < 0) return;
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      const int c = (g + 8 * hh) * 8 + 2 * t;
+      *reinterpret_cast<u32*>(dhr + cur * F + c) = pack(dhr_row[c], dhr_row[c + 1]);
+      dhr_row[c] = dhr_row[c + 1] = 0.f;
+    }
+  };
+  float acc[NB][4];
+  for (int j = 0; j < iters; ++j) {
+    const bool live = j < mine;
+    const int64_t s0 = r_lo + (int64_t)j * SR;
+    const bool vg = s0 + g < r_hi, vg8 = s0 + g + 8 < r_hi;
+    const int64_t ig = vg ? (s0 + g) / K : 0, ig8 = vg8 ? (s0 + g + 8) / K : 0;
+    const float m_row = m_next;
+
+    zero(acc);  // first = e @ W_e + hs + hr + b1 -> T(relu(first)) in s_1
+    product<false>(acc, ring, sb + s_0, live, true, lane);
+    if (live) {
+      relu_first(acc, smem, s_1, hr, b1, vg, vg8, ig, ig8, lane);
+      store_slice<F>(ops.r1c, s0, r_hi, smem, s_1, lane);
+      copy_slice<F>(sb + s_0, ge, s0, r_hi, lane);  // e was the product's operand
+    }
+    cp_commit();  // ge: waited for by the third slab of W2
+
+    zero(acc);  // x1 - b2 = T(relu(first)) @ W2
+    product<false>(acc, ring, sb + s_1, live, false, lane);
+    if (live) {
+      add_bias(acc, b2, t);
+      float inv[2];
+      row_normalize(acc, inv[0], inv[1], a.nf);  // acc = xhat1 (-mean inv past nf)
+      // LN1 backward: dm = ge + dagg * mask; dx1 = inv (dm s - mean(dm s) -
+      // xhat mean(dm s xhat)); dm is formed twice rather than kept, its
+      // dagg loaded LB n-blocks at a time
+      const float mg = __shfl_sync(lbt::kFullMask, m_row, g);
+      const float mg8 = __shfl_sync(lbt::kFullMask, m_row, g + 8);
+      auto dm_batch = [&](int b0, float (&dv)[LB][4]) {
+        float2 d[LB][2];
+#pragma unroll
+        for (int i = 0; i < LB; ++i) {
+          const int c = (b0 + i) * 8 + 2 * t;
+          d[i][0] = vg ? __ldg(reinterpret_cast<const float2*>(a.dagg + ig * F + c))
+                       : make_float2(0.f, 0.f);
+          d[i][1] = !vg8 ? make_float2(0.f, 0.f)
+                    : ig8 == ig && vg ? d[i][0]
+                                      : __ldg(reinterpret_cast<const float2*>(a.dagg + ig8 * F + c));
+        }
+#pragma unroll
+        for (int i = 0; i < LB; ++i) {
+          const int c = (b0 + i) * 8 + 2 * t;
+          const float2 q = unpack(lds32(smem, s_0 + swz_pair<F>(g, c)));
+          const float2 q8 = unpack(lds32(smem, s_0 + swz_pair<F>(g + 8, c)));
+          dv[i][0] = q.x + d[i][0].x * mg;
+          dv[i][1] = q.y + d[i][0].y * mg;
+          dv[i][2] = q8.x + d[i][1].x * mg8;
+          dv[i][3] = q8.y + d[i][1].y * mg8;
+        }
+      };
+      float p1[2] = {0.f, 0.f}, p2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int b0 = 0; b0 < NB; b0 += LB) {
+        float dv[LB][4];
+        dm_batch(b0, dv);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float vs[LB], vb[LB];
+#pragma unroll
+          for (int i = 0; i < LB; ++i) {
+            const int nb = b0 + i, c = nb * 8 + 2 * t;
+            vs[i] = dv[i][jj] * acc[nb][jj] + dv[i][2 + jj] * acc[nb][2 + jj];
+            vb[i] = dv[i][jj] + dv[i][2 + jj];
+#pragma unroll
+            for (int r8 = 0; r8 < 2; ++r8) {
+              const float dx = dv[i][2 * r8 + jj] * s1[c + jj];
+              p1[r8] += dx;
+              p2[r8] += dx * acc[nb][2 * r8 + jj];
+            }
+          }
+          colsum8_to(own + 2 * F, vs, b0, jj, g, t);
+          colsum8_to(own + 3 * F, vb, b0, jj, g, t);
+        }
+      }
+      float m1[2], m2[2];
+#pragma unroll
+      for (int r8 = 0; r8 < 2; ++r8) {
+        m1[r8] = quad_sum(p1[r8]) * inv_n;
+        m2[r8] = quad_sum(p2[r8]) * inv_n;
+      }
+#pragma unroll
+      for (int b0 = 0; b0 < NB; b0 += LB) {  // T(dx1), 0 on rows past r_hi, over ge
+        float dv[LB][4];
+        dm_batch(b0, dv);
+#pragma unroll
+        for (int i = 0; i < LB; ++i) {
+          const int nb = b0 + i, c = nb * 8 + 2 * t;
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) {
+            const int r8 = e4 >> 1, jj = e4 & 1;
+            acc[nb][e4] = inv[r8] * (dv[i][e4] * s1[c + jj] - m1[r8] - acc[nb][e4] * m2[r8]);
+          }
+          sts32(smem, s_0 + swz_pair<F>(g, c), vg ? pack(acc[nb][0], acc[nb][1]) : 0u);
+          sts32(smem, s_0 + swz_pair<F>(g + 8, c), vg8 ? pack(acc[nb][2], acc[nb][3]) : 0u);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float v[LB];
+#pragma unroll
+          for (int i = 0; i < LB; ++i) v[i] = acc[b0 + i][jj] + acc[b0 + i][2 + jj];
+          colsum8_to(own + F, v, b0, jj, g, t);
+        }
+      }
+      __syncwarp();
+      store_slice<F>(ops.dx1c, s0, r_hi, smem, s_0, lane);
+    }
+
+    zero(acc);  // T(dx1) @ W2^T
+    product<true>(acc, ring, sb + s_0, live, false, lane);
+    if (live) {  // dfirst = . * (first > 0) -> T(dfirst) in s_0, out as dhs
+      __syncwarp();  // T(dx1), in s_0, was the product's operand
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c = nb * 8 + 2 * t;
+        const float2 r = unpack(lds32(smem, s_1 + swz_pair<F>(g, c)));
+        const float2 r8 = unpack(lds32(smem, s_1 + swz_pair<F>(g + 8, c)));
+        acc[nb][0] = r.x > 0.f ? acc[nb][0] : 0.f;
+        acc[nb][1] = r.y > 0.f ? acc[nb][1] : 0.f;
+        acc[nb][2] = r8.x > 0.f ? acc[nb][2] : 0.f;
+        acc[nb][3] = r8.y > 0.f ? acc[nb][3] : 0.f;
+        sts32(smem, s_0 + swz_pair<F>(g, c), pack(acc[nb][0], acc[nb][1]));
+        sts32(smem, s_0 + swz_pair<F>(g + 8, c), pack(acc[nb][2], acc[nb][3]));
+      }
+#pragma unroll
+      for (int b0 = 0; b0 < NB; b0 += 8)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float v[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[k] = acc[b0 + k][jj] + acc[b0 + k][2 + jj];
+          colsum8_to(own, v, b0, jj, g, t);
+        }
+      __syncwarp();
+      store_slice<F>(dhs, s0, r_hi, smem, s_0, lane);
+      // dhr: dfirst summed per receiver, in row order
+      const int64_t first = s0 / K, last = ((s0 + SR < r_hi ? s0 + SR : r_hi) - 1) / K;
+      for (int64_t i = first; i <= last; ++i) {
+        if (i != cur) {
+          flush();
+          cur = i;
+        }
+        const bool in_g = vg && ig == i, in_g8 = vg8 && ig8 == i;
+#pragma unroll
+        for (int b0 = 0; b0 < NB; b0 += 8)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            float v[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              v[k] = (in_g ? acc[b0 + k][jj] : 0.f) + (in_g8 ? acc[b0 + k][2 + jj] : 0.f);
+            colsum8_to(dhr_row, v, b0, jj, g, t);
+          }
+      }
+      __syncwarp();
+      copy_slice<F>(sb + s_1, ge, s0, r_hi, lane);  // T(relu(first)) was read above
+    }
+    cp_commit();  // ge: waited for by the third slab of W_e
+
+    zero(acc);  // T(dfirst) @ W_e^T
+    product<true>(acc, ring, sb + s_0, live, false, lane);
+    if (live) {
+      __syncwarp();  // T(dfirst), in s_0, was the product's operand
+      if (j + 1 < mine) copy_slice<F>(sb + s_0, e, s0 + SR, r_hi, lane);
+      add_pairs(acc, smem, s_1, lane);  // de = T(ge + .), out through s_1
+      __syncwarp();
+      store_slice<F>(de, s0, r_hi, smem, s_1, lane);
+      __syncwarp();
+      if (j + 1 < mine) {
+        copy_slice<F>(sb + s_1, hs, s0 + SR, r_hi, lane);
+        m_next = mask_of(s0 + SR);
+      }
+    }
+    cp_commit();  // the next slice's rows, waited for by its first slab
+  }
+  flush();
+  block_vectors<F>(smem, a.partials + (int64_t)blockIdx.x * 4 * F);
+}
+
+// The five weight gradients of the stream design, G = X^T Y over each job's
+// rows (X, Y row-major (rows, F) bf16). Block b takes output rows [F / 2 (b
+// & 1), F / 2 (b & 1) + F / 2) of one row range of one job: the ranges of
+// job 0, then job 1, ... (job q's rows split into `ranges` runs of whole
+// 32-row chunks, range r the chunks [c r / ranges, c (r + 1) / ranges) of its
+// c chunks). Its 8 warps (2 x 4) own F / 4 x F / 4 output tiles (64 x 64 at
+// F = 256) in registers for the whole range, the chunks arriving through a
+// 3-stage cp.async ring; each range writes its partial F x F once.
+struct TnJob {
+  const bf16* x;
+  const bf16* y;
+  int64_t rows;
+  int ranges;
+};
+struct TnArgs {
+  TnJob job[5];   // dW_e, dW2, dW_nh, dW_na, dW_n2
+  float* partials;  // the ranges' F x F partials, job by job
+};
+
+constexpr int TN_STAGES = 3;
+template <int F>
+struct TnSmem {
+  static constexpr int kStage = 2 * KS * Tile<F>::ROW_BYTES;  // X and Y chunks: 32 KB at F = 256
+  static constexpr int kBytes = TN_STAGES * kStage;
+  static_assert(kBytes <= kSmemMax, "TN kernel shared memory");
+};
+
+template <int F>
+__global__ void __launch_bounds__(THREADS, 1) fused_mp_bwd_tn(const TnArgs a) {
+  constexpr int WT = F / 4, MT = WT / 16, NT = WT / 8;  // a warp's output tile
+  constexpr int ROW_BYTES = Tile<F>::ROW_BYTES;
+  using S = TnSmem<F>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const u32 sb = smem_addr(smem);
+  int range = blockIdx.x >> 1, jb = 0, before = 0;
+  while (jb < 4 && range >= a.job[jb].ranges) {
+    range -= a.job[jb].ranges;
+    before += a.job[jb].ranges;
+    ++jb;
+  }
+  const TnJob J = a.job[jb];
+  const int64_t chunks = (J.rows + KS - 1) / KS;
+  const int64_t c0 = chunks * range / J.ranges, c1 = chunks * (range + 1) / J.ranges;
+  const int n = (int)(c1 - c0);
+  const int i0 = (blockIdx.x & 1) * (F / 2) + (warp >> 2) * WT, j0 = (warp & 3) * WT;
+  auto issue = [&](int q) {
+    if (q < n) {
+      const int64_t r = (c0 + q) * KS;
+      const int valid = J.rows - r < KS ? (int)(J.rows - r) : KS;
+      const u32 st = sb + (q % TN_STAGES) * S::kStage;
+      stage_rows<F>(st, J.x + r * F, KS, valid);
+      stage_rows<F>(st + KS * ROW_BYTES, J.y + r * F, KS, valid);
+    }
+    cp_commit();
+  };
+  for (int q = 0; q < TN_STAGES - 1; ++q) issue(q);
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) zero(acc[mt]);
+  for (int q = 0; q < n; ++q) {
+    cp_wait<TN_STAGES - 2>();
+    __syncthreads();
+    issue(q + TN_STAGES - 1);
+    const u32 x = sb + (q % TN_STAGES) * S::kStage, y = x + KS * ROW_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      u32 af[MT][4];  // X^T: X's rows read transposed
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_t(af[mt], x + swz<F>(kk * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                  (i0 + mt * 16) / 8 + ((lane >> 3) & 1)));
+      const int k = kk * 16 + (lane & 7) + (lane & 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        u32 b[4];
+        ldsm_t(b, y + swz<F>(k, (j0 + np * 16) / 8 + (lane >> 4)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(acc[mt][2 * np], af[mt], b[0], b[1]);
+          mma(acc[mt][2 * np + 1], af[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+  float* out = a.partials + (int64_t)(before + range) * F * F;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NT; ++nb) {
+      const int row = i0 + mt * 16 + g, col = j0 + nb * 8 + 2 * t;
+      *reinterpret_cast<float2*>(out + row * F + col) = make_float2(acc[mt][nb][0], acc[mt][nb][1]);
+      *reinterpret_cast<float2*>(out + (row + 8) * F + col) =
+          make_float2(acc[mt][nb][2], acc[mt][nb][3]);
+    }
+}
+
 // out[seg.out + j] = sum over blocks b, in order, of seg.src[b * seg.stride + j]
 struct Seg {
   const float* src;
   int blocks, stride, len, out;
 };
 struct Segs {
-  Seg s[5];
+  Seg s[7];
   int count;
 };
 
@@ -1244,23 +1855,81 @@ int run_bf16(Args a, int grid, cudaStream_t stream) {
   return launch_kernel(fused_mp_bwd_edge_b<F>, grid, THREADS, EdgeBwdBSmem<F>::kBytes, a, stream);
 }
 
+// The stream design's partials, in one allocation: the TN kernel's range
+// partials (2 r_e + 3 r_n) x F^2, then the edge kernel's blocks x 4 F, then
+// the node kernel's blocks x 4 F (plan: edge grid, node grid, r_e, r_n).
+template <int F>
+void stream_partials(float* base, const int* plan, float** tn, float** edge, float** node) {
+  *tn = base;
+  *edge = *tn + (int64_t)(2 * plan[2] + 3 * plan[3]) * F * F;
+  *node = *edge + (int64_t)plan[0] * 4 * F;
+}
+
+template <int F>
+int run_stream(Args a, const int* plan, cudaStream_t stream) {
+  if (plan == nullptr || plan[0] < 1 || plan[1] < 1 || plan[2] < 1 || plan[3] < 1 ||
+      a.ops == nullptr)
+    return (int)cudaErrorInvalidValue;
+  float *p_tn, *p_edge, *p_node;
+  stream_partials<F>(a.partials, plan, &p_tn, &p_edge, &p_node);
+  EdgeArgs f{};
+  f.e = a.e;
+  f.hs = static_cast<const bf16*>(a.hs);
+  f.hr = static_cast<const bf16*>(a.hr);
+  f.mask = a.mask;
+  f.w_e = static_cast<const bf16*>(a.w[0]);
+  f.w2 = static_cast<const bf16*>(a.w[1]);
+  for (int i = 0; i < 4; ++i) f.vec[i] = a.vec[i];
+  f.e_out = nullptr;
+  f.agg = a.agg;
+  f.n = a.n;
+  f.k = a.k;
+  f.nf = a.nf;
+  int err = launch_kernel(fused_mp_bwd_agg_stream<F>, plan[0], THREADS,
+                          EdgeStreamSmem<F, false>::kBytes, f, stream);
+  if (err != 0) return err;
+  a.partials = p_node;
+  err = launch_kernel(fused_mp_bwd_node_stream<F>, plan[1], THREADS, BwdStreamSmem<F>::kBytes, a,
+                      stream);
+  if (err != 0) return err;
+  a.partials = p_edge;
+  err = launch_kernel(fused_mp_bwd_edge_stream<F>, plan[0], THREADS, BwdStreamSmem<F>::kBytes, a,
+                      stream);
+  if (err != 0) return err;
+  const Ops ops(a.ops, a.n, a.k, F);
+  const int64_t rows = (int64_t)a.n * a.k;
+  TnArgs tn;
+  tn.job[G_WE] = TnJob{static_cast<const bf16*>(a.e), static_cast<const bf16*>(a.dhs), rows, plan[2]};
+  tn.job[G_W2] = TnJob{ops.r1c, ops.dx1c, rows, plan[2]};
+  tn.job[G_WNH] = TnJob{static_cast<const bf16*>(a.h), ops.dnfc, a.n, plan[3]};
+  tn.job[G_WNA] = TnJob{ops.aggc, ops.dnfc, a.n, plan[3]};
+  tn.job[G_WN2] = TnJob{ops.r2c, ops.dy1c, a.n, plan[3]};
+  tn.partials = p_tn;
+  return launch_kernel(fused_mp_bwd_tn<F>, 2 * (2 * plan[2] + 3 * plan[3]), THREADS,
+                       TnSmem<F>::kBytes, tn, stream);
+}
+
 }  // namespace
 
 // ptrs (host array of device pointers), in order:
 //   0 e, 1 hs_gath, 2 hr, 3 h, 4 mask, 5 ge, 6 gh, 7 de, 8 dhs, 9 dhr, 10 dh,
 //   11 W_e, 12 W2, 13 W_nh, 14 W_na, 15 W_n2,
 //   16 b1, 17 b2, 18 ln1_scale, 19 ln1_bias, 20 bn1, 21 bn2, 22 ln2_scale,
-//   23 ln2_bias, 24 partials (float32: (grid, 5 F^2 + 8 F); bf16:
-//   ceil(n / 64) x (3 F^2 + 4 F) for the node kernel, then grid x (F^2 +
-//   4 F) for edge kernel a and grid x F^2 for edge kernel b), 25 scratch (bf16: (2 n, F)
-//   float32, agg then dagg), 26 agg out (the tile design: (n, F) float32 that receives
-//   the step's agg as the kernel summed it, or null). The tile design (float32; bf16 at
-//   F > 128) takes the float32 layout.
+//   23 ln2_bias, 24 partials (float32 tile design: (grid, 5 F^2 + 8 F); bf16
+//   warp design: ceil(n / 64) x (3 F^2 + 4 F) for the node kernel, then grid
+//   x (F^2 + 4 F) for edge kernel a and grid x F^2 for edge kernel b; bf16
+//   stream design: stream_partials), 25 scratch (bf16: (2 n, F) float32, agg
+//   then dagg), 26 agg out (the float32 tile design: (n, F) float32 that
+//   receives the step's agg as the kernel summed it, or null), 27 the stream
+//   design's operands ((2 n k + 4 n, F) bf16, Ops).
 // latent: the true width nf in [1, 256] (else cudaErrorInvalidValue); every
 //   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
+// grid: the float32 tile design's and the bf16 warp design's edge grid;
+// plan: the stream design's (edge grid, node grid, r_e, r_n), the ranges of
+//   the edge and the node weight gradients (ops/fused_mp.py bwd_stream_plan).
 LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int latent, int is_bf16,
-                                int grid, cudaStream_t stream) {
-  const bool tile = !is_bf16 || latent > 128;
+                                int grid, const int* plan, cudaStream_t stream) {
+  const bool tile = !is_bf16;
   if (n < 1 || k < 1 || grid < 1 || (tile && grid > lbt::ceil_div(n, TR)))
     return (int)cudaErrorInvalidValue;
   Args a;
@@ -1280,34 +1949,46 @@ LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int laten
   a.partials = static_cast<float*>(const_cast<void*>(ptrs[24]));
   a.agg = static_cast<float*>(const_cast<void*>(ptrs[26]));
   a.dagg = nullptr;
+  a.ops = const_cast<void*>(ptrs[27]);
   a.n = n;
   a.k = k;
   a.nf = latent;
   return latent_dispatch(latent, [&](auto width) {
     constexpr int F = decltype(width)::value;
     if (!is_bf16) return launch<float, F>(a, grid, stream);
-    if constexpr (F > 128) {
-      return launch<bf16, F>(a, grid, stream);
-    } else {
-      Args b = a;
-      b.agg = static_cast<float*>(const_cast<void*>(ptrs[25]));
-      b.dagg = b.agg + (int64_t)n * F;
-      return run_bf16<F>(b, grid, stream);
-    }
+    Args b = a;
+    b.agg = static_cast<float*>(const_cast<void*>(ptrs[25]));
+    b.dagg = b.agg + (int64_t)n * F;
+    if constexpr (F > 128) return run_stream<F>(b, plan, stream);
+    else return run_bf16<F>(b, grid, stream);
   });
 }
 
 // grads (5 F^2 + 8 F, the order of Args::w then Args::vec) from the
 // partials of lbt_fused_mp_bwd, each summed over its blocks in block order
 LBT_EXPORT int lbt_fused_mp_bwd_reduce(const float* partials, float* out, int n, int latent,
-                                       int is_bf16, int grid, cudaStream_t stream) {
+                                       int is_bf16, int grid, const int* plan,
+                                       cudaStream_t stream) {
   if (n < 1 || grid < 1) return (int)cudaErrorInvalidValue;
   return latent_dispatch(latent, [&](auto width) {
     constexpr int F = decltype(width)::value;
     Segs segs{};
-    if (!is_bf16 || F > 128) {
+    if (!is_bf16) {
       segs.s[0] = Seg{partials, grid, GRADS<F>, GRADS<F>, 0};
       segs.count = 1;
+    } else if (F > 128) {
+      if (plan == nullptr) return (int)cudaErrorInvalidValue;
+      float *p_tn, *p_edge, *p_node;
+      stream_partials<F>(const_cast<float*>(partials), plan, &p_tn, &p_edge, &p_node);
+      int before = 0;
+      for (int q = 0; q < 5; ++q) {  // G_WE .. G_WN2
+        const int ranges = q < 2 ? plan[2] : plan[3];
+        segs.s[q] = Seg{p_tn + (int64_t)before * F * F, ranges, F * F, F * F, q * F * F};
+        before += ranges;
+      }
+      segs.s[5] = Seg{p_edge, plan[0], 4 * F, 4 * F, 5 * F * F + V_B1 * F};
+      segs.s[6] = Seg{p_node, plan[1], 4 * F, 4 * F, 5 * F * F + V_BN1 * F};
+      segs.count = 7;
     } else {
       float *p_node, *p_ea, *p_eb;
       bf16_partials<F>(const_cast<float*>(partials), grid, n, &p_node, &p_ea, &p_eb);

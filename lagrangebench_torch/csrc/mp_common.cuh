@@ -1,9 +1,8 @@
 // Building blocks shared by the fused message-passing kernels (K3 forward,
 // K4 backward), templated on the instance width F (64, 128, 192 or 256):
-// the tile design's shared-memory layout, its block GEMMs C (+)= A @ W
-// (CUDA-core FMAs in float32; WMMA 16x16x16 tensor-core tiles in bf16,
-// B read from the (in, out) weight in device memory), the warp-per-row
-// LayerNorm, and the width map (latent_dispatch).
+// the float32 tile design's shared-memory layout, its block GEMM C (+)= A @ W
+// (CUDA-core FMAs, W read from the (in, out) weight in device memory), the
+// warp-per-row LayerNorm, and the width map (latent_dispatch).
 //
 // Width map: a latent width nf in [1, 256] runs the instance F = 64
 // ceil(nf / 64). The wrapper (ops/fused_mp.py) pads every tensor and
@@ -13,7 +12,6 @@
 #pragma once
 
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include <type_traits>
 
@@ -34,10 +32,6 @@ struct Layout;
 template <int F>
 struct Layout<float, F> {
   static constexpr int LDA = F + 4;  // row stride in shared memory; weights stay in global
-};
-template <int F>
-struct Layout<__nv_bfloat16, F> {
-  static constexpr int LDA = F + 8;  // a multiple of 8 bf16 (16 B), as WMMA loads need
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -67,44 +61,6 @@ __device__ void block_gemm(const float* A, const float* W, float* C, int rows, b
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) C[(r0 + i) * kLdf<F> + c] = acc[i];
-  }
-}
-
-// bf16: each warp takes 16-column strips of C in turn and, for k in
-// 16-deep steps, reads W's 16 x 16 tile once from device memory (L1/L2) and
-// multiplies it into all row tiles (WMMA, bf16 products, float32
-// accumulators); A from shared memory. rows <= kMaxTileRows.
-constexpr int kMaxTileRows = 64;
-template <int F>
-__device__ void block_gemm(const bf16* A, const bf16* W, float* C, int rows, bool accumulate) {
-  using namespace nvcuda;
-  constexpr int LDA = Layout<bf16, F>::LDA, RT = kMaxTileRows / 16;
-  const int rt = rows / 16;
-  for (int c0 = (threadIdx.x / 32) * 16; c0 < F; c0 += WARPS * 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      if (i >= rt) continue;
-      if (accumulate)
-        wmma::load_matrix_sync(acc[i], C + i * 16 * kLdf<F> + c0, kLdf<F>, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc[i], 0.f);
-    }
-    for (int k = 0; k < F; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, W + k * F + c0, F);
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        if (i >= rt) continue;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, A + i * 16 * LDA + k, LDA);
-        wmma::mma_sync(acc[i], fa, fb, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      if (i < rt)
-        wmma::store_matrix_sync(C + i * 16 * kLdf<F> + c0, acc[i], kLdf<F>, wmma::mem_row_major);
   }
 }
 

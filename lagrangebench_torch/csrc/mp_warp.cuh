@@ -64,11 +64,19 @@ __device__ __forceinline__ u32 swz_pair(int r, int col) {
   return swz<F>(r, col >> 3) + (col & 7) * 2;
 }
 // the (row, chunk) of a 16-row slice that lane copies in its i-th 16-byte
-// copy (i < Tile<F>::CP_ITERS): a warp's 32 lanes cover 32 / CH whole rows
+// copy (i < Tile<F>::CP_ITERS): copy i covers the slice's chunks [32 i, 32 i
+// + 32) in row order, whole rows where a row's chunks divide 32 (F = 64, 128,
+// 256) and 24-chunk rows at F = 192
 template <int F>
 __device__ __forceinline__ void slice_chunk(int lane, int i, int& r, int& c) {
-  r = lane / Tile<F>::CH + (32 / Tile<F>::CH) * i;
-  c = lane % Tile<F>::CH;
+  constexpr int CH = Tile<F>::CH;
+  if constexpr (32 % CH == 0) {
+    r = lane / CH + (32 / CH) * i;
+    c = lane % CH;
+  } else {
+    r = (32 * i + lane) / CH;
+    c = (32 * i + lane) % CH;
+  }
 }
 
 __device__ __forceinline__ void cp_async16(u32 dst, const void* src, bool valid) {

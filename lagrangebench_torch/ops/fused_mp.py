@@ -37,10 +37,11 @@ cell-sorted rows.
 
 On the card the kernels take any latent width F from 1 to ``MAX_LATENT``
 (256). Each is compiled at the instance widths of ``INSTANCES`` (64, 128,
-192, 256; in bf16 the warp design at ``LATENTS``, 64 and 128, the tile
-design above): width F runs the instance ``kernel_width(F)`` = 64 ceil(F /
-64), with the tensors and weights zero-padded past F (LayerNorm scale and
-bias included, ``pad_params``) and the true F passed to the kernel, which
+192, 256; in bf16 the warp design at ``LATENTS``, 64 and 128, the stream
+design above; in float32 the tile design): width F runs the instance
+``kernel_width(F)`` = 64 ceil(F / 64), with the tensors and weights
+zero-padded past F (LayerNorm scale and bias included, ``pad_params``)
+and the true F passed to the kernel, which
 takes every LayerNorm's statistics over the first F channels; the padded
 channels come out 0. On CUDA tensors a wrapper takes its tensors at the
 instance width, with ``latent`` the true width (the GNS model carries its
@@ -72,7 +73,7 @@ _KERNEL_WEIGHTS = ("w_e", "w2", "w_nh", "w_na", "wn2")
 _KERNEL_VECTORS = ("b1", "b2", "ln1_scale", "ln1_bias", "bn1", "bn2",
                    "ln2_scale", "ln2_bias")
 LATENTS = (64, 128)  # the bf16 warp design's instances (GNS-5-64, GNS-10-128)
-INSTANCES = (64, 128, 192, 256)  # every instance width (bf16 tile design above 128)
+INSTANCES = (64, 128, 192, 256)  # every instance width (bf16 stream design above 128)
 MAX_LATENT = INSTANCES[-1]
 
 
@@ -154,10 +155,16 @@ def at_true_width(name: str, *args, latent: int):
                  else {k: v[(slice(0, latent),) * v.dim()] for k, v in o.items()} for o in out)
 
 
-def _warp_design(cdt: torch.dtype, width: int) -> bool:
-    """Whether the instance at ``width`` runs the bf16 warp design (two
-    persistent kernels and an agg scratch) rather than the tile design."""
-    return cdt == torch.bfloat16 and width <= LATENTS[-1]
+def _design(cdt: torch.dtype, width: int) -> str:
+    """The kernel design of the instance at ``width`` in compute dtype
+    ``cdt``: "warp" (bf16 at F <= 128: weights resident in shared memory,
+    A operands in registers), "stream" (bf16 above: weights streamed
+    through a ring of slabs, A operands in shared memory, K4's weight
+    gradients in a product kernel of their own) or "tile" (float32). Both
+    bf16 designs run an edge and a node kernel with an agg scratch."""
+    if cdt != torch.bfloat16:
+        return "tile"
+    return "warp" if width <= LATENTS[-1] else "stream"
 
 
 _ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
@@ -172,8 +179,9 @@ FUSED_MP_ENC = Kernel(
 
 
 # the bf16 kernels: warps per block, rows per warp slice, nodes per block of
-# the backward's node kernel
-_WARPS, _SLICE, _NODE_BWD_ROWS = 8, 16, 64
+# the backward's node kernel (warp design), rows per chunk of the weight-
+# gradient product kernel (stream design)
+_WARPS, _SLICE, _NODE_BWD_ROWS, _TN_CHUNK = 8, 16, 64, 32
 _N_PTRS = 29  # the forward entries' pointer array (csrc/fused_mp.cu)
 
 
@@ -187,15 +195,47 @@ def mp_grids(n: int, k: int, sms: int) -> Tuple[int, int]:
     return max(1, min(sms, edge)), max(1, min(sms, node))
 
 
-def bwd_partials_floats(n: int, grid: int, bf16: bool, f: int) -> int:
-    """Floats of K4's per-block partials at instance width ``f``: the tile
-    design (float32, and bf16 at f > 128), ``grid`` blocks of the 13
-    gradients; the bf16 warp design, the node kernel's blocks (64 nodes
-    each) of the three node matrices and four node vectors, then ``grid``
-    blocks of dW2 and the four edge vectors, then ``grid`` blocks of
-    dW_e."""
-    if not bf16 or f > LATENTS[-1]:
+def bwd_stream_plan(n: int, k: int, sms: int) -> Tuple[int, int, int, int]:
+    """The bf16 stream design's K4 launch plan for n receivers of k edge rows
+    on a card of ``sms`` SMs: (edge grid, node grid, r_e, r_n), the grids of
+    ``mp_grids`` and the row ranges into which the weight-gradient product
+    kernel splits each edge gradient's n k rows (dW_e, dW2) and each node
+    gradient's n rows (dW_nh, dW_na, dW_n2). Each range is summed by two
+    blocks (the two halves of the output rows); the ranges take whole
+    32-row chunks, about equally many each over all five gradients, and
+    their 2 (2 r_e + 3 r_n) blocks fit one wave of the SMs where the card
+    has 12 or more."""
+    edge, node = mp_grids(n, k, sms)
+    ce, cn = -(-n * k // _TN_CHUNK), -(-n // _TN_CHUNK)
+    slots = max(1, sms // 2 - 5)  # the rounding up below adds at most 5 ranges
+    per = max(1, -(-(2 * ce + 3 * cn) // slots))
+    return edge, node, -(-ce // per), -(-cn // per)
+
+
+def tn_rows(rows: int, ranges: int, r: int) -> Tuple[int, int]:
+    """The rows [lo, hi) of range r of ``rows`` rows split into ``ranges``
+    runs of whole 32-row chunks (the weight-gradient product kernel's
+    fixed partition; ``csrc/fused_mp_bwd.cu`` fused_mp_bwd_tn)."""
+    chunks = -(-rows // _TN_CHUNK)
+    c0, c1 = chunks * r // ranges, chunks * (r + 1) // ranges
+    return c0 * _TN_CHUNK, min(c1 * _TN_CHUNK, rows)
+
+
+def bwd_partials_floats(n: int, grid: int, bf16: bool, f: int,
+                        plan: Optional[Tuple[int, int, int, int]] = None) -> int:
+    """Floats of K4's per-block partials at instance width ``f``: the
+    float32 tile design, ``grid`` blocks of the 13 gradients; the bf16 warp
+    design, the node kernel's blocks (64 nodes each) of the three node
+    matrices and four node vectors, then ``grid`` blocks of dW2 and the four
+    edge vectors, then ``grid`` blocks of dW_e; the bf16 stream design (f >
+    128, ``plan`` from ``bwd_stream_plan``), each row range's F x F partial
+    (2 r_e + 3 r_n of them), then the edge and the node kernel's blocks of
+    their four vectors."""
+    if not bf16:
         return grid * (5 * f * f + 8 * f)
+    if f > LATENTS[-1]:
+        edge, node, r_e, r_n = plan
+        return (2 * r_e + 3 * r_n) * f * f + (edge + node) * 4 * f
     return -(-n // _NODE_BWD_ROWS) * (3 * f * f + 4 * f) + grid * (2 * f * f + 4 * f)
 
 
@@ -368,9 +408,9 @@ def _step_pointers(p, enc, cdt, f, e):
 
 
 def _agg_scratch(n: int, f: int, cdt: torch.dtype, device) -> Optional[torch.Tensor]:
-    """The bf16 warp design's float32 (n, f) agg, handed from the edge
-    kernel to the node kernel; the tile design needs none."""
-    if not _warp_design(cdt, f):
+    """The bf16 designs' float32 (n, f) agg, handed from the edge kernel to
+    the node kernel; the float32 tile design needs none."""
+    if cdt != torch.bfloat16:
         return None
     return torch.empty((n, f), dtype=torch.float32, device=device)
 
@@ -412,14 +452,14 @@ BWD_PARAM_ORDER = (
 )
 _BWD_GRAD_SLOTS = _KERNEL_WEIGHTS + _KERNEL_VECTORS  # the kernel's output layout
 
-_BWD_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 FUSED_MP_BWD = Kernel(
     "fused_mp_bwd", "fused_mp_bwd", "lbt_fused_mp_bwd", _BWD_ARGTYPES,
     replaces="lagrangebench_tpu/ops/fused_mp.py:443",
 )
 _BWD_REDUCE = Kernel(
     "fused_mp_bwd_reduce", "fused_mp_bwd", "lbt_fused_mp_bwd_reduce",
-    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
     replaces="lagrangebench_tpu/ops/fused_mp.py:443",
 )
 _BWD_TILE = 16  # receivers per tile of the float32 backward kernel
@@ -566,9 +606,10 @@ def gns_mp_step_bwd(
     at the true or the instance width, and the tensors are at the instance
     width, as :func:`gns_mp_step` takes them; the parameter gradients come
     back at the width of ``p``. The weight gradients are summed without
-    atomics: each block adds its rows into its own float32 partials, once
-    per launch, and a last launch sums the partials in block order, so two
-    calls on the same inputs give the same bits.
+    atomics: each block (in bf16 at F > 128, each row range of the weight-
+    gradient product kernel) adds its rows into its own float32 partials,
+    once per launch, and a last launch sums the partials in block order, so
+    two calls on the same inputs give the same bits.
     """
     width = e.shape[-1]
     latent = width if latent is None else latent
@@ -598,25 +639,31 @@ def gns_mp_step_bwd(
     dh = torch.empty_like(h)
     params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
     params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
-    warp = _warp_design(cdt, f)
+    bf16 = cdt == torch.bfloat16
+    stream = _design(cdt, f) == "stream"
     sms = _sms(e.device)
-    grid = mp_grids(n, k, sms)[0] if warp else min(-(-n // _BWD_TILE), sms)
+    grid = mp_grids(n, k, sms)[0] if bf16 else min(-(-n // _BWD_TILE), sms)
+    plan = bwd_stream_plan(n, k, sms) if stream else None
     per_block = len(_KERNEL_WEIGHTS) * f * f + len(_KERNEL_VECTORS) * f
-    partials = torch.empty((bwd_partials_floats(n, grid, warp, f),), dtype=torch.float32,
+    partials = torch.empty((bwd_partials_floats(n, grid, bf16, f, plan),), dtype=torch.float32,
                            device=e.device)
-    scratch = torch.empty((2 * n if warp else 1, f), dtype=torch.float32, device=e.device)
+    scratch = torch.empty((2 * n if bf16 else 1, f), dtype=torch.float32, device=e.device)
+    # the stream design's bf16 operands of the weight gradients (Ops)
+    ops = torch.empty(((2 * k + 4) * n if stream else 1, f), dtype=cdt, device=e.device)
     grads = torch.empty((per_block,), dtype=torch.float32, device=e.device)
     if agg_out is not None:
         _checked(agg_out, torch.float32, (n, f))
     ptrs = [t.data_ptr() for t in tensors + [de, dhs, dhr, dh] + params + [partials, scratch]]
-    ptrs.append(agg_out.data_ptr() if agg_out is not None and not warp else 0)
+    ptrs.append(agg_out.data_ptr() if agg_out is not None and not bf16 else 0)
+    ptrs.append(ops.data_ptr())
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    bf16 = int(cdt == torch.bfloat16)
-    FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, latent, bf16, grid, device=e.device)
-    if agg_out is not None and warp:  # the warp design's agg scratch
+    plan_arr = (ctypes.c_int * 4)(*plan) if plan else None
+    FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, latent, int(bf16), grid, plan_arr,
+                 device=e.device)
+    if agg_out is not None and bf16:  # the bf16 designs' agg scratch
         agg_out.copy_(scratch[:n])
     _BWD_REDUCE(ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(grads.data_ptr()),
-                n, latent, bf16, grid, device=e.device)
+                n, latent, int(bf16), grid, plan_arr, device=e.device)
     dp, at = {}, 0
     for name in _BWD_GRAD_SLOTS:
         if name in _KERNEL_WEIGHTS:

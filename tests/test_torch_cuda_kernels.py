@@ -122,6 +122,10 @@ RAGGED = [(n, k) for n in (1, 17, 1000, 16000) for k in (1, 7, 24, 40)]
 @pytest.mark.parametrize("use_enc", [False, True])
 def test_fused_mp_kernel_ragged(cuda, n, k, dtype, tol, use_enc, f):
     """K3 at ragged shapes, K3's limits; two launches give the same bits."""
+    _check_fwd_ragged(cuda, n, k, dtype, tol, use_enc, f)
+
+
+def _check_fwd_ragged(cuda, n, k, dtype, tol, use_enc, f):
     args = _fwd_case(cuda, dtype, use_enc, n, k, f)
     got = _at("gns_mp_step", *args, f=f)
     again = _at("gns_mp_step", *args, f=f)
@@ -308,6 +312,10 @@ def test_fused_mp_bwd_kernel_ragged(cuda, n, k, dtype, f):
     T(agg), and its agg to the float64 sum within 1e-4 in the 2-norm
     (``chip_smoke.bf16_tie_check``; against the float32 plain version the
     H100 read 1.28e-2 on W_nh at N = 1,000, K = 24, F = 192)."""
+    _check_bwd_ragged(cuda, n, k, dtype, f)
+
+
+def _check_bwd_ragged(cuda, n, k, dtype, f):
     t, p, _ = _bwd_case(cuda, dtype, False, n=n, k=k, f=f)
     kp = fused_mp.kernel_params(p, dtype)
     args = (t["e"], t["hs"], t["hr"], t["h"], t["mask"], kp, t["ge"], t["gh"])
@@ -341,6 +349,34 @@ def test_fused_mp_bwd_kernel_ragged(cuda, n, k, dtype, f):
             assert _rel_err(x, y) <= 1e-4, name
         else:
             assert float((x - y).norm() / y.norm().clamp_min(1e-30)) <= 5e-3, name
+
+
+# the wide instances (bf16: the stream design; float32: the tile design) at
+# receiver counts that are not a multiple of a slice (16), of a block's 128
+# rows or of the SMs, with K from 1 to 40: slices that straddle receivers,
+# warps and blocks left without a slice, ragged weight-gradient ranges
+WIDE = (192, 256)
+WIDE_RAGGED = [(n, k) for n in (5, 141, 2999) for k in (1, 13, 40)]
+
+
+@pytest.mark.parametrize("f", WIDE)
+@pytest.mark.parametrize("n,k", WIDE_RAGGED)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
+@pytest.mark.parametrize("use_enc", [False, True])
+def test_wide_fused_mp_kernel_ragged(cuda, n, k, dtype, tol, use_enc, f):
+    """K3 (plain and encoder step) at F = 192 and 256 at ragged shapes, K3's
+    limits; two launches give the same bits."""
+    _check_fwd_ragged(cuda, n, k, dtype, tol, use_enc, f)
+
+
+@pytest.mark.parametrize("f", WIDE)
+@pytest.mark.parametrize("n,k", WIDE_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_fused_mp_bwd_kernel_ragged(cuda, n, k, dtype, f):
+    """K4 at F = 192 and 256 at ragged shapes under the limits and tie rules
+    of ``test_fused_mp_bwd_kernel_ragged``; its outputs and weight
+    gradients are the same bits over two launches."""
+    _check_bwd_ragged(cuda, n, k, dtype, f)
 
 
 def _painn_case(cuda, dtype, dim, n=203, k=24, fused=False, seed=None, h=128, r=20):

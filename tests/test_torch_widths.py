@@ -138,14 +138,16 @@ def test_gns_padded_training_gradients_match_true_width(monkeypatch, f):
                                      (193, 256), (256, 256)])
 def test_kernel_width_map(f, width):
     """Latent width F runs the instance 64 ceil(F / 64); bf16 takes the warp
-    design up to 128 and the tile design above, float32 the tile design;
-    the tile design's K4 partials are the float32 layout."""
+    design up to 128 and the stream design above, float32 the tile design;
+    the stream design's K4 partials are its row ranges' F x F partials and
+    its two row kernels' vector sums."""
     assert fused_mp.kernel_width(f) == width and width in fused_mp.INSTANCES
-    assert fused_mp._warp_design(torch.bfloat16, width) == (width <= 128)
-    assert not fused_mp._warp_design(torch.float32, width)
+    assert fused_mp._design(torch.bfloat16, width) == ("warp" if width <= 128 else "stream")
+    assert fused_mp._design(torch.float32, width) == "tile"
     if width > 128:
-        assert fused_mp.bwd_partials_floats(1000, 7, True, width) == 7 * (
-            5 * width * width + 8 * width)
+        plan = (7, 8, 3, 1)
+        assert fused_mp.bwd_partials_floats(1000, 7, True, width, plan) == (
+            (2 * 3 + 3 * 1) * width * width + (7 + 8) * 4 * width)
 
 
 @pytest.mark.parametrize("f", [257, 512, 0])
