@@ -136,7 +136,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    bit-identical parameters; rank 0 traces steps 4-6 with
    ``logging.profile_dir`` (the trace must hold K3, K4 and the all-reduce).
    A float32 run (3 steps, 1,000 particles, GNS-2-128) must match one
-   process on the card within 1e-5; a 20-step float32 ``infer`` of 2
+   process on the card within 1e-5; a 10-step float32 ``infer`` of 2
    trajectories at batch 2 (sharded) and of 3 at batch 3 (the fallback)
    from one checkpoint must match one process within 1e-5 relative. ms per
    train step of the ranks and of the one process are printed (not a
@@ -153,8 +153,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ring of 3 (x-slabs 0.333 wide, 8,000 particles in 3D, cutoff 0.0725),
    and drive the port's entry points with the counters zeroed around each:
    GNS-10-128 bf16 (the shipped ``configs/rpf_3d/gns.yaml``)
-   ``infer_spatial`` (20 steps, 2 trajectories, mse, e_kin, Sinkhorn) and
-   ``train_spatial`` (12 steps at batch 1, one pushforward unroll from step
+   ``infer_spatial`` (10 steps, 2 trajectories, mse, e_kin, Sinkhorn) and
+   ``train_spatial`` (8 steps at batch 1, one pushforward unroll from step
    4, validation and a checkpoint at the last step), PaiNN-5-128 float32
    (``configs/rpf_3d/painn.yaml``) ``infer_spatial`` (5 steps). Each rank
    must launch K3 (both instances) in GNS inference and training, K4 in
@@ -163,7 +163,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    train step) and K5 (its first layer, 3 N_loc source rows: the slab and
    both halo slabs) must match their plain versions under phase 2's, 3's
    and 4's limits. float32 on the same weights: the three-rank forward,
-   train step (loss and gradients) and 20-step infer metrics must match the
+   train step (loss and gradients) and 10-step infer metrics must match the
    unsharded port within 1e-5 of the largest value (metrics: relative).
    Prints ms per rollout and train step of the ranks and of the same runs
    in one process (a ring of one), and the halo exchange's host ms per
@@ -203,8 +203,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (a) The WCSPH solver (``data_gen.wcsph``) at the reference scales: TGV
    2D (2,500 particles), TGV 3D (8,000, a Verlet skin of 0.25 h, capacity
    multiplier 1.5), DAM (dx 0.025), RPF 2D (3,200, with the band force) and
-   LDC (dx 1/46), one frame of substeps (40, DAM 50) in float32 on the card
-   with K1 + K2 against the CPU (their plain versions) and against the cell
+   LDC (dx 1/46), 10 substeps (``gate_substeps``; a quarter of a frame, a
+   fifth of the DAM's: the CPU references took 92-120 s at a whole frame)
+   in float32 on the card with K1 + K2 against the CPU (their plain
+   versions) and against the cell
    list on the card, within ``DATAGEN_TOL``; the allocations' neighbor rows
    as sets (a pair only one search keeps must sit on the cutoff); K1 and K2
    exactly 1 + ceil(steps / nl_every) launches per allocation and advance,
@@ -268,12 +270,35 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    checks: phase 7's 3-step rollout at GNS-2-96 and GNS-2-256, 3 training
    steps of GNS-2-96, one forward of PaiNN-2-64 in both layouts. Prints
    its wall time beside the card.
-17. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
+17. Past F = 256 and H = 256 (slice 18, "phase 18" in the output): K3
+   (plain and encoder step), K4 and K8 (plain and encoder step) at F = 257,
+   320, 384, 512, 768 and 1,024 on the wide path (``csrc/mp_wide.cuh``), on
+   inputs captured from a GNS-3-F training step and slot forward (8,000
+   particles in 3D; 4,000 from F = 768 on, where K4's float64 references
+   would not fit), and E2 on the probe's structure, in bf16 and float32,
+   against their plain versions under phases 2's, 3's, 5's and 6's limits
+   (K4's weight gradients bit-identical over two launches); K5's wide
+   instance at H = 320, 512, 1,024 x R = 20, 96, 128 in 2D and 3D under
+   phase 3's limits. Then through ``runner.train_or_infer``: GNS-10-512
+   (``configs/rpf_3d/gns.yaml`` + ``model.latent_dim=512``, bf16, fused,
+   dense) ``mode=all`` (10 training steps at batch 2, one pushforward unroll
+   from step 4, a 20-step infer) and a slot ``mode=infer`` at batch 1 from
+   its checkpoint (K8 at 512); PaiNN-5-512 standard ``mode=all`` and fused
+   ``mode=infer`` (K5 at H = 512, R = 20), K5 and K6 timed on its inputs;
+   ``window_select --latent 512``; K1 and K2 once per neighbor update, K3 9
+   + 1 per forward, K4 and its reduction 10 per training step, K6 and K5 5
+   per forward; finite losses and metrics, ms per train and rollout step,
+   each run's wall time; float32 card-vs-CPU checks: 3-step rollouts of
+   GNS-2-320 and GNS-2-512, 3 training steps of GNS-2-320, one forward of
+   PaiNN-2-320 in both layouts. Prints the wide kernels' registers and
+   spills and the phase's wall time beside the card.
+18. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
    and C for K7, K8 and K9, from the experiments for E1 and E2; the F = 64
    instances, named with ``@64``, from phase 16; the F = 96 and 256 ones
    and the H = 64 ones, named ``@96``, ``@256`` and ``@64``, from phase
-   17), the card line, and last ``{"ok": true, "device": {...}}``.
+   17; the F = 512 and H = 512 ones, named ``@512``, from phase 18), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside the
 repository. Needs one card and no network. ``--dp-launched <dir>`` is the
@@ -312,8 +337,16 @@ K4_TOL = {"bf16_out": 1e-2, "bf16_grads": 1e-4, "float32": 1e-4}
 NF_TIE = 1e-6
 # K4's bf16 weight gradients at the widths where a reading showed agg's
 # bf16 rounding ties moving them past their limit, in the plain version's
-# own float32 sums too (phase 17; ``bf16_tie_check``)
-BF16_TIE_WIDTHS = (192, 256)
+# own float32 sums too (phase 17; ``bf16_tie_check``); and at the wide
+# path's gate widths (phase 18): there the raw gate read 7.4e-5 to 8.1e-4
+# on the model's inputs (H100), and ``experiments/k4_ties.py --bf16`` on the
+# GPU tests' seeded cases at N = 2,999 showed T(agg) elements rounded
+# apart between the kernel and the float64 sum flipping relu(node_first):
+# at K = 13, F = 257 843 of 0.77 M (7 flips), 384 2,101 of 1.15 M (10), 512
+# 4,853 of 1.54 M (16), 768 11,942 of 2.30 M (59), 1,024 25,778 of 3.07 M
+# (123); at K = 40, F = 320 1,632 of 0.96 M (8) (320 and 512 from an
+# earlier build of the same agg sums)
+BF16_TIE_WIDTHS = (192, 256, 257, 320, 384, 512, 768, 1024)
 TRAIN_STEPS, UNROLL_FROM = 12, 4  # steps 0-3 unroll 0, steps 4-11 unroll 1
 
 
@@ -347,8 +380,9 @@ def ptxas_report(build, names=("fused_mp", "fused_mp_bwd"), only=None):
     report (the ``.log`` beside each built library), one line per kernel,
     named by its mangled identifier and template arguments; the fused GNS
     kernels' lines also name their latent width F (their first integer
-    template argument), one line per instance. ``only``: the kernel names
-    to report (all by default)."""
+    template argument), one line per instance, and the wide path's row
+    kernels their values per lane. ``only``: the kernel names to report
+    (all by default)."""
     import re
 
     for name in names:
@@ -366,7 +400,10 @@ def ptxas_report(build, names=("fused_mp", "fused_mp_bwd"), only=None):
                     continue
                 targs = re.match(r"I\w*?EE", mangled[m.end() + len(ident):])
                 width = re.search(r"Li(\d+)E", targs.group(0)) if targs else None
-                width = f" [F = {width.group(1)}]" if width and name.startswith("fused_mp") else ""
+                if width and "wide" in ident:  # the wide path's row kernels: values per lane
+                    width = f" [{width.group(1)} values per lane]"
+                else:
+                    width = f" [F = {width.group(1)}]" if width and name.startswith("fused_mp") else ""
                 log(f"ptxas {name}.cu {ident}{targs.group(0) if targs else ''}{width}: "
                     f"{regs.group(1)} registers, stack {spill.group(1)} B, spill stores "
                     f"{spill.group(2)} B, loads {spill.group(3)} B")
@@ -973,12 +1010,12 @@ def float32_out_err(args, p, grads, got, want):
     return float(per.max()), ties
 
 
-def bf16_exact(args, p, grads, aggc=None):
+def bf16_exact(args, p, grads, aggc=None, relu_masks=None):
     """K4's plain version on bf16 inputs with its sums in float64: the same
     function, the same bf16 roundings of its intermediates, every sum
     (agg's over K above all) exact to float64 (the plain version's
-    accumulation dtype swapped for the call); ``aggc`` as the plain version
-    takes it."""
+    accumulation dtype swapped for the call); ``aggc`` and ``relu_masks``
+    as the plain version takes them."""
     import torch
 
     from lagrangebench_torch.ops import fused_mp
@@ -986,7 +1023,8 @@ def bf16_exact(args, p, grads, aggc=None):
     real = fused_mp._acc_dtype
     fused_mp._acc_dtype = lambda cdt: torch.float64
     try:
-        return fused_mp.gns_mp_step_bwd_plain(*args[:5], p, *grads, aggc=aggc)
+        return fused_mp.gns_mp_step_bwd_plain(*args[:5], p, *grads, aggc=aggc,
+                                              relu_masks=relu_masks)
     finally:
         fused_mp._acc_dtype = real
 
@@ -1011,6 +1049,26 @@ def agg_exact(args, p):
     return ((xhat * p["ln1_scale"] + p["ln1_bias"]) * mask.to(d)[..., None]).sum(1)
 
 
+def node_first_ties(h, aggc, p, relu_k):
+    """The wide path's relu(node_first) decisions against float64: node_first
+    of K4's bf16 ``h`` and the kernel's T(agg) ``aggc`` summed in float64,
+    and each element's float32 summation bound, (2F + 1) 2^-23 of the sum
+    of its terms' magnitudes (the tensor cores' float32 sums of the 2F
+    products and bn1, rounded toward 0 or to nearest). Returns (the
+    kernel's decisions (``relu_k`` > 0) that differ from float64's, those
+    of them farther from 0 than their bound)."""
+    import torch
+
+    d = torch.float64
+    h, aggc = h.to(d), aggc.to(d)
+    w_nh, w_na, bn1 = p["w_nh"].to(d), p["w_na"].to(d), p["bn1"].to(d)
+    nf = h @ w_nh + aggc @ w_na + bn1
+    bound = (2 * h.shape[-1] + 1) * 2.0**-23 * (h.abs() @ w_nh.abs() + aggc.abs() @ w_na.abs()
+                                                 + bn1.abs())
+    flips = (relu_k > 0) != (nf > 0)
+    return int(flips.sum()), int((flips & (nf.abs() > bound)).sum())
+
+
 def bf16_tie_check(args, p, grads, norm):
     """K4 in bf16 with agg's rounding ties decided as the kernel decided
     them: one more launch hands out the kernel's float32 agg (``agg_out``),
@@ -1019,20 +1077,48 @@ def bf16_tie_check(args, p, grads, norm):
     in float64 fed the kernel's bf16 rounding of that agg. Where a float32
     sum order puts agg within float32 noise of a bf16 rounding midpoint,
     each order rounds it its own way, and at F >= 192 such ties moved the
-    weight gradients past their limits (BF16_TIE_WIDTHS). Returns (agg
-    error, {name: error under ``norm``} for de, dhs, dhr, dh and the
-    weight gradients, the launch's outputs)."""
+    weight gradients past their limits (BF16_TIE_WIDTHS). On the wide path
+    (F > 256) the launch also hands out its T(relu(node_first))
+    (``relu_out``): the plain version takes the kernel's relu(node_first)
+    decisions, each of which must match float64's unless node_first lies
+    within its float32 summation bound of 0 (``node_first_ties``). Returns
+    (agg error, {name: error under ``norm``} for de, dhs, dhr, dh and the
+    weight gradients, with "nf_flips" and "nf_outside" the kernel's
+    relu(node_first) decisions apart from float64's and those outside the
+    bound (0 where the kernel hands none out), the launch's outputs)."""
     import torch
 
     from lagrangebench_torch.ops import fused_mp
 
-    agg_k = torch.empty(args[3].shape, dtype=torch.float32, device=args[3].device)
-    got = fused_mp.gns_mp_step_bwd(*args[:5], p, *grads, agg_out=agg_k)
-    exact = bf16_exact(args, p, grads, aggc=agg_k)
+    # the launch at the kernels' width (args at the true width f: padded,
+    # the outputs, the gradients, agg and relu(node_first) cut back to f)
+    f = args[3].shape[-1]
+    width = fused_mp.kernel_width(f)
+    n, dev = args[3].shape[0], args[3].device
+    agg_k = torch.empty((n, width), dtype=torch.float32, device=dev)
+    wide = fused_mp._design(args[3].dtype, width) == "wide"
+    relu_k = torch.empty((n, width), dtype=args[3].dtype, device=dev) if wide else None
+    padded = [t if i == 4 else fused_mp.pad_last(t, width).contiguous()
+              for i, t in enumerate(args[:5])]
+    got = fused_mp.gns_mp_step_bwd(*padded, fused_mp.pad_params(p, width),
+                                   *(fused_mp.pad_last(t, width).contiguous() for t in grads),
+                                   latent=f, agg_out=agg_k, relu_out=relu_k)
+    del padded
+    got = tuple(o[..., :f].contiguous() for o in got[:4]) + (
+        {k: fused_mp._sliced(v, p[k].shape) for k, v in got[4].items()},)
+    agg_k = agg_k[:, :f].contiguous()
+    flips = outside = 0
+    masks = None
+    if wide:
+        relu_k = relu_k[:, :f]
+        flips, outside = node_first_ties(args[3], agg_k.to(args[3].dtype), p, relu_k)
+        masks = (None, relu_k > 0)
+    exact = bf16_exact(args, p, grads, aggc=agg_k, relu_masks=masks)
     agg64 = agg_exact(args, p)
     agg_err = float((agg_k.double() - agg64).norm() / agg64.norm().clamp_min(1e-30))
     errs = {name: norm(x, y) for name, x, y in zip(("de", "dhs", "dhr", "dh"), got[:4], exact[:4])}
     errs.update({name: norm(got[4][name], exact[4][name]) for name in fused_mp.BWD_PARAM_ORDER})
+    errs.update(nf_flips=flips, nf_outside=outside)
     return agg_err, errs, got
 
 
@@ -1078,11 +1164,15 @@ def compare_bwd(sets, tie_rule=False):
                     same &= all(torch.equal(got[4][n], fed[4][n])
                                 for n in fused_mp.BWD_PARAM_ORDER)
                     tie_err = max(errs[n] for n in fused_mp.BWD_PARAM_ORDER)
-                    grads_ok = agg_err <= K4_TOL["float32"] and tie_err <= K4_TOL["bf16_grads"]
-                    tied = ("; the kernel's agg against the float64 sum: 2-norm "
+                    grads_ok = (agg_err <= K4_TOL["float32"] and tie_err <= K4_TOL["bf16_grads"]
+                                and errs["nf_outside"] == 0)
+                    tied = (f"; relu(node_first) decided apart from float64 {errs['nf_flips']}, "
+                            f"{errs['nf_outside']} of them outside the float32 summation bound "
+                            "(limit 0); the kernel's agg against the float64 sum: 2-norm "
                             f"{agg_err:.3g} (limit 1e-4); against the plain version summed in "
                             "float64 and fed the kernel's T(agg) (agg's bf16 rounding ties "
-                            "decided as the kernel decided them), per gradient " + json.dumps(
+                            "and, past F = 256, relu(node_first)'s decided as the kernel "
+                            "decided them), per gradient " + json.dumps(
                                 {n: float(f"{errs[n]:.3g}") for n in fused_mp.BWD_PARAM_ORDER})
                             + f" (limit 1e-4 each), outputs " + json.dumps(
                                 {n: float(f"{errs[n]:.3g}") for n in ("de", "dhs", "dhr", "dh")}))
@@ -1240,39 +1330,130 @@ def profile_train_step(trainer, raw, nbrs, batch=BATCH, unroll=1, label="train p
         f"{busy / wall_us:.1%}, idle {1 - busy / wall_us:.1%}")
 
 
-def train_reference_check(device, mp_steps=2, latent=None):
+# the training reference (``train_reference_check``): each tensor's
+# gradient at the first step, where both sides hold the same parameters,
+# within this share of its 2-norm on the CPU. float32 relu ties (an input
+# within float32 noise of 0 that the card's sums and the CPU's decide
+# apart, as K4's float32 gate allows) and sums that cancel move single
+# elements or small tensors: the H100 read up to 1.46e-4 (GNS-2-320's
+# enc_b2, 320 values summed over every edge), 5.2e-5 (GNS-5-64's W_s) and
+# 3.2e-7 (GNS-2-96)
+TRAIN_GRAD_L2 = 1e-3
+# GNS-2-320's training reference only: a parameter element more than 1e-5
+# apart passes if it is an Adam tie, its gradient within this share of the
+# tensor's largest magnitude on the card and on the CPU at some step. Adam
+# divides each gradient by its own running scale: its first update is lr
+# times the gradient's sign, so float32 noise at a gradient near 0 moves
+# such a parameter up to 2 lr. The H100 read, at GNS-2-320's first step,
+# W_e of step 0 at 1.0e-6 on the card against -6.3e-7 on the CPU and a
+# node-encoder weight at -8.4e-8 against 8.8e-7, of largest gradients 2.2
+# and 2.4: Adam's first step moved each pair 2 lr (2e-4) apart; 6 elements
+# lay more than 1e-5 apart, each such a tie, and the rest within 4.8e-6
+ADAM_TIE = 1e-4
+
+
+def _step_grads(trainer, model):
+    """Wraps the trainer's optimizer step: records each step's gradients
+    (float32, on the CPU) by parameter name and returns the list."""
+    grads, real = [], trainer.optimizer.step
+
+    def step(*a, **k):
+        grads.append({n: p.grad.detach().float().cpu().clone()
+                      for n, p in model.named_parameters() if p.grad is not None})
+        return real(*a, **k)
+
+    trainer.optimizer.step = step
+    return grads
+
+
+def _max0(t):
+    return float(t.max()) if t.numel() else 0.0
+
+
+def _adam_ties(grads, named):
+    """GNS-2-320's parameter gate (``ADAM_TIE``) on the two sides' gradients
+    by step and parameters: (the largest difference of an element that is
+    not an Adam tie, its parameter, the elements more than 1e-5 apart, the
+    Adam ties among them, their largest difference)."""
+    import torch
+
+    beyond = tied = 0
+    worst, worst_at, tie_max = 0.0, "", 0.0
+    for n in named[1]:
+        diff = (named[0][n] - named[1][n]).abs()
+        tie = torch.zeros_like(diff, dtype=torch.bool)
+        for a, b in zip(*grads):
+            if n not in b:
+                continue
+            small = ADAM_TIE * b[n].abs().max()
+            tie |= (a[n].abs() <= small) & (b[n].abs() <= small)
+        far = diff > 1e-5
+        beyond += int(far.sum())
+        tied += int((far & tie).sum())
+        tie_max = max(tie_max, _max0(diff[far & tie]))
+        if _max0(diff[~tie]) > worst:
+            worst, worst_at = _max0(diff[~tie]), n
+    return worst, worst_at, beyond, tied, tie_max
+
+
+def train_reference_check(device, mp_steps=2, latent=None, adam_ties=False):
     """Three float32 training steps on the card agree with the same steps
     on the CPU (TF32 off, the same host-drawn noise): 1,000 particles,
     GNS-2-128 (GNS-``mp_steps``-``latent``), batch 2, one pushforward
     unroll from step 1, lr 1e-4 (the
     config default). Not run under torch.use_deterministic_algorithms: the
     sender gather's backward adds with atomics, and the tolerances (losses
-    1e-5 relative, parameters 1e-5 absolute) hold with any order of those
-    float32 sums. Adam divides each gradient by its own running scale, so
+    1e-5 relative, parameters 1e-5 absolute, the first step's gradients
+    ``TRAIN_GRAD_L2`` in each tensor's 2-norm) hold with any order of those
+    float32 sums; the later steps' gradients are printed. Adam divides
+    each gradient by its own running scale, so
     where a gradient nearly cancels, float32 summation noise moves the
-    parameter by a share of lr: the difference grows with lr."""
+    parameter by a share of lr: the difference grows with lr. With
+    ``adam_ties`` (GNS-2-320 only) a parameter element more than 1e-5 apart
+    passes if it is an Adam tie (``ADAM_TIE``); how many, and how far
+    apart, is printed."""
     import numpy as np
 
     from lagrangebench_torch import checkpoint
 
     pf = {"steps": [-1, 0], "unrolls": [0, 1], "probs": [0, 1]}
-    losses, params = [], []
+    losses, params, grads, named = [], [], [], []
     for dev in (device, "cpu"):
         trainer, model, _ = train_setup(dev, n_particles=1000, dtype="float32",
                                         mp_steps=mp_steps, lr=1e-4, pushforward=pf,
                                         latent=latent)
+        grads.append(_step_grads(trainer, model))
         steps, _ = record_steps(trainer)
         trainer.train(step_max=2)
         losses.append(np.asarray([loss for _, loss in steps]))
         params.append(checkpoint.flatten_tree(model.jax_params()))
+        named.append({n: p.detach().cpu() for n, p in model.named_parameters()})
     loss_err = float(np.max(np.abs(losses[0] - losses[1]) / np.abs(losses[1])))
-    par_err, worst = max((float(np.max(np.abs(params[0][k] - params[1][k]))), k)
-                         for k in params[1])
+
+    def worst(step, norm):
+        return max((float(norm(a - b)) / max(float(norm(b)), 1e-30), n)
+                   for n, a, b in ((n, step[0][n], step[1][n]) for n in step[1]))
+
+    per_step = [(worst(s, lambda t: t.norm()), worst(s, lambda t: t.abs().max()))
+                for s in zip(*grads)]
+    grads_ok = len(per_step) == 3 and per_step[0][0][0] <= TRAIN_GRAD_L2
+    tie_note = ""
+    if adam_ties:
+        par_err, worst_at, beyond, tied, tie_max = _adam_ties(grads, named)
+        tie_note = (f" outside the Adam ties; {beyond} elements more than 1e-5 apart, {tied} "
+                    f"of them Adam ties (gradients within {ADAM_TIE} of the tensor's largest "
+                    f"on both sides at some step), up to {tie_max:.3g}")
+    else:
+        par_err, worst_at = max((float(np.max(np.abs(params[0][k] - params[1][k]))), k)
+                                for k in params[1])
     log(f"train reference (GNS-{mp_steps}-{latent or LATENT}): 3 float32 steps, cuda vs cpu: "
         f"losses {losses[0].tolist()} vs "
         f"{losses[1].tolist()}, max rel diff {loss_err:.3g} (tol 1e-5); parameters max abs "
-        f"diff {par_err:.3g} at {worst} (tol 1e-5)")
-    return len(losses[0]) == 3 and loss_err <= 1e-5 and par_err <= 1e-5
+        f"diff {par_err:.3g} at {worst_at} (tol 1e-5){tie_note}; gradients |cuda - cpu| "
+        "by step, (2-norm of the tensor's, max of the tensor's largest): " + json.dumps(
+            [[[float(f"{e:.3g}"), n] for e, n in s] for s in per_step])
+        + f" (first step's 2-norm tol {TRAIN_GRAD_L2}, the rest printed)")
+    return len(losses[0]) == 3 and loss_err <= 1e-5 and par_err <= 1e-5 and grads_ok
 
 
 # ---------------------------------------------------------------------------
@@ -1296,13 +1477,17 @@ PAINN_STEP_MAX, PAINN_ROLLOUT = 10, 20
 # widened to float32 on both sides, which then differ only in summation
 # order: 1e-5. K5 rounds s1, v1_d, ts and z to bf16 before their products
 # and its outputs to bf16; a sum in another order that lands on the other
-# side of a rounding boundary moves a value by one bf16 ulp (2^-8 of it), a
-# rare event that reads ~1.5e-5 here. A kernel that skipped one of those
-# roundings would move every value it feeds by up to half an ulp, ~1e-3:
-# 1e-4 lies between. The phase also prints what the plain version reads
-# with none of those roundings (float32 arithmetic on the same bf16 values),
-# and requires it above the limit.
-PAINN_TOL = {"float32": 1e-4, "painn_msg_bf16": 1e-5, "painn_layer_bf16": 1e-4}
+# side of a rounding boundary moves a value by one bf16 ulp (2^-8 of it).
+# K5 is held, at every H and R, to its plain version with its sums in
+# float64 (``painn_plain64``), from which the kernel and the float32 plain
+# version each part at their own ties: on the H100 the kernel read up to
+# 1.32e-4 from it at H = 1,024 in 3D (sums over up to 2,048 terms), where
+# the float32 plain version read up to 1.9e-4. A kernel that skipped one of
+# those roundings would move every value it feeds by up to half an ulp:
+# the plain version with none of them (float32 arithmetic on the same bf16
+# values) read 2.7e-3 to 3.1e-3 on every shape. 2e-4 lies between; the
+# phase prints that witness and requires it above the limit.
+PAINN_TOL = {"float32": 1e-4, "painn_msg_bf16": 1e-5, "painn_layer_bf16": 2e-4}
 # The fused layout against the standard layout, from the same checkpoint:
 # the same function in float32 with the filters and K-sums summed in other
 # orders. One forward on the same inputs: max |fused - standard| <= 1e-4 x
@@ -1436,11 +1621,28 @@ def painn_bound(name, args):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def painn_plain64(args):
+    """K5's plain version on bf16 ``args`` with its sums in float64 (its
+    bf16 roundings kept; the module's accumulation dtype swapped for the
+    call)."""
+    import torch
+
+    from lagrangebench_torch.ops import painn_msg
+
+    real = painn_msg._acc_dtype
+    painn_msg._acc_dtype = lambda dtype: torch.float64
+    try:
+        return painn_msg.painn_layer_plain(*args)
+    finally:
+        painn_msg._acc_dtype = real
+
+
 def compare_painn_kernels(seen, names=("painn_msg", "painn_layer"), timed=True):
-    """K6 and K5 against their plain versions (float32 and bf16), timed at
-    the path's float32 shapes (untimed with ``timed=False``: the gates of
-    phase 17, where K5's witness that the bf16 gate can tell a skipped
-    rounding apart is printed and not gated)."""
+    """K6 and K5 against their plain versions (float32 and bf16; K5's bf16
+    against the plain version summed in float64, ``painn_plain64``, beside
+    the float32 plain version's reading, printed), timed at the path's
+    float32 shapes (untimed with ``timed=False``: the gates of phases 17
+    and 18)."""
     import torch
 
     from lagrangebench_torch.ops import painn_msg
@@ -1466,29 +1668,32 @@ def compare_painn_kernels(seen, names=("painn_msg", "painn_layer"), timed=True):
                 painn_msg.layer_kernel_params(args[6], torch.bfloat16),)
         gb, wb = kern(*bf), plain(*bf)
         torch.cuda.synchronize()
+        ref = wb if name == "painn_msg" else painn_plain64(bf)
 
-        def l2_of(outs):
+        def l2_of(outs, ref=ref):
             return max(float((a.float() - b.float()).norm() / b.float().norm())
-                       for a, b in zip(outs, wb))
+                       for a, b in zip(outs, ref))
 
         l2 = l2_of(gb)
         mx = max(float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
-                 for a, b in zip(gb, wb))
-        passed &= l2 <= PAINN_TOL[f"{name}_bf16"]
-        unrounded = ""
+                 for a, b in zip(gb, ref))
+        tol = PAINN_TOL[f"{name}_bf16"]
+        passed &= l2 <= tol
+        against = ""
         if name == "painn_layer":
             # the plain version with none of its inner bf16 roundings
             wide = plain(*(t.float() if t.is_floating_point() else t for t in bf[:6]),
                          {k: v.float() for k, v in bf[6].items()})
             l2_wide = l2_of([t.to(torch.bfloat16) for t in wide])
-            if timed:
-                passed &= l2_wide > PAINN_TOL[f"{name}_bf16"]
-            unrounded = f"; without the inner bf16 roundings it reads {l2_wide:.3g}"
+            passed &= l2_wide > tol
+            against = (f" against the plain version summed in float64 (the float32 plain "
+                       f"version reads {l2_of(wb):.3g}, the kernel {l2_of(gb, wb):.3g} from it; "
+                       f"without the inner bf16 roundings it reads {l2_wide:.3g}, required "
+                       f"above the limit)")
         ok &= passed
         log(f"{name}: float32 (TF32 off) max|kernel-plain| {err:.3g}, {rel:.3g} of the largest "
-            f"(tol {PAINN_TOL['float32']}); bf16 relative 2-norm {l2:.3g} (tol "
-            f"{PAINN_TOL[name + '_bf16']}), max-norm {mx:.3g}{unrounded}"
-            f"{'' if passed else '  FAIL'}")
+            f"(tol {PAINN_TOL['float32']}); bf16 relative 2-norm {l2:.3g} (tol {tol}), max-norm "
+            f"{mx:.3g}{against}{'' if passed else '  FAIL'}")
         if not timed:
             continue
         ms = cuda_time(lambda: kern(*args))
@@ -1955,20 +2160,21 @@ def test_batch(test, device, bsz):
     return pos, ptype
 
 
-def capture_slot_inputs(device, **overrides):
+def capture_slot_inputs(device, n_particles=None, **overrides):
     """K7's and K8's inputs from one slot preprocess and one bf16 forward
     of path A (8,000 particles, 3D, batch 1), K9's from one dense
     preprocess with in-kernel geometry at batch 2; run on the plain
     versions. Also returns the slot list of that preprocess and its
     positions, for the maps check. ``overrides``: more config keys (the
-    GNS-5-64 phase's width and depth)."""
+    GNS-5-64 phase's width and depth); ``n_particles`` per sample (the
+    default of ``runner_data`` unless given)."""
     import torch
 
     from lagrangebench_torch.ops import fused_mp
     from lagrangebench_torch.ops import neighbors_cuda as nlc
 
     cfg = gns_cfg(**{"neighbors.format": "slot"}, **overrides)
-    _, _, test = runner_data(cfg)
+    _, _, test = runner_data(cfg) if n_particles is None else runner_data(cfg, n_particles)
     case, model = gns_case_model(cfg, test.metadata, device)
     geo_case = gns_case(gns_cfg(**{"neighbors.emit_geometry": True}), test.metadata, device)
     isl = int(cfg.model.input_seq_length)
@@ -3549,7 +3755,7 @@ def sparse_path(device):
 DP_LOSS0_RTOL, DP_LOSS_RTOL = 1e-3, 2e-2
 DP_F32_TOL = 1e-5  # float32 parameters after 3 steps, x their largest magnitude
 DP_INFER_RTOL = 1e-5  # float32 infer metrics per trajectory, relative
-DP_INFER_STEPS, DP_LAUNCH_STEPS = 20, 5
+DP_INFER_STEPS, DP_LAUNCH_STEPS = 10, 5  # infer 20 steps before phase 18 was added
 DP_PROFILE = [4, 6]  # rank 0's trace: steps 4-6 (4 and 5 unroll once)
 DP_F32_PF = {"steps": [-1, 0], "unrolls": [0, 1], "probs": [0, 1]}
 
@@ -3563,7 +3769,7 @@ def dp_kernels():
 
 def dp_infer(ckp, batch, device, mesh=None):
     """A float32 GNS-10-128 ``infer`` from ``ckp`` of ``batch`` trajectories
-    at batch ``batch`` (20 steps, mse, e_kin, Sinkhorn)."""
+    at batch ``batch`` (DP_INFER_STEPS steps, mse, e_kin, Sinkhorn)."""
     from lagrangebench_torch.evaluate import infer
 
     test, metadata = make_data(N_PARTICLES, ISL + DP_INFER_STEPS, n_trajs=3)
@@ -3836,8 +4042,10 @@ def dp_path(ref, device="cuda"):
 SPATIAL_RANKS = 3
 # phase 12's sizes: GNS-10-128 and PaiNN-5-128 at 8,000 particles; a CPU
 # rehearsal passes smaller ones to spatial_path
+# infer 10 and train 8 steps (20 and 12 before phase 18 was added: the run's
+# time limit)
 SPATIAL_SIZES = {"n": N_PARTICLES, "gns_steps": 10, "painn_steps": 5, "latent": LATENT,
-                 "infer": 20, "train": 12, "painn_infer": 5, "profile": 3}
+                 "infer": 10, "train": 8, "painn_infer": 5, "profile": 3}
 # float32, three ranks against the unsharded port on the same weights: the
 # slab search orders each receiver's slots otherwise than K1 + K2, so the
 # K-sums differ by float32 rounding. Accelerations, loss and gradients
@@ -4979,17 +5187,17 @@ DATAGEN_CASES = ("tgv2d", "tgv3d", "dam", "rpf", "ldc")
 # the reference scales (TGV: particles per side; else dx) and the phase's
 # run lengths; DATAGEN_CPU_SIZES is the CPU rehearsal's default
 DATAGEN_SIZES = {"tgv2d": 50, "tgv3d": 20, "dam": 0.025, "rpf": 0.025, "ldc": 1 / 46,
-                 "frame": 40, "dam_frame": 50, "tgv_trajs": 6, "tgv_frames": 30,
+                 "frame": 40, "gate_substeps": 10, "tgv_trajs": 6, "tgv_frames": 30,
                  "rpf_frames": 120, "rpf_every": 60, "rpf_warmup": 600, "train_steps": 5,
                  "tgv_rollout": 20, "rpf_rollout": 6, "timing_runs": 5, "profile": 10,
                  "egnn_steps": 5}
 DATAGEN_CPU_SIZES = {"tgv2d": 16, "tgv3d": 10, "dam": 0.1, "rpf": 1 / 16, "ldc": 1 / 16,
-                     "frame": 8, "dam_frame": 10, "tgv_trajs": 6, "tgv_frames": 14,
+                     "frame": 8, "gate_substeps": 8, "tgv_trajs": 6, "tgv_frames": 14,
                      "rpf_frames": 120, "rpf_every": 2, "rpf_warmup": 10, "train_steps": 2,
                      "tgv_rollout": 4, "rpf_rollout": 4, "timing_runs": 1, "profile": 2,
                      "egnn_steps": 3}
 # float32 solver state, card against CPU and K1 + K2 against the cell
-# list, after one frame of substeps: max |r diff| (minimum image) and
+# list, after the gates' substeps: max |r diff| (minimum image) and
 # max |v diff| / max |v|. The runs differ in the order of each particle's
 # neighbor sums only: on the CPU, K1 + K2's plain versions against the cell
 # list at these scales read at most 4.77e-7 (DAM) and 4.03e-5 (DAM, RPF);
@@ -5073,7 +5281,7 @@ DATAGEN_GROUPS = {"bin_": "K1 column_table", "neighbor_scan": "K2 neighbor_scan"
 
 
 def datagen_solver(sizes, device, kernels):
-    """(a) One frame of substeps of each case family at ``sizes``: the card
+    """(a) ``gate_substeps`` substeps of each case family at ``sizes``: the card
     (K1 + K2) against the CPU (their plain versions) and against the cell
     list on the card, the launches of K1 and K2 per advance, ms per
     substep. Returns (ok, ms per substep by case)."""
@@ -5087,7 +5295,7 @@ def datagen_solver(sizes, device, kernels):
     ok, ms = True, {}
     for name in DATAGEN_CASES:
         kw, r, v, _, wall = datagen_case(name, sizes)
-        steps = sizes["dam_frame" if name == "dam" else "frame"]
+        steps = sizes["gate_substeps"]
         periodic = all(kw.get("pbc", [True]))
         runs, walls = {}, {}
         for label, dev, backend in (("card", device, "auto"), ("cpu", "cpu", "auto"),
@@ -5670,17 +5878,18 @@ def _unpad(args, width, latent):
     return tuple(cut(x) for x in args if not isinstance(x, int) or isinstance(x, bool))
 
 
-def width_step_inputs(device, f):
+def width_step_inputs(device, f, n_particles=None):
     """K3's (plain and encoder step) and K4's inputs from one bf16 training
-    step of a GNS-3-F on the phase's data (8,000 particles in 3D, batch
-    2), as the model hands them to the kernels: at the instance width,
+    step of a GNS-3-F on the phase's data (``n_particles``, N_PARTICLES
+    unless given, in 3D, batch 2), as the model hands them to the kernels: at the kernels' width,
     with the true width ``latent`` where F is not one. Run on the plain
     versions."""
     import torch
 
     from lagrangebench_torch.ops import fused_mp
 
-    trainer, _, _ = train_setup(device, N_PARTICLES, mp_steps=W_CAPTURE_STEPS, latent=f)
+    trainer, _, _ = train_setup(device, n_particles or N_PARTICLES, mp_steps=W_CAPTURE_STEPS,
+                                latent=f)
     fwd, bwd = {}, []
     real = fused_mp.gns_mp_step, fused_mp.gns_mp_step_bwd
 
@@ -5708,7 +5917,7 @@ def width_step_inputs(device, f):
     return fwd, {"plain step": bwd[1], "encoder step": bwd[-1]}
 
 
-def width_gns_checks(device, f, rows, main_widths):
+def width_gns_checks(device, f, rows, main_widths, phase="phase 17", n_particles=None):
     """K3 (plain and encoder step), K4, K8 (plain and encoder step) and E2
     at latent width f against their plain versions under phases 2's, 3's,
     5's and 6's limits (bf16, and float32 with TF32 off; K4's weight
@@ -5717,7 +5926,9 @@ def width_gns_checks(device, f, rows, main_widths):
     width (padding, kernel, slicing where f is not an instance width).
     Timed as the models launch them (at the instance width) beside the
     bound of the true width's work; rows named ``name@f`` for the widths
-    of ``main_widths`` (a main path of the phase launches them)."""
+    of ``main_widths`` (a main path of the phase launches them). K3, K4 and
+    K8's inputs come from models on ``n_particles`` per sample (N_PARTICLES
+    unless given)."""
     import torch
 
     from lagrangebench_torch.experiments import window_select as ws
@@ -5725,8 +5936,8 @@ def width_gns_checks(device, f, rows, main_widths):
 
     width = fused_mp.kernel_width(f)
     design = fused_mp._design(torch.bfloat16, width)
-    log(f"phase 17: the fused GNS kernels at F = {f} (instance {width}, bf16 {design} design)")
-    fwd, bwd = width_step_inputs(device, f)
+    log(f"{phase}: the fused GNS kernels at F = {f} (width {width}, bf16 {design} design)")
+    fwd, bwd = width_step_inputs(device, f, n_particles)
     seen = {name: (_unpad(args, width, f)[:7], {}) for name, args in fwd.items()}
     got_rows, ok = compare_kernels(seen, names=("fused_mp", "fused_mp_enc"))
     for name, args in fwd.items():  # the launch the model makes: no padding copy
@@ -5744,8 +5955,8 @@ def width_gns_checks(device, f, rows, main_widths):
     got_rows["fused_mp_bwd"] = row
     del fwd, bwd, args
 
-    seen, _, _ = capture_slot_inputs(device, **{"model.num_mp_steps": W_CAPTURE_STEPS,
-                                                "model.latent_dim": f})
+    seen, _, _ = capture_slot_inputs(device, n_particles, **{
+        "model.num_mp_steps": W_CAPTURE_STEPS, "model.latent_dim": f})
     seen = {name: (_unpad(args, width, f), {}) for name, (args, _) in seen.items()
             if name.startswith("fused_mp_slot")}
     slot_rows, passed = compare_slot_kernels(seen, names=("fused_mp_slot", "fused_mp_slot_enc"))
@@ -5759,8 +5970,9 @@ def width_gns_checks(device, f, rows, main_widths):
     if f in main_widths:
         for name, r in got_rows.items():
             rows[f"{name}@{f}"] = dict(r, name=f"{name}@{f}")
-            if design == "stream":  # the stream design's kernels behind the wrapper
-                rows[f"{name}@{f}"]["cuda_kernels"] = list(STREAM_KERNELS[name])
+            if design in ("stream", "wide"):  # the CUDA kernels behind the wrapper
+                kernels = STREAM_KERNELS if design == "stream" else WIDE_KERNELS
+                rows[f"{name}@{f}"]["cuda_kernels"] = list(kernels[name])
     return ok
 
 
@@ -5836,11 +6048,12 @@ def width_painn_checks(device):
     return ok
 
 
-def width_reference_check(device, widths, hidden):
+def width_reference_check(device, widths, hidden, train_latent=96, adam_ties=False):
     """float32 card against CPU (TF32 off) at the phase's widths: GNS-2-F
     for F in ``widths``, phase 7's 3-step rollout of 1,000 particles
-    (positions 1e-5), and 3 training steps at F = 96 (losses 1e-5
-    relative, parameters 1e-5); PaiNN-2-``hidden``, both layouts, one
+    (positions 1e-5), and 3 training steps at F = ``train_latent`` (losses
+    1e-5 relative, parameters 1e-5, Adam ties apart with ``adam_ties``:
+    ``train_reference_check``); PaiNN-2-``hidden``, both layouts, one
     forward of 1,000 particles at batch 2 (acc 1e-5 of its largest
     magnitude: a rollout of the seeded PaiNN-2-64 moves particles across
     the cutoff within 3 steps, so that the two sides' neighbor lists part)."""
@@ -5850,7 +6063,7 @@ def width_reference_check(device, widths, hidden):
     ok = True
     for f in widths:
         ok &= reference_check(device, latent=f)
-    ok &= train_reference_check(device, mp_steps=2, latent=96)
+    ok &= train_reference_check(device, mp_steps=2, latent=train_latent, adam_ties=adam_ties)
     for fused in (False, True):
         cfg = painn_cfg(**{"model.num_mp_steps": 2, "model.fused_processor": fused,
                            "model.latent_dim": hidden})
@@ -5877,20 +6090,10 @@ def width_reference_check(device, widths, hidden):
 def width_path(device):
     """Slice 16 ("phase 17"): every fused GNS kernel at F in WIDTH_F and
     K5/K6 at H in WIDTH_H (x R in WIDTH_R) against their plain versions;
-    then through runner.train_or_infer, each with the counters zeroed around
-    it: GNS-10-256 (bf16, fused, dense) mode=all, 10 training steps at batch
-    2 with one pushforward unroll from step 4 and a 20-step infer, then
-    mode=infer in the slot layout at batch 1 from its checkpoint (K8);
-    GNS-10-96 mode=all; PaiNN-5-64 standard mode=all and fused mode=infer
-    from its checkpoint; window_select --latent 96 and 256 (E2); finite
-    losses and metrics, launch counts, ms per train and rollout step; and
-    float32 card-vs-CPU checks (``width_reference_check``)."""
-    import numpy as np
-
-    from lagrangebench_torch.config import Config, merge
-    from lagrangebench_torch.experiments import window_select
-    from lagrangebench_torch.ops import fused_mp
-
+    then through runner.train_or_infer (``width_runs``): GNS-10-256 (bf16,
+    fused, dense) mode=all and a slot infer, GNS-10-96 mode=all, PaiNN-5-64
+    standard mode=all and fused mode=infer, window_select --latent 96 and
+    256 (E2); and float32 card-vs-CPU checks (``width_reference_check``)."""
     t_phase = time.perf_counter()
     rows, ok, step_ms = {}, True, {}
     mains = (GNS256["model.latent_dim"], GNS96["model.latent_dim"])
@@ -5904,15 +6107,43 @@ def width_path(device):
         ok &= width_gns_checks(device, f, rows, mains)
     ok &= width_painn_checks(device)
     log(f"phase 17 kernel gates: {time.perf_counter() - t_phase:.1f} s wall")
-    mp = int(GNS_CONFIG["model"]["num_mp_steps"])
+    ok &= width_runs(device, "phase 17", (GNS256, GNS96), PAINN64, rows, step_ms)
+    ok &= width_reference_check(device, mains, PAINN64["model.latent_dim"])
+    log(f"phase 17 (every latent width): {time.perf_counter() - t_phase:.1f} s wall "
+        f"[{card_line()}]")
+    return rows, ok, step_ms
 
+
+def width_runs(device, phase, gns_overs, painn_over, rows, step_ms):
+    """The runs of a width phase through ``runner.train_or_infer``, each with
+    the counters zeroed around it: for each of ``gns_overs`` (latent widths
+    over the shipped ``configs/rpf_3d/gns.yaml``: bf16, fused, dense)
+    mode=all, 10 training steps at batch 2 with one pushforward unroll from
+    step 4 and a 20-step infer, and for the first of them mode=infer in the
+    slot layout at batch 1 from its checkpoint (K8); ``painn_over`` (over
+    ``configs/rpf_3d/painn.yaml``) standard mode=all and fused mode=infer
+    from its checkpoint, K6 and K5 gated and timed on its own inputs;
+    window_select at each GNS width (E2). Finite losses and metrics, launch
+    counts (K1 and K2 once per neighbor update, K3 9 + 1 per forward, K4
+    and its reduction 10 per training step, K6 and K5 5 per forward), ms per
+    train and rollout step into ``step_ms``; the launches into the rows
+    ``name@F`` of ``rows``, which the width's gates made."""
+    import numpy as np
+
+    from lagrangebench_torch.config import Config, merge
+    from lagrangebench_torch.experiments import window_select
+    from lagrangebench_torch.ops import fused_mp
+
+    ok = True
+    mains = tuple(over["model.latent_dim"] for over in gns_overs)
+    mp = int(GNS_CONFIG["model"]["num_mp_steps"])
     with tempfile.TemporaryDirectory() as tmp:
         common = {"eval.n_rollout_steps": W_ROLLOUT, "eval.infer.n_trajs": BATCH,
                   "eval.train.n_trajs": 1, "logging.log_steps": 1,
                   "logging.eval_steps": W_TRAIN_STEPS - 1}
         if str(device) == "cpu":  # a rehearsal on the CPU; the card is the runner's default
             common["gpu"] = -1
-        for over in (GNS256, GNS96):
+        for over in gns_overs:
             f = over["model.latent_dim"]
             label = f"GNS-{mp}-{f}"
             run = {**common, "eval.rollout_dir": f"{tmp}/rollouts{f}",
@@ -5926,6 +6157,7 @@ def width_path(device):
             cfg = gns_cfg(mode="all", **{"train.step_max": W_TRAIN_STEPS - 1}, **run)
             cfg = merge(cfg, Config({"train": {"pushforward": GNS64_PUSHFORWARD}}))
             data = runner_data(cfg)
+            t_run = time.perf_counter()
             _, counts, rec, passed = _runner_call(f"{label} (mode=all)", cfg, data,
                                                   all_kernels(), expect=expect)
             ok &= passed
@@ -5954,9 +6186,11 @@ def width_path(device):
             ok &= finite
             step_ms[f"{label} rollout"] = min(times)
             del model, case, rec
-            if f != GNS256["model.latent_dim"]:
+            log(f"{label} (mode=all and its rollout timing): {time.perf_counter() - t_run:.1f} "
+                f"s wall")
+            if f != mains[0]:
                 continue
-            # the slot layout at batch 1 from that checkpoint: K8 at F = 256
+            # the slot layout at batch 1 from that checkpoint: K8 at this width
             (run_dir,) = os.listdir(f"{tmp}/ckp{f}")
             cfg_a = gns_cfg(mode="infer", load_ckp=f"{tmp}/ckp{f}/{run_dir}",
                             **{"neighbors.format": "slot", "eval.infer.batch_size": 1}, **run)
@@ -5972,15 +6206,16 @@ def width_path(device):
             ok &= passed
             for name in ("fused_mp_slot", "fused_mp_slot_enc"):
                 rows[f"{name}@{f}"]["launches"] = counts_a[name]
-        for name in ("fused_mp_slot", "fused_mp_slot_enc"):  # GNS-10-96 runs no slot path
-            rows.pop(f"{name}@{GNS96['model.latent_dim']}", None)
+        for f in mains[1:]:  # the other GNS widths run no slot path
+            for name in ("fused_mp_slot", "fused_mp_slot_enc"):
+                rows.pop(f"{name}@{f}", None)
 
-        # PaiNN-5-64: the standard layout (K6) mode=all, the fused (K5) mode=infer
-        h = PAINN64["model.latent_dim"]
+        # PaiNN-5-H: the standard layout (K6) mode=all, the fused (K5) mode=infer
+        h = painn_over["model.latent_dim"]
         layers = int(PAINN_CONFIG["model"]["num_mp_steps"])
         label = f"PaiNN-{layers}-{h}"
         run = {**common, "eval.rollout_dir": f"{tmp}/rollouts_painn",
-               "logging.ckp_dir": f"{tmp}/ckp_painn", **PAINN64}
+               "logging.ckp_dir": f"{tmp}/ckp_painn", **painn_over}
         cfg = painn_cfg(mode="all", **{"train.step_max": W_TRAIN_STEPS - 1}, **run)
         data = runner_data(cfg)
         seen = width_painn_inputs(device, h, 20, DIM, N_PARTICLES)
@@ -6022,7 +6257,7 @@ def width_path(device):
         del model, case, rec
         rows.update({f"{name}@{h}": dict(r, name=f"{name}@{h}") for name, r in painn_rows.items()})
 
-    # E2 at F = 96 and 256: the probe's main at those widths
+    # E2 at the GNS widths: the probe's main at those widths
     for f in mains:
         fused_mp.FUSED_MP_WINDOW.launches = 0
         ws = window_select.main(["--latent", str(f)], device=device)
@@ -6035,10 +6270,92 @@ def width_path(device):
             log(f"FAIL: window_select --latent {f} (launches or its check)")
             ok = False
         rows[f"fused_mp_window@{f}"]["launches"] = got_e2
+    log(f"{phase} runs: {', '.join(f'GNS-{mp}-{f}' for f in mains)}, PaiNN-{layers}-{h}, E2")
+    return ok
 
-    ok &= width_reference_check(device, mains, h)
-    log(f"phase 17 (every latent width): {time.perf_counter() - t_phase:.1f} s wall "
-        f"[{card_line()}]")
+
+# ---------------------------------------------------------------------------
+# slice 18 ("phase 18"): the fused GNS kernels past F = 256, K5 past H = 256
+# and R = 64
+# ---------------------------------------------------------------------------
+
+WIDE_F = (257, 320, 384, 512, 768, 1024)  # the wide path's gate widths
+# from F = 768 on the gates' models run on 4,000 particles a sample (not
+# 8,000): K4's float64 references (node_first64, the tie checks) hold
+# several (N, K, F) float64 tensors, 5.2 GB each at 16,000 x 40 x 1,024
+WIDE_SMALL_FROM, WIDE_SMALL_PARTICLES = 768, 4000
+WIDE_H, WIDE_R = (320, 512, 1024), (20, 96, 128)  # K5's gate widths
+GNS512, PAINN512 = {"model.latent_dim": 512}, {"model.latent_dim": 512}
+# the CUDA kernels behind each fused GNS wrapper on the wide path
+# (csrc/mp_wide.cuh), named in the kernels line's rows at F = 512
+WIDE_KERNELS = {
+    "fused_mp": ("fused_mp_wide_gemm", "fused_mp_wide_edge_ln", "fused_mp_wide_ln"),
+    "fused_mp_enc": ("fused_mp_wide_enc_first", "fused_mp_wide_gemm", "fused_mp_wide_ln",
+                     "fused_mp_wide_edge_ln"),
+    "fused_mp_slot": ("fused_mp_wide_senders", "fused_mp_wide_gemm", "fused_mp_wide_edge_ln",
+                      "fused_mp_wide_ln"),
+    "fused_mp_slot_enc": ("fused_mp_wide_senders", "fused_mp_wide_enc_first",
+                          "fused_mp_wide_gemm", "fused_mp_wide_ln", "fused_mp_wide_edge_ln"),
+    "fused_mp_window": ("fused_mp_wide_senders", "fused_mp_wide_gemm", "fused_mp_wide_edge_ln",
+                        "fused_mp_wide_ln"),
+    "fused_mp_bwd": ("fused_mp_wide_gemm", "fused_mp_wide_edge_ln", "fused_mp_bwd_wide_node",
+                     "fused_mp_bwd_wide_post", "fused_mp_bwd_wide_edge",
+                     "fused_mp_bwd_wide_reduce"),
+}
+
+
+def wide_painn_checks(device):
+    """K5's wide instance at H in WIDE_H x R in WIDE_R, in 2D and 3D,
+    against its plain version under phase 3's limits, on inputs of
+    one-layer PaiNNs at those widths (``width_painn_inputs``, 2,000
+    particles per sample, batch 2); not timed (PaiNN-5-512's is timed on its
+    own inputs in ``width_runs``)."""
+    ok = True
+    for dim in (2, 3):
+        for h in WIDE_H:
+            for r in WIDE_R:
+                seen = width_painn_inputs(device, h, r, dim, W_GATE_PARTICLES)
+                log(f"phase 18: K5 gate at H = {h}, R = {r}, dim {dim}")
+                _, passed = compare_painn_kernels(seen, ("painn_layer",), timed=False)
+                ok &= passed
+    return ok
+
+
+def wide_path(device):
+    """Slice 18 ("phase 18"): K3 (plain and encoder step), K4, K8 (plain and
+    encoder step) and E2 at F in WIDE_F on the wide path, bf16 and float32,
+    against their plain versions under phases 2's, 3's, 5's and 6's limits
+    (K4's weight gradients bit-identical over two launches; from F = 768 on
+    the models' inputs at WIDE_SMALL_PARTICLES a sample), and K5's wide
+    instance at H in WIDE_H x R in WIDE_R; then through runner.train_or_infer
+    (``width_runs``): GNS-10-512 mode=all and a slot infer at batch 1,
+    PaiNN-5-512 standard mode=all and fused mode=infer, window_select
+    --latent 512; and float32 card-vs-CPU checks: a 3-step rollout of
+    GNS-2-320 and GNS-2-512, 3 training steps of GNS-2-320, one forward of
+    PaiNN-2-320 in both layouts. Prints the wide kernels' registers and
+    spills, each run's wall time and the phase's."""
+    t_phase = time.perf_counter()
+    rows, ok, step_ms = {}, True, {}
+    main = GNS512["model.latent_dim"]
+    if str(device) != "cpu":
+        from lagrangebench_torch.ops import build
+
+        log("phase 18: the wide path's kernels (csrc/mp_wide.cuh) and K5's wide instance")
+        ptxas_report(build, ("fused_mp", "fused_mp_bwd"),
+                     only={k for ks in WIDE_KERNELS.values() for k in ks}
+                     | {"fused_mp_wide_gemm_f32"})
+        ptxas_report(build, ("painn_layer",), only={"painn_layer_wide"})
+    for f in WIDE_F:
+        t_f = time.perf_counter()
+        n = WIDE_SMALL_PARTICLES if f >= WIDE_SMALL_FROM else None
+        ok &= width_gns_checks(device, f, rows, (main,), phase="phase 18", n_particles=n)
+        log(f"phase 18: the gates at F = {f}: {time.perf_counter() - t_f:.1f} s wall")
+    ok &= wide_painn_checks(device)
+    log(f"phase 18 kernel gates: {time.perf_counter() - t_phase:.1f} s wall")
+    ok &= width_runs(device, "phase 18", (GNS512,), PAINN512, rows, step_ms)
+    ok &= width_reference_check(device, (320, 512), 320, train_latent=320, adam_ties=True)
+    log(f"phase 18 (past F = 256, H = 256, R = 64): {time.perf_counter() - t_phase:.1f} s "
+        f"wall [{card_line()}]")
     return rows, ok, step_ms
 
 
@@ -6061,6 +6378,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def stamp(label):  # the run's wall clock at the end of each phase
+        log(f"[{time.perf_counter() - t_start:.1f} s] {label} done")
+
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -6075,9 +6397,11 @@ def main() -> int:
         rows, ok, step_ms = main_path("cuda")
         ok &= reference_check("cuda")
     log(f"inference path: {step_ms:.3f} ms per rollout step")
+    stamp("phase 2 (inference)")
     bwd_row, train_ok, counts, train_ref = train_path("cuda")
     ok &= train_ok
     ok &= train_reference_check("cuda")
+    stamp("phase 3 (training)")
     for name, row in rows.items():
         row["launches"] = counts[name]
     rows["fused_mp_bwd"] = bwd_row
@@ -6086,12 +6410,14 @@ def main() -> int:
     ok &= painn_reference_check("cuda")
     log(f"PaiNN inference path: {painn_ms['standard']:.3f} ms per rollout step (standard, K6), "
         f"{painn_ms['fused']:.3f} (fused, K5)")
+    stamp("phase 4 (PaiNN)")
     rows.update(painn_rows)
     slot_rows, slot_ok, slot_ms = slot_path("cuda")
     ok &= slot_ok
     ok &= slot_reference_check("cuda")
     log("slot and geometry paths (ms per rollout step): " + json.dumps(
         {k: round(v, 3) for k, v in slot_ms.items()}))
+    stamp("phase 5 (slot, geometry)")
     rows.update(slot_rows)
     egnn_ok, egnn_ms = egnn_path("cuda")
     ok &= egnn_ok
@@ -6101,41 +6427,58 @@ def main() -> int:
     ok &= linear_path("cuda")
     log("EGNN and standard GNS paths (ms per step): " + json.dumps(
         {k: round(v, 3) for k, v in {**egnn_ms, **std_ms}.items()}))
+    stamp("phase 7 (EGNN, standard GNS, Linear)")
     segnn_ok, segnn_ms = segnn_path("cuda")
     ok &= segnn_ok
     ok &= segnn_reference_check("cuda")
     log("SEGNN path (ms per step): " + json.dumps({k: round(v, 3) for k, v in segnn_ms.items()}))
+    stamp("phase 8 (SEGNN)")
     sparse_ok, sparse_ms, search_ms = sparse_path("cuda")
     ok &= sparse_ok
     log("sparse and cell-list paths (ms per step): " + json.dumps(
         {k: round(v, 3) for k, v in sparse_ms.items()}))
+    stamp("phase 9 (sparse)")
     exp_rows, exp_ok = experiments_path("cuda")
     ok &= exp_ok
     rows.update(exp_rows)
+    stamp("phase 6 (experiments)")
     dp_ok, dp_counts = dp_path({**train_ref, "counts": counts}, "cuda")
     ok &= dp_ok
     log(f"data-parallel path launches per rank: {json.dumps(dp_counts)}")
+    stamp("phase 11 (data parallelism)")
     spatial_ok, spatial_counts = spatial_path("cuda")
     ok &= spatial_ok
     log(f"spatial path launches per rank: {json.dumps(spatial_counts)}")
+    stamp("phase 12 (spatial)")
     steer_ok, steer_counts = steerable_path("cuda")
     ok &= steer_ok
     log(f"spatial SEGNN and EGNN path launches per rank: {json.dumps(steer_counts)}")
+    stamp("phase 13 (spatial SEGNN, EGNN)")
     ref_ok, ref_counts = reference_path("cuda")
     ok &= ref_ok
     log(f"reference-checkpoint path launches: {json.dumps(ref_counts)}")
+    stamp("phase 14 (reference checkpoints)")
     gen_ok, gen_counts = datagen_path("cuda")
     ok &= gen_ok
     log(f"data-generation path launches (GNS runs): {json.dumps(gen_counts)}")
+    stamp("phase 15 (data generation)")
     w64_rows, w64_ok, w64_ms = gns64_path("cuda")
     ok &= w64_ok
     rows.update(w64_rows)
     log("GNS-5-64 path (ms per step): " + json.dumps({k: round(v, 3) for k, v in w64_ms.items()}))
+    stamp("phase 16 (GNS-5-64)")
     width_rows, width_ok, width_ms = width_path("cuda")
     ok &= width_ok
     rows.update(width_rows)
     log("GNS-10-256, GNS-10-96 and PaiNN-5-64 paths (ms per step): " + json.dumps(
         {k: round(v, 3) for k, v in width_ms.items()}))
+    stamp("phase 17 (every width to 256)")
+    wide_rows, wide_ok, wide_ms = wide_path("cuda")
+    ok &= wide_ok
+    rows.update(wide_rows)
+    log("GNS-10-512 and PaiNN-5-512 paths (ms per step): " + json.dumps(
+        {k: round(v, 3) for k, v in wide_ms.items()}))
+    stamp("phase 18 (past 256)")
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     if not ok:

@@ -119,12 +119,19 @@
 // 208 KB at F = 256 with the encoder (ring 64 KB, slots 128 KB, enc_w1 8
 // KB, vectors 8 KB), 196 KB for the node kernel.
 //
+// Past F = 256 (latent widths 257 to 1,024, float32 and bf16) the entry
+// points run the wide path (mp_wide.cuh: a hand-written product launch per
+// GEMM of the step, its epilogue writing rows to device memory, then
+// LayerNorm / residual / K-sum row kernels), one code path for every such
+// width, on buffers the wrapper allocates (ptrs 29-36 below).
+//
 // The tile design (fused_mp below) is the float32 instance at every F: one
 // block of 8 warps per tile of 16 receivers, rows streamed through shared
 // memory 64 at a time, weights read from global memory (L1/L2), CUDA-core
 // FMAs, the K-sum row by row in k order; it checks the arithmetic against
 // the plain version with TF32 off. Shared memory: 211 KB at F = 256.
 #include "mp_stream.cuh"
+#include "mp_wide.cuh"
 
 namespace {
 
@@ -615,11 +622,62 @@ int launch_tile(const Args& a, int has_enc, cudaStream_t stream) {
     return has_enc ? launch<float, F, true, SRC>(a, stream) : launch<float, F, false, SRC>(a, stream);
 }
 
+// The wide path (mp_wide.cuh) at latent width a.nf in (256, 1024], on the
+// wrapper's buffers at ptrs 29-36.
+template <Src SRC>
+int run_wide(const Args& a, int is_bf16, int has_enc, const void* const* ptrs,
+             cudaStream_t stream) {
+  WideFwd w;
+  w.e = a.e;
+  w.hs = a.hs;
+  w.hr = a.hr;
+  w.h = a.h;
+  w.mask = a.mask;
+  w.e_out = a.e_out;
+  w.h_out = a.h_out;
+  for (int i = 0; i < 5; ++i) w.w[i] = a.w[i];
+  for (int i = 0; i < 8; ++i) w.vec[i] = a.vec[i];
+  w.enc_w1 = a.enc_w1;
+  w.enc_w2 = a.enc_w2;
+  for (int i = 0; i < 4; ++i) w.enc_vec[i] = a.enc_vec[i];
+  w.cand = a.cand;
+  w.table = SRC == Src::kSlot ? a.bases_ext : a.w0s;
+  w.src = SRC == Src::kGathered ? 0 : SRC == Src::kSlot ? 1 : 2;
+  w.C = a.C;
+  w.S = a.S;
+  w.T = a.T;
+  w.SUB = a.SUB;
+  w.WSUB = a.WSUB;
+  w.n = a.n;
+  w.k = a.k;
+  w.fe = a.fe;
+  w.nf = a.nf;
+  w.F = (a.nf + 63) / 64 * 64;
+  w.enc = has_enc != 0;
+  w.srow = static_cast<int32_t*>(const_cast<void*>(ptrs[29]));
+  w.e_enc = const_cast<void*>(ptrs[30]);
+  w.x = static_cast<float*>(const_cast<void*>(ptrs[31]));
+  w.r1 = const_cast<void*>(ptrs[32]);
+  w.aggc = const_cast<void*>(ptrs[33]);
+  w.agg = static_cast<float*>(const_cast<void*>(ptrs[34]));
+  w.r2 = const_cast<void*>(ptrs[35]);
+  w.y = static_cast<float*>(const_cast<void*>(ptrs[36]));
+  if (w.x == nullptr || w.r1 == nullptr || w.aggc == nullptr || w.r2 == nullptr ||
+      w.y == nullptr || (w.src != 0 && w.srow == nullptr) || (w.enc && w.e_enc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return is_bf16 ? wide_forward<bf16>(w, stream) : wide_forward<float>(w, stream);
+}
+
 // The instance for latent width a.nf (latent_dispatch): float32 the tile
-// design; bf16 the warp design at F <= 128, else the stream design.
+// design; bf16 the warp design at F <= 128, else the stream design; the
+// wide path above 256.
 template <Src SRC>
 int dispatch(const Args& a, int is_bf16, int has_enc, const void* const* ptrs,
              const int* grids, cudaStream_t stream) {
+  if (a.nf > kMaxLatent) {
+    if (a.nf > kWideMax) return (int)cudaErrorInvalidValue;
+    return run_wide<SRC>(a, is_bf16, has_enc, ptrs, stream);
+  }
   return latent_dispatch(a.nf, [&](auto width) {
     constexpr int F = decltype(width)::value;
     if (!is_bf16) return launch_tile<F, SRC>(a, has_enc, stream);
@@ -667,8 +725,13 @@ Args make_args(const void* const* ptrs, int n, int k, int fe, int nf) {
 //   19 ln2_bias,
 //   20 enc_w1, 21 enc_w2, 22 enc_b1, 23 enc_b2, 24 enc_ln_scale,
 //   25 enc_ln_bias (unused unless has_enc), 26, 27 (K8, E2 below),
-//   28 agg scratch (n, F) float32 (bf16 only: the warp and stream designs).
-// latent: the true width nf in [1, 256] (else cudaErrorInvalidValue); every
+//   28 agg scratch (n, F) float32 (bf16 only: the warp and stream designs),
+//   29-36 the wide path's buffers (nf > 256; ops/fused_mp.py _wide_buffers):
+//   29 sender rows (rows) int32 (K8, E2), 30 the encoded e (rows, F) T (with
+//   the encoder), 31 x (rows, F) float32, 32 T(relu(first)) (rows, F),
+//   33 T(agg) (n, F), 34 agg (n, F) float32, 35 T(relu(node_first)) (n, F),
+//   36 y (n, F) float32.
+// latent: the true width nf in [1, 1024] (else cudaErrorInvalidValue); every
 //   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
 // grids: the bf16 designs' edge and node grids (unused by the float32 tile design).
 LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int latent,

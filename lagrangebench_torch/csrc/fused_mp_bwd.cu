@@ -112,6 +112,12 @@
 // overlap; the agg pass takes 1.07 ms and the product kernel 0.73 (its 1.3
 // GB of edge operands are 0.39 ms of the card's bytes).
 //
+// Past F = 256 the entry points run the wide path (mp_wide.cuh
+// wide_backward): the forward rematerialized by product launches, the
+// node and edge backward as product launches with epilogues and row
+// kernels, the five weight gradients as products over fixed row ranges,
+// and its own sum of the partials (fused_mp_bwd_wide_reduce).
+//
 // The tile design (fused_mp_bwd below) is the float32 instance at every F:
 // a persistent grid of about one block per SM; each block of 8 warps walks
 // receiver tiles of 16. The tile's float32 LayerNorm activations do not fit
@@ -128,6 +134,7 @@
 // order), and the sum adds the partials in block order. dhr sums a
 // receiver's K rows in k order.
 #include "mp_stream.cuh"
+#include "mp_wide.cuh"
 
 namespace {
 
@@ -1921,14 +1928,63 @@ int run_stream(Args a, const int* plan, cudaStream_t stream) {
 //   stream design: stream_partials), 25 scratch (bf16: (2 n, F) float32, agg
 //   then dagg), 26 agg out (the float32 tile design: (n, F) float32 that
 //   receives the step's agg as the kernel summed it, or null), 27 the stream
-//   design's operands ((2 n k + 4 n, F) bf16, Ops).
-// latent: the true width nf in [1, 256] (else cudaErrorInvalidValue); every
+//   design's operands ((2 n k + 4 n, F) bf16, Ops); the wide path (nf >
+//   256, mp_wide.cuh) takes partials in wide_partials' layout, the agg out
+//   in either dtype, and its buffers at 28-37 (ops/fused_mp.py _wide_buffers):
+//   28 T(relu(first)) (rows, F), 29 x1 (rows, F) float32, 30 T(agg) (n, F),
+//   31 T(relu(node_first)) (n, F), 32 y1 (n, F) float32, 33 T(dy1) (n, F),
+//   34 dnf (n, F) float32, 35 T(dnf) (n, F), 36 dagg (n, F) float32, 37
+//   T(dx1) (rows, F).
+// latent: the true width nf in [1, 1024] (else cudaErrorInvalidValue); every
 //   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
 // grid: the float32 tile design's and the bf16 warp design's edge grid;
 // plan: the stream design's (edge grid, node grid, r_e, r_n), the ranges of
-//   the edge and the node weight gradients (ops/fused_mp.py bwd_stream_plan).
+//   the edge and the node weight gradients (ops/fused_mp.py bwd_stream_plan);
+//   the wide path's (r_e, r_n, p_e, p_n), its weight gradients' ranges and
+//   its row kernels' warps (ops/fused_mp.py wide_plan).
 LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int latent, int is_bf16,
                                 int grid, const int* plan, cudaStream_t stream) {
+  if (latent > kMaxLatent) {  // the wide path (mp_wide.cuh)
+    if (latent > kWideMax || n < 1 || k < 1 || plan == nullptr) return (int)cudaErrorInvalidValue;
+    WideBwd w;
+    w.e = ptrs[0];
+    w.hs = ptrs[1];
+    w.hr = ptrs[2];
+    w.h = ptrs[3];
+    w.mask = static_cast<const float*>(ptrs[4]);
+    w.ge = ptrs[5];
+    w.gh = ptrs[6];
+    w.de = const_cast<void*>(ptrs[7]);
+    w.dhs = const_cast<void*>(ptrs[8]);
+    w.dhr = const_cast<void*>(ptrs[9]);
+    w.dh = const_cast<void*>(ptrs[10]);
+    for (int i = 0; i < 5; ++i) w.w[i] = ptrs[11 + i];
+    for (int i = 0; i < 8; ++i) w.vec[i] = static_cast<const float*>(ptrs[16 + i]);
+    w.partials = static_cast<float*>(const_cast<void*>(ptrs[24]));
+    w.agg_out = static_cast<float*>(const_cast<void*>(ptrs[26]));
+    w.n = n;
+    w.k = k;
+    w.nf = latent;
+    w.F = (latent + 63) / 64 * 64;
+    w.r_e = plan[0];
+    w.r_n = plan[1];
+    w.p_e = plan[2];
+    w.p_n = plan[3];
+    void* const* buf = const_cast<void* const*>(ptrs + 28);
+    w.r1 = buf[0];
+    w.x1 = static_cast<float*>(buf[1]);
+    w.aggc = buf[2];
+    w.r2 = buf[3];
+    w.y1 = static_cast<float*>(buf[4]);
+    w.dy1c = buf[5];
+    w.dnf = static_cast<float*>(buf[6]);
+    w.dnfc = buf[7];
+    w.dagg = static_cast<float*>(buf[8]);
+    w.dx1c = buf[9];
+    for (int i = 0; i < 10; ++i)
+      if (buf[i] == nullptr) return (int)cudaErrorInvalidValue;
+    return is_bf16 ? wide_backward<bf16>(w, stream) : wide_backward<float>(w, stream);
+  }
   const bool tile = !is_bf16;
   if (n < 1 || k < 1 || grid < 1 || (tile && grid > lbt::ceil_div(n, TR)))
     return (int)cudaErrorInvalidValue;
@@ -1969,6 +2025,10 @@ LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int laten
 LBT_EXPORT int lbt_fused_mp_bwd_reduce(const float* partials, float* out, int n, int latent,
                                        int is_bf16, int grid, const int* plan,
                                        cudaStream_t stream) {
+  if (latent > kMaxLatent) {  // the wide path's partials
+    if (latent > kWideMax || plan == nullptr) return (int)cudaErrorInvalidValue;
+    return wide_reduce(partials, out, (latent + 63) / 64 * 64, plan, stream);
+  }
   if (n < 1 || grid < 1) return (int)cudaErrorInvalidValue;
   return latent_dispatch(latent, [&](auto width) {
     constexpr int F = decltype(width)::value;

@@ -88,7 +88,7 @@ __device__ __forceinline__ void warp_layernorm(float (&x)[V], const float* scale
   }
 }
 
-constexpr int kMaxLatent = 256;  // the widest instance (ops/fused_mp.py MAX_LATENT)
+constexpr int kMaxLatent = 256;  // the widest instance (ops/fused_mp.py INSTANCES; mp_wide.cuh above)
 
 // Calls fn(std::integral_constant<int, F>{}) for the instance F that runs
 // latent width nf (the width map above); nf outside [1, kMaxLatent] is

@@ -4,8 +4,8 @@
 // Replaces: lagrangebench_tpu/ops/painn_msg.py::_layer_kernel, launched by
 // _painn_layer_pallas, and the gather `packed[senders]` in front of it
 // (lagrangebench_tpu/models/painn.py), which the TPU kernel takes outside
-// because Mosaic has no row gather. Per receiver, with H <= 256 channels
-// (128 in the shipped configs), R <= 64 radial basis functions (20,
+// because Mosaic has no row gather. Per receiver, with H <= 1024 channels
+// (128 in the shipped configs), R <= 256 radial basis functions (20,
 // build_painn), g_k = packed[sidx[k]] the k-th sender's row [x1, x2, u_d]
 // and d over the dim axes:
 //
@@ -80,7 +80,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int TR = 16;      // receivers per block
 constexpr int PF = 8;       // staged words a thread loads ahead (covers K <= 48 at 128 threads)
-constexpr int kMaxHidden = 256, kMaxRbf = 64;  // ops/painn_msg.py MAX_HIDDEN, MAX_RBF
+constexpr int kMaxHidden = 256, kMaxRbf = 64;  // the widest narrow instance (wide above)
 // the basis row in shared memory at basis capacity RC: RC values, the
 // scale at RC, padded to whole float4s
 template <int RC>
@@ -443,6 +443,347 @@ __global__ void __launch_bounds__(HT, HT == 128 ? 3 : 1) painn_layer(const Args 
   }
 }
 
+// K5 past H = 256 or R = 64 (H <= 1024, R <= 256): painn_layer_wide, one
+// code path for every such width. 256 threads; thread t owns the channels
+// t, t + 256, ... in turn (so a thread's registers do not grow with H), and
+// `tr` receivers per block (at most TRW; fewer where the tile's rows would
+// not fit the 227 KB: ~40 KB per receiver at H = 1,024 in 3D).
+// - Edge phase, per receiver: its K basis rows (R values, zero to RQ = 4
+//   ceil(R / 4), then the scale), directions and sender indices are staged
+//   in shared memory; for each owned channel the filters of EG = 8 edges at
+//   a time are summed over the whole basis in float32, four basis values a
+//   step (R any width: no filter columns held in registers; each filter
+//   weight read from L1/L2 feeds 8 FMAs), then the edges' sender values are
+//   read from packed and the K-sums taken in k order.
+// - Node phase: the tile's v1_d, vl_d, ts, the vr.vl dots and z rows live
+//   in shared memory, HP = 4 ceil(H / 4) wide and zero past H; each product
+//   is the threads' own FMA loop over the weight rows, four rows a step
+//   (float4 reads of the tile's rows, broadcast; the weights of two steps in
+//   flight), channel by channel, summed in chunks of KC = 64 weight rows
+//   whose sums are then added: float32 rounding grows with ~sqrt(KC) +
+//   sqrt(H / KC) steps, not sqrt(H). With running sums, at H = 1,024 in 3D
+//   the bf16 outputs read 1.6e-4 to 1.9e-4 from the plain version summed in
+//   float64 in the relative 2-norm, farther than the float32 plain version's
+//   1.4e-4 to 1.7e-4 (the roundings' ties of long sums). The casts are those
+//   of painn_layer.
+// The weights are read once per tile of tr receivers (7 H^2 T words).
+constexpr int kWideHidden = 1024, kWideRbf = 256;  // ops/painn_msg.py MAX_HIDDEN, MAX_RBF
+constexpr int WT = 256, EG = 8, TRW = 8, KC = 64;
+
+__host__ __device__ inline int pad4(int x) { return (x + 3) / 4 * 4; }
+// shared memory (float32 words) of a wide tile of tr receivers
+__host__ __device__ inline int wide_tile_words(int tr, int h, int dim) {
+  return tr * pad4(h) * (2 * dim + 4);
+}
+// a receiver's stage: K basis rows of RQ + 4 words, K directions of 4, K
+// sender rows
+__host__ __device__ inline int wide_stage_words(int k, int r, int dim) {
+  return k * (pad4(r) + 4 + 4 + 1);
+}
+
+template <typename T, int DIM>
+__global__ void __launch_bounds__(WT) painn_layer_wide(const Args a, int tr) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.h, R = a.r, K = a.k, HP = pad4(a.h), RQ = pad4(a.r), RS = RQ + 4;
+  float* sV1 = smem;                 // (tr DIM, HP) v1_d, row i * DIM + d
+  float* sVL = sV1 + tr * DIM * HP;  // (tr DIM, HP) vl_d
+  float* sTS = sVL + tr * DIM * HP;  // (tr, 2 HP) ts = [s1, |vr|]
+  float* sDot = sTS + tr * 2 * HP;   // (tr, HP) sum_d vr_d vl_d
+  float* sZ = sDot + tr * HP;        // (tr, HP) z
+  float* sPhi = sZ + tr * HP;        // (K, RS) basis rows, the scale at RQ
+  float* sNd = sPhi + K * RS;        // (K, 4)
+  int* sSid = reinterpret_cast<int*>(sNd + K * 4);  // (K)
+  const int tid = threadIdx.x;
+  const int node0 = blockIdx.x * tr;
+  const int nodes = min(tr, a.n - node0);
+  const T* packed = static_cast<const T*>(a.packed);
+  const T* phi = static_cast<const T*>(a.phi);
+  const T* nd = static_cast<const T*>(a.nd);
+  const T* s = static_cast<const T*>(a.s);
+  const T* v = static_cast<const T*>(a.v);
+  const T* fw = static_cast<const T*>(a.filt_w);
+
+  // zeros that no stage or channel overwrites: basis values R .. RQ - 1, the
+  // tile's columns H .. HP - 1
+  for (int i = tid; i < K * (RQ - R); i += WT) sPhi[(i / (RQ - R)) * RS + R + i % (RQ - R)] = 0.f;
+  for (int i = tid; i < tr * (HP - H); i += WT) {
+    const int row = i / (HP - H), c = H + i % (HP - H);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      sV1[(row * DIM + d) * HP + c] = 0.f;
+      sVL[(row * DIM + d) * HP + c] = 0.f;
+    }
+    sTS[row * 2 * HP + c] = sTS[row * 2 * HP + HP + c] = 0.f;
+    sDot[row * HP + c] = sZ[row * HP + c] = 0.f;
+  }
+
+  // ---- edge phase
+  for (int i = 0; i < nodes; ++i) {
+    const int64_t node = node0 + i;
+    __syncthreads();  // the previous receiver's stage is consumed
+    for (int e = tid; e < K * (R + 1); e += WT) {
+      const int q = e % (R + 1);
+      sPhi[(e / (R + 1)) * RS + (q < R ? q : RQ)] = to_f(phi[node * K * (R + 1) + e]);
+    }
+    for (int e = tid; e < K * DIM; e += WT) sNd[(e / DIM) * 4 + e % DIM] = to_f(nd[node * K * DIM + e]);
+    for (int e = tid; e < K; e += WT) sSid[e] = a.sidx[node * K + e];
+    __syncthreads();
+    for (int c = tid; c < H; c += WT) {
+      const float b0 = a.filt_b[c], b1 = a.filt_b[H + c], b2 = a.filt_b[2 * H + c];
+      float ds = 0.f, dv[DIM];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) dv[d] = 0.f;
+      for (int j0 = 0; j0 < K; j0 += EG) {
+        float w[EG][3];
+#pragma unroll
+        for (int u = 0; u < EG; ++u) w[u][0] = w[u][1] = w[u][2] = 0.f;
+        for (int q = 0; q < RQ; q += 4) {
+          float f0[4], f1[4], f2[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const bool in = q + t < R;
+            const T* col = fw + (int64_t)(q + t) * 3 * H + c;
+            f0[t] = in ? to_f(__ldg(col)) : 0.f;
+            f1[t] = in ? to_f(__ldg(col + H)) : 0.f;
+            f2[t] = in ? to_f(__ldg(col + 2 * H)) : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < EG; ++u) {
+            if (j0 + u < K) {
+              const float4 p4 = *reinterpret_cast<const float4*>(sPhi + (j0 + u) * RS + q);
+              const float ps[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+              for (int t = 0; t < 4; ++t) {
+                w[u][0] = fmaf(ps[t], f0[t], w[u][0]);
+                w[u][1] = fmaf(ps[t], f1[t], w[u][1]);
+                w[u][2] = fmaf(ps[t], f2[t], w[u][2]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < EG; ++u) {
+          const int j = j0 + u;
+          if (j < K) {
+            const float scale = sPhi[j * RS + RQ];
+            const float w0 = (w[u][0] + b0) * scale, w1 = (w[u][1] + b1) * scale,
+                        w2 = (w[u][2] + b2) * scale;
+            float g[2 + DIM];
+            load_sender<T, DIM>(packed, sSid[j], a.m, c, H, g);
+            ds += w0 * g[0];
+            const float m1 = w1 * g[1];
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) dv[d] += sNd[j * 4 + d] * m1 + w2 * g[2 + d];
+          }
+        }
+      }
+      sTS[i * 2 * HP + c] = round_to<T>(to_f(s[node * H + c]) + clip(ds));
+#pragma unroll
+      for (int d = 0; d < DIM; ++d)
+        sV1[(i * DIM + d) * HP + c] =
+            round_to<T>(to_f(v[node * DIM * H + d * H + c]) + clip(dv[d]));
+    }
+  }
+  for (int i = nodes; i < tr; ++i)  // rows past the last receiver stay 0
+    for (int c = tid; c < H; c += WT) {
+      sTS[i * 2 * HP + c] = 0.f;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) sV1[(i * DIM + d) * HP + c] = 0.f;
+    }
+  __syncthreads();
+
+  // ---- node phase. vm = v1 @ vmix_w: vl (column c), vr (column H + c)
+  {
+    const T* W = static_cast<const T*>(a.vmix_w);
+    for (int c = tid; c < H; c += WT) {
+      float vl[TRW * DIM], vr[TRW * DIM];
+#pragma unroll
+      for (int r = 0; r < TRW * DIM; ++r) vl[r] = vr[r] = 0.f;
+      for (int k0 = 0; k0 < HP; k0 += KC) {
+        float cl[TRW * DIM], cr[TRW * DIM];  // this chunk's sums
+#pragma unroll
+        for (int r = 0; r < TRW * DIM; ++r) cl[r] = cr[r] = 0.f;
+        const int k1 = min(k0 + KC, HP);
+#pragma unroll 2
+        for (int kk = k0; kk < k1; kk += 4) {
+          float wl[4], wr[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const bool in = kk + t < H;
+            wl[t] = in ? to_f(__ldg(W + (int64_t)(kk + t) * 2 * H + c)) : 0.f;
+            wr[t] = in ? to_f(__ldg(W + (int64_t)(kk + t) * 2 * H + H + c)) : 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < TRW * DIM; ++r) {
+            if (r < tr * DIM) {
+              const float4 x = *reinterpret_cast<const float4*>(sV1 + r * HP + kk);
+              cl[r] = fmaf(x.x, wl[0], cl[r]);
+              cr[r] = fmaf(x.x, wr[0], cr[r]);
+              cl[r] = fmaf(x.y, wl[1], cl[r]);
+              cr[r] = fmaf(x.y, wr[1], cr[r]);
+              cl[r] = fmaf(x.z, wl[2], cl[r]);
+              cr[r] = fmaf(x.z, wr[2], cr[r]);
+              cl[r] = fmaf(x.w, wl[3], cl[r]);
+              cr[r] = fmaf(x.w, wr[3], cr[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < TRW * DIM; ++r) {
+          vl[r] += cl[r];
+          vr[r] += cr[r];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TRW; ++i) {
+        if (i < tr) {
+          float nrm = 0.f, dt = 0.f;
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            nrm += vr[i * DIM + d] * vr[i * DIM + d];
+            dt += vr[i * DIM + d] * vl[i * DIM + d];
+            sVL[(i * DIM + d) * HP + c] = vl[i * DIM + d];
+          }
+          sDot[i * HP + c] = dt;
+          sTS[i * 2 * HP + HP + c] = round_to<T>(sqrtf(nrm + kEps));
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // z = T(silu(ts @ mix_w1 + mix_b1)), ts = [s1, |vr|]: weight rows kk of
+  // the first half, H + kk of the second
+  {
+    const T* W = static_cast<const T*>(a.mix_w1);
+    for (int c = tid; c < H; c += WT) {
+      float z[TRW];
+#pragma unroll
+      for (int i = 0; i < TRW; ++i) z[i] = 0.f;
+      for (int half = 0; half < 2; ++half) {
+        for (int k0 = 0; k0 < HP; k0 += KC) {
+          float cz[TRW];  // this chunk's sums
+#pragma unroll
+          for (int i = 0; i < TRW; ++i) cz[i] = 0.f;
+          const int k1 = min(k0 + KC, HP);
+#pragma unroll 2
+          for (int kk = k0; kk < k1; kk += 4) {
+            float w[4];
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              w[t] = kk + t < H ? to_f(__ldg(W + (int64_t)(half * H + kk + t) * H + c)) : 0.f;
+#pragma unroll
+            for (int i = 0; i < TRW; ++i) {
+              if (i < tr) {
+                const float4 x =
+                    *reinterpret_cast<const float4*>(sTS + i * 2 * HP + half * HP + kk);
+                cz[i] = fmaf(x.x, w[0], cz[i]);
+                cz[i] = fmaf(x.y, w[1], cz[i]);
+                cz[i] = fmaf(x.z, w[2], cz[i]);
+                cz[i] = fmaf(x.w, w[3], cz[i]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < TRW; ++i) z[i] += cz[i];
+        }
+      }
+      const float b = a.mix_b1[c];
+#pragma unroll
+      for (int i = 0; i < TRW; ++i) {
+        if (i < tr) {
+          const float zi = z[i] + b;
+          sZ[i * HP + c] = round_to<T>(zi * (1.f / (1.f + expf(-zi))));
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // m = z @ mix_w2 + mix_b2, then the outputs of channel c
+  {
+    const T* W = static_cast<const T*>(a.mix_w2);
+    T* s_out = static_cast<T*>(a.s_out);
+    T* v_out = static_cast<T*>(a.v_out);
+    for (int c = tid; c < H; c += WT) {
+      float m0[TRW], m1[TRW], m2[TRW];
+#pragma unroll
+      for (int i = 0; i < TRW; ++i) m0[i] = m1[i] = m2[i] = 0.f;
+      for (int k0 = 0; k0 < HP; k0 += KC) {
+        float c0[TRW], c1[TRW], c2[TRW];  // this chunk's sums
+#pragma unroll
+        for (int i = 0; i < TRW; ++i) c0[i] = c1[i] = c2[i] = 0.f;
+        const int k1 = min(k0 + KC, HP);
+#pragma unroll 2
+        for (int kk = k0; kk < k1; kk += 4) {
+          float w0[4], w1[4], w2[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const bool in = kk + t < H;
+            const T* wr = W + (int64_t)(kk + t) * 3 * H + c;
+            w0[t] = in ? to_f(__ldg(wr)) : 0.f;
+            w1[t] = in ? to_f(__ldg(wr + H)) : 0.f;
+            w2[t] = in ? to_f(__ldg(wr + 2 * H)) : 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < TRW; ++i) {
+            if (i < tr) {
+              const float4 x = *reinterpret_cast<const float4*>(sZ + i * HP + kk);
+              const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+              for (int t = 0; t < 4; ++t) {
+                c0[i] = fmaf(xs[t], w0[t], c0[i]);
+                c1[i] = fmaf(xs[t], w1[t], c1[i]);
+                c2[i] = fmaf(xs[t], w2[t], c2[i]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < TRW; ++i) {
+          m0[i] += c0[i];
+          m1[i] += c1[i];
+          m2[i] += c2[i];
+        }
+      }
+      const float bs = a.mix_b2[c], bv = a.mix_b2[H + c], bd = a.mix_b2[2 * H + c];
+#pragma unroll
+      for (int i = 0; i < TRW; ++i) {
+        if (i < nodes) {
+          const int64_t node = node0 + i;
+          s_out[node * H + c] = from_f<T>(sTS[i * 2 * HP + c] +
+                                          clip((m0[i] + bs) + (m2[i] + bd) * sDot[i * HP + c]));
+          const float dv2 = m1[i] + bv;
+#pragma unroll
+          for (int d = 0; d < DIM; ++d)
+            v_out[node * DIM * H + d * H + c] = from_f<T>(
+                sV1[(i * DIM + d) * HP + c] + clip(sVL[(i * DIM + d) * HP + c] * dv2));
+        }
+      }
+    }
+  }
+}
+
+// receivers per block of the wide instance: TRW, fewer where the tile and
+// a receiver's stage would not fit a block's shared memory; 0 if none fits
+inline int wide_tile_rows(int h, int k, int r, int dim) {
+  const int free = 232448 / 4 - wide_stage_words(k, r, dim);
+  const int rows = free <= 0 ? 0 : free / (pad4(h) * (2 * dim + 4));
+  return rows < TRW ? rows : TRW;
+}
+
+template <typename T, int DIM>
+int launch_wide(const Args& a, cudaStream_t stream) {
+  const int tr = wide_tile_rows(a.h, a.k, a.r, DIM);
+  if (tr < 1) return (int)cudaErrorInvalidValue;  // K too large for one block
+  const int smem = (wide_tile_words(tr, a.h, DIM) + wide_stage_words(a.k, a.r, DIM)) * 4;
+  cudaError_t err = cudaFuncSetAttribute(painn_layer_wide<T, DIM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  painn_layer_wide<T, DIM><<<lbt::ceil_div(a.n, tr), WT, smem, stream>>>(a, tr);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DIM, int HT, int RC, bool EXACT = false>
 int launch(const Args& a, cudaStream_t stream) {
   const int smem = Smem<RC, DIM>(a.h).bytes(a.k);
@@ -455,9 +796,11 @@ int launch(const Args& a, cudaStream_t stream) {
 }
 
 // the instance for (H, R): 128 or 256 threads, basis capacity 20 or 64;
-// the shipped H = 128, R = 20 exactly
+// the shipped H = 128, R = 20 exactly; the wide instance past H = 256 or
+// R = 64
 template <typename T, int DIM>
 int launch_width(const Args& a, cudaStream_t stream) {
+  if (a.h > kMaxHidden || a.r > kMaxRbf) return launch_wide<T, DIM>(a, stream);
   if (a.h == 128 && a.r == 20) return launch<T, DIM, 128, 20, true>(a, stream);
   if (a.h <= 128)
     return a.r <= 20 ? launch<T, DIM, 128, 20>(a, stream) : launch<T, DIM, 128, 64>(a, stream);
@@ -471,10 +814,10 @@ int launch_width(const Args& a, cudaStream_t stream) {
 //   8 vmix_w, 9 mix_w1, 10 mix_b1, 11 mix_w2, 12 mix_b2, 13 s_out, 14 v_out.
 // Matrices and activations in the compute type (is_bf16 ? bf16 : float32),
 // biases float32. n receivers, k slots each, m >= n rows of packed; h in
-// [1, 256], r in [1, 64] (else cudaErrorInvalidValue).
+// [1, 1024], r in [1, 256] (else cudaErrorInvalidValue).
 LBT_EXPORT int lbt_painn_layer(const void* const* ptrs, int n, int k, int m, int h, int r,
                                int dim, int is_bf16, cudaStream_t stream) {
-  if (h < 1 || h > kMaxHidden || r < 1 || r > kMaxRbf || n < 1 || k < 1 || m < n ||
+  if (h < 1 || h > kWideHidden || r < 1 || r > kWideRbf || n < 1 || k < 1 || m < n ||
       (dim != 2 && dim != 3))
     return (int)cudaErrorInvalidValue;
   Args a;

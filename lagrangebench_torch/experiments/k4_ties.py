@@ -2,6 +2,7 @@
 and why, on the seeded inputs of the K4 GPU tests.
 
     python -m lagrangebench_torch.experiments.k4_ties [--device cuda]
+        [--bf16 F:N:K ...] [--float32 F:N:K ...]
 
 Both versions of K4 (``csrc/fused_mp_bwd.cu`` and
 ``ops.fused_mp.gns_mp_step_bwd_plain``) compute one step's backward with
@@ -23,6 +24,13 @@ the function jumps, each sum order decides the jump its own way:
   the kernel and of the float32 plain version against the plain version in
   float64, raw and with every tie set as the kernel's outputs show it
   (``relu_tie_reference``), and the ties so set.
+- ``--bf16 F:N:K`` and ``--float32 F:N:K`` analyse the GPU tests' seeded
+  case of that width and shape instead (``test_fused_mp_bwd_kernel_ragged``
+  and its wide-path counterpart take N, K from their ragged lists); a bf16
+  F runs padded to its kernel width, a float32 F is a multiple of 64. On
+  the wide path (F > 256) the bf16 case also prints where the kernel's own
+  relu(node_first) decisions, handed out with ``relu_out``, part from
+  float64 at its T(agg), and feeds them to the float64 reference.
 
 Prints one JSON object. Needs a card (K4 has no CPU mode).
 """
@@ -145,22 +153,34 @@ def _grads(got, want):
             for name in fused_mp.BWD_PARAM_ORDER}
 
 
-def bf16_case(device, f=192):
-    """The bf16 case at F = ``f`` (see the module docstring)."""
-    args = inputs(device, torch.bfloat16, f=f)
-    n = args[0].shape[0]
-    agg_k = torch.empty((n, f), dtype=torch.float32, device=device)
-    got = fused_mp.gns_mp_step_bwd(*args, agg_out=agg_k)
+def bf16_case(device, f=192, n=333, k=24):
+    """The bf16 case at F = ``f``, N = ``n``, K = ``k`` (see the module
+    docstring); ``f`` need not be an instance width (the tensors are padded
+    to ``kernel_width(f)`` for the launch and cut back)."""
+    args = inputs(device, torch.bfloat16, n=n, k=k, f=f)
+    n, width = args[0].shape[0], fused_mp.kernel_width(f)
+    wide = fused_mp._design(torch.bfloat16, width) == "wide"
+    agg_k = torch.empty((n, width), dtype=torch.float32, device=device)
+    relu_k = torch.empty((n, width), dtype=torch.bfloat16, device=device) if wide else None
+    padded = [t if i in (4, 5) else fused_mp.pad_last(t, width).contiguous()
+              for i, t in enumerate(args)]
+    got = fused_mp.gns_mp_step_bwd(*padded, latent=f, agg_out=agg_k, relu_out=relu_k)
+    del padded
+    got = tuple(o[..., :f] for o in got[:4]) + (
+        {name: v[(slice(0, f),) * v.dim()] for name, v in got[4].items()},)
+    agg_k = agg_k[:, :f].contiguous()
     plain = fused_mp.gns_mp_step_bwd_plain(*args)
-    exact, fed = plain64(args), plain64(args, aggc=agg_k)
     _, nf_exact, agg = relu_preactivations(args)
     _, nf_kernel, _ = relu_preactivations(args, aggc=agg_k)
+    masks = None if relu_k is None else (None, relu_k[:, :f] > 0)
+    exact, fed = plain64(args), plain64(args, aggc=agg_k, relu_masks=masks)
     apart = agg_k.to(torch.bfloat16) != agg.to(torch.bfloat16)
     flips = torch.nonzero((nf_kernel > 0) != (nf_exact > 0)).tolist()
-    return {
+    out = {
         "kernel vs float64 sums": _grads(got, exact),
         "float32 plain vs float64 sums": _grads(plain, exact),
-        "kernel vs float64 sums fed the kernel's T(agg)": _grads(got, fed),
+        "kernel vs float64 sums fed the kernel's T(agg)"
+        + (" and relu(node_first)" if wide else ""): _grads(got, fed),
         "kernel's agg vs float64 sum, max abs": float((agg_k.double() - agg).abs().max()),
         "T(agg) elements rounded apart (kernel vs float64)": int(apart.sum()),
         "of": apart.numel(),
@@ -170,11 +190,19 @@ def bf16_case(device, f=192):
         "kernel's agg vs float64 sum at those receivers, max abs": [
             float(f"{float((agg_k[i].double() - agg[i]).abs().max()):.3g}") for i, _ in flips],
     }
+    if wide:  # the kernel's own relu(node_first) decisions at its T(agg)
+        own = torch.nonzero(masks[1] != (nf_kernel > 0)).tolist()
+        out["wide path: the kernel's relu(node_first) apart from float64 at its T(agg) "
+            "(receiver, feature, float64 node_first, its largest)"] = [
+            (i, j, float(f"{float(nf_kernel[i, j]):.4g}"),
+             float(f"{float(nf_kernel.abs().max()):.4g}")) for i, j in own]
+    return out
 
 
-def f32_case(device, f):
-    """The float32 case at F = ``f`` (see the module docstring)."""
-    args = inputs(device, torch.float32, n=16000, k=24, f=f)
+def f32_case(device, f, n=16000, k=24):
+    """The float32 case at F = ``f``, N = ``n``, K = ``k`` (see the module
+    docstring)."""
+    args = inputs(device, torch.float32, n=n, k=k, f=f)
     got = fused_mp.at_true_width("gns_mp_step_bwd", *args, latent=f)
     plain = fused_mp.gns_mp_step_bwd_plain(*args)
     raw = fused_mp.gns_mp_step_bwd_plain(*[t.double() for t in args[:5]],
@@ -198,14 +226,26 @@ def f32_case(device, f):
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default); K4 has no CPU mode")
+    ap.add_argument("--bf16", nargs="*", default=None, metavar="F:N:K",
+                    help="bf16 cases to analyse (default 192:333:24)")
+    ap.add_argument("--float32", nargs="*", default=None, metavar="F:N:K",
+                    help="float32 cases to analyse (default 100:16000:24 192:16000:24)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if device.type != "cuda":
         raise RuntimeError("k4_ties needs a CUDA device: K4 has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"card": torch.cuda.get_device_name(0), "bf16 F = 192": bf16_case(device)}
-    for f in (100, 192):
-        out[f"float32 F = {f}"] = f32_case(device, f)
+    out = {"card": torch.cuda.get_device_name(0)}
+    given = args.bf16 is not None or args.float32 is not None
+    for spec in args.bf16 or ([] if given else ["192:333:24"]):
+        f, n, k = (int(x) for x in spec.split(":"))
+        out[f"bf16 F = {f}" + (f", N = {n}, K = {k}" if given else "")] = bf16_case(
+            device, f, n, k)
+        torch.cuda.empty_cache()
+    for spec in args.float32 or ([] if given else ["100:16000:24", "192:16000:24"]):
+        f, n, k = (int(x) for x in spec.split(":"))
+        out[f"float32 F = {f}" + (f", N = {n}, K = {k}" if given else "")] = f32_case(
+            device, f, n, k)
         torch.cuda.empty_cache()
     print(json.dumps(out, indent=1))
     return out

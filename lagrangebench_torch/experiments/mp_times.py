@@ -6,14 +6,15 @@ for this checkout or another one.
 
 - K3 and K4 (the fused GNS message-passing step and its backward): seeded
   random inputs at the GNS rollout shape (16,000 receivers x K = 40, F =
-  ``--latent``, any width from 1 to 256 (128 by default; 64 is GNS-5-64's
-  width; a width that is not a multiple of 64 is timed with the wrapper's
-  padding and slicing of its tensors), bf16: batch 2 x 8,000 particles):
+  ``--latent``, any width from 1 to 1,024 (128 by default; 64 is GNS-5-64's
+  width; above 256 the wide path, ``csrc/mp_wide.cuh``; a width that is not
+  a multiple of 64 is timed with the wrapper's padding and slicing of its
+  tensors), bf16: batch 2 x 8,000 particles):
   K3's plain step, K3's encoder-folded step (raw edge features of width 4)
   and K4.
 - K5 (the fused PaiNN layer) and K6 (the message block) at the PaiNN
   rollout shape (16,000 receivers x K = 40, float32, H = ``--hidden``, 1 to
-  256, 128 by default, R = 20) on the dense neighbor list of a batch
+  1,024 (K5's wide instance past 256), 128 by default, R = 20) on the dense neighbor list of a batch
   of 2 of the synthetic RPF-3D-scale data that ``chip_smoke.py`` drives
   (``data.synthetic.make_synthetic_arrays``, 8,000 particles in 3D), the
   values seeded. A tree whose K5 takes the gathered rows
@@ -273,10 +274,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--latent", type=int, default=GNS_LATENT,
                     help="the latent width of the gns group's K3 and K4 inputs (a width the "
                          "tree's kernels take: 128, 64 from slice 15 on, 1 to 256 from "
-                         "slice 16 on)")
+                         "slice 16 on, 1 to 1,024 from slice 18 on)")
     ap.add_argument("--hidden", type=int, default=128,
                     help="the hidden width of the painn group's K5, K6 and PaiNN-5-H (128, "
-                         "the shipped width, in every tree; 1 to 256 from slice 16 on)")
+                         "the shipped width, in every tree; 1 to 256 from slice 16 on, 1 "
+                         "to 1,024 from slice 18 on)")
     args = ap.parse_args(argv)
     groups = set(args.only.split(","))
     root = os.path.abspath(args.tree or os.path.join(os.path.dirname(__file__), "..", ".."))

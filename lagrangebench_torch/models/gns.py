@@ -78,8 +78,9 @@ class GNS(JaxTree, nn.Module):
         node_in: node feature width (see :func:`gns_input_sizes`).
         edge_in: edge feature width (dim + 1).
         latent_size: latent width of node/edge states; on CUDA 1 to
-            ``fused_mp.MAX_LATENT`` (256; a wider one raises ValueError at
-            the first forward), any on the CPU.
+            ``fused_mp.MAX_LATENT`` (1,024: the compiled instances up to
+            256, the wide path above; a wider one raises ValueError at the
+            first forward), any on the CPU.
         num_mp_steps: number of message-passing steps.
         particle_type_embedding_size: width of the type embedding.
         num_particle_types: number of particle type ids.

@@ -36,9 +36,12 @@ window_select.py``) through three windows per 32-row sub-tile of compact,
 cell-sorted rows.
 
 On the card the kernels take any latent width F from 1 to ``MAX_LATENT``
-(256). Each is compiled at the instance widths of ``INSTANCES`` (64, 128,
-192, 256; in bf16 the warp design at ``LATENTS``, 64 and 128, the stream
-design above; in float32 the tile design): width F runs the instance
+(1,024). Up to 256 each is compiled at the instance widths of
+``INSTANCES`` (64, 128, 192, 256; in bf16 the warp design at ``LATENTS``,
+64 and 128, the stream design above; in float32 the tile design); above
+256 one wide path serves every width (``csrc/mp_wide.cuh``: a hand-written
+GEMM per product with its epilogue, then LayerNorm / residual / K-sum row
+kernels; its launch plan is ``wide_plan``). Width F runs at
 ``kernel_width(F)`` = 64 ceil(F / 64), with the tensors and weights
 zero-padded past F (LayerNorm scale and bias included, ``pad_params``)
 and the true F passed to the kernel, which
@@ -74,14 +77,14 @@ _KERNEL_VECTORS = ("b1", "b2", "ln1_scale", "ln1_bias", "bn1", "bn2",
                    "ln2_scale", "ln2_bias")
 LATENTS = (64, 128)  # the bf16 warp design's instances (GNS-5-64, GNS-10-128)
 INSTANCES = (64, 128, 192, 256)  # every instance width (bf16 stream design above 128)
-MAX_LATENT = INSTANCES[-1]
+MAX_LATENT = 1024  # the wide path (csrc/mp_wide.cuh) above INSTANCES[-1]
 
 
 def kernel_width(f: int, kernel: str = "fused_mp") -> int:
-    """The instance width that runs latent width ``f`` on the card, 64
-    ceil(f / 64); ``ValueError`` naming the limit for f outside [1,
-    ``MAX_LATENT``] (on the card there is no fallback to the plain
-    version)."""
+    """The width that runs latent width ``f`` on the card, 64 ceil(f / 64)
+    (an instance up to 256, the wide path above); ``ValueError`` naming the
+    limit for f outside [1, ``MAX_LATENT``] (on the card there is no
+    fallback to the plain version)."""
     if not 1 <= f <= MAX_LATENT:
         raise ValueError(f"{kernel} kernel: latent width {f} not supported on CUDA; "
                          f"the kernels take widths 1 to {MAX_LATENT}")
@@ -161,7 +164,10 @@ def _design(cdt: torch.dtype, width: int) -> str:
     A operands in registers), "stream" (bf16 above: weights streamed
     through a ring of slabs, A operands in shared memory, K4's weight
     gradients in a product kernel of their own) or "tile" (float32). Both
-    bf16 designs run an edge and a node kernel with an agg scratch."""
+    bf16 designs run an edge and a node kernel with an agg scratch. Above
+    ``INSTANCES[-1]`` both dtypes run "wide" (``csrc/mp_wide.cuh``)."""
+    if width > INSTANCES[-1]:
+        return "wide"
     if cdt != torch.bfloat16:
         return "tile"
     return "warp" if width <= LATENTS[-1] else "stream"
@@ -182,7 +188,13 @@ FUSED_MP_ENC = Kernel(
 # the backward's node kernel (warp design), rows per chunk of the weight-
 # gradient product kernel (stream design)
 _WARPS, _SLICE, _NODE_BWD_ROWS, _TN_CHUNK = 8, 16, 64, 32
-_N_PTRS = 29  # the forward entries' pointer array (csrc/fused_mp.cu)
+_N_PTRS = 37  # the forward entries' pointer array (csrc/fused_mp.cu)
+# the wide path (csrc/mp_wide.cuh): output tile and k-slab of its bf16
+# products, their cp.async ring stages, the float32 products' tile and
+# k-slab, warps (rows) per block of its row kernels
+WIDE_TILE, _WIDE_KS, _WIDE_STAGES, _WIDE_TILE_F32, _WIDE_KS_F32 = 128, 32, 3, 64, 16
+_WIDE_ROW_WARPS = 8
+SMEM_LIMIT = 232448  # a block's shared memory on an H100 (227 KB)
 
 
 def mp_grids(n: int, k: int, sms: int) -> Tuple[int, int]:
@@ -212,6 +224,83 @@ def bwd_stream_plan(n: int, k: int, sms: int) -> Tuple[int, int, int, int]:
     return edge, node, -(-ce // per), -(-cn // per)
 
 
+def wide_smem_bytes(cdt: torch.dtype) -> int:
+    """Shared memory of the wide path's largest block at any width: in bf16
+    the product kernel's ring of ``_WIDE_STAGES`` stages, each a 128 x 32 A
+    tile and a 32-deep B tile in the layout the operand lies in (rows padded
+    by 8 bf16), the largest over its three layouts (A @ W, A @ W^T, A^T B);
+    in float32 its two 16 x 64 tiles (rows padded by 4); the row kernels use
+    none."""
+    if cdt != torch.bfloat16:
+        return 2 * _WIDE_KS_F32 * (_WIDE_TILE_F32 + 4) * 4
+    a_rows, a_t = WIDE_TILE * (_WIDE_KS + 8), _WIDE_KS * (WIDE_TILE + 8)
+    layouts = ((a_rows, _WIDE_KS * (WIDE_TILE + 8)), (a_rows, WIDE_TILE * (_WIDE_KS + 8)),
+               (a_t, _WIDE_KS * (WIDE_TILE + 8)))
+    return _WIDE_STAGES * max(a + b for a, b in layouts) * 2
+
+
+def wide_plan(n: int, k: int, f: int, sms: int, cdt: torch.dtype = torch.bfloat16) -> Dict:
+    """The wide path's launch plan for n receivers of k edge rows at width
+    ``f`` (> 256, a multiple of 64) on a card of ``sms`` SMs:
+
+    - ``edge_grid``, ``node_grid``: the product grids over the n k edge rows
+      and the n node rows (output tiles of ``WIDE_TILE``, 64 in float32);
+    - ``r_e``, ``r_n``: the row ranges of the edge (dW_e, dW2) and node
+      (dW_nh, dW_na, dW_n2) weight gradients, whole 32-row chunks (``tn_rows``),
+      enough that each gradient's launch fills about two waves of the SMs;
+      ``tn_grid`` each gradient's grid;
+    - ``p_e``, ``p_n``: the warps of K4's edge and node row kernels (one row
+      or receiver per warp at a time, a fixed stride), each writing its own
+      vector partials; ``row_warps`` per block (``rows_per_block`` rows at a
+      time);
+    - ``stages`` of the bf16 product ring and ``smem_bytes``, the largest
+      block's shared memory (``wide_smem_bytes``), the same at every f."""
+    tile = WIDE_TILE if cdt == torch.bfloat16 else _WIDE_TILE_F32
+    side = -(-f // tile)
+
+    def ranges(rows):
+        return max(1, min(-(-rows // _TN_CHUNK), -(-2 * sms // (side * side))))
+
+    warps = _WIDE_ROW_WARPS * max(1, min(-(-n // _WIDE_ROW_WARPS), 2 * sms))
+    r_e, r_n = ranges(n * k), ranges(n)
+    return {"edge_grid": (-(-n * k // tile), side), "node_grid": (-(-n // tile), side),
+            "r_e": r_e, "r_n": r_n, "tn_grid": ((side, side, r_e), (side, side, r_n)),
+            "p_e": warps, "p_n": warps, "row_warps": _WIDE_ROW_WARPS,
+            "rows_per_block": _WIDE_ROW_WARPS, "stages": _WIDE_STAGES,
+            "smem_bytes": wide_smem_bytes(cdt)}
+
+
+def _wide_plan_ints(plan: Dict) -> Tuple[int, int, int, int]:
+    """The (r_e, r_n, p_e, p_n) that the wide backward and its reduction take."""
+    return plan["r_e"], plan["r_n"], plan["p_e"], plan["p_n"]
+
+
+def _wide_buffers(n: int, k: int, f: int, cdt: torch.dtype, device, backward: bool = False,
+                  enc: bool = False, senders: bool = False):
+    """The wide path's device buffers (rows = n k), in the order of its entry
+    points' pointers (csrc/fused_mp.cu 29-36, csrc/fused_mp_bwd.cu 28-37);
+    None where a forward needs none. Forward: sender rows (int32, K8 and E2),
+    the encoded e (with the encoder), x (float32), T(relu(first)), T(agg),
+    agg (float32; not kept), T(relu(node_first)), y (float32). Backward:
+    T(relu(first)), x1 (float32, then dfirst), T(agg), T(relu(node_first)),
+    y1, T(dy1), dnf, T(dnf), dagg (float32 where not T) and T(dx1)."""
+    rows, f32 = n * k, torch.float32
+
+    def buf(r, dt):
+        return torch.empty((r, f), dtype=dt, device=device)
+
+    if backward:
+        return [buf(rows, cdt), buf(rows, f32), buf(n, cdt), buf(n, cdt), buf(n, f32),
+                buf(n, cdt), buf(n, f32), buf(n, cdt), buf(n, f32), buf(rows, cdt)]
+    return [torch.empty((rows,), dtype=torch.int32, device=device) if senders else None,
+            buf(rows, cdt) if enc else None, buf(rows, f32), buf(rows, cdt), buf(n, cdt), None,
+            buf(n, cdt), buf(n, f32)]
+
+
+def _ptrs(tensors) -> list:
+    return [0 if t is None else t.data_ptr() for t in tensors]
+
+
 def tn_rows(rows: int, ranges: int, r: int) -> Tuple[int, int]:
     """The rows [lo, hi) of range r of ``rows`` rows split into ``ranges``
     runs of whole 32-row chunks (the weight-gradient product kernel's
@@ -230,7 +319,12 @@ def bwd_partials_floats(n: int, grid: int, bf16: bool, f: int,
     edge vectors, then ``grid`` blocks of dW_e; the bf16 stream design (f >
     128, ``plan`` from ``bwd_stream_plan``), each row range's F x F partial
     (2 r_e + 3 r_n of them), then the edge and the node kernel's blocks of
-    their four vectors."""
+    their four vectors; the wide path (f > 256, either dtype, ``plan`` the
+    (r_e, r_n, p_e, p_n) of ``wide_plan``), each row range's F x F partial,
+    then the edge and the node row kernels' warps of their four vectors."""
+    if f > INSTANCES[-1]:
+        r_e, r_n, p_e, p_n = plan
+        return (2 * r_e + 3 * r_n) * f * f + (p_e + p_n) * 4 * f
     if not bf16:
         return grid * (5 * f * f + 8 * f)
     if f > LATENTS[-1]:
@@ -381,6 +475,8 @@ def gns_mp_step(
     agg = _agg_scratch(n, f, cdt, h.device)
     ptrs = [t.data_ptr() for t in tensors + [e_out, h_out] + params]
     ptrs += [0] * (28 - len(ptrs)) + [agg.data_ptr() if agg is not None else 0]
+    ptrs += _ptrs(_wide_buffers(n, k, f, cdt, h.device, enc=enc is not None)
+                  if f > INSTANCES[-1] else [None] * 8)
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     kernel = FUSED_MP_ENC if enc is not None else FUSED_MP
     kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, latent, int(cdt == torch.bfloat16),
@@ -409,8 +505,8 @@ def _step_pointers(p, enc, cdt, f, e):
 
 def _agg_scratch(n: int, f: int, cdt: torch.dtype, device) -> Optional[torch.Tensor]:
     """The bf16 designs' float32 (n, f) agg, handed from the edge kernel to
-    the node kernel; the float32 tile design needs none."""
-    if cdt != torch.bfloat16:
+    the node kernel; the float32 tile design and the wide path need none."""
+    if cdt != torch.bfloat16 or f > INSTANCES[-1]:
         return None
     return torch.empty((n, f), dtype=torch.float32, device=device)
 
@@ -503,7 +599,7 @@ def gns_mp_step_bwd_plain(
     gh: torch.Tensor,
     latent: Optional[int] = None,
     aggc: Optional[torch.Tensor] = None,
-    relu_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    relu_masks: Optional[Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]] = None,
 ):
     """Plain PyTorch version of K4: the backward of one (non-encoder) step.
 
@@ -524,7 +620,7 @@ def gns_mp_step_bwd_plain(
     (N, F) is the rounded agg to use in place of this version's own
     rounding of its sum (the kernel's ``agg_out``, rounded), and
     ``relu_masks`` the derivatives (first > 0, node_first > 0), (N, K, F)
-    and (N, F) bool, to use in place of this version's.
+    and (N, F) bool, to use in place of this version's (None: its own).
     """
     cdt = e.dtype
     acc = _acc_dtype(cdt)
@@ -558,7 +654,8 @@ def gns_mp_step_bwd_plain(
     dy1c = dy1.to(cdt)
     dp["wn2"] = _dot_g(r2c, dy1c, acc)
     dp["bn2"] = torch.sum(dy1, dim=0)
-    r1_on, r2_on = (r1 > 0, r2 > 0) if relu_masks is None else relu_masks
+    r1_on, r2_on = relu_masks or (None, None)
+    r1_on, r2_on = (r1 > 0 if r1_on is None else r1_on), (r2 > 0 if r2_on is None else r2_on)
     dnf = _dot_t(dy1c, p["wn2"].to(cdt), acc) * r2_on
     dnfc = dnf.to(cdt)
     dp["w_nh"] = _dot_g(h.to(cdt), dnfc, acc)
@@ -595,11 +692,14 @@ def gns_mp_step_bwd(
     gh: torch.Tensor,
     latent: Optional[int] = None,
     agg_out: Optional[torch.Tensor] = None,
+    relu_out: Optional[torch.Tensor] = None,
 ):
     """K4: the backward kernel on CUDA tensors, else the plain version. See
-    :func:`gns_mp_step_bwd_plain` for shapes and returns. ``agg_out``, a
-    float32 (N, F) CUDA tensor at the tensors' width, receives the step's
-    agg as the kernel summed it (for checks; the plain version leaves it).
+    :func:`gns_mp_step_bwd_plain` for shapes and returns. For checks (the
+    plain version leaves them): ``agg_out``, a float32 (N, F) CUDA tensor
+    at the tensors' width, receives the step's agg as the kernel summed it;
+    ``relu_out``, an (N, F) tensor of the compute dtype (the wide path
+    only), receives T(relu(node_first)) as the kernel rematerialized it.
 
     On CUDA the compute dtype (of e, hs_gath, hr_proj, h, ge, gh) is
     bfloat16 or float32, ``p`` is in the kernel's layout (``kernel_params``)
@@ -640,27 +740,39 @@ def gns_mp_step_bwd(
     params = [_checked(p[name], cdt, (f, f)) for name in _KERNEL_WEIGHTS]
     params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
     bf16 = cdt == torch.bfloat16
-    stream = _design(cdt, f) == "stream"
+    design = _design(cdt, f)
+    stream, wide = design == "stream", design == "wide"
     sms = _sms(e.device)
     grid = mp_grids(n, k, sms)[0] if bf16 else min(-(-n // _BWD_TILE), sms)
-    plan = bwd_stream_plan(n, k, sms) if stream else None
+    plan = (bwd_stream_plan(n, k, sms) if stream else
+            _wide_plan_ints(wide_plan(n, k, f, sms, cdt)) if wide else None)
     per_block = len(_KERNEL_WEIGHTS) * f * f + len(_KERNEL_VECTORS) * f
     partials = torch.empty((bwd_partials_floats(n, grid, bf16, f, plan),), dtype=torch.float32,
                            device=e.device)
-    scratch = torch.empty((2 * n if bf16 else 1, f), dtype=torch.float32, device=e.device)
+    scratch = torch.empty((2 * n if bf16 and not wide else 1, f), dtype=torch.float32,
+                          device=e.device)
     # the stream design's bf16 operands of the weight gradients (Ops)
     ops = torch.empty(((2 * k + 4) * n if stream else 1, f), dtype=cdt, device=e.device)
     grads = torch.empty((per_block,), dtype=torch.float32, device=e.device)
     if agg_out is not None:
         _checked(agg_out, torch.float32, (n, f))
+    if relu_out is not None:
+        if not wide:
+            raise ValueError("fused_mp_bwd kernel: relu_out is the wide path's (F > "
+                             f"{INSTANCES[-1]})")
+        _checked(relu_out, cdt, (n, f))
     ptrs = [t.data_ptr() for t in tensors + [de, dhs, dhr, dh] + params + [partials, scratch]]
-    ptrs.append(agg_out.data_ptr() if agg_out is not None and not bf16 else 0)
+    ptrs.append(agg_out.data_ptr() if agg_out is not None and (wide or not bf16) else 0)
     ptrs.append(ops.data_ptr())
+    if wide:
+        bufs = _wide_buffers(n, k, f, cdt, e.device, backward=True)
+        bufs[3] = bufs[3] if relu_out is None else relu_out  # T(relu(node_first))
+        ptrs += _ptrs(bufs)
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     plan_arr = (ctypes.c_int * 4)(*plan) if plan else None
     FUSED_MP_BWD(ctypes.cast(arr, ctypes.c_void_p), n, k, latent, int(bf16), grid, plan_arr,
                  device=e.device)
-    if agg_out is not None and bf16:  # the bf16 designs' agg scratch
+    if agg_out is not None and bf16 and not wide:  # the bf16 designs' agg scratch
         agg_out.copy_(scratch[:n])
     _BWD_REDUCE(ctypes.c_void_p(partials.data_ptr()), ctypes.c_void_p(grads.data_ptr()),
                 n, latent, int(bf16), grid, plan_arr, device=e.device)
@@ -880,6 +992,8 @@ def gns_mp_step_slot(
     agg = _agg_scratch(n, f, cdt, h.device)
     ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), bases_ext.data_ptr()]
     ptrs += [agg.data_ptr() if agg is not None else 0]
+    ptrs += _ptrs(_wide_buffers(n, k, f, cdt, h.device, enc=enc is not None, senders=True)
+                  if f > INSTANCES[-1] else [None] * 8)
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     kernel = FUSED_MP_SLOT_ENC if enc is not None else FUSED_MP_SLOT
     kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, latent, int(cdt == torch.bfloat16),
@@ -1045,6 +1159,8 @@ def gns_mp_step_window(
     agg = _agg_scratch(n, f, cdt, h.device)
     ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), w0s.data_ptr()]
     ptrs += [agg.data_ptr() if agg is not None else 0]
+    ptrs += _ptrs(_wide_buffers(n, k, f, cdt, h.device, senders=True)
+                  if f > INSTANCES[-1] else [None] * 8)
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     FUSED_MP_WINDOW(ctypes.cast(arr, ctypes.c_void_p), n, k, latent,
                     int(cdt == torch.bfloat16), t, sub, int(wsub), _grid_array(h.device, n, k),

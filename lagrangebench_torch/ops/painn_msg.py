@@ -39,7 +39,10 @@ through the pure-JAX mirror), not a fallback; K5's carries the gradient of
 ``index_add_``). Neither TPU kernel has a backward kernel.
 
 On the card K6 takes any channel width H and K5 any H up to
-``MAX_HIDDEN`` (256) and radial-basis width R up to ``MAX_RBF`` (64); a
+``MAX_HIDDEN`` (1,024) and radial-basis width R up to ``MAX_RBF`` (256): its
+instances of one thread per channel up to H = 256 and R = 64, and one wide
+instance past either (``csrc/painn_layer.cu`` painn_layer_wide: threads
+taking channels in turn, the filters summed over the basis in float32); a
 wider K5 layer raises ``ValueError`` naming the limit. The plain versions,
 and so the CPU path, take any width.
 """
@@ -53,8 +56,8 @@ import torch
 
 from .build import Kernel
 
-MAX_HIDDEN = 256  # K5's widest channel width (256 threads, one per channel)
-MAX_RBF = 64  # K5's widest radial basis (its filter columns live in registers)
+MAX_HIDDEN = 1024  # K5's widest channel width (its wide instance past 256)
+MAX_RBF = 256  # K5's widest radial basis (its wide instance past 64)
 
 LAYER_PARAM_NAMES = ("filt_w", "filt_b", "vmix_w", "mix_w1", "mix_b1",
                      "mix_w2", "mix_b2")

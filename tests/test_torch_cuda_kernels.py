@@ -22,9 +22,11 @@ pytestmark = pytest.mark.gpu
 WIDTHS = fused_mp.LATENTS + (32, 96, 100, 192, 256)
 # widths whose float32 K4 comparison resolves float32 relu ties as the
 # kernel resolved them (``k4_ties.relu_tie_reference``): a reading on the
-# card showed a tie there; and, from chip_smoke.py, the widths whose bf16
-# K4 comparison takes the kernel's rounding of agg (``bf16_tie_check``)
-K4_TIE_WIDTHS = (64, 100, 192, 256)
+# card showed a tie there (at 512, N = 2,999, K = 1: one relu(node_first)
+# flip at 2.9e-7, the kernel within 1.6e-6 of float64 with it set so); and,
+# from chip_smoke.py, the widths whose bf16 K4 comparison takes the
+# kernel's rounding of agg (``bf16_tie_check``)
+K4_TIE_WIDTHS = (64, 100, 192, 256, 512)
 # K6's and K5's hidden widths, and K5's radial-basis widths, under test
 HIDDENS = (32, 64, 100, 128, 256)
 RBFS = (8, 20, 32)
@@ -136,18 +138,18 @@ def _check_fwd_ragged(cuda, n, k, dtype, tol, use_enc, f):
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("f", [257, 320, 512])
+@pytest.mark.parametrize("f", [1025, 1088, 2048])
 def test_fused_kernels_refuse_other_widths(cuda, f):
     """On CUDA tensors every fused GNS wrapper (K3, K4, K8, E2) and the
     first forward of a GNS on the card raise ValueError naming the widths
-    the kernels take (1 to 256) for a width above them, and launch
+    the kernels take (1 to 1,024) for a width above them, and launch
     nothing: there is no fallback to the plain version."""
     from lagrangebench_torch.models.gns import GNS
 
     handles = (fused_mp.FUSED_MP, fused_mp.FUSED_MP_BWD, fused_mp.FUSED_MP_SLOT,
                fused_mp.FUSED_MP_WINDOW)
     before = [h.launches for h in handles]
-    match = r"widths 1 to 256"
+    match = r"widths 1 to 1024"
     e, hs, hr, h, mask, p, _ = _fwd_case(cuda, torch.float32, False, 40, 8, f)
     with pytest.raises(ValueError, match=match):
         fused_mp.gns_mp_step(e, hs, hr, h, mask, p)
@@ -169,6 +171,60 @@ def test_fused_kernels_refuse_other_widths(cuda, f):
         model({name: v.to(cuda) for name, v in feats.items()},
               torch.zeros(n, dtype=torch.int32, device=cuda))
     assert [h.launches for h in handles] == before
+
+
+# the wide path (csrc/mp_wide.cuh, F > 256): a width that runs padded (257),
+# one that is not a multiple of its 128-column output tile (320), and
+# GNS-10-512's
+WIDER = (257, 320, 512)
+
+
+@pytest.mark.parametrize("f", WIDER)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
+def test_fused_kernels_past_256(cuda, dtype, tol, f):
+    """Past F = 256 every fused GNS wrapper launches its kernel and holds
+    to its plain version under K3's limits: K3 (plain and encoder step, two
+    launches the same bits), K8 (plain and encoder step) on a slot graph,
+    E2 on the probe's windows (and E2 equal to K3 on the decoded gather);
+    and a GNS-2-F forward on the card launches K3 and gives finite
+    accelerations."""
+    from lagrangebench_torch.models.gns import GNS
+
+    for use_enc in (False, True):
+        _check_fwd_ragged(cuda, 333, 24, dtype, tol, use_enc, f)
+        args = _slot_case(cuda, dtype, use_enc, particles=600, f=f)
+        handle = fused_mp.FUSED_MP_SLOT_ENC if use_enc else fused_mp.FUSED_MP_SLOT
+        before = handle.launches
+        got = _at("gns_mp_step_slot", *args, f=f)
+        assert handle.launches == before + 1
+        want = fused_mp.gns_mp_step_slot_plain(*args)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert float((a.float() - b.float()).abs().max()) <= tol
+    args = _window_case(cuda, dtype, particles=1000, f=f)
+    e, cand, w0s, wsub, hs_ext, hr, h, p = args
+    got = _at("gns_mp_step_window", *args, f=f)
+    want = fused_mp.gns_mp_step_window_plain(*args)
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    rows, mask = fused_mp.window_sender_rows(cand, w0s, wsub)
+    hs_g = torch.where(mask[..., None], hs_ext[rows], 0).to(dtype).contiguous()
+    k3 = _at("gns_mp_step", e, hs_g, hr, h, mask.to(torch.float32), p, f=f)
+    for a, b in zip(got, k3):
+        assert torch.equal(a, b)
+    g = torch.Generator().manual_seed(0)
+    n, k = 40, 8
+    rel_disp = torch.randn(n, k, 3, generator=g)
+    feats = {"vel_hist": torch.randn(n, 15, generator=g),
+             "senders": torch.randint(0, n + 1, (n, k), generator=g, dtype=torch.int32),
+             "receivers": torch.arange(n, dtype=torch.int32)[:, None].expand(n, k),
+             "rel_disp": rel_disp, "rel_dist": rel_disp.norm(dim=-1, keepdim=True)}
+    model = GNS(3, node_in=15, edge_in=4, latent_size=f, num_mp_steps=2, device=cuda)
+    before = fused_mp.FUSED_MP.launches
+    with torch.no_grad():
+        acc = model({name: v.to(cuda) for name, v in feats.items()},
+                    torch.zeros(n, dtype=torch.int32, device=cuda))["acc"]
+    assert fused_mp.FUSED_MP.launches == before + 1 and bool(torch.isfinite(acc).all())
 
 
 def _bwd_case(cuda, dtype, use_enc, n=333, k=24, f=128):
@@ -253,7 +309,7 @@ def test_fused_mp_bwd_kernel(cuda, monkeypatch, dtype, tol, use_enc, f):
         args = [a.detach() if isinstance(a, torch.Tensor) else a for a in calls[0]]
         monkeypatch.setattr(fused_mp, "gns_mp_step_bwd", real)
         agg_err, errs, _ = chip_smoke.bf16_tie_check(args[:5], args[5], args[6:8], _rel_err)
-        assert agg_err <= 1e-4
+        assert agg_err <= 1e-4 and errs["nf_outside"] == 0
         for names, limit in ((("de", "dhs", "dhr", "dh"), tol), (fused_mp.BWD_PARAM_ORDER, 1e-3)):
             for n in names:
                 assert errs[n] <= limit, (n, errs[n])
@@ -339,7 +395,7 @@ def _check_bwd_ragged(cuda, n, k, dtype, f):
             return float((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30))
 
         agg_err, errs, _ = chip_smoke.bf16_tie_check(args[:5], args[5], args[6:], l2)
-        assert agg_err <= 1e-4
+        assert agg_err <= 1e-4 and errs["nf_outside"] == 0
         for name in fused_mp.BWD_PARAM_ORDER:
             assert errs[name] <= 5e-3, (name, errs[name])
         return
@@ -376,6 +432,18 @@ def test_wide_fused_mp_bwd_kernel_ragged(cuda, n, k, dtype, f):
     """K4 at F = 192 and 256 at ragged shapes under the limits and tie rules
     of ``test_fused_mp_bwd_kernel_ragged``; its outputs and weight
     gradients are the same bits over two launches."""
+    _check_bwd_ragged(cuda, n, k, dtype, f)
+
+
+@pytest.mark.parametrize("f", WIDER)
+@pytest.mark.parametrize("n,k", WIDE_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wider_fused_mp_bwd_kernel_ragged(cuda, n, k, dtype, f):
+    """K4 on the wide path (F > 256) at ragged shapes (receivers not a
+    multiple of the row kernels' 8 warps or of a product's 128-row tile,
+    ragged 32-row weight-gradient ranges) under the limits and tie rules of
+    ``test_fused_mp_bwd_kernel_ragged``; its outputs and weight gradients
+    are the same bits over two launches."""
     _check_bwd_ragged(cuda, n, k, dtype, f)
 
 
@@ -468,6 +536,34 @@ def test_painn_layer_kernel(cuda, dtype, tol, dim, h, r):
         assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
 
 
+@pytest.mark.parametrize("h,r", [(320, 96), (320, 128), (512, 96), (512, 128), (128, 96),
+                                 (1024, 20)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_painn_layer_kernel_wide(cuda, dtype, tol, dim, h, r):
+    """K5's wide instance (H > 256 or R > 64) against its plain version
+    under the limits of ``test_painn_layer_kernel``, at ragged receivers
+    (203: not a multiple of its tile); H or R past MAX_HIDDEN or MAX_RBF
+    raises ValueError naming the limit and launches nothing."""
+    from lagrangebench_torch.ops import painn_msg
+
+    t, p = _painn_case(cuda, dtype, dim, fused=True, h=h, r=r)
+    args = _layer_args(t, p)
+    before = painn_msg.PAINN_LAYER.launches
+    got = painn_msg.painn_layer(*args)
+    assert painn_msg.PAINN_LAYER.launches == before + 1
+    want = painn_msg.painn_layer_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert _rel(a, b) <= tol
+        assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
+    for hh, rr in ((painn_msg.MAX_HIDDEN + 1, 20), (64, painn_msg.MAX_RBF + 1)):
+        t, p = _painn_case(cuda, dtype, dim, n=20, k=4, fused=True, h=hh, r=rr)
+        with pytest.raises(ValueError, match=r"needs 1 to"):
+            painn_msg.painn_layer_kernel(*_layer_args(t, p))
+    assert painn_msg.PAINN_LAYER.launches == before + 1
+
+
 K5_RAGGED = [(n, k) for n in (1, 37, 16000) for k in (1, 40)]
 
 
@@ -482,7 +578,8 @@ def test_painn_layer_kernel_ragged(cuda, n, k, dim, dtype):
     the relative 2-norm and 2e-2 of the largest magnitude. On them a sum in
     another order moves a rounded s1, v1_d, ts or z across a bf16 rounding
     boundary often enough to read ~2e-4 in the 2-norm at 16,000 receivers;
-    chip_smoke.py holds K5 to 1e-4 on the model's own inputs."""
+    chip_smoke.py holds K5 to 2e-4 on the model's own inputs, against its
+    plain version summed in float64."""
     from lagrangebench_torch.ops import painn_msg
 
     t, p = _painn_case(cuda, dtype, dim, n=n, k=k, fused=True, seed=n + k + dim)

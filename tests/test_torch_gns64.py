@@ -226,10 +226,10 @@ def test_check_latent_takes_the_other_widths_to_the_limit(f):
     assert fused_mp.kernel_width(f) == {96: 128, 256: 256}[f]
 
 
-@pytest.mark.parametrize("f", [257, 0])
+@pytest.mark.parametrize("f", [1025, 0])
 def test_check_latent_refuses_widths_past_the_limit(f):
     """A width above MAX_LATENT (or below 1) raises ValueError that names
     the widths the kernels take (no fallback to the plain version on the
     card)."""
-    with pytest.raises(ValueError, match=r"latent width %d .*widths 1 to 256" % f):
+    with pytest.raises(ValueError, match=r"latent width %d .*widths 1 to 1024" % f):
         fused_mp.check_latent(f, "fused_mp")

@@ -150,9 +150,9 @@ def test_kernel_width_map(f, width):
             (2 * 3 + 3 * 1) * width * width + (7 + 8) * 4 * width)
 
 
-@pytest.mark.parametrize("f", [257, 512, 0])
+@pytest.mark.parametrize("f", [1025, 2048, 0])
 def test_kernel_width_refuses_past_the_limit(f):
-    with pytest.raises(ValueError, match=r"widths 1 to 256"):
+    with pytest.raises(ValueError, match=r"widths 1 to 1024"):
         fused_mp.kernel_width(f, "fused_mp")
 
 
@@ -339,4 +339,4 @@ def test_painn_widths(h, vec):
     """K6 takes any H, each lane loading ``message_vector(H)`` channels at
     once (aligned rows); K5 takes H up to MAX_HIDDEN and R up to MAX_RBF."""
     assert painn_msg.message_vector(h) == vec and h % vec == 0
-    assert painn_msg.MAX_HIDDEN == 256 and painn_msg.MAX_RBF == 64
+    assert painn_msg.MAX_HIDDEN == 1024 and painn_msg.MAX_RBF == 256
