@@ -272,7 +272,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    its wall time beside the card.
 17. Past F = 256 and H = 256 (slice 18, "phase 18" in the output): K3
    (plain and encoder step), K4 and K8 (plain and encoder step) at F = 257,
-   320, 384, 512, 768 and 1,024 on the wide path (``csrc/mp_wide.cuh``), on
+   320, 384, 512, 768 and 1,024 on the wide path (``csrc/mp_wide.cuh``; in
+   bf16 up to 512 the wgmma design's edge kernel, ``csrc/mp_wgmma.cuh``), on
    inputs captured from a GNS-3-F training step and slot forward (8,000
    particles in 3D; 4,000 from F = 768 on, where K4's float64 references
    would not fit), and E2 on the probe's structure, in bf16 and float32,
@@ -402,6 +403,15 @@ def ptxas_report(build, names=("fused_mp", "fused_mp_bwd"), only=None):
                 width = re.search(r"Li(\d+)E", targs.group(0)) if targs else None
                 if width and "wide" in ident:  # the wide path's row kernels: values per lane
                     width = f" [{width.group(1)} values per lane]"
+                elif width and ident == "fused_mp_edge_wgmma":
+                    # registers at launch; its warpgroups' own by setmaxnreg
+                    from lagrangebench_torch.ops import fused_mp
+
+                    f = int(width.group(1))
+                    width = (f" [F = {f}; setmaxnreg: consumer warpgroups 232 registers, "
+                             f"producer 40; dynamic shared memory "
+                             f"{fused_mp.wgmma_smem_bytes(f)} B of {fused_mp.SMEM_LIMIT}, "
+                             f"{fused_mp.wgmma_stages(f)} weight stages]")
                 else:
                     width = f" [F = {width.group(1)}]" if width and name.startswith("fused_mp") else ""
                 log(f"ptxas {name}.cu {ident}{targs.group(0) if targs else ''}{width}: "
@@ -1096,7 +1106,7 @@ def bf16_tie_check(args, p, grads, norm):
     width = fused_mp.kernel_width(f)
     n, dev = args[3].shape[0], args[3].device
     agg_k = torch.empty((n, width), dtype=torch.float32, device=dev)
-    wide = fused_mp._design(args[3].dtype, width) == "wide"
+    wide = width > fused_mp.INSTANCES[-1]  # the wide path, either design
     relu_k = torch.empty((n, width), dtype=args[3].dtype, device=dev) if wide else None
     padded = [t if i == 4 else fused_mp.pad_last(t, width).contiguous()
               for i, t in enumerate(args[:5])]
@@ -5970,8 +5980,9 @@ def width_gns_checks(device, f, rows, main_widths, phase="phase 17", n_particles
     if f in main_widths:
         for name, r in got_rows.items():
             rows[f"{name}@{f}"] = dict(r, name=f"{name}@{f}")
-            if design in ("stream", "wide"):  # the CUDA kernels behind the wrapper
-                kernels = STREAM_KERNELS if design == "stream" else WIDE_KERNELS
+            if design in ("stream", "wgmma", "wide"):  # the CUDA kernels behind the wrapper
+                kernels = {"stream": STREAM_KERNELS, "wgmma": WGMMA_KERNELS,
+                           "wide": WIDE_KERNELS}[design]
                 rows[f"{name}@{f}"]["cuda_kernels"] = list(kernels[name])
     return ok
 
@@ -6182,7 +6193,16 @@ def width_runs(device, phase, gns_overs, painn_over, rows, step_ms):
             model, case = rec.models[0], rec.cases[0]
             model.eval()
             isl = int(cfg.model.input_seq_length)
+            cuda = str(device) != "cpu"
+            if cuda:
+                import torch
+
+                torch.cuda.reset_peak_memory_stats()
             times, finite, _ = _rollout_ms(model, case, data[2], isl, W_ROLLOUT, f"{label} bf16")
+            if cuda:
+                log(f"{label} rollout: peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (the run's weights and "
+                    f"data included)")
             ok &= finite
             step_ms[f"{label} rollout"] = min(times)
             del model, case, rec
@@ -6286,8 +6306,25 @@ WIDE_F = (257, 320, 384, 512, 768, 1024)  # the wide path's gate widths
 WIDE_SMALL_FROM, WIDE_SMALL_PARTICLES = 768, 4000
 WIDE_H, WIDE_R = (320, 512, 1024), (20, 96, 128)  # K5's gate widths
 GNS512, PAINN512 = {"model.latent_dim": 512}, {"model.latent_dim": 512}
-# the CUDA kernels behind each fused GNS wrapper on the wide path
-# (csrc/mp_wide.cuh), named in the kernels line's rows at F = 512
+# the CUDA kernels behind each fused GNS wrapper on the wide path: in bf16
+# at F = 512 the wgmma design (csrc/mp_wgmma.cuh: the edge side in one kernel,
+# the agg sum, the node side on the wide path's launches), named in the
+# kernels line's rows at F = 512; past 512 and in float32 the wide path's
+# own (csrc/mp_wide.cuh)
+_WGMMA_NODE = ("fused_mp_wide_gemm", "fused_mp_wide_ln")
+WGMMA_KERNELS = {
+    "fused_mp": ("fused_mp_edge_wgmma", "fused_mp_wide_agg") + _WGMMA_NODE,
+    "fused_mp_enc": ("fused_mp_edge_wgmma", "fused_mp_wide_agg") + _WGMMA_NODE,
+    "fused_mp_slot": ("fused_mp_wide_senders", "fused_mp_edge_wgmma", "fused_mp_wide_agg")
+    + _WGMMA_NODE,
+    "fused_mp_slot_enc": ("fused_mp_wide_senders", "fused_mp_edge_wgmma", "fused_mp_wide_agg")
+    + _WGMMA_NODE,
+    "fused_mp_window": ("fused_mp_wide_senders", "fused_mp_edge_wgmma", "fused_mp_wide_agg")
+    + _WGMMA_NODE,
+    "fused_mp_bwd": ("fused_mp_edge_wgmma", "fused_mp_wide_agg", "fused_mp_wide_gemm",
+                     "fused_mp_bwd_wide_node", "fused_mp_bwd_wide_post", "fused_mp_bwd_wide_edge",
+                     "fused_mp_bwd_wide_reduce"),
+}
 WIDE_KERNELS = {
     "fused_mp": ("fused_mp_wide_gemm", "fused_mp_wide_edge_ln", "fused_mp_wide_ln"),
     "fused_mp_enc": ("fused_mp_wide_enc_first", "fused_mp_wide_gemm", "fused_mp_wide_ln",
@@ -6340,10 +6377,11 @@ def wide_path(device):
     if str(device) != "cpu":
         from lagrangebench_torch.ops import build
 
-        log("phase 18: the wide path's kernels (csrc/mp_wide.cuh) and K5's wide instance")
+        log("phase 18: the wide path's kernels (csrc/mp_wide.cuh, csrc/mp_wgmma.cuh) and K5's "
+            "wide instance")
         ptxas_report(build, ("fused_mp", "fused_mp_bwd"),
-                     only={k for ks in WIDE_KERNELS.values() for k in ks}
-                     | {"fused_mp_wide_gemm_f32"})
+                     only={k for d in (WGMMA_KERNELS, WIDE_KERNELS) for ks in d.values()
+                           for k in ks} | {"fused_mp_wide_gemm_f32"})
         ptxas_report(build, ("painn_layer",), only={"painn_layer_wide"})
     for f in WIDE_F:
         t_f = time.perf_counter()

@@ -662,8 +662,12 @@ int run_wide(const Args& a, int is_bf16, int has_enc, const void* const* ptrs,
   w.agg = static_cast<float*>(const_cast<void*>(ptrs[34]));
   w.r2 = const_cast<void*>(ptrs[35]);
   w.y = static_cast<float*>(const_cast<void*>(ptrs[36]));
-  if (w.x == nullptr || w.r1 == nullptr || w.aggc == nullptr || w.r2 == nullptr ||
-      w.y == nullptr || (w.src != 0 && w.srow == nullptr) || (w.enc && w.e_enc == nullptr))
+  w.part = static_cast<float*>(const_cast<void*>(ptrs[37]));
+  if (w.aggc == nullptr || w.r2 == nullptr || w.y == nullptr || (w.src != 0 && w.srow == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool wgmma = is_bf16 && w.F <= kWgmmaMax;  // r1 is then a check-only output
+  if (wgmma ? w.part == nullptr
+            : w.x == nullptr || w.r1 == nullptr || (w.enc && w.e_enc == nullptr))
     return (int)cudaErrorInvalidValue;
   return is_bf16 ? wide_forward<bf16>(w, stream) : wide_forward<float>(w, stream);
 }
@@ -730,7 +734,10 @@ Args make_args(const void* const* ptrs, int n, int k, int fe, int nf) {
 //   29 sender rows (rows) int32 (K8, E2), 30 the encoded e (rows, F) T (with
 //   the encoder), 31 x (rows, F) float32, 32 T(relu(first)) (rows, F),
 //   33 T(agg) (n, F), 34 agg (n, F) float32, 35 T(relu(node_first)) (n, F),
-//   36 y (n, F) float32.
+//   36 y (n, F) float32, 37 the agg partials (tiles, slots, F) float32 of the
+//   wgmma design (bf16 at nf <= 512: mp_wgmma.cuh), which takes no 30 and 31
+//   and reads 32 (T(relu(first)), rows x F) and 34 as check-only outputs
+//   (null: not written).
 // latent: the true width nf in [1, 1024] (else cudaErrorInvalidValue); every
 //   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
 // grids: the bf16 designs' edge and node grids (unused by the float32 tile design).

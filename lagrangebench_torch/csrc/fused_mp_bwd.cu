@@ -1934,7 +1934,8 @@ int run_stream(Args a, const int* plan, cudaStream_t stream) {
 //   28 T(relu(first)) (rows, F), 29 x1 (rows, F) float32, 30 T(agg) (n, F),
 //   31 T(relu(node_first)) (n, F), 32 y1 (n, F) float32, 33 T(dy1) (n, F),
 //   34 dnf (n, F) float32, 35 T(dnf) (n, F), 36 dagg (n, F) float32, 37
-//   T(dx1) (rows, F).
+//   T(dx1) (rows, F), 38 the agg partials (tiles, slots, F) float32 of the
+//   wgmma design (bf16 at nf <= 512), whose edge kernel rematerializes 28-30.
 // latent: the true width nf in [1, 1024] (else cudaErrorInvalidValue); every
 //   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
 // grid: the float32 tile design's and the bf16 warp design's edge grid;
@@ -1981,7 +1982,9 @@ LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int laten
     w.dnfc = buf[7];
     w.dagg = static_cast<float*>(buf[8]);
     w.dx1c = buf[9];
-    for (int i = 0; i < 10; ++i)
+    w.part = static_cast<float*>(buf[10]);
+    const bool wgmma = is_bf16 && w.F <= kWgmmaMax;
+    for (int i = 0; i < (wgmma ? 11 : 10); ++i)
       if (buf[i] == nullptr) return (int)cudaErrorInvalidValue;
     return is_bf16 ? wide_backward<bf16>(w, stream) : wide_backward<float>(w, stream);
   }

@@ -12,6 +12,11 @@
 // ceil(nf / 64), as for the narrow instances (ops/fused_mp.py kernel_width),
 // and every LayerNorm and its backward run over the first nf channels.
 //
+// bf16 at F <= 512 takes the wgmma design for the edge side of a step
+// (mp_wgmma.cuh: one kernel per step, T(relu(first)) and the pre-LayerNorm x1
+// kept on chip); the node side, float32 at every width and bf16 above 512
+// run the launches below.
+//
 // Design (the simpler of the two the port planned; see PERF.md): each
 // product of the step is one hand-written GEMM launch, C = A @ B summed in
 // float32, whose epilogue applies what follows the product in the TPU kernel
@@ -50,6 +55,7 @@
 #pragma once
 
 #include "mp_warp.cuh"
+#include "mp_wgmma.cuh"
 
 namespace {
 
@@ -824,7 +830,57 @@ struct WideFwd {
   float* agg;     // (n, F)
   void* r2;       // (n, F) T
   float* y;       // (n, F)
+  float* part;    // the wgmma design's agg partials (tiles, slots, F)
 };
+
+// the node side: r2 = T(relu(h @ W_nh + T(agg) @ W_na + bn1)), y = r2 @ W_n2 +
+// bn2, h' = T(h + LN2(y))
+template <typename T>
+int wide_node(const WideFwd& a, cudaStream_t stream) {
+  const int F = a.F;
+  int err;
+  GemmArgs g = gemm_args(a.h, a.w[2], a.n, F, F, F, F, epi_of(kReluBias, a.r2, a.vec[4]));
+  g.a[1] = a.aggc;
+  g.b[1] = a.w[3];
+  g.pairs = 2;
+  if ((err = wide_gemm<T, false, false>(g, stream)) != 0) return err;
+  err = wide_gemm<T, false, false>(
+      gemm_args(a.r2, a.w[4], a.n, F, F, F, F, epi_of(kStoreF32, a.y, a.vec[5])), stream);
+  if (err != 0) return err;
+  RowArgs r = row_args(a.n, 1, F, a.nf);
+  r.x = a.y;
+  r.res = a.h;
+  r.scale = a.vec[6];
+  r.bias = a.vec[7];
+  r.out = a.h_out;
+  return WIDE_ROWS(fused_mp_wide_ln, T, row_blocks(a.n), r, stream);
+}
+
+// the arguments of the wgmma edge kernel for a forward
+inline WgEdgeArgs edge_args(const WideFwd& a, const int32_t* srow) {
+  WgEdgeArgs g{};
+  g.e = a.e;
+  g.raw = static_cast<const float*>(a.e);
+  g.hs = a.hs;
+  g.srow = srow;
+  g.hr = a.hr;
+  g.mask = a.mask;
+  g.e_out = a.e_out;
+  g.x1_out = nullptr;
+  g.partials = a.part;
+  for (int i = 0; i < 4; ++i) g.vec[i] = a.vec[i];
+  g.enc_w1 = a.enc_w1;
+  for (int i = 0; i < 4; ++i) g.enc_vec[i] = a.enc_vec[i];
+  g.rows = (int64_t)a.n * a.k;
+  g.k = a.k;
+  g.nf = a.nf;
+  g.fe = a.fe;
+  g.tiles = wgmma_tiles(g.rows);
+  g.slots = wgmma_slots(a.k);
+  g.enc = a.enc;
+  g.store_r1 = a.r1 != nullptr;
+  return g;
+}
 
 template <typename T>
 int wide_forward(WideFwd a, cudaStream_t stream) {
@@ -838,6 +894,13 @@ int wide_forward(WideFwd a, cudaStream_t stream) {
                                       a.T, a.SUB, a.WSUB);
     if ((err = (int)cudaGetLastError()) != 0) return err;
     srow = a.srow;
+  }
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (F <= kWgmmaMax) {  // the wgmma design: the edge side in one kernel
+      err = edge_wgmma<bf16>(edge_args(a, srow), F, a.enc_w2, a.w[0], a.w[1], a.r1,
+                             static_cast<bf16*>(a.aggc), a.agg, a.n, stream);
+      return err != 0 ? err : wide_node<T>(a, stream);
+    }
   }
   const void* e = a.e;
   if (a.enc) {  // e = LN(relu(raw @ enc_w1 + enc_b1) @ enc_w2 + enc_b2), through r1 and x
@@ -882,23 +945,7 @@ int wide_forward(WideFwd a, cudaStream_t stream) {
   r.aggc = a.aggc;
   r.agg = a.agg;
   if ((err = WIDE_ROWS(fused_mp_wide_edge_ln, T, row_blocks(a.n), r, stream)) != 0) return err;
-  // r2 = T(relu(h @ W_nh + T(agg) @ W_na + bn1))
-  GemmArgs g = gemm_args(a.h, a.w[2], a.n, F, F, F, F, epi_of(kReluBias, a.r2, a.vec[4]));
-  g.a[1] = a.aggc;
-  g.b[1] = a.w[3];
-  g.pairs = 2;
-  if ((err = wide_gemm<T, false, false>(g, stream)) != 0) return err;
-  // y = r2 @ W_n2 + bn2, h' = T(h + LN2(y))
-  err = wide_gemm<T, false, false>(
-      gemm_args(a.r2, a.w[4], a.n, F, F, F, F, epi_of(kStoreF32, a.y, a.vec[5])), stream);
-  if (err != 0) return err;
-  r = row_args(a.n, 1, F, a.nf);
-  r.x = a.y;
-  r.res = a.h;
-  r.scale = a.vec[6];
-  r.bias = a.vec[7];
-  r.out = a.h_out;
-  return WIDE_ROWS(fused_mp_wide_ln, T, row_blocks(a.n), r, stream);
+  return wide_node<T>(a, stream);
 }
 
 // ---- the backward (K4) ----------------------------------------------------
@@ -932,6 +979,7 @@ struct WideBwd {
   void* dnfc;  // (n, F) T
   float* dagg;  // (n, F)
   void* dx1c;  // (rows, F) T
+  float* part;  // the wgmma design's agg partials (tiles, slots, F)
 };
 
 // the partials of the wide backward: the five weight gradients' range
@@ -964,23 +1012,50 @@ int wide_backward(WideBwd a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   int err;
   // the forward, rematerialized: r1 = T(relu(first)), x1, T(agg), r2, y1
-  GemmEpi first = epi_of(kFirst, a.r1, a.vec[0]);
-  first.hs = a.hs;
-  first.hr = a.hr;
-  first.k = a.k;
-  if ((err = wide_gemm<T, false, false>(gemm_args(a.e, a.w[0], rows, F, F, F, F, first), stream)))
-    return err;
-  err = wide_gemm<T, false, false>(
-      gemm_args(a.r1, a.w[1], rows, F, F, F, F, epi_of(kStoreF32, a.x1, a.vec[1])), stream);
-  if (err != 0) return err;
-  RowArgs r = row_args(a.n, a.k, F, a.nf);
-  r.x = a.x1;
-  r.scale = a.vec[2];
-  r.bias = a.vec[3];
-  r.mask = a.mask;
-  r.aggc = a.aggc;
-  r.agg = a.agg_out;
-  if ((err = WIDE_ROWS(fused_mp_wide_edge_ln, T, row_blocks(a.n), r, stream)) != 0) return err;
+  bool edge_done = false;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (F <= kWgmmaMax) {  // the forward's own edge kernel, storing r1 and x1: the same bits
+      WgEdgeArgs g{};
+      g.e = a.e;
+      g.hs = a.hs;
+      g.hr = a.hr;
+      g.mask = a.mask;
+      g.x1_out = a.x1;
+      g.partials = a.part;
+      for (int i = 0; i < 4; ++i) g.vec[i] = a.vec[i];
+      g.rows = rows;
+      g.k = a.k;
+      g.nf = a.nf;
+      g.tiles = wgmma_tiles(rows);
+      g.slots = wgmma_slots(a.k);
+      g.store_r1 = 1;
+      if ((err = edge_wgmma<bf16>(g, F, nullptr, a.w[0], a.w[1], a.r1, static_cast<bf16*>(a.aggc),
+                                  a.agg_out, a.n, stream)))
+        return err;
+      edge_done = true;
+    }
+  }
+  RowArgs r;
+  if (!edge_done) {
+    GemmEpi first = epi_of(kFirst, a.r1, a.vec[0]);
+    first.hs = a.hs;
+    first.hr = a.hr;
+    first.k = a.k;
+    if ((err = wide_gemm<T, false, false>(gemm_args(a.e, a.w[0], rows, F, F, F, F, first),
+                                          stream)))
+      return err;
+    err = wide_gemm<T, false, false>(
+        gemm_args(a.r1, a.w[1], rows, F, F, F, F, epi_of(kStoreF32, a.x1, a.vec[1])), stream);
+    if (err != 0) return err;
+    r = row_args(a.n, a.k, F, a.nf);
+    r.x = a.x1;
+    r.scale = a.vec[2];
+    r.bias = a.vec[3];
+    r.mask = a.mask;
+    r.aggc = a.aggc;
+    r.agg = a.agg_out;
+    if ((err = WIDE_ROWS(fused_mp_wide_edge_ln, T, row_blocks(a.n), r, stream)) != 0) return err;
+  }
   // node_first as K3 computes it (the same launch on the same operands: the
   // same bits), so that its ReLU decides dnf as it decided the forward
   GemmArgs g = gemm_args(a.h, a.w[2], a.n, F, F, F, F, epi_of(kReluBias, a.r2, a.vec[4]));

@@ -159,7 +159,7 @@ def bf16_case(device, f=192, n=333, k=24):
     to ``kernel_width(f)`` for the launch and cut back)."""
     args = inputs(device, torch.bfloat16, n=n, k=k, f=f)
     n, width = args[0].shape[0], fused_mp.kernel_width(f)
-    wide = fused_mp._design(torch.bfloat16, width) == "wide"
+    wide = width > fused_mp.INSTANCES[-1]  # the wide path (either wide design)
     agg_k = torch.empty((n, width), dtype=torch.float32, device=device)
     relu_k = torch.empty((n, width), dtype=torch.bfloat16, device=device) if wide else None
     padded = [t if i in (4, 5) else fused_mp.pad_last(t, width).contiguous()

@@ -11,7 +11,9 @@ for this checkout or another one.
   a multiple of 64 is timed with the wrapper's padding and slicing of its
   tensors), bf16: batch 2 x 8,000 particles):
   K3's plain step, K3's encoder-folded step (raw edge features of width 4)
-  and K4.
+  and K4; with K3's weights, K8 (plain and encoder-folded) on a seeded
+  slot layout of the GNS-10 slot rollout's size (14,960 rows x K = 40) and
+  E2 on the window probe's structure (8,960 rows x K = 24).
 - K5 (the fused PaiNN layer) and K6 (the message block) at the PaiNN
   rollout shape (16,000 receivers x K = 40, float32, H = ``--hidden``, 1 to
   1,024 (K5's wide instance past 256), 128 by default, R = 20) on the dense neighbor list of a batch
@@ -339,6 +341,63 @@ def _time_gns(fused_mp, torch, device, out, latent=None):
         n_out = 2 if name != "k4" else 4
         out[f"{name}_max_abs_err"] = _err(got[:n_out], want[:n_out])
         out[f"{name}_ms"] = device_ms(lambda: fn(*call), 20, 3)
+    del t, plain, folded, bwd
+    _time_slot_window(fused_mp, torch, device, out, p, enc, latent)
+
+
+def _slot_inputs(torch, device, f, seed=2, n_cols=934, c=16, s=27, k=K):
+    """K8's seeded inputs in the slot layout at the GNS-10 slot rollout's
+    size (n_ext = (n_cols + 1) c = 14,960 rows of K = 40 candidates): a
+    stencil table of random columns, candidates in [0, S c) with a quarter
+    of them fill (S c), the sentinel column's all fill; bf16."""
+    g = torch.Generator().manual_seed(seed)
+    n = (n_cols + 1) * c
+    cand = torch.randint(0, s * c, (n, k), generator=g, dtype=torch.int32)
+    cand = torch.where(torch.rand(n, k, generator=g) < 0.25, s * c, cand)
+    cand[-c:] = s * c
+    bases = torch.randint(0, n_cols, (n_cols, s), generator=g, dtype=torch.int32)
+    t = {"e": torch.randn(n, k, f, generator=g), "raw": torch.randn(n, k, 4, generator=g),
+         "hs_ext": torch.randn(n, f, generator=g), "hr": torch.randn(n, f, generator=g),
+         "h": torch.randn(n, f, generator=g)}
+    t = {name: (v if name == "raw" else v.to(torch.bfloat16)).to(device) for name, v in t.items()}
+    return t, cand.to(device), bases.to(device)
+
+
+def _time_slot_window(fused_mp, torch, device, out, p, enc, latent=None):
+    """K8 (plain and encoder-folded) on ``_slot_inputs`` and E2 on the
+    window probe's 8,000-particle structure (``window_select``), with K3's
+    weights, at width ``latent``, bf16."""
+    from lagrangebench_torch.experiments import window_select as ws
+    from lagrangebench_torch.profiling import device_ms
+
+    f = latent or GNS_LATENT
+    t, cand, bases = _slot_inputs(torch, device, f)
+    at_true_width = getattr(fused_mp, "at_true_width", None)
+
+    def kernel(name):
+        if at_true_width is None:
+            return getattr(fused_mp, name)
+        return lambda *a: at_true_width(name, *a, latent=f)
+
+    for name, call in (("k8_plain", (t["e"], cand, bases, t["hs_ext"], t["hr"], t["h"], p)),
+                       ("k8_encoder", (t["raw"], cand, bases, t["hs_ext"], t["hr"], t["h"], p,
+                                       enc))):
+        got, want = kernel("gns_mp_step_slot")(*call), fused_mp.gns_mp_step_slot_plain(*call)
+        torch.cuda.synchronize()
+        out[f"{name}_max_abs_err"] = _err(got, want)
+        out[f"{name}_ms"] = device_ms(lambda: kernel("gns_mp_step_slot")(*call), 20, 3)
+    del t
+    n_rows, _, ext_idx, cand, w0s, _, wsub = ws.build_structure()
+    g = torch.Generator().manual_seed(3)
+    e, h, hr, hs = (torch.randn(*shape, generator=g).to(torch.bfloat16).to(device)
+                    for shape in ((n_rows, ws.K, f), (n_rows, f), (n_rows, f), (n_rows, f)))
+    call = (e, torch.as_tensor(cand, device=device), torch.as_tensor(w0s, device=device),
+            int(wsub), hs[torch.as_tensor(ext_idx, device=device)], hr, h, p)
+    got = kernel("gns_mp_step_window")(*call)
+    want = fused_mp.gns_mp_step_window_plain(*call)
+    torch.cuda.synchronize()
+    out["e2_max_abs_err"] = _err(got, want)
+    out["e2_ms"] = device_ms(lambda: kernel("gns_mp_step_window")(*call), 20, 3)
 
 
 def _time_scans(torch, device, out):

@@ -39,9 +39,13 @@ On the card the kernels take any latent width F from 1 to ``MAX_LATENT``
 (1,024). Up to 256 each is compiled at the instance widths of
 ``INSTANCES`` (64, 128, 192, 256; in bf16 the warp design at ``LATENTS``,
 64 and 128, the stream design above; in float32 the tile design); above
-256 one wide path serves every width (``csrc/mp_wide.cuh``: a hand-written
+256 the wide path serves every width (``csrc/mp_wide.cuh``: a hand-written
 GEMM per product with its epilogue, then LayerNorm / residual / K-sum row
-kernels; its launch plan is ``wide_plan``). Width F runs at
+kernels; its launch plan is ``wide_plan``), except that in bf16 up to
+``WGMMA_MAX`` (512) the edge side of a step is one kernel, the wgmma design
+(``csrc/mp_wgmma.cuh``: TMA-fed wgmma products with T(relu(first)) and the
+pre-LayerNorm x1 kept on chip, agg summed through per-tile partials; the
+node side stays on the wide path's launches). Width F runs at
 ``kernel_width(F)`` = 64 ceil(F / 64), with the tensors and weights
 zero-padded past F (LayerNorm scale and bias included, ``pad_params``)
 and the true F passed to the kernel, which
@@ -78,6 +82,7 @@ _KERNEL_VECTORS = ("b1", "b2", "ln1_scale", "ln1_bias", "bn1", "bn2",
 LATENTS = (64, 128)  # the bf16 warp design's instances (GNS-5-64, GNS-10-128)
 INSTANCES = (64, 128, 192, 256)  # every instance width (bf16 stream design above 128)
 MAX_LATENT = 1024  # the wide path (csrc/mp_wide.cuh) above INSTANCES[-1]
+WGMMA_MAX = 512  # the bf16 wgmma design (csrc/mp_wgmma.cuh) in (INSTANCES[-1], WGMMA_MAX]
 
 
 def kernel_width(f: int, kernel: str = "fused_mp") -> int:
@@ -165,9 +170,12 @@ def _design(cdt: torch.dtype, width: int) -> str:
     through a ring of slabs, A operands in shared memory, K4's weight
     gradients in a product kernel of their own) or "tile" (float32). Both
     bf16 designs run an edge and a node kernel with an agg scratch. Above
-    ``INSTANCES[-1]`` both dtypes run "wide" (``csrc/mp_wide.cuh``)."""
+    ``INSTANCES[-1]``: "wgmma" in bf16 up to ``WGMMA_MAX`` (the edge side of
+    a step in one kernel, ``csrc/mp_wgmma.cuh``, the node side on the wide
+    path's launches), else "wide" (``csrc/mp_wide.cuh``: float32 at every
+    wide width, bf16 above ``WGMMA_MAX``)."""
     if width > INSTANCES[-1]:
-        return "wide"
+        return "wgmma" if cdt == torch.bfloat16 and width <= WGMMA_MAX else "wide"
     if cdt != torch.bfloat16:
         return "tile"
     return "warp" if width <= LATENTS[-1] else "stream"
@@ -188,12 +196,16 @@ FUSED_MP_ENC = Kernel(
 # the backward's node kernel (warp design), rows per chunk of the weight-
 # gradient product kernel (stream design)
 _WARPS, _SLICE, _NODE_BWD_ROWS, _TN_CHUNK = 8, 16, 64, 32
-_N_PTRS = 37  # the forward entries' pointer array (csrc/fused_mp.cu)
+_N_PTRS = 38  # the forward entries' pointer array (csrc/fused_mp.cu)
 # the wide path (csrc/mp_wide.cuh): output tile and k-slab of its bf16
 # products, their cp.async ring stages, the float32 products' tile and
 # k-slab, warps (rows) per block of its row kernels
 WIDE_TILE, _WIDE_KS, _WIDE_STAGES, _WIDE_TILE_F32, _WIDE_KS_F32 = 128, 32, 3, 64, 16
 _WIDE_ROW_WARPS = 8
+# the wgmma design (csrc/mp_wgmma.cuh): edge rows per tile, k rows per weight
+# slab, blocks per cluster (sharing each slab by TMA multicast), the most
+# stages of its ring
+_WGMMA_ROWS, _WGMMA_KS, _WGMMA_CLUSTER, _WGMMA_MAX_STAGES = 64, 32, 2, 6
 SMEM_LIMIT = 232448  # a block's shared memory on an H100 (227 KB)
 
 
@@ -224,13 +236,43 @@ def bwd_stream_plan(n: int, k: int, sms: int) -> Tuple[int, int, int, int]:
     return edge, node, -(-ce // per), -(-cn // per)
 
 
-def wide_smem_bytes(cdt: torch.dtype) -> int:
-    """Shared memory of the wide path's largest block at any width: in bf16
-    the product kernel's ring of ``_WIDE_STAGES`` stages, each a 128 x 32 A
-    tile and a 32-deep B tile in the layout the operand lies in (rows padded
-    by 8 bf16), the largest over its three layouts (A @ W, A @ W^T, A^T B);
-    in float32 its two 16 x 64 tiles (rows padded by 4); the row kernels use
-    none."""
+def wgmma_stages(f: int) -> int:
+    """The ring stages of the wgmma edge kernel at width ``f``: as many
+    32-deep weight slabs as fit beside the E and R tiles, the LayerNorm
+    exchange and the barriers, at most ``_WGMMA_MAX_STAGES``
+    (``csrc/mp_wgmma.cuh`` GSmem)."""
+    tile, stage = _WGMMA_ROWS * f * 2, _WGMMA_KS * f * 2
+    fit = (SMEM_LIMIT - 1024 - 2 * tile - 1024 - (2 * _WGMMA_MAX_STAGES + 4) * 8) // stage
+    return min(fit, _WGMMA_MAX_STAGES)
+
+
+def wgmma_smem_bytes(f: int) -> int:
+    """Shared memory of the wgmma edge kernel at width ``f``: the E and R
+    tiles (64 x f bf16 each), ``wgmma_stages(f)`` weight slabs (32 x f
+    bf16), the LayerNorm exchange (2 passes x 2 warpgroups x 64 float32
+    row sums), 2 stages + 4 mbarriers and 1,024 bytes to align the tiles."""
+    stages = wgmma_stages(f)
+    return (2 * _WGMMA_ROWS * f * 2 + stages * _WGMMA_KS * f * 2 + 1024
+            + (2 * stages + 4) * 8 + 1024)
+
+
+def wgmma_slots(k: int) -> int:
+    """The agg partials per tile of the wgmma design: the receivers of k
+    edge rows that 64 consecutive rows can touch, floor(63 / k) + 2, at most
+    64."""
+    return min(63 // k + 2, _WGMMA_ROWS)
+
+
+def wide_smem_bytes(cdt: torch.dtype, f: Optional[int] = None) -> int:
+    """Shared memory of the wide path's largest block: with the wgmma
+    design at width ``f`` (bf16, f <= ``WGMMA_MAX``) its edge kernel's
+    (``wgmma_smem_bytes``); else at any width in bf16 the product kernel's
+    ring of ``_WIDE_STAGES`` stages, each a 128 x 32 A tile and a 32-deep B
+    tile in the layout the operand lies in (rows padded by 8 bf16), the
+    largest over its three layouts (A @ W, A @ W^T, A^T B); in float32 its
+    two 16 x 64 tiles (rows padded by 4); the row kernels use none."""
+    if f is not None and _design(cdt, f) == "wgmma":
+        return max(wgmma_smem_bytes(f), wide_smem_bytes(cdt))
     if cdt != torch.bfloat16:
         return 2 * _WIDE_KS_F32 * (_WIDE_TILE_F32 + 4) * 4
     a_rows, a_t = WIDE_TILE * (_WIDE_KS + 8), _WIDE_KS * (WIDE_TILE + 8)
@@ -254,7 +296,12 @@ def wide_plan(n: int, k: int, f: int, sms: int, cdt: torch.dtype = torch.bfloat1
       vector partials; ``row_warps`` per block (``rows_per_block`` rows at a
       time);
     - ``stages`` of the bf16 product ring and ``smem_bytes``, the largest
-      block's shared memory (``wide_smem_bytes``), the same at every f."""
+      block's shared memory (``wide_smem_bytes``);
+    - ``design`` (``_design``) and, for the wgmma design, its edge kernel's
+      ``tiles`` of 64 edge rows, ``slots`` (``wgmma_slots``) and
+      ``partials`` (float32 agg partials, tiles x slots x f), its persistent
+      grid ``edge_ctas`` (whole clusters of ``cluster`` blocks, at most one
+      block per SM and one cluster per two tiles) and ring ``edge_stages``."""
     tile = WIDE_TILE if cdt == torch.bfloat16 else _WIDE_TILE_F32
     side = -(-f // tile)
 
@@ -263,11 +310,17 @@ def wide_plan(n: int, k: int, f: int, sms: int, cdt: torch.dtype = torch.bfloat1
 
     warps = _WIDE_ROW_WARPS * max(1, min(-(-n // _WIDE_ROW_WARPS), 2 * sms))
     r_e, r_n = ranges(n * k), ranges(n)
-    return {"edge_grid": (-(-n * k // tile), side), "node_grid": (-(-n // tile), side),
+    plan = {"edge_grid": (-(-n * k // tile), side), "node_grid": (-(-n // tile), side),
             "r_e": r_e, "r_n": r_n, "tn_grid": ((side, side, r_e), (side, side, r_n)),
             "p_e": warps, "p_n": warps, "row_warps": _WIDE_ROW_WARPS,
             "rows_per_block": _WIDE_ROW_WARPS, "stages": _WIDE_STAGES,
-            "smem_bytes": wide_smem_bytes(cdt)}
+            "smem_bytes": wide_smem_bytes(cdt, f), "design": _design(cdt, f)}
+    if plan["design"] == "wgmma":
+        tiles, cl = -(-n * k // _WGMMA_ROWS), _WGMMA_CLUSTER
+        plan.update(tiles=tiles, slots=wgmma_slots(k), cluster=cl,
+                    partials=tiles * wgmma_slots(k) * f,
+                    edge_ctas=min(-(-tiles // cl), sms // cl) * cl, edge_stages=wgmma_stages(f))
+    return plan
 
 
 def _wide_plan_ints(plan: Dict) -> Tuple[int, int, int, int]:
@@ -278,23 +331,31 @@ def _wide_plan_ints(plan: Dict) -> Tuple[int, int, int, int]:
 def _wide_buffers(n: int, k: int, f: int, cdt: torch.dtype, device, backward: bool = False,
                   enc: bool = False, senders: bool = False):
     """The wide path's device buffers (rows = n k), in the order of its entry
-    points' pointers (csrc/fused_mp.cu 29-36, csrc/fused_mp_bwd.cu 28-37);
+    points' pointers (csrc/fused_mp.cu 29-37, csrc/fused_mp_bwd.cu 28-38);
     None where a forward needs none. Forward: sender rows (int32, K8 and E2),
     the encoded e (with the encoder), x (float32), T(relu(first)), T(agg),
-    agg (float32; not kept), T(relu(node_first)), y (float32). Backward:
-    T(relu(first)), x1 (float32, then dfirst), T(agg), T(relu(node_first)),
-    y1, T(dy1), dnf, T(dnf), dagg (float32 where not T) and T(dx1)."""
+    agg (float32; not kept), T(relu(node_first)), y (float32), and the
+    wgmma design's agg partials (float32, ``wgmma_slots(k)`` rows of f per
+    64-row tile), which keeps e, x and T(relu(first)) on chip: it takes
+    none of them. Backward: T(relu(first)), x1 (float32, then dfirst),
+    T(agg), T(relu(node_first)), y1, T(dy1), dnf, T(dnf), dagg (float32
+    where not T), T(dx1) and the wgmma design's agg partials."""
     rows, f32 = n * k, torch.float32
+    wgmma = _design(cdt, f) == "wgmma"
+    part = torch.empty((-(-rows // _WGMMA_ROWS) * wgmma_slots(k) * f,), dtype=f32,
+                       device=device) if wgmma else None
 
     def buf(r, dt):
         return torch.empty((r, f), dtype=dt, device=device)
 
     if backward:
         return [buf(rows, cdt), buf(rows, f32), buf(n, cdt), buf(n, cdt), buf(n, f32),
-                buf(n, cdt), buf(n, f32), buf(n, cdt), buf(n, f32), buf(rows, cdt)]
-    return [torch.empty((rows,), dtype=torch.int32, device=device) if senders else None,
-            buf(rows, cdt) if enc else None, buf(rows, f32), buf(rows, cdt), buf(n, cdt), None,
-            buf(n, cdt), buf(n, f32)]
+                buf(n, cdt), buf(n, f32), buf(n, cdt), buf(n, f32), buf(rows, cdt), part]
+    sender_rows = torch.empty((rows,), dtype=torch.int32, device=device) if senders else None
+    if wgmma:
+        return [sender_rows, None, None, None, buf(n, cdt), None, buf(n, cdt), buf(n, f32), part]
+    return [sender_rows, buf(rows, cdt) if enc else None, buf(rows, f32), buf(rows, cdt),
+            buf(n, cdt), None, buf(n, cdt), buf(n, f32), None]
 
 
 def _ptrs(tensors) -> list:
@@ -431,10 +492,15 @@ def gns_mp_step(
     p: Dict[str, torch.Tensor],
     enc: Optional[Dict[str, torch.Tensor]] = None,
     latent: Optional[int] = None,
+    first_out: Optional[torch.Tensor] = None,
+    agg_out: Optional[torch.Tensor] = None,
 ):
     """K3: the fused step; the CUDA kernel on CUDA tensors, else the plain
     version. See :func:`gns_mp_step_plain` for shapes and ``latent`` (the
-    true width; the tensors' width F by default).
+    true width; the tensors' width F by default). For checks, the wgmma
+    design only (the plain version leaves them): ``first_out``, an (N, K, F)
+    tensor of the compute dtype, receives T(relu(first)) and ``agg_out``, a
+    float32 (N, F) one, the step's agg, as the kernel computed them.
 
     On CUDA the compute dtype (of hs_gath, hr_proj, h, and e unless
     ``enc``) is bfloat16 or float32, weights are (in, out) in the compute
@@ -475,8 +541,17 @@ def gns_mp_step(
     agg = _agg_scratch(n, f, cdt, h.device)
     ptrs = [t.data_ptr() for t in tensors + [e_out, h_out] + params]
     ptrs += [0] * (28 - len(ptrs)) + [agg.data_ptr() if agg is not None else 0]
-    ptrs += _ptrs(_wide_buffers(n, k, f, cdt, h.device, enc=enc is not None)
-                  if f > INSTANCES[-1] else [None] * 8)
+    bufs = (_wide_buffers(n, k, f, cdt, h.device, enc=enc is not None)
+            if f > INSTANCES[-1] else [None] * 9)
+    if first_out is not None or agg_out is not None:
+        if _design(cdt, f) != "wgmma":
+            raise ValueError("fused_mp kernel: first_out and agg_out are the wgmma design's "
+                             f"(bf16, F in ({INSTANCES[-1]}, {WGMMA_MAX}])")
+        if first_out is not None:
+            bufs[3] = _checked(first_out, cdt, (n, k, f))
+        if agg_out is not None:
+            bufs[5] = _checked(agg_out, torch.float32, (n, f))
+    ptrs += _ptrs(bufs)
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     kernel = FUSED_MP_ENC if enc is not None else FUSED_MP
     kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, latent, int(cdt == torch.bfloat16),
@@ -693,13 +768,15 @@ def gns_mp_step_bwd(
     latent: Optional[int] = None,
     agg_out: Optional[torch.Tensor] = None,
     relu_out: Optional[torch.Tensor] = None,
+    first_out: Optional[torch.Tensor] = None,
 ):
     """K4: the backward kernel on CUDA tensors, else the plain version. See
     :func:`gns_mp_step_bwd_plain` for shapes and returns. For checks (the
     plain version leaves them): ``agg_out``, a float32 (N, F) CUDA tensor
     at the tensors' width, receives the step's agg as the kernel summed it;
-    ``relu_out``, an (N, F) tensor of the compute dtype (the wide path
-    only), receives T(relu(node_first)) as the kernel rematerialized it.
+    ``relu_out``, an (N, F) tensor of the compute dtype, and ``first_out``,
+    an (N, K, F) one (both past F = 256 only), receive T(relu(node_first))
+    and T(relu(first)) as the kernel rematerialized them.
 
     On CUDA the compute dtype (of e, hs_gath, hr_proj, h, ge, gh) is
     bfloat16 or float32, ``p`` is in the kernel's layout (``kernel_params``)
@@ -741,7 +818,7 @@ def gns_mp_step_bwd(
     params += [_checked(p[name], torch.float32, (f,)) for name in _KERNEL_VECTORS]
     bf16 = cdt == torch.bfloat16
     design = _design(cdt, f)
-    stream, wide = design == "stream", design == "wide"
+    stream, wide = design == "stream", design in ("wide", "wgmma")
     sms = _sms(e.device)
     grid = mp_grids(n, k, sms)[0] if bf16 else min(-(-n // _BWD_TILE), sms)
     plan = (bwd_stream_plan(n, k, sms) if stream else
@@ -761,11 +838,17 @@ def gns_mp_step_bwd(
             raise ValueError("fused_mp_bwd kernel: relu_out is the wide path's (F > "
                              f"{INSTANCES[-1]})")
         _checked(relu_out, cdt, (n, f))
+    if first_out is not None:
+        if not wide:
+            raise ValueError("fused_mp_bwd kernel: first_out is the wide path's (F > "
+                             f"{INSTANCES[-1]})")
+        _checked(first_out, cdt, (n, k, f))
     ptrs = [t.data_ptr() for t in tensors + [de, dhs, dhr, dh] + params + [partials, scratch]]
     ptrs.append(agg_out.data_ptr() if agg_out is not None and (wide or not bf16) else 0)
     ptrs.append(ops.data_ptr())
     if wide:
         bufs = _wide_buffers(n, k, f, cdt, e.device, backward=True)
+        bufs[0] = bufs[0] if first_out is None else first_out  # T(relu(first))
         bufs[3] = bufs[3] if relu_out is None else relu_out  # T(relu(node_first))
         ptrs += _ptrs(bufs)
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -993,7 +1076,7 @@ def gns_mp_step_slot(
     ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), bases_ext.data_ptr()]
     ptrs += [agg.data_ptr() if agg is not None else 0]
     ptrs += _ptrs(_wide_buffers(n, k, f, cdt, h.device, enc=enc is not None, senders=True)
-                  if f > INSTANCES[-1] else [None] * 8)
+                  if f > INSTANCES[-1] else [None] * 9)
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     kernel = FUSED_MP_SLOT_ENC if enc is not None else FUSED_MP_SLOT
     kernel(ctypes.cast(arr, ctypes.c_void_p), n, k, fe, latent, int(cdt == torch.bfloat16),
@@ -1160,7 +1243,7 @@ def gns_mp_step_window(
     ptrs += [0] * (26 - len(ptrs)) + [cand.data_ptr(), w0s.data_ptr()]
     ptrs += [agg.data_ptr() if agg is not None else 0]
     ptrs += _ptrs(_wide_buffers(n, k, f, cdt, h.device, senders=True)
-                  if f > INSTANCES[-1] else [None] * 8)
+                  if f > INSTANCES[-1] else [None] * 9)
     arr = (ctypes.c_void_p * _N_PTRS)(*ptrs)
     FUSED_MP_WINDOW(ctypes.cast(arr, ctypes.c_void_p), n, k, latent,
                     int(cdt == torch.bfloat16), t, sub, int(wsub), _grid_array(h.device, n, k),

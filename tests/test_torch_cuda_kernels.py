@@ -183,9 +183,10 @@ WIDER = (257, 320, 512)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
 def test_fused_kernels_past_256(cuda, dtype, tol, f):
     """Past F = 256 every fused GNS wrapper launches its kernel and holds
-    to its plain version under K3's limits: K3 (plain and encoder step, two
-    launches the same bits), K8 (plain and encoder step) on a slot graph,
-    E2 on the probe's windows (and E2 equal to K3 on the decoded gather);
+    to its plain version under K3's limits (bf16 at 320 and 512: the wgmma
+    design): K3 (plain and encoder step), K8 (plain and encoder step) on a
+    slot graph, E2 on the probe's windows (and E2 equal to K3 on the decoded
+    gather), each two launches the same bits;
     and a GNS-2-F forward on the card launches K3 and gives finite
     accelerations."""
     from lagrangebench_torch.models.gns import GNS
@@ -197,16 +198,20 @@ def test_fused_kernels_past_256(cuda, dtype, tol, f):
         before = handle.launches
         got = _at("gns_mp_step_slot", *args, f=f)
         assert handle.launches == before + 1
+        again = _at("gns_mp_step_slot", *args, f=f)
         want = fused_mp.gns_mp_step_slot_plain(*args)
-        for a, b in zip(got, want):
+        for a, b, c in zip(got, want, again):
             assert a.dtype == b.dtype and a.shape == b.shape
             assert float((a.float() - b.float()).abs().max()) <= tol
+            assert torch.equal(a, c)
     args = _window_case(cuda, dtype, particles=1000, f=f)
     e, cand, w0s, wsub, hs_ext, hr, h, p = args
     got = _at("gns_mp_step_window", *args, f=f)
+    again = _at("gns_mp_step_window", *args, f=f)
     want = fused_mp.gns_mp_step_window_plain(*args)
-    for a, b in zip(got, want):
+    for a, b, c in zip(got, want, again):
         assert float((a.float() - b.float()).abs().max()) <= tol
+        assert torch.equal(a, c)
     rows, mask = fused_mp.window_sender_rows(cand, w0s, wsub)
     hs_g = torch.where(mask[..., None], hs_ext[rows], 0).to(dtype).contiguous()
     k3 = _at("gns_mp_step", e, hs_g, hr, h, mask.to(torch.float32), p, f=f)
@@ -445,6 +450,51 @@ def test_wider_fused_mp_bwd_kernel_ragged(cuda, n, k, dtype, f):
     ``test_fused_mp_bwd_kernel_ragged``; its outputs and weight gradients
     are the same bits over two launches."""
     _check_bwd_ragged(cuda, n, k, dtype, f)
+
+
+# the wgmma design (bf16, F in (256, 512]): K from 1 to past two 64-row
+# tiles, fewer edge rows than one tile, ragged last tiles
+WGMMA_F = (320, 512)
+WGMMA_RAGGED = [(1, 1), (40, 1), (3, 13), (333, 24), (101, 40), (17, 64), (9, 65), (5, 130)]
+
+
+@pytest.mark.parametrize("f", WGMMA_F)
+@pytest.mark.parametrize("n,k", WGMMA_RAGGED)
+@pytest.mark.parametrize("use_enc", [False, True], ids=["plain_step", "encoder_step"])
+def test_wgmma_fused_mp_kernel_ragged(cuda, n, k, use_enc, f):
+    """K3 (plain and encoder step) on the wgmma design at K in {1, 13, 24,
+    40, 64, 65, 130} (a receiver's rows within one 64-row tile, across two,
+    or across three), with fewer edge rows than a tile and ragged last
+    tiles: K3's bf16 limit against its plain version, and two launches the
+    same bits."""
+    assert fused_mp._design(torch.bfloat16, f) == "wgmma"
+    _check_fwd_ragged(cuda, n, k, torch.bfloat16, 0.125, use_enc, f)
+
+
+@pytest.mark.parametrize("f", WGMMA_F)
+@pytest.mark.parametrize("n,k", [(333, 24), (101, 40), (9, 65), (1, 1)])
+def test_wgmma_k4_rematerializes_k3_bits(cuda, n, k, f):
+    """K4 rematerializes the forward through K3's own edge kernel: its
+    T(relu(first)) and agg (check-only outputs ``first_out``, ``agg_out``)
+    equal K3's on the same inputs bit for bit, so T(agg) does too, and both
+    hold to the plain version's T(relu(first)) under K3's bf16 limit."""
+    bf16 = torch.bfloat16
+    t, p, _ = _bwd_case(cuda, bf16, False, n=n, k=k, f=f)
+    kp = fused_mp.kernel_params(p, bf16)
+    fwd = (t["e"], t["hs"], t["hr"], t["h"], t["mask"], kp)
+    first3 = torch.empty((n, k, f), dtype=bf16, device=cuda)
+    agg3 = torch.empty((n, f), dtype=torch.float32, device=cuda)
+    fused_mp.gns_mp_step(*fwd, latent=f, first_out=first3, agg_out=agg3)
+    first4, agg4 = torch.empty_like(first3), torch.empty_like(agg3)
+    before = fused_mp.FUSED_MP_BWD.launches
+    fused_mp.gns_mp_step_bwd(*fwd, t["ge"], t["gh"], latent=f, agg_out=agg4, first_out=first4)
+    assert fused_mp.FUSED_MP_BWD.launches == before + 1
+    assert torch.equal(first3, first4) and torch.equal(agg3, agg4)
+    assert torch.equal(agg3.to(bf16), agg4.to(bf16))
+    acc = torch.float32
+    first = (t["e"].to(acc) @ kp["w_e"].to(acc) + t["hs"].to(acc) + t["hr"].to(acc)[:, None]
+             + kp["b1"])
+    assert float((torch.relu(first) - first4.float()).abs().max()) <= 0.125
 
 
 def _painn_case(cuda, dtype, dim, n=203, k=24, fused=False, seed=None, h=128, r=20):

@@ -268,6 +268,30 @@ def test_mp_times_inputs(monkeypatch, f):
     assert all(torch.equal(t[name], again[name]) for name in t)
 
 
+def test_mp_times_slot_window_on_the_cpu(monkeypatch):
+    """K8's and E2's timing group on the CPU (the wrappers' plain versions;
+    the timer and the card's synchronize stubbed) at a reduced slot layout
+    and window structure and F = 16: the errors against the plain versions
+    0 and every key present; the slot layout's candidates are fill on the
+    sentinel column's rows and its stencil table points at real columns."""
+    from lagrangebench_torch import profiling
+
+    monkeypatch.setattr(profiling, "device_ms", lambda fn, *a: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    slot_inputs = mp_times._slot_inputs
+    monkeypatch.setattr(mp_times, "_slot_inputs", lambda torch, device, f: slot_inputs(
+        torch, device, f, n_cols=6, c=4, s=5, k=3))
+    structure = window_select.build_structure
+    monkeypatch.setattr(window_select, "build_structure", lambda: structure(n=512))
+    _, cand, bases = slot_inputs(torch, torch.device("cpu"), 16, n_cols=6, c=4, s=5, k=3)
+    assert cand.shape == (28, 3) and bool((cand[-4:] == 20).all()) and int(bases.max()) < 6
+    _, p, enc = mp_times._inputs(fused_mp, torch, torch.device("cpu"), f=16)
+    out = {}
+    mp_times._time_slot_window(fused_mp, torch, torch.device("cpu"), out, p, enc, 16)
+    for name in ("k8_plain", "k8_encoder", "e2"):
+        assert out[f"{name}_max_abs_err"] == 0.0 and out[f"{name}_ms"] == 1.0
+
+
 @pytest.fixture
 def one_thread():
     """One intra-op thread: at these sizes more threads only contend with

@@ -112,7 +112,8 @@ def test_wide_step_matches_jax_float64(f, width, use_enc):
     at the true width; the padded channels come out exactly 0; and
     ``at_true_width`` on CPU tensors (its CPU branch: the plain version at
     the true width) gives the same values."""
-    assert fmp.kernel_width(f) == width and fmp._design(torch.bfloat16, width) == "wide"
+    assert fmp.kernel_width(f) == width and fmp._design(torch.bfloat16, width) == "wgmma"
+    assert fmp._design(torch.float32, width) == "wide"
     arrs, p, enc = _inputs(f, seed=f)
     t = {k: torch.as_tensor(v) for k, v in arrs.items()}
     tp = {k: torch.as_tensor(v) for k, v in p.items()}
@@ -212,9 +213,20 @@ def test_wide_plan_fits_every_width(n, k, dtype):
     for f in range(257, fmp.MAX_LATENT + 1):
         width = fmp.kernel_width(f)
         assert width % 64 == 0 and f <= width < f + 64
-        assert fmp._design(dtype, width) == "wide"
+        wgmma = dtype == torch.bfloat16 and width <= fmp.WGMMA_MAX
+        assert fmp._design(dtype, width) == ("wgmma" if wgmma else "wide")
         plan = fmp.wide_plan(n, k, width, sms, dtype)
-        assert plan["smem_bytes"] == fmp.wide_smem_bytes(dtype) <= fmp.SMEM_LIMIT
+        assert plan["design"] == fmp._design(dtype, width)
+        assert plan["smem_bytes"] == fmp.wide_smem_bytes(dtype, width) <= fmp.SMEM_LIMIT
+        if wgmma:  # the edge kernel: 64-row tiles, its agg partials, a persistent grid
+            assert plan["smem_bytes"] == fmp.wgmma_smem_bytes(width) > fmp.wide_smem_bytes(dtype)
+            assert plan["tiles"] * 64 >= n * k > (plan["tiles"] - 1) * 64
+            assert plan["slots"] == fmp.wgmma_slots(k) and plan["cluster"] == 2
+            assert plan["partials"] == plan["tiles"] * plan["slots"] * width
+            assert plan["edge_ctas"] % 2 == 0 and 2 <= plan["edge_ctas"] <= sms
+            assert plan["edge_ctas"] <= plan["tiles"] + 1 and plan["edge_stages"] >= 3
+        else:
+            assert plan["smem_bytes"] == fmp.wide_smem_bytes(dtype) and "tiles" not in plan
         assert plan["edge_grid"][0] * tile >= n * k and plan["node_grid"][0] * tile >= n
         assert plan["edge_grid"][1] * tile >= width > (plan["edge_grid"][1] - 1) * tile
         for rows, r in ((n * k, plan["r_e"]), (n, plan["r_n"])):
@@ -235,9 +247,24 @@ def test_wide_plan_fits_every_width(n, k, dtype):
 def test_wide_smem_bytes():
     """The bf16 product's ring: 3 stages of the largest layout (A @ W^T:
     a 128 x 40 A tile and a 128 x 40 B tile of bf16), 60 KB; float32 two
-    16 x 68 tiles."""
+    16 x 68 tiles. The wgmma edge kernel (bf16, F in (256, 512]): the E and
+    R tiles, as many 32 x F weight slabs as fit (at most 6), the LayerNorm
+    exchange, the barriers and 1 KB to align, within 232,448 bytes; past
+    512 and in float32 the wide path's own."""
     assert fmp.wide_smem_bytes(torch.bfloat16) == 3 * (128 * 40 + 128 * 40) * 2 == 61440
     assert fmp.wide_smem_bytes(torch.float32) == 2 * 16 * 68 * 4
+    stages = {320: 6, 384: 5, 448: 4, 512: 3}
+    for f, n in stages.items():
+        assert fmp.wgmma_stages(f) == n
+        want = 2 * 64 * f * 2 + n * 32 * f * 2 + 1024 + (2 * n + 4) * 8 + 1024
+        assert fmp.wgmma_smem_bytes(f) == want == fmp.wide_smem_bytes(torch.bfloat16, f)
+        assert want <= fmp.SMEM_LIMIT < want + 32 * f * 2 or n == 6
+    assert fmp.wgmma_smem_bytes(512) == 231504
+    for f in (576, 1024):
+        assert fmp.wide_smem_bytes(torch.bfloat16, f) == 61440
+    assert fmp.wide_smem_bytes(torch.float32, 512) == 2 * 16 * 68 * 4
+    assert [fmp.wgmma_slots(k) for k in (1, 13, 24, 40, 63, 64, 65, 130)] == [
+        64, 6, 4, 3, 3, 2, 2, 2]
 
 
 def test_wide_limits():
