@@ -278,9 +278,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    particles in 3D; 4,000 from F = 768 on, where K4's float64 references
    would not fit), and E2 on the probe's structure, in bf16 and float32,
    against their plain versions under phases 2's, 3's, 5's and 6's limits
-   (K4's weight gradients bit-identical over two launches); K5's wide
-   instance at H = 320, 512, 1,024 x R = 20, 96, 128 in 2D and 3D under
-   phase 3's limits. Then through ``runner.train_or_infer``: GNS-10-512
+   (K4's weight gradients bit-identical over two launches); K5's
+   tensor-core design (``painn_edge_tc``, ``painn_node_tc``: mma.sync,
+   3xTF32 in float32) at H = 320, 512, 1,024 x R = 20, 96, 128 in 2D and 3D
+   under phase 3's limits, K5's bound read on the CUDA cores and with its
+   products on the tensor cores (the smaller is its row's bound). Then
+   through ``runner.train_or_infer``: GNS-10-512
    (``configs/rpf_3d/gns.yaml`` + ``model.latent_dim=512``, bf16, fused,
    dense) ``mode=all`` (10 training steps at batch 2, one pushforward unroll
    from step 4, a 20-step infer) and a slot ``mode=infer`` at batch 1 from
@@ -292,7 +295,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    each run's wall time; float32 card-vs-CPU checks: 3-step rollouts of
    GNS-2-320 and GNS-2-512, 3 training steps of GNS-2-320, one forward of
    PaiNN-2-320 in both layouts. Prints the wide kernels' registers and
-   spills and the phase's wall time beside the card.
+   spills (K5's with their shared memory) and the phase's wall time beside
+   the card; the kernels line's K5 row at 512 names its CUDA kernels.
 18. Prints one ``{"kernels": [...]}`` line (launch counts from the GNS
    training run for K1-K4, from the PaiNN runs for K6 and K5, from paths A
    and C for K7, K8 and K9, from the experiments for E1 and E2; the F = 64
@@ -317,6 +321,7 @@ import time
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 PEAK_BF16 = 989e12  # tensor-core FLOP/s
 PEAK_FP32 = 67e12  # CUDA-core float32 FLOP/s
+PEAK_TF32 = 495e12  # tensor-core TF32 FLOP/s
 
 N_PARTICLES, DIM, BOX, DX = 8000, 3, 1.0, 0.05
 BATCH, N_STEPS, ISL, LATENT, MP_STEPS = 2, 20, 6, 128, 10
@@ -386,6 +391,8 @@ def ptxas_report(build, names=("fused_mp", "fused_mp_bwd"), only=None):
     (all by default)."""
     import re
 
+    import torch
+
     for name in names:
         with open(build._lib_path(name) + ".log") as f:
             text = f.read()
@@ -412,6 +419,21 @@ def ptxas_report(build, names=("fused_mp", "fused_mp_bwd"), only=None):
                              f"producer 40; dynamic shared memory "
                              f"{fused_mp.wgmma_smem_bytes(f)} B of {fused_mp.SMEM_LIMIT}, "
                              f"{fused_mp.wgmma_stages(f)} weight stages]")
+                elif ident in K5_TC_IDENTS:  # its launch at PaiNN-5-512's shape
+                    import ctypes
+
+                    from lagrangebench_torch.ops import painn_msg
+
+                    ints = re.findall(r"Li(\d+)E", targs.group(0))
+                    dt = getattr(torch, "bfloat16" if "bfloat16" in targs.group(0) else "float32")
+                    shape = (ctypes.c_int * 12)()
+                    build.load("painn_layer").lbt_painn_tc_shape(
+                        16000, *painn_msg.tc_widths(512, 20, dt), int(ints[0]),
+                        int(dt == torch.bfloat16), shape)
+                    i = 0 if ident == "painn_edge_tc" else 1 + int(ints[1])
+                    width = (f" [{str(dt)[6:]}, dim {ints[0]}; at H = 512, R = 20, 16,000 "
+                             f"receivers: grid ({shape[3 * i]}, {shape[3 * i + 1]}), dynamic "
+                             f"shared memory {shape[3 * i + 2]} B]")
                 else:
                     width = f" [F = {width.group(1)}]" if width and name.startswith("fused_mp") else ""
                 log(f"ptxas {name}.cu {ident}{targs.group(0) if targs else ''}{width}: "
@@ -1604,9 +1626,12 @@ def capture_painn_inputs(device):
 def painn_bound(name, args):
     """(bound_ms, bound_by) of K6 / K5 on these inputs: each input and
     output moved once at 3.35 TB/s (K5's inputs are the node rows
-    ``packed`` and the sender index: it gathers the rows itself), the FLOPs
-    they need at 67 TFLOP/s (CUDA-core float32, the unit both kernels run
-    their products on)."""
+    ``packed`` and the sender index: it gathers the rows itself), and the
+    FLOPs they need: K6's at 67 TFLOP/s (CUDA-core float32: it has no
+    product); K5's the smaller of two readings, all on the CUDA cores, or
+    its products on the tensor cores (float32 inputs as three TF32 products,
+    3xTF32, at 495 TFLOP/s; bf16 at 989) beside the rest on the CUDA cores.
+    K5 prints both readings and the bf16 one."""
     import torch
 
     def nbytes(*ts):
@@ -1618,16 +1643,26 @@ def painn_bound(name, args):
         edges = n * k
         byts = nbytes(g, wij, nd) + n * (1 + dim) * h * 4
         ops = edges * (4 + 4 * dim) * h  # ds: 2H; msg1, msg2: 2H; dv: 4H per axis
+        t_bytes, t_ops = byts / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     else:
         packed, sidx, phi, nd, s, v, p = args
         n, k, dim = nd.shape
         h, r = s.shape[-1], phi.shape[-1] - 1
         edges = n * k
         byts = nbytes(packed, sidx, phi, nd, s, v) + nbytes(*p.values()) + nbytes(s, v)
-        edge_ops = 2 * r * 3 * h + 2 * 3 * h + 3 * h + (1 + 4 * dim) * h
-        node_ops = dim * 2 * h * 2 * h + 2 * 2 * h * h + 2 * h * 3 * h + 20 * dim * h
-        ops = edges * edge_ops + n * node_ops
-    t_bytes, t_ops = byts / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+        products = edges * 2 * r * 3 * h + n * (dim * 2 * h * 2 * h + 2 * 2 * h * h
+                                                + 2 * h * 3 * h)
+        rest = edges * (2 * 3 * h + 3 * h + (1 + 4 * dim) * h) + n * 20 * dim * h
+        t_bytes = byts / PEAK_BYTES * 1e3
+        t_cuda = (products + rest) / PEAK_FP32 * 1e3
+        mult, peak = (1, PEAK_BF16) if s.dtype == torch.bfloat16 else (3, PEAK_TF32)
+        t_tensor = max(mult * products / peak, rest / PEAK_FP32) * 1e3
+        t_bf16 = max(products / PEAK_BF16, rest / PEAK_FP32) * 1e3
+        t_ops = min(t_cuda, t_tensor)
+        log(f"{name} bound at N = {n}, K = {k}, H = {h}, R = {r}: bytes {t_bytes:.4f} ms; "
+            f"operations on the CUDA cores {t_cuda:.4f} ms ({(products + rest) / 1e9:.2f} "
+            f"GFLOP), with the products on the tensor cores {t_tensor:.4f} ms "
+            f"({'bf16 at 989' if mult == 1 else '3xTF32 at 495'} TFLOP/s; in bf16 {t_bf16:.4f})")
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1710,8 +1745,8 @@ def compare_painn_kernels(seen, names=("painn_msg", "painn_layer"), timed=True):
         plain_ms = cuda_time(lambda: plain(*args), iters=5, warmup=1)
         bms, by = painn_bound(name, args)
         n, k, _ = args[0 if name == "painn_msg" else 2].shape
-        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by}, "
-            f"CUDA-core float32 peak) at N = {n}, K = {k}, float32")
+        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bms:.4f} ms by {by}) at "
+            f"N = {n}, K = {k}, float32")
         rows[name] = {"name": name, "route": "cuda", "source": handle.source_path,
                       "replaces": handle.replaces, "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
@@ -6305,6 +6340,11 @@ WIDE_F = (257, 320, 384, 512, 768, 1024)  # the wide path's gate widths
 # several (N, K, F) float64 tensors, 5.2 GB each at 16,000 x 40 x 1,024
 WIDE_SMALL_FROM, WIDE_SMALL_PARTICLES = 768, 4000
 WIDE_H, WIDE_R = (320, 512, 1024), (20, 96, 128)  # K5's gate widths
+# K5's tensor-core design (H > 256 or R > 64): its kernels, named in the
+# kernels line's K5 row at H = 512, and their identifiers in ptxas's report
+K5_TC_KERNELS = ("painn_edge_tc", "painn_node_tc<kVmix>", "painn_node_tc<kMix1>",
+                 "painn_node_tc<kOut>")
+K5_TC_IDENTS = ("painn_edge_tc", "painn_node_tc")
 GNS512, PAINN512 = {"model.latent_dim": 512}, {"model.latent_dim": 512}
 # the CUDA kernels behind each fused GNS wrapper on the wide path: in bf16
 # at F = 512 the wgmma design (csrc/mp_wgmma.cuh: the edge side in one kernel,
@@ -6342,7 +6382,7 @@ WIDE_KERNELS = {
 
 
 def wide_painn_checks(device):
-    """K5's wide instance at H in WIDE_H x R in WIDE_R, in 2D and 3D,
+    """K5's tensor-core design at H in WIDE_H x R in WIDE_R, in 2D and 3D,
     against its plain version under phase 3's limits, on inputs of
     one-layer PaiNNs at those widths (``width_painn_inputs``, 2,000
     particles per sample, batch 2); not timed (PaiNN-5-512's is timed on its
@@ -6363,8 +6403,8 @@ def wide_path(device):
     encoder step) and E2 at F in WIDE_F on the wide path, bf16 and float32,
     against their plain versions under phases 2's, 3's, 5's and 6's limits
     (K4's weight gradients bit-identical over two launches; from F = 768 on
-    the models' inputs at WIDE_SMALL_PARTICLES a sample), and K5's wide
-    instance at H in WIDE_H x R in WIDE_R; then through runner.train_or_infer
+    the models' inputs at WIDE_SMALL_PARTICLES a sample), and K5's
+    tensor-core design at H in WIDE_H x R in WIDE_R; then through runner.train_or_infer
     (``width_runs``): GNS-10-512 mode=all and a slot infer at batch 1,
     PaiNN-5-512 standard mode=all and fused mode=infer, window_select
     --latent 512; and float32 card-vs-CPU checks: a 3-step rollout of
@@ -6378,11 +6418,11 @@ def wide_path(device):
         from lagrangebench_torch.ops import build
 
         log("phase 18: the wide path's kernels (csrc/mp_wide.cuh, csrc/mp_wgmma.cuh) and K5's "
-            "wide instance")
+            "tensor-core design")
         ptxas_report(build, ("fused_mp", "fused_mp_bwd"),
                      only={k for d in (WGMMA_KERNELS, WIDE_KERNELS) for ks in d.values()
                            for k in ks} | {"fused_mp_wide_gemm_f32"})
-        ptxas_report(build, ("painn_layer",), only={"painn_layer_wide"})
+        ptxas_report(build, ("painn_layer",), only=set(K5_TC_IDENTS))
     for f in WIDE_F:
         t_f = time.perf_counter()
         n = WIDE_SMALL_PARTICLES if f >= WIDE_SMALL_FROM else None
@@ -6391,6 +6431,7 @@ def wide_path(device):
     ok &= wide_painn_checks(device)
     log(f"phase 18 kernel gates: {time.perf_counter() - t_phase:.1f} s wall")
     ok &= width_runs(device, "phase 18", (GNS512,), PAINN512, rows, step_ms)
+    rows[f"painn_layer@{PAINN512['model.latent_dim']}"]["cuda_kernels"] = list(K5_TC_KERNELS)
     ok &= width_reference_check(device, (320, 512), 320, train_latent=320, adam_ties=True)
     log(f"phase 18 (past F = 256, H = 256, R = 64): {time.perf_counter() - t_phase:.1f} s "
         f"wall [{card_line()}]")

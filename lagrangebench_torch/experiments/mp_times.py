@@ -2,7 +2,7 @@
 for this checkout or another one.
 
     python lagrangebench_torch/experiments/mp_times.py [--tree DIR] [--label NAME]
-        [--only gns,painn,scan,k1,rollout[,segnn][,train]] [--latent F] [--hidden H]
+        [--only gns,painn,scan,k1,rollout[,segnn][,train][,k5]] [--latent F] [--hidden H]
 
 - K3 and K4 (the fused GNS message-passing step and its backward): seeded
   random inputs at the GNS rollout shape (16,000 receivers x K = 40, F =
@@ -16,7 +16,9 @@ for this checkout or another one.
   E2 on the window probe's structure (8,960 rows x K = 24).
 - K5 (the fused PaiNN layer) and K6 (the message block) at the PaiNN
   rollout shape (16,000 receivers x K = 40, float32, H = ``--hidden``, 1 to
-  1,024 (K5's wide instance past 256), 128 by default, R = 20) on the dense neighbor list of a batch
+  1,024 (K5's tensor-core design past 256), 128 by default, R = 20; K5 also
+  in bf16 on the same values; each of its kernels' device time, from a
+  torch.profiler trace) on the dense neighbor list of a batch
   of 2 of the synthetic RPF-3D-scale data that ``chip_smoke.py`` drives
   (``data.synthetic.make_synthetic_arrays``, 8,000 particles in 3D), the
   values seeded. A tree whose K5 takes the gathered rows
@@ -184,10 +186,11 @@ def _painn_inputs(torch, device, seed=1, h=128):
     return feats, senders, t, p
 
 
-def _time_painn(torch, device, out, hidden=128):
+def _time_painn(torch, device, out, hidden=128, full=True):
     """K5 (with the gather in front of it where the tree's K5 takes the
-    gathered rows), K6, and the fused PaiNN-5-H forward and train step, at
-    hidden width H = ``hidden``."""
+    gathered rows; float32, then bf16 on the same values), K6, and the
+    fused PaiNN-5-H forward and train step, at hidden width H = ``hidden``;
+    K5 alone with ``full=False``."""
     from lagrangebench_torch.models import PaiNN
     from lagrangebench_torch.models.utils import gather_rows
     from lagrangebench_torch.ops import painn_msg
@@ -221,6 +224,7 @@ def _time_painn(torch, device, out, hidden=128):
     out["k5_max_rel_err"] = max(float((a - b).abs().max() / b.abs().max())
                                 for a, b in zip(got, want))
     out["k5_ms"] = device_ms(layer, 20, 3)
+    out["k5_kernels_us"] = kernel_breakdown(torch, layer)
     # bf16 on the same values: the relative 2-norm against the plain version
     bf = {name: v.to(torch.bfloat16) for name, v in t.items()}
     pb = painn_msg.layer_kernel_params(p, torch.bfloat16)
@@ -231,7 +235,12 @@ def _time_painn(torch, device, out, hidden=128):
     torch.cuda.synchronize()
     out["k5_bf16_rel_l2"] = max(float((a.float() - b.float()).norm() / b.float().norm())
                                 for a, b in zip(got, want))
+    out["k5_bf16_ms"] = device_ms(lambda: painn_msg.painn_layer_kernel(*lead, *rest_bf), 20, 3)
+    out["k5_bf16_kernels_us"] = kernel_breakdown(
+        torch, lambda: painn_msg.painn_layer_kernel(*lead, *rest_bf))
     del got, want, bf, rest_bf, lead
+    if not full:
+        return
 
     # K6 on seeded float32 rows [x, v] and filters masked like the basis
     gen = torch.Generator().manual_seed(2)
@@ -272,7 +281,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "segnn (SEGNN-10-64's rollout and "
                          "training forward and backward; not by default: a tree older than "
                          "slice 9 has no SEGNN), train (GNS-10-128 training steps through "
-                         "the Trainer; not by default)")
+                         "the Trainer; not by default), k5 (K5 alone, float32 and bf16: "
+                         "the painn group without K6 and the model)")
     ap.add_argument("--latent", type=int, default=GNS_LATENT,
                     help="the latent width of the gns group's K3 and K4 inputs (a width the "
                          "tree's kernels take: 128, 64 from slice 15 on, 1 to 256 from "
@@ -299,8 +309,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            "latent": args.latent, "hidden": args.hidden}
     if "gns" in groups:
         _time_gns(fused_mp, torch, device, out, args.latent)
-    if "painn" in groups:
-        _time_painn(torch, device, out, args.hidden)
+    if "painn" in groups or "k5" in groups:
+        _time_painn(torch, device, out, args.hidden, full="painn" in groups)
     if "scan" in groups:
         _time_scans(torch, device, out)
     if "k1" in groups:
@@ -591,6 +601,17 @@ def _device_events(torch, fn, calls=1):
     events = [ev for ev in prof.events()
               if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA]
     return sorted(events, key=lambda ev: ev.time_range.start)
+
+
+def kernel_breakdown(torch, fn, calls=10) -> dict:
+    """Device us per call of ``fn`` by kernel (its name without the
+    namespace and the argument list: a template's instance apart), from a
+    torch.profiler trace."""
+    out = {}
+    for ev in _device_events(torch, fn, calls):
+        name = ev.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+        out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / calls
+    return out
 
 
 def update_kernels(torch, update) -> list:

@@ -40,11 +40,14 @@ through the pure-JAX mirror), not a fallback; K5's carries the gradient of
 
 On the card K6 takes any channel width H and K5 any H up to
 ``MAX_HIDDEN`` (1,024) and radial-basis width R up to ``MAX_RBF`` (256): its
-instances of one thread per channel up to H = 256 and R = 64, and one wide
-instance past either (``csrc/painn_layer.cu`` painn_layer_wide: threads
-taking channels in turn, the filters summed over the basis in float32); a
-wider K5 layer raises ``ValueError`` naming the limit. The plain versions,
-and so the CPU path, take any width.
+instances of one thread per channel up to H = 256 and R = 64
+(``NARROW_HIDDEN``, ``NARROW_RBF``), and past either the tensor-core design
+(``csrc/painn_layer.cu`` painn_edge_tc, painn_node_tc: mma.sync products,
+3xTF32 in float32, four launches whose intermediates go through device
+memory; H and R padded to :func:`tc_widths`, the weights staged by
+:func:`tc_weights` and, in float32, split by :func:`tf32_pairs`;
+:func:`tc_buffers`); a wider K5 layer raises ``ValueError`` naming the
+limit. The plain versions, and so the CPU path, take any width.
 """
 
 from __future__ import annotations
@@ -56,8 +59,9 @@ import torch
 
 from .build import Kernel
 
-MAX_HIDDEN = 1024  # K5's widest channel width (its wide instance past 256)
-MAX_RBF = 256  # K5's widest radial basis (its wide instance past 64)
+MAX_HIDDEN = 1024  # K5's widest channel width
+MAX_RBF = 256  # K5's widest radial basis
+NARROW_HIDDEN, NARROW_RBF = 256, 64  # K5's thread-per-channel instances; tensor cores past
 
 LAYER_PARAM_NAMES = ("filt_w", "filt_b", "vmix_w", "mix_w1", "mix_b1",
                      "mix_w2", "mix_b2")
@@ -70,7 +74,7 @@ PAINN_MSG = Kernel(
 )
 PAINN_LAYER = Kernel(
     "painn_layer", "painn_layer", "lbt_painn_layer",
-    [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     replaces="lagrangebench_tpu/ops/painn_msg.py:252",
 )
 
@@ -284,11 +288,82 @@ def painn_layer_kernel(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tens
     s_out = torch.empty_like(s)
     v_out = torch.empty_like(v_flat)
     tensors = [packed, sidx, phi, neg_dir, s, v_flat] + [kp[name] for name in LAYER_PARAM_NAMES]
-    ptrs = [t.data_ptr() for t in tensors + [s_out, v_out]]
+    tensors += [s_out, v_out]
+    hp = rk = 0  # the narrow instances
+    if is_tensor_core(h, r):
+        hp, rk = tc_widths(h, r, cdt)
+        w = list(tc_weights(kp, h, r, hp, rk))
+        if cdt == torch.float32:  # vmix_t, mix1_t, mix2_t
+            w[2], w[3], w[5] = (tf32_pairs(w[i]) for i in (2, 3, 5))
+        tensors += [*w, *tc_buffers(n, hp, dim, cdt, s.device)]
+    ptrs = [t.data_ptr() for t in tensors]
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     PAINN_LAYER(ctypes.cast(arr, ctypes.c_void_p), n, k, m, h, r, dim,
-                int(cdt == torch.bfloat16), device=s_out.device)
+                int(cdt == torch.bfloat16), hp, rk, device=s_out.device)
     return s_out, v_out
+
+
+def is_tensor_core(h: int, r: int) -> bool:
+    """Whether K5 runs its tensor-core design at H = h, R = r (past the
+    thread-per-channel instances' H = 256 or R = 64)."""
+    return h > NARROW_HIDDEN or r > NARROW_RBF
+
+
+def tc_widths(h: int, r: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """The widths the tensor-core design pads H and R to, as the C entry
+    takes them: HP = 64 ceil(H / 64) (whole node tiles and k chunks), RK = R
+    to a whole k-step of the filter product (8 in float32, 16 in bf16)."""
+    step = 16 if dtype == torch.bfloat16 else 8
+    return -(-h // 64) * 64, -(-r // step) * step
+
+
+def tc_weights(kp: Dict[str, torch.Tensor], h: int, r: int, hp: int,
+               rk: int) -> Tuple[torch.Tensor, ...]:
+    """The layer's parameters as the tensor-core design reads them, from
+    :func:`layer_kernel_params`: each matrix transposed to K-major rows and
+    zero-padded (H to hp, R to rk), each bias zero-padded, in the C entry's
+    order: filt_t (3, hp, rk), filt_b (3, hp), vmix_t (2, hp, hp) [section,
+    column, k], mix1_t (hp, 2, hp) [column, half, k], mix_b1 (hp), mix2_t
+    (3, hp, hp), mix_b2 (3, hp)."""
+    w, b = kp["filt_w"], kp["filt_b"]
+    filt_t = w.new_zeros(3, hp, rk)
+    filt_t[:, :h, :r] = w.reshape(r, 3, h).permute(1, 2, 0)
+    vmix_t = w.new_zeros(2, hp, hp)
+    vmix_t[:, :h, :h] = kp["vmix_w"].reshape(h, 2, h).permute(1, 2, 0)
+    mix1_t = w.new_zeros(hp, 2, hp)
+    mix1_t[:h, :, :h] = kp["mix_w1"].reshape(2, h, h).permute(2, 0, 1)
+    mix2_t = w.new_zeros(3, hp, hp)
+    mix2_t[:, :h, :h] = kp["mix_w2"].reshape(h, 3, h).permute(1, 2, 0)
+    filt_b, mix_b1, mix_b2 = b.new_zeros(3, hp), b.new_zeros(hp), b.new_zeros(3, hp)
+    filt_b[:, :h] = b.reshape(3, h)
+    mix_b1[:h] = kp["mix_b1"]
+    mix_b2[:, :h] = kp["mix_b2"].reshape(3, h)
+    return filt_t, filt_b, vmix_t, mix1_t, mix_b1, mix2_t, mix_b2
+
+
+def tf32_pairs(w: torch.Tensor) -> torch.Tensor:
+    """float32 ``w`` as its 3xTF32 split, the bits of (hi, lo) pairs on a
+    new last axis (int32): hi is w rounded to TF32 (10 mantissa bits, to
+    nearest, ties away from zero, as cvt.rna.tf32.f32 rounds), lo the rest
+    w - hi rounded the same. The node products read their weights so."""
+    def tf32(x):
+        return (x.contiguous().view(torch.int32) + 0x1000) & -0x2000
+
+    hi = tf32(w)
+    lo = tf32(w - hi.view(torch.float32))
+    return torch.stack([hi, lo], dim=-1).contiguous()
+
+
+def tc_buffers(n: int, hp: int, dim: int, cdt: torch.dtype,
+               device) -> Tuple[torch.Tensor, ...]:
+    """The tensor-core design's intermediates, in the C entry's order: v1
+    (n, dim, hp) and ts = [s1, |vr|] (n, 2, hp) and z (n, hp) in the compute
+    dtype, vl (n, dim, hp) and sum_d vr_d vl_d (n, hp) in float32."""
+    return (torch.empty((n, dim, hp), dtype=cdt, device=device),
+            torch.empty((n, 2, hp), dtype=cdt, device=device),
+            torch.empty((n, hp), dtype=cdt, device=device),
+            torch.empty((n, dim, hp), dtype=torch.float32, device=device),
+            torch.empty((n, hp), dtype=torch.float32, device=device))
 
 
 def sender_index(senders: torch.Tensor, n: int) -> torch.Tensor:

@@ -587,11 +587,11 @@ def test_painn_layer_kernel(cuda, dtype, tol, dim, h, r):
 
 
 @pytest.mark.parametrize("h,r", [(320, 96), (320, 128), (512, 96), (512, 128), (128, 96),
-                                 (1024, 20)])
+                                 (1024, 20), (512, 20)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_painn_layer_kernel_wide(cuda, dtype, tol, dim, h, r):
-    """K5's wide instance (H > 256 or R > 64) against its plain version
+    """K5's tensor-core design (H > 256 or R > 64) against its plain version
     under the limits of ``test_painn_layer_kernel``, at ragged receivers
     (203: not a multiple of its tile); H or R past MAX_HIDDEN or MAX_RBF
     raises ValueError naming the limit and launches nothing."""
@@ -671,6 +671,80 @@ def test_painn_layer_kernel_halo_rows(cuda, dtype):
             assert _rel(a, b) <= 1e-4
         else:
             assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
+
+
+K5_TC_RAGGED = [(n, k) for n in (1, 37, 16000) for k in (1, 40)]
+
+
+def _k5_gate(got, want, dtype):
+    """float32 (TF32 off) within 1e-4 of the largest magnitude; bf16 within
+    2e-2 of it and 1e-3 in the relative 2-norm (test_painn_layer_kernel)."""
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        if dtype == torch.float32:
+            assert _rel(a, b) <= 1e-4
+        else:
+            assert _rel(a, b) <= 2e-2
+            assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("n,k", K5_TC_RAGGED)
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_painn_layer_kernel_tc_ragged(cuda, n, k, dim, dtype):
+    """K5's tensor-core design at H = 512, R = 20 (PaiNN-5-512's) at ragged
+    shapes: a last edge block of 1-31 receivers and node tile of 1-63, one
+    slot (one n8 tile of edges, 7 of it padding), the rollout's 16,000 x
+    40; under test_painn_layer_kernel_ragged's limits."""
+    from lagrangebench_torch.ops import painn_msg
+
+    t, p = _painn_case(cuda, dtype, dim, n=n, k=k, fused=True, seed=n + k + dim, h=512, r=20)
+    args = _layer_args(t, p)
+    before = painn_msg.PAINN_LAYER.launches
+    got = painn_msg.painn_layer_kernel(*args)
+    assert painn_msg.PAINN_LAYER.launches == before + 1
+    want = painn_msg.painn_layer_plain(*args)
+    torch.cuda.synchronize()
+    _k5_gate(got, want, dtype)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_painn_layer_kernel_tc_halo_rows(cuda, dtype, dim):
+    """K5's tensor-core design at H = 512 with a source table of M = 3N rows
+    (senders in [0, 3N], the fill clamped to row 3N - 1) against its plain
+    version under test_painn_layer_kernel_ragged's limits."""
+    from lagrangebench_torch.ops import painn_msg
+
+    t, p = _painn_case(cuda, dtype, dim, fused=True, seed=17, h=512, r=20)
+    n, k = t["phi"].shape[:2]
+    g = torch.Generator().manual_seed(18)
+    packed = torch.randn(3 * n, (2 + dim) * 512, generator=g).to(dtype).to(cuda)
+    senders = torch.randint(0, 3 * n, (n, k), generator=g)
+    senders = torch.where(t["phi"][..., -1].cpu() > 0, senders, 3 * n)
+    p["sidx"] = painn_msg.sender_index(senders, 3 * n).to(cuda)
+    args = (packed,) + _layer_args(t, p)[1:]
+    got = painn_msg.painn_layer_kernel(*args)
+    want = painn_msg.painn_layer_plain(*args)
+    torch.cuda.synchronize()
+    _k5_gate(got, want, dtype)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_painn_layer_kernel_tc_repeats_bits(cuda, dtype, dim):
+    """Two launches of K5's tensor-core design (H = 512, R = 20) on the same
+    inputs give the same bits: no atomics, every output written by one
+    thread in a fixed order."""
+    from lagrangebench_torch.ops import painn_msg
+
+    t, p = _painn_case(cuda, dtype, dim, n=2000, k=40, fused=True, seed=23, h=512, r=20)
+    args = _layer_args(t, p)
+    first = painn_msg.painn_layer_kernel(*args)
+    second = painn_msg.painn_layer_kernel(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_painn_layer_kernel_gradients(cuda):

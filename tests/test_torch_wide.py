@@ -3,8 +3,9 @@ on the CPU.
 
 On the card these widths run the wide path (``csrc/mp_wide.cuh``: a
 hand-written product per GEMM of the step, then LayerNorm / residual /
-K-sum row kernels) and K5's wide instance (``csrc/painn_layer.cu``
-painn_layer_wide); here the plain versions hold the arithmetic those
+K-sum row kernels) and K5's tensor-core design (``csrc/painn_layer.cu``
+painn_edge_tc, painn_node_tc; its own CPU tests are in
+``test_torch_painn_tc.py``); here the plain versions hold the arithmetic those
 kernels repeat, and these tests hold the plain versions and the host half
 of the CUDA path (the padding of tensors and weights to 64 ceil(F / 64),
 the true-width LayerNorm, the launch plan) against the JAX package:
@@ -16,8 +17,8 @@ the true-width LayerNorm, the launch plan) against the JAX package:
 * the wide path's launch plan for every F from 257 to ``MAX_LATENT``: its
   largest block within a block's 227 KB of shared memory, its grids, its
   weight-gradient row ranges, its partials;
-* K5's plain version at H = 320, R = 96 against JAX's ``_layer_kernel`` in
-  Pallas interpret mode, float32;
+* K5's plain version at H = 320, R = 96 and H = 512, R = 20 against JAX's
+  ``_layer_kernel`` in Pallas interpret mode, float32;
 * GNS-2-320 from JAX weights carried across (``load_jax_params``): its
   forward and one training step's loss and gradients against JAX, float64;
   and the reference checkpoint export and import at F = 320.
@@ -280,12 +281,16 @@ def test_wide_limits():
 # K5 at H = 320, R = 96
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dim", [2, 3])
-def test_painn_layer_plain_wide_matches_jax_interpret(dim):
-    """K5's plain version (the gather inside) at H = 320, R = 96 against the
-    JAX package's Pallas layer kernel (``_layer_kernel``) in interpret mode
-    on the gathered rows, float32: 1e-5 of the largest magnitude."""
-    h, r, n, k = 320, 96, 20, 6
+@pytest.mark.parametrize("h,r,dim", [pytest.param(320, 96, 2, id="2"),
+                                     pytest.param(320, 96, 3, id="3"),
+                                     pytest.param(512, 20, 2, id="512-20-2"),
+                                     pytest.param(512, 20, 3, id="512-20-3")])
+def test_painn_layer_plain_wide_matches_jax_interpret(h, r, dim):
+    """K5's plain version (the gather inside) at H = 320, R = 96 and at
+    PaiNN-5-512's H = 512, R = 20 against the JAX package's Pallas layer
+    kernel (``_layer_kernel``) in interpret mode on the gathered rows,
+    float32: 1e-5 of the largest magnitude."""
+    n, k = 20, 6
     rng = np.random.default_rng(dim)
     senders = rng.integers(0, n, size=(n, k))
     senders[rng.uniform(size=(n, k)) < 0.25] = n
