@@ -352,7 +352,7 @@ NF_TIE = 1e-6
 # 4,853 of 1.54 M (16), 768 11,942 of 2.30 M (59), 1,024 25,778 of 3.07 M
 # (123); at K = 40, F = 320 1,632 of 0.96 M (8) (320 and 512 from an
 # earlier build of the same agg sums)
-BF16_TIE_WIDTHS = (192, 256, 257, 320, 384, 512, 768, 1024)
+BF16_TIE_WIDTHS = (192, 256, 257, 320, 384, 448, 512, 768, 1024, 1088)
 TRAIN_STEPS, UNROLL_FROM = 12, 4  # steps 0-3 unroll 0, steps 4-11 unroll 1
 
 
@@ -410,15 +410,21 @@ def ptxas_report(build, names=("fused_mp", "fused_mp_bwd"), only=None):
                 width = re.search(r"Li(\d+)E", targs.group(0)) if targs else None
                 if width and "wide" in ident:  # the wide path's row kernels: values per lane
                     width = f" [{width.group(1)} values per lane]"
-                elif width and ident == "fused_mp_edge_wgmma":
+                elif width and ident in ("fused_mp_edge_wgmma", "fused_mp_bwd_edge_wgmma"):
                     # registers at launch; its warpgroups' own by setmaxnreg
                     from lagrangebench_torch.ops import fused_mp
 
-                    f = int(width.group(1))
+                    f, bwd = int(width.group(1)), ident == "fused_mp_bwd_edge_wgmma"
+                    smem = (fused_mp.wgmma_bwd_smem_bytes if bwd else fused_mp.wgmma_smem_bytes)(f)
+                    stages = (fused_mp.wgmma_bwd_stages if bwd else fused_mp.wgmma_stages)(f)
                     width = (f" [F = {f}; setmaxnreg: consumer warpgroups 232 registers, "
-                             f"producer 40; dynamic shared memory "
-                             f"{fused_mp.wgmma_smem_bytes(f)} B of {fused_mp.SMEM_LIMIT}, "
-                             f"{fused_mp.wgmma_stages(f)} weight stages]")
+                             f"producer 40; dynamic shared memory {smem} B of "
+                             f"{fused_mp.SMEM_LIMIT}, {stages} weight stages]")
+                elif ident == "fused_mp_bwd_tn_wgmma":
+                    from lagrangebench_torch.ops import fused_mp
+
+                    width = (f" [setmaxnreg: consumer warpgroups 232 registers, producer 40; "
+                             f"dynamic shared memory {fused_mp.wgmma_tn_smem_bytes()} B]")
                 elif ident in K5_TC_IDENTS:  # its launch at PaiNN-5-512's shape
                     import ctypes
 
@@ -6348,9 +6354,10 @@ K5_TC_IDENTS = ("painn_edge_tc", "painn_node_tc")
 GNS512, PAINN512 = {"model.latent_dim": 512}, {"model.latent_dim": 512}
 # the CUDA kernels behind each fused GNS wrapper on the wide path: in bf16
 # at F = 512 the wgmma design (csrc/mp_wgmma.cuh: the edge side in one kernel,
-# the agg sum, the node side on the wide path's launches), named in the
-# kernels line's rows at F = 512; past 512 and in float32 the wide path's
-# own (csrc/mp_wide.cuh)
+# the agg sum, the node side on the wide path's launches; K4's edge side in
+# one kernel and dW_e, dW2 in a wgmma product kernel, csrc/mp_wgmma_bwd.cuh),
+# named in the kernels line's rows at F = 512; past 512 and in float32 the
+# wide path's own (csrc/mp_wide.cuh)
 _WGMMA_NODE = ("fused_mp_wide_gemm", "fused_mp_wide_ln")
 WGMMA_KERNELS = {
     "fused_mp": ("fused_mp_edge_wgmma", "fused_mp_wide_agg") + _WGMMA_NODE,
@@ -6362,8 +6369,8 @@ WGMMA_KERNELS = {
     "fused_mp_window": ("fused_mp_wide_senders", "fused_mp_edge_wgmma", "fused_mp_wide_agg")
     + _WGMMA_NODE,
     "fused_mp_bwd": ("fused_mp_edge_wgmma", "fused_mp_wide_agg", "fused_mp_wide_gemm",
-                     "fused_mp_bwd_wide_node", "fused_mp_bwd_wide_post", "fused_mp_bwd_wide_edge",
-                     "fused_mp_bwd_wide_reduce"),
+                     "fused_mp_bwd_wide_node", "fused_mp_bwd_wide_post", "fused_mp_bwd_edge_wgmma",
+                     "fused_mp_bwd_tn_wgmma", "fused_mp_bwd_wide_reduce"),
 }
 WIDE_KERNELS = {
     "fused_mp": ("fused_mp_wide_gemm", "fused_mp_wide_edge_ln", "fused_mp_wide_ln"),

@@ -119,7 +119,7 @@
 // 208 KB at F = 256 with the encoder (ring 64 KB, slots 128 KB, enc_w1 8
 // KB, vectors 8 KB), 196 KB for the node kernel.
 //
-// Past F = 256 (latent widths 257 to 1,024, float32 and bf16) the entry
+// Past F = 256 (latent widths from 257 on, float32 and bf16) the entry
 // points run the wide path (mp_wide.cuh: a hand-written product launch per
 // GEMM of the step, its epilogue writing rows to device memory, then
 // LayerNorm / residual / K-sum row kernels), one code path for every such
@@ -622,7 +622,7 @@ int launch_tile(const Args& a, int has_enc, cudaStream_t stream) {
     return has_enc ? launch<float, F, true, SRC>(a, stream) : launch<float, F, false, SRC>(a, stream);
 }
 
-// The wide path (mp_wide.cuh) at latent width a.nf in (256, 1024], on the
+// The wide path (mp_wide.cuh) at latent width a.nf > 256, on the
 // wrapper's buffers at ptrs 29-36.
 template <Src SRC>
 int run_wide(const Args& a, int is_bf16, int has_enc, const void* const* ptrs,
@@ -679,7 +679,6 @@ template <Src SRC>
 int dispatch(const Args& a, int is_bf16, int has_enc, const void* const* ptrs,
              const int* grids, cudaStream_t stream) {
   if (a.nf > kMaxLatent) {
-    if (a.nf > kWideMax) return (int)cudaErrorInvalidValue;
     return run_wide<SRC>(a, is_bf16, has_enc, ptrs, stream);
   }
   return latent_dispatch(a.nf, [&](auto width) {
@@ -738,7 +737,7 @@ Args make_args(const void* const* ptrs, int n, int k, int fe, int nf) {
 //   wgmma design (bf16 at nf <= 512: mp_wgmma.cuh), which takes no 30 and 31
 //   and reads 32 (T(relu(first)), rows x F) and 34 as check-only outputs
 //   (null: not written).
-// latent: the true width nf in [1, 1024] (else cudaErrorInvalidValue); every
+// latent: the true width nf >= 1 (else cudaErrorInvalidValue); every
 //   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
 // grids: the bf16 designs' edge and node grids (unused by the float32 tile design).
 LBT_EXPORT int lbt_fused_mp(const void* const* ptrs, int n, int k, int fe, int latent,

@@ -116,7 +116,10 @@
 // wide_backward): the forward rematerialized by product launches, the
 // node and edge backward as product launches with epilogues and row
 // kernels, the five weight gradients as products over fixed row ranges,
-// and its own sum of the partials (fused_mp_bwd_wide_reduce).
+// and its own sum of the partials (fused_mp_bwd_wide_reduce). In bf16 up
+// to F = 512 the edge side is the wgmma design's instead (mp_wgmma_bwd.cuh
+// wgmma_backward: the forward's edge kernel, one edge-backward kernel, a
+// wgmma product kernel for dW_e and dW2).
 //
 // The tile design (fused_mp_bwd below) is the float32 instance at every F:
 // a persistent grid of about one block per SM; each block of 8 warps walks
@@ -134,7 +137,7 @@
 // order), and the sum adds the partials in block order. dhr sums a
 // receiver's K rows in k order.
 #include "mp_stream.cuh"
-#include "mp_wide.cuh"
+#include "mp_wgmma_bwd.cuh"
 
 namespace {
 
@@ -1935,18 +1938,22 @@ int run_stream(Args a, const int* plan, cudaStream_t stream) {
 //   31 T(relu(node_first)) (n, F), 32 y1 (n, F) float32, 33 T(dy1) (n, F),
 //   34 dnf (n, F) float32, 35 T(dnf) (n, F), 36 dagg (n, F) float32, 37
 //   T(dx1) (rows, F), 38 the agg partials (tiles, slots, F) float32 of the
-//   wgmma design (bf16 at nf <= 512), whose edge kernel rematerializes 28-30.
-// latent: the true width nf in [1, 1024] (else cudaErrorInvalidValue); every
+//   wgmma design (bf16 at nf <= 512), whose edge kernel rematerializes 28
+//   and 30 and whose edge-backward kernel then sums dfirst there; the
+//   wgmma design takes no x1 (29 null: it keeps x1 on chip) and takes 39
+//   W_e^T and 40 W2^T (F, F) bf16.
+// latent: the true width nf >= 1 (else cudaErrorInvalidValue); every
 //   tensor and weight is F = 64 ceil(nf / 64) wide, zero past nf.
 // grid: the float32 tile design's and the bf16 warp design's edge grid;
 // plan: the stream design's (edge grid, node grid, r_e, r_n), the ranges of
 //   the edge and the node weight gradients (ops/fused_mp.py bwd_stream_plan);
 //   the wide path's (r_e, r_n, p_e, p_n), its weight gradients' ranges and
-//   its row kernels' warps (ops/fused_mp.py wide_plan).
+//   its row kernels' warps (ops/fused_mp.py wide_plan; the wgmma design's
+//   r_e its TN kernel's ranges, p_e 4 vector rows per edge-kernel block).
 LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int latent, int is_bf16,
                                 int grid, const int* plan, cudaStream_t stream) {
   if (latent > kMaxLatent) {  // the wide path (mp_wide.cuh)
-    if (latent > kWideMax || n < 1 || k < 1 || plan == nullptr) return (int)cudaErrorInvalidValue;
+    if (n < 1 || k < 1 || plan == nullptr) return (int)cudaErrorInvalidValue;
     WideBwd w;
     w.e = ptrs[0];
     w.hs = ptrs[1];
@@ -1984,8 +1991,9 @@ LBT_EXPORT int lbt_fused_mp_bwd(const void* const* ptrs, int n, int k, int laten
     w.dx1c = buf[9];
     w.part = static_cast<float*>(buf[10]);
     const bool wgmma = is_bf16 && w.F <= kWgmmaMax;
-    for (int i = 0; i < (wgmma ? 11 : 10); ++i)
-      if (buf[i] == nullptr) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < (wgmma ? 11 : 10); ++i)  // the wgmma design keeps x1 on chip
+      if (buf[i] == nullptr && !(wgmma && i == 1)) return (int)cudaErrorInvalidValue;
+    if (wgmma) return wgmma_backward(w, buf[11], buf[12], stream);
     return is_bf16 ? wide_backward<bf16>(w, stream) : wide_backward<float>(w, stream);
   }
   const bool tile = !is_bf16;
@@ -2029,7 +2037,7 @@ LBT_EXPORT int lbt_fused_mp_bwd_reduce(const float* partials, float* out, int n,
                                        int is_bf16, int grid, const int* plan,
                                        cudaStream_t stream) {
   if (latent > kMaxLatent) {  // the wide path's partials
-    if (latent > kWideMax || plan == nullptr) return (int)cudaErrorInvalidValue;
+    if (plan == nullptr) return (int)cudaErrorInvalidValue;
     return wide_reduce(partials, out, (latent + 63) / 64 * 64, plan, stream);
   }
   if (n < 1 || grid < 1) return (int)cudaErrorInvalidValue;

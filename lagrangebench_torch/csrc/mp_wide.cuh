@@ -1,5 +1,5 @@
 // The wide path: K3/K8/E2 (forward, fused_mp.cu) and K4 (backward,
-// fused_mp_bwd.cu) at latent widths nf in (256, 1024], where no instance of
+// fused_mp_bwd.cu) at latent widths nf above 256, where no instance of
 // the warp, stream or tile designs fits a block (mp_stream.cuh keeps a 16-row
 // slice's float32 accumulator for the whole width in registers, F / 2 per
 // lane, and sits at 255 registers at F = 256; the float32 tile design's
@@ -14,8 +14,9 @@
 //
 // bf16 at F <= 512 takes the wgmma design for the edge side of a step
 // (mp_wgmma.cuh: one kernel per step, T(relu(first)) and the pre-LayerNorm x1
-// kept on chip); the node side, float32 at every width and bf16 above 512
-// run the launches below.
+// kept on chip) and of K4's backward (mp_wgmma_bwd.cuh: one edge kernel and
+// a wgmma product kernel for dW_e and dW2); the node side, float32 at every
+// width and bf16 above 512 run the launches below.
 //
 // Design (the simpler of the two the port planned; see PERF.md): each
 // product of the step is one hand-written GEMM launch, C = A @ B summed in
@@ -37,7 +38,8 @@
 //     shared memory.
 //   Row kernels: a warp owns a row (a receiver's K rows for the edge ones),
 //     lane l holding channel pairs 2 (l + 32 j), j < F / 64, float32 in
-//     registers (V = 16 values per lane up to F = 512, 32 up to 1024); row
+//     registers (V = 16 values per lane up to F = 512, 32 up to 1024; past
+//     1,024 a warp walks its row in 1,024-column chunks); row
 //     statistics by warp shuffles in a fixed order.
 // The backward's weight gradients are TN GEMMs (A^T B over rows) whose rows
 // split into `ranges` runs of whole 32-row chunks (a fixed partition, the
@@ -59,7 +61,6 @@
 
 namespace {
 
-constexpr int kWideMax = 1024;  // the widest latent width (ops/fused_mp.py MAX_LATENT)
 constexpr int WBM = 128, WBN = 128, WBK = 32, WSTAGES = 3, WTHREADS = 256;
 constexpr int WIDE_TN_CHUNK = 32;  // rows per chunk of a weight gradient's row ranges
 constexpr int WROW_WARPS = 8;      // warps per block of the row kernels
@@ -736,6 +737,240 @@ __global__ void __launch_bounds__(WROW_WARPS * 32) fused_mp_bwd_wide_post(const 
   store_partials(a.partials, p, gw, a.slot, a.F, lane);
 }
 
+// ---- any width (F > 1,024): a warp walks its row in chunks of WCHUNK
+// columns (VC values per lane, the V = 32 layout), a row's statistics (and
+// LayerNorm's backward sums) gathered by passes over the whole row first,
+// read again from device memory (L1/L2) for every chunk; each chunk keeps
+// its own float32 sums (agg, the vector partials) in registers
+constexpr int VC = 32, WCHUNK = 32 * VC;
+
+// mean and inverse deviation of float32 row `row` over its first nf channels
+__device__ __forceinline__ float2 row_moments_any(const float* x, int64_t row, int F, int nf,
+                                                  int lane) {
+  const float* r = x + row * F;
+  float s = 0.f;
+  for (int c = 2 * lane; c < nf; c += 64) {
+    const float2 v = ld2(r + c);
+    s += v.x + (c + 1 < nf ? v.y : 0.f);
+  }
+  const float mean = lbt::warp_sum(s) / nf;
+  float q = 0.f;
+  for (int c = 2 * lane; c < nf; c += 64) {
+    const float2 v = ld2(r + c);
+    const float d0 = v.x - mean, d1 = c + 1 < nf ? v.y - mean : 0.f;
+    q += d0 * d0 + d1 * d1;
+  }
+  return make_float2(mean, rsqrtf(lbt::warp_sum(q) / nf + kEps));
+}
+
+// LayerNorm backward's row means (m1, m2) of dxhat = dy scale and dxhat xhat,
+// dy = g (+ dagg * m with dagg): over the whole row
+template <typename T>
+__device__ __forceinline__ float2 ln_bwd_means_any(const float* x, const T* g, const float* dagg,
+                                                   float m, const float* scale, int64_t row,
+                                                   float2 st, int F, int nf, int lane) {
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = 2 * lane; c < nf; c += 64) {
+    const float2 v = ld2(x + row * F + c);
+    float2 d = ld2(g + row * F + c);
+    if (dagg != nullptr) {
+      const float2 a = ld2(dagg + c);
+      d.x += a.x * m;
+      d.y += a.y * m;
+    }
+    const float h0 = d.x * scale[c], x0 = (v.x - st.x) * st.y;
+    s1 += h0;
+    s2 += h0 * x0;
+    if (c + 1 < nf) {
+      const float h1 = d.y * scale[c + 1], x1 = (v.y - st.x) * st.y;
+      s1 += h1;
+      s2 += h1 * x1;
+    }
+  }
+  return make_float2(lbt::warp_sum(s1) / nf, lbt::warp_sum(s2) / nf);
+}
+
+// out = T(res + LN(x)) (res optional), any width
+template <typename T>
+__global__ void __launch_bounds__(WROW_WARPS * 32) fused_mp_wide_ln_any(const RowArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t gw = (int64_t)blockIdx.x * WROW_WARPS + (threadIdx.x >> 5);
+  const int64_t nw = (int64_t)gridDim.x * WROW_WARPS;
+  for (int64_t row = gw; row < a.n; row += nw) {
+    const float2 st = row_moments_any(a.x, row, a.F, a.nf, lane);
+    for (int c = 2 * lane; c < a.F; c += 64) {
+      const float2 v = ld2(a.x + row * a.F + c);
+      float y0 = c < a.nf ? (v.x - st.x) * st.y : 0.f;
+      float y1 = c + 1 < a.nf ? (v.y - st.x) * st.y : 0.f;
+      y0 = y0 * a.scale[c] + a.bias[c];
+      y1 = y1 * a.scale[c + 1] + a.bias[c + 1];
+      if (a.res != nullptr) {
+        const float2 r = ld2(static_cast<const T*>(a.res) + row * a.F + c);
+        y0 += r.x;
+        y1 += r.y;
+      }
+      st2(static_cast<T*>(a.out) + row * a.F + c, y0, y1);
+    }
+  }
+}
+
+// fused_mp_wide_edge_ln at any width: per receiver and chunk, each of its
+// K rows' statistics, then the chunk's msg, e' and agg
+template <typename T>
+__global__ void __launch_bounds__(WROW_WARPS * 32) fused_mp_wide_edge_ln_any(const RowArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t gw = (int64_t)blockIdx.x * WROW_WARPS + (threadIdx.x >> 5);
+  const int64_t nw = (int64_t)gridDim.x * WROW_WARPS;
+  for (int64_t n = gw; n < a.n; n += nw) {
+    for (int c0 = 0; c0 < a.F; c0 += WCHUNK) {
+      float agg[VC];
+#pragma unroll
+      for (int i = 0; i < VC; ++i) agg[i] = 0.f;
+      for (int kk = 0; kk < a.k; ++kk) {
+        const int64_t row = n * a.k + kk;
+        const float2 st = row_moments_any(a.x, row, a.F, a.nf, lane);
+        const float m = a.mask != nullptr ? a.mask[row] : (a.srow[row] >= 0 ? 1.f : 0.f);
+#pragma unroll
+        for (int j = 0; j < VC / 2; ++j) {
+          const int c = c0 + 2 * (lane + 32 * j);
+          if (c < a.F) {
+            const float2 v = ld2(a.x + row * a.F + c);
+            const float y0 = (c < a.nf ? (v.x - st.x) * st.y : 0.f) * a.scale[c] + a.bias[c];
+            const float y1 =
+                (c + 1 < a.nf ? (v.y - st.x) * st.y : 0.f) * a.scale[c + 1] + a.bias[c + 1];
+            agg[2 * j] += y0 * m;
+            agg[2 * j + 1] += y1 * m;
+            if (a.out != nullptr) {
+              const float2 e = ld2(static_cast<const T*>(a.res_e) + row * a.F + c);
+              st2(static_cast<T*>(a.out) + row * a.F + c, e.x + y0, e.y + y1);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < VC / 2; ++j) {
+        const int c = c0 + 2 * (lane + 32 * j);
+        if (c < a.F) {
+          st2(static_cast<T*>(a.aggc) + n * a.F + c, agg[2 * j], agg[2 * j + 1]);
+          if (a.agg != nullptr) st2(a.agg + n * a.F + c, agg[2 * j], agg[2 * j + 1]);
+        }
+      }
+    }
+  }
+}
+
+// K4's LayerNorm backward rows at any width (as fused_mp_bwd_wide_node, or
+// with EDGE fused_mp_bwd_wide_edge, dm = ge + dagg * mask): per chunk, each
+// row's statistics and backward means, then the chunk's T(dx) and its
+// partials
+template <typename T, bool EDGE>
+__device__ __forceinline__ void bwd_ln_rows_any(const RowArgs& a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t gw = (int64_t)blockIdx.x * WROW_WARPS + (threadIdx.x >> 5);
+  const int64_t nw = (int64_t)gridDim.x * WROW_WARPS;
+  const T* g = static_cast<const T*>(a.g);
+  for (int c0 = 0; c0 < a.F; c0 += WCHUNK) {
+    float p[3][VC];
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int i = 0; i < VC; ++i) p[q][i] = 0.f;
+    for (int64_t n = gw; n < a.n; n += nw) {  // receivers (EDGE) or rows
+      for (int kk = 0; kk < (EDGE ? a.k : 1); ++kk) {
+        const int64_t row = EDGE ? n * a.k + kk : n;
+        const float* dg = EDGE ? a.dagg + n * a.F : nullptr;
+        const float m = EDGE ? a.mask[row] : 0.f;
+        const float2 st = row_moments_any(a.x, row, a.F, a.nf, lane);
+        const float2 mm = ln_bwd_means_any(a.x, g, dg, m, a.scale, row, st, a.F, a.nf, lane);
+#pragma unroll
+        for (int j = 0; j < VC / 2; ++j) {
+          const int c = c0 + 2 * (lane + 32 * j);
+          if (c < a.F) {
+            const float2 v = ld2(a.x + row * a.F + c);
+            float2 d = ld2(g + row * a.F + c);
+            if (EDGE) {
+              const float2 ad = ld2(dg + c);
+              d.x += ad.x * m;
+              d.y += ad.y * m;
+            }
+            const float dd[2] = {d.x, d.y}, vv[2] = {v.x, v.y};
+            float o[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const bool in = c + i < a.nf;
+              const float xh = in ? (vv[i] - st.x) * st.y : 0.f;
+              p[1][2 * j + i] += dd[i] * xh;
+              p[2][2 * j + i] += dd[i];
+              o[i] = in ? st.y * (dd[i] * a.scale[c + i] - mm.x - xh * mm.y) : 0.f;
+              p[0][2 * j + i] += o[i];
+            }
+            st2(static_cast<T*>(a.out) + row * a.F + c, o[0], o[1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int j = 0; j < VC / 2; ++j) {
+        const int c = c0 + 2 * (lane + 32 * j);
+        if (c < a.F) st2(a.partials + (gw * 4 + 1 + q) * a.F + c, p[q][2 * j], p[q][2 * j + 1]);
+      }
+  }
+}
+template <typename T>
+__global__ void __launch_bounds__(WROW_WARPS * 32) fused_mp_bwd_wide_node_any(const RowArgs a) {
+  bwd_ln_rows_any<T, false>(a);
+}
+template <typename T>
+__global__ void __launch_bounds__(WROW_WARPS * 32) fused_mp_bwd_wide_edge_any(const RowArgs a) {
+  bwd_ln_rows_any<T, true>(a);
+}
+
+// fused_mp_bwd_wide_post at any width, a chunk at a time
+template <typename T>
+__global__ void __launch_bounds__(WROW_WARPS * 32) fused_mp_bwd_wide_post_any(const RowArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t gw = (int64_t)blockIdx.x * WROW_WARPS + (threadIdx.x >> 5);
+  const int64_t nw = (int64_t)gridDim.x * WROW_WARPS;
+  for (int c0 = 0; c0 < a.F; c0 += WCHUNK) {
+    float p[VC];
+#pragma unroll
+    for (int i = 0; i < VC; ++i) p[i] = 0.f;
+    for (int64_t n = gw; n < a.n; n += nw) {
+      float s[VC];
+#pragma unroll
+      for (int i = 0; i < VC; ++i) s[i] = 0.f;
+      for (int kk = 0; kk < a.k; ++kk) {
+        const int64_t row = n * a.k + kk;
+#pragma unroll
+        for (int j = 0; j < VC / 2; ++j) {
+          const int c = c0 + 2 * (lane + 32 * j);
+          if (c < a.F) {
+            const float2 v = ld2(a.x + row * a.F + c);
+            s[2 * j] += v.x;
+            s[2 * j + 1] += v.y;
+            st2(static_cast<T*>(a.out) + row * a.F + c, v.x, v.y);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < VC / 2; ++j) {
+        const int c = c0 + 2 * (lane + 32 * j);
+        p[2 * j] += s[2 * j];
+        p[2 * j + 1] += s[2 * j + 1];
+        if (c < a.F && a.rowsum != nullptr)
+          st2(static_cast<T*>(a.rowsum) + n * a.F + c, s[2 * j], s[2 * j + 1]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VC / 2; ++j) {
+      const int c = c0 + 2 * (lane + 32 * j);
+      if (c < a.F) st2(a.partials + (gw * 4 + a.slot) * a.F + c, p[2 * j], p[2 * j + 1]);
+    }
+  }
+}
+
 // the encoder's first layer: out = T(relu(T(raw) @ enc_w1 + enc_b1)), raw
 // (rows, fe) float32, one thread per output pair
 template <typename T>
@@ -782,10 +1017,12 @@ int row_launch(K kern, int64_t blocks, const RowArgs& a, cudaStream_t stream) {
   kern<<<(unsigned)blocks, WROW_WARPS * 32, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
-// one warp per row, at the row kernels' V for width F
+// one warp per row, at the row kernels' V for width F (their chunked form
+// past 1,024)
 #define WIDE_ROWS(KERN, T, blocks, a, stream)                                        \
-  ((a).F <= 512 ? row_launch(KERN<16, T>, blocks, a, stream)                         \
-                : row_launch(KERN<32, T>, blocks, a, stream))
+  ((a).F <= 512    ? row_launch(KERN<16, T>, blocks, a, stream)                      \
+   : (a).F <= 1024 ? row_launch(KERN<32, T>, blocks, a, stream)                      \
+                   : row_launch(KERN##_any<T>, blocks, a, stream))
 
 inline int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -1003,75 +1240,24 @@ int wide_tn(const void* A, const void* B, int64_t rows, int F, int ranges, float
   return wide_gemm<T, true, false>(g, stream);
 }
 
+// K4's node side: node_first and y1 rematerialized as K3 computes them (the
+// same launches on the same operands: the same bits, so that node_first's
+// ReLU decides dnf as it decided the forward), then T(dy1); dnf = T(dy1) @
+// W_n2^T * (r2 > 0) -> T(dnf); dh = gh + T(dnf) @ W_nh^T; dagg = T(dnf) @
+// W_na^T (float32); the node vector partials into p_node
 template <typename T>
-int wide_backward(WideBwd a, cudaStream_t stream) {
+int wide_node_bwd(const WideBwd& a, float* p_node, cudaStream_t stream) {
   const int F = a.F;
-  const int64_t rows = (int64_t)a.n * a.k, FF = (int64_t)F * F;
-  if (a.p_e % WROW_WARPS || a.p_n % WROW_WARPS || a.p_e < 1 || a.p_n < 1 || a.r_e < 1 ||
-      a.r_n < 1)
-    return (int)cudaErrorInvalidValue;
-  int err;
-  // the forward, rematerialized: r1 = T(relu(first)), x1, T(agg), r2, y1
-  bool edge_done = false;
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (F <= kWgmmaMax) {  // the forward's own edge kernel, storing r1 and x1: the same bits
-      WgEdgeArgs g{};
-      g.e = a.e;
-      g.hs = a.hs;
-      g.hr = a.hr;
-      g.mask = a.mask;
-      g.x1_out = a.x1;
-      g.partials = a.part;
-      for (int i = 0; i < 4; ++i) g.vec[i] = a.vec[i];
-      g.rows = rows;
-      g.k = a.k;
-      g.nf = a.nf;
-      g.tiles = wgmma_tiles(rows);
-      g.slots = wgmma_slots(a.k);
-      g.store_r1 = 1;
-      if ((err = edge_wgmma<bf16>(g, F, nullptr, a.w[0], a.w[1], a.r1, static_cast<bf16*>(a.aggc),
-                                  a.agg_out, a.n, stream)))
-        return err;
-      edge_done = true;
-    }
-  }
-  RowArgs r;
-  if (!edge_done) {
-    GemmEpi first = epi_of(kFirst, a.r1, a.vec[0]);
-    first.hs = a.hs;
-    first.hr = a.hr;
-    first.k = a.k;
-    if ((err = wide_gemm<T, false, false>(gemm_args(a.e, a.w[0], rows, F, F, F, F, first),
-                                          stream)))
-      return err;
-    err = wide_gemm<T, false, false>(
-        gemm_args(a.r1, a.w[1], rows, F, F, F, F, epi_of(kStoreF32, a.x1, a.vec[1])), stream);
-    if (err != 0) return err;
-    r = row_args(a.n, a.k, F, a.nf);
-    r.x = a.x1;
-    r.scale = a.vec[2];
-    r.bias = a.vec[3];
-    r.mask = a.mask;
-    r.aggc = a.aggc;
-    r.agg = a.agg_out;
-    if ((err = WIDE_ROWS(fused_mp_wide_edge_ln, T, row_blocks(a.n), r, stream)) != 0) return err;
-  }
-  // node_first as K3 computes it (the same launch on the same operands: the
-  // same bits), so that its ReLU decides dnf as it decided the forward
   GemmArgs g = gemm_args(a.h, a.w[2], a.n, F, F, F, F, epi_of(kReluBias, a.r2, a.vec[4]));
   g.a[1] = a.aggc;
   g.b[1] = a.w[3];
   g.pairs = 2;
+  int err;
   if ((err = wide_gemm<T, false, false>(g, stream)) != 0) return err;
   err = wide_gemm<T, false, false>(
       gemm_args(a.r2, a.w[4], a.n, F, F, F, F, epi_of(kStoreF32, a.y1, a.vec[5])), stream);
   if (err != 0) return err;
-
-  float *p_tn, *p_edge, *p_node;
-  wide_partials(a.partials, F, a.r_e, a.r_n, a.p_e, &p_tn, &p_edge, &p_node);
-  // node path: T(dy1); dnf = T(dy1) @ W_n2^T * (r2 > 0) -> T(dnf);
-  // dh = gh + T(dnf) @ W_nh^T; dagg = T(dnf) @ W_na^T
-  r = row_args(a.n, 1, F, a.nf);
+  RowArgs r = row_args(a.n, 1, F, a.nf);
   r.x = a.y1;
   r.g = a.gh;
   r.scale = a.vec[6];
@@ -1088,9 +1274,51 @@ int wide_backward(WideBwd a, cudaStream_t stream) {
   err = wide_gemm<T, false, true>(
       gemm_args(a.dnfc, a.w[2], a.n, F, F, F, F, epi_of(kAdd, a.dh, nullptr, a.gh)), stream);
   if (err != 0) return err;
-  err = wide_gemm<T, false, true>(
+  return wide_gemm<T, false, true>(
       gemm_args(a.dnfc, a.w[3], a.n, F, F, F, F, epi_of(kStoreF32, a.dagg)), stream);
+}
+
+// the node weight gradients dW_nh, dW_na, dW_n2, each over its r_n row
+// ranges, into p_nodes
+template <typename T>
+int wide_node_tn(const WideBwd& a, float* p_nodes, cudaStream_t stream) {
+  const int64_t FF = (int64_t)a.F * a.F;
+  int err;
+  if ((err = wide_tn<T>(a.h, a.dnfc, a.n, a.F, a.r_n, p_nodes, stream))) return err;
+  if ((err = wide_tn<T>(a.aggc, a.dnfc, a.n, a.F, a.r_n, p_nodes + a.r_n * FF, stream))) return err;
+  return wide_tn<T>(a.r2, a.dy1c, a.n, a.F, a.r_n, p_nodes + 2 * a.r_n * FF, stream);
+}
+
+template <typename T>
+int wide_backward(WideBwd a, cudaStream_t stream) {
+  const int F = a.F;
+  const int64_t rows = (int64_t)a.n * a.k, FF = (int64_t)F * F;
+  if (a.p_e % WROW_WARPS || a.p_n % WROW_WARPS || a.p_e < 1 || a.p_n < 1 || a.r_e < 1 ||
+      a.r_n < 1)
+    return (int)cudaErrorInvalidValue;
+  int err;
+  // the forward, rematerialized: r1 = T(relu(first)), x1, T(agg)
+  GemmEpi first = epi_of(kFirst, a.r1, a.vec[0]);
+  first.hs = a.hs;
+  first.hr = a.hr;
+  first.k = a.k;
+  if ((err = wide_gemm<T, false, false>(gemm_args(a.e, a.w[0], rows, F, F, F, F, first), stream)))
+    return err;
+  err = wide_gemm<T, false, false>(
+      gemm_args(a.r1, a.w[1], rows, F, F, F, F, epi_of(kStoreF32, a.x1, a.vec[1])), stream);
   if (err != 0) return err;
+  RowArgs r = row_args(a.n, a.k, F, a.nf);
+  r.x = a.x1;
+  r.scale = a.vec[2];
+  r.bias = a.vec[3];
+  r.mask = a.mask;
+  r.aggc = a.aggc;
+  r.agg = a.agg_out;
+  if ((err = WIDE_ROWS(fused_mp_wide_edge_ln, T, row_blocks(a.n), r, stream)) != 0) return err;
+
+  float *p_tn, *p_edge, *p_node;
+  wide_partials(a.partials, F, a.r_e, a.r_n, a.p_e, &p_tn, &p_edge, &p_node);
+  if ((err = wide_node_bwd<T>(a, p_node, stream)) != 0) return err;
 
   // edge path: T(dx1); dfirst = T(dx1) @ W2^T * (r1 > 0) (into x1) ->
   // dhs = T(dfirst), dhr = T(sum_K dfirst); de = ge + dhs @ W_e^T
@@ -1118,10 +1346,7 @@ int wide_backward(WideBwd a, cudaStream_t stream) {
   // the weight gradients, each over its fixed row ranges
   if ((err = wide_tn<T>(a.e, a.dhs, rows, F, a.r_e, p_tn, stream))) return err;
   if ((err = wide_tn<T>(a.r1, a.dx1c, rows, F, a.r_e, p_tn + a.r_e * FF, stream))) return err;
-  float* p_nodes = p_tn + 2 * a.r_e * FF;
-  if ((err = wide_tn<T>(a.h, a.dnfc, a.n, F, a.r_n, p_nodes, stream))) return err;
-  if ((err = wide_tn<T>(a.aggc, a.dnfc, a.n, F, a.r_n, p_nodes + a.r_n * FF, stream))) return err;
-  return wide_tn<T>(a.r2, a.dy1c, a.n, F, a.r_n, p_nodes + 2 * a.r_n * FF, stream);
+  return wide_node_tn<T>(a, p_tn + 2 * a.r_e * FF, stream);
 }
 
 // grads (5 F^2 + 8 F: W_e, W2, W_nh, W_na, W_n2, then the eight vectors)

@@ -4,9 +4,8 @@
 // Replaces: lagrangebench_tpu/ops/painn_msg.py::_layer_kernel, launched by
 // _painn_layer_pallas, and the gather `packed[senders]` in front of it
 // (lagrangebench_tpu/models/painn.py), which the TPU kernel takes outside
-// because Mosaic has no row gather. Per receiver, with H <= 1024 channels
-// (128 in the shipped configs), R <= 256 radial basis functions (20,
-// build_painn), g_k = packed[sidx[k]] the k-th sender's row [x1, x2, u_d]
+// because Mosaic has no row gather. Per receiver, with H channels (128 in
+// the shipped configs), R radial basis functions (20, build_painn), g_k = packed[sidx[k]] the k-th sender's row [x1, x2, u_d]
 // and d over the dim axes:
 //
 //   W      = (phi[:, :R] @ filt_w + filt_b) * phi[:, R]     (K, 3H) filters
@@ -446,9 +445,9 @@ __global__ void __launch_bounds__(HT, HT == 128 ? 3 : 1) painn_layer(const Args 
   }
 }
 
-// K5 past H = 256 or R = 64 (H <= 1024, R <= 256): the tensor-core design,
-// one code path for every such width, in four launches whose intermediates
-// go through device memory (each <= 0.2 GB at 16,000 x 3 x 1,024 float32):
+// K5 past H = 256 or R = 64 (any H and R): the tensor-core design, one code
+// path for every such width, in four launches whose intermediates go
+// through device memory (each <= 0.2 GB at 16,000 x 3 x 1,024 float32):
 //
 //   painn_edge_tc         the filters on the tensor cores, the gathers, the
 //                         messages and their K-sums:  s1 -> ts[:, 0], v1
@@ -517,7 +516,6 @@ __global__ void __launch_bounds__(HT, HT == 128 ? 3 : 1) painn_layer(const Args 
 //   sqrt(K / KC) steps, not sqrt(K) (at H = 1,024 in 3D the bf16 gate reads
 //   1.3e-4 against its 2e-4). They run at ~100-150 TFLOP/s of tensor-core
 //   products; wgmma is the next step there.
-constexpr int kWideHidden = 1024, kWideRbf = 256;  // ops/painn_msg.py MAX_HIDDEN, MAX_RBF
 constexpr int kSmemLimit = 232448;
 constexpr int TC_RG = 32;     // receivers per edge block
 constexpr int TC_EDGE_WARPS = 4;  // warps per edge block (16 channels each)
@@ -681,17 +679,23 @@ struct TcArgs {
 // float32, R <= 48 in bf16; PaiNN's R = 20) the block stages its filter
 // rows pre-split (an (hi, lo) pair per float32 word) and the k loop is
 // unrolled; otherwise the rows are staged raw and split at each use (any
-// R; PERF.md section 6 times both forms at R = 20).
+// R; PERF.md section 6 times both forms at R = 20); where the raw rows do
+// not fit a block (R past 298 in float32, 596 in bf16) the kernel streams
+// them from device memory (through L1) at each k-step instead (KS = -1).
 inline int edge_ksteps(int rk, bool is_bf16) {
   const int steps = rk / (is_bf16 ? 16 : 8);
   return steps == 2 || steps == 3 ? steps : 0;
 }
-inline int edge_smem(int rk, bool is_bf16) {
+inline int64_t edge_staged_bytes(int rk, bool is_bf16) {
   const int word = edge_ksteps(rk, is_bf16) && !is_bf16 ? 8 : 4;  // pre-split: (hi, lo)
-  return TC_EDGE_WARPS * 3 * 16 * (rk / (is_bf16 ? 2 : 1) + 4) * word;
+  return (int64_t)TC_EDGE_WARPS * 3 * 16 * (rk / (is_bf16 ? 2 : 1) + 4) * word;
 }
-static_assert(TC_EDGE_WARPS * 3 * 16 * (kWideRbf + 4) * 4 <= kSmemLimit,
-              "the edge kernel's raw filter rows at R = 256 fit one block");
+// the edge kernel's dynamic shared memory: its staged filter rows, or 0
+// where they are streamed
+inline int edge_smem(int rk, bool is_bf16) {
+  const int64_t bytes = edge_staged_bytes(rk, is_bf16);
+  return bytes <= kSmemLimit ? (int)bytes : 0;
+}
 static_assert(TC_EDGE_WARPS * 3 * 16 * (24 + 4) * 8 <= kSmemLimit,
               "the edge kernel's pre-split filter rows fit one block");
 
@@ -755,7 +759,8 @@ struct Raw<bf16> {
 };
 
 // KS > 0: the filter product's KS k-steps with A staged pre-split in
-// shared memory; KS == 0: any k-steps, A staged raw and split at each use
+// shared memory; KS == 0: any k-steps, A staged raw and split at each use;
+// KS == -1: any k-steps, A read from filt_t in device memory at each use
 template <typename T, int DIM, int KS>
 __global__ void __launch_bounds__(32 * TC_EDGE_WARPS, 4) painn_edge_tc(const TcArgs p) {
   using F = Tc<T>;
@@ -772,8 +777,8 @@ __global__ void __launch_bounds__(32 * TC_EDGE_WARPS, 4) painn_edge_tc(const TcA
 
   // the block's filter rows: row j 16 nw + 16 w + i holds channel
   // tc_row_channel(i) of warp w, pre-split (KS > 0) or raw
-  {
-    const uint32_t* ft = static_cast<const uint32_t*>(p.filt_t);  // (3, HP, RKW) words
+  const uint32_t* ft = static_cast<const uint32_t*>(p.filt_t);  // (3, HP, RKW) words
+  if constexpr (KS >= 0) {
     for (int i = tid; i < 3 * 16 * nw * RKW; i += 32 * nw) {
       const int row = i / RKW, w = i % RKW, j = row / (16 * nw), rb = row % (16 * nw);
       const int c = cb + (rb / 16) * 16 + tc_row_channel(rb % 16);
@@ -857,7 +862,7 @@ __global__ void __launch_bounds__(32 * TC_EDGE_WARPS, 4) painn_edge_tc(const TcA
             F::mma(acc[j], a, fb);
           }
         }
-      } else {
+      } else if constexpr (KS == 0) {
         for (int ks = 0; ks < ksteps; ++ks) {
           typename F::B fb;
           F::make_b(fb, basis_word<T>(prow, ks * 8 + t, rb),
@@ -866,6 +871,20 @@ __global__ void __launch_bounds__(32 * TC_EDGE_WARPS, 4) painn_edge_tc(const TcA
           for (int j = 0; j < 3; ++j) {
             typename F::A a;
             F::load_a(a, sm + (j * 16 * nw + warp * 16 + g) * FS + ks * 8 + t, FS);
+            F::mma(acc[j], a, fb);
+          }
+        }
+      } else {  // fragment rows g, g + 8: channels c0, c0 + 1 of filter set j
+        for (int ks = 0; ks < ksteps; ++ks) {
+          typename F::B fb;
+          F::make_b(fb, basis_word<T>(prow, ks * 8 + t, rb),
+                    basis_word<T>(prow, ks * 8 + t + 4, rb));
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const uint32_t* r0 = ft + ((int64_t)j * HP + c0) * RKW + ks * 8 + t;
+            const uint32_t* r1 = r0 + RKW;
+            typename F::A a;
+            F::make_a(a, __ldg(r0), __ldg(r1), __ldg(r0 + 4), __ldg(r1 + 4));
             F::mma(acc[j], a, fb);
           }
         }
@@ -1170,9 +1189,10 @@ int launch_tc(const TcArgs& p, cudaStream_t stream) {
   const bool bf = sizeof(T) == 2;
   const Shape es = edge_shape(p.a.n, p.hp, p.rk, bf);
   const int ks = edge_ksteps(p.rk, bf), et = 32 * TC_EDGE_WARPS;
-  int e = ks == 3   ? launch_shaped(painn_edge_tc<T, DIM, 3>, es, et, p, stream)
-          : ks == 2 ? launch_shaped(painn_edge_tc<T, DIM, 2>, es, et, p, stream)
-                    : launch_shaped(painn_edge_tc<T, DIM, 0>, es, et, p, stream);
+  int e = ks == 3    ? launch_shaped(painn_edge_tc<T, DIM, 3>, es, et, p, stream)
+          : ks == 2  ? launch_shaped(painn_edge_tc<T, DIM, 2>, es, et, p, stream)
+          : es.smem ? launch_shaped(painn_edge_tc<T, DIM, 0>, es, et, p, stream)
+                     : launch_shaped(painn_edge_tc<T, DIM, -1>, es, et, p, stream);
   if (e) return e;
   if ((e = launch_shaped(painn_node_tc<T, DIM, kVmix>, node_shape<T, DIM, kVmix>(p.a.n, p.hp),
                          TC_THREADS, p, stream)))
@@ -1223,8 +1243,8 @@ int launch_width(const Args& a, cudaStream_t stream) {
 // (HP), 20 mix2_t, 21 mix_b2 (3, HP), 22 v1, 23 ts, 24 z, 25 vl, 26 dot
 // (ops/painn_msg.py tc_weights, tc_buffers).
 // Matrices and activations in the compute type (is_bf16 ? bf16 : float32),
-// biases float32. n receivers, k slots each, m >= n rows of packed; h in
-// [1, 1024], r in [1, 256]. hp = rk = 0: the narrow instances (h <= 256,
+// biases float32. n receivers, k slots each, m >= n rows of packed; h and
+// r from 1 on. hp = rk = 0: the narrow instances (h <= 256,
 // r <= 64); else hp and rk, the widths the wrapper padded H and R to (hp =
 // 64 ceil(h / 64), rk = r to a whole k-step: 8 ceil(r / 8) in float32, 16
 // ceil(r / 16) in bf16). Any other argument: cudaErrorInvalidValue.
@@ -1233,7 +1253,7 @@ LBT_EXPORT int lbt_painn_layer(const void* const* ptrs, int n, int k, int m, int
   const int step = is_bf16 ? 16 : 8;
   const bool narrow = hp == 0 && rk == 0 && h <= kMaxHidden && r <= kMaxRbf;
   const bool tc = hp == (h + 63) / 64 * 64 && rk == (r + step - 1) / step * step;
-  if (h < 1 || h > kWideHidden || r < 1 || r > kWideRbf || n < 1 || k < 1 || m < n ||
+  if (h < 1 || r < 1 || n < 1 || k < 1 || m < n ||
       (dim != 2 && dim != 3) || !(narrow || tc))
     return (int)cudaErrorInvalidValue;
   Args a;

@@ -2,7 +2,8 @@
 for this checkout or another one.
 
     python lagrangebench_torch/experiments/mp_times.py [--tree DIR] [--label NAME]
-        [--only gns,painn,scan,k1,rollout[,segnn][,train][,k5]] [--latent F] [--hidden H]
+        [--only gns,painn,scan,k1,rollout[,segnn][,train][,k5][,k4]] [--latent F] [--hidden H]
+        [--model-latent F] [--train-batch B]
 
 - K3 and K4 (the fused GNS message-passing step and its backward): seeded
   random inputs at the GNS rollout shape (16,000 receivers x K = 40, F =
@@ -11,7 +12,8 @@ for this checkout or another one.
   a multiple of 64 is timed with the wrapper's padding and slicing of its
   tensors), bf16: batch 2 x 8,000 particles):
   K3's plain step, K3's encoder-folded step (raw edge features of width 4)
-  and K4; with K3's weights, K8 (plain and encoder-folded) on a seeded
+  and K4 (also each of K4's kernels' device time, from a torch.profiler
+  trace); with K3's weights, K8 (plain and encoder-folded) on a seeded
   slot layout of the GNS-10 slot rollout's size (14,960 rows x K = 40) and
   E2 on the window probe's structure (8,960 rows x K = 24).
 - K5 (the fused PaiNN layer) and K6 (the message block) at the PaiNN
@@ -21,7 +23,8 @@ for this checkout or another one.
   torch.profiler trace) on the dense neighbor list of a batch
   of 2 of the synthetic RPF-3D-scale data that ``chip_smoke.py`` drives
   (``data.synthetic.make_synthetic_arrays``, 8,000 particles in 3D), the
-  values seeded. A tree whose K5 takes the gathered rows
+  values seeded; K5's plain version's time beside it. A tree whose K5 takes
+  the gathered rows
   ``g`` is timed as ``gather_rows(packed, sidx)`` + K5, the layer's forward
   in that tree; one whose K5 gathers itself as K5 alone. Also the fused
   PaiNN-5-H forward and forward + backward on those neighbors.
@@ -35,8 +38,10 @@ for this checkout or another one.
   PyTorch ops around it) and ``_with_sentinel``. Also the device time of a
   whole dense neighbor update at batch 2 and the device kernels it
   launches, counted in a torch.profiler trace.
-- The GNS-10-128 bf16 dense rollout at batch 2 of the same data, seeded
-  weights: ms per step on the host clock (20 steps, three runs after one
+- K4 alone (``k4``): the gns group's K4 and its kernels' split, without K3,
+  K8 and E2.
+- The GNS-10-128 bf16 dense rollout (GNS-10-F with ``--model-latent F``) at
+  batch 2 of the same data, seeded weights: ms per step on the host clock (20 steps, three runs after one
   that warms up), the path every rollout's neighbor update runs; then the
   dense and the slot rollouts at batch 1.
 - SEGNN-10-64 float32 (the model of ``configs/rpf_3d/segnn.yaml``) on the
@@ -44,8 +49,9 @@ for this checkout or another one.
   clock (as the GNS rollout), and the device time, peak memory and twelve
   longest kernels (summed by name) of one forward and backward at batch 1
   (a training step without the optimizer).
-- GNS-10-128 bf16 training on the dense layout at batch 2 of the same data
-  through ``train.Trainer`` (noise 3e-4, 12 steps, one pushforward unroll
+- GNS-10-128 (GNS-10-F with ``--model-latent F``) bf16 training on the
+  dense layout at batch 2 (``--train-batch``) of the same data through
+  ``train.Trainer`` (noise 3e-4, 12 steps, one pushforward unroll
   from step 4, the loss read every step), seeded weights: the step times on
   the host clock (``profiling.StepTimer``) and their medians over the steps
   without and with the unroll, as ``chip_smoke.py``'s train path reads them.
@@ -225,6 +231,8 @@ def _time_painn(torch, device, out, hidden=128, full=True):
                                 for a, b in zip(got, want))
     out["k5_ms"] = device_ms(layer, 20, 3)
     out["k5_kernels_us"] = kernel_breakdown(torch, layer)
+    if gather_in:  # the plain version on the card, for the kernel table
+        out["k5_plain_ms"] = device_ms(lambda: painn_msg.painn_layer_plain(*args), 5, 1)
     # bf16 on the same values: the relative 2-norm against the plain version
     bf = {name: v.to(torch.bfloat16) for name, v in t.items()}
     pb = painn_msg.layer_kernel_params(p, torch.bfloat16)
@@ -282,7 +290,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "training forward and backward; not by default: a tree older than "
                          "slice 9 has no SEGNN), train (GNS-10-128 training steps through "
                          "the Trainer; not by default), k5 (K5 alone, float32 and bf16: "
-                         "the painn group without K6 and the model)")
+                         "the painn group without K6 and the model), k4 (K4 alone, split "
+                         "by kernel)")
     ap.add_argument("--latent", type=int, default=GNS_LATENT,
                     help="the latent width of the gns group's K3 and K4 inputs (a width the "
                          "tree's kernels take: 128, 64 from slice 15 on, 1 to 256 from "
@@ -291,6 +300,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="the hidden width of the painn group's K5, K6 and PaiNN-5-H (128, "
                          "the shipped width, in every tree; 1 to 256 from slice 16 on, 1 "
                          "to 1,024 from slice 18 on)")
+    ap.add_argument("--model-latent", type=int, default=GNS_LATENT,
+                    help="the latent width of the rollout and train groups' GNS-10")
+    ap.add_argument("--train-batch", type=int, default=2,
+                    help="the train group's batch size")
     args = ap.parse_args(argv)
     groups = set(args.only.split(","))
     root = os.path.abspath(args.tree or os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -307,27 +320,30 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = torch.device("cuda")
     out = {"label": args.label or root, "card": torch.cuda.get_device_name(0), "N": N, "K": K,
            "latent": args.latent, "hidden": args.hidden}
-    if "gns" in groups:
-        _time_gns(fused_mp, torch, device, out, args.latent)
+    if "gns" in groups or "k4" in groups:
+        _time_gns(fused_mp, torch, device, out, args.latent, full="gns" in groups)
     if "painn" in groups or "k5" in groups:
         _time_painn(torch, device, out, args.hidden, full="painn" in groups)
     if "scan" in groups:
         _time_scans(torch, device, out)
     if "k1" in groups:
         _time_k1(torch, device, out)
+    out["model_latent"] = args.model_latent
     if "rollout" in groups:
-        _time_rollout(torch, device, out)
+        _time_rollout(torch, device, out, latent=args.model_latent)
     if "segnn" in groups:
         _time_segnn(torch, device, out)
     if "train" in groups:
-        _time_train(torch, device, out)
+        out["train_batch"] = args.train_batch
+        _time_train(torch, device, out, latent=args.model_latent, batch=args.train_batch)
     print(json.dumps(out))
     return out
 
 
-def _time_gns(fused_mp, torch, device, out, latent=None):
+def _time_gns(fused_mp, torch, device, out, latent=None, full=True):
     """K3 (plain and encoder-folded) and K4 on seeded random inputs at
-    width ``latent`` (GNS_LATENT unless given)."""
+    width ``latent`` (GNS_LATENT unless given); K8 and E2 too with
+    ``full``, K4 alone without."""
     from lagrangebench_torch.profiling import device_ms
 
     t, p, enc = _inputs(fused_mp, torch, device, f=latent)
@@ -345,14 +361,17 @@ def _time_gns(fused_mp, torch, device, out, latent=None):
         ("k3_plain", kernel("gns_mp_step"), fused_mp.gns_mp_step_plain, plain),
         ("k3_encoder", kernel("gns_mp_step"), fused_mp.gns_mp_step_plain, folded),
         ("k4", kernel("gns_mp_step_bwd"), fused_mp.gns_mp_step_bwd_plain, bwd),
-    ):
+    )[0 if full else 2:]:
         got, want = fn(*call), ref(*call)
         torch.cuda.synchronize()
         n_out = 2 if name != "k4" else 4
         out[f"{name}_max_abs_err"] = _err(got[:n_out], want[:n_out])
         out[f"{name}_ms"] = device_ms(lambda: fn(*call), 20, 3)
+        if name == "k4":  # K4's launches, split by kernel
+            out["k4_kernels_us"] = kernel_breakdown(torch, lambda: fn(*call))
     del t, plain, folded, bwd
-    _time_slot_window(fused_mp, torch, device, out, p, enc, latent)
+    if full:
+        _time_slot_window(fused_mp, torch, device, out, p, enc, latent)
 
 
 def _slot_inputs(torch, device, f, seed=2, n_cols=934, c=16, s=27, k=K):
@@ -445,9 +464,9 @@ def _rpf_batch(torch, device, frames=ISL, cfg_model=None):
     return case, pos, ptype, metadata
 
 
-def _time_rollout(torch, device, out, steps=20, runs=3):
-    """ms per step (host clock, synchronized) of a GNS-10-128 bf16 rollout,
-    seeded weights: on the dense layout at batch 2, the path every neighbor
+def _time_rollout(torch, device, out, steps=20, runs=3, latent=None):
+    """ms per step (host clock, synchronized) of a GNS-10-``latent`` bf16
+    rollout (GNS_LATENT unless given), seeded weights: on the dense layout at batch 2, the path every neighbor
     update of the rollout runs, then at batch 1 on the dense and the slot
     layouts (``chip_smoke.py``'s "dense b1" and "slot b1")."""
     import time
@@ -458,7 +477,7 @@ def _time_rollout(torch, device, out, steps=20, runs=3):
     from lagrangebench_torch.models import build_gns
 
     cfg = Config({"name": "gns", "fused_processor": True, "compute_dtype": "bfloat16",
-                  "num_mp_steps": GNS_MP_STEPS, "latent_dim": GNS_LATENT,
+                  "num_mp_steps": GNS_MP_STEPS, "latent_dim": latent or GNS_LATENT,
                   "num_mlp_layers": 2,
                   "input_seq_length": ISL, "magnitude_features": False,
                   "isotropic_norm": False})
@@ -485,11 +504,12 @@ def _time_rollout(torch, device, out, steps=20, runs=3):
                                          "slot": per_step(slot_case, 1)}
 
 
-def _time_train(torch, device, out, steps=12, unroll_from=4, runs=2):
+def _time_train(torch, device, out, steps=12, unroll_from=4, runs=2, latent=None, batch=2):
     """ms per step (host clock, synchronized, ``profiling.StepTimer``) of
-    GNS-10-128 bf16 training on the dense layout at batch 2, seeded weights,
-    ``runs`` trainers in turn; the step after the first allocation is the
-    first timed."""
+    GNS-10-``latent`` (GNS_LATENT unless given) bf16 training on the dense
+    layout at batch ``batch``, seeded weights, ``runs`` trainers in turn;
+    the step after the first allocation is the first timed. Keys
+    ``gns_train_b{batch}_ms`` and ``gns_train_b{batch}_median_ms``."""
     import contextlib
     import io
 
@@ -503,7 +523,7 @@ def _time_train(torch, device, out, steps=12, unroll_from=4, runs=2):
     from lagrangebench_torch.train import Trainer
 
     cfg = Config({"name": "gns", "fused_processor": True, "compute_dtype": "bfloat16",
-                  "num_mp_steps": GNS_MP_STEPS, "latent_dim": GNS_LATENT,
+                  "num_mp_steps": GNS_MP_STEPS, "latent_dim": latent or GNS_LATENT,
                   "num_mlp_layers": 2,
                   "input_seq_length": ISL, "magnitude_features": False,
                   "isotropic_norm": False})
@@ -521,7 +541,7 @@ def _time_train(torch, device, out, steps=12, unroll_from=4, runs=2):
         model = build_gns(cfg, metadata, ISL, seed=0, device=device)
         trainer = Trainer(
             model, case, data["train"], data["valid"],
-            cfg_train={"batch_size": 2, "noise_std": 3e-4, "optimizer": {"lr_start": 5e-4},
+            cfg_train={"batch_size": batch, "noise_std": 3e-4, "optimizer": {"lr_start": 5e-4},
                        "pushforward": {"steps": [-1, unroll_from - 1], "unrolls": [0, 1],
                                        "probs": [0, 1]}},
             cfg_eval={"n_rollout_steps": 3, "train": {"n_trajs": 1}},
@@ -531,8 +551,8 @@ def _time_train(torch, device, out, steps=12, unroll_from=4, runs=2):
         with contextlib.redirect_stdout(io.StringIO()):
             trainer.train(step_max=steps - 1)
         runs_ms.append([round(d * 1e3, 3) for d in trainer.timer.durations])
-    out["gns_train_b2_ms"] = runs_ms
-    out["gns_train_b2_median_ms"] = [
+    out[f"gns_train_b{batch}_ms"] = runs_ms
+    out[f"gns_train_b{batch}_median_ms"] = [
         {"no_unroll": float(np.median(d[:unroll_from - 1])),
          "one_unroll": float(np.median(d[unroll_from:]))} for d in runs_ms]
 

@@ -1,9 +1,12 @@
 """Where the device time of the bf16 stream design (K3 and K4 at F = 192 and
 256, ``csrc/mp_stream.cuh``) goes: each kernel of K3 and K4 timed by
 torch.profiler in this package and in copies with one part of the stream
-kernels taken out.
+kernels taken out; with ``--design wgmma``, K4's edge-backward kernel of the
+wgmma design (F = 320 to 512, ``csrc/mp_wgmma_bwd.cuh``) instead
+(``WGMMA_ABLATIONS``).
 
-    python -m lagrangebench_torch.experiments.stream_ablation [--latent F] [--only A,B]
+    python -m lagrangebench_torch.experiments.stream_ablation [--design stream|wgmma]
+        [--latent F] [--only A,B]
 
 Each ablation edits the CUDA sources of a copy of this package written to a
 temporary directory (the package itself is never changed), builds it, and
@@ -69,11 +72,42 @@ ABLATIONS: Dict[str, List[Tuple[str, str, str]]] = {
 }
 
 
-def ablate(csrc: str, name: str) -> None:
-    """Apply ablation ``name`` to the CUDA sources in directory ``csrc``;
-    ``ValueError`` if one of its edits matches nothing (the sources moved
-    on without the probe)."""
-    for source, pattern, repl in ABLATIONS[name]:
+_WG = "mp_wgmma_bwd.cuh"
+WGMMA_ABLATIONS: Dict[str, List[Tuple[str, str, str]]] = {
+    "base": [],
+    # the vector sums (b2, ln1_scale, ln1_bias) and their reduce-scatters left out
+    "vector_sums": [
+        (_WG, r"        const float ps = reduce_scatter4\(vs, lane\), pb = .*?"
+              r"vec\[2 \* N \+ 8 \* j0 \+ vcol\] \+= pb;\n", ""),
+        (_WG, r"      vec\[8 \* j0 \+ vcol\] \+= reduce_scatter4\(vd, lane\);\n", "")],
+    # LN1's backward: ge (shared memory) and dagg (device memory) read as zeros
+    "dm_loads": [(_WG, r"const float2 g%s = unpack_bf2\(lds32\(sE \+ swz128\(rA[^;]*;" % r,
+                  "const float2 g%s = make_float2(0.f, 0.f);" % r) for r in "AB"] + [
+        (_WG, r"const float2 a%s = dg%s != nullptr \? [^;]*;" % (r, r),
+         "const float2 a%s = make_float2(0.f, 0.f);" % r) for r in "AB"],
+    # the x1 product left out (the ring still moves)
+    "x1_product": [(_WG, r"    product\(sR, true\);\n#pragma unroll\n    for \(int j = 0; j < NJ; \+\+j\) \{\n"
+                         r"      const float2 b = ",
+                    "    product(sR, false);\n#pragma unroll\n    for (int j = 0; j < NJ; ++j) {\n"
+                    "      const float2 b = ")],
+    # the dfirst pass (the dhr partials, b1) left out
+    "dfirst_sums": [(_WG, r"    // dhr partials and b1: dfirst through the E tile.*?"
+                          r"(?=    named_bar\(1, 256\);  // both warpgroups are past the E)", "")],
+    # the de epilogue's second read of ge (its TMA load and its wait stay): zeros
+    "ge_reload": [(_WG, r"h%s\[jj\] = lds32\(sE \+ swz128\(rA[^;]*;" % r, "h%s[jj] = 0u;" % r)
+                  for r in "AB"],
+    # the three TMA stores (T(dx1), dhs, de) left out
+    "stores": [(_WG, r"tma_store\(&tm_(dx1|dhs|de), [^;]*;", ";")],
+    # every product skipped (the ring still moves)
+    "products": [(_WG, r"product\(s([ER]), true\);", "product(sE, false);")],
+}
+
+
+def ablate(csrc: str, name: str, table=None) -> None:
+    """Apply ablation ``name`` of ``table`` (``ABLATIONS`` by default) to the
+    CUDA sources in directory ``csrc``; ``ValueError`` if one of its edits
+    matches nothing (the sources moved on without the probe)."""
+    for source, pattern, repl in (table or ABLATIONS)[name]:
         path = os.path.join(csrc, source)
         with open(path) as f:
             text = f.read()
@@ -112,19 +146,24 @@ print(json.dumps(out))
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--latent", type=int, default=256, help="the instance width: 192 or 256")
-    ap.add_argument("--only", default=",".join(ABLATIONS), help="comma-separated ablations")
+    ap.add_argument("--design", default="stream", choices=("stream", "wgmma"))
+    ap.add_argument("--latent", type=int, default=256,
+                    help="the instance width: 192 or 256 (stream), 320 to 512 (wgmma)")
+    ap.add_argument("--only", default=None, help="comma-separated ablations (all by default)")
     args = ap.parse_args(argv)
-    names = args.only.split(",")
-    if args.latent not in (192, 256):
+    table = ABLATIONS if args.design == "stream" else WGMMA_ABLATIONS
+    names = args.only.split(",") if args.only else list(table)
+    if args.design == "stream" and args.latent not in (192, 256):
         raise ValueError("the stream design runs F = 192 and 256")
+    if args.design == "wgmma" and args.latent not in (320, 384, 448, 512):
+        raise ValueError("the wgmma design runs F = 320, 384, 448 and 512")
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
         for name in names:
             root = os.path.join(tmp, name)
             shutil.copytree(_PKG, os.path.join(root, "lagrangebench_torch"),
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
-            ablate(os.path.join(root, "lagrangebench_torch", "csrc"), name)
+            ablate(os.path.join(root, "lagrangebench_torch", "csrc"), name, table)
             env = dict(os.environ, LAGRANGEBENCH_TORCH_BUILD_DIR=os.path.join(root, "_build"))
             procs[name] = subprocess.Popen(  # build every copy at once
                 [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); from "
@@ -140,7 +179,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             res = subprocess.run([sys.executable, "-c", _TIME.format(f=args.latent)], cwd=root,
                                  env=env, capture_output=True, text=True, check=True)
             out[name] = json.loads(res.stdout.strip().splitlines()[-1])
-    print(json.dumps({"latent": args.latent, "ablations": out}))
+    print(json.dumps({"design": args.design, "latent": args.latent, "ablations": out}))
     return out
 
 

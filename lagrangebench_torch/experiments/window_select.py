@@ -263,8 +263,8 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--latent", type=int, default=F,
-                        help="latent width F (on the card 1 to fused_mp.MAX_LATENT, "
-                             "1,024; the wide path above 256)")
+                        help="latent width F (any; on the card the wide path "
+                             "above 256)")
     args = parser.parse_args(argv or [])
     device = resolve_device(device or args.device)
     f = args.latent

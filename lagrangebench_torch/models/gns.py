@@ -77,10 +77,8 @@ class GNS(JaxTree, nn.Module):
         particle_dimension: spatial dimensionality (2 or 3).
         node_in: node feature width (see :func:`gns_input_sizes`).
         edge_in: edge feature width (dim + 1).
-        latent_size: latent width of node/edge states; on CUDA 1 to
-            ``fused_mp.MAX_LATENT`` (1,024: the compiled instances up to
-            256, the wide path above; a wider one raises ValueError at the
-            first forward), any on the CPU.
+        latent_size: latent width of node/edge states, any (on CUDA the
+            compiled instances up to 256, the wide path above).
         num_mp_steps: number of message-passing steps.
         particle_type_embedding_size: width of the type embedding.
         num_particle_types: number of particle type ids.

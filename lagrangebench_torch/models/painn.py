@@ -180,11 +180,10 @@ class PaiNN(JaxTree, nn.Module):
     """PaiNN over the LagrangeBench feature contract (dense layout).
 
     Args:
-        hidden_size: channel width H (on CUDA any for K6, up to 1,024 in
-            the fused layout: ``painn_msg.MAX_HIDDEN``).
+        hidden_size: channel width H (any, on CUDA for K6 and for K5 in
+            the fused layout).
         num_mp_steps: number of PaiNN layers.
-        n_rbf: radial basis functions (on CUDA in the fused layout up to
-            256: ``painn_msg.MAX_RBF``; ``build_painn`` sets 20).
+        n_rbf: radial basis functions (any; ``build_painn`` sets 20).
         radius: basis and cutoff radius (1.5 x the connectivity radius).
         n_vels: velocities in the history (input_seq_length - 1).
         n_vector_extra: extra vector channels (1 for a force, 2 for the

@@ -29,7 +29,7 @@ from typing import Dict, Iterable, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 _HEADERS = ("common.cuh", "mp_common.cuh", "mp_warp.cuh", "mp_stream.cuh", "mp_wide.cuh",
-            "mp_wgmma.cuh")
+            "mp_wgmma.cuh", "mp_wgmma_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",

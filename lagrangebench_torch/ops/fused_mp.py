@@ -35,8 +35,8 @@ K8 (``gns_mp_step_slot``) through the slot layout's stencil table, and E2
 window_select.py``) through three windows per 32-row sub-tile of compact,
 cell-sorted rows.
 
-On the card the kernels take any latent width F from 1 to ``MAX_LATENT``
-(1,024). Up to 256 each is compiled at the instance widths of
+On the card the kernels take any latent width F from 1 on (device memory
+is the one limit). Up to 256 each is compiled at the instance widths of
 ``INSTANCES`` (64, 128, 192, 256; in bf16 the warp design at ``LATENTS``,
 64 and 128, the stream design above; in float32 the tile design); above
 256 the wide path serves every width (``csrc/mp_wide.cuh``: a hand-written
@@ -44,8 +44,11 @@ GEMM per product with its epilogue, then LayerNorm / residual / K-sum row
 kernels; its launch plan is ``wide_plan``), except that in bf16 up to
 ``WGMMA_MAX`` (512) the edge side of a step is one kernel, the wgmma design
 (``csrc/mp_wgmma.cuh``: TMA-fed wgmma products with T(relu(first)) and the
-pre-LayerNorm x1 kept on chip, agg summed through per-tile partials; the
-node side stays on the wide path's launches). Width F runs at
+pre-LayerNorm x1 kept on chip, agg summed through per-tile partials), and
+so is the edge side of K4's backward, its weight gradients dW_e and dW2 a
+wgmma product kernel of their own (``csrc/mp_wgmma_bwd.cuh``); the node
+side stays on the wide path's launches. Past 1,024 the wide path's row
+kernels walk each row in 1,024-column chunks. Width F runs at
 ``kernel_width(F)`` = 64 ceil(F / 64), with the tensors and weights
 zero-padded past F (LayerNorm scale and bias included, ``pad_params``)
 and the true F passed to the kernel, which
@@ -53,7 +56,7 @@ takes every LayerNorm's statistics over the first F channels; the padded
 channels come out 0. On CUDA tensors a wrapper takes its tensors at the
 instance width, with ``latent`` the true width (the GNS model carries its
 latents padded through the processor); ``at_true_width`` pads tensors at
-the true width and slices the outputs. A width above ``MAX_LATENT`` raises
+the true width and slices the outputs. A width below 1 raises
 ``ValueError`` on a CUDA tensor. The plain versions take the same
 ``latent`` argument (the padded form, on the CPU) and any width.
 """
@@ -81,18 +84,18 @@ _KERNEL_VECTORS = ("b1", "b2", "ln1_scale", "ln1_bias", "bn1", "bn2",
                    "ln2_scale", "ln2_bias")
 LATENTS = (64, 128)  # the bf16 warp design's instances (GNS-5-64, GNS-10-128)
 INSTANCES = (64, 128, 192, 256)  # every instance width (bf16 stream design above 128)
-MAX_LATENT = 1024  # the wide path (csrc/mp_wide.cuh) above INSTANCES[-1]
 WGMMA_MAX = 512  # the bf16 wgmma design (csrc/mp_wgmma.cuh) in (INSTANCES[-1], WGMMA_MAX]
 
 
 def kernel_width(f: int, kernel: str = "fused_mp") -> int:
     """The width that runs latent width ``f`` on the card, 64 ceil(f / 64)
-    (an instance up to 256, the wide path above); ``ValueError`` naming the
-    limit for f outside [1, ``MAX_LATENT``] (on the card there is no
-    fallback to the plain version)."""
-    if not 1 <= f <= MAX_LATENT:
+    (an instance up to 256, the wide path above, any width); ``ValueError``
+    for f below 1 (on the card there is no fallback to the plain version).
+    A width too large for the card's memory fails where its tensors are
+    allocated (torch.cuda.OutOfMemoryError)."""
+    if f < 1:
         raise ValueError(f"{kernel} kernel: latent width {f} not supported on CUDA; "
-                         f"the kernels take widths 1 to {MAX_LATENT}")
+                         f"the kernels take widths from 1 on")
     return -(-f // 64) * 64
 
 
@@ -171,9 +174,11 @@ def _design(cdt: torch.dtype, width: int) -> str:
     gradients in a product kernel of their own) or "tile" (float32). Both
     bf16 designs run an edge and a node kernel with an agg scratch. Above
     ``INSTANCES[-1]``: "wgmma" in bf16 up to ``WGMMA_MAX`` (the edge side of
-    a step in one kernel, ``csrc/mp_wgmma.cuh``, the node side on the wide
-    path's launches), else "wide" (``csrc/mp_wide.cuh``: float32 at every
-    wide width, bf16 above ``WGMMA_MAX``)."""
+    a step in one kernel, ``csrc/mp_wgmma.cuh``, and of K4's backward in
+    one kernel with dW_e and dW2 in a wgmma product kernel,
+    ``csrc/mp_wgmma_bwd.cuh``; the node side on the wide path's launches),
+    else "wide" (``csrc/mp_wide.cuh``: float32 at every wide width, bf16
+    above ``WGMMA_MAX``)."""
     if width > INSTANCES[-1]:
         return "wgmma" if cdt == torch.bfloat16 and width <= WGMMA_MAX else "wide"
     if cdt != torch.bfloat16:
@@ -206,6 +211,10 @@ _WIDE_ROW_WARPS = 8
 # slab, blocks per cluster (sharing each slab by TMA multicast), the most
 # stages of its ring
 _WGMMA_ROWS, _WGMMA_KS, _WGMMA_CLUSTER, _WGMMA_MAX_STAGES = 64, 32, 2, 6
+# its K4 weight-gradient kernel (csrc/mp_wgmma_bwd.cuh fused_mp_bwd_tn_wgmma):
+# the output tile's side, edge rows per stage (and per chunk of its row
+# ranges), stages, and the waves of blocks its ranges aim at
+WGMMA_TN_TILE, _WGMMA_TN_ROWS, _WGMMA_TN_STAGES, _WGMMA_TN_WAVES = 128, 64, 4, 4
 SMEM_LIMIT = 232448  # a block's shared memory on an H100 (227 KB)
 
 
@@ -256,6 +265,54 @@ def wgmma_smem_bytes(f: int) -> int:
             + (2 * stages + 4) * 8 + 1024)
 
 
+def wgmma_bwd_stages(f: int) -> int:
+    """The ring stages of K4's wgmma edge-backward kernel at width ``f``:
+    its block is the edge kernel's (``wgmma_smem_bytes``) plus the consumer
+    warps' running vector sums (8 warps x 3 x f / 2 float32), as many 32 x
+    f weight slabs as then fit, at most ``_WGMMA_MAX_STAGES``
+    (``csrc/mp_wgmma_bwd.cuh`` GBSmem)."""
+    tile, stage, vec = _WGMMA_ROWS * f * 2, _WGMMA_KS * f * 2, 8 * 3 * (f // 2) * 4
+    fit = (SMEM_LIMIT - 1024 - 2 * tile - 1024 - vec - (2 * _WGMMA_MAX_STAGES + 4) * 8) // stage
+    return min(fit, _WGMMA_MAX_STAGES)
+
+
+def wgmma_bwd_smem_bytes(f: int) -> int:
+    """Shared memory of K4's wgmma edge-backward kernel at width ``f``: the
+    E and R tiles, ``wgmma_bwd_stages(f)`` weight slabs, the LayerNorm
+    exchange, the warps' running vector sums, the barriers and 1,024 bytes
+    to align the tiles."""
+    stages = wgmma_bwd_stages(f)
+    return (2 * _WGMMA_ROWS * f * 2 + stages * _WGMMA_KS * f * 2 + 1024 + 8 * 3 * (f // 2) * 4
+            + (2 * stages + 4) * 8 + 1024)
+
+
+def wgmma_tn_smem_bytes() -> int:
+    """Shared memory of the wgmma design's K4 weight-gradient kernel: its
+    stages of a 64-row A and B slab (128 columns each, bf16), their full and
+    empty mbarriers and 1,024 bytes to align the swizzled panels."""
+    stage = 2 * _WGMMA_TN_ROWS * WGMMA_TN_TILE * 2
+    return _WGMMA_TN_STAGES * stage + 2 * _WGMMA_TN_STAGES * 8 + 1024
+
+
+def wgmma_tn_ranges(rows: int, f: int, sms: int) -> int:
+    """The row ranges of the wgmma design's dW_e and dW2 (each gradient one
+    float32 f x f partial per range): whole 64-row chunks, enough that the
+    kernel's (ceil(f / 128)^2 tiles x ranges x 2 gradients) blocks fill
+    about ``_WGMMA_TN_WAVES`` waves of the SMs, at most one per chunk."""
+    side = -(-f // WGMMA_TN_TILE)
+    chunks = -(-rows // _WGMMA_TN_ROWS)
+    return max(1, min(chunks, -(-_WGMMA_TN_WAVES * sms // (2 * side * side))))
+
+
+def wgmma_tn_rows(rows: int, ranges: int, r: int) -> Tuple[int, int]:
+    """The rows [lo, hi) of range r of the wgmma design's weight-gradient
+    kernel: ``rows`` split into ``ranges`` runs of whole 64-row chunks
+    (``csrc/mp_wgmma_bwd.cuh`` tn_range)."""
+    chunks = -(-rows // _WGMMA_TN_ROWS)
+    c0, c1 = chunks * r // ranges, chunks * (r + 1) // ranges
+    return c0 * _WGMMA_TN_ROWS, min(c1 * _WGMMA_TN_ROWS, rows)
+
+
 def wgmma_slots(k: int) -> int:
     """The agg partials per tile of the wgmma design: the receivers of k
     edge rows that 64 consecutive rows can touch, floor(63 / k) + 2, at most
@@ -301,7 +358,13 @@ def wide_plan(n: int, k: int, f: int, sms: int, cdt: torch.dtype = torch.bfloat1
       ``tiles`` of 64 edge rows, ``slots`` (``wgmma_slots``) and
       ``partials`` (float32 agg partials, tiles x slots x f), its persistent
       grid ``edge_ctas`` (whole clusters of ``cluster`` blocks, at most one
-      block per SM and one cluster per two tiles) and ring ``edge_stages``."""
+      block per SM and one cluster per two tiles) and ring ``edge_stages``
+      (K4's edge-backward kernel runs the same grid and ring); K4's
+      ``r_e`` is then its weight-gradient kernel's ranges
+      (``wgmma_tn_ranges``, ``tn_grid[0]`` its grid: output tiles, ranges,
+      2 gradients; ``tn_smem`` its shared memory), ``p_e`` its
+      edge-backward kernel's vector rows, 4 per block, and that kernel's
+      ``bwd_stages`` and ``bwd_smem``."""
     tile = WIDE_TILE if cdt == torch.bfloat16 else _WIDE_TILE_F32
     side = -(-f // tile)
 
@@ -317,9 +380,15 @@ def wide_plan(n: int, k: int, f: int, sms: int, cdt: torch.dtype = torch.bfloat1
             "smem_bytes": wide_smem_bytes(cdt, f), "design": _design(cdt, f)}
     if plan["design"] == "wgmma":
         tiles, cl = -(-n * k // _WGMMA_ROWS), _WGMMA_CLUSTER
+        ctas = min(-(-tiles // cl), sms // cl) * cl
+        tn_side = -(-f // WGMMA_TN_TILE)
+        r_e = wgmma_tn_ranges(n * k, f, sms)
         plan.update(tiles=tiles, slots=wgmma_slots(k), cluster=cl,
-                    partials=tiles * wgmma_slots(k) * f,
-                    edge_ctas=min(-(-tiles // cl), sms // cl) * cl, edge_stages=wgmma_stages(f))
+                    partials=tiles * wgmma_slots(k) * f, edge_ctas=ctas,
+                    edge_stages=wgmma_stages(f), r_e=r_e, p_e=4 * ctas,
+                    tn_grid=((tn_side * tn_side, r_e, 2), (side, side, r_n)),
+                    tn_smem=wgmma_tn_smem_bytes(), bwd_stages=wgmma_bwd_stages(f),
+                    bwd_smem=wgmma_bwd_smem_bytes(f))
     return plan
 
 
@@ -337,9 +406,11 @@ def _wide_buffers(n: int, k: int, f: int, cdt: torch.dtype, device, backward: bo
     agg (float32; not kept), T(relu(node_first)), y (float32), and the
     wgmma design's agg partials (float32, ``wgmma_slots(k)`` rows of f per
     64-row tile), which keeps e, x and T(relu(first)) on chip: it takes
-    none of them. Backward: T(relu(first)), x1 (float32, then dfirst),
-    T(agg), T(relu(node_first)), y1, T(dy1), dnf, T(dnf), dagg (float32
-    where not T), T(dx1) and the wgmma design's agg partials."""
+    none of them. Backward: T(relu(first)), x1 (float32, then dfirst; None
+    for the wgmma design, which keeps it on chip), T(agg),
+    T(relu(node_first)), y1, T(dy1), dnf, T(dnf), dagg (float32 where not
+    T), T(dx1) and the wgmma design's agg partials (then its per-receiver
+    dfirst partials); the wrapper adds the wgmma design's W_e^T and W2^T."""
     rows, f32 = n * k, torch.float32
     wgmma = _design(cdt, f) == "wgmma"
     part = torch.empty((-(-rows // _WGMMA_ROWS) * wgmma_slots(k) * f,), dtype=f32,
@@ -349,8 +420,9 @@ def _wide_buffers(n: int, k: int, f: int, cdt: torch.dtype, device, backward: bo
         return torch.empty((r, f), dtype=dt, device=device)
 
     if backward:
-        return [buf(rows, cdt), buf(rows, f32), buf(n, cdt), buf(n, cdt), buf(n, f32),
-                buf(n, cdt), buf(n, f32), buf(n, cdt), buf(n, f32), buf(rows, cdt), part]
+        return [buf(rows, cdt), None if wgmma else buf(rows, f32), buf(n, cdt), buf(n, cdt),
+                buf(n, f32), buf(n, cdt), buf(n, f32), buf(n, cdt), buf(n, f32), buf(rows, cdt),
+                part]
     sender_rows = torch.empty((rows,), dtype=torch.int32, device=device) if senders else None
     if wgmma:
         return [sender_rows, None, None, None, buf(n, cdt), None, buf(n, cdt), buf(n, f32), part]
@@ -382,7 +454,9 @@ def bwd_partials_floats(n: int, grid: int, bf16: bool, f: int,
     (2 r_e + 3 r_n of them), then the edge and the node kernel's blocks of
     their four vectors; the wide path (f > 256, either dtype, ``plan`` the
     (r_e, r_n, p_e, p_n) of ``wide_plan``), each row range's F x F partial,
-    then the edge and the node row kernels' warps of their four vectors."""
+    then the edge and the node row kernels' warps of their four vectors
+    (the wgmma design: its edge-backward kernel's vector rows, then the
+    node row kernels' warps)."""
     if f > INSTANCES[-1]:
         r_e, r_n, p_e, p_n = plan
         return (2 * r_e + 3 * r_n) * f * f + (p_e + p_n) * 4 * f
@@ -505,7 +579,7 @@ def gns_mp_step(
     On CUDA the compute dtype (of hs_gath, hr_proj, h, and e unless
     ``enc``) is bfloat16 or float32, weights are (in, out) in the compute
     dtype and vectors float32 (``kernel_params`` converts a parameter dict
-    once), and ``latent`` is at most ``MAX_LATENT``. The tensors are
+    once), and ``latent`` is at least 1. The tensors are
     ``kernel_width(latent)`` wide, zero past ``latent``, and so are the
     outputs; the parameters may be at either width (``at_true_width``
     takes tensors at the true width).
@@ -850,6 +924,8 @@ def gns_mp_step_bwd(
         bufs = _wide_buffers(n, k, f, cdt, e.device, backward=True)
         bufs[0] = bufs[0] if first_out is None else first_out  # T(relu(first))
         bufs[3] = bufs[3] if relu_out is None else relu_out  # T(relu(node_first))
+        if design == "wgmma":  # the weights its de and dfirst products read
+            bufs += [p["w_e"].t().contiguous(), p["w2"].t().contiguous()]
         ptrs += _ptrs(bufs)
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     plan_arr = (ctypes.c_int * 4)(*plan) if plan else None

@@ -38,16 +38,17 @@ through the pure-JAX mirror), not a fallback; K5's carries the gradient of
 ``packed`` through the gather with ``models.utils.gather_rows`` (a float32
 ``index_add_``). Neither TPU kernel has a backward kernel.
 
-On the card K6 takes any channel width H and K5 any H up to
-``MAX_HIDDEN`` (1,024) and radial-basis width R up to ``MAX_RBF`` (256): its
+On the card K6 takes any channel width H and K5 any H and radial-basis
+width R (device memory is the one limit): its
 instances of one thread per channel up to H = 256 and R = 64
 (``NARROW_HIDDEN``, ``NARROW_RBF``), and past either the tensor-core design
 (``csrc/painn_layer.cu`` painn_edge_tc, painn_node_tc: mma.sync products,
 3xTF32 in float32, four launches whose intermediates go through device
 memory; H and R padded to :func:`tc_widths`, the weights staged by
 :func:`tc_weights` and, in float32, split by :func:`tf32_pairs`;
-:func:`tc_buffers`); a wider K5 layer raises ``ValueError`` naming the
-limit. The plain versions, and so the CPU path, take any width.
+:func:`tc_buffers`; where the edge kernel's filter rows do not fit a
+block, past R = 298 in float32 and 596 in bf16, it streams them from
+device memory). The plain versions, and so the CPU path, take any width.
 """
 
 from __future__ import annotations
@@ -59,8 +60,6 @@ import torch
 
 from .build import Kernel
 
-MAX_HIDDEN = 1024  # K5's widest channel width
-MAX_RBF = 256  # K5's widest radial basis
 NARROW_HIDDEN, NARROW_RBF = 256, 64  # K5's thread-per-channel instances; tensor cores past
 
 LAYER_PARAM_NAMES = ("filt_w", "filt_b", "vmix_w", "mix_w1", "mix_b1",
@@ -255,9 +254,8 @@ def painn_layer_kernel(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tens
     """Launch K5 on CUDA tensors (no autograd); see :func:`painn_layer_plain`.
 
     All activations share the compute dtype of ``s`` (bfloat16 or float32),
-    ``sidx`` is int32 (:func:`sender_index`); H is 1 to ``MAX_HIDDEN``, R
-    (the basis width, ``phi``'s last axis minus one) 1 to ``MAX_RBF`` and
-    dim 2 or 3. ``packed`` has M >= N
+    ``sidx`` is int32 (:func:`sender_index`); H and R (the basis width,
+    ``phi``'s last axis minus one) are at least 1 and dim is 2 or 3. ``packed`` has M >= N
     rows, N the receivers of ``phi``. ``p`` is in any dtype and is
     converted with :func:`layer_kernel_params`.
     """
@@ -267,9 +265,9 @@ def painn_layer_kernel(packed: torch.Tensor, sidx: torch.Tensor, phi: torch.Tens
     h = s.shape[-1]
     dim = neg_dir.shape[-1]
     r = phi.shape[-1] - 1
-    if not (1 <= h <= MAX_HIDDEN and 1 <= r <= MAX_RBF) or dim not in (2, 3):
-        raise ValueError(f"painn_layer kernel: H {h} (needs 1 to {MAX_HIDDEN}), R {r} (needs "
-                         f"1 to {MAX_RBF}), dim {dim} (needs 2 or 3)")
+    if h < 1 or r < 1 or dim not in (2, 3):
+        raise ValueError(f"painn_layer kernel: H {h} (needs at least 1), R {r} (needs at "
+                         f"least 1), dim {dim} (needs 2 or 3)")
     if m < n:
         raise ValueError(f"painn_layer kernel: packed has {m} rows, fewer than the {n} receivers")
     _check("painn_layer packed", packed, cdt, (m, (2 + dim) * h))

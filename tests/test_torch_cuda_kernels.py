@@ -138,39 +138,61 @@ def _check_fwd_ragged(cuda, n, k, dtype, tol, use_enc, f):
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("f", [1025, 1088, 2048])
+@pytest.mark.parametrize("f", [0, -1, -64])
 def test_fused_kernels_refuse_other_widths(cuda, f):
-    """On CUDA tensors every fused GNS wrapper (K3, K4, K8, E2) and the
-    first forward of a GNS on the card raise ValueError naming the widths
-    the kernels take (1 to 1,024) for a width above them, and launch
-    nothing: there is no fallback to the plain version."""
-    from lagrangebench_torch.models.gns import GNS
-
+    """On CUDA tensors every fused GNS wrapper (K3, K4, K8, E2) raises
+    ValueError naming the widths the kernels take (from 1 on) for a latent
+    width below 1, and launches nothing: there is no fallback to the plain
+    version. Past the old limit of 1,024 every width runs
+    (``test_fused_kernels_past_1024``)."""
     handles = (fused_mp.FUSED_MP, fused_mp.FUSED_MP_BWD, fused_mp.FUSED_MP_SLOT,
                fused_mp.FUSED_MP_WINDOW)
     before = [h.launches for h in handles]
-    match = r"widths 1 to 1024"
-    e, hs, hr, h, mask, p, _ = _fwd_case(cuda, torch.float32, False, 40, 8, f)
+    match = r"widths from 1 on"
+    e, hs, hr, h, mask, p, _ = _fwd_case(cuda, torch.float32, False, 40, 8, 64)
     with pytest.raises(ValueError, match=match):
-        fused_mp.gns_mp_step(e, hs, hr, h, mask, p)
+        fused_mp.gns_mp_step(e, hs, hr, h, mask, p, latent=f)
     with pytest.raises(ValueError, match=match):
-        fused_mp.gns_mp_step_bwd(e, hs, hr, h, mask, p, e, h)
+        fused_mp.gns_mp_step_bwd(e, hs, hr, h, mask, p, e, h, latent=f)
     with pytest.raises(ValueError, match=match):
-        fused_mp.gns_mp_step_slot(*_slot_case(cuda, torch.float32, False, particles=37, f=f))
+        fused_mp.gns_mp_step_slot(*_slot_case(cuda, torch.float32, False, particles=37, f=64),
+                                  latent=f)
     with pytest.raises(ValueError, match=match):
-        fused_mp.gns_mp_step_window(*_window_case(cuda, torch.float32, particles=200, f=f))
+        fused_mp.gns_mp_step_window(*_window_case(cuda, torch.float32, particles=200, f=64),
+                                    latent=f)
+    assert [h.launches for h in handles] == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.125)])
+def test_fused_kernels_past_1024(cuda, dtype, tol):
+    """F = 1,088, past the old limit of 1,024 (the wide path's row kernels
+    walk each row in 1,024-column chunks): K3 (plain and encoder step)
+    under K3's limits and K4 under the limits and tie rules of
+    ``test_fused_mp_bwd_kernel_ragged`` against their plain versions, each
+    two launches the same bits; and a GNS-2-1088 forward on the card
+    launches K3 and gives finite accelerations."""
+    from lagrangebench_torch.models.gns import GNS
+
+    f = 1088
+    assert fused_mp._design(dtype, f) == "wide"
+    for use_enc in (False, True):
+        _check_fwd_ragged(cuda, 141, 13, dtype, tol, use_enc, f)
+    before = fused_mp.FUSED_MP_BWD.launches
+    _check_bwd_ragged(cuda, 141, 13, dtype, f)
+    assert fused_mp.FUSED_MP_BWD.launches >= before + 2
     g = torch.Generator().manual_seed(0)
     n, k = 40, 8
-    senders = torch.randint(0, n + 1, (n, k), generator=g, dtype=torch.int32)
     rel_disp = torch.randn(n, k, 3, generator=g)
-    feats = {"vel_hist": torch.randn(n, 15, generator=g), "senders": senders,
+    feats = {"vel_hist": torch.randn(n, 15, generator=g),
+             "senders": torch.randint(0, n + 1, (n, k), generator=g, dtype=torch.int32),
              "receivers": torch.arange(n, dtype=torch.int32)[:, None].expand(n, k),
              "rel_disp": rel_disp, "rel_dist": rel_disp.norm(dim=-1, keepdim=True)}
     model = GNS(3, node_in=15, edge_in=4, latent_size=f, num_mp_steps=2, device=cuda)
-    with pytest.raises(ValueError, match=match):
-        model({name: v.to(cuda) for name, v in feats.items()},
-              torch.zeros(n, dtype=torch.int32, device=cuda))
-    assert [h.launches for h in handles] == before
+    before = fused_mp.FUSED_MP.launches
+    with torch.no_grad():
+        acc = model({name: v.to(cuda) for name, v in feats.items()},
+                    torch.zeros(n, dtype=torch.int32, device=cuda))["acc"]
+    assert fused_mp.FUSED_MP.launches == before + 1 and bool(torch.isfinite(acc).all())
 
 
 # the wide path (csrc/mp_wide.cuh, F > 256): a width that runs padded (257),
@@ -471,7 +493,26 @@ def test_wgmma_fused_mp_kernel_ragged(cuda, n, k, use_enc, f):
     _check_fwd_ragged(cuda, n, k, torch.bfloat16, 0.125, use_enc, f)
 
 
-@pytest.mark.parametrize("f", WGMMA_F)
+# K4's wgmma design: every instance width, K from 1 to past two 64-row
+# tiles, fewer edge rows than a tile, more tiles than the persistent grid
+WGMMA_BWD_F = (320, 384, 448, 512)
+WGMMA_BWD_RAGGED = [(1, 1), (40, 1), (3, 13), (101, 40), (9, 65), (5, 130), (2999, 13)]
+
+
+@pytest.mark.parametrize("f", WGMMA_BWD_F)
+@pytest.mark.parametrize("n,k", WGMMA_BWD_RAGGED)
+def test_wgmma_fused_mp_bwd_kernel_ragged(cuda, n, k, f):
+    """K4 on the wgmma design (the edge-backward kernel and the wgmma
+    weight-gradient kernel, ``csrc/mp_wgmma_bwd.cuh``) at ragged shapes,
+    under the limits and tie rule of ``test_fused_mp_bwd_kernel_ragged``
+    (every instance width is in ``BF16_TIE_WIDTHS``: held to the plain
+    version summed in float64 and fed the kernel's T(agg)); its outputs and
+    weight gradients are the same bits over two launches."""
+    assert fused_mp._design(torch.bfloat16, f) == "wgmma" and f in BF16_TIE_WIDTHS
+    _check_bwd_ragged(cuda, n, k, torch.bfloat16, f)
+
+
+@pytest.mark.parametrize("f", WGMMA_BWD_F)
 @pytest.mark.parametrize("n,k", [(333, 24), (101, 40), (9, 65), (1, 1)])
 def test_wgmma_k4_rematerializes_k3_bits(cuda, n, k, f):
     """K4 rematerializes the forward through K3's own edge kernel: its
@@ -587,14 +628,16 @@ def test_painn_layer_kernel(cuda, dtype, tol, dim, h, r):
 
 
 @pytest.mark.parametrize("h,r", [(320, 96), (320, 128), (512, 96), (512, 128), (128, 96),
-                                 (1024, 20), (512, 20)])
+                                 (1024, 20), (512, 20), (1088, 20), (64, 264), (320, 600)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_painn_layer_kernel_wide(cuda, dtype, tol, dim, h, r):
     """K5's tensor-core design (H > 256 or R > 64) against its plain version
     under the limits of ``test_painn_layer_kernel``, at ragged receivers
-    (203: not a multiple of its tile); H or R past MAX_HIDDEN or MAX_RBF
-    raises ValueError naming the limit and launches nothing."""
+    (203: not a multiple of its tile), past the old limits too (H = 1,088, R
+    = 264; R = 600, whose filter rows no longer fit a block in either dtype
+    and stream from device memory); H, R or dim outside what the kernels
+    take (below 1; dim 4) raises ValueError and launches nothing."""
     from lagrangebench_torch.ops import painn_msg
 
     t, p = _painn_case(cuda, dtype, dim, fused=True, h=h, r=r)
@@ -607,10 +650,11 @@ def test_painn_layer_kernel_wide(cuda, dtype, tol, dim, h, r):
         assert a.dtype == dtype
         assert _rel(a, b) <= tol
         assert float((a.float() - b.float()).norm() / b.float().norm()) <= 1e-3
-    for hh, rr in ((painn_msg.MAX_HIDDEN + 1, 20), (64, painn_msg.MAX_RBF + 1)):
-        t, p = _painn_case(cuda, dtype, dim, n=20, k=4, fused=True, h=hh, r=rr)
-        with pytest.raises(ValueError, match=r"needs 1 to"):
-            painn_msg.painn_layer_kernel(*_layer_args(t, p))
+    t, p = _painn_case(cuda, dtype, dim, n=20, k=4, fused=True, h=h, r=r)
+    args = list(_layer_args(t, p))
+    args[3] = torch.zeros(*args[3].shape[:-1], 4, dtype=args[3].dtype, device=cuda)
+    with pytest.raises(ValueError, match=r"dim 4 \(needs 2 or 3\)"):
+        painn_msg.painn_layer_kernel(*args)
     assert painn_msg.PAINN_LAYER.launches == before + 1
 
 

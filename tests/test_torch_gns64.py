@@ -228,8 +228,13 @@ def test_check_latent_takes_the_other_widths_to_the_limit(f):
 
 @pytest.mark.parametrize("f", [1025, 0])
 def test_check_latent_refuses_widths_past_the_limit(f):
-    """A width above MAX_LATENT (or below 1) raises ValueError that names
-    the widths the kernels take (no fallback to the plain version on the
-    card)."""
-    with pytest.raises(ValueError, match=r"latent width %d .*widths 1 to 1024" % f):
+    """A width below 1 raises ValueError that names the widths the kernels
+    take (no fallback to the plain version on the card); past the old limit
+    of 1,024 every width is taken (the wide path's row kernels walk a row in
+    chunks)."""
+    if f >= 1:
+        for wide in (f, 1088, 4096):
+            fused_mp.check_latent(wide, "fused_mp")
+        return
+    with pytest.raises(ValueError, match=r"latent width %d .*widths from 1 on" % f):
         fused_mp.check_latent(f, "fused_mp")

@@ -7,8 +7,8 @@ by the wrapper transposed and zero-padded (``painn_msg.tc_weights``), the
 intermediates in device memory (``tc_buffers``). The kernels cannot run
 here; these tests hold what surrounds them and the arithmetic they repeat:
 
-* what the wrapper decides at every H from 257 to ``MAX_HIDDEN`` and at R
-  past 64, in 2D and 3D, float32 and bf16: the routing, the padded widths
+* what the wrapper decides at every H from 257 to 1,088 (past the old
+  limit of 1,024) and at R past 64 (to 264, past the old 256), in 2D and 3D, float32 and bf16: the routing, the padded widths
   (``tc_widths``), the staged weights' shapes, the intermediates' bytes;
 * an emulation of the design in torch on the staged layouts, float64,
   against the float64 plain version (1e-10 of the largest magnitude) at
@@ -37,14 +37,14 @@ KC = 64  # k elements per sum chunk of the node products (csrc/painn_layer.cu TC
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tc_plan_fits_every_width(dtype, dim):
     """What the wrapper decides for the tensor-core design at every H in
-    257..1,024 and R in {1, 20, 64, 65, 256}, and at R in {65, 96, 256} for
-    narrow H: the routing, HP and RK (the padding the C entry checks; the
+    257..1,088 and R in {1, 20, 64, 65, 264}, and at R in {65, 96, 256, 264}
+    for narrow H: the routing, HP and RK (the padding the C entry checks; the
     launches' grids and shared memory are the kernel source's, held there
     by static_asserts), the staged weights' shapes and the intermediates'
     bytes at 16,000 receivers."""
     n = 16000
-    cases = [(h, r) for h in range(257, painn_msg.MAX_HIDDEN + 1) for r in (1, 20, 64, 65, 256)]
-    cases += [(h, r) for h in (1, 64, 128, 256) for r in (65, 96, 256)]
+    cases = [(h, r) for h in range(257, 1089) for r in (1, 20, 64, 65, 264)]
+    cases += [(h, r) for h in (1, 64, 128, 256) for r in (65, 96, 256, 264)]
     step = 16 if dtype == torch.bfloat16 else 8
     esize = 2 if dtype == torch.bfloat16 else 4
     for h, r in cases:

@@ -14,9 +14,9 @@ the true-width LayerNorm, the launch plan) against the JAX package:
   the true width and in the card's padded layout (300 and 480 run at 320
   and 512 on zero-padded tensors), against JAX's fused step and
   ``jax.vjp`` of it, float64;
-* the wide path's launch plan for every F from 257 to ``MAX_LATENT``: its
-  largest block within a block's 227 KB of shared memory, its grids, its
-  weight-gradient row ranges, its partials;
+* the wide path's launch plan for every F from 257 to 1,088 (past the old
+  limit of 1,024): its largest block within a block's 227 KB of shared
+  memory, its grids, its weight-gradient row ranges, its partials;
 * K5's plain version at H = 320, R = 96 and H = 512, R = 20 against JAX's
   ``_layer_kernel`` in Pallas interpret mode, float32;
 * GNS-2-320 from JAX weights carried across (``load_jax_params``): its
@@ -201,17 +201,19 @@ def test_wide_bwd_plain_padded_matches_jax_float64(f, width):
 @pytest.mark.parametrize("n,k", [(1, 1), (17, 7), (16000, 40)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wide_plan_fits_every_width(n, k, dtype):
-    """For every F from 257 to ``MAX_LATENT`` (at its card width 64 ceil(F /
-    64)) on a 132-SM card: the largest block's shared memory within 227 KB;
-    the product grids cover every edge and node row and every column; the
+    """For every F from 257 to 1,088 (at its card width 64 ceil(F / 64)) on
+    a 132-SM card: the largest block's shared memory within 227 KB; the
+    product grids cover every edge and node row and every column; the
     weight gradients' row ranges are whole 32-row chunks that cover the
-    rows once, in order (``tn_rows``), and fill about two waves; the row
-    kernels take whole blocks of 8 warps; and K4's partials hold each
-    range's F x F partial and each warp's four vectors."""
+    rows once, in order (``tn_rows``), and fill about two waves (the wgmma
+    design's dW_e and dW2: whole 64-row chunks, ``wgmma_tn_rows``, about
+    four waves of its 128 x 128 tiles); the row kernels take whole blocks
+    of 8 warps; and K4's partials hold each range's F x F partial and each
+    warp's four vectors (the wgmma design's edge side: 4 per block of its
+    edge-backward kernel)."""
     sms = 132
     tile = fmp.WIDE_TILE if dtype == torch.bfloat16 else 64
-    assert fmp.MAX_LATENT == 1024
-    for f in range(257, fmp.MAX_LATENT + 1):
+    for f in range(257, 1089):
         width = fmp.kernel_width(f)
         assert width % 64 == 0 and f <= width < f + 64
         wgmma = dtype == torch.bfloat16 and width <= fmp.WGMMA_MAX
@@ -226,23 +228,32 @@ def test_wide_plan_fits_every_width(n, k, dtype):
             assert plan["partials"] == plan["tiles"] * plan["slots"] * width
             assert plan["edge_ctas"] % 2 == 0 and 2 <= plan["edge_ctas"] <= sms
             assert plan["edge_ctas"] <= plan["tiles"] + 1 and plan["edge_stages"] >= 3
+            side = -(-width // fmp.WGMMA_TN_TILE)
+            assert plan["r_e"] == fmp.wgmma_tn_ranges(n * k, width, sms)
+            assert plan["tn_grid"][0] == (side * side, plan["r_e"], 2)
+            assert plan["tn_smem"] == fmp.wgmma_tn_smem_bytes() <= fmp.SMEM_LIMIT
+            assert plan["p_e"] == 4 * plan["edge_ctas"]
         else:
             assert plan["smem_bytes"] == fmp.wide_smem_bytes(dtype) and "tiles" not in plan
         assert plan["edge_grid"][0] * tile >= n * k and plan["node_grid"][0] * tile >= n
         assert plan["edge_grid"][1] * tile >= width > (plan["edge_grid"][1] - 1) * tile
-        for rows, r in ((n * k, plan["r_e"]), (n, plan["r_n"])):
-            assert 1 <= r <= -(-rows // 32)
-            spans = [fmp.tn_rows(rows, r, i) for i in range(r)]
+        edge_tn = ((fmp.wgmma_tn_rows, 64, -(-width // fmp.WGMMA_TN_TILE) ** 2 * 2, 4) if wgmma
+                   else (fmp.tn_rows, 32, plan["edge_grid"][1] ** 2, 2))
+        for rows, r, (spans_of, chunk, tiles, waves) in (
+                (n * k, plan["r_e"], edge_tn),
+                (n, plan["r_n"], (fmp.tn_rows, 32, plan["edge_grid"][1] ** 2, 2))):
+            assert 1 <= r <= -(-rows // chunk)
+            spans = [spans_of(rows, r, i) for i in range(r)]
             assert spans[0][0] == 0 and spans[-1][1] == rows
             assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
-            assert all(lo % 32 == 0 and lo < hi for lo, hi in spans)
-            blocks = plan["edge_grid"][1] ** 2 * r
-            assert blocks <= 2 * sms + plan["edge_grid"][1] ** 2 or r == -(-rows // 32)
-        assert plan["p_e"] == plan["p_n"] and plan["p_e"] % plan["row_warps"] == 0
-        assert plan["p_e"] <= 8 * 2 * sms
+            assert all(lo % chunk == 0 and lo < hi for lo, hi in spans)
+            assert tiles * r <= waves * sms + tiles or r == -(-rows // chunk)
+        assert plan["p_n"] % plan["row_warps"] == 0 and plan["p_n"] <= 8 * 2 * sms
+        assert plan["p_e"] == plan["p_n"] or wgmma
         ints = fmp._wide_plan_ints(plan)
         assert fmp.bwd_partials_floats(n, 1, dtype == torch.bfloat16, width, ints) == (
-            (2 * plan["r_e"] + 3 * plan["r_n"]) * width * width + 2 * plan["p_e"] * 4 * width)
+            (2 * plan["r_e"] + 3 * plan["r_n"]) * width * width
+            + (plan["p_e"] + plan["p_n"]) * 4 * width)
 
 
 def test_wide_smem_bytes():
@@ -269,12 +280,20 @@ def test_wide_smem_bytes():
 
 
 def test_wide_limits():
-    """The widths the card takes: F 1 to 1,024 (the compiled instances to
-    256, the wide path above), K5 H 1 to 1,024 and R 1 to 256."""
+    """The widths the card takes: any F from 1 on (the compiled instances to
+    256, the wide path above, its row kernels in 1,024-column chunks past
+    1,024), K5 any H and R (the tensor-core design past 256 and 64): the
+    old limits (F and H 1,024, R 256) are gone and no width raises for
+    being wide; device memory is the one limit."""
     assert fmp.kernel_width(257) == 320 and fmp.kernel_width(1024) == 1024
+    assert fmp.kernel_width(1025) == fmp.kernel_width(1088) == 1088
     assert fmp.INSTANCES[-1] == 256 and fmp._design(torch.float32, 256) == "tile"
+    assert fmp._design(torch.bfloat16, 1088) == fmp._design(torch.float32, 1088) == "wide"
     fmp.check_latent(1024, "fused_mp")
-    assert painn_msg.MAX_HIDDEN == 1024 and painn_msg.MAX_RBF == 256
+    fmp.check_latent(1088, "fused_mp")
+    assert not hasattr(fmp, "MAX_LATENT") and not hasattr(painn_msg, "MAX_HIDDEN")
+    assert painn_msg.is_tensor_core(1088, 20) and painn_msg.is_tensor_core(64, 264)
+    assert painn_msg.tc_widths(1088, 264, torch.float32) == (1088, 264)
 
 
 # ---------------------------------------------------------------------------

@@ -152,7 +152,14 @@ def test_kernel_width_map(f, width):
 
 @pytest.mark.parametrize("f", [1025, 2048, 0])
 def test_kernel_width_refuses_past_the_limit(f):
-    with pytest.raises(ValueError, match=r"widths 1 to 1024"):
+    """Past the old limit of 1,024 the card takes every width (at 64 ceil(F /
+    64), on the wide path); a width below 1 raises ValueError naming the
+    widths the kernels take."""
+    if f >= 1:
+        assert fused_mp.kernel_width(f, "fused_mp") == -(-f // 64) * 64
+        assert fused_mp._design(torch.bfloat16, fused_mp.kernel_width(f)) == "wide"
+        return
+    with pytest.raises(ValueError, match=r"widths from 1 on"):
         fused_mp.kernel_width(f, "fused_mp")
 
 
@@ -337,6 +344,8 @@ def test_painn_forward_float64_matches_jax(monkeypatch, h, fused):
 @pytest.mark.parametrize("h,vec", [(128, 4), (100, 4), (98, 2), (33, 1), (256, 4)])
 def test_painn_widths(h, vec):
     """K6 takes any H, each lane loading ``message_vector(H)`` channels at
-    once (aligned rows); K5 takes H up to MAX_HIDDEN and R up to MAX_RBF."""
+    once (aligned rows); K5 takes any H and R, past its narrow instances on
+    the tensor-core design (the old limits, H = 1,024 and R = 256, gone)."""
     assert painn_msg.message_vector(h) == vec and h % vec == 0
-    assert painn_msg.MAX_HIDDEN == 1024 and painn_msg.MAX_RBF == 256
+    assert not hasattr(painn_msg, "MAX_HIDDEN") and not hasattr(painn_msg, "MAX_RBF")
+    assert painn_msg.is_tensor_core(1088, 20) and painn_msg.is_tensor_core(h, 264)
